@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the odh_kubeflow_tpu workload library.
+
+A package of its own beside ``odh_kubeflow_tpu``: it imports torch and
+numpy, never jax and nothing of the JAX package. The layout mirrors the JAX
+package's (``ops/``, ``models/``, ``serving/``) so each module's counterpart
+is found by name. Entry points run on the card (``device="cuda"``) unless the
+caller names the CPU; the one TPU kernel on the serving path is a CUDA C++
+kernel for sm_90a (``ops/csrc/flash_fwd.cu``).
+"""
