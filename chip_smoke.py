@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (odh_kubeflow_tpu_torch) on one
-NVIDIA Hopper card: the quickest proof that the port builds, is right and
-serves on the GPU.
+NVIDIA Hopper card: the quickest proof that the port builds, is right,
+serves and trains on the GPU.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 1. device: name, capability, power limit;
 2. build: every kernel compiled from the sources in this checkout;
-3. each kernel against its plain PyTorch version, at the shapes the serving
-   path gives it and at larger ones, bf16 and f32, with and without lse;
+3. the forward kernel against its plain PyTorch version, at the shapes the
+   serving and training paths give it and at others, bf16 and f32, with and
+   without lse;
+3b. the two backward kernels (dq, dk/dv) against their plain versions, at
+   the training shape and others, and through autograd with an lse
+   cotangent;
 4. timing (device time from CUDA-graph replays between CUDA events, median
    of 25): kernel, plain version, and the library SDPA as a yardstick only,
-   beside the card's bound; and each call's time launched from Python;
+   beside the card's bound; and each call's time launched from Python; at
+   the training shape, the forward with lse, dq and dk/dv (SDPA's
+   backward, dq+dk+dv in one autograd call, is the pair's yardstick);
 5. the serving path at the full width of the repo's flagship model
    (vocab 32768, d_model 1024, 8 layers, 8 heads x 128, d_ff 4096, bf16;
    random weights from a seed): a ServingEngine behind ServingHTTPServer
@@ -20,7 +26,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    16..64); launch counts are zeroed just before and read just after;
    then an admission step and a burst step timed, and profiled for device
    time by kernel; then the demo model from build_engine_from_env({}),
-   its f32 greedy tokens held against generate()'s.
+   its f32 greedy tokens held against generate()'s;
+6. the training path: a gradient check on the card (2-layer f32 model,
+   loss and gradients through the kernels against autograd through the
+   reference attention), then make_train_step on the full-width bf16 model
+   (the bench.py train-step config, remat_policy "flash", batch 8 x 2048):
+   1 warm-up and 5 timed steps with launch counts zeroed just before and
+   read just after, one step with remat_policy "" (twice the forward
+   launches), host syncs in a step, and one profiled step.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -32,6 +45,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -46,8 +60,14 @@ PEAKS = {
 }
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOLERANCE = 1e-3
+# gradients: max abs error relative to the plain result's max |grad|. bf16:
+# about two bf16 ulps at the largest gradient (2**-8 relative is one); f32:
+# summation order only (<= 2.4e-7 measured on the card)
+BWD_TOLERANCE = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 MAIN_SHAPE = (1, 128, 8, 8, 128)  # one full-width prefill: b, s, h, hk, d
 TIMING_SHAPE = (4, 2048, 8, 8, 128)
+TRAIN_SHAPE = (8, 2048, 8, 8, 128)  # one layer's attention in the train step
+TRAIN_STEPS = 5
 
 
 def fail(msg: str) -> None:
@@ -84,6 +104,18 @@ def work(b, sq, sk, h, hk, d, dtype, causal, with_lse):
     nbytes = item * (2 * b * sq * h * d + 2 * b * sk * hk * d)
     if with_lse:
         nbytes += 4 * b * h * sq
+    return flops, nbytes
+
+
+def bwd_work(kind, b, sq, sk, h, hk, d, dtype, causal):
+    """(flops, bytes) of one backward kernel: 6*d flops per visible pair
+    and head for dq (three products), 8*d for dk/dv (four); q, k, v, dO,
+    lse and delta read once, the outputs written once."""
+    pairs = sum(min(sk, i + 1) for i in range(sq)) if causal else sq * sk
+    flops = (6 if kind == "dq" else 8) * b * h * d * pairs
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (2 * b * sq * h * d + 2 * b * sk * hk * d) + 2 * 4 * b * h * sq
+    nbytes += item * (b * sq * h * d if kind == "dq" else 2 * b * sk * hk * d)
     return flops, nbytes
 
 
@@ -146,33 +178,304 @@ def eager_ms(fn, runs=25, reps=10):
     return statistics.median(_event_ms(burst) for _ in range(runs)) / reps
 
 
+def _matmul_type(name):
+    """The operand type a cuBLAS kernel's name gives, where it gives one."""
+    if name.startswith("nvjet_t") or any(w in name for w in ("bf16", "bfloat16")):
+        return "bf16"
+    if any(w in name for w in ("sgemm", "f32f32_f32f32", "nvjet_s", "float, float, float")):
+        return "f32"
+    return "type unnamed"
+
+
 def device_split(prof, wall_ms):
     """Device time of a profiled run by kernel group, beside the host
     clock's time for the same work unprofiled (the profiler slows the
-    host)."""
+    host); the matmul group also by operand type, with its largest kernels
+    by name."""
     from torch.autograd import DeviceType
 
-    groups, launches = {}, 0
+    groups, matmuls, launches = {}, {}, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        if "flash_fwd" in name:
-            group = "flash_fwd"
+        ms = e.device_time_total / 1e3
+        flash = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if k in name]
+        if flash:
+            group = flash[0]
         elif any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")):
             group = "matmul"
+            n, t = matmuls.get(e.name, (0, 0.0))
+            matmuls[e.name] = (n + 1, t + ms)
         elif "memcpy" in name or "memset" in name:
             group = "copy"
         else:
             group = "other"
-        groups[group] = groups.get(group, 0.0) + e.device_time_total / 1e3
+        groups[group] = groups.get(group, 0.0) + ms
         launches += 1
     busy = sum(groups.values())
     if busy == 0:
         return "the profiler saw no device time: not measured"
     parts = ", ".join(f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+    by_type = {}
+    for name, (_, t) in matmuls.items():
+        kind = _matmul_type(name.lower())
+        by_type[kind] = by_type.get(kind, 0.0) + t
+    top = sorted(matmuls.items(), key=lambda kv: -kv[1][1])[:6]
+    split = ", ".join(f"{k} {t:.3f} ms" for k, t in sorted(by_type.items(), key=lambda kv: -kv[1]))
+    largest = "; ".join(f"{t:.3f} ms in {n}x {name[:90]}" for name, (n, t) in top)
     return (f"{busy:.3f} ms busy in {launches} device ops, {busy / wall_ms:.1%} of the "
-            f"unprofiled {wall_ms:.2f} ms ({parts})")
+            f"unprofiled {wall_ms:.2f} ms ({parts})"
+            + (f"\n    matmul by operand type: {split}\n    largest matmul kernels: {largest}"
+               if matmuls else ""))
+
+
+def _grad_err(got, want):
+    """max |got - want| over max |want|, in f32."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def check_backward(attention):
+    """Phase 3b: each backward kernel against its plain version on the same
+    inputs (lse from the forward kernel, delta = rowsum(dO * out)), then
+    autograd through the op with an lse cotangent against the plain
+    versions. Returns each kernel's max abs error at the training shape."""
+    cases = [
+        # (label, b, sq, sk, h, hk, d, dtype, causal, strided)
+        ("training shape", *TRAIN_SHAPE[:2], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], torch.bfloat16, True, True),
+        ("1x128", 1, 128, 128, 8, 8, 128, torch.bfloat16, True, True),
+        ("gqa 16/4", 2, 2048, 2048, 16, 4, 128, torch.bfloat16, True, False),
+        ("ragged 200", 1, 200, 200, 8, 8, 128, torch.bfloat16, True, False),
+        ("sq!=sk full", 2, 300, 700, 8, 4, 128, torch.bfloat16, False, False),
+        ("f32 d64 ragged gqa", 2, 333, 333, 8, 2, 64, torch.float32, True, False),
+        ("f32 d32 sq!=sk full", 1, 100, 260, 4, 4, 32, torch.float32, False, False),
+        ("f32 d16 gqa", 1, 37, 37, 4, 2, 16, torch.float32, True, True),
+    ]
+    errors, train_err = [], {}
+    for i, (label, b, sq, sk, h, hk, d, dtype, causal, strided) in enumerate(cases):
+        q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=200 + i, strided=strided)
+        dout = inputs(b, sq, sq, h, h, d, dtype, seed=300 + i)[0]
+        out, lse = attention.flash_attention(q, k, v, causal=causal, with_lse=True)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, dout, lse, delta, causal)
+        got = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
+        want = (attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args))
+        torch.cuda.synchronize()
+        errs = [_grad_err(g, w) for g, w in zip(got, want)]
+        ok = (all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
+              and all(torch.isfinite(g.float()).all().item() for g in got)
+              and max(errs) <= BWD_TOLERANCE[dtype])
+        print(f"  {label}: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} of max |grad| "
+              f"(tol {BWD_TOLERANCE[dtype]:.0e})" + ("" if ok else "  <-- FAIL"), flush=True)
+        if not ok:
+            errors.append(label)
+        if label == "training shape":
+            abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+            train_err = {"flash_bwd_dq": abs_errs[0], "flash_bwd_dkv": max(abs_errs[1:])}
+    # through autograd: a loss reading out and lse, so g_lse enters as delta - g_lse
+    b, s, h, hk, d = 2, 256, 8, 2, 128
+    q, k, v = (t.requires_grad_() for t in inputs(b, s, s, h, hk, d, torch.bfloat16, seed=400))
+    g_out = inputs(b, s, s, h, h, d, torch.bfloat16, seed=401)[0]
+    g_lse = torch.randn(b, h, s, device="cuda", generator=torch.Generator(device="cuda").manual_seed(402))
+    before = dict(attention.launch_counts)
+    out, lse = attention.flash_attention(q, k, v, causal=True, with_lse=True)
+    got = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
+    launched = {n: attention.launch_counts[n] - before[n] for n in before}
+    delta = (g_out.float() * out.detach().float()).sum(-1).transpose(1, 2) - g_lse
+    args = (q.detach(), k.detach(), v.detach(), g_out, lse.detach(), delta.contiguous(), True)
+    want = (attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args))
+    errs = [_grad_err(g, w) for g, w in zip(got, want)]
+    ok = max(errs) <= BWD_TOLERANCE[torch.bfloat16] and all(n == 1 for n in launched.values())
+    print(f"  autograd with g_lse (b{b} s{s} h{h} hk{hk} bf16): dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+          f"dv {errs[2]:.3e}; launches {launched}" + ("" if ok else "  <-- FAIL"), flush=True)
+    if not ok:
+        errors.append("autograd with g_lse")
+    if errors:
+        fail(f"the backward kernels disagree with their plain versions: {errors}")
+    return train_err
+
+
+def time_training_kernels(attention, peaks, smi):
+    """Phase 4 at the training shape: the forward with lse, dq and dk/dv,
+    each beside its plain version, its bound and a library yardstick (SDPA
+    forward; for the pair, SDPA's backward, dq+dk+dv in one autograd call
+    on the backend SDPA picks, timed by CUDA-graph replay as the kernels
+    are: forward and backward captured together, less the forward under
+    grad alone). Printed beside it: the same backward launched from Python,
+    and aten's flash (FlashAttention-2) backward alone by graph replay."""
+    b, s, h, hk, d = TRAIN_SHAPE
+    q, k, v = inputs(b, s, s, h, hk, d, torch.bfloat16, seed=500, strided=True)
+    dout = inputs(b, s, s, h, h, d, torch.bfloat16, seed=501)[0]
+    out, lse = attention.flash_attention(q, k, v, causal=True, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dout, lse, delta, True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_dout = dout.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), runs=10, reps=5)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), sdpa_dout)
+
+    sdpa_fwd_grad_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), runs=10, reps=5)
+    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, runs=10, reps=5) - sdpa_fwd_grad_ms
+    sdpa_out = sdpa(qt, kt, vt, is_causal=True)
+    sdpa_bwd_eager_ms = eager_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), sdpa_dout,
+                                                             retain_graph=True), runs=10, reps=5)
+    aten = torch.ops.aten
+    with torch.no_grad():
+        qd, kd, vd = qt.detach(), kt.detach(), vt.detach()
+        fo, flse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
+            qd, kd, vd, 0.0, True)
+
+        def fa2_bwd():
+            return aten._scaled_dot_product_flash_attention_backward(
+                sdpa_dout, qd, kd, vd, fo, flse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+        fa2_bwd_ms = time_ms(fa2_bwd, runs=10, reps=5)
+    print(f"  SDPA backward (dq+dk+dv) b{b} s{s} by CUDA-graph replay: {sdpa_bwd_ms:.4f} ms "
+          f"(forward+backward less the forward under grad, {sdpa_fwd_grad_ms:.4f} ms); "
+          f"launched from Python {sdpa_bwd_eager_ms:.4f} ms; aten flash (FA2) backward "
+          f"{fa2_bwd_ms:.4f} ms", flush=True)
+    shape = f"b{b} s{s} h{h} hk{hk} d{d} bf16 causal"
+    rows = {
+        "flash_fwd": (lambda: attention.flash_attention(q, k, v, causal=True, with_lse=True),
+                      lambda: attention.flash_attention_plain(q, k, v, causal=True, with_lse=True),
+                      work(b, s, s, h, hk, d, torch.bfloat16, True, True), sdpa_fwd_ms,
+                      "SDPA forward (no lse)"),
+        "flash_bwd_dq": (lambda: attention.flash_bwd_dq(*args),
+                         lambda: attention.flash_bwd_dq_plain(*args),
+                         bwd_work("dq", b, s, s, h, hk, d, torch.bfloat16, True), sdpa_bwd_ms,
+                         "SDPA backward (its default backend), dq+dk+dv in one call"),
+        "flash_bwd_dkv": (lambda: attention.flash_bwd_dkv(*args),
+                          lambda: attention.flash_bwd_dkv_plain(*args),
+                          bwd_work("dkv", b, s, s, h, hk, d, torch.bfloat16, True), sdpa_bwd_ms,
+                          "SDPA backward (its default backend), dq+dk+dv in one call"),
+    }
+    timings = {}
+    for name, (kernel, plain, (flops, nbytes), library_ms, library) in rows.items():
+        b_ms, b_by = bound_ms(flops, nbytes, peaks)
+        t = {"ms": time_ms(kernel, runs=10, reps=5), "plain_ms": time_ms(plain, runs=10, reps=3),
+             "library_ms": library_ms, "library": library, "bound_ms": b_ms, "bound_by": b_by,
+             "flops": flops, "bytes": nbytes, "shape": shape}
+        timings[name] = t
+        print(f"  {name} {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"{library} {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+              f"bound {b_ms:.4f} ms ({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s ({b_ms / t['ms']:.3%} of bound) on {smi}", flush=True)
+    return timings
+
+
+def count_sync_warnings(fn):
+    """Runs fn under torch's CUDA sync debug mode "warn" and returns the
+    number of host-device synchronisations it reported."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def train_phase(attention, peaks, smi):
+    """Phase 6: the gradient check on the card, then the full-width train
+    step. Returns the launch counts of the timed steps and the numbers
+    printed."""
+    from odh_kubeflow_tpu_torch.models import TransformerConfig, init_params, loss_fn, make_train_step
+    from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
+
+    full = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=4096, max_seq=2048)
+    # gradient check: 2 layers in f32 (head_dim 128, seq 512), loss and
+    # gradients through the kernels against autograd through mha_reference
+    cfg32 = TransformerConfig(**full, n_layers=2, dtype=torch.float32, use_flash=True,
+                              remat=True, remat_policy="flash")
+    params = init_params(torch.Generator().manual_seed(1), cfg32, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg32.vocab, (1, 512)), device="cuda")
+    results = []
+    for cfg in (cfg32, TransformerConfig(**{**cfg32.__dict__, "use_flash": False, "remat": False})):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        before = dict(attention.launch_counts)
+        loss = loss_fn(live, {"tokens": tokens}, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        launched = {n: attention.launch_counts[n] - before[n] for n in before}
+        results.append((loss.detach(), grads, launched))
+    (loss_k, grads_k, launched), (loss_r, grads_r, _) = results
+    loss_err = abs((loss_k - loss_r) / loss_r).item()
+    grad_err = max(_grad_err(g, w) for g, w in zip(grads_k, grads_r))
+    print(f"  gradient check (2 layers f32, 1x512): loss {loss_k.item():.6f} vs reference "
+          f"{loss_r.item():.6f} (rel err {loss_err:.3e}), grads max rel err {grad_err:.3e} "
+          f"(tol 1e-4); kernel launches {launched}", flush=True)
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4):
+        fail("loss or gradients through the kernels disagree with the reference attention")
+    if min(launched.values()) < cfg32.n_layers:
+        fail(f"the gradient check did not run through the kernels: {launched}")
+    del params, grads_k, grads_r, results
+
+    # the full-width train step: bench.py's train-step config
+    cfg = TransformerConfig(**full, n_layers=8, dtype=torch.bfloat16, use_flash=True,
+                            remat=True, remat_policy="flash")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    b, s = TRAIN_SHAPE[:2]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
+                                       device="cuda")}
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    params, state, first = step(params, state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [first]
+    attention.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = dict(attention.launch_counts)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()  # the one host copy of the losses
+    tokens_per_s = b * s / (step_ms * 1e-3)
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * s  # bench.py's count
+    mfu = flops_per_token * tokens_per_s / peaks[0]
+    print(f"  {n_params / 1e6:.1f}M params, batch {b}x{s}, remat_policy flash: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (warm-up first)", flush=True)
+    print(f"  {step_ms:.2f} ms per step (CUDA events; host clock {host_ms:.2f} ms), "
+          f"{tokens_per_s:.0f} tokens/s, model FLOPs {flops_per_token * b * s / 1e12:.2f} TFLOP "
+          f"per step = {mfu:.2%} of the bf16 peak; peak memory {peak_gb:.2f} GB; launches in "
+          f"{TRAIN_STEPS} steps {launches} on {smi}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train-step losses not finite and falling: {losses}")
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    if {n: c / TRAIN_STEPS for n, c in launches.items()} != want:
+        fail(f"launches per step {launches} over {TRAIN_STEPS} steps, want {want} per step")
+
+    syncs = count_sync_warnings(lambda: step(params, state, batch))
+    print(f"  host syncs inside one step (sync debug mode): {syncs} (target 0)", flush=True)
+
+    attention.reset_launch_counts()
+    step_none, _ = make_train_step(TransformerConfig(**{**cfg.__dict__, "remat_policy": ""}), opt)
+    step_none(params, state, batch)
+    torch.cuda.synchronize()
+    if attention.launch_counts["flash_fwd"] != 2 * cfg.n_layers:
+        fail(f"remat_policy '' launched flash_fwd {attention.launch_counts['flash_fwd']} times "
+             f"in one step, want {2 * cfg.n_layers}")
+    print(f"  one step with remat_policy '': launches {dict(attention.launch_counts)}", flush=True)
+
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    print(f"  one step, device time: {device_split(prof, step_ms)}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -221,6 +524,7 @@ def main() -> None:
         ("main-path prefill lse", 1, 128, 128, 8, 8, 128, torch.bfloat16, True, True, True),
         ("4x2048 causal", 4, 2048, 2048, 8, 8, 128, torch.bfloat16, True, False, False),
         ("4x2048 causal lse", 4, 2048, 2048, 8, 8, 128, torch.bfloat16, True, True, False),
+        ("training shape 8x2048 lse", 8, 2048, 2048, 8, 8, 128, torch.bfloat16, True, True, True),
         ("4x2048 non-causal", 4, 2048, 2048, 8, 8, 128, torch.bfloat16, False, False, False),
         ("gqa 16/4", 2, 2048, 2048, 16, 4, 128, torch.bfloat16, True, True, False),
         ("ragged 200", 1, 200, 200, 8, 8, 128, torch.bfloat16, True, True, False),
@@ -233,7 +537,7 @@ def main() -> None:
         ("bf16 d32 non-causal", 1, 96, 96, 4, 4, 32, torch.bfloat16, False, False, False),
     ]
     errors = []
-    main_err = 0.0
+    main_err = train_fwd_err = 0.0
     for i, (label, b, sq, sk, h, hk, d, dtype, causal, with_lse, strided) in enumerate(cases):
         q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=i, strided=strided)
         got = attention.flash_attention(q, k, v, causal=causal, with_lse=with_lse)
@@ -255,8 +559,13 @@ def main() -> None:
             errors.append(label)
         if label.startswith("main-path prefill"):
             main_err = max(main_err, err)
+        if label.startswith("training shape"):
+            train_fwd_err = err
     if errors:
         fail(f"flash_fwd disagrees with its plain version: {errors}")
+
+    phase("3b flash_bwd_dq / flash_bwd_dkv kernels vs plain")
+    bwd_err = check_backward(attention)
 
     phase("4 timing")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -287,6 +596,7 @@ def main() -> None:
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound {b_ms:.4f} ms "
               f"({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} TFLOP/s "
               f"({b_ms / t['ms']:.3%} of bound) on {smi}", flush=True)
+    train_timings = time_training_kernels(attention, peaks, smi)
 
     phase("5 serving path, full width")
     cfg = TransformerConfig(
@@ -416,22 +726,42 @@ def main() -> None:
     )
     print(f"  demo model f32: engine tokens equal generate()'s for {same}/{len(handles)} requests")
 
+    phase("6 training path, full width")
+    train_launches = train_phase(attention, peaks, smi)
+
+    def timing_keys(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
+
     main = timings["main"]
-    print(json.dumps({"kernels": [{
+    src = "odh_kubeflow_tpu_torch/ops/csrc/"
+    kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "odh_kubeflow_tpu_torch/ops/csrc/flash_fwd.cu",
+        "source": src + "flash_fwd.cu",
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
-        "launches": launches["flash_fwd"],
+        # both main paths launch it: 8 per request served, 8 per train step
+        "launches": launches["flash_fwd"] + train_launches["flash_fwd"],
+        "launches_by_path": {"serve": launches["flash_fwd"], "train": train_launches["flash_fwd"]},
         "max_abs_err": main_err,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
+        **timing_keys(main),
         "eager_ms": main["eager_ms"],
-        "shape": main["shape"],
-    }]}))
+        "train": {**timing_keys(train_timings["flash_fwd"]), "max_abs_err": train_fwd_err,
+                  "library": train_timings["flash_fwd"]["library"]},
+    }]
+    for name, fn, line in (("flash_bwd_dq", "_flash_bwd_dq_kernel", 464),
+                           ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 505)):
+        t = train_timings[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "flash_bwd.cu",
+            "replaces": f"odh_kubeflow_tpu/ops/attention.py:{line} ({fn})",
+            "launches": train_launches[name],
+            "max_abs_err": bwd_err[name],
+            **timing_keys(t),
+            "library": t["library"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,4 +1,4 @@
-"""Weights from the JAX package's parameter tree into the port.
+"""Weights and optimizer state from the JAX package's trees into the port.
 
 The tree is nested dicts of arrays (jax arrays or numpy, as `init_params`
 or a checkpoint restore gives them). Every leaf goes through numpy; bf16
@@ -31,3 +31,16 @@ def params_from_numpy(tree: Any, dtype: Any, device: DeviceLike = "cuda") -> Any
         return torch.from_numpy(np.array(arr)).to(device=dev, dtype=dt)
 
     return convert(tree)
+
+
+def opt_state_from_numpy(adam_state: Any, dtype: Any, device: DeviceLike = "cuda") -> dict:
+    """The port's AdamW state (models/optim.py) from optax's
+    `ScaleByAdamState` (`count`, `mu`, `nu`; jax or numpy arrays), the first
+    element of the reference's `optax.adamw(..., mu_dtype=f32)` state: mu
+    in f32, nu in the params' `dtype`, as optax keeps them."""
+    dev = resolve_device(device)
+    return {
+        "count": torch.tensor(int(np.asarray(adam_state.count)), dtype=torch.int32, device=dev),
+        "mu": params_from_numpy(adam_state.mu, torch.float32, device=dev),
+        "nu": params_from_numpy(adam_state.nu, dtype, device=dev),
+    }

@@ -15,13 +15,22 @@ JAX result stays f32 (SwiGLU gate/up, logits) goes through `_matmul_f32`.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..device import DeviceLike, resolve_device
 from ..ops import apply_rope, flash_attention, mha_reference, rms_norm
+from .optim import adamw
+from .tree import tree_leaves, tree_map, tree_unflatten
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -38,8 +47,8 @@ def resolve_dtype(dtype: Any) -> torch.dtype:
 @dataclass(frozen=True)
 class TransformerConfig:
     """The JAX package's config fields, so one JSON config serves both.
-    Training-only fields (remat, remat_policy) are carried for that reason
-    and read by nothing in the port yet."""
+    `remat` and `remat_policy` apply to `forward` under grad mode (the
+    train step); inference ignores them."""
 
     vocab: int = 32000
     d_model: int = 512
@@ -124,15 +133,45 @@ def layer_view(params, layer: int) -> Dict[str, torch.Tensor]:
     return {name: t[layer] for name, t in params["layers"].items()}
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., k) @ w (k, n) accumulated in f32 and returned in f32, without
-    the rounding to x's dtype a bf16 matmul makes at its output."""
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w.float()
     if x.is_cuda:
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The gradient of `_mm_f32`. On a CUDA bf16 tensor the product is
+    torch.mm(out_dtype=f32), whose aten op has no derivative; this Function
+    gives both device branches the one backward, JAX's transpose of
+    einsum(..., preferred_element_type=f32): the f32 cotangent contracts in
+    f32 against the other operand and the result is cast to the operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (gy @ w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1]).float()
+            gw = (x2.t() @ gy.reshape(-1, gy.shape[-1])).to(w.dtype)
+        return gx, gw
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) @ w (k, n) accumulated in f32 and returned in f32, without
+    the rounding to x's dtype a bf16 matmul makes at its output: the
+    counterpart of einsum(..., preferred_element_type=f32)."""
+    return _MatmulF32.apply(x, w)
 
 
 def _attention(q, k, v, cfg: TransformerConfig):
@@ -183,17 +222,131 @@ def _layer(x, layer_params, positions, cfg: TransformerConfig):
     return layer_post_attention(x, attn, layer_params, cfg)
 
 
+_FLASH_OP = torch.ops.odh_kubeflow_tpu_torch.flash_fwd
+# remat_policy -> the ops (overload packets) whose outputs the layer
+# checkpoint saves; every other op of the layer is recomputed in the backward
+_REMAT_SAVES = {
+    # the flash op's (out, lse): the backward launches no forward kernel again
+    "flash": frozenset({_FLASH_OP}),
+    # "flash" plus the reference's "attn_out", which in the port is the flash
+    # op's out itself: the same save set
+    "attn": frozenset({_FLASH_OP}),
+    # the counterpart of dots_with_no_batch_dims_saveable: the outputs of the
+    # layer's matrix products (aten mm, bmm and addmm in every overload: the
+    # einsum projections, the f32-output SwiGLU products, wo_mlp); the flash
+    # op is not a product and is recomputed
+    "dots": frozenset({torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm}),
+}
+
+
+def _remat_context(cfg: TransformerConfig):
+    """cfg.remat_policy as a `context_fn` for torch.utils.checkpoint (the
+    counterpart of `_remat_policy`); "" saves nothing, so the backward
+    recomputes the whole layer, the flash forward included."""
+    if cfg.remat_policy == "":
+        return noop_context_fn
+    saves = _REMAT_SAVES.get(cfg.remat_policy)
+    if saves is None:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op.overloadpacket in saves:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return partial(create_selective_checkpoint_contexts, policy_fn)
+
+
 def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None):
     """f32 logits (batch, seq, vocab) for next-token prediction. tokens:
-    (batch, seq) integer tensor on the parameters' device."""
+    (batch, seq) integer tensor on the parameters' device. Under grad mode
+    with cfg.remat, each layer runs under torch.utils.checkpoint with the
+    save set of cfg.remat_policy."""
     if mesh is not None:
         raise NotImplementedError("sharded forward over a mesh is not ported yet")
     check_supported(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    body = _layer
+    if cfg.remat and torch.is_grad_enabled():
+        context_fn = _remat_context(cfg)
+
+        def body(x, layer_params, positions, cfg):
+            # the layer draws no random numbers: no RNG state to restore
+            return checkpoint(_layer, x, layer_params, positions, cfg, use_reentrant=False,
+                              context_fn=context_fn, preserve_rng_state=False)
+
     x = params["embed"].to(cfg.dtype)[tokens]
     for layer in range(cfg.n_layers):
-        x = _layer(x, layer_view(params, layer), positions, cfg)
+        x = body(x, layer_view(params, layer), positions, cfg)
     x = rms_norm(x, params["final_norm"])
     return _matmul_f32(x, params["unembed"])
+
+
+def causal_ce(logits, targets, mask=None):
+    """Cross-entropy -E[log p(target)] in lse form: logsumexp over the f32
+    logits and a gather of the target logit, no log_softmax tensor. mask
+    None means every position counts; otherwise the masked mean over
+    max(sum(mask), 1)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, targets[..., None].long())[..., 0]
+    if mask is None:
+        return -(tl - lse).mean()
+    return -((tl - lse) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def next_token_ce(logits, tokens):
+    """Next-token CE over full-shape logits by roll and mask: position i's
+    target is token i+1, and the last position (whose rolled target is token
+    0, a fabricated label) is masked, so the mean runs over b*(s-1) terms
+    without slicing the (b, s, vocab) logits."""
+    b, s = tokens.shape
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = (torch.arange(s, device=tokens.device) < s - 1).to(logits.dtype)
+    return causal_ce(logits, targets, mask.expand(b, s))
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
+    """Causal LM cross-entropy. batch: {"tokens": (b, s)} with optional
+    "positions", and optional "targets" with an optional "loss_mask"."""
+    if mesh is not None:
+        raise NotImplementedError("sharded loss over a mesh is not ported yet")
+    tokens = batch["tokens"]
+    targets = batch.get("targets")
+    if targets is None and cfg.seq_layout == "zigzag":
+        # rolling zigzag-ordered tokens gives storage-order successors: wrong
+        # labels at every chunk boundary
+        raise ValueError(
+            'seq_layout="zigzag" needs explicit batch targets/loss_mask '
+            "(models.make_zigzag_batch)"
+        )
+    logits = forward(params, tokens, cfg, positions=batch.get("positions"))
+    if targets is None:
+        return next_token_ce(logits, tokens)
+    return causal_ce(logits, targets, batch.get("loss_mask"))
+
+
+def make_train_step(cfg: TransformerConfig, optimizer=None, mesh=None):
+    """(step, optimizer) with step(params, opt_state, batch) -> (params,
+    opt_state, loss). The default optimizer is `adamw()`, which matches the
+    reference's optax.adamw(3e-4, b1=0.9, b2=0.95, weight_decay=0.1,
+    mu_dtype=f32). Params and optimizer state are updated in place (the
+    counterpart of the reference's buffer donation) and returned; loss is a
+    0-d tensor on the params' device, not copied to the host. Gradients are
+    taken with respect to detached aliases of the params, so the caller's
+    tensors never require grad."""
+    if mesh is not None:
+        raise NotImplementedError("sharded train step over a mesh is not ported yet")
+    check_supported(cfg)
+    optimizer = optimizer or adamw()
+
+    def step(params, opt_state, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss = loss_fn(live, batch, cfg)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+        optimizer.update_(tree_unflatten(params, grads), opt_state, params)
+        return params, opt_state, loss.detach()
+
+    return step, optimizer

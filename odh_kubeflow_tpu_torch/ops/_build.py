@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, which the op modules load with ctypes. A
 library is built at first use into ``odh_kubeflow_tpu_torch/_build/`` (listed
-in ``.gitignore``) under a name keyed on a hash of the sources and flags, so
-later runs reuse it and an edited source rebuilds. ``build_all`` starts one
-``nvcc`` per source at once. A missing ``nvcc`` or a failed build raises
+in ``.gitignore``) under a name keyed on a hash of its source, the shared
+``csrc/*.cuh`` headers and the flags, so later runs reuse it and an edited
+source or header rebuilds. ``build_all`` starts one ``nvcc`` per source at
+once. A missing ``nvcc`` or a failed build raises
 ``BuildError`` carrying the compiler's output; nothing falls back.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # kernel name -> source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,8 +56,9 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes())
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by every source
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,15 +1,20 @@
-"""Flash attention for the port: a hand-written Hopper kernel and its plain
-PyTorch version (counterpart of odh_kubeflow_tpu/ops/attention.py).
+"""Flash attention for the port: hand-written Hopper kernels and their plain
+PyTorch versions (counterpart of odh_kubeflow_tpu/ops/attention.py).
 
 Layout at every public function: q (batch, seq, heads, head_dim), k/v
 (batch, seq, kv_heads, head_dim) with heads % kv_heads == 0. GQA is native:
 head j attends kv head j // (heads // kv_heads) and K/V are never expanded.
 
-``flash_attention`` dispatches on the tensors' device: on a CUDA tensor it
-launches the kernel in ``csrc/flash_fwd.cu`` (which replaces the TPU's
-``_flash_kernel``) or raises; on a CPU tensor it runs
-``flash_attention_plain``, the same arithmetic in straightforward f32 torch.
-There is no fallback from the card to the plain version.
+``flash_attention`` is differentiable (the counterpart of ``_flash_diff``).
+Its forward is the op ``odh_kubeflow_tpu_torch::flash_fwd``: on a CUDA
+tensor the kernel in ``csrc/flash_fwd.cu`` (which replaces the TPU's
+``_flash_kernel``), on a CPU tensor ``flash_attention_plain``. Its backward
+computes delta = rowsum(dO * O) - g_lse and then runs ``flash_bwd_dq`` and
+``flash_bwd_dkv``: on CUDA tensors the kernels in ``csrc/flash_bwd.cu``
+(which replace ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), on
+CPU tensors ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``. The plain
+versions are the kernels' arithmetic in straightforward f32 torch. There is
+no fallback from the card to a plain version.
 """
 import ctypes
 from typing import Tuple
@@ -24,11 +29,11 @@ LOG2E = 1.4426950408889634  # ln -> log2 folds into the score scale
 LN2 = 0.6931471805599453
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535  # the kernel's grid.y is batch * heads
+_MAX_GRID_Y = 65535  # the kernels' grid.y is batch * heads
 
 # kernel name -> launches since the last reset_launch_counts(); each wrapper
 # adds one where it launches its kernel and nowhere else
-launch_counts = {"flash_fwd": 0}
+launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,20 +58,27 @@ def mha_reference(q, k, v, causal: bool = True):
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _scores(q, k, causal: bool):
+    """log2-domain scores (b, hk, g, sq, sk) in f32, masked with -1e30 where
+    the top-left aligned causal mask hides a key."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hk, h // hk, d).float()
+    s = torch.einsum("bqkgd,bnkd->bkgqn", qg, k.float()) * (d**-0.5 * LOG2E)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+    return s
+
+
 def flash_attention_plain(q, k, v, causal: bool = True, with_lse: bool = False):
     """The kernel's semantics in plain f32 torch: log2-domain scores, p
     rounded to the input dtype before the P.V product, out divided by
     max(l, 1e-30), lse = m*ln2 + ln(max(l, 1e-30)) as (b, h, sq). The causal
     mask is top-left aligned (q_pos >= k_pos). Returns out, or (out, lse)."""
     b, sq, h, d = q.shape
-    sk, hk = k.shape[1], k.shape[2]
-    g = h // hk
-    qg = q.reshape(b, sq, hk, g, d).float()
-    s = torch.einsum("bqkgd,bnkd->bkgqn", qg, k.float()) * (d**-0.5 * LOG2E)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)
-        kpos = torch.arange(sk, device=q.device)
-        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+    s = _scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)  # (b, hk, g, sq, 1)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -76,6 +88,42 @@ def flash_attention_plain(q, k, v, causal: bool = True, with_lse: bool = False):
         return out
     lse = (m * LN2 + torch.log(l)).reshape(b, h, sq)
     return out, lse
+
+
+def _recompute_p_ds(q, k, v, dout, lse, delta, causal: bool):
+    """The backward kernels' shared recompute (`_recompute_p_ds` of the
+    reference), grouped (b, hk, g, sq, sk) in f32: p = exp2(s - lse*log2e)
+    and ds = p * (dO.v^T - delta) * d**-0.5."""
+    b, sq, h, d = q.shape
+    hk = k.shape[2]
+    stat = (b, hk, h // hk, sq, 1)
+    p = torch.exp2(_scores(q, k, causal) - lse.reshape(stat) * LOG2E)
+    og = dout.reshape(b, sq, hk, h // hk, d).float()
+    dp = torch.einsum("bqkgd,bnkd->bkgqn", og, v.float())
+    return p, p * (dp - delta.reshape(stat)) * d**-0.5
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool = True):
+    """dq = sum_k ds.K with ds rounded to K's dtype first, accumulated in
+    f32 and returned in q's dtype. lse and delta are f32 (b, h, sq)."""
+    b, sq, h, d = q.shape
+    _, ds = _recompute_p_ds(q, k, v, dout, lse, delta, causal)
+    dq = torch.einsum("bkgqn,bnkd->bqkgd", ds.to(k.dtype).float(), k.float())
+    return dq.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool = True):
+    """(dk, dv): dK = sum ds^T.Q with ds rounded to Q's dtype first, dV =
+    sum p^T.dO with p rounded to dO's dtype first, each summed over the q
+    rows and the GQA group in f32 and returned in k's/v's dtype."""
+    b, sq, h, d = q.shape
+    hk = k.shape[2]
+    p, ds = _recompute_p_ds(q, k, v, dout, lse, delta, causal)
+    qg = q.reshape(b, sq, hk, h // hk, d).float()
+    og = dout.reshape(b, sq, hk, h // hk, d).float()
+    dk = torch.einsum("bkgqn,bqkgd->bnkd", ds.to(q.dtype).float(), qg)
+    dv = torch.einsum("bkgqn,bqkgd->bnkd", p.to(dout.dtype).float(), og)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v) -> None:
@@ -99,40 +147,123 @@ def _check(q, k, v) -> None:
         )
 
 
+def _check_bwd(q, k, v, dout, lse, delta) -> None:
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(dout.shape)} {dout.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {(b, h, sq)}; got {t.dtype} {tuple(t.shape)}")
+
+
 def flash_attention(q, k, v, causal: bool = True, with_lse: bool = False,
                     device: DeviceLike = "cuda"):
     """Fused attention; returns out (q's dtype), or (out, lse (b, h, sq)
     f32) with `with_lse`. `device` names where the caller means to run and
-    must be where q/k/v lie: a CUDA tensor launches the Hopper kernel, a CPU
-    tensor runs `flash_attention_plain`."""
+    must be where q/k/v lie: a CUDA tensor launches the Hopper kernels, a
+    CPU tensor runs the plain versions.
+
+    Differentiable: with grad mode on and q, k or v requiring grad, the
+    forward runs its with-lse variant and saves (q, k, v, out, lse) for the
+    backward; a gradient reaching lse enters the backward as delta - g_lse.
+    Otherwise (inference) it runs the no-lse variant and saves nothing."""
     dev = resolve_device(device)
     for t in (q, k, v):
         if t.device.type != dev.type or (dev.index is not None and t.device != dev):
             raise ValueError(f"tensor on {t.device}, but device={dev}")
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, with_lse=with_lse)
-    out, lse = _flash_fwd_op(q, k, v, causal, with_lse)
+    training = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    out, lse = _flash_fwd_op(q, k, v, causal, with_lse or training)
     return (out, lse) if with_lse else out
 
 
-_lib = None
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True):
+    """dq of flash attention: the kernel on CUDA tensors, the plain version
+    on CPU tensors. lse and delta (= rowsum(dO * out) - g_lse) are f32
+    (b, h, sq)."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("odh_flash_bwd_dq", q, k, v, dout, lse, delta, (dq,), causal)
+    launch_counts["flash_bwd_dq"] += 1
+    return dq
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_fwd")
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.odh_flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [i64p] * 3
-            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        )
-        lib.odh_flash_fwd.restype = ctypes.c_int
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
+    """(dk, dv) of flash attention, summed over each kv head's GQA group:
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch("odh_flash_bwd_dkv", q, k, v, dout, lse, delta, (dk, dv), causal)
+    launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+_P = ctypes.c_void_p
+_I64P = ctypes.POINTER(ctypes.c_int64)
+# C entry point -> (library, argtypes); see the extern "C" functions in csrc/
+_SIGNATURES = {
+    "odh_flash_fwd": ("flash_fwd", [_P] * 5 + [ctypes.c_int] * 7 + [_I64P] * 3
+                      + [ctypes.c_int, ctypes.c_float, _P]),
+    "odh_flash_bwd_dq": ("flash_bwd", [_P] * 7 + [ctypes.c_int] * 7 + [_I64P] * 4
+                         + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
+    "odh_flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [ctypes.c_int] * 7 + [_I64P] * 4
+                          + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
+}
+
+
+def _entry(fn_name: str):
+    """(library, C function) with its argtypes declared; built on first use."""
+    lib_name, argtypes = _SIGNATURES[fn_name]
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
         lib.odh_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odh_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return lib, fn
+
+
+def _strides(t):
+    return (ctypes.c_int64 * 3)(*t.stride()[:3])
+
+
+def _inner_contiguous(*ts):
+    # strides are read in place; only the last dim must be contiguous
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: " + lib.odh_cuda_error_string(err).decode())
+
+
+def _launch(fn_name, q, k, v, dout, lse, delta, outs, causal: bool) -> None:
+    """Launch one of the backward kernels on the current stream."""
+    require_hopper(q.device)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"batch*heads {b * h} exceeds the kernel grid's {_MAX_GRID_Y}")
+    q, k, v, dout = _inner_contiguous(q, k, v, dout)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib, fn = _entry(fn_name)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
+            _strides(q), _strides(k), _strides(v), _strides(dout),
+            int(causal), d**-0.5 * LOG2E, d**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(lib, err, fn_name)
 
 
 @torch.library.custom_op(
@@ -140,35 +271,62 @@ def _kernel_lib() -> ctypes.CDLL:
 )
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel as a registered op. lse is an empty tensor when
+    """The forward kernel as a registered op. lse is an empty tensor when
     `with_lse` is false (the inference variant writes none)."""
     require_hopper(q.device)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"batch*heads {b * h} exceeds the kernel grid's {_MAX_GRID_Y}")
-    # strides are read in place; only the last dim must be contiguous
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = _inner_contiguous(q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq) if with_lse else (0,), dtype=torch.float32,
                       device=q.device)
-    lib = _kernel_lib()
-
-    def strides(t):
-        return (ctypes.c_int64 * 3)(*t.stride()[:3])
-
+    lib, fn = _entry("odh_flash_fwd")
     with torch.cuda.device(q.device):
-        err = lib.odh_flash_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
             _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
-            strides(q), strides(k), strides(v),
+            _strides(q), _strides(k), _strides(v),
             int(causal), d**-0.5 * LOG2E,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err:
-        raise RuntimeError(
-            "flash_fwd launch failed: " + lib.odh_cuda_error_string(err).decode()
-        )
+    _raise_on(lib, err, "flash_fwd")
     launch_counts["flash_fwd"] += 1
     return out, lse
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal, with_lse):
+    """CPU tensors take the plain version, through the same op, so the CPU
+    tests exercise the op's autograd and checkpoint wiring."""
+    if with_lse:
+        return flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+    out = flash_attention_plain(q, k, v, causal=causal)
+    return out, torch.empty((0,), dtype=torch.float32)
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, causal, _ = inputs
+    out, lse = output
+    ctx.causal = causal
+    ctx.save_for_backward(q, k, v, out, lse)
+
+
+def _fwd_backward(ctx, g_out, g_lse):
+    """The counterpart of `_flash_diff_bwd` with `_flash_backward(g_lse=)`:
+    delta = rowsum(dO * out) in f32, less the lse cotangent, then the dq and
+    dk/dv kernels."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if lse.numel() == 0:
+        raise RuntimeError("flash_fwd ran its no-lse variant; its backward needs lse")
+    delta = (g_out.float() * out.float()).sum(-1).transpose(1, 2)  # (b, h, sq)
+    if g_lse is not None:
+        delta = delta - g_lse
+    dq = flash_bwd_dq(q, k, v, g_out, lse, delta, ctx.causal)
+    dk, dv = flash_bwd_dkv(q, k, v, g_out, lse, delta, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)

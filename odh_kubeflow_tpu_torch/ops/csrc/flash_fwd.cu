@@ -32,40 +32,17 @@
 // so shared-memory bandwidth bounds it well below that; PERF.md holds the
 // measured gap.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace odh_flash;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // key rows per shared-memory tile
 constexpr int LANES = 4;      // threads per query row
 constexpr int THREADS = BQ * LANES;
-constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as jnp astype
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <typename T, int D>
 constexpr size_t smem_bytes() {
@@ -167,7 +144,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < CPT; ++j) {
       const float p = exp2f(s[j] - m_new);
       psum += p;  // l sums the f32 p; acc takes p in the input dtype
-      pr[t + LANES * j] = to_f(from_f<T>(p));
+      pr[t + LANES * j] = round_to<T>(p);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);

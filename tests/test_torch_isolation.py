@@ -107,3 +107,13 @@ def test_library_name_keys_on_the_source(monkeypatch, tmp_path):
     src.write_text("// two\n")
     assert _build.library_path("flash_fwd") != first
     assert first.parent == _build.BUILD_DIR
+
+
+def test_library_name_keys_on_the_shared_header(monkeypatch, tmp_path):
+    (tmp_path / "flash_bwd.cu").write_text('#include "flash_common.cuh"\n')
+    header = tmp_path / "flash_common.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("flash_bwd")
+    header.write_text("// two\n")
+    assert _build.library_path("flash_bwd") != first
