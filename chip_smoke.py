@@ -7,33 +7,45 @@ serves and trains on the GPU.
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 1. device: name, capability, power limit;
-2. build: every kernel compiled from the sources in this checkout;
-3. the forward kernel against its plain PyTorch version, at the shapes the
-   serving and training paths give it and at others, bf16 and f32, with and
-   without lse;
+2. build: every kernel compiled from the sources in this checkout; the
+   forward library must hold HGMMA (wgmma) instructions, and its C entry
+   must choose the forward kernel by (dtype, d) as attention._fwd_kernel_for
+   says;
+3. the forward kernels against their plain PyTorch version, at the shapes
+   the serving and training paths give them and at others, bf16 and f32,
+   with and without lse, each case naming the kernel and q tile it ran; the
+   tensor-core kernel also at the tile edges (sq = sk in 63, 64, 65, 127,
+   129, 2049; d 128 and 64; causal and full; 64- and 128-row q tiles;
+   strided views; GQA 16/4 and 8/1) and at sq != sk;
 3b. the two backward kernels (dq, dk/dv) against their plain versions, at
    the training shape and others, and through autograd with an lse
    cotangent;
 4. timing (device time from CUDA-graph replays between CUDA events, median
    of 25): kernel, plain version, and the library SDPA as a yardstick only,
-   beside the card's bound; and each call's time launched from Python; at
-   the training shape, the forward with lse, dq and dk/dv (SDPA's
-   backward, dq+dk+dv in one autograd call, is the pair's yardstick);
+   beside the card's bound, with TFLOP/s, the share of the bound and the
+   ratio to SDPA; and each call's time launched from Python; the
+   tensor-core forward at the serving and 4x2048 shapes, the scalar forward
+   in f32 at the serving shape; at the training shape, the forward with
+   lse, dq and dk/dv (SDPA's backward, dq+dk+dv in one autograd call, is
+   the pair's yardstick);
 5. the serving path at the full width of the repo's flagship model
    (vocab 32768, d_model 1024, 8 layers, 8 heads x 128, d_ff 4096, bf16;
    random weights from a seed): a ServingEngine behind ServingHTTPServer
    answers 8 concurrent POST /generate requests (prompt 128, max_new
-   16..64); launch counts are zeroed just before and read just after;
-   then an admission step and a burst step timed, and profiled for device
-   time by kernel; then the demo model from build_engine_from_env({}),
-   its f32 greedy tokens held against generate()'s;
+   16..64); launch counts are zeroed just before and read just after: 8
+   tensor-core forward launches per request, no scalar one; then an
+   admission step and a burst step timed, and profiled for device time by
+   kernel; then the demo model from build_engine_from_env({}) (f32, d 16:
+   the scalar forward kernel's path, counted the same way), its f32 greedy
+   tokens held against generate()'s;
 6. the training path: a gradient check on the card (2-layer f32 model,
    loss and gradients through the kernels against autograd through the
    reference attention), then make_train_step on the full-width bf16 model
    (the bench.py train-step config, remat_policy "flash", batch 8 x 2048):
    1 warm-up and 5 timed steps with launch counts zeroed just before and
-   read just after, one step with remat_policy "" (twice the forward
-   launches), host syncs in a step, and one profiled step.
+   read just after (8 tensor-core forward, 8 dq and 8 dk/dv launches per
+   step, no scalar forward), one step with remat_policy "" (twice the
+   forward launches), host syncs in a step, and one profiled step.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -50,15 +62,17 @@ import warnings
 import numpy as np
 import torch
 
-# published dense bf16 tensor-core FLOP/s and HBM bytes/s (NVIDIA data
-# sheets), by a part of the name torch gives the card: the bound each kernel
-# is held against
+# published dense bf16 tensor-core FLOP/s, HBM bytes/s and f32 FLOP/s
+# outside the tensor cores (NVIDIA data sheets), by a part of the name torch
+# gives the card: the bound each kernel is held against, at the peak for the
+# type its operations run in
 PEAKS = {
-    "H100 80GB HBM3": (989e12, 3.35e12),  # H100 SXM
-    "H100 PCIe": (756e12, 2.0e12),
-    "H200": (989e12, 4.8e12),
+    "H100 80GB HBM3": (989e12, 3.35e12, 67e12),  # H100 SXM
+    "H100 PCIe": (756e12, 2.0e12, 51e12),
+    "H200": (989e12, 4.8e12, 67e12),
 }
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 LSE_TOLERANCE = 1e-3
 # gradients: max abs error relative to the plain result's max |grad|. bf16:
 # about two bf16 ulps at the largest gradient (2**-8 relative is one); f32:
@@ -119,6 +133,40 @@ def bwd_work(kind, b, sq, sk, h, hk, d, dtype, causal):
     return flops, nbytes
 
 
+def count_sass(path, opcode):
+    """How many instructions of `opcode` the library's SASS holds."""
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
+def tile_edge_cases(sms):
+    """bf16 cases for the tensor-core kernel at its tile edges: sq = sk at
+    each length, d 128 and 64, causal and full, each run once with 128-row
+    q tiles (a "wide" batch whose grid of 128-row tiles covers the card's
+    `sms` SMs, GQA 16/4) and once with 64-row tiles (one sequence, GQA 8/1
+    or 4/1); strided fused-qkv views on the causal cases, lse on half; then
+    sq != sk full attention at both widths (contiguous: a fused view has
+    one length)."""
+    cases = []
+    for d in (128, 64):
+        for s in (63, 64, 65, 127, 129, 2049):
+            blocks = -(-s // 128)
+            wide_b = -(-sms // (blocks * 16))
+            narrow_h = 8 if blocks * 8 < sms else 4
+            for causal in (True, False):
+                tag = f"d{d} s{s} {'causal' if causal else 'full'}"
+                cases.append((f"edge {tag} wide", wide_b, s, s, 16, 4, d, torch.bfloat16, causal,
+                              causal, causal))
+                cases.append((f"edge {tag} narrow", 1, s, s, narrow_h, 1, d, torch.bfloat16, causal,
+                              not causal, causal))
+        cases.append((f"sq!=sk full d{d} wide", 4, 300, 700, 16, 4, d, torch.bfloat16, False, True,
+                       False))
+        cases.append((f"sq!=sk full d{d} narrow", 1, 129, 63, 8, 1, d, torch.bfloat16, False, True,
+                       False))
+    return cases
+
+
 def card_peaks(kind):
     for name, peaks in PEAKS.items():
         if name in kind:
@@ -126,8 +174,8 @@ def card_peaks(kind):
     fail(f"no published peaks for {kind}: add its data-sheet rates to PEAKS")
 
 
-def bound_ms(flops, nbytes, peaks):
-    t_ops = flops / peaks[0] * 1e3
+def bound_ms(flops, nbytes, peaks, dtype=torch.bfloat16):
+    t_ops = flops / peaks[0 if dtype == torch.bfloat16 else 2] * 1e3
     t_bytes = nbytes / peaks[1] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -200,7 +248,8 @@ def device_split(prof, wall_ms):
             continue
         name = e.name.lower()
         ms = e.device_time_total / 1e3
-        flash = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if k in name]
+        flash = [k for k in ("flash_fwd_scalar", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                 if k in name]
         if flash:
             group = flash[0]
         elif any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")):
@@ -285,7 +334,8 @@ def check_backward(attention):
     args = (q.detach(), k.detach(), v.detach(), g_out, lse.detach(), delta.contiguous(), True)
     want = (attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args))
     errs = [_grad_err(g, w) for g, w in zip(got, want)]
-    ok = max(errs) <= BWD_TOLERANCE[torch.bfloat16] and all(n == 1 for n in launched.values())
+    ok = (max(errs) <= BWD_TOLERANCE[torch.bfloat16]
+          and launched == {"flash_fwd": 1, "flash_fwd_scalar": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1})
     print(f"  autograd with g_lse (b{b} s{s} h{h} hk{hk} bf16): dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
           f"dv {errs[2]:.3e}; launches {launched}" + ("" if ok else "  <-- FAIL"), flush=True)
     if not ok:
@@ -363,8 +413,40 @@ def time_training_kernels(attention, peaks, smi):
         print(f"  {name} {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"{library} {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
               f"bound {b_ms:.4f} ms ({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s ({b_ms / t['ms']:.3%} of bound) on {smi}", flush=True)
+              f"TFLOP/s, {b_ms / t['ms']:.3%} of bound, {t['ms'] / library_ms:.2f}x the "
+              f"library's time on {smi}", flush=True)
     return timings
+
+
+def host_split_us(attention, q, k, v):
+    """Host-clock cost in µs of one no-lse forward call on q/k/v (CUDA
+    tensors), the mean of 2000 back-to-back calls after 50 warm-ups, split
+    into the public function, the registered op alone, and the C entry
+    alone (its tensor maps and the launch). Launched from Python, a short
+    kernel's call costs its host path, not its device time."""
+    b, sq, h, d = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib, entry = attention._entry("odh_flash_fwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            attention._DTYPE_CODES[q.dtype], b, sq, k.shape[1], h, k.shape[2], d,
+            *(attention._strides(t) for t in (q, k, v)), 1, d**-0.5 * attention.LOG2E,
+            torch.cuda.current_stream().cuda_stream)
+    calls = {
+        "public flash_attention": lambda: attention.flash_attention(q, k, v, causal=True),
+        "registered op": lambda: torch.ops.odh_kubeflow_tpu_torch.flash_fwd(q, k, v, True, False),
+        "C entry": lambda: entry(*args),
+    }
+    split = {}
+    for name, fn in calls.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        split[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    return split
 
 
 def count_sync_warnings(fn):
@@ -410,7 +492,7 @@ def train_phase(attention, peaks, smi):
           f"(tol 1e-4); kernel launches {launched}", flush=True)
     if not (loss_err <= 1e-4 and grad_err <= 1e-4):
         fail("loss or gradients through the kernels disagree with the reference attention")
-    if min(launched.values()) < cfg32.n_layers:
+    if min(launched[n] for n in ("flash_fwd_scalar", "flash_bwd_dq", "flash_bwd_dkv")) < cfg32.n_layers:
         fail(f"the gradient check did not run through the kernels: {launched}")
     del params, grads_k, grads_r, results
 
@@ -453,7 +535,9 @@ def train_phase(attention, peaks, smi):
           f"{TRAIN_STEPS} steps {launches} on {smi}", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train-step losses not finite and falling: {losses}")
-    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    # every forward launch of the step runs the tensor-core kernel
+    want = {"flash_fwd": cfg.n_layers, "flash_fwd_scalar": 0, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
     if {n: c / TRAIN_STEPS for n, c in launches.items()} != want:
         fail(f"launches per step {launches} over {TRAIN_STEPS} steps, want {want} per step")
 
@@ -464,9 +548,9 @@ def train_phase(attention, peaks, smi):
     step_none, _ = make_train_step(TransformerConfig(**{**cfg.__dict__, "remat_policy": ""}), opt)
     step_none(params, state, batch)
     torch.cuda.synchronize()
-    if attention.launch_counts["flash_fwd"] != 2 * cfg.n_layers:
-        fail(f"remat_policy '' launched flash_fwd {attention.launch_counts['flash_fwd']} times "
-             f"in one step, want {2 * cfg.n_layers}")
+    if attention.launch_counts["flash_fwd"] != 2 * cfg.n_layers or attention.launch_counts["flash_fwd_scalar"]:
+        fail(f"remat_policy '' launched {dict(attention.launch_counts)} in one step, want "
+             f"flash_fwd {2 * cfg.n_layers} and flash_fwd_scalar 0")
     print(f"  one step with remat_policy '': launches {dict(attention.launch_counts)}", flush=True)
 
     with torch.profiler.profile(activities=[
@@ -514,10 +598,24 @@ def main() -> None:
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name, info in _build.build_info.items():
         for line in info["log"].splitlines():
-            if any(w in line for w in ("registers", "spill", "error", "warning")):
+            if any(w in line for w in ("registers", "spill", "error", "warning", "Performance")):
                 print(f"  {name}: {line.strip()}")
+    hgmma = count_sass(_build.library_path("flash_fwd"), "HGMMA")
+    print(f"  flash_fwd library: {hgmma} HGMMA (wgmma) instructions in its SASS", flush=True)
+    if hgmma == 0:
+        fail("the flash_fwd library holds no HGMMA instructions: no tensor-core kernel was built")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in attention.HEAD_DIMS:
+            built = attention.fwd_launch_plan(dtype, 1, 128, 8, d)[0]
+            if built != attention._fwd_kernel_for(dtype, d):
+                fail(f"{dtype} d{d}: the C entry launches the {built} kernel, "
+                     f"attention._fwd_kernel_for says {attention._fwd_kernel_for(dtype, d)}")
+    print("  kernel by (dtype, d), C entry = Python mirror: " + ", ".join(
+        f"{DTYPE_NAMES[dt]} d{d} {attention._fwd_kernel_for(dt, d)}"
+        for dt in (torch.float32, torch.bfloat16) for d in attention.HEAD_DIMS), flush=True)
 
-    phase("3 flash_fwd kernel vs plain")
+    phase("3 flash_fwd kernels vs plain")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         # (label, b, sq, sk, h, hk, d, dtype, causal, with_lse, strided)
         ("main-path prefill", *MAIN_SHAPE[:2], 128, *MAIN_SHAPE[2:], torch.bfloat16, True, False, True),
@@ -535,11 +633,14 @@ def main() -> None:
         ("f32 demo-model d16", 1, 37, 37, 4, 2, 16, torch.float32, True, False, True),
         ("bf16 d64 gqa", 2, 130, 130, 8, 2, 64, torch.bfloat16, True, True, False),
         ("bf16 d32 non-causal", 1, 96, 96, 4, 4, 32, torch.bfloat16, False, False, False),
+        *tile_edge_cases(sms),
     ]
-    errors = []
-    main_err = train_fwd_err = 0.0
+    errors, plans = [], set()
+    main_err = train_fwd_err = f32_main_err = 0.0
     for i, (label, b, sq, sk, h, hk, d, dtype, causal, with_lse, strided) in enumerate(cases):
         q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=i, strided=strided)
+        kernel, tile_q = attention.fwd_launch_plan(dtype, b, sq, h, d)
+        plans.add((kernel, tile_q))
         got = attention.flash_attention(q, k, v, causal=causal, with_lse=with_lse)
         ref = attention.flash_attention_plain(q, k, v, causal=causal, with_lse=with_lse)
         torch.cuda.synchronize()
@@ -549,7 +650,7 @@ def main() -> None:
             fail(f"{label}: out {tuple(out.shape)} {out.dtype}, want {tuple(ref_out.shape)} {q.dtype}")
         err = (out.float() - ref_out.float()).abs().max().item()
         ok = torch.isfinite(out.float()).all().item() and err <= TOLERANCE[dtype]
-        msg = f"  {label}: out max_abs_err {err:.3e} (tol {TOLERANCE[dtype]:.0e})"
+        msg = f"  {label} [{kernel}, {tile_q}-row q tiles]: out max_abs_err {err:.3e} (tol {TOLERANCE[dtype]:.0e})"
         if with_lse:
             lse_err = (lse - ref_lse).abs().max().item()
             ok = ok and lse_err <= LSE_TOLERANCE
@@ -561,8 +662,12 @@ def main() -> None:
             main_err = max(main_err, err)
         if label.startswith("training shape"):
             train_fwd_err = err
+        if label == "f32 main-path":
+            f32_main_err = err
     if errors:
         fail(f"flash_fwd disagrees with its plain version: {errors}")
+    if not {("flash_fwd", 64), ("flash_fwd", 128), ("flash_fwd_scalar", 64)} <= plans:
+        fail(f"phase 3 did not run every forward kernel and q tile: {sorted(plans)}")
 
     phase("3b flash_bwd_dq / flash_bwd_dkv kernels vs plain")
     bwd_err = check_backward(attention)
@@ -570,11 +675,13 @@ def main() -> None:
     phase("4 timing")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timings = {}
-    for tag, (b, s, h, hk, d) in (("main", MAIN_SHAPE), ("large", TIMING_SHAPE)):
-        q, k, v = inputs(b, s, s, h, hk, d, torch.bfloat16, seed=100)
+    for tag, (b, s, h, hk, d), dtype in (("main", MAIN_SHAPE, torch.bfloat16),
+                                          ("large", TIMING_SHAPE, torch.bfloat16),
+                                          ("scalar main", MAIN_SHAPE, torch.float32)):
+        q, k, v = inputs(b, s, s, h, hk, d, dtype, seed=100)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        flops, nbytes = work(b, s, s, h, hk, d, torch.bfloat16, True, False)
-        b_ms, b_by = bound_ms(flops, nbytes, peaks)
+        flops, nbytes = work(b, s, s, h, hk, d, dtype, True, False)
+        b_ms, b_by = bound_ms(flops, nbytes, peaks, dtype)
         def kernel():
             return attention.flash_attention(q, k, v, causal=True)
 
@@ -587,15 +694,22 @@ def main() -> None:
             "library_ms": time_ms(library),
             "eager_ms": eager_ms(kernel), "library_eager_ms": eager_ms(library),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
-            "shape": f"b{b} s{s} h{h} hk{hk} d{d} bf16 causal",
+            "shape": f"b{b} s{s} h{h} hk{hk} d{d} {DTYPE_NAMES[dtype]} causal",
+            "kernel": attention._fwd_kernel_for(dtype, d),
         }
         timings[tag] = t
-        print(f"  {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"sdpa {t['library_ms']:.4f} ms (device, CUDA graph); launched from "
-              f"Python: kernel {t['eager_ms']:.4f} ms, sdpa {t['library_eager_ms']:.4f} ms; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound {b_ms:.4f} ms "
-              f"({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} TFLOP/s "
-              f"({b_ms / t['ms']:.3%} of bound) on {smi}", flush=True)
+        print(f"  {t['kernel']} kernel, {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms (device, CUDA graph); "
+              f"launched from Python: kernel {t['eager_ms']:.4f} ms, sdpa "
+              f"{t['library_eager_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+              f"bound {b_ms:.4f} ms ({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s, {b_ms / t['ms']:.3%} of bound, {t['ms'] / t['library_ms']:.2f}x SDPA's "
+              f"time on {smi}", flush=True)
+    q, k, v = inputs(*MAIN_SHAPE[:2], MAIN_SHAPE[1], *MAIN_SHAPE[2:], torch.bfloat16, seed=101,
+                     strided=True)
+    split = host_split_us(attention, q, k, v)
+    print("  tensor-core forward, serving shape, host clock per call: " + ", ".join(
+        f"{name} {us:.1f} us" for name, us in split.items()), flush=True)
     train_timings = time_training_kernels(attention, peaks, smi)
 
     phase("5 serving path, full width")
@@ -668,9 +782,11 @@ def main() -> None:
           flush=True)
     if stats["host_syncs_last_burst"] != 1:
         fail(f"host_syncs_last_burst {stats['host_syncs_last_burst']}, want 1")
+    # every forward launch of the serving path runs the tensor-core kernel
     want = cfg.n_layers * len(prompts)
-    if launches["flash_fwd"] != want:
-        fail(f"flash_fwd launched {launches['flash_fwd']} times on the serving path, want {want}")
+    if launches["flash_fwd"] != want or launches["flash_fwd_scalar"]:
+        fail(f"forward launches on the serving path {launches}, want flash_fwd {want} "
+             "and flash_fwd_scalar 0")
 
     same = total = first_same = 0
     for i, (_, body) in sorted(replies.items()):
@@ -716,9 +832,16 @@ def main() -> None:
         fail("the demo engine did not serve its request")
     # f32 on the card: the engine's greedy tokens against generate()'s
     demo_prompts = [[1, 2, 3, 4], [9, 8, 7], [100, 200, 300, 400, 500], [42]]
+    attention.reset_launch_counts()
     handles = [demo.submit(p, max_new=24) for p in demo_prompts]
     if not demo.run_until_idle(timeout=120):
         fail("the demo engine did not finish")
+    demo_launches = dict(attention.launch_counts)
+    print(f"  demo model (f32, d{demo.cfg.head_dim}): launches for "
+          f"{len(demo_prompts)} requests {demo_launches}")
+    if demo_launches["flash_fwd_scalar"] != demo.cfg.n_layers * len(demo_prompts):
+        fail(f"the demo model's forward launches {demo_launches}, want flash_fwd_scalar "
+             f"{demo.cfg.n_layers * len(demo_prompts)}")
     same = sum(
         h.tokens == generate(demo.params, [p], demo.cfg, 24, max_seq=demo.max_seq,
                              device="cuda")[0].tolist()
@@ -732,10 +855,11 @@ def main() -> None:
     def timing_keys(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
 
-    main = timings["main"]
+    main, scalar = timings["main"], timings["scalar main"]
     src = "odh_kubeflow_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
+        "variant": "tensor cores (wgmma, TMA): bf16 at d 64 and 128",
         "route": "cuda",
         "source": src + "flash_fwd.cu",
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
@@ -747,6 +871,18 @@ def main() -> None:
         "eager_ms": main["eager_ms"],
         "train": {**timing_keys(train_timings["flash_fwd"]), "max_abs_err": train_fwd_err,
                   "library": train_timings["flash_fwd"]["library"]},
+    }, {
+        "name": "flash_fwd_scalar",
+        "variant": "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32",
+        "route": "cuda",
+        "source": src + "flash_fwd.cu",
+        "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
+        # the demo model's serving path (f32, d 16)
+        "launches": demo_launches["flash_fwd_scalar"],
+        "launches_by_path": {"serve demo model": demo_launches["flash_fwd_scalar"]},
+        "max_abs_err": f32_main_err,
+        **timing_keys(scalar),
+        "eager_ms": scalar["eager_ms"],
     }]
     for name, fn, line in (("flash_bwd_dq", "_flash_bwd_dq_kernel", 464),
                            ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 505)):

@@ -7,8 +7,9 @@ head j attends kv head j // (heads // kv_heads) and K/V are never expanded.
 
 ``flash_attention`` is differentiable (the counterpart of ``_flash_diff``).
 Its forward is the op ``odh_kubeflow_tpu_torch::flash_fwd``: on a CUDA
-tensor the kernel in ``csrc/flash_fwd.cu`` (which replaces the TPU's
-``_flash_kernel``), on a CPU tensor ``flash_attention_plain``. Its backward
+tensor one of the two kernels in ``csrc/flash_fwd.cu`` (which replace the
+TPU's ``_flash_kernel``; ``_fwd_kernel_for`` names which), on a CPU tensor
+``flash_attention_plain``. Its backward
 computes delta = rowsum(dO * O) - g_lse and then runs ``flash_bwd_dq`` and
 ``flash_bwd_dkv``: on CUDA tensors the kernels in ``csrc/flash_bwd.cu``
 (which replace ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), on
@@ -32,8 +33,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535  # the kernels' grid.y is batch * heads
 
 # kernel name -> launches since the last reset_launch_counts(); each wrapper
-# adds one where it launches its kernel and nowhere else
-launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# adds one where it launches its kernel and nowhere else. "flash_fwd" is the
+# tensor-core forward kernel, "flash_fwd_scalar" the scalar one
+launch_counts = {"flash_fwd": 0, "flash_fwd_scalar": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -147,6 +149,35 @@ def _check(q, k, v) -> None:
         )
 
 
+def _fwd_kernel_for(dtype: torch.dtype, d: int) -> str:
+    """Which forward kernel a CUDA launch runs, by (dtype, d) alone, named
+    as in `launch_counts`; the mirror of the C entry ``odh_flash_fwd_kernel``
+    in ``csrc/flash_fwd.cu``, where the choice is made. "flash_fwd": the
+    tensor-core kernel (bf16 at d 64 and 128). "flash_fwd_scalar": the scalar
+    kernel (f32 at every d, bf16 at d 16 and 32); the tensor cores have no
+    f32 product, and TF32 would break the f32 gates. Raises ValueError for
+    what neither kernel takes."""
+    if dtype not in _DTYPE_CODES or d not in HEAD_DIMS:
+        raise ValueError(f"no forward kernel for {dtype} at head_dim {d}")
+    return "flash_fwd" if dtype == torch.bfloat16 and d in (64, 128) else "flash_fwd_scalar"
+
+
+def _tma_problem(t: torch.Tensor):
+    """Why TMA cannot read `t` (b, s, heads, d) in place, or None when it
+    can: the last dim contiguous, the base address 16-byte aligned, and the
+    batch, seq and head strides multiples of 16 bytes (a dim of size 1 has
+    no stride that matters)."""
+    strides, shape, item = t.stride(), t.shape, t.element_size()
+    if strides[3] != 1:
+        return f"last dim has stride {strides[3]}, not 1"
+    if t.data_ptr() % 16:
+        return f"base address {t.data_ptr():#x} is not 16-byte aligned"
+    for dim, name in enumerate(("batch", "seq", "head")):
+        if shape[dim] > 1 and (strides[dim] * item) % 16:
+            return f"{name} stride of {strides[dim] * item} bytes is not a multiple of 16"
+    return None
+
+
 def _check_bwd(q, k, v, dout, lse, delta) -> None:
     _check(q, k, v)
     b, sq, h, _ = q.shape
@@ -206,10 +237,13 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
 
 _P = ctypes.c_void_p
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_I64x3 = ctypes.c_int64 * 3
 # C entry point -> (library, argtypes); see the extern "C" functions in csrc/
 _SIGNATURES = {
     "odh_flash_fwd": ("flash_fwd", [_P] * 5 + [ctypes.c_int] * 7 + [_I64P] * 3
                       + [ctypes.c_int, ctypes.c_float, _P]),
+    "odh_flash_fwd_kernel": ("flash_fwd", [ctypes.c_int] * 2),
+    "odh_flash_fwd_tile_q": ("flash_fwd", [ctypes.c_int] * 5),
     "odh_flash_bwd_dq": ("flash_bwd", [_P] * 7 + [ctypes.c_int] * 7 + [_I64P] * 4
                          + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
     "odh_flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [ctypes.c_int] * 7 + [_I64P] * 4
@@ -230,8 +264,25 @@ def _entry(fn_name: str):
     return lib, fn
 
 
+def fwd_launch_plan(dtype: torch.dtype, b: int, sq: int, h: int, d: int) -> Tuple[str, int]:
+    """(kernel, q rows per block) that a CUDA forward launch at this shape
+    runs, as the built library's C entry decides them (it builds the library
+    on first use); for checking the Python mirror and reporting on the card."""
+    _, choose = _entry("odh_flash_fwd_kernel")
+    _, tile_q = _entry("odh_flash_fwd_tile_q")
+    code = _DTYPE_CODES[dtype]
+    kernel = {1: "flash_fwd", 0: "flash_fwd_scalar"}.get(choose(code, d))
+    if kernel is None:
+        raise ValueError(f"no forward kernel for {dtype} at head_dim {d}")
+    return kernel, tile_q(code, d, b, sq, h)
+
+
 def _strides(t):
-    return (ctypes.c_int64 * 3)(*t.stride()[:3])
+    """(batch, seq, head) element strides for a kernel: a dim of size 1
+    takes the stride a contiguous tensor would have (a multiple of 16 bytes
+    at every head dim), which no kernel uses but TMA checks all the same."""
+    (b, s, h, d), strides = t.shape, t.stride()
+    return _I64x3(*(st if n > 1 else c for st, n, c in zip(strides, (b, s, h), (s * h * d, h * d, d))))
 
 
 def _inner_contiguous(*ts):
@@ -272,13 +323,30 @@ def _launch(fn_name, q, k, v, dout, lse, delta, outs, causal: bool) -> None:
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel as a registered op. lse is an empty tensor when
-    `with_lse` is false (the inference variant writes none)."""
+    `with_lse` is false (the inference variant writes none).
+
+    bf16 at d 64 and 128 runs the tensor-core kernel, which reads q, k and v
+    in place through TMA: each must have its last dim contiguous, a 16-byte
+    aligned base and batch, seq and head strides that are multiples of 16
+    bytes, or this raises ValueError (no copy, no other kernel). Every view
+    the port hands over meets that: the fused-qkv bf16 views have a seq
+    stride of (h + 2*hk)*d*2 bytes and head offsets of h*d*2 and (h+hk)*d*2
+    bytes, all multiples of 16 at d 64 and 128, and rotary's outputs are
+    contiguous. The scalar kernel (f32, and bf16 at d 16 and 32) reads any
+    strides, copying only a last dim that is not contiguous."""
     require_hopper(q.device)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"batch*heads {b * h} exceeds the kernel grid's {_MAX_GRID_Y}")
-    q, k, v = _inner_contiguous(q, k, v)
+    kernel = _fwd_kernel_for(q.dtype, d)
+    if kernel == "flash_fwd":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = _tma_problem(t)
+            if problem is not None:
+                raise ValueError(f"{name} cannot be read by TMA: {problem}")
+    else:
+        q, k, v = _inner_contiguous(q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq) if with_lse else (0,), dtype=torch.float32,
                       device=q.device)
@@ -292,8 +360,8 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), d**-0.5 * LOG2E,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(lib, err, "flash_fwd")
-    launch_counts["flash_fwd"] += 1
+    _raise_on(lib, err, kernel)
+    launch_counts[kernel] += 1
     return out, lse
 
 

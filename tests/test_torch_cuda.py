@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (marker `cuda`): each kernel against
 its plain PyTorch version at the port's head dims, bf16 and f32, causal and
-not, GQA and ragged lengths; the differentiable attention, the f32-output
-matmul's backward and one train step on the card. They skip with a reason
+not, GQA and ragged lengths; the tensor-core forward kernel at its tile
+edges, with both q-tile widths, and its refusal of views TMA cannot read;
+the differentiable attention, the f32-output matmul's backward and one
+train step on the card. They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
 
@@ -60,9 +62,10 @@ def _qkv(b, sq, sk, h, hk, d, dtype, device):
 def test_flash_kernel_matches_plain_on_card(card, shape, causal, dtype):
     b, sq, sk, h, hk, d = shape
     q, k, v = _qkv(b, sq, sk, h, hk, d, dtype, card)
-    before = attention.launch_counts["flash_fwd"]
+    counter = attention._fwd_kernel_for(dtype, d)
+    before = attention.launch_counts[counter]
     out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
-    assert attention.launch_counts["flash_fwd"] == before + 1
+    assert attention.launch_counts[counter] == before + 1
     ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal, with_lse=True)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == ref_out.shape
@@ -79,6 +82,64 @@ def test_flash_kernel_reads_strided_views(card):
     out = flash_attention(q, k, v, causal=True)
     ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 129, 2049])
+def test_tensor_core_kernel_at_tile_edges_on_card(card, s, d, causal):
+    """bf16 at d 128/64 (the tensor-core kernel) at the edges of its 64-row
+    warpgroup tiles and 128-row K/V tiles, with and without lse, once with
+    128-row q tiles (a batch whose grid covers every SM, GQA 16/4, strided
+    fused-qkv views) and once with 64-row q tiles (one sequence, GQA 8/1)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    wide_b = -(-sms // (-(-s // 128) * 16))
+    for b, h, hk, strided in ((wide_b, 16, 4, True), (1, 4, 1, False)):
+        want_tile = 128 if strided else 64
+        assert attention.fwd_launch_plan(torch.bfloat16, b, s, h, d) == ("flash_fwd", want_tile)
+        if strided:
+            qkv = torch.randn(b, s, h + 2 * hk, d, device=card, dtype=torch.bfloat16)
+            q, k, v = qkv.split([h, hk, hk], dim=2)
+        else:
+            q, k, v = _qkv(b, s, s, h, hk, d, torch.bfloat16, card)
+        before = attention.launch_counts["flash_fwd"]
+        out = flash_attention(q, k, v, causal=causal)
+        out_lse, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+        assert attention.launch_counts["flash_fwd"] == before + 2
+        ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+        torch.cuda.synchronize()
+        for got in (out, out_lse):
+            torch.testing.assert_close(got.float(), ref_out.float(), atol=2e-2, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 64])
+def test_tensor_core_kernel_sq_ne_sk_full_on_card(card, d):
+    q, k, v = _qkv(3, 300, 700, 16, 4, d, torch.bfloat16, card)
+    out, lse = flash_attention(q, k, v, causal=False, with_lse=True)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=False, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_rejects_views_tma_cannot_read(card):
+    """A misaligned base or a stride TMA cannot take raises ValueError: no
+    copy, and no launch of the scalar kernel instead."""
+    flat = torch.randn(64 * 8 * 128 + 1, device=card, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 64, 8, 128)
+    odd = torch.randn(1, 64, 8, 129, device=card, dtype=torch.bfloat16)[..., :128]
+    ok = torch.randn(1, 64, 8, 128, device=card, dtype=torch.bfloat16)
+    before = dict(attention.launch_counts)
+    for bad in (shifted, odd):
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention(bad, ok, ok, causal=True)
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention(ok, bad, ok, causal=True)
+    assert attention.launch_counts == before
 
 
 def _assert_grads_close(got, want, dtype, what):
@@ -159,6 +220,6 @@ def test_train_step_launches_the_kernels(card, policy):
     losses = torch.stack(losses).tolist()
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     fwd = cfg.n_layers * (1 if policy == "flash" else 2)
-    assert attention.launch_counts == {"flash_fwd": fwd, "flash_bwd_dq": cfg.n_layers,
-                                       "flash_bwd_dkv": cfg.n_layers}
+    assert attention.launch_counts == {"flash_fwd": fwd, "flash_fwd_scalar": 0,
+                                       "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
     assert not any(t.requires_grad for t in params["layers"].values())

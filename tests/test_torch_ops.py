@@ -161,8 +161,71 @@ def test_cpu_tensors_never_launch_the_kernel():
     attention.reset_launch_counts()
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(9, 1, 16, 2, 2, 16)))
     flash_attention(q, k, v, device="cpu").sum().backward()
-    assert attention.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert attention.launch_counts == {"flash_fwd": 0, "flash_fwd_scalar": 0, "flash_bwd_dq": 0,
+                                       "flash_bwd_dkv": 0}
     assert q.grad is not None and k.grad is not None and v.grad is not None
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 128, "flash_fwd"), (torch.bfloat16, 64, "flash_fwd"),
+    (torch.bfloat16, 32, "flash_fwd_scalar"), (torch.bfloat16, 16, "flash_fwd_scalar"),
+    (torch.float32, 128, "flash_fwd_scalar"), (torch.float32, 64, "flash_fwd_scalar"),
+    (torch.float32, 32, "flash_fwd_scalar"), (torch.float32, 16, "flash_fwd_scalar"),
+])
+def test_fwd_kernel_for_names_the_kernel_by_dtype_and_head_dim(dtype, d, kernel):
+    """bf16 at d 64/128 takes the tensor cores; f32 (no tensor-core f32
+    product, and TF32 would break the f32 gates) and bf16 d16/32 the scalar
+    kernel. The C entry odh_flash_fwd_kernel makes the same choice; the chip
+    smoke holds the two against each other."""
+    assert attention._fwd_kernel_for(dtype, d) == kernel
+    assert kernel in attention.launch_counts
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 128), (torch.bfloat16, 24), (torch.float32, 256)])
+def test_fwd_kernel_for_rejects_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError, match="no forward kernel"):
+        attention._fwd_kernel_for(dtype, d)
+
+
+def _fused_qkv_views(b, s, h, hk, d):
+    qkv = torch.zeros(b, s, h + 2 * hk, d, dtype=torch.bfloat16)
+    return qkv.split([h, hk, hk], dim=2)
+
+
+def _misaligned_base(b, s, h, d):
+    flat = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)
+    return flat[1:].view(b, s, h, d)  # 2 bytes past an aligned allocation
+
+
+@pytest.mark.parametrize("make,problem", [
+    (lambda: torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16), None),
+    (lambda: _fused_qkv_views(2, 64, 8, 2, 128)[0], None),
+    (lambda: _fused_qkv_views(2, 64, 8, 2, 128)[1], None),
+    (lambda: _fused_qkv_views(1, 33, 16, 4, 64)[2], None),
+    # a dim of size 1 has no stride that matters
+    (lambda: torch.zeros(1, 64, 8, 160, dtype=torch.bfloat16)[..., :128], None),
+    (lambda: torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16).transpose(2, 3), "last dim"),
+    (lambda: _misaligned_base(1, 16, 4, 64), "16-byte aligned"),
+    (lambda: torch.zeros(2, 16, 8, 65, dtype=torch.bfloat16)[..., :64], "head stride"),
+    (lambda: torch.zeros(2, 16, 1, 68, dtype=torch.bfloat16)[..., :64], "seq stride"),
+], ids=["contiguous", "fused-q", "fused-k", "fused-v-d64", "size1-batch", "transposed",
+        "misaligned-base", "head-stride", "seq-stride"])
+def test_tma_problem_names_what_tma_cannot_read(make, problem):
+    """The wrapper's check of TMA's rule before the tensor-core kernel: the
+    last dim contiguous, a 16-byte aligned base, batch/seq/head strides in
+    multiples of 16 bytes. Every view the port hands over passes."""
+    got = attention._tma_problem(make())
+    if problem is None:
+        assert got is None
+    else:
+        assert problem in got
+
+
+def test_kernel_strides_give_size_one_dims_a_contiguous_stride():
+    t = torch.zeros(1, 64, 8, 160, dtype=torch.bfloat16)[..., :128]
+    assert tuple(attention._strides(t)) == (64 * 8 * 128, 8 * 160, 160)
+    q = _fused_qkv_views(2, 64, 8, 2, 128)[0]
+    assert tuple(attention._strides(q)) == q.stride()[:3]
 
 
 def _jax_backward(q, k, v, do, causal, g_lse=None):
