@@ -8,18 +8,21 @@ serves and trains on the GPU.
 Phases (any failure exits non-zero; no phase's failure is caught):
 1. device: name, capability, power limit;
 2. build: every kernel compiled from the sources in this checkout; the
-   forward library must hold HGMMA (wgmma) instructions, and its C entry
-   must choose the forward kernel by (dtype, d) as attention._fwd_kernel_for
-   says;
+   forward and backward libraries must each hold HGMMA (wgmma)
+   instructions, and their C entries must choose the kernels by (dtype, d)
+   as attention._fwd_kernel_for and attention._bwd_kernel_for say;
 3. the forward kernels against their plain PyTorch version, at the shapes
    the serving and training paths give them and at others, bf16 and f32,
    with and without lse, each case naming the kernel and q tile it ran; the
    tensor-core kernel also at the tile edges (sq = sk in 63, 64, 65, 127,
    129, 2049; d 128 and 64; causal and full; 64- and 128-row q tiles;
    strided views; GQA 16/4 and 8/1) and at sq != sk;
-3b. the two backward kernels (dq, dk/dv) against their plain versions, at
-   the training shape and others, and through autograd with an lse
-   cotangent;
+3b. the backward kernels (dq, dk/dv; the tensor-core pair and the scalar
+   pair) against their plain versions, at the training shape and others,
+   each case naming the kernels it ran; the tensor-core pair also at the
+   tile edges (sq = sk in 63, 64, 65, 127, 129, 2049; d 128 and 64; causal
+   and full; GQA 16/4 on strided fused-qkv views and 8/1; sq != sk full);
+   then through autograd with an lse cotangent;
 4. timing (device time from CUDA-graph replays between CUDA events, median
    of 25): kernel, plain version, and the library SDPA as a yardstick only,
    beside the card's bound, with TFLOP/s, the share of the bound and the
@@ -27,7 +30,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    tensor-core forward at the serving and 4x2048 shapes, the scalar forward
    in f32 at the serving shape; at the training shape, the forward with
    lse, dq and dk/dv (SDPA's backward, dq+dk+dv in one autograd call, is
-   the pair's yardstick);
+   the pair's yardstick); the scalar dq and dk/dv at the f32 gradient
+   check's shape;
 5. the serving path at the full width of the repo's flagship model
    (vocab 32768, d_model 1024, 8 layers, 8 heads x 128, d_ff 4096, bf16;
    random weights from a seed): a ServingEngine behind ServingHTTPServer
@@ -39,13 +43,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the scalar forward kernel's path, counted the same way), its f32 greedy
    tokens held against generate()'s;
 6. the training path: a gradient check on the card (2-layer f32 model,
-   loss and gradients through the kernels against autograd through the
-   reference attention), then make_train_step on the full-width bf16 model
-   (the bench.py train-step config, remat_policy "flash", batch 8 x 2048):
-   1 warm-up and 5 timed steps with launch counts zeroed just before and
-   read just after (8 tensor-core forward, 8 dq and 8 dk/dv launches per
-   step, no scalar forward), one step with remat_policy "" (twice the
-   forward launches), host syncs in a step, and one profiled step.
+   loss and gradients through the scalar kernels against autograd through
+   the reference attention), then make_train_step on the full-width bf16
+   model (the bench.py train-step config, remat_policy "flash", batch 8 x
+   2048): 1 warm-up and 5 timed steps with launch counts zeroed just before
+   and read just after (8 tensor-core forward, 8 dq and 8 dk/dv launches per
+   step, no scalar one), one step with remat_policy "" (twice the forward
+   launches), host syncs in a step, and one profiled step.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -81,6 +85,9 @@ BWD_TOLERANCE = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 MAIN_SHAPE = (1, 128, 8, 8, 128)  # one full-width prefill: b, s, h, hk, d
 TIMING_SHAPE = (4, 2048, 8, 8, 128)
 TRAIN_SHAPE = (8, 2048, 8, 8, 128)  # one layer's attention in the train step
+GRAD_CHECK_SHAPE = (1, 512, 8, 8, 128)  # one layer's attention in phase 6's f32 gradient check
+TENSOR_CORE_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
+SCALAR_BWD = ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")
 TRAIN_STEPS = 5
 
 
@@ -167,6 +174,28 @@ def tile_edge_cases(sms):
     return cases
 
 
+def bwd_tile_edge_cases():
+    """bf16 cases for the tensor-core backward pair at its tile edges (64-row
+    warpgroup and streamed tiles, 128-row blocks): sq = sk at each length, d
+    128 and 64, causal and full, once as GQA 16/4 on strided fused-qkv views
+    and once as GQA 8/1 on contiguous tensors; then sq != sk full attention
+    at both widths (contiguous: a fused view has one length)."""
+    cases = []
+    for d in (128, 64):
+        for s in (63, 64, 65, 127, 129, 2049):
+            for causal in (True, False):
+                tag = f"d{d} s{s} {'causal' if causal else 'full'}"
+                cases.append((f"bwd edge {tag} gqa 16/4 strided", 2, s, s, 16, 4, d, torch.bfloat16,
+                              causal, True))
+                cases.append((f"bwd edge {tag} gqa 8/1", 1, s, s, 8, 1, d, torch.bfloat16, causal,
+                              False))
+        cases.append((f"bwd sq!=sk full d{d} gqa 16/4", 2, 300, 700, 16, 4, d, torch.bfloat16, False,
+                      False))
+        cases.append((f"bwd sq!=sk full d{d} gqa 8/1", 1, 129, 63, 8, 1, d, torch.bfloat16, False,
+                      False))
+    return cases
+
+
 def card_peaks(kind):
     for name, peaks in PEAKS.items():
         if name in kind:
@@ -248,8 +277,9 @@ def device_split(prof, wall_ms):
             continue
         name = e.name.lower()
         ms = e.device_time_total / 1e3
-        flash = [k for k in ("flash_fwd_scalar", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                 if k in name]
+        # each "_scalar" name before its prefix, so the groups stay apart
+        flash = [k for k in ("flash_fwd_scalar", "flash_bwd_dq_scalar", "flash_bwd_dkv_scalar",
+                             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if k in name]
         if flash:
             group = flash[0]
         elif any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "splitk", "nvjet")):
@@ -286,9 +316,11 @@ def _grad_err(got, want):
 
 def check_backward(attention):
     """Phase 3b: each backward kernel against its plain version on the same
-    inputs (lse from the forward kernel, delta = rowsum(dO * out)), then
-    autograd through the op with an lse cotangent against the plain
-    versions. Returns each kernel's max abs error at the training shape."""
+    inputs (lse from the forward kernel, delta = rowsum(dO * out)), each
+    case naming the pair of kernels it launched (read from the launch
+    counts), then autograd through the op with an lse cotangent against the
+    plain versions. Returns each kernel's max abs error at its main-path
+    shape (the training shape; the gradient check's for the scalar pair)."""
     cases = [
         # (label, b, sq, sk, h, hk, d, dtype, causal, strided)
         ("training shape", *TRAIN_SHAPE[:2], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], torch.bfloat16, True, True),
@@ -296,31 +328,42 @@ def check_backward(attention):
         ("gqa 16/4", 2, 2048, 2048, 16, 4, 128, torch.bfloat16, True, False),
         ("ragged 200", 1, 200, 200, 8, 8, 128, torch.bfloat16, True, False),
         ("sq!=sk full", 2, 300, 700, 8, 4, 128, torch.bfloat16, False, False),
+        ("f32 gradient-check shape", *GRAD_CHECK_SHAPE[:2], GRAD_CHECK_SHAPE[1], *GRAD_CHECK_SHAPE[2:],
+         torch.float32, True, True),
         ("f32 d64 ragged gqa", 2, 333, 333, 8, 2, 64, torch.float32, True, False),
         ("f32 d32 sq!=sk full", 1, 100, 260, 4, 4, 32, torch.float32, False, False),
         ("f32 d16 gqa", 1, 37, 37, 4, 2, 16, torch.float32, True, True),
+        ("bf16 d32 full", 1, 96, 96, 4, 4, 32, torch.bfloat16, False, False),
+        *bwd_tile_edge_cases(),
     ]
-    errors, train_err = [], {}
+    errors, main_err, ran = [], {}, set()
     for i, (label, b, sq, sk, h, hk, d, dtype, causal, strided) in enumerate(cases):
         q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=200 + i, strided=strided)
         dout = inputs(b, sq, sq, h, h, d, dtype, seed=300 + i)[0]
         out, lse = attention.flash_attention(q, k, v, causal=causal, with_lse=True)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, dout, lse, delta, causal)
+        before = dict(attention.launch_counts)
         got = (attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args))
+        launched = tuple(n for n in attention.launch_counts if attention.launch_counts[n] != before[n])
         want = (attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args))
         torch.cuda.synchronize()
         errs = [_grad_err(g, w) for g, w in zip(got, want)]
         ok = (all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
               and all(torch.isfinite(g.float()).all().item() for g in got)
-              and max(errs) <= BWD_TOLERANCE[dtype])
-        print(f"  {label}: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} of max |grad| "
-              f"(tol {BWD_TOLERANCE[dtype]:.0e})" + ("" if ok else "  <-- FAIL"), flush=True)
+              and max(errs) <= BWD_TOLERANCE[dtype]
+              and launched == attention._bwd_kernel_for(dtype, d))
+        ran.update(launched)
+        print(f"  {label} [{', '.join(launched)}]: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+              f"of max |grad| (tol {BWD_TOLERANCE[dtype]:.0e})" + ("" if ok else "  <-- FAIL"), flush=True)
         if not ok:
             errors.append(label)
-        if label == "training shape":
+        if label in ("training shape", "f32 gradient-check shape"):
             abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
-            train_err = {"flash_bwd_dq": abs_errs[0], "flash_bwd_dkv": max(abs_errs[1:])}
+            dq_name, dkv_name = attention._bwd_kernel_for(dtype, d)
+            main_err.update({dq_name: abs_errs[0], dkv_name: max(abs_errs[1:])})
+    if ran != set(TENSOR_CORE_BWD + SCALAR_BWD):
+        errors.append(f"kernels run {sorted(ran)}")
     # through autograd: a loss reading out and lse, so g_lse enters as delta - g_lse
     b, s, h, hk, d = 2, 256, 8, 2, 128
     q, k, v = (t.requires_grad_() for t in inputs(b, s, s, h, hk, d, torch.bfloat16, seed=400))
@@ -335,14 +378,75 @@ def check_backward(attention):
     want = (attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args))
     errs = [_grad_err(g, w) for g, w in zip(got, want)]
     ok = (max(errs) <= BWD_TOLERANCE[torch.bfloat16]
-          and launched == {"flash_fwd": 1, "flash_fwd_scalar": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+          and launched == {"flash_fwd": 1, "flash_fwd_scalar": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                           "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0})
     print(f"  autograd with g_lse (b{b} s{s} h{h} hk{hk} bf16): dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
           f"dv {errs[2]:.3e}; launches {launched}" + ("" if ok else "  <-- FAIL"), flush=True)
     if not ok:
         errors.append("autograd with g_lse")
     if errors:
         fail(f"the backward kernels disagree with their plain versions: {errors}")
-    return train_err
+    return main_err
+
+
+def sdpa_backward_ms(qt, kt, vt, dout_t):
+    """(backward ms, forward-under-grad ms) of SDPA on (b, h, s, d) inputs
+    that require grad, by CUDA-graph replay: forward and backward captured
+    together, less the forward under grad alone."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_bwd():
+        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dout_t)
+
+    fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), runs=10, reps=5)
+    return time_ms(fwd_bwd, runs=10, reps=5) - fwd_ms, fwd_ms
+
+
+def time_kernel_rows(rows, peaks, smi, dtype, shape):
+    """Each row (kernel, plain, (flops, bytes), library ms, library name)
+    timed by CUDA-graph replay beside its plain version, its bound at the
+    peak for `dtype` and its library yardstick; printed and returned by
+    name."""
+    timings = {}
+    for name, (kernel, plain, (flops, nbytes), library_ms, library) in rows.items():
+        b_ms, b_by = bound_ms(flops, nbytes, peaks, dtype)
+        t = {"ms": time_ms(kernel, runs=10, reps=5), "plain_ms": time_ms(plain, runs=10, reps=3),
+             "library_ms": library_ms, "library": library, "bound_ms": b_ms, "bound_by": b_by,
+             "flops": flops, "bytes": nbytes, "shape": shape}
+        timings[name] = t
+        print(f"  {name} {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"{library} {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+              f"bound {b_ms:.4f} ms ({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s, {b_ms / t['ms']:.3%} of bound, {t['ms'] / library_ms:.2f}x the "
+              f"library's time on {smi}", flush=True)
+    return timings
+
+
+def time_scalar_bwd_kernels(attention, peaks, smi):
+    """Phase 4 for the scalar backward pair at its main-path shape, phase
+    6's f32 gradient check (one layer: b1 s512 h8 d128, causal), bound at
+    the f32 peak outside the tensor cores; SDPA's f32 backward (dq+dk+dv in
+    one autograd call, TF32 off) is the pair's yardstick."""
+    b, s, h, hk, d = GRAD_CHECK_SHAPE
+    q, k, v = inputs(b, s, s, h, hk, d, torch.float32, seed=510, strided=True)
+    dout = inputs(b, s, s, h, h, d, torch.float32, seed=511)[0]
+    out, lse = attention.flash_attention(q, k, v, causal=True, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dout, lse, delta, True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    sdpa_bwd = sdpa_backward_ms(qt, kt, vt, dout.transpose(1, 2).contiguous())[0]
+    library = "SDPA f32 backward (its default backend), dq+dk+dv in one call"
+    rows = {
+        "flash_bwd_dq_scalar": (lambda: attention.flash_bwd_dq(*args),
+                                lambda: attention.flash_bwd_dq_plain(*args),
+                                bwd_work("dq", b, s, s, h, hk, d, torch.float32, True), sdpa_bwd,
+                                library),
+        "flash_bwd_dkv_scalar": (lambda: attention.flash_bwd_dkv(*args),
+                                 lambda: attention.flash_bwd_dkv_plain(*args),
+                                 bwd_work("dkv", b, s, s, h, hk, d, torch.float32, True), sdpa_bwd,
+                                 library),
+    }
+    return time_kernel_rows(rows, peaks, smi, torch.float32, f"b{b} s{s} h{h} hk{hk} d{d} f32 causal")
 
 
 def time_training_kernels(attention, peaks, smi):
@@ -364,12 +468,7 @@ def time_training_kernels(attention, peaks, smi):
     sdpa_dout = dout.transpose(1, 2).contiguous()
     with torch.no_grad():
         sdpa_fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), runs=10, reps=5)
-
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), sdpa_dout)
-
-    sdpa_fwd_grad_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), runs=10, reps=5)
-    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, runs=10, reps=5) - sdpa_fwd_grad_ms
+    sdpa_bwd_ms, sdpa_fwd_grad_ms = sdpa_backward_ms(qt, kt, vt, sdpa_dout)
     sdpa_out = sdpa(qt, kt, vt, is_causal=True)
     sdpa_bwd_eager_ms = eager_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), sdpa_dout,
                                                              retain_graph=True), runs=10, reps=5)
@@ -403,18 +502,13 @@ def time_training_kernels(attention, peaks, smi):
                           bwd_work("dkv", b, s, s, h, hk, d, torch.bfloat16, True), sdpa_bwd_ms,
                           "SDPA backward (its default backend), dq+dk+dv in one call"),
     }
-    timings = {}
-    for name, (kernel, plain, (flops, nbytes), library_ms, library) in rows.items():
-        b_ms, b_by = bound_ms(flops, nbytes, peaks)
-        t = {"ms": time_ms(kernel, runs=10, reps=5), "plain_ms": time_ms(plain, runs=10, reps=3),
-             "library_ms": library_ms, "library": library, "bound_ms": b_ms, "bound_by": b_by,
-             "flops": flops, "bytes": nbytes, "shape": shape}
-        timings[name] = t
-        print(f"  {name} {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"{library} {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
-              f"bound {b_ms:.4f} ms ({b_by}); kernel at {flops / (t['ms'] * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s, {b_ms / t['ms']:.3%} of bound, {t['ms'] / library_ms:.2f}x the "
-              f"library's time on {smi}", flush=True)
+    timings = time_kernel_rows(rows, peaks, smi, torch.bfloat16, shape)
+    pair = timings["flash_bwd_dq"]["ms"] + timings["flash_bwd_dkv"]["ms"]
+    pair_bound = sum(bound_ms(timings[n]["flops"], timings[n]["bytes"], peaks)[0]
+                     for n in TENSOR_CORE_BWD)
+    print(f"  backward pair (dq + dk/dv) {shape}: {pair:.4f} ms, {pair_bound / pair:.3%} of the "
+          f"pair's bound {pair_bound:.4f} ms, {pair / sdpa_bwd_ms:.2f}x SDPA's backward on {smi}",
+          flush=True)
     return timings
 
 
@@ -492,8 +586,8 @@ def train_phase(attention, peaks, smi):
           f"(tol 1e-4); kernel launches {launched}", flush=True)
     if not (loss_err <= 1e-4 and grad_err <= 1e-4):
         fail("loss or gradients through the kernels disagree with the reference attention")
-    if min(launched[n] for n in ("flash_fwd_scalar", "flash_bwd_dq", "flash_bwd_dkv")) < cfg32.n_layers:
-        fail(f"the gradient check did not run through the kernels: {launched}")
+    if min(launched[n] for n in ("flash_fwd_scalar",) + SCALAR_BWD) < cfg32.n_layers:
+        fail(f"the gradient check did not run through the scalar kernels: {launched}")
     del params, grads_k, grads_r, results
 
     # the full-width train step: bench.py's train-step config
@@ -535,9 +629,9 @@ def train_phase(attention, peaks, smi):
           f"{TRAIN_STEPS} steps {launches} on {smi}", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train-step losses not finite and falling: {losses}")
-    # every forward launch of the step runs the tensor-core kernel
+    # every launch of the step runs a tensor-core kernel
     want = {"flash_fwd": cfg.n_layers, "flash_fwd_scalar": 0, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers}
+            "flash_bwd_dkv": cfg.n_layers, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
     if {n: c / TRAIN_STEPS for n, c in launches.items()} != want:
         fail(f"launches per step {launches} over {TRAIN_STEPS} steps, want {want} per step")
 
@@ -559,7 +653,7 @@ def train_phase(attention, peaks, smi):
         step(params, state, batch)
         torch.cuda.synchronize()
     print(f"  one step, device time: {device_split(prof, step_ms)}", flush=True)
-    return launches
+    return launches, launched
 
 
 def main() -> None:
@@ -600,18 +694,24 @@ def main() -> None:
         for line in info["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "error", "warning", "Performance")):
                 print(f"  {name}: {line.strip()}")
-    hgmma = count_sass(_build.library_path("flash_fwd"), "HGMMA")
-    print(f"  flash_fwd library: {hgmma} HGMMA (wgmma) instructions in its SASS", flush=True)
-    if hgmma == 0:
-        fail("the flash_fwd library holds no HGMMA instructions: no tensor-core kernel was built")
+    for lib in ("flash_fwd", "flash_bwd"):
+        hgmma = count_sass(_build.library_path(lib), "HGMMA")
+        print(f"  {lib} library: {hgmma} HGMMA (wgmma) instructions in its SASS", flush=True)
+        if hgmma == 0:
+            fail(f"the {lib} library holds no HGMMA instructions: no tensor-core kernel was built")
     for dtype in (torch.float32, torch.bfloat16):
         for d in attention.HEAD_DIMS:
             built = attention.fwd_launch_plan(dtype, 1, 128, 8, d)[0]
             if built != attention._fwd_kernel_for(dtype, d):
                 fail(f"{dtype} d{d}: the C entry launches the {built} kernel, "
                      f"attention._fwd_kernel_for says {attention._fwd_kernel_for(dtype, d)}")
-    print("  kernel by (dtype, d), C entry = Python mirror: " + ", ".join(
-        f"{DTYPE_NAMES[dt]} d{d} {attention._fwd_kernel_for(dt, d)}"
+            built = attention.bwd_kernels_built(dtype, d)
+            if built != attention._bwd_kernel_for(dtype, d):
+                fail(f"{dtype} d{d}: the C entry launches the {built} backward kernels, "
+                     f"attention._bwd_kernel_for says {attention._bwd_kernel_for(dtype, d)}")
+    print("  kernels by (dtype, d), C entries = Python mirrors: " + ", ".join(
+        f"{DTYPE_NAMES[dt]} d{d} {attention._fwd_kernel_for(dt, d)} + "
+        f"{'/'.join(attention._bwd_kernel_for(dt, d))}"
         for dt in (torch.float32, torch.bfloat16) for d in attention.HEAD_DIMS), flush=True)
 
     phase("3 flash_fwd kernels vs plain")
@@ -711,6 +811,7 @@ def main() -> None:
     print("  tensor-core forward, serving shape, host clock per call: " + ", ".join(
         f"{name} {us:.1f} us" for name, us in split.items()), flush=True)
     train_timings = time_training_kernels(attention, peaks, smi)
+    train_timings.update(time_scalar_bwd_kernels(attention, peaks, smi))
 
     phase("5 serving path, full width")
     cfg = TransformerConfig(
@@ -850,7 +951,7 @@ def main() -> None:
     print(f"  demo model f32: engine tokens equal generate()'s for {same}/{len(handles)} requests")
 
     phase("6 training path, full width")
-    train_launches = train_phase(attention, peaks, smi)
+    train_launches, grad_check_launches = train_phase(attention, peaks, smi)
 
     def timing_keys(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
@@ -884,15 +985,25 @@ def main() -> None:
         **timing_keys(scalar),
         "eager_ms": scalar["eager_ms"],
     }]
-    for name, fn, line in (("flash_bwd_dq", "_flash_bwd_dq_kernel", 464),
-                           ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 505)):
+    for name, fn, line, variant, launched, path in (
+            ("flash_bwd_dq", "_flash_bwd_dq_kernel", 464, "tensor cores (wgmma, TMA): bf16 at d 64 and 128",
+             train_launches, "train"),
+            ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 505, "tensor cores (wgmma, TMA): bf16 at d 64 and 128",
+             train_launches, "train"),
+            # the f32 gradient check of phase 6 (2 layers)
+            ("flash_bwd_dq_scalar", "_flash_bwd_dq_kernel", 464,
+             "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check"),
+            ("flash_bwd_dkv_scalar", "_flash_bwd_dkv_kernel", 505,
+             "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check")):
         t = train_timings[name]
         kernels.append({
             "name": name,
+            "variant": variant,
             "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": f"odh_kubeflow_tpu/ops/attention.py:{line} ({fn})",
-            "launches": train_launches[name],
+            "launches": launched[name],
+            "launches_by_path": {path: launched[name]},
             "max_abs_err": bwd_err[name],
             **timing_keys(t),
             "library": t["library"],

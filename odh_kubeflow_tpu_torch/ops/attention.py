@@ -11,11 +11,12 @@ tensor one of the two kernels in ``csrc/flash_fwd.cu`` (which replace the
 TPU's ``_flash_kernel``; ``_fwd_kernel_for`` names which), on a CPU tensor
 ``flash_attention_plain``. Its backward
 computes delta = rowsum(dO * O) - g_lse and then runs ``flash_bwd_dq`` and
-``flash_bwd_dkv``: on CUDA tensors the kernels in ``csrc/flash_bwd.cu``
-(which replace ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), on
-CPU tensors ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``. The plain
-versions are the kernels' arithmetic in straightforward f32 torch. There is
-no fallback from the card to a plain version.
+``flash_bwd_dkv``: on CUDA tensors a pair of kernels in ``csrc/flash_bwd.cu``
+(which replace ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
+``_bwd_kernel_for`` names which pair), on CPU tensors ``flash_bwd_dq_plain``
+and ``flash_bwd_dkv_plain``. The plain versions are the kernels' arithmetic
+in straightforward f32 torch. There is no fallback from the card to a plain
+version, nor from one kernel to another.
 """
 import ctypes
 from typing import Tuple
@@ -33,9 +34,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535  # the kernels' grid.y is batch * heads
 
 # kernel name -> launches since the last reset_launch_counts(); each wrapper
-# adds one where it launches its kernel and nowhere else. "flash_fwd" is the
-# tensor-core forward kernel, "flash_fwd_scalar" the scalar one
-launch_counts = {"flash_fwd": 0, "flash_fwd_scalar": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# adds one where it launches its kernel and nowhere else. "flash_fwd",
+# "flash_bwd_dq" and "flash_bwd_dkv" are the tensor-core kernels, the names
+# ending in "_scalar" the scalar ones
+launch_counts = {"flash_fwd": 0, "flash_fwd_scalar": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                 "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
 
 
 def reset_launch_counts() -> None:
@@ -149,17 +152,33 @@ def _check(q, k, v) -> None:
         )
 
 
+def _on_tensor_cores(dtype: torch.dtype, d: int, what: str) -> bool:
+    """The rule both kernel choices follow, as the C side's
+    ``odh_flash::kernel_choice`` (``csrc/flash_common.cuh``) does: the
+    tensor-core kernels take bf16 at d 64 and 128, the scalar ones f32 at
+    every d and bf16 at d 16 and 32; the tensor cores have no f32 product,
+    and TF32 would break the f32 gates. Raises ValueError for what no
+    `what` kernel takes."""
+    if dtype not in _DTYPE_CODES or d not in HEAD_DIMS:
+        raise ValueError(f"no {what} kernel for {dtype} at head_dim {d}")
+    return dtype == torch.bfloat16 and d in (64, 128)
+
+
 def _fwd_kernel_for(dtype: torch.dtype, d: int) -> str:
     """Which forward kernel a CUDA launch runs, by (dtype, d) alone, named
-    as in `launch_counts`; the mirror of the C entry ``odh_flash_fwd_kernel``
-    in ``csrc/flash_fwd.cu``, where the choice is made. "flash_fwd": the
-    tensor-core kernel (bf16 at d 64 and 128). "flash_fwd_scalar": the scalar
-    kernel (f32 at every d, bf16 at d 16 and 32); the tensor cores have no
-    f32 product, and TF32 would break the f32 gates. Raises ValueError for
-    what neither kernel takes."""
-    if dtype not in _DTYPE_CODES or d not in HEAD_DIMS:
-        raise ValueError(f"no forward kernel for {dtype} at head_dim {d}")
-    return "flash_fwd" if dtype == torch.bfloat16 and d in (64, 128) else "flash_fwd_scalar"
+    as in `launch_counts` ("flash_fwd": the tensor-core kernel,
+    "flash_fwd_scalar": the scalar one); the mirror of the C entry
+    ``odh_flash_fwd_kernel`` in ``csrc/flash_fwd.cu``."""
+    return "flash_fwd" if _on_tensor_cores(dtype, d, "forward") else "flash_fwd_scalar"
+
+
+def _bwd_kernel_for(dtype: torch.dtype, d: int) -> Tuple[str, str]:
+    """Which (dq, dk/dv) kernels a CUDA backward launch runs, by (dtype, d)
+    alone, named as in `launch_counts`; the mirror of the C entry
+    ``odh_flash_bwd_kernel`` in ``csrc/flash_bwd.cu``."""
+    if _on_tensor_cores(dtype, d, "backward"):
+        return "flash_bwd_dq", "flash_bwd_dkv"
+    return "flash_bwd_dq_scalar", "flash_bwd_dkv_scalar"
 
 
 def _tma_problem(t: torch.Tensor):
@@ -176,6 +195,19 @@ def _tma_problem(t: torch.Tensor):
         if shape[dim] > 1 and (strides[dim] * item) % 16:
             return f"{name} stride of {strides[dim] * item} bytes is not a multiple of 16"
     return None
+
+
+def _tma_readable_dout(dout: torch.Tensor) -> torch.Tensor:
+    """dO as the tensor-core backward kernels read it: in place where TMA
+    can read it (`_tma_problem` names no problem and no dim of size > 1 is a
+    stride-0 broadcast), else a contiguous copy in a fresh (aligned)
+    allocation. dO comes from autograd with whatever strides the loss gave
+    it (an expanded gradient has stride 0); this is a layout copy, not
+    another kernel."""
+    broadcast = any(st == 0 and n > 1 for st, n in zip(dout.stride(), dout.shape))
+    if broadcast or _tma_problem(dout) is not None:
+        return dout.clone(memory_format=torch.contiguous_format)
+    return dout
 
 
 def _check_bwd(q, k, v, dout, lse, delta) -> None:
@@ -210,28 +242,30 @@ def flash_attention(q, k, v, causal: bool = True, with_lse: bool = False,
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True):
-    """dq of flash attention: the kernel on CUDA tensors, the plain version
-    on CPU tensors. lse and delta (= rowsum(dO * out) - g_lse) are f32
-    (b, h, sq)."""
+    """dq of flash attention: a kernel on CUDA tensors (`_bwd_kernel_for`
+    names which), the plain version on CPU tensors. lse and delta (=
+    rowsum(dO * out) - g_lse) are f32 (b, h, sq)."""
     _check_bwd(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    kernel = _bwd_kernel_for(q.dtype, q.shape[3])[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("odh_flash_bwd_dq", q, k, v, dout, lse, delta, (dq,), causal)
-    launch_counts["flash_bwd_dq"] += 1
+    _launch("odh_flash_bwd_dq", kernel, q, k, v, dout, lse, delta, (dq,), causal)
+    launch_counts[kernel] += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
     """(dk, dv) of flash attention, summed over each kv head's GQA group:
-    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    a kernel on CUDA tensors, the plain version on CPU tensors."""
     _check_bwd(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
+    kernel = _bwd_kernel_for(q.dtype, q.shape[3])[1]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("odh_flash_bwd_dkv", q, k, v, dout, lse, delta, (dk, dv), causal)
-    launch_counts["flash_bwd_dkv"] += 1
+    _launch("odh_flash_bwd_dkv", kernel, q, k, v, dout, lse, delta, (dk, dv), causal)
+    launch_counts[kernel] += 1
     return dk, dv
 
 
@@ -248,6 +282,7 @@ _SIGNATURES = {
                          + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
     "odh_flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [ctypes.c_int] * 7 + [_I64P] * 4
                           + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
+    "odh_flash_bwd_kernel": ("flash_bwd", [ctypes.c_int] * 2),
 }
 
 
@@ -277,6 +312,18 @@ def fwd_launch_plan(dtype: torch.dtype, b: int, sq: int, h: int, d: int) -> Tupl
     return kernel, tile_q(code, d, b, sq, h)
 
 
+def bwd_kernels_built(dtype: torch.dtype, d: int) -> Tuple[str, str]:
+    """(dq, dk/dv) kernels that a CUDA backward launch runs, as the built
+    library's C entry decides them (it builds the library on first use);
+    for checking the Python mirror `_bwd_kernel_for` on the card."""
+    _, choose = _entry("odh_flash_bwd_kernel")
+    pair = {1: ("flash_bwd_dq", "flash_bwd_dkv"),
+            0: ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")}.get(choose(_DTYPE_CODES[dtype], d))
+    if pair is None:
+        raise ValueError(f"no backward kernel for {dtype} at head_dim {d}")
+    return pair
+
+
 def _strides(t):
     """(batch, seq, head) element strides for a kernel: a dim of size 1
     takes the stride a contiguous tensor would have (a multiple of 16 bytes
@@ -295,14 +342,26 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: " + lib.odh_cuda_error_string(err).decode())
 
 
-def _launch(fn_name, q, k, v, dout, lse, delta, outs, causal: bool) -> None:
-    """Launch one of the backward kernels on the current stream."""
+def _launch(fn_name, kernel, q, k, v, dout, lse, delta, outs, causal: bool) -> None:
+    """Launch one of the backward kernels on the current stream. The
+    tensor-core kernels read q, k and v in place through TMA and raise
+    ValueError on a view it cannot read, as the forward does (every view the
+    forward took passes); dO is read in place where TMA can, else copied
+    (`_tma_readable_dout`). The scalar kernels read any strides, copying
+    only a last dim that is not contiguous."""
     require_hopper(q.device)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"batch*heads {b * h} exceeds the kernel grid's {_MAX_GRID_Y}")
-    q, k, v, dout = _inner_contiguous(q, k, v, dout)
+    if kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = _tma_problem(t)
+            if problem is not None:
+                raise ValueError(f"{name} cannot be read by TMA: {problem}")
+        dout = _tma_readable_dout(dout)
+    else:
+        q, k, v, dout = _inner_contiguous(q, k, v, dout)
     lse, delta = lse.contiguous(), delta.contiguous()
     lib, fn = _entry(fn_name)
     with torch.cuda.device(q.device):
@@ -314,7 +373,7 @@ def _launch(fn_name, q, k, v, dout, lse, delta, outs, causal: bool) -> None:
             int(causal), d**-0.5 * LOG2E, d**-0.5,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(lib, err, fn_name)
+    _raise_on(lib, err, kernel)
 
 
 @torch.library.custom_op(

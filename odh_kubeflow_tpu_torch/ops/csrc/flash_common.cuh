@@ -1,6 +1,7 @@
 // Helpers shared by the port's flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): conversions between the storage type (float or bf16) and
-// the f32 the kernels compute in, and two-element loads and stores.
+// flash_bwd.cu): the rule that chooses between their tensor-core and scalar
+// kernels, conversions between the storage type (float or bf16) and the f32
+// the kernels compute in, and two-element loads and stores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +11,18 @@
 namespace odh_flash {
 
 constexpr float NEG_INF = -1e30f;  // masked scores, as in the reference
+
+// The one rule by which the forward and the backward choose their kernels,
+// by (dtype, d) alone (dtype 0 = float32, 1 = bfloat16): 1 = the tensor-core
+// kernels (bf16, d 64 or 128), 0 = the scalar ones (f32 at d 16/32/64/128,
+// bf16 at d 16 or 32: the tensor cores have no f32 product, and TF32 would
+// break the f32 gates), -1 = unsupported. attention._on_tensor_cores
+// mirrors it in Python.
+inline int kernel_choice(int dtype, int d) {
+  const bool known_d = d == 16 || d == 32 || d == 64 || d == 128;
+  if (!known_d || (dtype != 0 && dtype != 1)) return -1;
+  return (dtype == 1 && (d == 64 || d == 128)) ? 1 : 0;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -17,8 +17,8 @@
 // longest-first so the causal triangle's heavy blocks start early (the
 // card's counterpart of the reference's balanced grid, _balanced_qk).
 //
-// Two kernels; odh_flash_fwd_kernel(dtype, d) below is the one place that
-// chooses between them, by (dtype, d) alone:
+// Two kernels, chosen by (dtype, d) alone by the rule the backward follows
+// too (odh_flash::kernel_choice, flash_common.cuh):
 //
 // * flash_fwd_wgmma_kernel, bf16 at d 64 and 128 (the flagship model's d is
 //   128). What bounds it on this card: at the training shape (b8 s2048 h8
@@ -257,9 +257,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BK = 128;       // key rows per K/V tile: the n of S's wgmma (m64n128k16)
 constexpr int STAGES = 2;     // depth of each of the K and V rings
-constexpr int PANEL = 64;     // bf16 columns per 128-byte swizzle panel
-constexpr int ROW = 128;      // bytes per panel row
-constexpr int ATOM = 1024;    // bytes per 8-row swizzle atom
 
 template <int D, int NWG>
 struct Cfg {
@@ -532,53 +529,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled is not in the runtime library; its address comes
-// from the runtime's entry-point query, so the library links no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(ptr);
-  }();
-  return fn;
-}
-
-// A tensor map over a (b, seq, heads, d) bf16 view with element strides
-// st = (batch, seq, head), last dim contiguous: boxes of 64 columns x 1 head
-// x `rows` rows, 128-byte swizzle, rows past `seq` read as zeros
-cudaError_t make_map(CUtensorMap* map, const void* base, int d, int heads, int seq, int batch,
-                     const int64_t* st, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  for (cuuint64_t x : strides)
-    if (x % 16 != 0 || x >= (1ull << 40)) return cudaErrorInvalidValue;
-  const cuuint32_t box[4] = {PANEL, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
                    int sk, int h, int hk, const int64_t* qs, const int64_t* ks, const int64_t* vs,
@@ -626,15 +576,10 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o
 
 }  // namespace
 
-// The one place the forward kernel is chosen, by (dtype, d) alone (0 =
-// float32, 1 = bfloat16): 1 = the tensor-core kernel (bf16, d 64 or 128),
-// 0 = the scalar kernel (f32 at d 16/32/64/128, bf16 at d 16 or 32), -1 =
-// unsupported. attention._fwd_kernel_for mirrors it in Python.
-extern "C" int odh_flash_fwd_kernel(int dtype, int d) {
-  const bool known_d = d == 16 || d == 32 || d == 64 || d == 128;
-  if (!known_d || (dtype != 0 && dtype != 1)) return -1;
-  return (dtype == 1 && (d == 64 || d == 128)) ? 1 : 0;
-}
+// The forward kernel a launch runs (odh_flash::kernel_choice: 1 = the
+// tensor-core kernel, 0 = the scalar one, -1 = unsupported);
+// attention._fwd_kernel_for mirrors it in Python.
+extern "C" int odh_flash_fwd_kernel(int dtype, int d) { return odh_flash::kernel_choice(dtype, d); }
 
 // q rows per block of the kernel odh_flash_fwd would launch for this call
 extern "C" int odh_flash_fwd_tile_q(int dtype, int d, int b, int sq, int h) {

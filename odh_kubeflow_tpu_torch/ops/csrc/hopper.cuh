@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// shared-memory addresses, mbarriers, TMA tiled loads through a tensor map,
-// wgmma matrix descriptors for the 128-byte swizzle, and the wgmma
-// instructions (bf16 in, f32 accumulate: m64n128k16 with both operands from
-// shared memory (SS); m64n64k16 and m64n128k16 with A from registers (RS)),
-// with their fence/commit/wait, and named barriers. Written against the PTX
-// ISA; nothing here includes CUTLASS.
+// shared-memory addresses, mbarriers, TMA tiled loads through a tensor map
+// (and, on the host, the tensor maps themselves), wgmma matrix descriptors
+// for the 128-byte swizzle, and the wgmma instructions (bf16 in, f32
+// accumulate: m64n64k16 and m64n128k16 with both operands from shared memory
+// (SS) or with A from registers (RS)), with their fence/commit/wait, and
+// named barriers. Written against the PTX ISA; nothing here includes CUTLASS.
 //
 // Layout convention (what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and what
 // desc_sw128 describes): a bf16 tile is cut into panels of 64 columns (128
@@ -19,6 +19,10 @@
 #include <stdint.h>
 
 namespace odh_hopper {
+
+constexpr int PANEL = 64;     // bf16 columns per 128-byte swizzle panel
+constexpr int ROW = 128;      // bytes per panel row
+constexpr int ATOM = 1024;    // bytes per 8-row swizzle atom
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -147,6 +151,26 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // [2*(l%4) + 8*(r/2) + {0, 1}], so an accumulator's columns 16kk..16kk+15,
 // d[8kk .. 8kk+7] packed pairwise, are the A operand of k step kk.
 
+// D (m64 x n64, f32) (+)= A (m64 x k16, smem) * B (k16 x n64, smem)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : ODH_F8(d, 0),
+        ODH_F8(d, 8),
+        ODH_F8(d, 16),
+        ODH_F8(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
 // D (m64 x n128, f32) (+)= A (m64 x k16, smem) * B (k16 x n128, smem)
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
@@ -232,5 +256,54 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 #undef ODH_F8
+
+// ---- tensor maps (host) -------------------------------------------------------
+
+// cuTensorMapEncodeTiled is not in the runtime library; its address comes
+// from the runtime's entry-point query, so a library links no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiledFn>(ptr);
+  }();
+  return fn;
+}
+
+// A tensor map over a (b, seq, heads, d) bf16 view with element strides
+// st = (batch, seq, head), last dim contiguous: boxes of 64 columns x 1 head
+// x `rows` rows, 128-byte swizzle, rows past `seq` read as zeros
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int d, int heads, int seq,
+                            int batch, const int64_t* st, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  for (cuuint64_t x : strides)
+    if (x % 16 != 0 || x >= (1ull << 40)) return cudaErrorInvalidValue;
+  const cuuint32_t box[4] = {PANEL, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace odh_hopper

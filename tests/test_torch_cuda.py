@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card (marker `cuda`): each kernel against
 its plain PyTorch version at the port's head dims, bf16 and f32, causal and
-not, GQA and ragged lengths; the tensor-core forward kernel at its tile
-edges, with both q-tile widths, and its refusal of views TMA cannot read;
-the differentiable attention, the f32-output matmul's backward and one
-train step on the card. They skip with a reason
+not, GQA and ragged lengths; the tensor-core forward and backward kernels at
+their tile edges (the forward with both q-tile widths), and their refusal of
+views TMA cannot read; the differentiable attention, the f32-output matmul's
+backward and one train step on the card. They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
 
@@ -160,15 +160,90 @@ def test_flash_bwd_kernels_match_plain_on_card(card, shape, causal, dtype):
     dout = torch.randn(q.shape, device=card).to(dtype)
     out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _check_bwd_on_card(q, k, v, dout, lse, delta, causal)
+
+
+def _check_bwd_on_card(q, k, v, dout, lse, delta, causal):
+    """Both backward kernels against their plain versions, each launched once
+    and counted under the name `_bwd_kernel_for` gives."""
+    names = attention._bwd_kernel_for(q.dtype, q.shape[3])
     before = dict(attention.launch_counts)
     dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal)
-    assert attention.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    assert attention.launch_counts["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    launched = {n: c - before[n] for n, c in attention.launch_counts.items() if c != before[n]}
+    assert launched == {names[0]: 1, names[1]: 1}
     want = (flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal),
             *flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal))
     torch.cuda.synchronize()
-    _assert_grads_close((dq, dk, dv), want, dtype, ("dq", "dk", "dv"))
+    _assert_grads_close((dq, dk, dv), want, q.dtype, ("dq", "dk", "dv"))
+
+
+def _bwd_inputs(q, k, v, causal, dout=None):
+    dout = torch.randn(q.shape, device=q.device).to(q.dtype) if dout is None else dout
+    out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return dout, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 129, 2049])
+def test_tensor_core_bwd_kernels_at_tile_edges_on_card(card, s, d, causal):
+    """bf16 at d 128/64 (the tensor-core dq and dk/dv kernels) at the edges
+    of their 64-row warpgroup and streamed tiles and 128-row blocks: GQA 16/4
+    on strided fused-qkv views, and GQA 4/1 on contiguous tensors."""
+    for b, h, hk, strided in ((2, 16, 4, True), (1, 4, 1, False)):
+        assert attention._bwd_kernel_for(torch.bfloat16, d) == ("flash_bwd_dq", "flash_bwd_dkv")
+        if strided:
+            qkv = torch.randn(b, s, h + 2 * hk, d, device=card, dtype=torch.bfloat16)
+            q, k, v = qkv.split([h, hk, hk], dim=2)
+        else:
+            q, k, v = _qkv(b, s, s, h, hk, d, torch.bfloat16, card)
+        _check_bwd_on_card(q, k, v, *_bwd_inputs(q, k, v, causal), causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 64])
+def test_tensor_core_bwd_kernels_sq_ne_sk_full_on_card(card, d):
+    for sq, sk in ((300, 700), (129, 63)):
+        q, k, v = _qkv(2, sq, sk, 8, 2, d, torch.bfloat16, card)
+        _check_bwd_on_card(q, k, v, *_bwd_inputs(q, k, v, False), False)
+
+
+@pytest.mark.cuda
+def test_tensor_core_bwd_kernels_read_any_dout(card):
+    """dO as autograd may hand it over: a transpose (read in place), and an
+    expanded gradient with stride 0 (copied first); both give the gradients
+    of the same values made contiguous."""
+    q, k, v = _qkv(2, 130, 130, 8, 2, 128, torch.bfloat16, card)
+    for dout in (torch.randn(2, 8, 130, 128, device=card).to(torch.bfloat16).transpose(1, 2),
+                 torch.randn(1, 1, 8, 128, device=card).to(torch.bfloat16).expand(2, 130, 8, 128)):
+        dout, lse, delta = _bwd_inputs(q, k, v, True, dout)
+        got = (flash_bwd_dq(q, k, v, dout, lse, delta, True),
+               *flash_bwd_dkv(q, k, v, dout, lse, delta, True))
+        want = (flash_bwd_dq(q, k, v, dout.contiguous(), lse, delta, True),
+                *flash_bwd_dkv(q, k, v, dout.contiguous(), lse, delta, True))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_tensor_core_bwd_kernels_reject_views_tma_cannot_read(card):
+    """A q, k or v view TMA cannot read raises ValueError: no copy, and no
+    launch of the scalar kernels instead."""
+    flat = torch.randn(64 * 8 * 128 + 1, device=card, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 64, 8, 128)
+    ok = torch.randn(1, 64, 8, 128, device=card, dtype=torch.bfloat16)
+    stats = torch.zeros(1, 8, 64, device=card)
+    before = dict(attention.launch_counts)
+    for args in ((shifted, ok, ok), (ok, shifted, ok), (ok, ok, shifted)):
+        with pytest.raises(ValueError, match="TMA"):
+            flash_bwd_dq(*args, ok, stats, stats)
+        with pytest.raises(ValueError, match="TMA"):
+            flash_bwd_dkv(*args, ok, stats, stats)
+    assert attention.launch_counts == before
 
 
 @pytest.mark.cuda
@@ -221,5 +296,6 @@ def test_train_step_launches_the_kernels(card, policy):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     fwd = cfg.n_layers * (1 if policy == "flash" else 2)
     assert attention.launch_counts == {"flash_fwd": fwd, "flash_fwd_scalar": 0,
-                                       "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+                                       "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                                       "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
     assert not any(t.requires_grad for t in params["layers"].values())

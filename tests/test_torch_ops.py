@@ -162,7 +162,8 @@ def test_cpu_tensors_never_launch_the_kernel():
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(9, 1, 16, 2, 2, 16)))
     flash_attention(q, k, v, device="cpu").sum().backward()
     assert attention.launch_counts == {"flash_fwd": 0, "flash_fwd_scalar": 0, "flash_bwd_dq": 0,
-                                       "flash_bwd_dkv": 0}
+                                       "flash_bwd_dkv": 0, "flash_bwd_dq_scalar": 0,
+                                       "flash_bwd_dkv_scalar": 0}
     assert q.grad is not None and k.grad is not None and v.grad is not None
 
 
@@ -185,6 +186,31 @@ def test_fwd_kernel_for_names_the_kernel_by_dtype_and_head_dim(dtype, d, kernel)
 def test_fwd_kernel_for_rejects_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError, match="no forward kernel"):
         attention._fwd_kernel_for(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d,tensor_cores", [
+    (torch.bfloat16, 128, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 32, False), (torch.bfloat16, 16, False),
+    (torch.float32, 128, False), (torch.float32, 64, False),
+    (torch.float32, 32, False), (torch.float32, 16, False),
+])
+def test_bwd_kernel_for_names_the_kernels_by_dtype_and_head_dim(dtype, d, tensor_cores):
+    """The backward pair follows the forward's rule: the tensor-core dq and
+    dk/dv kernels for bf16 at d 64/128, the scalar pair otherwise. The C
+    entry odh_flash_bwd_kernel makes the same choice; the chip smoke holds
+    the two against each other."""
+    want = ("flash_bwd_dq", "flash_bwd_dkv")
+    if not tensor_cores:
+        want = ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")
+    assert attention._bwd_kernel_for(dtype, d) == want
+    assert all(name in attention.launch_counts for name in want)
+    assert (attention._fwd_kernel_for(dtype, d) == "flash_fwd") == tensor_cores
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 128), (torch.bfloat16, 24), (torch.float32, 256)])
+def test_bwd_kernel_for_rejects_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError, match="no backward kernel"):
+        attention._bwd_kernel_for(dtype, d)
 
 
 def _fused_qkv_views(b, s, h, hk, d):
@@ -219,6 +245,32 @@ def test_tma_problem_names_what_tma_cannot_read(make, problem):
         assert got is None
     else:
         assert problem in got
+
+
+@pytest.mark.parametrize("make,in_place", [
+    (lambda: torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16), True),
+    # the transpose of a (b, h, s, d) gradient: strides in multiples of 16 bytes
+    (lambda: torch.zeros(2, 8, 64, 128, dtype=torch.bfloat16).transpose(1, 2), True),
+    (lambda: _fused_qkv_views(2, 64, 8, 2, 64)[0], True),
+    # a broadcast over a dim of size 1 has no stride that matters
+    (lambda: torch.zeros(1, 64, 8, 128, dtype=torch.bfloat16).expand(1, 64, 8, 128), True),
+    # an expanded gradient (the backward of a sum): stride 0 everywhere
+    (lambda: torch.ones((), dtype=torch.bfloat16).expand(2, 64, 8, 128), False),
+    (lambda: torch.zeros(1, 64, 1, 128, dtype=torch.bfloat16).expand(2, 64, 8, 128), False),
+    (lambda: torch.zeros(2, 64, 128, 8, dtype=torch.bfloat16).transpose(2, 3), False),
+    (lambda: _misaligned_base(1, 16, 4, 64), False),
+    (lambda: torch.zeros(2, 16, 8, 65, dtype=torch.bfloat16)[..., :64], False),
+], ids=["contiguous", "transposed-heads", "fused-view", "size1-broadcast", "expanded-scalar",
+        "expanded-heads", "last-dim-strided", "misaligned-base", "head-stride"])
+def test_tma_readable_dout_copies_only_what_tma_cannot_read(make, in_place):
+    """dO reaches the tensor-core backward kernels in place where TMA can
+    read it, and as a contiguous copy of the same values otherwise."""
+    dout = make()
+    got = attention._tma_readable_dout(dout)
+    assert (got is dout) == in_place
+    assert got.shape == dout.shape and torch.equal(got, dout)
+    if not in_place:
+        assert got.is_contiguous() and attention._tma_problem(got) is None
 
 
 def test_kernel_strides_give_size_one_dims_a_contiguous_stride():
