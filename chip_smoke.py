@@ -16,22 +16,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    with and without lse, each case naming the kernel and q tile it ran; the
    tensor-core kernel also at the tile edges (sq = sk in 63, 64, 65, 127,
    129, 2049; d 128 and 64; causal and full; 64- and 128-row q tiles;
-   strided views; GQA 16/4 and 8/1) and at sq != sk;
+   strided views; GQA 16/4 and 8/1) and at sq != sk; the scalar kernel at
+   its tile edges (f32 at sq = sk in 1, 15, 16, 17, 31, 33, 65, 129, 513,
+   d 16/32/64/128, causal and full, at every q tile of 16, 32 and 64 rows
+   the grid gives, GQA 8/2 on strided views and 4/1; bf16 d16/d32 at a
+   subset; sq != sk), each case naming its q tile and cluster size;
 3b. the backward kernels (dq, dk/dv; the tensor-core pair and the scalar
    pair) against their plain versions, at the training shape and others,
    each case naming the kernels it ran; the tensor-core pair also at the
    tile edges (sq = sk in 63, 64, 65, 127, 129, 2049; d 128 and 64; causal
    and full; GQA 16/4 on strided fused-qkv views and 8/1; sq != sk full);
-   then through autograd with an lse cotangent;
+   the scalar pair at the same edges as the scalar forward, each case
+   naming dk/dv's k tile and cluster size; then through autograd with an
+   lse cotangent;
 4. timing (device time from CUDA-graph replays between CUDA events, median
    of 25): kernel, plain version, and the library SDPA as a yardstick only,
    beside the card's bound, with TFLOP/s, the share of the bound and the
    ratio to SDPA; and each call's time launched from Python; the
    tensor-core forward at the serving and 4x2048 shapes, the scalar forward
-   in f32 at the serving shape; at the training shape, the forward with
+   in f32 at the serving shape, at the f32 gradient check's (with lse) and
+   at the demo model's prefill; at the training shape, the forward with
    lse, dq and dk/dv (SDPA's backward, dq+dk+dv in one autograd call, is
    the pair's yardstick); the scalar dq and dk/dv at the f32 gradient
-   check's shape;
+   check's shape; the kernels SDPA's f32 forward and backward ran;
 5. the serving path at the full width of the repo's flagship model
    (vocab 32768, d_model 1024, 8 layers, 8 heads x 128, d_ff 4096, bf16;
    random weights from a seed): a ServingEngine behind ServingHTTPServer
@@ -55,6 +62,7 @@ The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -89,6 +97,7 @@ GRAD_CHECK_SHAPE = (1, 512, 8, 8, 128)  # one layer's attention in phase 6's f32
 TENSOR_CORE_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
 SCALAR_BWD = ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")
 TRAIN_STEPS = 5
+DEMO_PROMPTS = [[1, 2, 3, 4], [9, 8, 7], [100, 200, 300, 400, 500], [42]]  # phase 5's f32 demo requests
 
 
 def fail(msg: str) -> None:
@@ -138,6 +147,43 @@ def bwd_work(kind, b, sq, sk, h, hk, d, dtype, causal):
     nbytes = item * (2 * b * sq * h * d + 2 * b * sk * hk * d) + 2 * 4 * b * h * sq
     nbytes += item * (b * sq * h * d if kind == "dq" else 2 * b * sk * hk * d)
     return flops, nbytes
+
+
+SCALAR_ARGS = re.compile(r"(flash_(?:fwd|bwd_dkv)_scalar)_kernelI(f|13__nv_bfloat16)"
+                         r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def ptxas_summary(log):
+    """ptxas's report on each kernel of a build: registers and spill bytes
+    a line, the redesigned scalar kernels named by their template arguments
+    (dtype, d, rows x inner tile, rows x columns a thread, cluster size);
+    warnings and errors as they are."""
+    lines, kernel = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = SCALAR_ARGS.search(mangled)
+            if m:
+                name, t, d, rows, inner, per, lanes, ks = m.groups()
+                dt = "f32" if t == "f" else "bf16"
+                inner_cols = int(inner) // int(lanes)
+                kernel = (f"{name} {dt} d{d}: {rows} rows x {inner} {'keys' if 'fwd' in name else 'q'}, "
+                          f"{per}x{inner_cols} a thread, {ks}-block clusters")
+            else:
+                m = re.search(r"\d(flash_[a-z_]+?_kernel)I(.*)", mangled)
+                kernel = (f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                          if m else mangled[:90])
+        elif "Used" in line and "registers" in line and kernel:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            lines.append(f"{kernel}: {regs} registers")
+        elif "spill stores" in line and kernel and lines:
+            stores = line.split("bytes spill stores")[0].split(",")[-1].strip()
+            loads = line.split("bytes spill loads")[0].split(",")[-1].strip()
+            if stores != "0" or loads != "0":
+                lines[-1] += f", spills {stores} B stored / {loads} B loaded"
+        elif any(w in line for w in ("error", "warning", "Performance")):
+            lines.append(line.strip())
+    return lines
 
 
 def count_sass(path, opcode):
@@ -193,6 +239,51 @@ def bwd_tile_edge_cases():
                       False))
         cases.append((f"bwd sq!=sk full d{d} gqa 8/1", 1, 129, 63, 8, 1, d, torch.bfloat16, False,
                       False))
+    return cases
+
+
+SCALAR_EDGE_LENGTHS = (1, 15, 16, 17, 31, 33, 65, 129, 513)
+
+
+def _batch_for_tile(attention, tile, rows, heads, sms):
+    """The smallest batch whose grid makes the scalar kernels take `tile`
+    rows per block (`attention._scalar_tile`), or None where none does (a
+    32-row tile adds no block over 64 rows at rows <= 32)."""
+    return next((b for b in range(1, 2 * sms + 1)
+                 if attention._scalar_tile(rows, b * heads, sms) == tile), None)
+
+
+def scalar_tile_edge_cases(attention, sms, backward=False):
+    """Cases for the scalar forward (or, with `backward`, the scalar dq and
+    dk/dv) at the edges of its tiles: f32 at sq = sk in
+    SCALAR_EDGE_LENGTHS, d 16/32/64/128, causal and full, each at every q
+    (k) tile the grid can give it (64: GQA 8/2 on strided fused-qkv views;
+    32: GQA 4/1; 16: either, by mask), the batch chosen so the grid gives
+    that tile; bf16 at d 16 and 32 at lengths 17, 33 and 129; one sq != sk
+    full case at each tile. Each case is (label, b, sq, sk, h, hk, d, dtype,
+    causal, strided, tile); the tile is that of q rows (forward) or k rows
+    (dk/dv)."""
+    cases = []
+    grid = []
+    for d in (16, 32, 64, 128):
+        grid += [(torch.float32, d, s) for s in SCALAR_EDGE_LENGTHS]
+    for d in (16, 32):
+        grid += [(torch.bfloat16, d, s) for s in (17, 33, 129)]
+    for dtype, d, s in grid:
+        for causal in (True, False):
+            for tile in (64, 32, 16):
+                h, hk, strided = (8, 2, True) if tile == 64 or (tile == 16 and causal) else (4, 1, False)
+                b = _batch_for_tile(attention, tile, s, hk if backward else h, sms)
+                if b is None:
+                    continue
+                tag = f"{DTYPE_NAMES[dtype]} d{d} s{s} {'causal' if causal else 'full'} gqa {h}/{hk}"
+                cases.append((f"scalar edge {tag}{' strided' if strided else ''} b{b}", b, s, s, h, hk,
+                              d, dtype, causal, strided, tile))
+    for tile in (64, 32, 16):  # sq != sk: the tile follows sq (forward) or sk (dk/dv)
+        sq, sk, h, hk = 129, 65, 8, 2
+        b = _batch_for_tile(attention, tile, sk if backward else sq, hk if backward else h, sms)
+        cases.append((f"scalar edge f32 d64 sq!=sk full b{b}", b, sq, sk, h, hk, 64, torch.float32, False,
+                      False, tile))
     return cases
 
 
@@ -309,17 +400,21 @@ def device_split(prof, wall_ms):
                if matmuls else ""))
 
 
-def _grad_err(got, want):
-    """max |got - want| over max |want|, in f32."""
-    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+def _grad_err(got, want, largest=None):
+    """max |got - want| over max |want| (or over `largest`), in f32."""
+    scale = want.float().abs().max().item() if largest is None else largest
+    return (got.float() - want.float()).abs().max().item() / scale
 
 
-def check_backward(attention):
+def check_backward(attention, sms):
     """Phase 3b: each backward kernel against its plain version on the same
     inputs (lse from the forward kernel, delta = rowsum(dO * out)), each
     case naming the pair of kernels it launched (read from the launch
-    counts), then autograd through the op with an lse cotangent against the
-    plain versions. Returns each kernel's max abs error at its main-path
+    counts) and dk/dv's k tile, then autograd through the op with an lse
+    cotangent against the plain versions. At sq = sk = 1 (one key: p = 1,
+    dp = delta) dq and dk are 0 in exact arithmetic and hold only rounding
+    noise, so each gradient is held against the case's largest plain
+    gradient there. Returns each kernel's max abs error at its main-path
     shape (the training shape; the gradient check's for the scalar pair)."""
     cases = [
         # (label, b, sq, sk, h, hk, d, dtype, causal, strided)
@@ -336,7 +431,10 @@ def check_backward(attention):
         ("bf16 d32 full", 1, 96, 96, 4, 4, 32, torch.bfloat16, False, False),
         *bwd_tile_edge_cases(),
     ]
-    errors, main_err, ran = [], {}, set()
+    scalar_edges = scalar_tile_edge_cases(attention, sms, backward=True)
+    want_tile = {c[0]: c[-1] for c in scalar_edges}
+    cases += [c[:-1] for c in scalar_edges]
+    errors, main_err, ran, tiles = [], {}, set(), set()
     for i, (label, b, sq, sk, h, hk, d, dtype, causal, strided) in enumerate(cases):
         q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=200 + i, strided=strided)
         dout = inputs(b, sq, sq, h, h, d, dtype, seed=300 + i)[0]
@@ -348,14 +446,23 @@ def check_backward(attention):
         launched = tuple(n for n in attention.launch_counts if attention.launch_counts[n] != before[n])
         want = (attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args))
         torch.cuda.synchronize()
-        errs = [_grad_err(g, w) for g, w in zip(got, want)]
+        largest = max(w.float().abs().max().item() for w in want) if sq == sk == 1 else None
+        errs = [_grad_err(g, w, largest) for g, w in zip(got, want)]
+        dkv_kernel, tile_k = attention.bwd_dkv_launch_plan(dtype, b, sk, hk, d)
+        plan = f"{', '.join(launched)}; {tile_k}-row k tiles"
+        if dkv_kernel == "flash_bwd_dkv_scalar":
+            plan += f", {attention.scalar_splits(dtype, d, b, sq, sk, h, hk, causal)[1]}-block clusters"
+            tiles.add(tile_k)
         ok = (all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
               and all(torch.isfinite(g.float()).all().item() for g in got)
               and max(errs) <= BWD_TOLERANCE[dtype]
-              and launched == attention._bwd_kernel_for(dtype, d))
+              and launched == attention._bwd_kernel_for(dtype, d)
+              and tile_k == want_tile.get(label, tile_k)
+              and (dkv_kernel == "flash_bwd_dkv" or tile_k == attention._scalar_tile(sk, b * hk, sms)))
         ran.update(launched)
-        print(f"  {label} [{', '.join(launched)}]: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
-              f"of max |grad| (tol {BWD_TOLERANCE[dtype]:.0e})" + ("" if ok else "  <-- FAIL"), flush=True)
+        print(f"  {label} [{plan}]: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+              f"of max |grad|{' of the three' if largest else ''} (tol {BWD_TOLERANCE[dtype]:.0e})"
+              + ("" if ok else "  <-- FAIL"), flush=True)
         if not ok:
             errors.append(label)
         if label in ("training shape", "f32 gradient-check shape"):
@@ -364,6 +471,8 @@ def check_backward(attention):
             main_err.update({dq_name: abs_errs[0], dkv_name: max(abs_errs[1:])})
     if ran != set(TENSOR_CORE_BWD + SCALAR_BWD):
         errors.append(f"kernels run {sorted(ran)}")
+    if tiles != {16, 32, 64}:
+        errors.append(f"scalar dk/dv k tiles run {sorted(tiles)}")
     # through autograd: a loss reading out and lse, so g_lse enters as delta - g_lse
     b, s, h, hk, d = 2, 256, 8, 2, 128
     q, k, v = (t.requires_grad_() for t in inputs(b, s, s, h, hk, d, torch.bfloat16, seed=400))
@@ -447,6 +556,48 @@ def time_scalar_bwd_kernels(attention, peaks, smi):
                                  library),
     }
     return time_kernel_rows(rows, peaks, smi, torch.float32, f"b{b} s{s} h{h} hk{hk} d{d} f32 causal")
+
+
+def device_kernel_names(fn):
+    """Names of the kernels one profiled call of fn ran on the card."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def time_scalar_fwd_kernel(attention, peaks, smi, demo_prompt_len):
+    """Phase 4 for the scalar forward at its main-path shapes besides the
+    serving one: one layer of phase 6's f32 gradient check (b1 s512 h8 d128,
+    causal, with lse, as training runs it) and the demo model's prefill as
+    the engine gives it (b1, the prompt's length, h4 hk2 d16, no lse), each
+    beside its plain version, its bound at the f32 peak outside the tensor
+    cores and SDPA's f32 forward (no lse). Prints the kernels SDPA's f32
+    forward and backward ran (one profiled call each), so the yardstick is
+    known."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {}
+    for tag, (b, s, h, hk, d), with_lse in (("grad check", GRAD_CHECK_SHAPE, True),
+                                            ("demo prefill", (1, demo_prompt_len, 4, 2, 16), False)):
+        q, k, v = inputs(b, s, s, h, hk, d, torch.float32, seed=520, strided=True)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=h != hk))
+        rows = {tag: (lambda: attention.flash_attention(q, k, v, causal=True, with_lse=with_lse),
+                      lambda: attention.flash_attention_plain(q, k, v, causal=True, with_lse=with_lse),
+                      work(b, s, s, h, hk, d, torch.float32, True, with_lse), library_ms,
+                      "SDPA f32 forward (no lse)")}
+        shape = f"b{b} s{s} h{h} hk{hk} d{d} f32 causal{' lse' if with_lse else ''}"
+        timings.update(time_kernel_rows(rows, peaks, smi, torch.float32, shape))
+        if tag == "grad check":
+            qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+            fwd_names = device_kernel_names(lambda: sdpa(qt, kt, vt, is_causal=True))
+            out = sdpa(qg, kg, vg, is_causal=True)
+            bwd_names = device_kernel_names(lambda: torch.autograd.grad(out, (qg, kg, vg), out))
+            print(f"  SDPA f32 at {shape}: forward ran {fwd_names}; backward ran {bwd_names}",
+                  flush=True)
+    return timings
 
 
 def time_training_kernels(attention, peaks, smi):
@@ -691,9 +842,8 @@ def main() -> None:
     _build.build_all()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name, info in _build.build_info.items():
-        for line in info["log"].splitlines():
-            if any(w in line for w in ("registers", "spill", "error", "warning", "Performance")):
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(info["log"]):
+            print(f"  {name}: {line}")
     for lib in ("flash_fwd", "flash_bwd"):
         hgmma = count_sass(_build.library_path(lib), "HGMMA")
         print(f"  {lib} library: {hgmma} HGMMA (wgmma) instructions in its SASS", flush=True)
@@ -735,12 +885,23 @@ def main() -> None:
         ("bf16 d32 non-causal", 1, 96, 96, 4, 4, 32, torch.bfloat16, False, False, False),
         *tile_edge_cases(sms),
     ]
+    # the scalar kernel at its tile edges: lse on the causal half
+    scalar_edges = scalar_tile_edge_cases(attention, sms)
+    want_tile = {c[0]: c[-1] for c in scalar_edges}
+    cases += [(label, b, sq, sk, h, hk, d, dtype, causal, causal, strided)
+              for label, b, sq, sk, h, hk, d, dtype, causal, strided, _ in scalar_edges]
     errors, plans = [], set()
     main_err = train_fwd_err = f32_main_err = 0.0
     for i, (label, b, sq, sk, h, hk, d, dtype, causal, with_lse, strided) in enumerate(cases):
         q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=i, strided=strided)
         kernel, tile_q = attention.fwd_launch_plan(dtype, b, sq, h, d)
         plans.add((kernel, tile_q))
+        plan = f"{kernel}, {tile_q}-row q tiles"
+        if kernel == "flash_fwd_scalar":
+            split = attention.scalar_splits(dtype, d, b, sq, sk, h, hk, causal)[0]
+            plan += f", {split}-block clusters"
+            if tile_q != want_tile.get(label, attention._scalar_tile(sq, b * h, sms)):
+                errors.append(f"{label}: q tile {tile_q}")
         got = attention.flash_attention(q, k, v, causal=causal, with_lse=with_lse)
         ref = attention.flash_attention_plain(q, k, v, causal=causal, with_lse=with_lse)
         torch.cuda.synchronize()
@@ -750,7 +911,7 @@ def main() -> None:
             fail(f"{label}: out {tuple(out.shape)} {out.dtype}, want {tuple(ref_out.shape)} {q.dtype}")
         err = (out.float() - ref_out.float()).abs().max().item()
         ok = torch.isfinite(out.float()).all().item() and err <= TOLERANCE[dtype]
-        msg = f"  {label} [{kernel}, {tile_q}-row q tiles]: out max_abs_err {err:.3e} (tol {TOLERANCE[dtype]:.0e})"
+        msg = f"  {label} [{plan}]: out max_abs_err {err:.3e} (tol {TOLERANCE[dtype]:.0e})"
         if with_lse:
             lse_err = (lse - ref_lse).abs().max().item()
             ok = ok and lse_err <= LSE_TOLERANCE
@@ -766,11 +927,12 @@ def main() -> None:
             f32_main_err = err
     if errors:
         fail(f"flash_fwd disagrees with its plain version: {errors}")
-    if not {("flash_fwd", 64), ("flash_fwd", 128), ("flash_fwd_scalar", 64)} <= plans:
+    if not {("flash_fwd", 64), ("flash_fwd", 128), ("flash_fwd_scalar", 64), ("flash_fwd_scalar", 32),
+            ("flash_fwd_scalar", 16)} <= plans:
         fail(f"phase 3 did not run every forward kernel and q tile: {sorted(plans)}")
 
     phase("3b flash_bwd_dq / flash_bwd_dkv kernels vs plain")
-    bwd_err = check_backward(attention)
+    bwd_err = check_backward(attention, sms)
 
     phase("4 timing")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -812,6 +974,7 @@ def main() -> None:
         f"{name} {us:.1f} us" for name, us in split.items()), flush=True)
     train_timings = time_training_kernels(attention, peaks, smi)
     train_timings.update(time_scalar_bwd_kernels(attention, peaks, smi))
+    scalar_fwd_timings = time_scalar_fwd_kernel(attention, peaks, smi, len(DEMO_PROMPTS[0]))
 
     phase("5 serving path, full width")
     cfg = TransformerConfig(
@@ -932,7 +1095,7 @@ def main() -> None:
     if not ok:
         fail("the demo engine did not serve its request")
     # f32 on the card: the engine's greedy tokens against generate()'s
-    demo_prompts = [[1, 2, 3, 4], [9, 8, 7], [100, 200, 300, 400, 500], [42]]
+    demo_prompts = DEMO_PROMPTS
     attention.reset_launch_counts()
     handles = [demo.submit(p, max_new=24) for p in demo_prompts]
     if not demo.run_until_idle(timeout=120):
@@ -974,16 +1137,23 @@ def main() -> None:
                   "library": train_timings["flash_fwd"]["library"]},
     }, {
         "name": "flash_fwd_scalar",
-        "variant": "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32",
+        "variant": ("register-tiled f32 FMAs on the CUDA cores, cp.async ring, key split over "
+                    "clusters: f32 at every d, bf16 at d 16 and 32"),
         "route": "cuda",
         "source": src + "flash_fwd.cu",
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
-        # the demo model's serving path (f32, d 16)
-        "launches": demo_launches["flash_fwd_scalar"],
-        "launches_by_path": {"serve demo model": demo_launches["flash_fwd_scalar"]},
+        # the demo model's serving path (f32, d 16) and phase 6's f32
+        # gradient check (d 128, s 512)
+        "launches": demo_launches["flash_fwd_scalar"] + grad_check_launches["flash_fwd_scalar"],
+        "launches_by_path": {"serve demo model": demo_launches["flash_fwd_scalar"],
+                             "f32 gradient check": grad_check_launches["flash_fwd_scalar"]},
         "max_abs_err": f32_main_err,
         **timing_keys(scalar),
         "eager_ms": scalar["eager_ms"],
+        "grad_check": {**timing_keys(scalar_fwd_timings["grad check"]),
+                       "library": scalar_fwd_timings["grad check"]["library"]},
+        "demo_prefill": {**timing_keys(scalar_fwd_timings["demo prefill"]),
+                         "library": scalar_fwd_timings["demo prefill"]["library"]},
     }]
     for name, fn, line, variant, launched, path in (
             ("flash_bwd_dq", "_flash_bwd_dq_kernel", 464, "tensor cores (wgmma, TMA): bf16 at d 64 and 128",
@@ -994,7 +1164,8 @@ def main() -> None:
             ("flash_bwd_dq_scalar", "_flash_bwd_dq_kernel", 464,
              "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check"),
             ("flash_bwd_dkv_scalar", "_flash_bwd_dkv_kernel", 505,
-             "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check")):
+             "register-tiled f32 FMAs on the CUDA cores, cp.async ring, q split over clusters: f32 at "
+             "every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check")):
         t = train_timings[name]
         kernels.append({
             "name": name,

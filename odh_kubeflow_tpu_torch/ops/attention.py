@@ -283,6 +283,9 @@ _SIGNATURES = {
     "odh_flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [ctypes.c_int] * 7 + [_I64P] * 4
                           + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
     "odh_flash_bwd_kernel": ("flash_bwd", [ctypes.c_int] * 2),
+    "odh_flash_bwd_dkv_tile_k": ("flash_bwd", [ctypes.c_int] * 5),
+    "odh_flash_fwd_key_split": ("flash_fwd", [ctypes.c_int] * 7),
+    "odh_flash_bwd_dkv_q_split": ("flash_bwd", [ctypes.c_int] * 7),
 }
 
 
@@ -299,10 +302,24 @@ def _entry(fn_name: str):
     return lib, fn
 
 
+def _scalar_tile(rows: int, groups: int, sms: int) -> int:
+    """Rows per block of the scalar forward (q rows; `groups` = batch *
+    heads) and dk/dv (k rows; batch * kv_heads) kernels on a card of `sms`
+    SMs: 64, else 32, where that tile's grid split over 2-block clusters
+    gives at least three quarters of the SMs a block, else 16. A larger tile
+    gives each thread more FMAs per shared-memory load; a smaller one fills
+    more of the card. The mirror of ``odh_flash::scalar_tile`` in
+    ``csrc/flash_common.cuh``."""
+    for tile in (64, 32):
+        if 8 * groups * -(-rows // tile) >= 3 * sms:
+            return tile
+    return 16
+
+
 def fwd_launch_plan(dtype: torch.dtype, b: int, sq: int, h: int, d: int) -> Tuple[str, int]:
     """(kernel, q rows per block) that a CUDA forward launch at this shape
     runs, as the built library's C entry decides them (it builds the library
-    on first use); for checking the Python mirror and reporting on the card."""
+    on first use); for checking the Python mirrors and reporting on the card."""
     _, choose = _entry("odh_flash_fwd_kernel")
     _, tile_q = _entry("odh_flash_fwd_tile_q")
     code = _DTYPE_CODES[dtype]
@@ -324,6 +341,31 @@ def bwd_kernels_built(dtype: torch.dtype, d: int) -> Tuple[str, str]:
     return pair
 
 
+def bwd_dkv_launch_plan(dtype: torch.dtype, b: int, sk: int, hk: int, d: int) -> Tuple[str, int]:
+    """(dk/dv kernel, k rows per block) that a CUDA dk/dv launch at this
+    shape runs, as the built library's C entries decide them (it builds the
+    library on first use): 128 for the tensor-core kernel, the grid's choice
+    (`_scalar_tile`) for the scalar one."""
+    kernel = bwd_kernels_built(dtype, d)[1]
+    _, tile_k = _entry("odh_flash_bwd_dkv_tile_k")
+    return kernel, tile_k(_DTYPE_CODES[dtype], d, b, sk, hk)
+
+
+def scalar_splits(dtype: torch.dtype, d: int, b: int, sq: int, sk: int, h: int, hk: int,
+                  causal: bool) -> Tuple[int, int]:
+    """(forward, dk/dv) blocks per cluster that CUDA launches at this shape
+    take, as the built libraries' C entries decide them (odh_flash::
+    scalar_split): where a scalar kernel's grid of row tiles alone leaves
+    SMs idle, 2 or 4 blocks (forward) or 2 (dk/dv) split the key tiles or
+    the q tiles of one row tile and merge through distributed shared
+    memory; 1 otherwise and for the tensor-core kernels. For reporting on
+    the card."""
+    code = _DTYPE_CODES[dtype]
+    _, fwd = _entry("odh_flash_fwd_key_split")
+    _, dkv = _entry("odh_flash_bwd_dkv_q_split")
+    return fwd(code, d, b, sq, sk, h, int(causal)), dkv(code, d, b, sq, sk, h, hk)
+
+
 def _strides(t):
     """(batch, seq, head) element strides for a kernel: a dim of size 1
     takes the stride a contiguous tensor would have (a multiple of 16 bytes
@@ -332,9 +374,29 @@ def _strides(t):
     return _I64x3(*(st if n > 1 else c for st, n, c in zip(strides, (b, s, h), (s * h * d, h * d, d))))
 
 
+def _cp_async_problem(t: torch.Tensor):
+    """Why the scalar kernels' 4-byte cp.async copies cannot read `t` (b,
+    s, heads, d) in place, or None when they can: the last dim contiguous,
+    the base address and the batch, seq and head strides multiples of 4
+    bytes (a dim of size 1 has no stride that matters). Only a bf16 view
+    at an odd element offset or stride fails the second rule."""
+    if t.stride(3) != 1:
+        return f"last dim has stride {t.stride(3)}, not 1"
+    if t.data_ptr() % 4:
+        return f"base address {t.data_ptr():#x} is not 4-byte aligned"
+    item = t.element_size()
+    for dim, name in enumerate(("batch", "seq", "head")):
+        if t.shape[dim] > 1 and (t.stride(dim) * item) % 4:
+            return f"{name} stride of {t.stride(dim) * item} bytes is not a multiple of 4"
+    return None
+
+
 def _inner_contiguous(*ts):
-    # strides are read in place; only the last dim must be contiguous
-    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+    """The scalar kernels' inputs: read in place through their strides, a
+    contiguous copy in a fresh (aligned) allocation only of a view
+    `_cp_async_problem` names a problem with."""
+    return [t if _cp_async_problem(t) is None else t.clone(memory_format=torch.contiguous_format)
+            for t in ts]
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -347,8 +409,9 @@ def _launch(fn_name, kernel, q, k, v, dout, lse, delta, outs, causal: bool) -> N
     tensor-core kernels read q, k and v in place through TMA and raise
     ValueError on a view it cannot read, as the forward does (every view the
     forward took passes); dO is read in place where TMA can, else copied
-    (`_tma_readable_dout`). The scalar kernels read any strides, copying
-    only a last dim that is not contiguous."""
+    (`_tma_readable_dout`). The scalar kernels read any strides in place
+    but copy what `_cp_async_problem` names (a last dim that is not
+    contiguous, a base or stride not a multiple of 4 bytes)."""
     require_hopper(q.device)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -391,8 +454,16 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the port hands over meets that: the fused-qkv bf16 views have a seq
     stride of (h + 2*hk)*d*2 bytes and head offsets of h*d*2 and (h+hk)*d*2
     bytes, all multiples of 16 at d 64 and 128, and rotary's outputs are
-    contiguous. The scalar kernel (f32, and bf16 at d 16 and 32) reads any
-    strides, copying only a last dim that is not contiguous."""
+    contiguous.
+
+    The scalar kernel (f32, and bf16 at d 16 and 32) streams K/V tiles into
+    shared memory with cp.async: 16-byte copies where the base addresses and
+    the batch, seq and head strides of q, k and v are all multiples of 16
+    bytes (every contiguous tensor and fused-qkv view of the port), else
+    4-byte copies. It reads any such strides in place; the wrapper makes a
+    contiguous copy only of a view whose last dim is not contiguous or whose
+    base or strides are not multiples of 4 bytes (a bf16 view at an odd
+    element offset; `_cp_async_problem`)."""
     require_hopper(q.device)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]

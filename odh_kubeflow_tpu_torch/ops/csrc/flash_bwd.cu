@@ -82,22 +82,60 @@
 //   - the mask is applied only on tiles that straddle the causal diagonal
 //     or a ragged tail; dq, dk and dv are written once, from registers.
 //
-// * The scalar kernels (the port's first backward kernels), f32 at every d
-//   and bf16 at d 16 and 32: the tensor cores have no f32 product, and TF32
-//   would break the f32 gates (1e-5 against the plain version, the f32
-//   gradient check of the train step). 256-thread blocks, four threads per
-//   tile row, 64-row tiles in shared memory with rows padded so a warp's
-//   per-row reads hit distinct banks, scalar f32 FMAs; bound by shared-memory
-//   bandwidth.
-//   - dq: one block per (batch*head, 64 q rows). The q and dO tiles and each
+// * The scalar kernels, f32 at every d and bf16 at d 16 and 32 (the f32
+//   gradient check's d 128). Every product is an f32 FMA on the CUDA cores,
+//   with no TF32 of any kind: the tensor cores have no f32 product, and TF32
+//   (one pass, ~3 decimal digits, or split into three passes) would break
+//   the f32 gates (1e-5 against the plain version, the gradient check of
+//   the train step) or take away the reason the (dtype, d) rule gives.
+//   - dq: one 256-thread block per (batch*head, 64 q rows), four threads per
+//     row, 64-row tiles in shared memory with rows padded so a warp's
+//     per-row reads hit distinct banks, scalar f32 FMAs, two shared loads
+//     per FMA; bound by shared-memory bandwidth. The q and dO tiles and each
 //     row's lse and delta are staged once; the block loops over 64-row K/V
 //     tiles, stopping at the diagonal under the causal mask. A row's four
 //     threads compute its 64 ds values, round them, and share them through a
 //     shared-memory row; dq stays in f32 registers and is written once.
-//   - dk/dv: one block per (batch*kv_head, 64 k rows). The K/V tile stays
-//     resident; the block loops over the GQA group's heads and, for each, over
-//     64-row q tiles, starting at the diagonal under the causal mask. dk and
-//     dv of a k row stay in f32 registers across the whole group.
+//   - dk/dv (flash_bwd_dkv_scalar_kernel), in the transposed frame. What
+//     bounds it on this card: the f32 FMA rate (8*d flops per visible pair:
+//     0.0161 ms at b1 s512 h8 d128), and ahead of it shared memory (32 f32
+//     values a clock per SM against 128 FMAs) and the number of blocks; the
+//     kernel this one replaced did one FMA per shared load on 64 blocks
+//     (0.389 ms). So:
+//     . register tiles: one block per (batch*kv_head, BKR k rows), 16 row
+//       groups of 8 lanes (16 beside 64 k rows at d >= 32); a thread owns
+//       BKR/16 k rows x BQT/lanes q columns of S^T and dP^T, read from K
+//       and V (resident) and Q and dO (streamed)
+//       four d at a time, 2 * (rows + columns) loads for 8 * rows * columns
+//       FMAs; P^T and dS^T, rounded, go to shared memory (f32) only within
+//       the warp; then it owns its k rows x runs of 4 (2 at d 16) of dK's
+//       and dV's columns, in f32 registers across the whole GQA group, with
+//       P^T and dS^T read four q rows at a time and Q and dO rows as float4;
+//     . a grid that fills the card: BKR = 64 k rows (4 x 2 a thread at d
+//       128, where the q tile is 32 rows), else 32 or 16, by the same rule
+//       as the forward (odh_flash::scalar_tile), and where the grid still
+//       leaves SMs idle, clusters of 2 blocks share one k tile, each taking
+//       every other streamed q tile, and add their dK and dV through
+//       distributed shared memory in block order (no atomics: the same
+//       result every run), so b1 s512 hk8 runs 128 blocks of 64 rows;
+//     . async copies: Q and dO tiles, with their lse and delta, stream
+//       through a two-stage cp.async ring over the GQA group's heads and
+//       the q tiles from the diagonal on (16-byte copies where q, k, v and
+//       dO allow, else 4); the next tile's copies run under this tile's
+//       products. The mask only on tiles that straddle the diagonal or a
+//       ragged tail.
+//     ptxas (CUDA 12.8): 64-row tiles 183-197 registers at f32 d128, 168-174
+//     at f32 d 64 and 32, 230-234 at f32 d16, 128-167 in bf16; 32-row tiles
+//     96-198, 16-row 72-114; 8-32 bytes spilled in six of the 36. Timed on an H100 against this design, one
+//     variant at a time in a single run (a probe built from switches in
+//     this source, not kept), and not kept, each slower at b1 s512 h8 d128:
+//     16-row k tiles by the grid of unsplit tiles alone (one k row a thread,
+//     or two on 64 threads); 32-row tiles with or without clusters, with
+//     32- or 64-row q tiles; 64-row tiles without clusters, or with 8 lanes
+//     a k row, or with 16-row q tiles at d 128 (two blocks an SM); 16 lanes
+//     beside 16 or 32 k rows; clusters of 4 blocks (faster at b2 s1024 GQA
+//     8/2 d64, slower on the main path's shape, where a 64-row block needs
+//     a whole SM).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -255,111 +293,256 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_scalar_kernel(const Args
   }
 }
 
-template <typename T, int D>
-constexpr size_t dkv_smem_bytes() {
-  // k, v, q, dO tiles; the p and ds tiles in f32 with rows padded to
-  // BQ + 1; a q tile's lse * log2(e) and delta
-  return (size_t)(2 * BK + 2 * BQ) * (D + 2) * sizeof(T) +
-         (size_t)2 * BK * (BQ + 1) * sizeof(float) + (size_t)2 * BQ * sizeof(float);
-}
+// A block's geometry: BKR k rows, BQT q rows per streamed tile; RK k rows a
+// thread owns, QLANES threads along a k row (its q columns, then dK's and
+// dV's d columns); KS blocks in a cluster share the k rows and split the q
+// tiles
+template <typename T, int D, int BKR, int BQT, int RK, int QLANES, int KS>
+struct DkvCfg {
+  static_assert(BKR % RK == 0 && BQT % QLANES == 0 && BQT % 4 == 0 && D % (2 * QLANES) == 0 &&
+                    QLANES <= 32 && (KS == 1 || KS == 2),
+                "tile shapes");
+  static constexpr int ROW_GROUPS = BKR / RK;    // threads along the k rows
+  static constexpr int THREADS = ROW_GROUPS * QLANES;
+  static constexpr int CQ = BQT / QLANES;        // q columns a thread owns
+  static constexpr int VEC = D / QLANES >= 4 ? 4 : 2;  // dK/dV columns per contiguous run of a thread
+  static constexpr int NV = D / (QLANES * VEC);  // runs per dK/dV row of a thread
+  static constexpr int RS = D + 16 / (int)sizeof(T);  // row stride of every tile: 16 bytes of pad
+  static constexpr int PS = BQT + 8;             // P^T and dS^T row stride (f32)
+  static constexpr int RES_BYTES = BKR * RS * (int)sizeof(T);   // K or V, resident
+  static constexpr int TILE_BYTES = BQT * RS * (int)sizeof(T);  // one stage of the Q or dO ring
+  static constexpr int SMEM = 2 * RES_BYTES + 4 * TILE_BYTES + 2 * BKR * PS * 4 + 4 * BQT * 4;
+  // the cluster's exchange at the end (dK and dV of every row, f32) reuses
+  // the K/V tiles and the Q/dO ring
+  static_assert(2 * BKR * D * 4 <= 2 * RES_BYTES + 4 * TILE_BYTES, "exchange fits");
+};
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_scalar_kernel(const Args a) {
-  constexpr int S = D + 2;
-  constexpr int PS = BQ + 1;
-  constexpr int RPT = BQ / LANES;  // q rows per thread
-  constexpr int OPT = D / LANES;   // dk/dv columns per thread
+// One block per (batch*kv_head, BKR k rows), 128 threads: 16 row groups of
+// 8 lanes, one warp holding 4 row groups. Row group g owns the RK k rows g,
+// g + 16, ... and its lane the CQ q columns lane, lane + 8, ... of each
+// streamed q tile (S^T and dP^T), then the runs of dK's and dV's d columns
+// lane*VEC, lane*VEC + 8*VEC, ...; K and V stay resident while Q and dO
+// tiles of BQT rows, with their lse and delta, stream through a two-stage
+// cp.async ring over the GQA group's heads. See the file's header.
+template <typename T, int D, int BKR, int BQT, int RK, int QLANES, int KS>
+__global__ void __launch_bounds__(DkvCfg<T, D, BKR, BQT, RK, QLANES, KS>::THREADS)
+flash_bwd_dkv_scalar_kernel(const Args a, int vec16) {
+  using C = DkvCfg<T, D, BKR, BQT, RK, QLANES, KS>;
+  constexpr int ROW_GROUPS = C::ROW_GROUPS, DKV_THREADS = C::THREADS;
+  constexpr int CQ = C::CQ, VEC = C::VEC, NV = C::NV, RS = C::RS, PS = C::PS;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BK * S;
-  T* Qs = Vs + BK * S;
-  T* Os = Qs + BQ * S;
-  float* Ps = reinterpret_cast<float*>(Os + BQ * S);
-  float* DSs = Ps + BK * PS;
-  float* Ls = DSs + BK * PS;
-  float* Dl = Ls + BQ;
+  T* Vs = reinterpret_cast<T*>(smem + C::RES_BYTES);
+  T* Qs = reinterpret_cast<T*>(smem + 2 * C::RES_BYTES);                     // stage s at s * BQT * RS
+  T* Os = reinterpret_cast<T*>(smem + 2 * C::RES_BYTES + 2 * C::TILE_BYTES);  // the same
+  float* Ps = reinterpret_cast<float*>(smem + 2 * C::RES_BYTES + 4 * C::TILE_BYTES);
+  float* DSs = Ps + BKR * PS;
+  float* Ls = DSs + BKR * PS;  // stage s at s * BQT: a q tile's lse
+  float* Dl = Ls + 2 * BQT;    // and its delta
 
   const int tid = threadIdx.x;
-  const int c = tid / LANES;  // this thread's k row in the tile
-  const int t = tid % LANES;
-  const int k0 = blockIdx.x * BK;  // causal: the first k rows have the most q rows
+  const int rg = tid / QLANES;
+  const int lane = tid % QLANES;
+  const int rank = KS == 1 ? 0 : (int)blockIdx.x % KS;  // this block's place in its cluster
+  const int k0 = blockIdx.x / KS * BKR;  // causal: the first k rows have the most q rows
   const int bkv = blockIdx.y;
   const int b = bkv / a.hk;
   const int kvh = bkv % a.hk;
   const int group = a.h / a.hk;
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
+  // q rows below the block's tile see none of it under the causal mask
+  const int q_begin = a.causal ? (k0 / BQT) * BQT : 0;
+  const int n_qt = max(0, (a.sq - q_begin + BQT - 1) / BQT);
+  const int total = group * n_qt;  // every q tile of every head of the group
+  const int n_mine = (total - rank + KS - 1) / KS;  // this block streams tiles rank, rank + KS, ...
 
-  load_tile<T, D, BK>(Ks, kb, a.ks[1], k0, a.sk);
-  load_tile<T, D, BK>(Vs, vb, a.vs[1], k0, a.sk);
-  const int k_pos = k0 + c;
-  // q rows below k0 see none of this tile under the causal mask
-  const int q_begin = a.causal ? (k0 / BQ) * BQ : 0;
-
-  float dk[OPT], dv[OPT];
-#pragma unroll
-  for (int i = 0; i < OPT; ++i) dk[i] = dv[i] = 0.f;
-  const T* kr = Ks + c * S;
-  const T* vr = Vs + c * S;
-  float* pr = Ps + c * PS;
-  float* dsr = DSs + c * PS;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int hi = kvh * group + gi;
+  auto load_q = [&](int i) {
+    const int s = i & 1, t = rank + KS * i;
+    const int hi = kvh * group + t / n_qt;
+    const int q0 = q_begin + (t % n_qt) * BQT;
     const T* qb = static_cast<const T*>(a.q) + b * a.qs[0] + hi * a.qs[2];
     const T* ob = static_cast<const T*>(a.dout) + b * a.os[0] + hi * a.os[2];
+    async_rows<T, D, BQT, DKV_THREADS>(Qs + s * BQT * RS, RS, qb, a.qs[1], q0, a.sq, vec16);
+    async_rows<T, D, BQT, DKV_THREADS>(Os + s * BQT * RS, RS, ob, a.os[1], q0, a.sq, vec16);
     const int64_t stat0 = (int64_t)(b * a.h + hi) * a.sq;
-    for (int q0 = q_begin; q0 < a.sq; q0 += BQ) {
-      __syncthreads();  // every thread is done with the previous q tile
-      load_tile<T, D, BQ>(Qs, qb, a.qs[1], q0, a.sq);
-      load_tile<T, D, BQ>(Os, ob, a.os[1], q0, a.sq);
-      if (tid < BQ) {
-        const int qp = q0 + tid;
-        Ls[tid] = qp < a.sq ? a.lse[stat0 + qp] * LOG2E : 0.f;
-        Dl[tid] = qp < a.sq ? a.delta[stat0 + qp] : 0.f;
-      }
-      __syncthreads();
+    for (int i = tid; i < 2 * BQT; i += DKV_THREADS) {
+      const int r = i % BQT;
+      const bool ok = q0 + r < a.sq;
+      const float* src = (i < BQT ? a.lse : a.delta) + stat0;
+      cp_async<4>((i < BQT ? Ls : Dl) + s * BQT + r, ok ? src + q0 + r : src, ok);
+    }
+    cp_async_commit();
+  };
+  // K and V ride in the first copy group with the first q tile; rows past
+  // the sequences are zero, and so are lse and delta past sq
+  if (n_mine > 0) {
+    async_rows<T, D, BKR, DKV_THREADS>(Ks, RS, kb, a.ks[1], k0, a.sk, vec16);
+    async_rows<T, D, BKR, DKV_THREADS>(Vs, RS, vb, a.vs[1], k0, a.sk, vec16);
+    load_q(0);
+  }
 
-      const bool masked = (q0 + BQ > a.sq) || (k0 + BK > a.sk) || (a.causal && k0 + BK - 1 > q0);
-#pragma unroll 4
-      for (int j = 0; j < RPT; ++j) {
-        const int r = t + LANES * j;
-        const int qp = q0 + r;
-        float s = dot<T, D>(Qs + r * S, kr) * a.scale_log2;
-        if (masked && (qp >= a.sq || k_pos >= a.sk || (a.causal && k_pos > qp))) s = NEG_INF;
-        const float p = exp2f(s - Ls[r]);
-        const float dp = dot<T, D>(Os + r * S, vr);
-        pr[r] = round_to<T>(p);
-        dsr[r] = round_to<T>(p * (dp - Dl[r]) * a.scale);
-      }
-      __syncwarp();  // a k row's four threads share one warp
-
-      for (int r = 0; r < BQ; ++r) {
-        const float p = pr[r];
-        const float ds = dsr[r];
-        const T* orow = Os + r * S + 2 * t;
-        const T* qrow = Qs + r * S + 2 * t;
+  float dk[RK][NV * VEC], dv[RK][NV * VEC];
 #pragma unroll
-        for (int i = 0; i < OPT / 2; ++i) {
-          const float2 o = load2(orow + 2 * LANES * i);
-          const float2 q = load2(qrow + 2 * LANES * i);
-          dv[2 * i] = fmaf(p, o.x, dv[2 * i]);
-          dv[2 * i + 1] = fmaf(p, o.y, dv[2 * i + 1]);
-          dk[2 * i] = fmaf(ds, q.x, dk[2 * i]);
-          dk[2 * i + 1] = fmaf(ds, q.y, dk[2 * i + 1]);
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int e = 0; e < NV * VEC; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int it = 0; it < n_mine; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is visible, and every thread is done with the last one
+    if (it + 1 < n_mine) load_q(it + 1);  // lands while this tile is computed
+    const int st = it & 1, t = rank + KS * it;
+    const int q0 = q_begin + (t % n_qt) * BQT;
+    const T* Qt = Qs + st * BQT * RS;
+    const T* Ot = Os + st * BQT * RS;
+
+    // S^T = K.Q^T and dP^T = V.dO^T: 2 x RK x CQ independent sums, four d
+    // at a time: 2 * (RK + CQ) shared loads of four values for
+    // 8 * RK * CQ FMAs
+    float s[RK][CQ], dp[RK][CQ];
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int j = 0; j < CQ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 4) {
+      float4 ka[RK], va[RK];
+#pragma unroll
+      for (int i = 0; i < RK; ++i) {
+        ka[i] = load4(Ks + (rg + ROW_GROUPS * i) * RS + d0);
+        va[i] = load4(Vs + (rg + ROW_GROUPS * i) * RS + d0);
+      }
+#pragma unroll
+      for (int j = 0; j < CQ; ++j) {
+        const float4 qq = load4(Qt + (lane + QLANES * j) * RS + d0);
+        const float4 oo = load4(Ot + (lane + QLANES * j) * RS + d0);
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          s[i][j] = fmaf(ka[i].x, qq.x, s[i][j]);
+          s[i][j] = fmaf(ka[i].y, qq.y, s[i][j]);
+          s[i][j] = fmaf(ka[i].z, qq.z, s[i][j]);
+          s[i][j] = fmaf(ka[i].w, qq.w, s[i][j]);
+          dp[i][j] = fmaf(va[i].x, oo.x, dp[i][j]);
+          dp[i][j] = fmaf(va[i].y, oo.y, dp[i][j]);
+          dp[i][j] = fmaf(va[i].z, oo.z, dp[i][j]);
+          dp[i][j] = fmaf(va[i].w, oo.w, dp[i][j]);
+        }
+      }
+    }
+
+    // p and ds of each (k, q) pair, rounded into P^T and dS^T; the tile
+    // needs elementwise masking only on a ragged tail or the diagonal
+    const bool masked = (q0 + BQT > a.sq) || (k0 + BKR > a.sk) || (a.causal && k0 + BKR - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < CQ; ++j) {
+      const int c = lane + QLANES * j;
+      const int qp = q0 + c;
+      const float lse2 = Ls[st * BQT + c] * LOG2E;
+      const float dlt = Dl[st * BQT + c];
+#pragma unroll
+      for (int i = 0; i < RK; ++i) {
+        const int r = rg + ROW_GROUPS * i;
+        const int kp = k0 + r;
+        float x = s[i][j] * a.scale_log2;
+        if (masked && (qp >= a.sq || kp >= a.sk || (a.causal && kp > qp))) x = NEG_INF;
+        const float p = exp2f(x - lse2);
+        Ps[r * PS + c] = round_to<T>(p);
+        DSs[r * PS + c] = round_to<T>(p * (dp[i][j] - dlt) * a.scale);
+      }
+    }
+    __syncwarp();  // a row group's P^T and dS^T rows are written and read by its own warp
+
+    // dV += P^T.dO and dK += dS^T.Q: this thread's k rows x its runs of d,
+    // four q rows at a time
+#pragma unroll 2
+    for (int c0 = 0; c0 < BQT; c0 += 4) {
+      float4 pa[RK], da[RK];
+#pragma unroll
+      for (int i = 0; i < RK; ++i) {
+        pa[i] = *reinterpret_cast<const float4*>(Ps + (rg + ROW_GROUPS * i) * PS + c0);
+        da[i] = *reinterpret_cast<const float4*>(DSs + (rg + ROW_GROUPS * i) * PS + c0);
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const T* orow = Ot + (c0 + cc) * RS + VEC * lane;
+        const T* qrow = Qt + (c0 + cc) * RS + VEC * lane;
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          float ov[VEC], qv[VEC];
+          load_n<VEC>(orow + QLANES * VEC * n, ov);
+          load_n<VEC>(qrow + QLANES * VEC * n, qv);
+#pragma unroll
+          for (int i = 0; i < RK; ++i) {
+            const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y : cc == 2 ? pa[i].z : pa[i].w;
+            const float ds = cc == 0 ? da[i].x : cc == 1 ? da[i].y : cc == 2 ? da[i].z : da[i].w;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              dv[i][n * VEC + e] = fmaf(p, ov[e], dv[i][n * VEC + e]);
+              dk[i][n * VEC + e] = fmaf(ds, qv[e], dk[i][n * VEC + e]);
+            }
+          }
         }
       }
     }
   }
 
-  if (k_pos < a.sk) {
-    const int64_t row = ((int64_t)(b * a.sk + k_pos) * a.hk + kvh) * D + 2 * t;
-    T* dkr = static_cast<T*>(a.dk) + row;
-    T* dvr = static_cast<T*>(a.dv) + row;
+  // A cluster sums its blocks' dK and dV through distributed shared memory:
+  // each block puts its sums where its K, V and ring were, and block r
+  // finishes the rows r, r + KS, ..., adding the blocks' sums in block
+  // order (the same order on every run)
+  if constexpr (KS > 1) {
+    float* X = reinterpret_cast<float*>(smem);  // dK rows, then dV rows
+    __syncthreads();  // every thread is done with K, V and the ring
 #pragma unroll
-    for (int i = 0; i < OPT / 2; ++i) {
-      store2(dkr + 2 * LANES * i, dk[2 * i], dk[2 * i + 1]);
-      store2(dvr + 2 * LANES * i, dv[2 * i], dv[2 * i + 1]);
+    for (int i = 0; i < RK; ++i) {
+      float* xk = X + (rg + ROW_GROUPS * i) * D + VEC * lane;
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          xk[QLANES * VEC * n + e] = dk[i][n * VEC + e];
+          xk[BKR * D + QLANES * VEC * n + e] = dv[i][n * VEC + e];
+        }
+    }
+    cooperative_groups::this_cluster().sync();  // every block's sums are visible to the cluster
+#pragma unroll
+    for (int i = 0; i < RK; ++i) {
+      const int row = rg + ROW_GROUPS * i;
+      if (row % KS != rank) continue;
+      const float* xs[KS];
+#pragma unroll
+      for (int r = 0; r < KS; ++r)
+        xs[r] = cooperative_groups::this_cluster().map_shared_rank(X, r) + row * D + VEC * lane;
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float sk_ = 0.f, sv_ = 0.f;
+#pragma unroll
+          for (int r = 0; r < KS; ++r) {
+            sk_ += xs[r][QLANES * VEC * n + e];
+            sv_ += xs[r][BKR * D + QLANES * VEC * n + e];
+          }
+          dk[i][n * VEC + e] = sk_;
+          dv[i][n * VEC + e] = sv_;
+        }
+    }
+    cooperative_groups::this_cluster().sync();  // no block leaves while another reads it
+  }
+
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int row = rg + ROW_GROUPS * i;
+    const int kp = k0 + row;
+    if (kp >= a.sk || row % KS != rank) continue;
+    const int64_t at = ((int64_t)(b * a.sk + kp) * a.hk + kvh) * D + VEC * lane;
+    T* dkr = static_cast<T*>(a.dk) + at;
+    T* dvr = static_cast<T*>(a.dv) + at;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      store_n<VEC>(dkr + QLANES * VEC * n, &dk[i][n * VEC]);
+      store_n<VEC>(dvr + QLANES * VEC * n, &dv[i][n * VEC]);
     }
   }
 }
@@ -377,28 +560,75 @@ struct LaunchDq {
   }
 };
 
+// q rows per streamed tile: 32 at d 128, where two stages of 64-row f32 Q
+// and dO tiles beside 64 resident K/V rows would pass the 227 KB a block
+// may hold, else 64
+constexpr int q_tile(int d) { return d == 128 ? 32 : 64; }
+
+// k rows per block and blocks per cluster (the streamed q tiles of the
+// first k rows split between them): the grid's size decides
+// (odh_flash::scalar_tile and scalar_split)
+int tile_k(int b, int sk, int hk) { return scalar_tile(sk, (int64_t)b * hk); }
+
+int q_split(int b, int sq, int sk, int hk, int group, int d) {
+  const int tile = tile_k(b, sk, hk);
+  return scalar_split(sk, (int64_t)b * hk, tile, (int64_t)group * ((sq + q_tile(d) - 1) / q_tile(d)), 2);
+}
+
 template <typename T, int D>
 struct LaunchDkv {
-  static cudaError_t run(const Args& a, cudaStream_t stream) {
-    constexpr size_t smem = dkv_smem_bytes<T, D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_scalar_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  template <int BKR, int KS>
+  static cudaError_t go(const Args& a, int vec16, cudaStream_t stream) {
+    // 16 row groups of BKR / 16 k rows x 8 lanes, or 16 lanes (256
+    // threads) beside 64 k rows at d 32 and up
+    constexpr int BQT = q_tile(D);
+    constexpr int QLANES = BKR == 64 && D >= 32 ? 16 : 8;
+    constexpr int RK = BKR / 16;
+    using C = DkvCfg<T, D, BKR, BQT, RK, QLANES, KS>;
+    auto kernel = flash_bwd_dkv_scalar_kernel<T, D, BKR, BQT, RK, QLANES, KS>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.sk + BK - 1) / BK, a.b * a.hk);
-    flash_bwd_dkv_scalar_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
-    return cudaGetLastError();
+    const dim3 grid((a.sk + BKR - 1) / BKR * KS, a.b * a.hk);
+    return launch_clustered(kernel, grid, C::THREADS, C::SMEM, KS, stream, a, vec16);
+  }
+
+  static cudaError_t run(const Args& a, cudaStream_t stream) {
+    constexpr int E = sizeof(T);
+    // every view 4-byte aligned (the wrapper copies one that is not), and
+    // 16-byte copies where all four allow them
+    const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+    const int64_t* strides[4] = {a.qs, a.ks, a.vs, a.os};
+    int vec16 = 1;
+    for (int i = 0; i < 4; ++i) {
+      if (!aligned_to(ptrs[i], strides[i], E, 4)) return cudaErrorMisalignedAddress;
+      vec16 = vec16 && aligned_to(ptrs[i], strides[i], E, 16);
+    }
+    const int tile = tile_k(a.b, a.sk, a.hk);
+    const int split = q_split(a.b, a.sq, a.sk, a.hk, a.h / a.hk, D);
+    if (split == 2) {
+      switch (tile) {
+        case 64: return go<64, 2>(a, vec16, stream);
+        case 32: return go<32, 2>(a, vec16, stream);
+        default: return go<16, 2>(a, vec16, stream);
+      }
+    }
+    switch (tile) {
+      case 64: return go<64, 1>(a, vec16, stream);
+      case 32: return go<32, 1>(a, vec16, stream);
+      default: return go<16, 1>(a, vec16, stream);
+    }
   }
 };
 
 template <template <typename, int> class Launch, typename T>
 cudaError_t dispatch_d(int d, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 16: return Launch<T, 16>::run(a, stream);
-    case 32: return Launch<T, 32>::run(a, stream);
-    case 64: return Launch<T, 64>::run(a, stream);
-    case 128: return Launch<T, 128>::run(a, stream);
-    default: return cudaErrorInvalidValue;
+  if (d == 16) return Launch<T, 16>::run(a, stream);
+  if (d == 32) return Launch<T, 32>::run(a, stream);
+  if constexpr (sizeof(T) == 4) {  // bf16 at d 64 and 128 is the tensor-core pair's
+    if (d == 64) return Launch<T, 64>::run(a, stream);
+    if (d == 128) return Launch<T, 128>::run(a, stream);
   }
+  return cudaErrorInvalidValue;
 }
 
 template <template <typename, int> class Launch>
@@ -898,12 +1128,27 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // attention._bwd_kernel_for mirrors it in Python.
 extern "C" int odh_flash_bwd_kernel(int dtype, int d) { return odh_flash::kernel_choice(dtype, d); }
 
+// k rows per block of the dk/dv kernel odh_flash_bwd_dkv would launch for
+// this call; attention.bwd_dkv_launch_plan reports it
+extern "C" int odh_flash_bwd_dkv_tile_k(int dtype, int d, int b, int sk, int hk) {
+  return odh_flash_bwd_kernel(dtype, d) == 1 ? wg::ROWS : scalar::tile_k(b, sk, hk);
+}
+
+// blocks per cluster of the dk/dv kernel odh_flash_bwd_dkv would launch
+// (the scalar kernel's q split; the tensor-core kernel takes no clusters)
+extern "C" int odh_flash_bwd_dkv_q_split(int dtype, int d, int b, int sq, int sk, int h, int hk) {
+  if (hk <= 0 || h % hk) return -1;
+  return odh_flash_bwd_kernel(dtype, d) == 1 ? 1 : scalar::q_split(b, sq, sk, hk, h / hk, d);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, (batch, seq,
 // head) for each of q/k/v/dO; the last dim must be contiguous. For the
 // tensor-core kernels the base addresses must be 16-byte aligned and every
-// stride a multiple of 16 bytes (TMA's rule). Each returns the launch's
-// cudaError_t (0 on success); the launch is asynchronous on `stream`. A
-// failed launch is returned, never retried on the other kernel.
+// stride a multiple of 16 bytes (TMA's rule); for the scalar dk/dv kernel,
+// which copies with cp.async, multiples of 4 bytes (16-byte copies where
+// all four views allow them). Each returns the launch's cudaError_t (0 on
+// success); the launch is asynchronous on `stream`. A failed launch is
+// returned, never retried on the other kernel.
 extern "C" int odh_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, void* dq, int dtype, int b,

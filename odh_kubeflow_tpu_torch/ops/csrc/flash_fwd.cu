@@ -24,8 +24,8 @@
 //   128). What bounds it on this card: at the training shape (b8 s2048 h8
 //   d128, causal) the work is 68.75 GFLOP against 134.7 MB, so an ideal
 //   kernel is bound by tensor-core operations (0.0695 ms at 989 TFLOP/s);
-//   the scalar kernel below reached ~1% of that, fed from shared memory at
-//   two loads per FMA. This one runs both products on the tensor cores:
+//   a scalar kernel fed from shared memory at two loads per FMA reached ~1%
+//   of that. This one runs both products on the tensor cores:
 //   - a producer (one thread of it starts every load) brings Q once and each
 //     K and V tile by TMA (tensor maps built on the host over the strided
 //     (b, s, heads, d) views, 128-byte swizzle, rows past the sequence
@@ -54,12 +54,49 @@
 //   Each of these was timed on an H100 against the kernel without it and
 //   kept because it was faster; a three-stage ring was not.
 //
-// * flash_fwd_scalar_kernel (the port's first forward kernel), f32 at every
-//   d and bf16 at d 16 and 32. The tensor cores have no f32 product, and
-//   TF32 would break the f32 gates (1e-4 against the plain version, the f32
-//   greedy parity of the demo model with generate()). One 256-thread block
-//   per (batch*head, 64 q rows), four threads per query row doing scalar
-//   f32 FMAs fed from shared memory: bound by shared-memory bandwidth.
+// * flash_fwd_scalar_kernel, f32 at every d and bf16 at d 16 and 32 (the
+//   f32 demo model's d 16, the f32 gradient check's d 128). Every product is
+//   an f32 FMA on the CUDA cores, with no TF32 of any kind: the tensor cores
+//   have no f32 product, and TF32 (one pass, ~3 decimal digits, or split
+//   into three passes) would break the f32 gates (1e-4 against the plain
+//   version, the gradient check, the demo model's exact greedy parity with
+//   generate()) or take away the reason the (dtype, d) rule gives.
+//   What bounds it on this card: the f32 FMA rate (67 TFLOP/s), and ahead
+//   of it shared memory, which hands an SM 32 f32 values a clock against
+//   its 128 FMAs, and at the main-path shapes (b1 s128 and s512, h8) the
+//   number of blocks: the kernel this one replaced did one FMA per shared
+//   load, in one dependent chain per score, on 16 blocks at b1 s128 h8
+//   (0.061 ms). So:
+//   - register tiles: a thread owns RQ q rows x CK keys of each S tile and
+//     reads Q and K rows (row-major, padded 16 bytes against bank
+//     conflicts) four d at a time, RQ + CK loads for 4*RQ*CK independent
+//     FMAs; for P.V its rows x runs of 4 (2 at d 16) of O's columns, P read
+//     four keys at a time and V rows as float4. P goes through shared
+//     memory in f32 (rounded to the input dtype), only within its warp;
+//   - a grid that fills the card: 64 q rows a block (4 x 4 a thread, 128
+//     threads, 32-key tiles), else 32 or 16 (2 x 4 or 1 x 4, 256 threads,
+//     64-key tiles) where the larger tile's grid, split over clusters, gives
+//     fewer than three quarters of the SMs a block (odh_flash::scalar_tile);
+//     and where the grid still leaves SMs idle, clusters of 2 or 4 blocks
+//     share one q tile, each taking every 2nd or 4th key tile, and merge
+//     their (m, l, acc) through distributed shared memory (each block
+//     finishes a share of the rows), so b1 s128 h8 runs 128 blocks and the
+//     gradient check's s512 256 (odh_flash::scalar_split);
+//   - async copies: K/V tiles come through a two-stage cp.async ring, 16
+//     bytes a copy where q, k and v allow it (base and strides multiples of
+//     16 bytes), else 4; the next tile's copies run under this tile's
+//     products. Longest q tiles first; the mask only on tiles that straddle
+//     the diagonal or the ragged tail.
+//   ptxas (CUDA 12.8): 64-row tiles 168 registers at f32 d128, 128-144 at
+//   d64, 96 at d32, 80 at d16, 96-124 in bf16; 16- and 32-row tiles 64-88,
+//   spilling 16-20 bytes at f32 d128 (32-row tiles), d64 (32-row, unsplit)
+//   and d16 (16-row, unsplit). Timed on an H100 against this design, one variant at a time in
+//   a single run (a probe built from switches in this source, not kept),
+//   and not kept, each slower at b1 s128 or s512 h8 d128: 8 lanes a row at
+//   16- and 32-row tiles; 32 lanes; two rows a thread at 16-row tiles (64
+//   threads); 32-key tiles beside 16 or 32 q rows; 64-key tiles beside 64;
+//   the tile chosen by the unsplit grid alone (16 rows at s512); no
+//   clusters; clusters of at most 2 blocks (slower at s512).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -74,40 +111,57 @@ constexpr float LN2 = 0.6931471805599453f;
 
 namespace scalar {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per shared-memory tile
-constexpr int LANES = 4;      // threads per query row
-constexpr int THREADS = BQ * LANES;
+// A block's geometry: BQ q rows, BK keys per K/V tile; RQ q rows a thread
+// owns, LANES threads along a row (its key columns, then O's d columns); KS
+// blocks in a cluster share the q rows and split the key tiles
+template <typename T, int D, int BQ, int BK, int RQ, int LANES, int KS>
+struct Cfg {
+  static_assert(BQ % RQ == 0 && BK % LANES == 0 && BK % 4 == 0 && D % (2 * LANES) == 0 &&
+                    LANES <= 32 && (KS == 1 || KS == 2 || KS == 4),
+                "tile shapes");
+  static constexpr int ROW_GROUPS = BQ / RQ;     // threads along the q rows
+  static constexpr int THREADS = ROW_GROUPS * LANES;
+  static constexpr int CK = BK / LANES;          // key columns a thread owns
+  static constexpr int VEC = D / LANES >= 4 ? 4 : 2;  // O columns per contiguous run of a thread
+  static constexpr int NV = D / (LANES * VEC);   // runs per O row of a thread
+  static constexpr int QS = D + 16 / (int)sizeof(T);  // Q and K row stride: 16 bytes of pad
+  static constexpr int PS = BK + 8;              // P row stride (f32): a warp's rows on distinct banks
+  static constexpr int Q_BYTES = BQ * QS * (int)sizeof(T);
+  static constexpr int K_BYTES = BK * QS * (int)sizeof(T);  // one stage of the K ring
+  static constexpr int V_BYTES = BK * D * (int)sizeof(T);   // one stage of the V ring
+  static constexpr int SMEM = Q_BYTES + 2 * (K_BYTES + V_BYTES) + BQ * PS * 4;
+  // the cluster's exchange at the end (m, l and acc of every row, f32)
+  // reuses the K/V ring
+  static_assert(BQ * (D + 2) * 4 <= 2 * (K_BYTES + V_BYTES), "exchange fits in the ring");
+};
 
-template <typename T, int D>
-constexpr size_t smem_bytes() {
-  // q and k tiles padded to D + 2 elements per row, v unpadded, p in f32
-  return (size_t)(BQ + BK) * (D + 2) * sizeof(T) + (size_t)BK * D * sizeof(T) +
-         (size_t)BQ * (BK + 1) * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// One cluster of KS blocks per (batch*head, BQ q rows); block r of the
+// cluster takes key tiles r, r + KS, ... Row group g owns the RQ q rows g,
+// g + ROW_GROUPS, ... and its lane the CK key columns lane, lane + LANES,
+// ... of each key tile; a row's lanes reduce its max and sum by shuffles.
+// See the file's header.
+template <typename T, int D, int BQ, int BK, int RQ, int LANES, int KS>
+__global__ void __launch_bounds__(Cfg<T, D, BQ, BK, RQ, LANES, KS>::THREADS)
 flash_fwd_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
                         float* __restrict__ lse, int h, int hk, int sq, int sk,
                         int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
                         int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-                        int64_t vsh, int causal, float scale_log2) {
-  constexpr int QS = D + 2;          // padded row stride of the q/k tiles
-  constexpr int PS = BK + 1;         // padded row stride of the p tile
-  constexpr int CPT = BK / LANES;    // score columns per thread
-  constexpr int OPT = D / LANES;     // output columns per thread
+                        int64_t vsh, int causal, float scale_log2, int vec16) {
+  using C = Cfg<T, D, BQ, BK, RQ, LANES, KS>;
+  constexpr int ROW_GROUPS = C::ROW_GROUPS, THREADS = C::THREADS;
+  constexpr int CK = C::CK, VEC = C::VEC, NV = C::NV, QS = C::QS, PS = C::PS;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BQ * QS;
-  T* Vs = Ks + BK * QS;
-  float* Ps = reinterpret_cast<float*>(Vs + BK * D);
+  T* Ks = reinterpret_cast<T*>(smem + C::Q_BYTES);                    // stage s at s * BK * QS
+  T* Vs = reinterpret_cast<T*>(smem + C::Q_BYTES + 2 * C::K_BYTES);   // stage s at s * BK * D
+  float* Ps = reinterpret_cast<float*>(smem + C::Q_BYTES + 2 * (C::K_BYTES + C::V_BYTES));
 
   const int tid = threadIdx.x;
-  const int r = tid / LANES;
-  const int t = tid % LANES;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int rg = tid / LANES;
+  const int lane = tid % LANES;
+  const int rank = KS == 1 ? 0 : (int)blockIdx.x % KS;   // this block's place in its cluster
+  const int q0 = (gridDim.x / KS - 1 - blockIdx.x / KS) * BQ;  // longest rows first
   const int bh = blockIdx.y;
   const int b = bh / h;
   const int hi = bh % h;
@@ -115,120 +169,264 @@ flash_fwd_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * qsb + hi * qsh;
   const T* kb = k + b * ksb + kvh * ksh;
   const T* vb = v + b * vsb + kvh * vsh;
-
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int row = idx / D, col = idx % D;
-    const int qp = q0 + row;
-    Qs[row * QS + col] = qp < sq ? qb[qp * qss + col] : from_f<T>(0.f);
-  }
-
-  const int q_pos = q0 + r;
   const int q_last = min(q0 + BQ, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int n_tiles = (k_end + BK - 1) / BK;
+  const int n_mine = (n_tiles - rank + KS - 1) / KS;   // key tiles rank, rank + KS, ...
 
-  float m = NEG_INF;
-  float l = 0.f;
-  float acc[OPT];
+  // Q rides in the first copy group with this block's first K/V tile; rows
+  // past the sequence are zero, so their p is finite and 0 * garbage never
+  // happens
+  auto load_kv = [&](int i) {
+    const int s = i & 1, k0 = (rank + KS * i) * BK;
+    async_rows<T, D, BK, THREADS>(Ks + s * BK * QS, QS, kb, kss, k0, sk, vec16);
+    async_rows<T, D, BK, THREADS>(Vs + s * BK * D, D, vb, vss, k0, sk, vec16);
+    cp_async_commit();
+  };
+  if (n_mine > 0) {
+    async_rows<T, D, BQ, THREADS>(Qs, QS, qb, qss, q0, sq, vec16);
+    load_kv(0);
+  }
+
+  float m[RQ], l[RQ], acc[RQ][NV * VEC];
 #pragma unroll
-  for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
-  const T* qr = Qs + r * QS;
-  float* pr = Ps + r * PS;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every thread is done with the previous K/V tile
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int row = idx / D, col = idx % D;
-      const int kp = k0 + row;
-      // rows past sk are zero: their p is 0, and 0 * garbage could be NaN
-      Ks[row * QS + col] = kp < sk ? kb[kp * kss + col] : from_f<T>(0.f);
-      Vs[row * D + col] = kp < sk ? vb[kp * vss + col] : from_f<T>(0.f);
-    }
-    __syncthreads();
-
-    // the tile needs elementwise masking only on the ragged tail and where
-    // it straddles the causal diagonal
-    const bool masked = (k0 + BK > sk) || (causal && k0 + BK - 1 > q0);
-    float s[CPT];
-    float row_max = NEG_INF;
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = t + LANES * j;
-      const T* kr = Ks + c * QS;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < D; i += 2) {
-        const float2 a = load2(qr + i);
-        const float2 w = load2(kr + i);
-        dot = fmaf(a.x, w.x, dot);
-        dot = fmaf(a.y, w.y, dot);
+    for (int e = 0; e < NV * VEC; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_mine; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is visible, and every thread is done with the last one
+    if (it + 1 < n_mine) load_kv(it + 1);  // lands while this tile is computed
+    const T* Kt = Ks + (it & 1) * BK * QS;
+    const T* Vt = Vs + (it & 1) * BK * D;
+    const int k0 = (rank + KS * it) * BK;
+
+    // S = Q.K^T: RQ x CK independent sums, four d at a time: RQ + CK
+    // shared loads of four values for 4 * RQ * CK FMAs
+    float s[RQ][CK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d0 = 0; d0 < D; d0 += 4) {
+      float4 qa[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) qa[i] = load4(Qs + (rg + ROW_GROUPS * i) * QS + d0);
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        const float4 kk = load4(Kt + (lane + LANES * j) * QS + d0);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          s[i][j] = fmaf(qa[i].x, kk.x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kk.y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kk.z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kk.w, s[i][j]);
+        }
       }
-      float sv = dot * scale_log2;  // log2-domain score
-      const int kp = k0 + c;
-      if (masked && (kp >= sk || (causal && kp > q_pos))) sv = NEG_INF;
-      s[j] = sv;
-      row_max = fmaxf(row_max, sv);
     }
-    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
-    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
-    const float m_new = fmaxf(m, row_max);
-    const float alpha = exp2f(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const float p = exp2f(s[j] - m_new);
-      psum += p;  // l sums the f32 p; acc takes p in the input dtype
-      pr[t + LANES * j] = round_to<T>(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // a row's four threads share one warp
 
+    // the online softmax of each row; the tile needs elementwise masking
+    // only on the ragged tail and where it straddles the causal diagonal
+    const bool masked = (k0 + BK > sk) || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < OPT; ++i) acc[i] *= alpha;
-    for (int c = 0; c < BK; ++c) {
-      const float p = pr[c];
-      const T* vr = Vs + c * D + 2 * t;
+    for (int i = 0; i < RQ; ++i) {
+      const int q_pos = q0 + rg + ROW_GROUPS * i;
+      float row_max = NEG_INF;
 #pragma unroll
-      for (int i = 0; i < OPT / 2; ++i) {
-        const float2 w = load2(vr + 2 * LANES * i);
-        acc[2 * i] = fmaf(p, w.x, acc[2 * i]);
-        acc[2 * i + 1] = fmaf(p, w.y, acc[2 * i + 1]);
+      for (int j = 0; j < CK; ++j) {
+        float x = s[i][j] * scale_log2;  // log2-domain score
+        const int kp = k0 + lane + LANES * j;
+        if (masked && (kp >= sk || (causal && kp > q_pos))) x = NEG_INF;
+        s[i][j] = x;
+        row_max = fmaxf(row_max, x);
+      }
+#pragma unroll
+      for (int w = 1; w < LANES; w *= 2)
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, w));
+      const float m_new = fmaxf(m[i], row_max);
+      const float alpha = exp2f(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        psum += p;  // l sums the f32 p; acc takes p in the input dtype
+        Ps[(rg + ROW_GROUPS * i) * PS + lane + LANES * j] = round_to<T>(p);
+      }
+#pragma unroll
+      for (int w = 1; w < LANES; w *= 2) psum += __shfl_xor_sync(0xffffffffu, psum, w);
+      l[i] = l[i] * alpha + psum;
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < NV * VEC; ++e) acc[i][e] *= alpha;
+    }
+    __syncwarp();  // a row group's P rows are written and read by its own warp
+
+    // O += P.V: this thread's rows x its runs of O's columns, four keys at a
+    // time from its P rows (RQ loads) and the four V rows (NV loads each)
+#pragma unroll 2
+    for (int c0 = 0; c0 < BK; c0 += 4) {
+      float4 pa[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(Ps + (rg + ROW_GROUPS * i) * PS + c0);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const T* vr = Vt + (c0 + cc) * D + VEC * lane;
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          float w[VEC];
+          load_n<VEC>(vr + LANES * VEC * n, w);
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) {
+            const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y : cc == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[i][n * VEC + e] = fmaf(p, w[e], acc[i][n * VEC + e]);
+          }
+        }
       }
     }
   }
 
-  if (q_pos < sq) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + ((int64_t)(b * sq + q_pos) * h + hi) * D + 2 * t;
+  // A cluster merges its blocks' carries through distributed shared memory:
+  // each block puts (m, l, acc) of every row in its own ring, and block r
+  // finishes the rows r, r + KS, ... with M = max m, L = sum l * 2^(m - M)
+  // and acc = sum acc * 2^(m - M), summed in block order
+  if constexpr (KS > 1) {
+    float* X = reinterpret_cast<float*>(smem + C::Q_BYTES);  // row r: m, l, then D of acc
+    __syncthreads();  // every thread is done with the ring
 #pragma unroll
-    for (int i = 0; i < OPT / 2; ++i)
-      store2(orow + 2 * LANES * i, acc[2 * i] / denom, acc[2 * i + 1] / denom);
-    if (lse != nullptr && t == 0)
-      lse[(int64_t)bh * sq + q_pos] = m * LN2 + logf(denom);
+    for (int i = 0; i < RQ; ++i) {
+      float* xr = X + (rg + ROW_GROUPS * i) * (D + 2);
+      if (lane == 0) {
+        xr[0] = m[i];
+        xr[1] = l[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) xr[2 + VEC * lane + LANES * VEC * n + e] = acc[i][n * VEC + e];
+    }
+    cooperative_groups::this_cluster().sync();  // every block's carries are visible to the cluster
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int row = rg + ROW_GROUPS * i;
+      if (row % KS != rank) continue;
+      const float* xs[KS];
+#pragma unroll
+      for (int r = 0; r < KS; ++r)
+        xs[r] = cooperative_groups::this_cluster().map_shared_rank(X, r) + row * (D + 2);
+      float mm = NEG_INF;
+#pragma unroll
+      for (int r = 0; r < KS; ++r) mm = fmaxf(mm, xs[r][0]);
+      float ll = 0.f, f[KS];
+#pragma unroll
+      for (int r = 0; r < KS; ++r) {
+        f[r] = exp2f(xs[r][0] - mm);
+        ll += xs[r][1] * f[r];
+      }
+      m[i] = mm;
+      l[i] = ll;
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float a = 0.f;
+#pragma unroll
+          for (int r = 0; r < KS; ++r) a += xs[r][2 + VEC * lane + LANES * VEC * n + e] * f[r];
+          acc[i][n * VEC + e] = a;
+        }
+    }
+    cooperative_groups::this_cluster().sync();  // no block leaves while another reads it
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = rg + ROW_GROUPS * i;
+    const int q_pos = q0 + row;
+    if (q_pos >= sq || row % KS != rank) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* orow = o + ((int64_t)(b * sq + q_pos) * h + hi) * D + VEC * lane;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      float x[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) x[e] = acc[i][n * VEC + e] / denom;
+      store_n<VEC>(orow + LANES * VEC * n, x);
+    }
+    if (lse != nullptr && lane == 0) lse[(int64_t)bh * sq + q_pos] = m[i] * LN2 + logf(denom);
   }
 }
 
-template <typename T, int D>
+// keys per K/V tile: 32 beside 64 q rows (four rows by four keys a thread),
+// else 64
+constexpr int key_tile(int bq) { return bq == 64 ? 32 : 64; }
+
+template <typename T, int D, int BQ, int KS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int b, int sq, int sk, int h, int hk,
                    const int64_t* qs, const int64_t* ks, const int64_t* vs,
-                   int causal, float scale_log2, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_scalar_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                   int causal, float scale_log2, int vec16, cudaStream_t stream) {
+  // 64 q rows: 16 row groups of 4 rows x 8 lanes; 32 and 16 rows: row
+  // groups of 2 or 1 rows x 16 lanes (8 at d 16), so short work still
+  // has 256 threads a block
+  constexpr int BK = key_tile(BQ);
+  constexpr int LANES = BQ == 64 || D == 16 ? 8 : 16;
+  constexpr int RQ = BQ / 16;
+  using C = Cfg<T, D, BQ, BK, RQ, LANES, KS>;
+  auto kernel = flash_fwd_scalar_kernel<T, D, BQ, BK, RQ, LANES, KS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, b * h);
-  flash_fwd_scalar_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, h, hk, sq, sk, qs[0],
-      qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], causal,
-      scale_log2);
-  return cudaGetLastError();
+  const dim3 grid((sq + BQ - 1) / BQ * KS, b * h);
+  return launch_clustered(kernel, grid, C::THREADS, C::SMEM, KS, stream,
+                          static_cast<const T*>(q), static_cast<const T*>(k),
+                          static_cast<const T*>(v), static_cast<T*>(o), lse, h, hk, sq, sk,
+                          qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], causal,
+                          scale_log2, vec16);
+}
+
+// q rows per block and blocks per cluster (the key tiles of the longest
+// rows split between them): the grid's size decides (odh_flash::scalar_tile
+// and scalar_split)
+int tile_q(int b, int sq, int h) { return scalar_tile(sq, (int64_t)b * h); }
+
+int key_split(int b, int sq, int sk, int h, int causal) {
+  const int tile = tile_q(b, sq, h);
+  const int keys = causal ? min(sk, sq) : sk;
+  return scalar_split(sq, (int64_t)b * h, tile, (keys + key_tile(tile) - 1) / key_tile(tile), 4);
+}
+
+template <typename T, int D>
+cudaError_t launch_tile(int tile, int split, const void* q, const void* k, const void* v, void* o,
+                        float* lse, int b, int sq, int sk, int h, int hk, const int64_t* qs,
+                        const int64_t* ks, const int64_t* vs, int causal, float scale_log2,
+                        int vec16, cudaStream_t stream) {
+#define ODH_LAUNCH(BQ, KS) \
+  launch<T, D, BQ, KS>(q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, vec16, stream)
+  if (split == 4) {
+    switch (tile) {
+      case 64: return ODH_LAUNCH(64, 4);
+      case 32: return ODH_LAUNCH(32, 4);
+      default: return ODH_LAUNCH(16, 4);
+    }
+  }
+  if (split == 2) {
+    switch (tile) {
+      case 64: return ODH_LAUNCH(64, 2);
+      case 32: return ODH_LAUNCH(32, 2);
+      default: return ODH_LAUNCH(16, 2);
+    }
+  }
+  switch (tile) {
+    case 64: return ODH_LAUNCH(64, 1);
+    case 32: return ODH_LAUNCH(32, 1);
+    default: return ODH_LAUNCH(16, 1);
+  }
+#undef ODH_LAUNCH
 }
 
 template <typename T>
@@ -237,13 +435,21 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        int hk, const int64_t* qs, const int64_t* ks,
                        const int64_t* vs, int causal, float scale_log2,
                        cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, stream);
-    default: return cudaErrorInvalidValue;
+  constexpr int E = sizeof(T);
+  // every view 4-byte aligned (the wrapper copies one that is not), and
+  // 16-byte copies where all three allow them
+  if (!aligned_to(q, qs, E, 4) || !aligned_to(k, ks, E, 4) || !aligned_to(v, vs, E, 4))
+    return cudaErrorMisalignedAddress;
+  const int vec16 = aligned_to(q, qs, E, 16) && aligned_to(k, ks, E, 16) && aligned_to(v, vs, E, 16);
+  const int tile = tile_q(b, sq, h);
+  const int split = key_split(b, sq, sk, h, causal);
+  if (d == 16) return launch_tile<T, 16>(tile, split, q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, vec16, stream);
+  if (d == 32) return launch_tile<T, 32>(tile, split, q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, vec16, stream);
+  if constexpr (E == 4) {  // bf16 at d 64 and 128 is the tensor-core kernel's
+    if (d == 64) return launch_tile<T, 64>(tile, split, q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, vec16, stream);
+    if (d == 128) return launch_tile<T, 128>(tile, split, q, k, v, o, lse, b, sq, sk, h, hk, qs, ks, vs, causal, scale_log2, vec16, stream);
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace scalar
@@ -552,11 +758,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // tiles covers every SM at least once, one (64 rows) for shorter work such
 // as a serving prefill (b1 s128 h8 is 8 blocks of 128 rows on 132 SMs)
 int tile_q(int b, int sq, int h) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 1;
-  return (int64_t)((sq + 127) / 128) * b * h >= sms ? 128 : 64;
+  return (int64_t)((sq + 127) / 128) * b * h >= sm_count() ? 128 : 64;
 }
 
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o, float* lse,
@@ -583,13 +785,20 @@ extern "C" int odh_flash_fwd_kernel(int dtype, int d) { return odh_flash::kernel
 
 // q rows per block of the kernel odh_flash_fwd would launch for this call
 extern "C" int odh_flash_fwd_tile_q(int dtype, int d, int b, int sq, int h) {
-  return odh_flash_fwd_kernel(dtype, d) == 1 ? wg::tile_q(b, sq, h) : scalar::BQ;
+  return odh_flash_fwd_kernel(dtype, d) == 1 ? wg::tile_q(b, sq, h) : scalar::tile_q(b, sq, h);
+}
+
+// blocks per cluster of the kernel odh_flash_fwd would launch for this call
+// (the scalar kernel's key split; the tensor-core kernel takes no clusters)
+extern "C" int odh_flash_fwd_key_split(int dtype, int d, int b, int sq, int sk, int h, int causal) {
+  return odh_flash_fwd_kernel(dtype, d) == 1 ? 1 : scalar::key_split(b, sq, sk, h, causal);
 }
 
 // Strides are in elements, (batch, seq, head) for each of q/k/v; the last
 // dim must be contiguous. For the tensor-core kernel the base addresses must
-// be 16-byte aligned and every stride a multiple of 16 bytes (TMA's rule).
-// lse may be null. Returns the launch's cudaError_t (0 on success); the
+// be 16-byte aligned and every stride a multiple of 16 bytes (TMA's rule);
+// for the scalar kernel, which copies with cp.async, multiples of 4 bytes
+// (16-byte copies where all three views allow them). lse may be null. Returns the launch's cudaError_t (0 on success); the
 // launch is asynchronous on `stream`. A failed launch is returned, never
 // retried on the other kernel.
 extern "C" int odh_flash_fwd(const void* q, const void* k, const void* v,

@@ -2,7 +2,8 @@
 its plain PyTorch version at the port's head dims, bf16 and f32, causal and
 not, GQA and ragged lengths; the tensor-core forward and backward kernels at
 their tile edges (the forward with both q-tile widths), and their refusal of
-views TMA cannot read; the differentiable attention, the f32-output matmul's
+views TMA cannot read; the scalar kernels at the edges of each of their
+16-, 32- and 64-row tiles; the differentiable attention, the f32-output matmul's
 backward and one train step on the card. They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
@@ -40,6 +41,16 @@ SHAPES = [
     (1, 90, 150, 4, 4, 32),     # sq != sk
 ]
 SHAPE_IDS = ["prefill", "gqa-ragged", "d16", "sq-ne-sk"]
+# the scalar kernels' tile edges: sq = sk at each length, at every row tile
+# the grid can give (a 32-row tile adds no block over 64 rows at s <= 32, so
+# the rule never takes it there), f32 at every head dim and bf16 at 16/32
+SCALAR_EDGES = [(s, t) for s in (1, 15, 16, 17, 31, 33, 65, 129, 513) for t in (64, 32, 16)
+                if not (t == 32 and s <= 32)]
+# no batch gives the forward 16-row tiles at s 513 with 4 or more heads
+FWD_SCALAR_EDGES = [e for e in SCALAR_EDGES if e != (513, 16)]
+SCALAR_TYPES = [(torch.float32, 16), (torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
+                (torch.bfloat16, 16), (torch.bfloat16, 32)]
+SCALAR_TYPE_IDS = ["f32-d16", "f32-d32", "f32-d64", "f32-d128", "bf16-d16", "bf16-d32"]
 
 
 @pytest.fixture
@@ -71,6 +82,40 @@ def test_flash_kernel_matches_plain_on_card(card, shape, causal, dtype):
     assert out.dtype == dtype and out.shape == ref_out.shape
     torch.testing.assert_close(out.float(), ref_out.float(), atol=TOLERANCE[dtype], rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+def _scalar_edge_inputs(card, s, tile, dtype, d, heads_for_tile):
+    """(b, h, hk, q, k, v) for a scalar tile-edge case: GQA 8/2 on strided
+    fused-qkv views for the 64- and 16-row tiles, GQA 4/1 contiguous for the
+    32-row one, the batch the smallest whose grid gives `tile` rows per
+    block (the grid counts `heads_for_tile(h, hk)` heads)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    h, hk = (4, 1) if tile == 32 else (8, 2)
+    heads = heads_for_tile(h, hk)
+    b = next(b for b in range(1, 2 * sms + 1) if attention._scalar_tile(s, b * heads, sms) == tile)
+    if tile == 32:
+        return (b, h, hk, *_qkv(b, s, s, h, hk, d, dtype, card))
+    qkv = torch.randn(b, s, h + 2 * hk, d, device=card).to(dtype)
+    return (b, h, hk, *qkv.split([h, hk, hk], dim=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", SCALAR_TYPES, ids=SCALAR_TYPE_IDS)
+@pytest.mark.parametrize("s,tile", FWD_SCALAR_EDGES, ids=[f"s{s}-q{t}" for s, t in FWD_SCALAR_EDGES])
+def test_scalar_kernel_at_tile_edges_on_card(card, s, tile, dtype, d):
+    """The scalar forward (f32, bf16 d16/d32) at the edges of its 16-, 32-
+    and 64-row q tiles and 64-key tiles, causal and full, with lse; the
+    launch plan reports the tile the grid gives."""
+    b, h, hk, q, k, v = _scalar_edge_inputs(card, s, tile, dtype, d, lambda h, hk: h)
+    assert attention.fwd_launch_plan(dtype, b, s, h, d) == ("flash_fwd_scalar", tile)
+    for causal in (True, False):
+        before = attention.launch_counts["flash_fwd_scalar"]
+        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+        assert attention.launch_counts["flash_fwd_scalar"] == before + 1
+        ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=TOLERANCE[dtype], rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
 @pytest.mark.cuda
@@ -142,10 +187,14 @@ def test_tensor_core_kernel_rejects_views_tma_cannot_read(card):
     assert attention.launch_counts == before
 
 
-def _assert_grads_close(got, want, dtype, what):
+def _assert_grads_close(got, want, dtype, what, joint=False):
+    """Each gradient within BWD_TOLERANCE of its own largest plain value, or
+    with `joint` of the largest plain value of all of them (for a gradient
+    that is 0 in exact arithmetic, which holds only rounding noise)."""
+    largest = max(w.float().abs().max().item() for w in want)
     for name, g, w in zip(what, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
-        bound = BWD_TOLERANCE[dtype] * w.float().abs().max().item()
+        bound = BWD_TOLERANCE[dtype] * (largest if joint else w.float().abs().max().item())
         err = (g.float() - w.float()).abs().max().item()
         assert err <= bound, f"{name}: max abs err {err:.3e} > {bound:.3e}"
 
@@ -163,7 +212,7 @@ def test_flash_bwd_kernels_match_plain_on_card(card, shape, causal, dtype):
     _check_bwd_on_card(q, k, v, dout, lse, delta, causal)
 
 
-def _check_bwd_on_card(q, k, v, dout, lse, delta, causal):
+def _check_bwd_on_card(q, k, v, dout, lse, delta, causal, joint=False):
     """Both backward kernels against their plain versions, each launched once
     and counted under the name `_bwd_kernel_for` gives."""
     names = attention._bwd_kernel_for(q.dtype, q.shape[3])
@@ -175,7 +224,7 @@ def _check_bwd_on_card(q, k, v, dout, lse, delta, causal):
     want = (flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal),
             *flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal))
     torch.cuda.synchronize()
-    _assert_grads_close((dq, dk, dv), want, q.dtype, ("dq", "dk", "dv"))
+    _assert_grads_close((dq, dk, dv), want, q.dtype, ("dq", "dk", "dv"), joint)
 
 
 def _bwd_inputs(q, k, v, causal, dout=None):
@@ -201,6 +250,21 @@ def test_tensor_core_bwd_kernels_at_tile_edges_on_card(card, s, d, causal):
         else:
             q, k, v = _qkv(b, s, s, h, hk, d, torch.bfloat16, card)
         _check_bwd_on_card(q, k, v, *_bwd_inputs(q, k, v, causal), causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", SCALAR_TYPES, ids=SCALAR_TYPE_IDS)
+@pytest.mark.parametrize("s,tile", SCALAR_EDGES, ids=[f"s{s}-k{t}" for s, t in SCALAR_EDGES])
+def test_scalar_bwd_kernels_at_tile_edges_on_card(card, s, tile, dtype, d):
+    """The scalar dq and dk/dv kernels (f32, bf16 d16/d32) at the edges of
+    dk/dv's 16-, 32- and 64-row k tiles and streamed q tiles, causal and
+    full; the launch plan reports the k tile the grid gives. At s = 1 (one
+    key: p = 1, dp = delta) dq and dk are 0 in exact arithmetic, so they are
+    held against the largest plain gradient."""
+    b, h, hk, q, k, v = _scalar_edge_inputs(card, s, tile, dtype, d, lambda h, hk: hk)
+    assert attention.bwd_dkv_launch_plan(dtype, b, s, hk, d) == ("flash_bwd_dkv_scalar", tile)
+    for causal in (True, False):
+        _check_bwd_on_card(q, k, v, *_bwd_inputs(q, k, v, causal), causal, joint=s == 1)
 
 
 @pytest.mark.cuda

@@ -273,6 +273,58 @@ def test_tma_readable_dout_copies_only_what_tma_cannot_read(make, in_place):
         assert got.is_contiguous() and attention._tma_problem(got) is None
 
 
+@pytest.mark.parametrize("rows,groups,sms,tile", [
+    (128, 8, 132, 16),    # b1 s128 h8: 16 blocks of 64 rows (32 split), 32 of 32 (64), 64 of 16
+    (512, 8, 132, 64),    # the f32 gradient check: 64 blocks of 64 rows, 128 split
+    (512, 16, 132, 64),
+    (2048, 64, 132, 64),  # b8 s2048 h8: 2048 blocks of 64 rows
+    (4, 4, 132, 16),      # the demo model's prefill (h4)
+    (1, 50, 132, 64),     # one row: every tile gives the same grid; 100 split blocks reach 3/4
+    (1, 49, 132, 16),     # 98 split blocks do not
+    (65, 20, 132, 32),    # 40 blocks of 64 rows (80 split), 60 of 32 (120)
+    (513, 4, 132, 32),    # 36 of 64 (72), 68 of 32 (136)
+    (513, 4, 114, 32),    # a card of 114 SMs: 72 < 85.5 <= 136
+    (129, 15, 114, 64),   # 45 of 64 (90)
+])
+def test_scalar_tile_fills_the_card(rows, groups, sms, tile):
+    """The scalar forward's q tile and dk/dv's k tile: 64 rows, else 32,
+    where that tile's grid, split over 2-block clusters, gives at least
+    three quarters of the SMs a block, else 16. The C entries
+    (odh_flash::scalar_tile) make the same choice; the chip smoke and the
+    card tests hold the two against each other."""
+    assert attention._scalar_tile(rows, groups, sms) == tile
+
+
+@pytest.mark.parametrize("make,problem", [
+    (lambda: torch.zeros(2, 64, 8, 16, dtype=torch.bfloat16), None),
+    (lambda: torch.zeros(2, 64, 8, 128), None),
+    (lambda: _fused_qkv_views(2, 64, 4, 2, 16)[1], None),
+    (lambda: _misaligned_base(1, 16, 4, 64).float(), None),
+    # f32 at any element offset or stride is 4-byte aligned
+    (lambda: torch.zeros(64 * 8 * 32 + 1)[1:].view(1, 64, 8, 32), None),
+    (lambda: torch.zeros(2, 16, 8, 33)[..., :32], None),
+    (lambda: torch.zeros(2, 64, 8, 32, dtype=torch.bfloat16).transpose(2, 3), "last dim"),
+    (lambda: _misaligned_base(1, 16, 4, 32), "4-byte aligned"),
+    (lambda: torch.zeros(2, 16, 8, 33, dtype=torch.bfloat16)[..., :32], "head stride"),
+    (lambda: torch.zeros(1, 15, 1, 33, dtype=torch.bfloat16)[..., :32], "seq stride"),
+], ids=["contiguous-bf16", "contiguous-f32", "fused-k-d16", "f32-copy", "f32-odd-offset",
+        "f32-odd-stride", "transposed", "bf16-odd-offset", "bf16-head-stride", "bf16-seq-stride"])
+def test_cp_async_problem_names_what_the_scalar_kernels_copy(make, problem):
+    """The scalar kernels read q, k, v and dO in place by cp.async of 4 (or
+    16) bytes: the last dim contiguous, base and batch/seq/head strides in
+    multiples of 4 bytes. `_inner_contiguous` copies exactly the views that
+    fail, into tensors that pass."""
+    t = make()
+    got = attention._cp_async_problem(t)
+    if problem is None:
+        assert got is None
+    else:
+        assert problem in got
+    (copied,) = attention._inner_contiguous(t)
+    assert (copied is t) == (problem is None)
+    assert torch.equal(copied, t) and attention._cp_async_problem(copied) is None
+
+
 def test_kernel_strides_give_size_one_dims_a_contiguous_stride():
     t = torch.zeros(1, 64, 8, 160, dtype=torch.bfloat16)[..., :128]
     assert tuple(attention._strides(t)) == (64 * 8 * 128, 8 * 160, 160)
