@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 1. device: name, capability, power limit;
 2. build: every kernel compiled from the sources in this checkout; the
    forward and backward libraries must each hold HGMMA (wgmma)
-   instructions, and their C entries must choose the kernels by (dtype, d)
-   as attention._fwd_kernel_for and attention._bwd_kernel_for say;
+   instructions, their C entries must choose the kernels by (dtype, d)
+   as attention._fwd_kernel_for and attention._bwd_kernel_for say, and
+   dq's launch plan (q tile, cluster size) as attention._scalar_dq_plan;
 3. the forward kernels against their plain PyTorch version, at the shapes
    the serving and training paths give them and at others, bf16 and f32,
    with and without lse, each case naming the kernel and q tile it ran; the
@@ -26,9 +27,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    each case naming the kernels it ran; the tensor-core pair also at the
    tile edges (sq = sk in 63, 64, 65, 127, 129, 2049; d 128 and 64; causal
    and full; GQA 16/4 on strided fused-qkv views and 8/1; sq != sk full);
-   the scalar pair at the same edges as the scalar forward, each case
-   naming dk/dv's k tile and cluster size; then through autograd with an
-   lse cotangent;
+   the scalar pair at the same edges as the scalar forward, once with the
+   batch that gives dk/dv each of its k tiles and once with the batch that
+   gives dq each of its q tiles, and at every (q tile, cluster size) dq's
+   rule can give, each case naming dq's q tile and dk/dv's k tile and their
+   cluster sizes (held against the Python mirrors); then through autograd
+   with an lse cotangent;
 4. timing (device time from CUDA-graph replays between CUDA events, median
    of 25): kernel, plain version, and the library SDPA as a yardstick only,
    beside the card's bound, with TFLOP/s, the share of the bound and the
@@ -37,8 +41,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    in f32 at the serving shape, at the f32 gradient check's (with lse) and
    at the demo model's prefill; at the training shape, the forward with
    lse, dq and dk/dv (SDPA's backward, dq+dk+dv in one autograd call, is
-   the pair's yardstick); the scalar dq and dk/dv at the f32 gradient
-   check's shape; the kernels SDPA's f32 forward and backward ran;
+   the pair's yardstick); the scalar dq and dk/dv, and their sum, at the
+   f32 gradient check's shape; the kernels SDPA's f32 forward and backward
+   ran;
 5. the serving path at the full width of the repo's flagship model
    (vocab 32768, d_model 1024, 8 layers, 8 heads x 128, d_ff 4096, bf16;
    random weights from a seed): a ServingEngine behind ServingHTTPServer
@@ -149,7 +154,7 @@ def bwd_work(kind, b, sq, sk, h, hk, d, dtype, causal):
     return flops, nbytes
 
 
-SCALAR_ARGS = re.compile(r"(flash_(?:fwd|bwd_dkv)_scalar)_kernelI(f|13__nv_bfloat16)"
+SCALAR_ARGS = re.compile(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_scalar)_kernelI(f|13__nv_bfloat16)"
                          r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
 
 
@@ -167,7 +172,7 @@ def ptxas_summary(log):
                 name, t, d, rows, inner, per, lanes, ks = m.groups()
                 dt = "f32" if t == "f" else "bf16"
                 inner_cols = int(inner) // int(lanes)
-                kernel = (f"{name} {dt} d{d}: {rows} rows x {inner} {'keys' if 'fwd' in name else 'q'}, "
+                kernel = (f"{name} {dt} d{d}: {rows} rows x {inner} {'q' if 'dkv' in name else 'keys'}, "
                           f"{per}x{inner_cols} a thread, {ks}-block clusters")
             else:
                 m = re.search(r"\d(flash_[a-z_]+?_kernel)I(.*)", mangled)
@@ -253,16 +258,18 @@ def _batch_for_tile(attention, tile, rows, heads, sms):
                  if attention._scalar_tile(rows, b * heads, sms) == tile), None)
 
 
-def scalar_tile_edge_cases(attention, sms, backward=False):
-    """Cases for the scalar forward (or, with `backward`, the scalar dq and
-    dk/dv) at the edges of its tiles: f32 at sq = sk in
+def scalar_tile_edge_cases(attention, sms, kernel="fwd"):
+    """Cases for the scalar forward (`kernel` "fwd"), dk/dv ("dkv") or dq
+    ("dq") at the edges of its tiles: f32 at sq = sk in
     SCALAR_EDGE_LENGTHS, d 16/32/64/128, causal and full, each at every q
-    (k) tile the grid can give it (64: GQA 8/2 on strided fused-qkv views;
-    32: GQA 4/1; 16: either, by mask), the batch chosen so the grid gives
-    that tile; bf16 at d 16 and 32 at lengths 17, 33 and 129; one sq != sk
+    (k for dk/dv) tile the grid can give it (64: GQA 8/2 on strided
+    fused-qkv views; 32: GQA 4/1; 16: either, by mask), the batch chosen so
+    the grid gives that tile (it counts batch * heads, or batch * kv_heads
+    for dk/dv); bf16 at d 16 and 32 at lengths 17, 33 and 129; one sq != sk
     full case at each tile. Each case is (label, b, sq, sk, h, hk, d, dtype,
-    causal, strided, tile); the tile is that of q rows (forward) or k rows
-    (dk/dv)."""
+    causal, strided, tile)."""
+    by_kv = kernel == "dkv"
+    prefix = "scalar dq edge" if kernel == "dq" else "scalar edge"
     cases = []
     grid = []
     for d in (16, 32, 64, 128):
@@ -273,17 +280,43 @@ def scalar_tile_edge_cases(attention, sms, backward=False):
         for causal in (True, False):
             for tile in (64, 32, 16):
                 h, hk, strided = (8, 2, True) if tile == 64 or (tile == 16 and causal) else (4, 1, False)
-                b = _batch_for_tile(attention, tile, s, hk if backward else h, sms)
+                b = _batch_for_tile(attention, tile, s, hk if by_kv else h, sms)
                 if b is None:
                     continue
                 tag = f"{DTYPE_NAMES[dtype]} d{d} s{s} {'causal' if causal else 'full'} gqa {h}/{hk}"
-                cases.append((f"scalar edge {tag}{' strided' if strided else ''} b{b}", b, s, s, h, hk,
+                cases.append((f"{prefix} {tag}{' strided' if strided else ''} b{b}", b, s, s, h, hk,
                               d, dtype, causal, strided, tile))
-    for tile in (64, 32, 16):  # sq != sk: the tile follows sq (forward) or sk (dk/dv)
+    for tile in (64, 32, 16):  # sq != sk: the tile follows sq (forward, dq) or sk (dk/dv)
         sq, sk, h, hk = 129, 65, 8, 2
-        b = _batch_for_tile(attention, tile, sk if backward else sq, hk if backward else h, sms)
-        cases.append((f"scalar edge f32 d64 sq!=sk full b{b}", b, sq, sk, h, hk, 64, torch.float32, False,
+        b = _batch_for_tile(attention, tile, sk if by_kv else sq, hk if by_kv else h, sms)
+        cases.append((f"{prefix} f32 d64 sq!=sk full b{b}", b, sq, sk, h, hk, 64, torch.float32, False,
                       False, tile))
+    return cases
+
+
+def scalar_dq_split_cases(attention, sms):
+    """f32 cases that give the scalar dq kernel each (q tile, cluster size)
+    its rule can give, causal and full: the first (length, heads, batch),
+    lengths from SCALAR_EDGE_LENGTHS then 1024, heads 8/2 (strided
+    fused-qkv views), 4/1, 2/1 and 1/1, for which `attention._scalar_dq_plan`
+    names that pair; d 128 at 64-row tiles, else 64. Each case is (label, b,
+    sq, sk, h, hk, d, dtype, causal, strided, tile)."""
+    cases = []
+    for tile in (64, 32, 16):
+        for split in (2 ** i for i in range(attention._DQ_MAX_SPLIT.bit_length())):
+            for causal in (True, False):
+                found = next(((s, h, hk, b) for s in (*SCALAR_EDGE_LENGTHS, 1024)
+                              for h, hk in ((8, 2), (4, 1), (2, 1), (1, 1))
+                              for b in range(1, 2 * sms + 1)
+                              if attention._scalar_dq_plan(b, s, s, h, causal, sms) == (tile, split)),
+                             None)
+                if found is None:
+                    continue
+                s, h, hk, b = found
+                d = 128 if tile == 64 else 64
+                cases.append((f"scalar dq split f32 d{d} s{s} {'causal' if causal else 'full'} gqa "
+                              f"{h}/{hk} b{b} ({tile}-row q tiles, {split}-block clusters)", b, s, s, h,
+                              hk, d, torch.float32, causal, h == 8, tile))
     return cases
 
 
@@ -410,9 +443,12 @@ def check_backward(attention, sms):
     """Phase 3b: each backward kernel against its plain version on the same
     inputs (lse from the forward kernel, delta = rowsum(dO * out)), each
     case naming the pair of kernels it launched (read from the launch
-    counts) and dk/dv's k tile, then autograd through the op with an lse
-    cotangent against the plain versions. At sq = sk = 1 (one key: p = 1,
-    dp = delta) dq and dk are 0 in exact arithmetic and hold only rounding
+    counts), dq's q tile and dk/dv's k tile (and, for the scalar pair, each
+    one's cluster size), each held against the Python mirrors, then autograd
+    through the op with an lse cotangent against the plain versions. The
+    scalar cases reach every dk/dv k tile, every dq q tile and every dq
+    cluster size the rules can give. At sq = sk = 1 (one key: p = 1, dp =
+    delta) dq and dk are 0 in exact arithmetic and hold only rounding
     noise, so each gradient is held against the case's largest plain
     gradient there. Returns each kernel's max abs error at its main-path
     shape (the training shape; the gradient check's for the scalar pair)."""
@@ -431,10 +467,12 @@ def check_backward(attention, sms):
         ("bf16 d32 full", 1, 96, 96, 4, 4, 32, torch.bfloat16, False, False),
         *bwd_tile_edge_cases(),
     ]
-    scalar_edges = scalar_tile_edge_cases(attention, sms, backward=True)
-    want_tile = {c[0]: c[-1] for c in scalar_edges}
-    cases += [c[:-1] for c in scalar_edges]
-    errors, main_err, ran, tiles = [], {}, set(), set()
+    dkv_edges = scalar_tile_edge_cases(attention, sms, "dkv")
+    dq_edges = scalar_tile_edge_cases(attention, sms, "dq") + scalar_dq_split_cases(attention, sms)
+    want_tile_k = {c[0]: c[-1] for c in dkv_edges}
+    want_tile_q = {c[0]: c[-1] for c in dq_edges}
+    cases += [c[:-1] for c in dkv_edges + dq_edges]
+    errors, main_err, ran, tiles, dq_plans = [], {}, set(), set(), set()
     for i, (label, b, sq, sk, h, hk, d, dtype, causal, strided) in enumerate(cases):
         q, k, v = inputs(b, sq, sk, h, hk, d, dtype, seed=200 + i, strided=strided)
         dout = inputs(b, sq, sq, h, h, d, dtype, seed=300 + i)[0]
@@ -449,16 +487,27 @@ def check_backward(attention, sms):
         largest = max(w.float().abs().max().item() for w in want) if sq == sk == 1 else None
         errs = [_grad_err(g, w, largest) for g, w in zip(got, want)]
         dkv_kernel, tile_k = attention.bwd_dkv_launch_plan(dtype, b, sk, hk, d)
-        plan = f"{', '.join(launched)}; {tile_k}-row k tiles"
+        dq_kernel, tile_q = attention.bwd_dq_launch_plan(dtype, b, sq, h, d)
         if dkv_kernel == "flash_bwd_dkv_scalar":
-            plan += f", {attention.scalar_splits(dtype, d, b, sq, sk, h, hk, causal)[1]}-block clusters"
+            _, split_k, split_q = attention.scalar_splits(dtype, d, b, sq, sk, h, hk, causal)
+            plan = (f"{', '.join(launched)}; dq {tile_q}-row q tiles, {split_q}-block clusters; "
+                    f"dk/dv {tile_k}-row k tiles, {split_k}-block clusters")
             tiles.add(tile_k)
+            dq_plans.add((tile_q, split_q))
+            plan_ok = (tile_k == attention._scalar_tile(sk, b * hk, sms)
+                       and tile_q == attention._scalar_tile(sq, b * h, sms)
+                       and (tile_q, split_q) == attention._scalar_dq_plan(b, sq, sk, h, causal, sms))
+        else:
+            plan = f"{', '.join(launched)}; dq {tile_q}-row q tiles; dk/dv {tile_k}-row k tiles"
+            plan_ok = tile_q == tile_k == 128
         ok = (all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
               and all(torch.isfinite(g.float()).all().item() for g in got)
               and max(errs) <= BWD_TOLERANCE[dtype]
               and launched == attention._bwd_kernel_for(dtype, d)
-              and tile_k == want_tile.get(label, tile_k)
-              and (dkv_kernel == "flash_bwd_dkv" or tile_k == attention._scalar_tile(sk, b * hk, sms)))
+              and (dq_kernel, dkv_kernel) == launched
+              and tile_k == want_tile_k.get(label, tile_k)
+              and tile_q == want_tile_q.get(label, tile_q)
+              and plan_ok)
         ran.update(launched)
         print(f"  {label} [{plan}]: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
               f"of max |grad|{' of the three' if largest else ''} (tol {BWD_TOLERANCE[dtype]:.0e})"
@@ -473,6 +522,11 @@ def check_backward(attention, sms):
         errors.append(f"kernels run {sorted(ran)}")
     if tiles != {16, 32, 64}:
         errors.append(f"scalar dk/dv k tiles run {sorted(tiles)}")
+    if {t for t, _ in dq_plans} != {16, 32, 64}:
+        errors.append(f"scalar dq q tiles run {sorted({t for t, _ in dq_plans})}")
+    if {s for _, s in dq_plans} != {2 ** i for i in range(attention._DQ_MAX_SPLIT.bit_length())}:
+        errors.append(f"scalar dq cluster sizes run {sorted({s for _, s in dq_plans})}")
+    print(f"  scalar dq (q tile, cluster size) pairs run: {sorted(dq_plans)}", flush=True)
     # through autograd: a loss reading out and lse, so g_lse enters as delta - g_lse
     b, s, h, hk, d = 2, 256, 8, 2, 128
     q, k, v = (t.requires_grad_() for t in inputs(b, s, s, h, hk, d, torch.bfloat16, seed=400))
@@ -555,7 +609,14 @@ def time_scalar_bwd_kernels(attention, peaks, smi):
                                  bwd_work("dkv", b, s, s, h, hk, d, torch.float32, True), sdpa_bwd,
                                  library),
     }
-    return time_kernel_rows(rows, peaks, smi, torch.float32, f"b{b} s{s} h{h} hk{hk} d{d} f32 causal")
+    shape = f"b{b} s{s} h{h} hk{hk} d{d} f32 causal"
+    timings = time_kernel_rows(rows, peaks, smi, torch.float32, shape)
+    pair = sum(timings[n]["ms"] for n in SCALAR_BWD)
+    pair_bound = sum(timings[n]["bound_ms"] for n in SCALAR_BWD)
+    print(f"  scalar backward pair (dq + dk/dv) {shape}: {pair:.4f} ms, {pair_bound / pair:.3%} of the "
+          f"pair's bound {pair_bound:.4f} ms, {pair / sdpa_bwd:.2f}x SDPA's f32 backward "
+          f"({sdpa_bwd:.4f} ms) on {smi}", flush=True)
+    return timings
 
 
 def device_kernel_names(fn):
@@ -863,9 +924,29 @@ def main() -> None:
         f"{DTYPE_NAMES[dt]} d{d} {attention._fwd_kernel_for(dt, d)} + "
         f"{'/'.join(attention._bwd_kernel_for(dt, d))}"
         for dt in (torch.float32, torch.bfloat16) for d in attention.HEAD_DIMS), flush=True)
+    # dq's launch plan: the C entries (odh_flash_bwd_dq_tile_q, _k_split)
+    # against the Python mirror at the main paths' shapes and at each
+    # (q tile, cluster size) the rule gives
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_shapes = [GRAD_CHECK_SHAPE, MAIN_SHAPE, TRAIN_SHAPE, (1, len(DEMO_PROMPTS[0]), 4, 2, 16)]
+    plan_shapes += [(b, s, h, hk, d) for _, b, s, _, h, hk, d, *_ in scalar_dq_split_cases(attention, sms)]
+    plans = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, hk, d in plan_shapes:
+            for causal in (True, False):
+                kernel, tile = attention.bwd_dq_launch_plan(dtype, b, s, h, d)
+                split = attention.scalar_splits(dtype, d, b, s, s, h, hk, causal)[2]
+                want = ((attention._bwd_kernel_for(dtype, d)[0],
+                         *attention._scalar_dq_plan(b, s, s, h, causal, sms))
+                        if kernel == "flash_bwd_dq_scalar" else ("flash_bwd_dq", 128, 1))
+                if (kernel, tile, split) != want:
+                    fail(f"{DTYPE_NAMES[dtype]} b{b} s{s} h{h} d{d} causal={causal}: the C entries "
+                         f"plan dq as {(kernel, tile, split)}, the Python mirror says {want}")
+                plans.append((kernel, tile, split))
+    print(f"  dq launch plans, C entries = Python mirror at {len(plans)} shapes: "
+          f"{sorted(set(plans))}", flush=True)
 
     phase("3 flash_fwd kernels vs plain")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         # (label, b, sq, sk, h, hk, d, dtype, causal, with_lse, strided)
         ("main-path prefill", *MAIN_SHAPE[:2], 128, *MAIN_SHAPE[2:], torch.bfloat16, True, False, True),
@@ -1162,7 +1243,8 @@ def main() -> None:
              train_launches, "train"),
             # the f32 gradient check of phase 6 (2 layers)
             ("flash_bwd_dq_scalar", "_flash_bwd_dq_kernel", 464,
-             "scalar f32 FMAs: f32 at every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check"),
+             "register-tiled f32 FMAs on the CUDA cores, cp.async ring, key split over clusters: f32 at "
+             "every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check"),
             ("flash_bwd_dkv_scalar", "_flash_bwd_dkv_kernel", 505,
              "register-tiled f32 FMAs on the CUDA cores, cp.async ring, q split over clusters: f32 at "
              "every d, bf16 at d 16 and 32", grad_check_launches, "f32 gradient check")):

@@ -284,8 +284,10 @@ _SIGNATURES = {
                           + [ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]),
     "odh_flash_bwd_kernel": ("flash_bwd", [ctypes.c_int] * 2),
     "odh_flash_bwd_dkv_tile_k": ("flash_bwd", [ctypes.c_int] * 5),
+    "odh_flash_bwd_dq_tile_q": ("flash_bwd", [ctypes.c_int] * 5),
     "odh_flash_fwd_key_split": ("flash_fwd", [ctypes.c_int] * 7),
     "odh_flash_bwd_dkv_q_split": ("flash_bwd", [ctypes.c_int] * 7),
+    "odh_flash_bwd_dq_k_split": ("flash_bwd", [ctypes.c_int] * 7),
 }
 
 
@@ -303,10 +305,10 @@ def _entry(fn_name: str):
 
 
 def _scalar_tile(rows: int, groups: int, sms: int) -> int:
-    """Rows per block of the scalar forward (q rows; `groups` = batch *
-    heads) and dk/dv (k rows; batch * kv_heads) kernels on a card of `sms`
-    SMs: 64, else 32, where that tile's grid split over 2-block clusters
-    gives at least three quarters of the SMs a block, else 16. A larger tile
+    """Rows per block of the scalar forward and dq (q rows; `groups` =
+    batch * heads) and dk/dv (k rows; batch * kv_heads) kernels on a card
+    of `sms` SMs: 64, else 32, where that tile's grid split over 2-block
+    clusters gives at least three quarters of the SMs a block, else 16. A larger tile
     gives each thread more FMAs per shared-memory load; a smaller one fills
     more of the card. The mirror of ``odh_flash::scalar_tile`` in
     ``csrc/flash_common.cuh``."""
@@ -314,6 +316,32 @@ def _scalar_tile(rows: int, groups: int, sms: int) -> int:
         if 8 * groups * -(-rows // tile) >= 3 * sms:
             return tile
     return 16
+
+
+def _scalar_split(rows: int, groups: int, tile: int, inner: int, max_split: int, sms: int) -> int:
+    """Blocks per cluster of a scalar kernel: the blocks of a cluster share
+    the `inner` tiles of one row tile; it doubles, up to `max_split`, while
+    the grid still leaves SMs idle and the longest row block has two inner
+    tiles for each block. The mirror of ``odh_flash::scalar_split``."""
+    blocks = groups * -(-rows // tile)
+    split = 1
+    while split < max_split and blocks * split < sms and inner >= 2 * split:
+        split *= 2
+    return split
+
+
+_DQ_KEY_TILE = 64  # the scalar dq kernel's keys per K/V tile (DQ_BK in csrc/flash_bwd.cu)
+_DQ_MAX_SPLIT = 2  # and its largest cluster (DQ_MAX_SPLIT)
+
+
+def _scalar_dq_plan(b: int, sq: int, sk: int, h: int, causal: bool, sms: int) -> Tuple[int, int]:
+    """(q rows per block, blocks per cluster) of a scalar dq launch on a
+    card of `sms` SMs: the forward's tile rule over batch * heads row
+    blocks, and clusters that split the key tiles the longest rows see. The
+    mirror of ``dq_tile_q`` and ``dq_k_split`` in ``csrc/flash_bwd.cu``."""
+    tile = _scalar_tile(sq, b * h, sms)
+    keys = min(sk, sq) if causal else sk
+    return tile, _scalar_split(sq, b * h, tile, -(-keys // _DQ_KEY_TILE), _DQ_MAX_SPLIT, sms)
 
 
 def fwd_launch_plan(dtype: torch.dtype, b: int, sq: int, h: int, d: int) -> Tuple[str, int]:
@@ -351,19 +379,31 @@ def bwd_dkv_launch_plan(dtype: torch.dtype, b: int, sk: int, hk: int, d: int) ->
     return kernel, tile_k(_DTYPE_CODES[dtype], d, b, sk, hk)
 
 
+def bwd_dq_launch_plan(dtype: torch.dtype, b: int, sq: int, h: int, d: int) -> Tuple[str, int]:
+    """(dq kernel, q rows per block) that a CUDA dq launch at this shape
+    runs, as the built library's C entries decide them (it builds the
+    library on first use): 128 for the tensor-core kernel (its ROWS), the
+    grid's choice (`_scalar_tile`) for the scalar one."""
+    kernel = bwd_kernels_built(dtype, d)[0]
+    _, tile_q = _entry("odh_flash_bwd_dq_tile_q")
+    return kernel, tile_q(_DTYPE_CODES[dtype], d, b, sq, h)
+
+
 def scalar_splits(dtype: torch.dtype, d: int, b: int, sq: int, sk: int, h: int, hk: int,
-                  causal: bool) -> Tuple[int, int]:
-    """(forward, dk/dv) blocks per cluster that CUDA launches at this shape
-    take, as the built libraries' C entries decide them (odh_flash::
+                  causal: bool) -> Tuple[int, int, int]:
+    """(forward, dk/dv, dq) blocks per cluster that CUDA launches at this
+    shape take, as the built libraries' C entries decide them (odh_flash::
     scalar_split): where a scalar kernel's grid of row tiles alone leaves
-    SMs idle, 2 or 4 blocks (forward) or 2 (dk/dv) split the key tiles or
-    the q tiles of one row tile and merge through distributed shared
-    memory; 1 otherwise and for the tensor-core kernels. For reporting on
-    the card."""
+    SMs idle, 2 or 4 blocks (forward) or 2 (dk/dv, dq) split the key
+    tiles or the q tiles of one row tile and merge through distributed
+    shared memory; 1 otherwise and for the tensor-core kernels. For
+    reporting on the card."""
     code = _DTYPE_CODES[dtype]
     _, fwd = _entry("odh_flash_fwd_key_split")
     _, dkv = _entry("odh_flash_bwd_dkv_q_split")
-    return fwd(code, d, b, sq, sk, h, int(causal)), dkv(code, d, b, sq, sk, h, hk)
+    _, dq = _entry("odh_flash_bwd_dq_k_split")
+    return (fwd(code, d, b, sq, sk, h, int(causal)), dkv(code, d, b, sq, sk, h, hk),
+            dq(code, d, b, sq, sk, h, int(causal)))
 
 
 def _strides(t):

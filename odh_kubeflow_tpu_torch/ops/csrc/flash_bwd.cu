@@ -88,14 +88,42 @@
 //   (one pass, ~3 decimal digits, or split into three passes) would break
 //   the f32 gates (1e-5 against the plain version, the gradient check of
 //   the train step) or take away the reason the (dtype, d) rule gives.
-//   - dq: one 256-thread block per (batch*head, 64 q rows), four threads per
-//     row, 64-row tiles in shared memory with rows padded so a warp's
-//     per-row reads hit distinct banks, scalar f32 FMAs, two shared loads
-//     per FMA; bound by shared-memory bandwidth. The q and dO tiles and each
-//     row's lse and delta are staged once; the block loops over 64-row K/V
-//     tiles, stopping at the diagonal under the causal mask. A row's four
-//     threads compute its 64 ds values, round them, and share them through a
-//     shared-memory row; dq stays in f32 registers and is written once.
+//   - dq (flash_bwd_dq_scalar_kernel), in the forward's frame. What bounds
+//     it on this card: the f32 FMA rate (6*d flops per visible pair: 0.0120
+//     ms at b1 s512 h8 d128), and ahead of it shared memory and the number
+//     of blocks, as for dk/dv below; the kernel this one replaced did one FMA
+//     per shared load on 64 blocks (0.365 ms). So:
+//     . register tiles: one block per (batch*head, BQ q rows), 16 row groups
+//       of 16 lanes (8 at d 16); Q and dO rows stay resident (rows padded 16
+//       bytes), each row's lse*log2(e) and delta in registers; a thread owns
+//       BQ/16 q rows x 4 keys (8 at d 16) of S and dP in each 64-key tile,
+//       read four d at a time, 2 * (rows + keys) loads for 8 * rows * keys
+//       FMAs; dS, rounded to K's dtype, goes to shared memory (f32) only
+//       within the warp; then the thread owns its q rows x runs of 4 (2 at d
+//       16 and 32) of dq's columns, in f32 registers, with dS read four keys
+//       at a time and K rows as float4; dq is rounded once, when written;
+//     . a grid that fills the card: the q tile by the forward's rule
+//       (odh_flash::scalar_tile: 64, else 32, else 16), and where the grid
+//       still leaves SMs idle, clusters of 2 blocks share one q tile, each
+//       taking every other key tile, and add their dq through distributed
+//       shared memory in block order (no atomics, no rescale: the lse is
+//       given), each block writing a share of the rows; b1 s512 h8 runs 128
+//       blocks of 64 rows;
+//     . async copies: K/V tiles stream through a two-stage cp.async ring
+//       (16-byte copies where q, k, v and dO allow, else 4); the next tile's
+//       copies run under this tile's products. Longest q tiles first; the
+//       mask only on tiles that straddle the diagonal or a ragged tail.
+//     At f32 d128 a 64-row block holds 218 KB of shared memory (Q and dO,
+//     the K/V ring, dS), so it needs a whole SM. ptxas (CUDA 12.8): 64-row
+//     tiles 204 registers at f32 d128, 125-128 at d64, 130-166 at d32, 220
+//     at d16, 128-168 in bf16; 32- and 16-row tiles 48-116; 8-40 bytes
+//     spilled in five of the 36 (one the 64-row f32 d32 tile in clusters).
+//     Timed on an H100 80GB HBM3 (700 W) at b1 s512 h8 d128 f32 causal by
+//     tools/scalar_dq_variants.py, in turns in one run: clusters of at most
+//     2 blocks 0.0577 and 0.0581 ms (kept); of at most 4, 0.0670 and 0.0667
+//     ms (256 blocks of a whole SM each: two waves on 132 SMs); 32-key tiles
+//     with 8 lanes (4 x 4 a thread, 128 threads) 0.0661 ms with at most 2
+//     blocks a cluster, 0.0742 with at most 4.
 //   - dk/dv (flash_bwd_dkv_scalar_kernel), in the transposed frame. What
 //     bounds it on this card: the f32 FMA rate (8*d flops per visible pair:
 //     0.0161 ms at b1 s512 h8 d128), and ahead of it shared memory (32 f32
@@ -171,61 +199,57 @@ bool valid(const Args& a) {
 
 namespace scalar {
 
-constexpr int BQ = 64;    // q rows per tile
-constexpr int BK = 64;    // k rows per tile
-constexpr int LANES = 4;  // threads per tile row
-constexpr int THREADS = 256;
+// A dq block's geometry: BQ q rows (resident, with their dO rows), BK keys
+// per streamed K/V tile; RQ q rows a thread owns, LANES threads along a q
+// row (its key columns of S and dP, then its runs of dq's d columns); KS
+// blocks in a cluster share the q rows and split the key tiles
+template <typename T, int D, int BQ, int BK, int RQ, int LANES, int KS>
+struct DqCfg {
+  static_assert(BQ % RQ == 0 && BK % LANES == 0 && BK % 4 == 0 && D % (2 * LANES) == 0 &&
+                    LANES <= 32 && (KS == 1 || KS == 2 || KS == 4),
+                "tile shapes");
+  static constexpr int ROW_GROUPS = BQ / RQ;     // threads along the q rows
+  static constexpr int THREADS = ROW_GROUPS * LANES;
+  static constexpr int CK = BK / LANES;          // key columns a thread owns
+  static constexpr int VEC = D / LANES >= 4 ? 4 : 2;  // dq columns per contiguous run of a thread
+  static constexpr int NV = D / (LANES * VEC);   // runs per dq row of a thread
+  static constexpr int RS = D + 16 / (int)sizeof(T);  // row stride of every tile: 16 bytes of pad
+  // dS row stride (f32): the row groups of a warp LANES banks apart
+  static constexpr int PS = BK + LANES;
+  static constexpr int RES_BYTES = BQ * RS * (int)sizeof(T);   // Q or dO, resident
+  static constexpr int TILE_BYTES = BK * RS * (int)sizeof(T);  // one stage of the K or V ring
+  static constexpr int SMEM = 2 * RES_BYTES + 4 * TILE_BYTES + BQ * PS * 4;
+  static_assert(SMEM <= 232448, "a block's shared memory");
+  // the cluster's exchange at the end (dq of every row, f32) reuses the Q
+  // and dO tiles and the ring
+  static_assert(BQ * D * 4 <= 2 * RES_BYTES + 4 * TILE_BYTES, "exchange fits");
+};
 
-static_assert(BQ * LANES == THREADS && BK * LANES == THREADS, "one row per four threads");
-
-// rows [row0, row0 + ROWS) of a (seq, d) slice into a tile of row stride
-// D + 2; rows at or past n_rows are zero
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t row_stride,
-                                          int row0, int n_rows) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
-    const int row = idx / D, col = idx % D;
-    const int p = row0 + row;
-    dst[row * (D + 2) + col] = p < n_rows ? src[(int64_t)p * row_stride + col] : from_f<T>(0.f);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ float dot(const T* a, const T* b) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int i = 0; i < D; i += 2) {
-    const float2 x = load2(a + i);
-    const float2 y = load2(b + i);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-  }
-  return acc;
-}
-
-template <typename T, int D>
-constexpr size_t dq_smem_bytes() {
-  // q, dO, k, v tiles; the ds tile in f32 with rows padded to BK + 1
-  return (size_t)(2 * BQ + 2 * BK) * (D + 2) * sizeof(T) + (size_t)BQ * (BK + 1) * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_scalar_kernel(const Args a) {
-  constexpr int S = D + 2;
-  constexpr int PS = BK + 1;
-  constexpr int CPT = BK / LANES;  // score columns per thread
-  constexpr int OPT = D / LANES;   // dq columns per thread
+// One cluster of KS blocks per (batch*head, BQ q rows); block r of the
+// cluster takes key tiles r, r + KS, ... up to the diagonal. Row group g
+// owns the RQ q rows g, g + ROW_GROUPS, ... and its lane the CK key
+// columns lane, lane + LANES, ... of each key tile (S and dP), then the
+// runs of dq's d columns lane*VEC, lane*VEC + LANES*VEC, ...; Q and dO stay
+// resident while K/V tiles stream through a two-stage cp.async ring. See
+// the file's header.
+template <typename T, int D, int BQ, int BK, int RQ, int LANES, int KS>
+__global__ void __launch_bounds__(DqCfg<T, D, BQ, BK, RQ, LANES, KS>::THREADS)
+flash_bwd_dq_scalar_kernel(const Args a, int vec16) {
+  using C = DqCfg<T, D, BQ, BK, RQ, LANES, KS>;
+  constexpr int ROW_GROUPS = C::ROW_GROUPS, DQ_THREADS = C::THREADS;
+  constexpr int CK = C::CK, VEC = C::VEC, NV = C::NV, RS = C::RS, PS = C::PS;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Os = Qs + BQ * S;
-  T* Ks = Os + BQ * S;
-  T* Vs = Ks + BK * S;
-  float* DSs = reinterpret_cast<float*>(Vs + BK * S);
+  T* Os = reinterpret_cast<T*>(smem + C::RES_BYTES);
+  T* Ks = reinterpret_cast<T*>(smem + 2 * C::RES_BYTES);                     // stage s at s * BK * RS
+  T* Vs = reinterpret_cast<T*>(smem + 2 * C::RES_BYTES + 2 * C::TILE_BYTES);  // the same
+  float* DSs = reinterpret_cast<float*>(smem + 2 * C::RES_BYTES + 4 * C::TILE_BYTES);
 
   const int tid = threadIdx.x;
-  const int r = tid / LANES;
-  const int t = tid % LANES;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // causal: longest rows first
+  const int rg = tid / LANES;
+  const int lane = tid % LANES;
+  const int rank = KS == 1 ? 0 : (int)blockIdx.x % KS;   // this block's place in its cluster
+  const int q0 = (gridDim.x / KS - 1 - blockIdx.x / KS) * BQ;  // longest rows first
   const int bh = blockIdx.y;
   const int b = bh / a.h;
   const int hi = bh % a.h;
@@ -234,62 +258,170 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_scalar_kernel(const Args
   const T* ob = static_cast<const T*>(a.dout) + b * a.os[0] + hi * a.os[2];
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
-
-  load_tile<T, D, BQ>(Qs, qb, a.qs[1], q0, a.sq);
-  load_tile<T, D, BQ>(Os, ob, a.os[1], q0, a.sq);
-  const int q_pos = q0 + r;
-  // rows past sq see q = dO = 0 and lse = delta = 0, so their ds is 0
-  const bool row_in = q_pos < a.sq;
-  const float lse2 = row_in ? a.lse[(int64_t)bh * a.sq + q_pos] * LOG2E : 0.f;
-  const float dlt = row_in ? a.delta[(int64_t)bh * a.sq + q_pos] : 0.f;
-
   const int q_last = min(q0 + BQ, a.sq) - 1;
   const int k_end = a.causal ? min(a.sk, q_last + 1) : a.sk;
   const int n_tiles = (k_end + BK - 1) / BK;
+  const int n_mine = (n_tiles - rank + KS - 1) / KS;   // key tiles rank, rank + KS, ...
 
-  float acc[OPT];
+  // Q and dO ride in the first copy group with this block's first K/V
+  // tile; rows past the sequences are zero
+  auto load_kv = [&](int i) {
+    const int s = i & 1, k0 = (rank + KS * i) * BK;
+    async_rows<T, D, BK, DQ_THREADS>(Ks + s * BK * RS, RS, kb, a.ks[1], k0, a.sk, vec16);
+    async_rows<T, D, BK, DQ_THREADS>(Vs + s * BK * RS, RS, vb, a.vs[1], k0, a.sk, vec16);
+    cp_async_commit();
+  };
+  if (n_mine > 0) {
+    async_rows<T, D, BQ, DQ_THREADS>(Qs, RS, qb, a.qs[1], q0, a.sq, vec16);
+    async_rows<T, D, BQ, DQ_THREADS>(Os, RS, ob, a.os[1], q0, a.sq, vec16);
+    load_kv(0);
+  }
+
+  // each row's lse*log2(e) and delta; rows past sq see q = dO = 0 and
+  // lse = delta = 0, so their ds is 0
+  float lse2[RQ], dlt[RQ], acc[RQ][NV * VEC];
 #pragma unroll
-  for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
-  const T* qr = Qs + r * S;
-  const T* orow = Os + r * S;
-  float* dsr = DSs + r * PS;
+  for (int i = 0; i < RQ; ++i) {
+    const int q_pos = q0 + rg + ROW_GROUPS * i;
+    const int64_t at = (int64_t)bh * a.sq + q_pos;
+    lse2[i] = q_pos < a.sq ? a.lse[at] * LOG2E : 0.f;
+    dlt[i] = q_pos < a.sq ? a.delta[at] : 0.f;
+#pragma unroll
+    for (int e = 0; e < NV * VEC; ++e) acc[i][e] = 0.f;
+  }
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every thread is done with the previous K/V tile
-    load_tile<T, D, BK>(Ks, kb, a.ks[1], k0, a.sk);
-    load_tile<T, D, BK>(Vs, vb, a.vs[1], k0, a.sk);
-    __syncthreads();
+  for (int it = 0; it < n_mine; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is visible, and every thread is done with the last one
+    if (it + 1 < n_mine) load_kv(it + 1);  // lands while this tile is computed
+    const T* Kt = Ks + (it & 1) * BK * RS;
+    const T* Vt = Vs + (it & 1) * BK * RS;
+    const int k0 = (rank + KS * it) * BK;
 
-    const bool masked = (k0 + BK > a.sk) || (a.causal && k0 + BK - 1 > q0);
-#pragma unroll 4
-    for (int j = 0; j < CPT; ++j) {
-      const int c = t + LANES * j;
-      float s = dot<T, D>(qr, Ks + c * S) * a.scale_log2;
-      const int kp = k0 + c;
-      if (masked && (kp >= a.sk || (a.causal && kp > q_pos))) s = NEG_INF;
-      const float p = exp2f(s - lse2);
-      const float dp = dot<T, D>(orow, Vs + c * S);
-      dsr[c] = round_to<T>(p * (dp - dlt) * a.scale);
+    // S = Q.K^T and dP = dO.V^T: 2 x RQ x CK independent sums, four d at a
+    // time: 2 * (RQ + CK) shared loads of four values for 8 * RQ * CK FMAs
+    float s[RQ][CK], dp[RQ][CK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 4) {
+      float4 qa[RQ], oa[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        qa[i] = load4(Qs + (rg + ROW_GROUPS * i) * RS + d0);
+        oa[i] = load4(Os + (rg + ROW_GROUPS * i) * RS + d0);
+      }
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        const float4 kk = load4(Kt + (lane + LANES * j) * RS + d0);
+        const float4 vv = load4(Vt + (lane + LANES * j) * RS + d0);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          s[i][j] = fmaf(qa[i].x, kk.x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kk.y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kk.z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kk.w, s[i][j]);
+          dp[i][j] = fmaf(oa[i].x, vv.x, dp[i][j]);
+          dp[i][j] = fmaf(oa[i].y, vv.y, dp[i][j]);
+          dp[i][j] = fmaf(oa[i].z, vv.z, dp[i][j]);
+          dp[i][j] = fmaf(oa[i].w, vv.w, dp[i][j]);
+        }
+      }
     }
-    __syncwarp();  // a row's four threads share one warp
 
-    for (int c = 0; c < BK; ++c) {
-      const float ds = dsr[c];
-      const T* kr = Ks + c * S + 2 * t;
+    // p and ds of each (q, k) pair, ds rounded into dS; the tile needs
+    // elementwise masking only on a ragged tail or the diagonal
+    const bool masked = (k0 + BK > a.sk) || (a.causal && k0 + BK - 1 > q0);
 #pragma unroll
-      for (int i = 0; i < OPT / 2; ++i) {
-        const float2 w = load2(kr + 2 * LANES * i);
-        acc[2 * i] = fmaf(ds, w.x, acc[2 * i]);
-        acc[2 * i + 1] = fmaf(ds, w.y, acc[2 * i + 1]);
+    for (int i = 0; i < RQ; ++i) {
+      const int r = rg + ROW_GROUPS * i;
+      const int q_pos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        const int c = lane + LANES * j;
+        const int kp = k0 + c;
+        float x = s[i][j] * a.scale_log2;
+        if (masked && (kp >= a.sk || (a.causal && kp > q_pos))) x = NEG_INF;
+        const float p = exp2f(x - lse2[i]);
+        DSs[r * PS + c] = round_to<T>(p * (dp[i][j] - dlt[i]) * a.scale);
+      }
+    }
+    __syncwarp();  // a row group's dS rows are written and read by its own warp
+
+    // dq += dS.K: this thread's rows x its runs of d, four keys at a time
+    // from its dS rows (RQ loads) and the four K rows (NV loads each)
+#pragma unroll 2
+    for (int c0 = 0; c0 < BK; c0 += 4) {
+      float4 da[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        da[i] = *reinterpret_cast<const float4*>(DSs + (rg + ROW_GROUPS * i) * PS + c0);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const T* kr = Kt + (c0 + cc) * RS + VEC * lane;
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          float w[VEC];
+          load_n<VEC>(kr + LANES * VEC * n, w);
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) {
+            const float ds = cc == 0 ? da[i].x : cc == 1 ? da[i].y : cc == 2 ? da[i].z : da[i].w;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[i][n * VEC + e] = fmaf(ds, w[e], acc[i][n * VEC + e]);
+          }
+        }
       }
     }
   }
 
-  if (row_in) {
-    T* out = static_cast<T*>(a.dq) + ((int64_t)(b * a.sq + q_pos) * a.h + hi) * D + 2 * t;
+  // A cluster sums its blocks' dq through distributed shared memory: each
+  // block puts its sums where its tiles and ring were, and block r
+  // finishes the rows r, r + KS, ..., adding the blocks' sums in block
+  // order (the same order on every run). dq is a plain sum over key tiles:
+  // the lse is given, so nothing is rescaled
+  if constexpr (KS > 1) {
+    float* X = reinterpret_cast<float*>(smem);  // dq of row r at r * D
+    __syncthreads();  // every thread is done with the tiles and the ring
 #pragma unroll
-    for (int i = 0; i < OPT / 2; ++i) store2(out + 2 * LANES * i, acc[2 * i], acc[2 * i + 1]);
+    for (int i = 0; i < RQ; ++i) {
+      float* xr = X + (rg + ROW_GROUPS * i) * D + VEC * lane;
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) xr[LANES * VEC * n + e] = acc[i][n * VEC + e];
+    }
+    cooperative_groups::this_cluster().sync();  // every block's sums are visible to the cluster
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int row = rg + ROW_GROUPS * i;
+      if (row % KS != rank) continue;
+      const float* xs[KS];
+#pragma unroll
+      for (int r = 0; r < KS; ++r)
+        xs[r] = cooperative_groups::this_cluster().map_shared_rank(X, r) + row * D + VEC * lane;
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float sum = 0.f;
+#pragma unroll
+          for (int r = 0; r < KS; ++r) sum += xs[r][LANES * VEC * n + e];
+          acc[i][n * VEC + e] = sum;
+        }
+    }
+    cooperative_groups::this_cluster().sync();  // no block leaves while another reads it
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = rg + ROW_GROUPS * i;
+    const int q_pos = q0 + row;
+    if (q_pos >= a.sq || row % KS != rank) continue;
+    T* out = static_cast<T*>(a.dq) + ((int64_t)(b * a.sq + q_pos) * a.h + hi) * D + VEC * lane;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) store_n<VEC>(out + LANES * VEC * n, &acc[i][n * VEC]);
   }
 }
 
@@ -547,16 +679,72 @@ flash_bwd_dkv_scalar_kernel(const Args a, int vec16) {
   }
 }
 
+// Whether the scalar kernels may copy q, k, v and dO 16 bytes at a time
+// (*vec16), else 4; every view must be 4-byte aligned (the wrapper copies
+// one that is not)
+template <typename T>
+bool copy_width(const Args& a, int* vec16) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const int64_t* strides[4] = {a.qs, a.ks, a.vs, a.os};
+  *vec16 = 1;
+  for (int i = 0; i < 4; ++i) {
+    if (!aligned_to(ptrs[i], strides[i], sizeof(T), 4)) return false;
+    *vec16 = *vec16 && aligned_to(ptrs[i], strides[i], sizeof(T), 16);
+  }
+  return true;
+}
+
+// dq's key tile: 64 keys, 4 of them a thread (8 at d 16)
+constexpr int DQ_BK = 64;
+// dq's largest cluster (2 or 4): see the file's header for the times that
+// chose it
+constexpr int DQ_MAX_SPLIT = 2;
+
+// q rows per dq block and blocks per cluster (the key tiles of the
+// longest rows split between them): the grid's size decides, by the
+// forward's rule (odh_flash::scalar_tile and scalar_split)
+int dq_tile_q(int b, int sq, int h) { return scalar_tile(sq, (int64_t)b * h); }
+
+int dq_k_split(int b, int sq, int sk, int h, int causal) {
+  const int keys = causal ? min(sk, sq) : sk;
+  return scalar_split(sq, (int64_t)b * h, dq_tile_q(b, sq, h), (keys + DQ_BK - 1) / DQ_BK,
+                      DQ_MAX_SPLIT);
+}
+
 template <typename T, int D>
 struct LaunchDq {
-  static cudaError_t run(const Args& a, cudaStream_t stream) {
-    constexpr size_t smem = dq_smem_bytes<T, D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_scalar_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  template <int BQ, int KS>
+  static cudaError_t go(const Args& a, int vec16, cudaStream_t stream) {
+    // 16 row groups of BQ / 16 q rows x 16 lanes (256 threads), or 8 lanes
+    // at d 16
+    constexpr int LANES = D == 16 ? 8 : 16;
+    constexpr int RQ = BQ / 16;
+    using C = DqCfg<T, D, BQ, DQ_BK, RQ, LANES, KS>;
+    auto kernel = flash_bwd_dq_scalar_kernel<T, D, BQ, DQ_BK, RQ, LANES, KS>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.sq + BQ - 1) / BQ, a.b * a.h);
-    flash_bwd_dq_scalar_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
-    return cudaGetLastError();
+    const dim3 grid((a.sq + BQ - 1) / BQ * KS, a.b * a.h);
+    return launch_clustered(kernel, grid, C::THREADS, C::SMEM, KS, stream, a, vec16);
+  }
+
+  template <int KS>
+  static cudaError_t tiled(int tile, const Args& a, int vec16, cudaStream_t stream) {
+    switch (tile) {
+      case 64: return go<64, KS>(a, vec16, stream);
+      case 32: return go<32, KS>(a, vec16, stream);
+      default: return go<16, KS>(a, vec16, stream);
+    }
+  }
+
+  static cudaError_t run(const Args& a, cudaStream_t stream) {
+    int vec16;
+    if (!copy_width<T>(a, &vec16)) return cudaErrorMisalignedAddress;
+    const int tile = dq_tile_q(a.b, a.sq, a.h);
+    const int split = dq_k_split(a.b, a.sq, a.sk, a.h, a.causal);
+    if constexpr (DQ_MAX_SPLIT >= 4)
+      if (split == 4) return tiled<4>(tile, a, vec16, stream);
+    if (split == 2) return tiled<2>(tile, a, vec16, stream);
+    return tiled<1>(tile, a, vec16, stream);
   }
 };
 
@@ -593,16 +781,8 @@ struct LaunchDkv {
   }
 
   static cudaError_t run(const Args& a, cudaStream_t stream) {
-    constexpr int E = sizeof(T);
-    // every view 4-byte aligned (the wrapper copies one that is not), and
-    // 16-byte copies where all four allow them
-    const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
-    const int64_t* strides[4] = {a.qs, a.ks, a.vs, a.os};
-    int vec16 = 1;
-    for (int i = 0; i < 4; ++i) {
-      if (!aligned_to(ptrs[i], strides[i], E, 4)) return cudaErrorMisalignedAddress;
-      vec16 = vec16 && aligned_to(ptrs[i], strides[i], E, 16);
-    }
+    int vec16;
+    if (!copy_width<T>(a, &vec16)) return cudaErrorMisalignedAddress;
     const int tile = tile_k(a.b, a.sk, a.hk);
     const int split = q_split(a.b, a.sq, a.sk, a.hk, a.h / a.hk, D);
     if (split == 2) {
@@ -1141,12 +1321,24 @@ extern "C" int odh_flash_bwd_dkv_q_split(int dtype, int d, int b, int sq, int sk
   return odh_flash_bwd_kernel(dtype, d) == 1 ? 1 : scalar::q_split(b, sq, sk, hk, h / hk, d);
 }
 
+// q rows per block of the dq kernel odh_flash_bwd_dq would launch for this
+// call; attention.bwd_dq_launch_plan reports it
+extern "C" int odh_flash_bwd_dq_tile_q(int dtype, int d, int b, int sq, int h) {
+  return odh_flash_bwd_kernel(dtype, d) == 1 ? wg::ROWS : scalar::dq_tile_q(b, sq, h);
+}
+
+// blocks per cluster of the dq kernel odh_flash_bwd_dq would launch (the
+// scalar kernel's key split; the tensor-core kernel takes no clusters)
+extern "C" int odh_flash_bwd_dq_k_split(int dtype, int d, int b, int sq, int sk, int h, int causal) {
+  return odh_flash_bwd_kernel(dtype, d) == 1 ? 1 : scalar::dq_k_split(b, sq, sk, h, causal);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, (batch, seq,
 // head) for each of q/k/v/dO; the last dim must be contiguous. For the
 // tensor-core kernels the base addresses must be 16-byte aligned and every
-// stride a multiple of 16 bytes (TMA's rule); for the scalar dk/dv kernel,
-// which copies with cp.async, multiples of 4 bytes (16-byte copies where
-// all four views allow them). Each returns the launch's cudaError_t (0 on
+// stride a multiple of 16 bytes (TMA's rule); for the scalar kernels, which
+// copy with cp.async, multiples of 4 bytes (16-byte copies where all four
+// views allow them). Each returns the launch's cudaError_t (0 on
 // success); the launch is asynchronous on `stream`. A failed launch is
 // returned, never retried on the other kernel.
 extern "C" int odh_flash_bwd_dq(const void* q, const void* k, const void* v,

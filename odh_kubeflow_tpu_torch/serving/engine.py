@@ -68,11 +68,16 @@ class RequestHandle:
     prompt: List[int]
     max_new: int
     submitted: float
+    traceparent: Optional[str] = None  # the caller's W3C trace context, as given
     tokens: List[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
     result: str = ""  # ok | canceled | error
     ttft_s: Optional[float] = None
     _last_token_t: Optional[float] = None
+    # a hedge duplicate whose twin already completed (a router sets it
+    # before canceling): its cancellation is bookkeeping, not an outcome a
+    # user saw, so it is not counted
+    superseded: bool = False
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.done.wait(timeout)
@@ -203,7 +208,10 @@ class ServingEngine:
 
     # ---------- submission ----------
 
-    def submit(self, prompt: Sequence[int], max_new: int) -> RequestHandle:
+    def submit(self, prompt: Sequence[int], max_new: int,
+               traceparent: Optional[str] = None) -> RequestHandle:
+        """Queue one request; `traceparent` (a router passes it third,
+        positionally) is kept on the handle."""
         if max_new <= 0:
             raise ValueError("max_new must be positive")
         if not prompt:
@@ -224,7 +232,7 @@ class ServingEngine:
             self._next_id += 1
             handle = RequestHandle(
                 id=self._next_id, prompt=list(prompt), max_new=max_new,
-                submitted=self.clock(),
+                submitted=self.clock(), traceparent=traceparent,
             )
             self._queue.append(handle)
             M.inference_queue_depth.set(float(len(self._queue)))
@@ -378,7 +386,11 @@ class ServingEngine:
 
     def _complete(self, handle: RequestHandle, result: str, now: float) -> None:
         handle.result = result
-        M.inference_requests_total.inc(result=result)
+        # a superseded hedge duplicate was counted by its twin; counting its
+        # cancellation would make every hedge burn the serving-availability
+        # budget (drain and stop cancellations still count)
+        if not handle.superseded:
+            M.inference_requests_total.inc(result=result)
         handle.done.set()
 
     def _publish_gauges(self) -> None:
@@ -457,6 +469,11 @@ class ServingEngine:
     # ---------- introspection ----------
 
     def stats(self) -> Dict[str, Any]:
+        """The engine's live counters, under the reference engine's keys
+        and the port's own. The recompile counts are 0: the eager engine
+        compiles nothing (once the burst or the prefill is captured as a
+        CUDA graph, its captures count there). host_transfers_last_burst is
+        host_syncs_last_burst under the reference's name."""
         with self._lock:
             queued = len(self._queue)
         return {
@@ -466,8 +483,11 @@ class ServingEngine:
             "generated_tokens": self._generated_total,
             "decode_steps": self._decode_steps,
             "busy_s": round(self._busy_s, 6),
+            "decode_burst_recompiles": 0,
+            "prefill_recompiles": 0,
             # device->host syncs made by the last decode burst: exactly 1,
             # the batched copy of the burst's per-slot outputs
             "host_syncs_last_burst": self._host_syncs_last_burst,
+            "host_transfers_last_burst": self._host_syncs_last_burst,
             "metrics": M.snapshot(),
         }

@@ -4,7 +4,8 @@ odh_kubeflow_tpu/serving/server.py): `python -m odh_kubeflow_tpu_torch.serving`.
 - ``POST /generate`` ``{"prompt": [ints], "max_new": n}`` -> blocks until
   the sequence completes -> ``{"tokens": [...], "ttft_s": ..., "result":
   "ok"}``. A full admission queue is an explicit **429**; a request the
-  engine canceled or failed is a **503**.
+  engine canceled or failed is a **503**. A ``traceparent`` header is kept
+  on the request's engine handle.
 - ``GET /healthz`` -> 200 once the server is up.
 - ``GET /stats`` -> the engine's live counters.
 
@@ -105,7 +106,8 @@ class ServingHTTPServer:
                     respond(self, 400, json.dumps({"error": f"bad request: {e}"}).encode())
                     return
                 try:
-                    handle = engine.submit(prompt, max_new=max_new)
+                    handle = engine.submit(prompt, max_new=max_new,
+                                           traceparent=self.headers.get("traceparent"))
                 except QueueFull as e:
                     respond(self, 429, json.dumps(
                         {"error": str(e), "result": "rejected"}

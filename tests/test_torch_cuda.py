@@ -3,7 +3,8 @@ its plain PyTorch version at the port's head dims, bf16 and f32, causal and
 not, GQA and ragged lengths; the tensor-core forward and backward kernels at
 their tile edges (the forward with both q-tile widths), and their refusal of
 views TMA cannot read; the scalar kernels at the edges of each of their
-16-, 32- and 64-row tiles; the differentiable attention, the f32-output matmul's
+16-, 32- and 64-row tiles, and the scalar dq kernel at each of its cluster
+sizes; the differentiable attention, the f32-output matmul's
 backward and one train step on the card. They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
@@ -257,13 +258,50 @@ def test_tensor_core_bwd_kernels_at_tile_edges_on_card(card, s, d, causal):
 @pytest.mark.parametrize("s,tile", SCALAR_EDGES, ids=[f"s{s}-k{t}" for s, t in SCALAR_EDGES])
 def test_scalar_bwd_kernels_at_tile_edges_on_card(card, s, tile, dtype, d):
     """The scalar dq and dk/dv kernels (f32, bf16 d16/d32) at the edges of
-    dk/dv's 16-, 32- and 64-row k tiles and streamed q tiles, causal and
-    full; the launch plan reports the k tile the grid gives. At s = 1 (one
-    key: p = 1, dp = delta) dq and dk are 0 in exact arithmetic, so they are
-    held against the largest plain gradient."""
-    b, h, hk, q, k, v = _scalar_edge_inputs(card, s, tile, dtype, d, lambda h, hk: hk)
-    assert attention.bwd_dkv_launch_plan(dtype, b, s, hk, d) == ("flash_bwd_dkv_scalar", tile)
+    dk/dv's 16-, 32- and 64-row k tiles and streamed q tiles, then at the
+    edges of dq's q tiles of the same rows and its 64-key tiles (the batch
+    chosen for each), causal and full; the launch plans report the tiles the
+    grid gives and dq's cluster size as the Python mirror does. At s = 1
+    (one key: p = 1, dp = delta) dq and dk are 0 in exact arithmetic, so
+    they are held against the largest plain gradient."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    # no batch gives dq 16-row tiles at s 513 with 4 or more heads
+    for by_kv in (True, False) if (s, tile) in FWD_SCALAR_EDGES else (True,):
+        b, h, hk, q, k, v = _scalar_edge_inputs(card, s, tile, dtype, d,
+                                                lambda h, hk: hk if by_kv else h)
+        if by_kv:
+            assert attention.bwd_dkv_launch_plan(dtype, b, s, hk, d) == ("flash_bwd_dkv_scalar", tile)
+        else:
+            assert attention.bwd_dq_launch_plan(dtype, b, s, h, d) == ("flash_bwd_dq_scalar", tile)
+        assert attention.bwd_dq_launch_plan(dtype, b, s, h, d)[1] == attention._scalar_tile(s, b * h, sms)
+        for causal in (True, False):
+            split = attention.scalar_splits(dtype, d, b, s, s, h, hk, causal)[2]
+            assert split == attention._scalar_dq_plan(b, s, s, h, causal, sms)[1]
+            _check_bwd_on_card(q, k, v, *_bwd_inputs(q, k, v, causal), causal, joint=s == 1)
+
+
+DQ_PLANS = [(t, 2 ** i) for t in (64, 32, 16) for i in range(attention._DQ_MAX_SPLIT.bit_length())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,split", DQ_PLANS, ids=[f"q{t}-x{ks}" for t, ks in DQ_PLANS])
+def test_scalar_dq_kernel_cluster_sizes_on_card(card, tile, split):
+    """The scalar dq kernel at each (q tile, cluster size) its rule gives: f32
+    at the first length of the tile edges (then 1024), heads 8/2 on strided
+    fused-qkv views, 4/1, 2/1 or 1/1, and batch that the Python mirror plans
+    so, causal and full; the C entries plan the same."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
     for causal in (True, False):
+        found = next(((s, h, hk, b) for s in (1, 15, 16, 17, 31, 33, 65, 129, 513, 1024)
+                      for h, hk in ((8, 2), (4, 1), (2, 1), (1, 1)) for b in range(1, 2 * sms + 1)
+                      if attention._scalar_dq_plan(b, s, s, h, causal, sms) == (tile, split)), None)
+        assert found is not None, f"no shape gives dq ({tile}, {split}) on {sms} SMs"
+        s, h, hk, b = found
+        d = 128 if tile == 64 else 64
+        assert attention.bwd_dq_launch_plan(torch.float32, b, s, h, d) == ("flash_bwd_dq_scalar", tile)
+        assert attention.scalar_splits(torch.float32, d, b, s, s, h, hk, causal)[2] == split
+        qkv = torch.randn(b, s, h + 2 * hk, d, device=card)
+        q, k, v = qkv.split([h, hk, hk], dim=2)
         _check_bwd_on_card(q, k, v, *_bwd_inputs(q, k, v, causal), causal, joint=s == 1)
 
 

@@ -295,6 +295,47 @@ def test_scalar_tile_fills_the_card(rows, groups, sms, tile):
     assert attention._scalar_tile(rows, groups, sms) == tile
 
 
+@pytest.mark.parametrize("rows,groups,tile,inner,max_split,sms,split", [
+    (128, 8, 16, 2, 4, 132, 2),    # the scalar forward at b1 s128 h8: 64 blocks, 2 key tiles
+    (512, 8, 64, 16, 4, 132, 4),   # the forward at the gradient check: 64 blocks, 16 key tiles
+    (512, 8, 64, 16, 2, 132, 2),   # dk/dv there: at most 2-block clusters
+    (512, 8, 64, 8, 2, 132, 2),    # dq there: 8 key tiles of 64, at most 2-block clusters
+    (512, 8, 64, 3, 4, 132, 2),    # 3 inner tiles give no block of a 4-block cluster two
+    (2048, 64, 64, 32, 4, 132, 1),  # 2048 blocks fill the card
+    (512, 8, 64, 8, 4, 114, 2),    # on 114 SMs, 128 blocks leave none idle
+    (33, 4, 16, 1, 4, 132, 1),     # one inner tile: nothing to split
+])
+def test_scalar_split_doubles_while_sms_idle(rows, groups, tile, inner, max_split, sms, split):
+    """Blocks per cluster of the scalar kernels: doubled, up to the
+    kernel's largest, while the grid leaves SMs idle and the longest row
+    block has two inner tiles for each block. The C rule
+    (odh_flash::scalar_split) makes the same choice; the chip smoke holds
+    the two against each other."""
+    assert attention._scalar_split(rows, groups, tile, inner, max_split, sms) == split
+
+
+@pytest.mark.parametrize("b,sq,sk,h,causal,plan", [
+    (1, 512, 512, 8, True, (64, 2)),    # the f32 gradient check: 64 blocks, 128 in clusters of 2
+    (1, 512, 512, 8, False, (64, 2)),
+    (8, 2048, 2048, 8, True, (64, 1)),  # b8 s2048 h8: 2048 blocks
+    (1, 4, 4, 4, True, (16, 1)),        # the demo model's prefill length: one key tile
+    (4, 65, 65, 8, True, (64, 2)),      # 64 blocks of 64 rows, two key tiles
+    (9, 65, 65, 8, True, (64, 1)),      # 144 blocks
+    (1, 513, 513, 1, False, (16, 2)),   # one head: 33 blocks of 16 rows
+    (1, 1024, 200, 2, True, (32, 2)),   # causal: the longest rows see min(sq, sk) keys
+    (1, 1024, 50, 2, True, (32, 1)),    # one key tile
+    (1, 512, 64, 8, False, (64, 1)),    # one key tile: nothing to split
+])
+def test_scalar_dq_plan_fills_the_card(b, sq, sk, h, causal, plan):
+    """The scalar dq kernel's (q tile, cluster size) on 132 SMs: the
+    forward's tile rule over batch * heads, and clusters that split the
+    64-key tiles of the longest rows, up to 2 blocks. The C entries
+    (odh_flash_bwd_dq_tile_q, odh_flash_bwd_dq_k_split) make the same
+    choice; the chip smoke and the card tests hold the two against each
+    other."""
+    assert attention._scalar_dq_plan(b, sq, sk, h, causal, 132) == plan
+
+
 @pytest.mark.parametrize("make,problem", [
     (lambda: torch.zeros(2, 64, 8, 16, dtype=torch.bfloat16), None),
     (lambda: torch.zeros(2, 64, 8, 128), None),

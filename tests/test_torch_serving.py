@@ -3,8 +3,12 @@
 tests/test_serving.py on the same TINY config with weights converted from
 the JAX init: greedy parity with JAX generate(), slot recycling,
 backpressure, EOS, stop-cancel; plus the one-host-sync-per-burst contract,
-an HTTP round trip on port 0, and the device contract.
+an HTTP round trip on port 0, the engine contract a reference-shaped caller
+relies on (submit's traceparent, superseded hedges, stats() keys), and the
+device contract.
 """
+import dataclasses
+import inspect
 import json
 import threading
 import urllib.error
@@ -19,10 +23,12 @@ import torch
 from odh_kubeflow_tpu.models import TransformerConfig as JaxConfig
 from odh_kubeflow_tpu.models import generate as jax_generate
 from odh_kubeflow_tpu.models import init_params as jax_init_params
+from odh_kubeflow_tpu.serving.engine import RequestHandle as JaxRequestHandle
+from odh_kubeflow_tpu.serving.engine import ServingEngine as JaxEngine
 from odh_kubeflow_tpu_torch.models import TransformerConfig, params_from_numpy
 from odh_kubeflow_tpu_torch.ops import attention
 from odh_kubeflow_tpu_torch.serving import metrics as M
-from odh_kubeflow_tpu_torch.serving.engine import QueueFull, ServingEngine
+from odh_kubeflow_tpu_torch.serving.engine import QueueFull, RequestHandle, ServingEngine
 from odh_kubeflow_tpu_torch.serving.server import ServingHTTPServer, build_engine_from_env
 
 TINY_JAX = JaxConfig(
@@ -199,6 +205,83 @@ def test_http_round_trip_on_port_zero():
         assert stats["host_syncs_last_burst"] == 1
     finally:
         server.stop()
+
+
+TRACEPARENT = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
+
+
+def test_engine_contract_is_a_superset_of_the_reference(tiny_model):
+    """A caller written for the reference's engine (its router, its bench)
+    finds the same contract on the port's: submit's parameters in order,
+    RequestHandle's fields and stats()'s keys are supersets of a tiny
+    reference engine's on the CPU. A router's positional traceparent lands
+    on the handle; the recompile counts are 0 (the eager engine compiles
+    nothing) and host_transfers_last_burst is host_syncs_last_burst."""
+    jparams, params = tiny_model
+    ref = JaxEngine(jparams, TINY_JAX, max_slots=1, max_seq=64)
+    eng = engine(params, max_slots=1, max_seq=64)
+    want = list(inspect.signature(JaxEngine.submit).parameters)
+    assert list(inspect.signature(ServingEngine.submit).parameters)[:len(want)] == want
+    assert ({f.name for f in dataclasses.fields(JaxRequestHandle)}
+            <= {f.name for f in dataclasses.fields(RequestHandle)})
+    assert set(ref.stats()) <= set(eng.stats())
+    handle = eng.submit([1, 2, 3], 3, TRACEPARENT)
+    assert handle.traceparent == TRACEPARENT and not handle.superseded
+    assert eng.submit([4], 2).traceparent is None
+    assert eng.run_until_idle(timeout=60) and handle.result == "ok"
+    stats = eng.stats()
+    assert stats["decode_burst_recompiles"] == stats["prefill_recompiles"] == 0
+    assert stats["host_transfers_last_burst"] == stats["host_syncs_last_burst"] == 1
+
+
+def test_superseded_hedge_cancel_is_not_counted(tiny_model):
+    """A router marks the loser of a hedged pair superseded before it
+    cancels it: that cancellation leaves inference_requests_total alone
+    (the winner counted the request), while a plain cancel still counts."""
+    _, params = tiny_model
+    eng = engine(params, max_slots=1, max_seq=64, max_queue_depth=8)
+    hedge, plain = eng.submit([1, 2], 4, TRACEPARENT), eng.submit([3, 4], 4)
+    canceled0 = M.inference_requests_total.value(result="canceled")
+    hedge.superseded = True
+    assert eng.cancel(hedge) and hedge.result == "canceled" and hedge.done.is_set()
+    assert M.inference_requests_total.value(result="canceled") == canceled0
+    assert eng.cancel(plain) and plain.result == "canceled"
+    assert M.inference_requests_total.value(result="canceled") == canceled0 + 1
+
+
+class _RecordingEngine:
+    """An engine stand-in for the HTTP front: records each submit's
+    arguments and completes the request at once."""
+
+    def __init__(self):
+        self.calls = []
+
+    def submit(self, prompt, max_new, traceparent=None):
+        self.calls.append((prompt, max_new, traceparent))
+        handle = RequestHandle(id=len(self.calls), prompt=prompt, max_new=max_new, submitted=0.0,
+                               traceparent=traceparent, tokens=[7] * max_new, result="ok")
+        handle.done.set()
+        return handle
+
+    def stop(self, drain_timeout_s=0.0):
+        pass
+
+
+def test_http_front_passes_the_traceparent_header():
+    eng = _RecordingEngine()
+    server = ServingHTTPServer(eng, host="127.0.0.1", port=0)
+    host, port = server.start()
+    try:
+        req = urllib.request.Request(f"http://{host}:{port}/generate",
+                                     data=json.dumps({"prompt": [1, 2], "max_new": 2}).encode(),
+                                     headers={"Content-Type": "application/json",
+                                              "traceparent": TRACEPARENT})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert resp.status == 200 and json.loads(resp.read())["tokens"] == [7, 7]
+        assert _post(f"http://{host}:{port}/generate", {"prompt": [3], "max_new": 1})[0] == 200
+    finally:
+        server.stop()
+    assert eng.calls == [([1, 2], 2, TRACEPARENT), ([3], 1, None)]
 
 
 def test_checkpoint_restore_not_ported_yet():
