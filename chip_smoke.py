@@ -61,12 +61,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    2048): 1 warm-up and 5 timed steps with launch counts zeroed just before
    and read just after (8 tensor-core forward, 8 dq and 8 dk/dv launches per
    step, no scalar one), one step with remat_policy "" (twice the forward
-   launches), host syncs in a step, and one profiled step.
+   launches), host syncs in a step, and one profiled step;
+7. checkpoint, restore and the probe agent, at full width: first
+   `python -m odh_kubeflow_tpu_torch.probe` as a sidecar (its routes over
+   HTTP, its exit on SIGTERM, and no CUDA context of its own where
+   nvidia-smi lists compute apps); then, with launch counts zeroed, a
+   NotebookAgent over a CudaMonitor of the card (window 3 s, samples every
+   0.25 s) whose hooks close over phase 6's train state: /tpu/readiness
+   (1 chip, ready, healthy), /tpu/utilization busy during train steps
+   (> 0; each source printed) and idle after more than a window (the
+   card counter's idle reading, not warming), /tpu/checkpoint (the step and
+   state_checksum; wall time, GB written, GB/s), /tpu/restore onto params
+   re-initialised from another seed (the same step and checksum), the
+   same step twice from the saved state (bit-equal: deterministic on the
+   card), the resumed step bit-equal to the uninterrupted one with 8/8/8
+   tensor-core launches; then phase 5's bf16 model saved and served by
+   build_engine_from_env from SERVING_CHECKPOINT: its logit fingerprint,
+   4 greedy requests' tokens equal to an engine on the original params, 8
+   forward launches per request, and tpu_decode_step_duration_seconds
+   observed once per burst.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -770,8 +789,9 @@ def count_sync_warnings(fn):
 
 def train_phase(attention, peaks, smi):
     """Phase 6: the gradient check on the card, then the full-width train
-    step. Returns the launch counts of the timed steps and the numbers
-    printed."""
+    step. Returns the launch counts of the timed steps and of the gradient
+    check, and the train run (cfg, step function, batch, params, optimizer
+    state) for phase 7."""
     from odh_kubeflow_tpu_torch.models import TransformerConfig, init_params, loss_fn, make_train_step
     from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
 
@@ -865,7 +885,269 @@ def train_phase(attention, peaks, smi):
         step(params, state, batch)
         torch.cuda.synchronize()
     print(f"  one step, device time: {device_split(prof, step_ms)}", flush=True)
-    return launches, launched
+    # every step above updated params and state in place (AdamW's count
+    # says how many)
+    run = {"cfg": cfg, "step": step, "opt": opt, "batch": batch, "params": params, "state": state}
+    return launches, launched, run
+
+
+def _get(host, port, route, timeout=600):
+    with urllib.request.urlopen(f"http://{host}:{port}{route}", timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _launches_since(attention, before):
+    return {n: c - before[n] for n, c in attention.launch_counts.items()}
+
+
+def _compute_apps():
+    """How many processes hold a CUDA context on the card, as nvidia-smi
+    lists them (None where it lists none, as in a PID namespace that hides
+    even this process)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    n = len([line for line in out.splitlines() if line.strip()])
+    return n or None
+
+
+def sidecar_probe(smi):
+    """`python -m odh_kubeflow_tpu_torch.probe` as a sidecar beside this
+    process: its routes answer over HTTP, it exits on SIGTERM, and reading
+    the card's counter creates no CUDA context in it."""
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    apps_before = _compute_apps()
+    env = {**os.environ, "NB_PROBE_PORT": str(port), "NB_TPU_CHIPS_EXPECTED": "1"}
+    proc = subprocess.Popen([sys.executable, "-m", "odh_kubeflow_tpu_torch.probe"], env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                ready = _get("127.0.0.1", port, "/tpu/readiness", timeout=10)
+                break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail(f"the probe sidecar did not answer: rc {proc.poll()}, {proc.stderr.read()[-2000:]}")
+                time.sleep(0.2)
+        util = _get("127.0.0.1", port, "/tpu/utilization", timeout=60)
+        apps_during = _compute_apps()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            rc = None
+    print(f"  sidecar (python -m odh_kubeflow_tpu_torch.probe): readiness {ready}; utilization "
+          f"{util}; exit on SIGTERM rc {rc}; compute apps on the card {apps_before} before, "
+          f"{apps_during} with the sidecar up, on {smi}", flush=True)
+    if not (ready["chips_visible"] == 1 and ready["ready"]) or util["warming"] is not True or rc != 0:
+        fail("the probe sidecar's readiness, utilization or exit is wrong")
+    if apps_before is not None and apps_during != apps_before:
+        fail("the probe sidecar created a CUDA context on the card")
+    if apps_before is None:
+        print("  nvidia-smi lists no compute apps here: the sidecar's context is not observable",
+              flush=True)
+
+
+def checkpoint_phase(attention, smi, serve_cfg, serve_params, run):
+    """Phase 7: the probe agent over a CudaMonitor of the card, its
+    utilization while busy and idle, checkpoint and restore through its
+    routes, the exact resume of the train step, and an endpoint served from
+    a checkpoint. Returns the path's launch counts."""
+    import tempfile
+
+    sidecar_probe(smi)
+    attention.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        _checkpoint_round_trip(attention, smi, run, f"{tmp}/train")
+        _serve_from_checkpoint(attention, serve_cfg, serve_params, f"{tmp}/serve")
+    return dict(attention.launch_counts)
+
+
+def _checkpoint_round_trip(attention, smi, run, train_dir):
+    """Phase 7's agent: readiness, utilization busy and idle, then
+    checkpoint, restore and the exact resume of the train step."""
+    from odh_kubeflow_tpu_torch import telemetry
+    from odh_kubeflow_tpu_torch.models import (
+        init_params, make_checkpoint_hook, make_restore_hook, restore_train_state, state_checksum)
+    from odh_kubeflow_tpu_torch.models.tree import tree_map
+    from odh_kubeflow_tpu_torch.probe import CudaMonitor, NotebookAgent, NvidiaSmiUtilization
+
+    cfg, step, batch = run["cfg"], run["step"], run["batch"]
+    live = {"state": {"params": run["params"], "opt_state": run["state"]}}
+
+    window_s, period_s = 3.0, 0.25
+    counter = NvidiaSmiUtilization(ttl_s=0.5)
+    mon = CudaMonitor(chips_expected=1, window_s=window_s, sample_period_s=period_s,
+                      metrics_port=0, utilization_reader=counter)
+    agent = NotebookAgent(mon, checkpoint_hook=make_checkpoint_hook(
+        train_dir, lambda: (int(live["state"]["opt_state"]["count"]), live["state"])))
+    agent.restore_hook = make_restore_hook(train_dir, lambda: live["state"])
+    host, port, close = agent.serve()
+    try:
+        ready = _get(host, port, "/tpu/readiness")
+        print(f"  agent on port {port}: readiness {ready}", flush=True)
+        if not (ready["chips_visible"] == 1 and ready["ready"] is True
+                and ready["device_health"] == [{"id": 0, "healthy": True}]):
+            fail(f"readiness {ready}, want 1 chip visible, ready, device 0 healthy")
+
+        # busy: train steps for about one window
+        t0 = time.perf_counter()
+        busy_steps = 0
+        while time.perf_counter() - t0 < window_s:
+            state = live["state"]
+            step(state["params"], state["opt_state"], batch)
+            busy_steps += 1
+        torch.cuda.synchronize()
+        busy = _get(host, port, "/tpu/utilization")
+        print(f"  busy ({busy_steps} train steps in {time.perf_counter() - t0:.2f} s): "
+              f"/tpu/utilization {busy}; "
+              f"sources: nvidia-smi counter {counter()}, allocator sampler "
+              f"{mon.window_duty_cycle():.3f}, best {mon.duty_cycle():.3f}; "
+              f"tpu_device_memory_bytes {telemetry.snapshot()['tpu_device_memory_bytes']} on {smi}",
+              flush=True)
+        if not busy["duty_cycle"] > 0 or not mon.window_duty_cycle() > 0 or counter() is None:
+            fail("the agent read the busy card as idle, or the card's counter read nothing")
+        # idle for more than one window (and the counter's cache)
+        time.sleep(window_s + 2.0)
+        before_get = counter()
+        idle = _get(host, port, "/tpu/utilization")
+        after_get = counter()
+        print(f"  idle ({window_s + 2.0:.1f} s): /tpu/utilization {idle}; sources: nvidia-smi counter "
+              f"{before_get} / {after_get}, allocator sampler {mon.window_duty_cycle():.3f}", flush=True)
+        if (mon.window_duty_cycle() != 0.0 or idle["warming"]
+                or idle["duty_cycle"] not in (before_get or 0.0, after_get or 0.0)):
+            fail("the window did not drain to the card counter's idle reading, or still warming")
+
+        # checkpoint through the route
+        want = state_checksum(live["state"])
+        t0 = time.perf_counter()
+        saved = _get(host, port, "/tpu/checkpoint")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        digest = state_checksum(live["state"])
+        digest_s = time.perf_counter() - t0
+        step_no = int(live["state"]["opt_state"]["count"])
+        nbytes = sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(train_dir)
+                     for f in files)
+        print(f"  /tpu/checkpoint {saved}: {save_s:.3f} s (save and digest; the digest alone "
+              f"{digest_s:.3f} s), {nbytes / 1e9:.3f} GB written, "
+              f"{nbytes / 1e9 / (save_s - digest_s):.3f} GB/s without the digest, on {smi}", flush=True)
+        if saved != {"saved": True, "step": step_no, "checksum": want} or digest != want:
+            fail(f"checkpoint ack {saved}, want step {step_no} and checksum {want}")
+
+        # the run that is never interrupted: the same step twice from one state
+        # (deterministic on the card), then the reference step
+        saved_state = live["state"]
+        twin = tree_map(torch.clone, saved_state)
+        _, _, loss_twin = step(twin["params"], twin["opt_state"], batch)
+        twin_digest = state_checksum(twin["params"])
+        del twin
+        _, _, loss_ref = step(saved_state["params"], saved_state["opt_state"], batch)
+        ref_digest = state_checksum(saved_state["params"])
+        print(f"  one step twice from the saved state: loss {loss_twin.item():.6f} / "
+              f"{loss_ref.item():.6f}, params {twin_digest} / {ref_digest}", flush=True)
+        if loss_twin.item() != loss_ref.item() or twin_digest != ref_digest:
+            fail("the train step is not deterministic on the card (PERF.md section 7)")
+
+        # restore: the params re-initialised from another seed, then the route
+        fresh = init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
+        live["state"] = {"params": fresh, "opt_state": run["opt"].init(fresh)}
+        t0 = time.perf_counter()
+        restored_ack = _get(host, port, "/tpu/restore")
+        restore_route_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = restore_train_state(train_dir, live["state"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        print(f"  /tpu/restore {restored_ack}: {restore_route_s:.3f} s (restore and digest); "
+              f"restore_train_state alone {restore_s:.3f} s, "
+              f"{nbytes / 1e9 / restore_s:.3f} GB/s, on {smi}", flush=True)
+        if restored_ack != {"restored": True, "step": step_no, "checksum": want, "reason": None}:
+            fail(f"restore ack {restored_ack}, want step {step_no} and checksum {want}")
+        if restored["params"]["embed"].device.type != "cuda":
+            fail("the restored state is not on the card")
+
+        # resume: one step from the restored state equals the uninterrupted one
+        before = dict(attention.launch_counts)
+        _, _, loss_res = step(restored["params"], restored["opt_state"], batch)
+        torch.cuda.synchronize()
+        resumed = _launches_since(attention, before)
+        res_digest = state_checksum(restored["params"])
+        print(f"  resumed step: loss {loss_res.item():.6f} (uninterrupted {loss_ref.item():.6f}), "
+              f"params {res_digest} (uninterrupted {ref_digest}); launches {resumed}", flush=True)
+        if loss_res.item() != loss_ref.item() or res_digest != ref_digest:
+            fail("the resumed step differs from the uninterrupted run")
+        want_launches = {"flash_fwd": cfg.n_layers, "flash_fwd_scalar": 0, "flash_bwd_dq": cfg.n_layers,
+                         "flash_bwd_dkv": cfg.n_layers, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+        if resumed != want_launches:
+            fail(f"the resumed step launched {resumed}, want {want_launches}")
+    finally:
+        close()
+
+
+def _serve_from_checkpoint(attention, serve_cfg, serve_params, serve_dir):
+    """Phase 7's endpoint: the bf16 serving model saved, then restored by
+    build_engine_from_env from SERVING_CHECKPOINT, against an engine on the
+    original params."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch import telemetry
+    from odh_kubeflow_tpu_torch.models import logit_fingerprint, save_train_state
+    from odh_kubeflow_tpu_torch.serving.engine import ServingEngine
+    from odh_kubeflow_tpu_torch.serving.server import build_engine_from_env
+
+    save_train_state(serve_dir, 1, {"params": serve_params})
+    fields = {f.name: getattr(serve_cfg, f.name) for f in dataclasses.fields(serve_cfg)}
+    fields["dtype"] = "bfloat16"
+    env = {"SERVING_CHECKPOINT": serve_dir, "SERVING_MODEL_CONFIG": json.dumps(fields),
+           "SERVING_MAX_SLOTS": "8", "SERVING_MAX_SEQ": "512", "SERVING_DECODE_BURST": "8"}
+    t0 = time.perf_counter()
+    endpoint = build_engine_from_env(env)
+    build_s = time.perf_counter() - t0
+    prompt = list(range(1, 129))
+    before = dict(attention.launch_counts)
+    fp_saved = logit_fingerprint(serve_params, serve_cfg, prompt)
+    fp_restored = logit_fingerprint(endpoint.params, endpoint.cfg, prompt)
+    fp_launches = _launches_since(attention, before)["flash_fwd"]
+    print(f"  endpoint from SERVING_CHECKPOINT in {build_s:.3f} s: logit fingerprint {fp_restored} "
+          f"(saved params {fp_saved}); forward launches {fp_launches}", flush=True)
+    if fp_restored != fp_saved or endpoint.cfg != serve_cfg or fp_launches != 2 * serve_cfg.n_layers:
+        fail("the restored endpoint's model differs from the saved one")
+    original = ServingEngine(serve_params, serve_cfg, max_slots=8, max_seq=512, decode_burst=8,
+                             device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, serve_cfg.vocab, 128).tolist() for _ in range(4)]
+    tokens = []
+    for eng in (original, endpoint):
+        bursts_before = telemetry.snapshot()["tpu_decode_step_duration_seconds"]["count"]
+        before = dict(attention.launch_counts)
+        handles = [eng.submit(p, max_new=24) for p in prompts]
+        if not eng.run_until_idle(timeout=300):
+            fail("an engine did not finish phase 7's requests")
+        launched = _launches_since(attention, before)
+        observed = telemetry.snapshot()["tpu_decode_step_duration_seconds"]["count"] - bursts_before
+        bursts = eng.stats()["decode_steps"] // eng.decode_burst
+        tokens.append([h.tokens for h in handles])
+        if any(h.result != "ok" for h in handles):
+            fail(f"phase 7's requests: {[h.result for h in handles]}")
+        if launched["flash_fwd"] != serve_cfg.n_layers * len(prompts) or launched["flash_fwd_scalar"]:
+            fail(f"forward launches {launched} for {len(prompts)} requests, want "
+                 f"flash_fwd {serve_cfg.n_layers * len(prompts)} and no scalar one")
+        if observed != bursts:
+            fail(f"tpu_decode_step_duration_seconds observed {observed} times in {bursts} bursts")
+    print(f"  4 greedy requests: the restored endpoint's tokens equal the original engine's: "
+          f"{tokens[0] == tokens[1]}; launches {launched}; decode-step telemetry {observed} "
+          f"observations for {bursts} bursts", flush=True)
+    if tokens[0] != tokens[1]:
+        fail("the restored endpoint's tokens differ from the original engine's")
 
 
 def main() -> None:
@@ -1195,7 +1477,11 @@ def main() -> None:
     print(f"  demo model f32: engine tokens equal generate()'s for {same}/{len(handles)} requests")
 
     phase("6 training path, full width")
-    train_launches, grad_check_launches = train_phase(attention, peaks, smi)
+    train_launches, grad_check_launches, run = train_phase(attention, peaks, smi)
+
+    phase("7 checkpoint, restore and the probe agent, full width")
+    ckpt_launches = checkpoint_phase(attention, smi, cfg, params, run)
+    del run
 
     def timing_keys(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
@@ -1208,9 +1494,11 @@ def main() -> None:
         "route": "cuda",
         "source": src + "flash_fwd.cu",
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
-        # both main paths launch it: 8 per request served, 8 per train step
-        "launches": launches["flash_fwd"] + train_launches["flash_fwd"],
-        "launches_by_path": {"serve": launches["flash_fwd"], "train": train_launches["flash_fwd"]},
+        # every main path launches it: 8 per request served, 8 per train
+        # step; phase 7's steps, logit fingerprints and restored endpoint
+        "launches": launches["flash_fwd"] + train_launches["flash_fwd"] + ckpt_launches["flash_fwd"],
+        "launches_by_path": {"serve": launches["flash_fwd"], "train": train_launches["flash_fwd"],
+                             "checkpoint/restore": ckpt_launches["flash_fwd"]},
         "max_abs_err": main_err,
         **timing_keys(main),
         "eager_ms": main["eager_ms"],
@@ -1225,9 +1513,11 @@ def main() -> None:
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
         # the demo model's serving path (f32, d 16) and phase 6's f32
         # gradient check (d 128, s 512)
-        "launches": demo_launches["flash_fwd_scalar"] + grad_check_launches["flash_fwd_scalar"],
+        "launches": (demo_launches["flash_fwd_scalar"] + grad_check_launches["flash_fwd_scalar"]
+                     + ckpt_launches["flash_fwd_scalar"]),
         "launches_by_path": {"serve demo model": demo_launches["flash_fwd_scalar"],
-                             "f32 gradient check": grad_check_launches["flash_fwd_scalar"]},
+                             "f32 gradient check": grad_check_launches["flash_fwd_scalar"],
+                             "checkpoint/restore": ckpt_launches["flash_fwd_scalar"]},
         "max_abs_err": f32_main_err,
         **timing_keys(scalar),
         "eager_ms": scalar["eager_ms"],
@@ -1255,8 +1545,8 @@ def main() -> None:
             "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": f"odh_kubeflow_tpu/ops/attention.py:{line} ({fn})",
-            "launches": launched[name],
-            "launches_by_path": {path: launched[name]},
+            "launches": launched[name] + ckpt_launches[name],
+            "launches_by_path": {path: launched[name], "checkpoint/restore": ckpt_launches[name]},
             "max_abs_err": bwd_err[name],
             **timing_keys(t),
             "library": t["library"],

@@ -35,6 +35,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import DeviceLike, resolve_device
 from ..models.decode import _cached_attention, _layer_views, _prompt_scan
 from ..models.transformer import (
@@ -325,6 +326,7 @@ class ServingEngine:
         self._busy_s += burst_dt
         self._decode_steps += burst
         per_step = burst_dt / burst
+        telemetry.observe_decode_step(per_step, tokens=n_active)
         for t in range(burst):
             step_t = t0 + (t + 1) * per_step
             for j, handle in enumerate(self._slots):

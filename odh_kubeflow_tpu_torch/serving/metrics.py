@@ -1,84 +1,11 @@
 """Serving metric families the engine feeds (counterpart of
-odh_kubeflow_tpu/serving/metrics.py, own copy).
-
-Small thread-safe counters, gauges and histograms in process memory,
-surfaced through `ServingEngine.stats()["metrics"]`. Prometheus exposition
-of these families is not ported yet.
+odh_kubeflow_tpu/serving/metrics.py, own copy), surfaced through
+`ServingEngine.stats()["metrics"]`. The classes are in `utils/metrics.py`;
+the engine's decode-step telemetry is in `telemetry.py`.
 """
 from __future__ import annotations
 
-import bisect
-import threading
-from typing import Dict, Sequence, Tuple
-
-
-class Counter:
-    def __init__(self, name: str, help: str, labels: Sequence[str] = ()):
-        self.name, self.help, self.labels = name, help, tuple(labels)
-        self._lock = threading.Lock()
-        self._values: Dict[Tuple[str, ...], float] = {}
-
-    def _key(self, labels: Dict[str, str]) -> Tuple[str, ...]:
-        if set(labels) != set(self.labels):
-            raise ValueError(f"{self.name} takes labels {self.labels}, got {sorted(labels)}")
-        return tuple(str(labels[name]) for name in self.labels)
-
-    def inc(self, amount: float = 1.0, **labels: str) -> None:
-        key = self._key(labels)
-        with self._lock:
-            self._values[key] = self._values.get(key, 0.0) + amount
-
-    def value(self, **labels: str) -> float:
-        key = self._key(labels)
-        with self._lock:
-            return self._values.get(key, 0.0)
-
-    def snapshot(self) -> Dict[str, float]:
-        with self._lock:
-            return {",".join(key) or "": v for key, v in self._values.items()}
-
-
-class Gauge:
-    def __init__(self, name: str, help: str):
-        self.name, self.help = name, help
-        self._lock = threading.Lock()
-        self._value = 0.0
-
-    def set(self, value: float) -> None:
-        with self._lock:
-            self._value = float(value)
-
-    def value(self) -> float:
-        with self._lock:
-            return self._value
-
-    def snapshot(self) -> float:
-        return self.value()
-
-
-class Histogram:
-    def __init__(self, name: str, help: str, buckets: Sequence[float]):
-        self.name, self.help = name, help
-        self.buckets = tuple(sorted(buckets))
-        self._lock = threading.Lock()
-        self._counts = [0] * (len(self.buckets) + 1)  # last: +Inf
-        self._sum = 0.0
-
-    def observe(self, value: float) -> None:
-        i = bisect.bisect_left(self.buckets, value)
-        with self._lock:
-            self._counts[i] += 1
-            self._sum += value
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            counts, total = list(self._counts), self._sum
-        cumulative, running = {}, 0
-        for le, n in zip([*map(str, self.buckets), "+Inf"], counts):
-            running += n
-            cumulative[le] = running
-        return {"count": running, "sum": total, "buckets": cumulative}
-
+from ..utils.metrics import Counter, Gauge, Histogram
 
 # TTFT: submit -> first generated token (queue wait + prefill)
 inference_ttft_seconds = Histogram(

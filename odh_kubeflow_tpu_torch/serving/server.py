@@ -9,7 +9,10 @@ odh_kubeflow_tpu/serving/server.py): `python -m odh_kubeflow_tpu_torch.serving`.
 - ``GET /healthz`` -> 200 once the server is up.
 - ``GET /stats`` -> the engine's live counters.
 
-The engine shape comes from the same ``SERVING_*`` env as the JAX server.
+The engine shape comes from the same ``SERVING_*`` env as the JAX server;
+the model comes from ``SERVING_CHECKPOINT`` (a directory saved by
+`models.checkpoint.save_train_state`, the promotion lineage) through
+`build_engine_from_env`.
 """
 from __future__ import annotations
 
@@ -29,13 +32,17 @@ REQUEST_TIMEOUT_S = 120.0
 
 def build_engine_from_env(environ=None, device: DeviceLike = "cuda"):
     """Engine + model from the pod env (SERVING_* set by the controller).
-    Without SERVING_CHECKPOINT a tiny random-weight demo model serves (the
-    smoke shape). Restoring SERVING_CHECKPOINT is not ported yet."""
+    SERVING_CHECKPOINT names a checkpoint directory whose latest step holds
+    {"params": ...} of the model SERVING_MODEL_CONFIG describes (the
+    TransformerConfig fields as JSON, dtype by name); it is restored onto
+    `device` and served. A checkpoint that does not load raises. Without
+    SERVING_CHECKPOINT a tiny random-weight demo model serves (the smoke
+    shape)."""
     import os
 
     import torch
 
-    from ..models import TransformerConfig, init_params
+    from ..models import TransformerConfig, init_params, restore_train_state
     from .engine import ServingEngine
 
     env = environ if environ is not None else os.environ
@@ -43,20 +50,26 @@ def build_engine_from_env(environ=None, device: DeviceLike = "cuda"):
     max_seq = int(env.get("SERVING_MAX_SEQ", "512"))
     max_queue = int(env.get("SERVING_MAX_QUEUE", "64"))
     burst = int(env.get("SERVING_DECODE_BURST", "8"))
-    if env.get("SERVING_CHECKPOINT", ""):
-        raise NotImplementedError(
-            "SERVING_CHECKPOINT restore is not ported yet: the port has no "
-            "checkpoint reader"
+    ckpt = env.get("SERVING_CHECKPOINT", "")
+    if ckpt:
+        if not env.get("SERVING_MODEL_CONFIG"):
+            raise RuntimeError(
+                "SERVING_CHECKPOINT set without SERVING_MODEL_CONFIG: the "
+                "restore needs the model shape to allocate against"
+            )
+        cfg = TransformerConfig(**json.loads(env["SERVING_MODEL_CONFIG"]))
+        like = init_params(torch.Generator().manual_seed(0), cfg, device=device)
+        params = restore_train_state(ckpt, {"params": like})["params"]
+    else:
+        # the JAX demo model's shape; attention through the flash kernel so
+        # the demo's prefill runs the same kernel as a real model on the card
+        cfg = TransformerConfig(
+            vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            d_ff=128, max_seq=max_seq, dtype=torch.float32, use_flash=True,
+            remat=False,
         )
-    # the JAX demo model's shape; attention through the flash kernel so the
-    # demo's prefill runs the same kernel as a real model on the card
-    cfg = TransformerConfig(
-        vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        d_ff=128, max_seq=max_seq, dtype=torch.float32, use_flash=True,
-        remat=False,
-    )
-    params = init_params(torch.Generator().manual_seed(0), cfg, device=device)
-    log.warning("no SERVING_CHECKPOINT: serving a demo model (random weights)")
+        params = init_params(torch.Generator().manual_seed(0), cfg, device=device)
+        log.warning("no SERVING_CHECKPOINT: serving a demo model (random weights)")
     return ServingEngine(
         params, cfg, max_slots=max_slots, max_seq=max_seq,
         max_queue_depth=max_queue, decode_burst=burst, device=device,

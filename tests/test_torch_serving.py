@@ -284,9 +284,19 @@ def test_http_front_passes_the_traceparent_header():
     assert eng.calls == [([1, 2], 2, TRACEPARENT), ([3], 1, None)]
 
 
-def test_checkpoint_restore_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="SERVING_CHECKPOINT"):
+def test_checkpoint_restore_not_ported_yet(tmp_path):
+    """Restore is ported (tests/test_torch_checkpoint.py serves from a
+    checkpoint): what stays refused is a checkpoint without the model shape,
+    and a checkpoint directory that holds no step never serves random
+    weights."""
+    with pytest.raises(RuntimeError, match="SERVING_MODEL_CONFIG"):
         build_engine_from_env({"SERVING_CHECKPOINT": "/ckpt"}, device="cpu")
+    config = json.dumps({**{f.name: getattr(TINY, f.name) for f in dataclasses.fields(TINY)},
+                         "dtype": "float32"})
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        build_engine_from_env({"SERVING_CHECKPOINT": str(tmp_path / "none"),
+                               "SERVING_MODEL_CONFIG": config}, device="cpu")
+    assert not (tmp_path / "none").exists()
 
 
 def test_default_device_raises_without_cuda(tiny_model):
