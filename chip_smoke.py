@@ -79,7 +79,23 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    build_engine_from_env from SERVING_CHECKPOINT: its logit fingerprint,
    4 greedy requests' tokens equal to an engine on the original params, 8
    forward launches per request, and tpu_decode_step_duration_seconds
-   observed once per burst.
+   observed once per burst;
+8. the MoE model family at the configuration of bench.py:389-400 (vocab
+   32768, d_model 1024, 8 layers, 8 heads x 128, 8 experts of d_ff 2048,
+   top-2, capacity factor 1.25, bf16; random weights from a seed): a
+   2-layer f32 gradient check at capacity factor 4 (no drops) through the
+   scalar kernels against the reference attention; the full-width model
+   behind the HTTP server answering phase 5's 8 requests (8 tensor-core
+   forward launches per request, one host sync per burst, first tokens
+   equal to generate()'s), an admission and a burst timed and profiled, and
+   the decode drop rate over a burst; a small f32 MoE model whose engine
+   tokens equal generate()'s at capacity factor 2 (= experts / top-k); then
+   make_train_step at batch 8 x 2048 with remat_policy "": 1 warm-up and 5
+   timed steps (16 tensor-core forward, 8 dq and 8 dk/dv launches per step,
+   no scalar one), no host sync in a step, the same step twice from one
+   state bit-equal, one profiled step, the dispatch share (dispatch_only
+   at the step's tokens, x 3 per layer, over the step) and the drop rate
+   at layer 0's inputs.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -121,7 +137,8 @@ GRAD_CHECK_SHAPE = (1, 512, 8, 8, 128)  # one layer's attention in phase 6's f32
 TENSOR_CORE_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
 SCALAR_BWD = ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")
 TRAIN_STEPS = 5
-DEMO_PROMPTS = [[1, 2, 3, 4], [9, 8, 7], [100, 200, 300, 400, 500], [42]]  # phase 5's f32 demo requests
+DEMO_PROMPTS = [[1, 2, 3, 4], [9, 8, 7], [100, 200, 300, 400, 500], [42]]  # f32 demo requests, phases 5, 8
+MAX_NEWS = [16, 64, 24, 48, 32, 56, 40, 16]  # phases 5 and 8: max_new of the 8 HTTP requests
 
 
 def fail(msg: str) -> None:
@@ -431,6 +448,8 @@ def device_split(prof, wall_ms):
             matmuls[e.name] = (n + 1, t + ms)
         elif "memcpy" in name or "memset" in name:
             group = "copy"
+        elif any(w in name for w in ("index", "gather", "scatter", "embedding")):
+            group = "index/gather/scatter"
         else:
             group = "other"
         groups[group] = groups.get(group, 0.0) + ms
@@ -1150,6 +1169,310 @@ def _serve_from_checkpoint(attention, serve_cfg, serve_params, serve_dir):
         fail("the restored endpoint's tokens differ from the original engine's")
 
 
+def warm_engine(engine):
+    """One request through a new engine: first-use allocations and handles."""
+    warm = engine.submit(list(range(1, 129)), max_new=9)
+    if not engine.run_until_idle(timeout=300) or warm.result != "ok":
+        fail("warm-up request did not complete")
+    return engine
+
+
+def serve_over_http(engine, prompts, attention):
+    """A ServingHTTPServer in front of the engine, started; every prompt
+    POSTed to /generate at once from its own thread (max_new from
+    MAX_NEWS), launch counts zeroed just before and read just after; then
+    the server and the engine stopped. Fails unless every reply is 200 with
+    max_new in-vocab tokens and the last burst made one host sync. Returns
+    the replies {i: (status, body)} and the launches."""
+    from odh_kubeflow_tpu_torch.serving.server import ServingHTTPServer
+
+    server = ServingHTTPServer(engine, host="127.0.0.1", port=0)
+    host, port = server.start()
+    engine.start()
+    replies = {}
+
+    def post(i):
+        body = json.dumps({"prompt": prompts[i], "max_new": MAX_NEWS[i]}).encode()
+        req = urllib.request.Request(f"http://{host}:{port}/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            replies[i] = (resp.status, json.loads(resp.read()))
+
+    attention.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = dict(attention.launch_counts)
+    stats = engine.stats()
+    server.stop()
+    if any(th.is_alive() for th in threads) or len(replies) != len(prompts):
+        fail(f"only {len(replies)} of {len(prompts)} requests came back")
+    n_tokens = 0
+    for i, (status, body) in sorted(replies.items()):
+        toks = body.get("tokens", [])
+        if status != 200 or len(toks) != MAX_NEWS[i] or not all(0 <= t < engine.cfg.vocab for t in toks):
+            fail(f"request {i}: status {status}, {len(toks)} tokens, want {MAX_NEWS[i]} in range")
+        n_tokens += len(toks)
+    ttfts = sorted(body["ttft_s"] for _, body in replies.values())
+    print(f"  {len(replies)} requests, {n_tokens} tokens in {wall:.3f} s: "
+          f"{n_tokens / wall:.1f} tokens/s over HTTP; TTFT median "
+          f"{statistics.median(ttfts) * 1e3:.2f} ms, max {ttfts[-1] * 1e3:.2f} ms; "
+          f"host_syncs_last_burst {stats['host_syncs_last_burst']}; launches {launches}",
+          flush=True)
+    if stats["host_syncs_last_burst"] != 1:
+        fail(f"host_syncs_last_burst {stats['host_syncs_last_burst']}, want 1")
+    return replies, launches
+
+
+def burst_split(engine, prompts):
+    """Where the serving time goes: one step that admits every prompt (one
+    prefill each) and runs a burst, then a burst alone; host clock around
+    each (a step ends in the engine's host copy), then the same two steps
+    again under torch.profiler for the device time by kernel."""
+    walls = {}
+    for profiled in (False, True):
+        for p in prompts:
+            engine.submit(p, max_new=1 + 2 * engine.decode_burst)
+        for label in (f"admit {len(prompts)} + burst", "burst alone"):
+            if profiled:
+                with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+                ]) as prof:
+                    engine.step()
+                print(f"  {label}, device time: {device_split(prof, walls[label])}")
+            else:
+                t0 = time.perf_counter()
+                engine.step()
+                walls[label] = (time.perf_counter() - t0) * 1e3
+                print(f"  {label}: {walls[label]:.2f} ms host clock; "
+                      f"{walls[label] / engine.decode_burst:.3f} ms per burst step")
+        if not engine.idle():
+            fail("two steps did not finish requests of 1 + 2 bursts")
+
+
+def _bits(t):
+    """The tensor's raw bits, for bit-equality (-0.0 and NaN included)."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype))
+
+
+def moe_phase(attention, peaks, smi):
+    """Phase 8: the MoE configuration of bench.py:389-400 on the card: a
+    2-layer f32 gradient check, the full-width model served over HTTP, a
+    small f32 engine held to generate()'s tokens, then trained. Returns the
+    launches of each path."""
+    from dataclasses import replace
+
+    from odh_kubeflow_tpu_torch.models import (MoEConfig, TransformerConfig, dispatch_only, generate,
+                                               init_params, loss_fn, make_train_step, routing_stats)
+    from odh_kubeflow_tpu_torch.models import transformer
+    from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
+    from odh_kubeflow_tpu_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    moe = MoEConfig(n_experts=8, experts_per_token=2, capacity_factor=1.25)
+    full = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=2048, max_seq=2048)
+    paths = {}
+
+    # gradient check: 2 layers in f32 at capacity factor E/k (capacity = the
+    # token count: no drops, so rounding cannot move a token off an expert's
+    # buffer), remat "" (the backward routes again), loss and gradients
+    # through the scalar kernels against autograd through mha_reference
+    cfg32 = TransformerConfig(**full, n_layers=2, dtype=torch.float32, use_flash=True, remat=True,
+                              remat_policy="", moe=replace(moe, capacity_factor=8 / 2))
+    params = init_params(torch.Generator().manual_seed(3), cfg32, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg32.vocab, (1, 512)), device="cuda")
+    results = []
+    for cfg in (cfg32, replace(cfg32, use_flash=False, remat=False)):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        attention.reset_launch_counts()
+        loss = loss_fn(live, {"tokens": tokens}, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        results.append((loss.detach(), grads, dict(attention.launch_counts)))
+    (loss_k, grads_k, launched), (loss_r, grads_r, _) = results
+    loss_err = abs((loss_k - loss_r) / loss_r).item()
+    grad_err = max(_grad_err(g, w) for g, w in zip(grads_k, grads_r))
+    print(f"  gradient check (2 MoE layers f32, 1x512, capacity factor 4): loss {loss_k.item():.6f} "
+          f"vs reference {loss_r.item():.6f} (rel err {loss_err:.3e}), grads max rel err "
+          f"{grad_err:.3e} (tol 1e-4); kernel launches {launched}", flush=True)
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4):
+        fail("MoE loss or gradients through the kernels disagree with the reference attention")
+    want = {"flash_fwd": 0, "flash_fwd_scalar": 2 * cfg32.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_dq_scalar": cfg32.n_layers,
+            "flash_bwd_dkv_scalar": cfg32.n_layers}
+    if launched != want:
+        fail(f"the MoE gradient check launched {launched}, want {want}")
+    paths["moe f32 gradient check"] = launched
+    del params, grads_k, grads_r, results
+
+    # the full-width model: served, then trained
+    cfg = TransformerConfig(**full, n_layers=8, dtype=torch.bfloat16, use_flash=True, remat=True,
+                            remat_policy="", moe=moe)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    expert = sum(params["layers"][n].numel() for n in ("we_gate", "we_up", "we_out"))
+    n_active = n_params - expert + expert * moe.experts_per_token // moe.n_experts
+    print(f"  init {n_params / 1e6:.1f}M params ({n_active / 1e6:.1f}M active) in "
+          f"{time.perf_counter() - t0:.1f} s; router {params['layers']['router'].dtype}", flush=True)
+
+    engine = warm_engine(ServingEngine(params, cfg, max_slots=8, max_seq=512, decode_burst=8,
+                                       check_syncs=True, device="cuda"))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, 128).tolist() for _ in MAX_NEWS]
+    replies, launches = serve_over_http(engine, prompts, attention)
+    want = cfg.n_layers * len(prompts)
+    if launches["flash_fwd"] != want or launches["flash_fwd_scalar"]:
+        fail(f"forward launches on the MoE serving path {launches}, want flash_fwd {want} "
+             "and flash_fwd_scalar 0")
+    paths["moe serve"] = launches
+    # the engine's first token comes from a batch-1 prefill, as generate()'s
+    first = [generate(params, [p], cfg, 1, max_seq=512, device="cuda")[0, 0].item() for p in prompts]
+    first_same = sum(replies[i][1]["tokens"][0] == f for i, f in enumerate(first))
+    print(f"  first tokens equal generate()'s: {first_same}/{len(prompts)}", flush=True)
+    if first_same != len(prompts):
+        fail("the MoE engine's first tokens (prefill logits) differ from generate()'s")
+    burst_split(engine, prompts)
+    # the decode drop rate: each MoE layer's input rows of one burst (8
+    # slots, capacity 2 per expert), routed again by routing_stats
+    seen, moe_ffn = [], transformer.moe_ffn
+
+    def recording(x, p, c, *args):
+        seen.append(x.detach().clone())
+        return moe_ffn(x, p, c, *args)
+
+    transformer.moe_ffn = recording
+    try:
+        for p in prompts:
+            engine.submit(p, max_new=1 + engine.decode_burst)
+        engine.step()
+    finally:
+        transformer.moe_ffn = moe_ffn
+    if not engine.idle():
+        fail("one step did not finish requests of 1 + 1 burst")
+    decode_in = [x for x in seen if tuple(x.shape[:2]) == (engine.max_slots, 1)]
+    drops = [routing_stats(x, transformer.layer_view(params, i % cfg.n_layers), cfg.moe_resolved)
+             for i, x in enumerate(decode_in)]
+    decode_drop = torch.stack([d["drop_rate"] for d in drops]).mean().item()
+    print(f"  decode drop rate over one burst ({len(decode_in)} layer calls of {engine.max_slots} "
+          f"rows, capacity {drops[0]['capacity']} per expert): {decode_drop:.4f}", flush=True)
+    if len(decode_in) != engine.decode_burst * cfg.n_layers:
+        fail(f"{len(decode_in)} MoE decode calls in one burst, want {engine.decode_burst * cfg.n_layers}")
+    del engine
+
+    # f32 on the card, at capacity factor E/k (capacity = the token count
+    # of every call, so a batch-8 burst and a batch-1 generate() drop
+    # nothing): the engine's greedy tokens equal generate()'s
+    small = TransformerConfig(vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+                              max_seq=512, dtype=torch.float32, use_flash=True, remat=False,
+                              moe=MoEConfig(n_experts=4, experts_per_token=2, capacity_factor=4 / 2))
+    small_params = init_params(torch.Generator().manual_seed(0), small, device="cuda")
+    eng = ServingEngine(small_params, small, max_slots=8, max_seq=512, decode_burst=8,
+                        check_syncs=True, device="cuda")
+    attention.reset_launch_counts()
+    handles = [eng.submit(p, max_new=24) for p in DEMO_PROMPTS]
+    if not eng.run_until_idle(timeout=120) or any(h.result != "ok" for h in handles):
+        fail("the small f32 MoE engine did not finish")
+    small_launches = dict(attention.launch_counts)
+    same = sum(h.tokens == generate(small_params, [p], small, 24, max_seq=512, device="cuda")[0].tolist()
+               for h, p in zip(handles, DEMO_PROMPTS))
+    print(f"  small f32 MoE model (d{small.head_dim}, capacity factor 2): engine tokens equal "
+          f"generate()'s for {same}/{len(handles)} requests; launches {small_launches}", flush=True)
+    if small_launches["flash_fwd_scalar"] != small.n_layers * len(DEMO_PROMPTS):
+        fail(f"the small f32 MoE model's forward launches {small_launches}, want flash_fwd_scalar "
+             f"{small.n_layers * len(DEMO_PROMPTS)}")
+    if same != len(handles):
+        fail("the small f32 MoE engine's tokens differ from generate()'s")
+    paths["moe f32 serve"] = small_launches
+
+    # the train step: bench_moe_train_step's config and batch
+    b, s = TRAIN_SHAPE[:2]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (b, s)),
+                                       device="cuda")}
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    params, state, first_loss = step(params, state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [first_loss]
+    attention.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = dict(attention.launch_counts)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    tokens_per_s = b * s / (step_ms * 1e-3)
+    flops_per_token = 6 * n_active + 12 * cfg.n_layers * cfg.d_model * s  # bench.py's count
+    mfu = flops_per_token * tokens_per_s / peaks[0]
+    print(f"  {n_params / 1e6:.1f}M params ({n_active / 1e6:.1f}M active), batch {b}x{s}, remat_policy "
+          f"'': losses {', '.join(f'{x:.4f}' for x in losses)} (warm-up first)", flush=True)
+    print(f"  {step_ms:.2f} ms per step (CUDA events; host clock {host_ms:.2f} ms), "
+          f"{tokens_per_s:.0f} tokens/s, active model FLOPs {flops_per_token * b * s / 1e12:.2f} TFLOP "
+          f"per step = {mfu:.2%} of the bf16 peak; peak memory {peak_gb:.2f} GB; launches in "
+          f"{TRAIN_STEPS} steps {launches} on {smi}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"MoE train-step losses not finite and falling: {losses}")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_fwd_scalar": 0, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    if {n: c / TRAIN_STEPS for n, c in launches.items()} != want:
+        fail(f"MoE launches per step {launches} over {TRAIN_STEPS} steps, want {want} per step")
+    paths["moe train"] = launches
+
+    syncs = count_sync_warnings(lambda: step(params, state, batch))
+    print(f"  host syncs inside one MoE step (sync debug mode): {syncs} (target 0)", flush=True)
+    if syncs:
+        fail(f"the MoE train step synced with the host {syncs} times")
+
+    # the same step twice from one state: bit-equal loss, params and
+    # optimizer state
+    snapshot = tree_map(torch.clone, {"params": params, "state": state})
+    runs = []
+    for _ in range(2):
+        run = tree_map(torch.clone, snapshot)
+        _, _, loss = step(run["params"], run["state"], batch)
+        runs.append((loss, run))
+    (loss_a, run_a), (loss_b, run_b) = runs
+    equal = torch.equal(_bits(loss_a), _bits(loss_b)) and all(
+        torch.equal(_bits(x), _bits(y)) for x, y in zip(tree_leaves(run_a), tree_leaves(run_b)))
+    print(f"  the same MoE step twice from one state: loss {loss_a.item():.6f} and "
+          f"{loss_b.item():.6f}; params and optimizer state bit-equal: {equal}", flush=True)
+    if not equal:
+        fail("the MoE train step is not deterministic on the card")
+    del snapshot, runs, run_a, run_b
+
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    print(f"  one MoE step, device time: {device_split(prof, step_ms)}", flush=True)
+
+    # the dispatch share (bench.py:441-455): routing, dispatch and combine
+    # alone at the step's token count, on layer 0's input, times 3 (forward
+    # and about twice that backward) per layer, over the step
+    x_tokens = params["embed"][batch["tokens"]]
+    layer0 = transformer.layer_view(params, 0)
+    t_disp = time_ms(lambda: dispatch_only(x_tokens, layer0, cfg.moe_resolved), runs=10, reps=5)
+    stats = routing_stats(x_tokens, layer0, cfg.moe_resolved)
+    print(f"  dispatch_only at {b * s} tokens: {t_disp:.4f} ms (CUDA graph); dispatch share "
+          f"3 x {cfg.n_layers} x {t_disp:.4f} / {step_ms:.2f} ms = "
+          f"{3 * cfg.n_layers * t_disp / step_ms:.2%}; drop rate at layer 0's inputs "
+          f"{stats['drop_rate'].item():.4f} (capacity {stats['capacity']}); phase 8 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA card")
@@ -1158,7 +1481,7 @@ def main() -> None:
         from odh_kubeflow_tpu_torch.models import TransformerConfig, forward, generate, init_params
         from odh_kubeflow_tpu_torch.ops import _build, attention
         from odh_kubeflow_tpu_torch.serving.engine import ServingEngine
-        from odh_kubeflow_tpu_torch.serving.server import ServingHTTPServer, build_engine_from_env
+        from odh_kubeflow_tpu_torch.serving.server import build_engine_from_env
     except ImportError as e:
         fail(f"the port's package is not importable from here: {e}")
     if any(m == "jax" or m.startswith("jax.") or m == "odh_kubeflow_tpu"
@@ -1362,53 +1685,11 @@ def main() -> None:
         fail(f"forward through the kernel disagrees with the reference: {logit_err}")
     del params32
 
-    engine = ServingEngine(params, cfg, max_slots=8, max_seq=512, decode_burst=8,
-                           check_syncs=True, device="cuda")
-    warm = engine.submit(list(range(1, 129)), max_new=9)  # first-use allocations and handles
-    if not engine.run_until_idle(timeout=300) or warm.result != "ok":
-        fail("warm-up request did not complete")
-    server = ServingHTTPServer(engine, host="127.0.0.1", port=0)
-    host, port = server.start()
-    engine.start()
+    engine = warm_engine(ServingEngine(params, cfg, max_slots=8, max_seq=512, decode_burst=8,
+                                       check_syncs=True, device="cuda"))
     rng = np.random.default_rng(0)
-    max_news = [16, 64, 24, 48, 32, 56, 40, 16]
-    prompts = [rng.integers(0, cfg.vocab, 128).tolist() for _ in max_news]
-    replies = {}
-
-    def post(i):
-        body = json.dumps({"prompt": prompts[i], "max_new": max_news[i]}).encode()
-        req = urllib.request.Request(f"http://{host}:{port}/generate", data=body,
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            replies[i] = (resp.status, json.loads(resp.read()))
-
-    attention.reset_launch_counts()
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(prompts))]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=600)
-    wall = time.perf_counter() - t0
-    launches = dict(attention.launch_counts)
-    stats = engine.stats()
-    server.stop()
-    if any(th.is_alive() for th in threads) or len(replies) != len(prompts):
-        fail(f"only {len(replies)} of {len(prompts)} requests came back")
-    n_tokens = 0
-    for i, (status, body) in sorted(replies.items()):
-        toks = body.get("tokens", [])
-        if status != 200 or len(toks) != max_news[i] or not all(0 <= t < cfg.vocab for t in toks):
-            fail(f"request {i}: status {status}, {len(toks)} tokens, want {max_news[i]} in range")
-        n_tokens += len(toks)
-    ttfts = sorted(body["ttft_s"] for _, body in replies.values())
-    print(f"  {len(replies)} requests, {n_tokens} tokens in {wall:.3f} s: "
-          f"{n_tokens / wall:.1f} tokens/s over HTTP; TTFT median "
-          f"{statistics.median(ttfts) * 1e3:.2f} ms, max {ttfts[-1] * 1e3:.2f} ms; "
-          f"host_syncs_last_burst {stats['host_syncs_last_burst']}; launches {launches}",
-          flush=True)
-    if stats["host_syncs_last_burst"] != 1:
-        fail(f"host_syncs_last_burst {stats['host_syncs_last_burst']}, want 1")
+    prompts = [rng.integers(0, cfg.vocab, 128).tolist() for _ in MAX_NEWS]
+    replies, launches = serve_over_http(engine, prompts, attention)
     # every forward launch of the serving path runs the tensor-core kernel
     want = cfg.n_layers * len(prompts)
     if launches["flash_fwd"] != want or launches["flash_fwd_scalar"]:
@@ -1417,7 +1698,7 @@ def main() -> None:
 
     same = total = first_same = 0
     for i, (_, body) in sorted(replies.items()):
-        ref = generate(params, [prompts[i]], cfg, max_news[i], max_seq=512, device="cuda")[0].tolist()
+        ref = generate(params, [prompts[i]], cfg, MAX_NEWS[i], max_seq=512, device="cuda")[0].tolist()
         same += sum(a == b for a, b in zip(body["tokens"], ref))
         total += len(ref)
         first_same += body["tokens"][0] == ref[0]
@@ -1425,30 +1706,7 @@ def main() -> None:
           f"first tokens {first_same}/{len(replies)}")
     if first_same != len(replies):
         fail("the engine's first tokens (prefill logits) differ from generate()'s")
-
-    # where the serving time goes: one step that admits all 8 prompts
-    # (8 prefills) and runs a burst, then a burst alone; host clock around
-    # each (a step ends in the engine's host copy), then the same two steps
-    # again under torch.profiler for the device time by kernel
-    walls = {}
-    for profiled in (False, True):
-        for p in prompts:
-            engine.submit(p, max_new=1 + 2 * engine.decode_burst)
-        for label in ("admit 8 + burst", "burst alone"):
-            if profiled:
-                with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
-                ]) as prof:
-                    engine.step()
-                print(f"  {label}, device time: {device_split(prof, walls[label])}")
-            else:
-                t0 = time.perf_counter()
-                engine.step()
-                walls[label] = (time.perf_counter() - t0) * 1e3
-                print(f"  {label}: {walls[label]:.2f} ms host clock; "
-                      f"{walls[label] / engine.decode_burst:.3f} ms per burst step")
-        if not engine.idle():
-            fail("two steps did not finish requests of 1 + 2 bursts")
+    burst_split(engine, prompts)
 
     demo = build_engine_from_env({}).start()
     handle = demo.submit([1, 2, 3, 4], max_new=8)
@@ -1483,6 +1741,12 @@ def main() -> None:
     ckpt_launches = checkpoint_phase(attention, smi, cfg, params, run)
     del run
 
+    phase("8 MoE serving and training path, full width")
+    moe_paths = moe_phase(attention, peaks, smi)
+
+    def moe_launches(name):
+        return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
+
     def timing_keys(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
 
@@ -1495,10 +1759,13 @@ def main() -> None:
         "source": src + "flash_fwd.cu",
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
         # every main path launches it: 8 per request served, 8 per train
-        # step; phase 7's steps, logit fingerprints and restored endpoint
-        "launches": launches["flash_fwd"] + train_launches["flash_fwd"] + ckpt_launches["flash_fwd"],
+        # step; phase 7's steps, logit fingerprints and restored endpoint;
+        # phase 8's MoE requests and steps
+        "launches": (launches["flash_fwd"] + train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
+                     + sum(moe_launches("flash_fwd").values())),
         "launches_by_path": {"serve": launches["flash_fwd"], "train": train_launches["flash_fwd"],
-                             "checkpoint/restore": ckpt_launches["flash_fwd"]},
+                             "checkpoint/restore": ckpt_launches["flash_fwd"],
+                             **moe_launches("flash_fwd")},
         "max_abs_err": main_err,
         **timing_keys(main),
         "eager_ms": main["eager_ms"],
@@ -1514,10 +1781,11 @@ def main() -> None:
         # the demo model's serving path (f32, d 16) and phase 6's f32
         # gradient check (d 128, s 512)
         "launches": (demo_launches["flash_fwd_scalar"] + grad_check_launches["flash_fwd_scalar"]
-                     + ckpt_launches["flash_fwd_scalar"]),
+                     + ckpt_launches["flash_fwd_scalar"] + sum(moe_launches("flash_fwd_scalar").values())),
         "launches_by_path": {"serve demo model": demo_launches["flash_fwd_scalar"],
                              "f32 gradient check": grad_check_launches["flash_fwd_scalar"],
-                             "checkpoint/restore": ckpt_launches["flash_fwd_scalar"]},
+                             "checkpoint/restore": ckpt_launches["flash_fwd_scalar"],
+                             **moe_launches("flash_fwd_scalar")},
         "max_abs_err": f32_main_err,
         **timing_keys(scalar),
         "eager_ms": scalar["eager_ms"],
@@ -1545,8 +1813,9 @@ def main() -> None:
             "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": f"odh_kubeflow_tpu/ops/attention.py:{line} ({fn})",
-            "launches": launched[name] + ckpt_launches[name],
-            "launches_by_path": {path: launched[name], "checkpoint/restore": ckpt_launches[name]},
+            "launches": launched[name] + ckpt_launches[name] + sum(moe_launches(name).values()),
+            "launches_by_path": {path: launched[name], "checkpoint/restore": ckpt_launches[name],
+                                 **moe_launches(name)},
             "max_abs_err": bwd_err[name],
             **timing_keys(t),
             "library": t["library"],

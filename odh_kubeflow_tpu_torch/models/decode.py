@@ -14,8 +14,13 @@ f32 probabilities by the cache cast to f32, as the JAX package's mixed-dtype
 einsum does (bf16 probabilities could flip greedy argmax on near-ties).
 
 `generate` keeps the JAX package's loop layout: per-layer weight views taken
-once with the FFN halves concatenated into `wi_fused`, and per-layer FLAT
-(kv_heads*batch, max_seq, head_dim) caches, kv-head-major.
+once with a dense layer's FFN halves concatenated into `wi_fused`, and
+per-layer FLAT (kv_heads*batch, max_seq, head_dim) caches, kv-head-major.
+
+An MoE layer routes the batch's tokens of each call together, as the JAX
+package does: capacity comes from the call's token count, so a prompt, a
+batch-1 `generate` step and an 8-slot engine burst each drop (or keep)
+picks by their own count. The router's aux loss is dropped here.
 """
 from __future__ import annotations
 
@@ -25,11 +30,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops import rms_norm
+from ..ops import matmul_f32, rms_norm
 from .transformer import (
     TransformerConfig,
     _attention,
-    _matmul_f32,
     check_supported,
     layer_post_attention,
     layer_qkv,
@@ -62,12 +66,14 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
 
 
 def _layer_views(params, cfg: TransformerConfig) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer weight views, taken once, with gate|up concatenated into
-    one (d, 2f) `wi_fused` so each token does one FFN-in matmul."""
+    """Per-layer weight views, taken once; a dense layer's gate|up are
+    concatenated into one (d, 2f) `wi_fused` so each token does one FFN-in
+    matmul."""
     views = []
     for layer in range(cfg.n_layers):
         lp = layer_view(params, layer)
-        lp["wi_fused"] = torch.cat([lp["wi_gate"], lp["wi_up"]], dim=-1)
+        if cfg.moe is None:
+            lp["wi_fused"] = torch.cat([lp["wi_gate"], lp["wi_up"]], dim=-1)
         views.append(lp)
     return views
 
@@ -125,7 +131,7 @@ def _decode_layer(h, layer_params, k_cache, v_cache, positions, valid, pos: int,
         k_cache[:, pos:pos + 1] = k
         v_cache[:, pos:pos + 1] = v
         attn = _cached_attention(q, k_cache, v_cache, valid, cfg)
-    return layer_post_attention(h, attn, layer_params, cfg), k_cache, v_cache
+    return layer_post_attention(h, attn, layer_params, cfg)[0], k_cache, v_cache
 
 
 def _prompt_scan(params, tokens: torch.Tensor, cfg: TransformerConfig):
@@ -143,11 +149,11 @@ def _prompt_scan(params, tokens: torch.Tensor, cfg: TransformerConfig):
     for layer in range(cfg.n_layers):
         lp = layer_view(params, layer)
         q, k, v = layer_qkv(x, lp, positions, cfg)
-        x = layer_post_attention(x, _attention(q, k, v, cfg), lp, cfg)
+        x = layer_post_attention(x, _attention(q, k, v, cfg), lp, cfg)[0]
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"])
-    return _matmul_f32(x[:, -1], params["unembed"]), ks, vs
+    return matmul_f32(x[:, -1], params["unembed"]), ks, vs
 
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -187,7 +193,7 @@ def decode_step(params, cache: KVCache, token: torch.Tensor,
         )
     cache.length = pos + 1
     x = rms_norm(x, params["final_norm"])
-    return _matmul_f32(x[:, 0], params["unembed"]), cache
+    return matmul_f32(x[:, 0], params["unembed"]), cache
 
 
 def _prefill_parts(params, tokens, cfg: TransformerConfig, max_seq: int):
@@ -262,6 +268,6 @@ def generate(
                 x, lp, k_cache, v_cache, positions, valid, pos, cfg, seq_major=True
             )
         x = rms_norm(x, params["final_norm"])
-        token = pick(_matmul_f32(x[:, 0], params["unembed"]))
+        token = pick(matmul_f32(x[:, 0], params["unembed"]))
         out.append(token)
     return torch.stack(out, dim=1)

@@ -1,20 +1,23 @@
 """Flagship decoder-only transformer (counterpart of
-odh_kubeflow_tpu/models/transformer.py), dense and single-device.
+odh_kubeflow_tpu/models/transformer.py), dense or MoE, single-device.
 
 Parameters are plain dicts of tensors in the JAX package's layout, stacked
 over layers: ``layers[name]`` is ``(L, ...)`` and the QKV projection is one
 fused ``wqkv (L, d_model, n_heads + 2*kv_heads, head_dim)``, so weights
-converted from the JAX tree (models/convert.py) drop in unchanged. Layers run
-in a Python loop over per-layer views of the stack.
+converted from the JAX tree (models/convert.py) drop in unchanged. An MoE
+config (`moe`, a models/moe.py MoEConfig) has ``router (L, d, E)`` (f32)
+and ``we_gate``/``we_up (L, E, d, f)``, ``we_out (L, E, f, d)`` in place of
+the dense ``wi_gate``/``wi_up``/``wo_mlp``. Layers run in a Python loop
+over per-layer views of the stack.
 
 Rounding points follow the JAX package's ``preferred_element_type=f32``
 contractions: a projection whose JAX result is cast to the model dtype is a
 matmul in that dtype (f32 accumulate, one rounding at the output); one whose
-JAX result stays f32 (SwiGLU gate/up, logits) goes through `_matmul_f32`.
+JAX result stays f32 (SwiGLU gate/up, logits) goes through `matmul_f32`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Any, Dict, Optional
 
@@ -28,7 +31,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import DeviceLike, resolve_device
-from ..ops import apply_rope, flash_attention, mha_reference, rms_norm
+from ..ops import apply_rope, flash_attention, matmul_f32, mha_reference, rms_norm
+from .moe import MOE_AXES, MoEConfig, _dense_init, init_moe_params, moe_ffn
 from .optim import adamw
 from .tree import tree_leaves, tree_map, tree_unflatten
 
@@ -64,7 +68,7 @@ class TransformerConfig:
     seq_axis: str = ""
     seq_axis_bound: bool = False
     seq_layout: str = "contiguous"
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     n_kv_heads: int = 0
     head_dim_override: int = 0
 
@@ -86,10 +90,20 @@ class TransformerConfig:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         return kv
 
+    @property
+    def moe_resolved(self) -> Optional[MoEConfig]:
+        """`moe` with its per-expert d_ff filled in (0 means the dense
+        layer's d_ff)."""
+        if self.moe is None or self.moe.d_ff:
+            return self.moe
+        return replace(self.moe, d_ff=self.d_ff)
+
 
 def check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers (models/moe.py) are not ported yet")
+    if cfg.moe is not None and not isinstance(cfg.moe, MoEConfig):
+        raise TypeError(
+            f"cfg.moe must be a models.moe.MoEConfig, not {type(cfg.moe).__name__}"
+        )
 
 
 def init_params(generator: Optional[torch.Generator], cfg: TransformerConfig,
@@ -107,19 +121,24 @@ def init_params(generator: Optional[torch.Generator], cfg: TransformerConfig,
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
     def dense_init(shape, fan_in):
-        t = torch.empty(shape, dtype=torch.float32)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (t * (1.0 / fan_in) ** 0.5).to(device=dev, dtype=cfg.dtype)
+        return _dense_init(gen, shape, fan_in, cfg.dtype, dev)
 
     layers = {
         "attn_norm": norm_init((L, d)),
         "wqkv": dense_init((L, d, h + 2 * cfg.kv_heads, hd), d),
         "wo": dense_init((L, h, hd, d), d),
         "mlp_norm": norm_init((L, d)),
-        "wi_gate": dense_init((L, d, f), d),
-        "wi_up": dense_init((L, d, f), d),
-        "wo_mlp": dense_init((L, f, d), f),
     }
+    moe_cfg = cfg.moe_resolved
+    if moe_cfg is not None:
+        per_layer = [init_moe_params(gen, d, moe_cfg, cfg.dtype, dev) for _ in range(L)]
+        layers.update({name: torch.stack([p[name] for p in per_layer]) for name in MOE_AXES})
+    else:
+        layers.update({
+            "wi_gate": dense_init((L, d, f), d),
+            "wi_up": dense_init((L, d, f), d),
+            "wo_mlp": dense_init((L, f, d), f),
+        })
     return {
         "embed": dense_init((cfg.vocab, d), d),
         "final_norm": norm_init((d,)),
@@ -131,47 +150,6 @@ def init_params(generator: Optional[torch.Generator], cfg: TransformerConfig,
 def layer_view(params, layer: int) -> Dict[str, torch.Tensor]:
     """One layer's weights as views into the (L, ...) stack (no copy)."""
     return {name: t[layer] for name, t in params["layers"].items()}
-
-
-def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.float32:
-        return x @ w.float()
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
-
-
-class _MatmulF32(torch.autograd.Function):
-    """The gradient of `_mm_f32`. On a CUDA bf16 tensor the product is
-    torch.mm(out_dtype=f32), whose aten op has no derivative; this Function
-    gives both device branches the one backward, JAX's transpose of
-    einsum(..., preferred_element_type=f32): the f32 cotangent contracts in
-    f32 against the other operand and the result is cast to the operand's
-    dtype."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _mm_f32(x, w)
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, w = ctx.saved_tensors
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = (gy @ w.float().t()).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            x2 = x.reshape(-1, x.shape[-1]).float()
-            gw = (x2.t() @ gy.reshape(-1, gy.shape[-1])).to(w.dtype)
-        return gx, gw
-
-
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., k) @ w (k, n) accumulated in f32 and returned in f32, without
-    the rounding to x's dtype a bf16 matmul makes at its output: the
-    counterpart of einsum(..., preferred_element_type=f32)."""
-    return _MatmulF32.apply(x, w)
 
 
 def _attention(q, k, v, cfg: TransformerConfig):
@@ -201,22 +179,29 @@ def layer_qkv(x, layer_params, positions, cfg: TransformerConfig):
 
 
 def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig):
-    """Output projection + dense SwiGLU. Uses the pre-concatenated
-    `wi_fused` (d, 2f) when the view carries one (the decode fast path)."""
+    """Output projection + MLP (routed experts or dense SwiGLU). Returns
+    (x, aux): aux is the layer's router aux loss (0-d f32) for MoE, and the
+    Python float 0.0 for a dense layer (no device op). The dense SwiGLU
+    uses the pre-concatenated `wi_fused` (d, 2f) when the view carries one
+    (the decode fast path)."""
     x = x + torch.einsum("bsnh,nhd->bsd", attn, layer_params["wo"])
     y = rms_norm(x, layer_params["mlp_norm"])
+    if cfg.moe is not None:
+        mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved)
+        return x + mlp_out, aux
     wi_fused = layer_params.get("wi_fused")
     if wi_fused is not None:
-        gate, up = _matmul_f32(y, wi_fused).chunk(2, dim=-1)
+        gate, up = matmul_f32(y, wi_fused).chunk(2, dim=-1)
     else:
-        gate = _matmul_f32(y, layer_params["wi_gate"])
-        up = _matmul_f32(y, layer_params["wi_up"])
+        gate = matmul_f32(y, layer_params["wi_gate"])
+        up = matmul_f32(y, layer_params["wi_up"])
     act = (F.silu(gate) * up).to(cfg.dtype)
-    return x + act @ layer_params["wo_mlp"]
+    return x + act @ layer_params["wo_mlp"], 0.0
 
 
 def _layer(x, layer_params, positions, cfg: TransformerConfig):
-    """One pre-norm block. x: (batch, seq, d_model)."""
+    """One pre-norm block. x: (batch, seq, d_model). Returns (x, aux), as
+    layer_post_attention does."""
     q, k, v = layer_qkv(x, layer_params, positions, cfg)
     attn = _attention(q, k, v, cfg)
     return layer_post_attention(x, attn, layer_params, cfg)
@@ -233,8 +218,9 @@ _REMAT_SAVES = {
     "attn": frozenset({_FLASH_OP}),
     # the counterpart of dots_with_no_batch_dims_saveable: the outputs of the
     # layer's matrix products (aten mm, bmm and addmm in every overload: the
-    # einsum projections, the f32-output SwiGLU products, wo_mlp); the flash
-    # op is not a product and is recomputed
+    # einsum projections, the f32-output SwiGLU products, wo_mlp; for MoE the
+    # router logits and the expert products); the flash op is not a product
+    # and is recomputed
     "dots": frozenset({torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm}),
 }
 
@@ -257,11 +243,13 @@ def _remat_context(cfg: TransformerConfig):
     return partial(create_selective_checkpoint_contexts, policy_fn)
 
 
-def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None):
+def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None,
+            with_aux=False):
     """f32 logits (batch, seq, vocab) for next-token prediction. tokens:
-    (batch, seq) integer tensor on the parameters' device. Under grad mode
-    with cfg.remat, each layer runs under torch.utils.checkpoint with the
-    save set of cfg.remat_policy."""
+    (batch, seq) integer tensor on the parameters' device. with_aux=True
+    also returns the router aux loss summed over layers (0-d f32; zero for
+    a dense config). Under grad mode with cfg.remat, each layer runs under
+    torch.utils.checkpoint with the save set of cfg.remat_policy."""
     if mesh is not None:
         raise NotImplementedError("sharded forward over a mesh is not ported yet")
     check_supported(cfg)
@@ -278,10 +266,17 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None):
                               context_fn=context_fn, preserve_rng_state=False)
 
     x = params["embed"].to(cfg.dtype)[tokens]
+    aux = 0.0
     for layer in range(cfg.n_layers):
-        x = body(x, layer_view(params, layer), positions, cfg)
+        x, layer_aux = body(x, layer_view(params, layer), positions, cfg)
+        aux = aux + layer_aux
     x = rms_norm(x, params["final_norm"])
-    return _matmul_f32(x, params["unembed"])
+    logits = matmul_f32(x, params["unembed"])
+    if with_aux:
+        # a dense config's aux is the float 0.0: made on the device, since a
+        # Python scalar copied to the card would sync the host
+        return logits, aux if torch.is_tensor(aux) else logits.new_zeros(())
+    return logits
 
 
 def causal_ce(logits, targets, mask=None):
@@ -308,8 +303,10 @@ def next_token_ce(logits, tokens):
 
 
 def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
-    """Causal LM cross-entropy. batch: {"tokens": (b, s)} with optional
-    "positions", and optional "targets" with an optional "loss_mask"."""
+    """Causal LM cross-entropy, plus router_aux_weight times the mean
+    per-layer router aux loss for an MoE config. batch: {"tokens": (b, s)}
+    with optional "positions", and optional "targets" with an optional
+    "loss_mask"."""
     if mesh is not None:
         raise NotImplementedError("sharded loss over a mesh is not ported yet")
     tokens = batch["tokens"]
@@ -321,10 +318,14 @@ def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
             'seq_layout="zigzag" needs explicit batch targets/loss_mask '
             "(models.make_zigzag_batch)"
         )
-    logits = forward(params, tokens, cfg, positions=batch.get("positions"))
+    logits, aux = forward(params, tokens, cfg, positions=batch.get("positions"), with_aux=True)
     if targets is None:
-        return next_token_ce(logits, tokens)
-    return causal_ce(logits, targets, batch.get("loss_mask"))
+        loss = next_token_ce(logits, tokens)
+    else:
+        loss = causal_ce(logits, targets, batch.get("loss_mask"))
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def make_train_step(cfg: TransformerConfig, optimizer=None, mesh=None):

@@ -38,14 +38,8 @@ import torch
 from .. import telemetry
 from ..device import DeviceLike, resolve_device
 from ..models.decode import _cached_attention, _layer_views, _prompt_scan
-from ..models.transformer import (
-    TransformerConfig,
-    _matmul_f32,
-    check_supported,
-    layer_post_attention,
-    layer_qkv,
-)
-from ..ops import rms_norm
+from ..models.transformer import TransformerConfig, check_supported, layer_post_attention, layer_qkv
+from ..ops import matmul_f32, rms_norm
 from . import metrics as M
 
 log = logging.getLogger(__name__)
@@ -91,7 +85,9 @@ def _decode_burst(params, caches, layers, lengths, tokens, remaining, eos,
     lengths (S,) per-slot positions; tokens (S,) the tokens being consumed;
     remaining (S,) tokens still owed per slot (0 = inactive: a free slot
     computes masked garbage, and the next admission replaces its whole cache
-    extent). `eos` (-1 = disabled) ends a sequence early on the device.
+    extent). An MoE layer routes all S slots together, free ones included,
+    in slot order, as the JAX burst does: a free slot's row takes expert
+    capacity as it does there. `eos` (-1 = disabled) ends a sequence early on the device.
     Attention reads cache positions [0, extent), an upper bound on every
     slot's length over the burst computed on the host. Caches are written
     in place. Returns the new lengths/tokens/remaining and the per-step
@@ -112,9 +108,9 @@ def _decode_burst(params, caches, layers, lengths, tokens, remaining, eos,
             k_cache[slots, pos] = k[:, 0]
             v_cache[slots, pos] = v[:, 0]
             attn = _slot_attention(q, k_cache[:, :extent], v_cache[:, :extent], valid, cfg)
-            x = layer_post_attention(x, attn, lp, cfg)
+            x = layer_post_attention(x, attn, lp, cfg)[0]
         x = rms_norm(x, params["final_norm"])
-        nxt = _matmul_f32(x[:, 0], params["unembed"]).argmax(dim=-1)
+        nxt = matmul_f32(x[:, 0], params["unembed"]).argmax(dim=-1)
         emitted = torch.where(active, nxt, tokens)
         done = active & ((emitted == eos) | (remaining <= 1))
         remaining = torch.where(active, remaining - 1, remaining)

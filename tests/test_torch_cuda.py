@@ -5,7 +5,9 @@ their tile edges (the forward with both q-tile widths), and their refusal of
 views TMA cannot read; the scalar kernels at the edges of each of their
 16-, 32- and 64-row tiles, and the scalar dq kernel at each of its cluster
 sizes; the differentiable attention, the f32-output matmul's
-backward and one train step on the card. They skip with a reason
+backward (plain and per expert), one train step on the card, and the MoE
+layer and train step on the card (against the CPU, and bit-equal when
+repeated). They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
 
@@ -17,9 +19,9 @@ import torch
 
 import torch_threads
 from odh_kubeflow_tpu_torch.device import hopper_present
-from odh_kubeflow_tpu_torch.models import TransformerConfig, init_params, make_train_step
-from odh_kubeflow_tpu_torch.models.transformer import _matmul_f32
-from odh_kubeflow_tpu_torch.ops import attention, flash_attention, flash_attention_plain
+from odh_kubeflow_tpu_torch.models import MoEConfig, TransformerConfig, init_params, make_train_step, moe_ffn
+from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
+from odh_kubeflow_tpu_torch.ops import attention, flash_attention, flash_attention_plain, matmul_f32
 from odh_kubeflow_tpu_torch.ops.attention import (
     flash_bwd_dkv,
     flash_bwd_dkv_plain,
@@ -373,7 +375,7 @@ def test_matmul_f32_backward_on_card(card):
     results = []
     for dev in ("cpu", card):
         xd, wd = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
-        y = _matmul_f32(xd, wd)
+        y = matmul_f32(xd, wd)
         results.append([y, *torch.autograd.grad(y, (xd, wd), gy.to(dev))])
     for name, c, g in zip(("y", "dx", "dw"), *results):
         assert g.dtype == c.dtype, name
@@ -401,3 +403,78 @@ def test_train_step_launches_the_kernels(card, policy):
                                        "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
                                        "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
     assert not any(t.requires_grad for t in params["layers"].values())
+
+
+@pytest.mark.cuda
+def test_batched_matmul_f32_backward_on_card(card):
+    """The per-expert product, torch.bmm(out_dtype=f32) on the card, has the
+    CPU branch's values and gradients."""
+    x = torch.randn(4, 16, 256, dtype=torch.bfloat16)
+    w = torch.randn(4, 256, 512, dtype=torch.bfloat16)
+    gy = torch.randn(4, 16, 512)
+    results = []
+    for dev in ("cpu", card):
+        xd, wd = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        y = matmul_f32(xd, wd)
+        results.append([y, *torch.autograd.grad(y, (xd, wd), gy.to(dev))])
+    for name, c, g in zip(("y", "dx", "dw"), *results):
+        assert g.dtype == c.dtype, name
+        torch.testing.assert_close(g.cpu().float(), c.float(), atol=1e-2, rtol=1e-2, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["indexed", "dense"])
+def test_moe_ffn_on_card_matches_cpu(card, dispatch):
+    """f32 MoE layer at capacity factor 1.25 (picks dropped): routing, output
+    and aux on the card equal the CPU's within 1e-4, and each gradient
+    within 1e-5 of its largest CPU value (summation order only; the router's
+    gradient sums terms of both signs over the tokens)."""
+    cfg = MoEConfig(n_experts=8, experts_per_token=2, capacity_factor=1.25, d_ff=256, dispatch=dispatch)
+    gen = torch.Generator().manual_seed(0)
+    params = {"router": torch.randn(128, 8, generator=gen) * 0.3,
+              "we_gate": torch.randn(8, 128, 256, generator=gen) * 0.1,
+              "we_up": torch.randn(8, 128, 256, generator=gen) * 0.1,
+              "we_out": torch.randn(8, 256, 128, generator=gen) * 0.1}
+    x = torch.randn(2, 64, 128, generator=gen)
+    results = []
+    for dev in ("cpu", card):
+        live = {n: t.to(dev).requires_grad_() for n, t in params.items()}
+        xd = x.to(dev).requires_grad_()
+        out, aux = moe_ffn(xd, live, cfg)
+        grads = torch.autograd.grad(out.square().sum() + aux, [xd, *live.values()])
+        results.append([out, aux, *grads])
+    cpu, gpu = results
+    for name, c, g in zip(("out", "aux"), cpu[:2], gpu[:2]):
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+    _assert_grads_close([g.cpu() for g in gpu[2:]], cpu[2:], torch.float32, ("x", *params))
+
+
+@pytest.mark.cuda
+def test_moe_train_step_is_deterministic_on_card(card):
+    """bf16 MoE step with remat_policy "" (the backward routes again): the
+    same step twice from one state is bit-equal in loss, params and
+    optimizer state, with 2/1/1 tensor-core launches per layer."""
+    cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=2, d_ff=256, max_seq=256,
+                            dtype=torch.bfloat16, remat=True, remat_policy="",
+                            moe=MoEConfig(n_experts=4, experts_per_token=2, capacity_factor=1.25))
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=card)
+    assert params["layers"]["router"].dtype == torch.float32
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device=card,
+                           generator=torch.Generator(device=card).manual_seed(1))
+    params, state, _ = step(params, state, {"tokens": tokens})
+    snapshot = tree_map(torch.clone, {"params": params, "state": state})
+    runs = []
+    for _ in range(2):
+        run = tree_map(torch.clone, snapshot)
+        attention.reset_launch_counts()
+        _, _, loss = step(run["params"], run["state"], {"tokens": tokens})
+        runs.append((loss, tree_leaves(run)))
+        assert attention.launch_counts == {"flash_fwd": 2 * cfg.n_layers, "flash_fwd_scalar": 0,
+                                           "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                                           "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    (loss_a, leaves_a), (loss_b, leaves_b) = runs
+    assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+    for a, b in zip(leaves_a, leaves_b):
+        assert torch.equal(a, b) and a.dtype == b.dtype

@@ -153,7 +153,7 @@ def test_config_dtype_accepts_json_names():
 def test_unported_features_raise(models):
     _, _, cfg, params = models
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         init_params(None, dataclasses.replace(cfg, moe={"n_experts": 4}), device="cpu")
     with pytest.raises(NotImplementedError, match="ring attention"):
         forward(params, tokens, dataclasses.replace(cfg, seq_axis="sp"))

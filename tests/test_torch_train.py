@@ -38,8 +38,7 @@ from odh_kubeflow_tpu_torch.models import (
     params_from_numpy,
 )
 from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
-from odh_kubeflow_tpu_torch.models.transformer import _matmul_f32
-from odh_kubeflow_tpu_torch.ops import attention
+from odh_kubeflow_tpu_torch.ops import attention, matmul_f32
 
 torch_threads.cap()
 
@@ -171,7 +170,7 @@ def test_loss_fn_refuses_what_is_not_ported(models):
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
     with pytest.raises(ValueError, match="zigzag"):
         loss_fn(params, batch, dataclasses.replace(cfg, seq_layout="zigzag"))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         loss_fn(params, batch, dataclasses.replace(cfg, moe={"n_experts": 4}))
     with pytest.raises(NotImplementedError, match="mesh"):
         loss_fn(params, batch, cfg, mesh=object())
@@ -326,7 +325,7 @@ def test_matmul_f32_backward_matches_jax(jdtype, tdtype):
     want, vjp = jax.vjp(f, x, w)
     want_gx, want_gw = vjp(jnp.asarray(gy))
     tx, tw = _to_torch(x, tdtype).requires_grad_(), _to_torch(w, tdtype).requires_grad_()
-    y = _matmul_f32(tx, tw)
+    y = matmul_f32(tx, tw)
     assert y.dtype == torch.float32
     gx, gw = torch.autograd.grad(y, (tx, tw), torch.from_numpy(gy))
     assert gx.dtype == tdtype and gw.dtype == tdtype
@@ -344,6 +343,6 @@ def test_matmul_f32_under_inference_mode(tdtype):
     x = torch.from_numpy(rng.standard_normal((2, 5, 16)).astype(np.float32)).to(tdtype)
     w = torch.from_numpy(rng.standard_normal((16, 24)).astype(np.float32)).to(tdtype)
     with torch.inference_mode():
-        y = _matmul_f32(x, w)
+        y = matmul_f32(x, w)
     assert y.dtype == torch.float32 and y.grad_fn is None and not y.requires_grad
     np.testing.assert_allclose(y.numpy(), (x.float() @ w.float()).numpy(), atol=1e-5, rtol=0)
