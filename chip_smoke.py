@@ -95,7 +95,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    no scalar one), no host sync in a step, the same step twice from one
    state bit-equal, one profiled step, the dispatch share (dispatch_only
    at the step's tokens, x 3 per layer, over the step) and the drop rate
-   at layer 0's inputs.
+   at layer 0's inputs;
+9. the token router at phase 5's full width: two ServingEngine replicas of
+   the flagship model (8 slots, max_seq 512, burst 8 each, one set of
+   params) behind the port's TokenRouter in this process, with PROFILE=1
+   and TORCHGUARD=1; launch counts zeroed just before and read just after
+   the routed, drained and hedged requests: 8 clients send 16 routed
+   requests (prompt 128, max_new from MAX_NEWS), each with its own
+   traceparent, all ok with max_new in-vocab tokens, each trace one tree
+   (router.request, router.pick, exactly one counted inference.request);
+   replica 1 drained mid-run (its in-flight requests finish ok, it takes no
+   pick after); a hedge after HEDGE_AFTER_S (shorter than any prefill)
+   while replica 1's slots all hold long requests, whose loser (the copy
+   queued there) is canceled, superseded in the same trace and not counted;
+   8 tensor-core forward launches per admitted request (the long requests
+   included) and no scalar one; serving.prefill entered once per
+   admitted request; the five phases of serving.decode_burst covering
+   90-110% of it, each phase's share printed; one host copy per burst and
+   no recompile on both replicas; then the router's added latency (p50 of
+   routed minus direct requests, bench.py:603-660), a burst step's host
+   time with the profiler and guard off and on, and generate() under the
+   armed guard (no copy, no hidden sync).
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -138,7 +158,10 @@ TENSOR_CORE_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
 SCALAR_BWD = ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")
 TRAIN_STEPS = 5
 DEMO_PROMPTS = [[1, 2, 3, 4], [9, 8, 7], [100, 200, 300, 400, 500], [42]]  # f32 demo requests, phases 5, 8
-MAX_NEWS = [16, 64, 24, 48, 32, 56, 40, 16]  # phases 5 and 8: max_new of the 8 HTTP requests
+MAX_NEWS = [16, 64, 24, 48, 32, 56, 40, 16]  # phases 5, 8 and 9: max_new of the 8 HTTP requests
+HEDGE_AFTER_S = 0.0005  # phase 9: shorter than any prefill, so the hedge always fires
+ADDED_LATENCY_REQUESTS = 24  # phase 9: sequential requests each, routed and direct
+BURST_TIMING_ROUNDS = 8  # phase 9: timed bursts per profiler/guard setting
 
 
 def fail(msg: str) -> None:
@@ -1473,6 +1496,310 @@ def moe_phase(attention, peaks, smi):
     return paths
 
 
+def _clients(jobs, send):
+    """One thread per client, each sending its jobs in turn; returns the
+    threads (started) and the list their failures land in."""
+    errors = []
+
+    def client(batch):
+        try:
+            for job in batch:
+                send(*job)
+        except BaseException as e:  # reported by _join_clients, which fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(batch,)) for batch in jobs]
+    for th in threads:
+        th.start()
+    return threads, errors
+
+
+def _join_clients(threads, errors, what):
+    for th in threads:
+        th.join(timeout=600)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"{what}: {errors or 'a client did not finish'}")
+
+
+def _wait_until(cond, what, timeout=300):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def where_time_went(burst, label):
+    """Prints each phase's self time as a share of serving.decode_burst's
+    total (the profiler's snapshot of the region); returns the phases and
+    their coverage of the region."""
+    phases = burst["phases"]
+    covered = sum(p["self_s"] for p in phases.values()) / burst["total_s"]
+    print(f"  where_time_went, {label}, serving.decode_burst ({burst['count']} steps, "
+          f"{burst['total_s']:.4f} s, host clock): " + ", ".join(
+              f"{name} {phases[name]['self_s'] / burst['total_s']:.2%}"
+              for name in ("admit", "prefill", "scan", "batched_drain", "emit") if name in phases)
+          + f"; phases cover {covered:.4f} of it", flush=True)
+    return phases, covered
+
+
+def router_phase(attention, smi, cfg, params):
+    """Phase 9: two replicas of the flagship serving model behind the port's
+    TokenRouter in this process, with PROFILE=1 and TORCHGUARD=1. Routed
+    requests with their own traceparents, a drain of replica 1 mid-run and
+    a hedge; then the profile, the guard's counts, the router's added
+    latency and a burst's host time with the profiler and guard on and off.
+    Returns the forward launches of its main path (the routed, drained and
+    hedged requests), counted from 0 just before it."""
+    from odh_kubeflow_tpu_torch.models import generate
+    from odh_kubeflow_tpu_torch.serving import metrics as serving_metrics
+    from odh_kubeflow_tpu_torch.serving.engine import ServingEngine
+    from odh_kubeflow_tpu_torch.serving.router import TokenRouter
+    from odh_kubeflow_tpu_torch.utils import profiler, torchguard, tracing
+
+    t_phase = time.perf_counter()
+    os.environ["PROFILE"] = "1"
+    os.environ["TORCHGUARD"] = "1"
+    engines = [warm_engine(ServingEngine(params, cfg, max_slots=8, max_seq=512, decode_burst=8,
+                                         device="cuda")) for _ in range(2)]
+    for eng in engines:
+        eng.start()
+    router = TokenRouter(endpoint="smoke/flagship")
+    for i, eng in enumerate(engines):
+        router.add_replica(i, eng)
+    rng = np.random.default_rng(9)
+
+    def prompt():
+        return rng.integers(0, cfg.vocab, 128).tolist()
+
+    results = {}
+
+    def send(key, prompt_, max_new, via=router):
+        trace_id, caller = tracing.new_trace_id(), tracing.new_span_id()
+        res = via.generate(prompt_, max_new, traceparent=tracing.format_traceparent(trace_id, caller),
+                           wait_timeout_s=300)
+        results[key] = (trace_id, caller, max_new, res)
+
+    requests_total = serving_metrics.inference_requests_total
+    retries = serving_metrics.inference_router_retries_total
+    counts0 = {r: requests_total.value(result=r) for r in ("ok", "canceled", "error")}
+    retries0 = sum(retries.value(reason=r) for r in ("queue_full", "error", "canceled"))
+    profiler.reset()
+    tracing.clear()
+    attention.reset_launch_counts()
+
+    # routing and traces: 8 clients, 2 requests each
+    jobs = [[(f"route {c}.{j}", prompt(), MAX_NEWS[(2 * c + j) % len(MAX_NEWS)]) for j in range(2)]
+            for c in range(8)]
+    t0 = time.perf_counter()
+    _join_clients(*_clients(jobs, send), "routed requests")
+    wall = time.perf_counter() - t0
+    routed = [key for batch in jobs for key, _, _ in batch]
+    n_tokens = 0
+    for key in routed:
+        trace_id, caller, max_new, res = results[key]
+        toks = res.handle.tokens
+        if res.handle.result != "ok" or len(toks) != max_new or not all(0 <= t < cfg.vocab for t in toks):
+            fail(f"{key}: {res.handle.result}, {len(toks)} tokens, want {max_new} in range")
+        n_tokens += len(toks)
+        spans = tracing.global_buffer.spans(trace_id=trace_id)
+        envelope = [s for s in spans if s.name == "router.request"]
+        counted = [s for s in spans if s.name == "inference.request" and not s.attributes["superseded"]]
+        picks = [s for s in spans if s.name == "router.pick"]
+        if (len(envelope) != 1 or envelope[0].parent_id != caller or len(counted) != 1 or not picks
+                or {s.parent_id for s in counted + picks} != {envelope[0].span_id}):
+            fail(f"{key}: trace {trace_id} is not one tree: {[(s.name, s.parent_id) for s in spans]}")
+    by_replica = [sum(results[k][3].replica == i for k in routed) for i in (0, 1)]
+    ttfts = sorted(results[k][3].handle.ttft_s for k in routed)
+    print(f"  {len(routed)} routed requests from 8 clients, {n_tokens} tokens in {wall:.3f} s: "
+          f"{n_tokens / wall:.1f} tokens/s; replicas {by_replica}; TTFT median "
+          f"{statistics.median(ttfts) * 1e3:.2f} ms, min {ttfts[0] * 1e3:.2f} ms, max "
+          f"{ttfts[-1] * 1e3:.2f} ms; each request one trace (router.request, router.pick, one "
+          f"counted inference.request) on {smi}", flush=True)
+
+    # a drain of replica 1 mid-run: every early request picked and on its
+    # replica, replica 1 busy, then the drain, then the late requests
+    early = [[(f"drain early {c}", prompt(), 64)] for c in range(8)]
+    late = [[(f"drain late {c}", prompt(), 16)] for c in range(4)]
+
+    def n_picks(replica=None):
+        return sum(replica is None or s.attributes["replica"] == replica
+                   for s in tracing.global_buffer.spans(name="router.pick"))
+
+    picks_before = n_picks()
+    early_run = _clients(early, send)
+    _wait_until(lambda: n_picks() >= picks_before + len(early), "the early requests' picks")
+    _wait_until(lambda: engines[1].stats()["active_slots"] + engines[1].stats()["queued"] > 0,
+                "replica 1 to hold a request", timeout=120)
+    router.set_draining(1)
+    drained_at = n_picks(1)
+    _join_clients(*_clients(late, send), "requests after the drain")
+    _join_clients(*early_run, "requests in flight at the drain")
+    early_keys = [b[0][0] for b in early]
+    late_keys = [b[0][0] for b in late]
+    on_1 = [k for k in early_keys if results[k][3].replica == 1]
+    if n_picks(1) != drained_at or any(results[k][3].replica != 0 for k in late_keys):
+        fail(f"replica 1 took {n_picks(1) - drained_at} picks after its drain")
+    if not on_1 or any(results[k][3].handle.result != "ok" or len(results[k][3].handle.tokens) != results[k][2]
+                       for k in early_keys + late_keys):
+        fail(f"the drain: {len(on_1)} requests in flight on replica 1, results "
+             f"{[results[k][3].handle.result for k in early_keys + late_keys]}")
+    print(f"  drain: {len(on_1)} requests in flight on replica 1 finished ok; {len(late)} later requests "
+          f"all on replica 0; replica 1 took no pick after the drain", flush=True)
+    router.set_draining(1, False)
+
+    # a hedge: the first token cannot come before a prefill, so a hedge
+    # after HEDGE_AFTER_S always fires; the loser is canceled, superseded.
+    # Replica 1 is the slow tail: all its slots hold long requests, so the
+    # copy routed there waits in its queue while replica 0 serves the other.
+    # (Two idle replicas race: both copies decode in step on one stream, and
+    # a loser that completes before the router cancels it is a finished
+    # duplicate, counted, in the reference router as here.)
+    if not HEDGE_AFTER_S < ttfts[0]:
+        fail(f"hedge_after_s {HEDGE_AFTER_S} is not shorter than a prefill (TTFT min {ttfts[0]})")
+    backlog = [engines[1].submit(prompt(), engines[1].max_seq - 128) for _ in range(engines[1].max_slots)]
+    _wait_until(lambda: engines[1].stats()["active_slots"] == engines[1].max_slots
+                and not engines[1].stats()["queued"], "replica 1's slots to fill")
+    hedger = TokenRouter(endpoint="smoke/flagship-hedged", hedge_after_s=HEDGE_AFTER_S)
+    for i, eng in enumerate(engines):
+        hedger.add_replica(i, eng)
+    counts = {r: requests_total.value(result=r) for r in ("ok", "canceled")}
+    send("hedge", prompt(), 64, via=hedger)
+    trace_id, _, _, res = results["hedge"]
+    spans = tracing.global_buffer.spans(trace_id=trace_id, name="inference.request")
+    outcomes = sorted((s.attributes["result"], s.attributes["superseded"]) for s in spans)
+    delta = {r: requests_total.value(result=r) - counts[r] for r in counts}
+    busy = sum(not h.done.is_set() for h in backlog)
+    print(f"  hedge after {HEDGE_AFTER_S * 1e3:.1f} ms, replica 1's {len(backlog)} slots busy: launched "
+          f"{res.hedged}, hedge won {res.hedge_won}, replica {res.replica}; inference.request spans in "
+          f"its trace {outcomes}; inference_requests_total rose {delta}; {busy} long requests still "
+          "decoding", flush=True)
+    if (not res.hedged or res.handle.result != "ok" or outcomes != [("canceled", True), ("ok", False)]
+            or delta != {"ok": 1, "canceled": 0} or busy != len(backlog)):
+        fail("the hedge loser was not canceled, superseded and left uncounted")
+    for h in backlog:
+        engines[1].cancel(h)
+
+    launches = dict(attention.launch_counts)
+    # the hedge loser's engine may still be in the burst it was canceled in:
+    # stop both loops (stop() joins them) so no step is half recorded
+    for eng in engines:
+        eng.stop()
+    request_spans = tracing.global_buffer.spans(name="inference.request")
+    admitted = sum(s.attributes["ttft_s"] is not None for s in request_spans)
+    regions = profiler.snapshot()["regions"]
+    burst, prefill = regions["serving.decode_burst"], regions["serving.prefill"]
+    stats = [eng.stats() for eng in engines]
+    print(f"  launches {launches} for {admitted} admitted requests (replica 1's long requests included); "
+          f"serving.prefill entries {prefill['count']}", flush=True)
+    if launches["flash_fwd"] != cfg.n_layers * admitted or launches["flash_fwd_scalar"]:
+        fail(f"forward launches {launches}, want flash_fwd {cfg.n_layers * admitted} and no scalar one")
+    if prefill["count"] != admitted:
+        fail(f"serving.prefill entries {prefill['count']}, admitted requests {admitted}")
+
+    # where the time went: the five phases' self times against the region
+    phases, covered = where_time_went(burst, "TORCHGUARD=1")
+    if set(phases) != {"admit", "prefill", "scan", "batched_drain", "emit"} or not 0.9 <= covered <= 1.1:
+        fail(f"serving.decode_burst phases {sorted(phases)} cover {covered:.4f} of the region")
+
+    # the guard: armed all along; no engine died of a budget error
+    retried = sum(retries.value(reason=r) for r in ("queue_full", "error", "canceled")) - retries0
+    errors = requests_total.value(result="error") - counts0["error"]
+    print(f"  guard: host_transfers_last_burst {[s['host_transfers_last_burst'] for s in stats]}, "
+          f"recompiles {[(s['decode_burst_recompiles'], s['prefill_recompiles']) for s in stats]}, "
+          f"router retries {retried}, error results {errors}, {torchguard.transfer_count()} copies "
+          "through to_host in this process", flush=True)
+    if (any(s["host_transfers_last_burst"] != 1 for s in stats) or retried or errors
+            or any(s["decode_burst_recompiles"] or s["prefill_recompiles"] for s in stats)):
+        fail("the guard: an engine copied more than once per burst, recompiled or failed a request")
+
+    # the same routed batch with the guard off: what its lock (held across
+    # each burst's "error" window and each copy) costs two replicas
+    os.environ["TORCHGUARD"] = "0"
+    profiler.reset()
+    for eng in engines:
+        eng.start()
+    unguarded = [[(f"unguarded {c}.{j}", prompt(), MAX_NEWS[(2 * c + j) % len(MAX_NEWS)]) for j in range(2)]
+                 for c in range(8)]
+    t0 = time.perf_counter()
+    _join_clients(*_clients(unguarded, send), "routed requests, guard off")
+    wall = time.perf_counter() - t0
+    if any(results[k][3].handle.result != "ok" for batch in unguarded for k, _, _ in batch):
+        fail("a routed request with the guard off did not finish ok")
+    for eng in engines:
+        eng.stop()
+    print(f"  the same 16 routed requests with TORCHGUARD=0: {n_tokens / wall:.1f} tokens/s", flush=True)
+    where_time_went(profiler.snapshot()["regions"]["serving.decode_burst"], "TORCHGUARD=0")
+    os.environ["TORCHGUARD"] = "1"
+    for eng in engines:
+        eng.start()
+
+    # the router's added latency (bench.py:603-660): p50 of routed minus
+    # p50 of direct submits at one request shape, sequential, in turns
+    shape_prompt = prompt()
+    added = serving_metrics.inference_router_added_latency_seconds
+    added0 = added.snapshot()
+    direct, routed_t = [], []
+    for _ in range(ADDED_LATENCY_REQUESTS):
+        t0 = time.perf_counter()
+        handle = engines[0].submit(shape_prompt, 8)
+        if not handle.wait(300) or handle.result != "ok":
+            fail("a direct request did not finish")
+        direct.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if router.generate(shape_prompt, 8, wait_timeout_s=300).handle.result != "ok":
+            fail("a routed request did not finish")
+        routed_t.append(time.perf_counter() - t0)
+    added_ms = (statistics.median(routed_t) - statistics.median(direct)) * 1e3
+    # the router's own measure of the same thing: generate() entry to the
+    # accepted engine submit, summed in its histogram
+    own = added.snapshot()
+    own_ms = (own["sum"] - added0["sum"]) / (own["count"] - added0["count"]) * 1e3
+    print(f"  router added latency p50 {added_ms:.3f} ms (routed {statistics.median(routed_t) * 1e3:.3f} ms, "
+          f"direct {statistics.median(direct) * 1e3:.3f} ms; {ADDED_LATENCY_REQUESTS} each, prompt 128, "
+          f"max_new 8, PROFILE=1 TORCHGUARD=1); the router's histogram, generate() entry to engine "
+          f"submit: mean {own_ms:.4f} ms over {own['count'] - added0['count']} on {smi}", flush=True)
+
+    # route first, then stop
+    for i in (0, 1):
+        router.remove_replica(i)
+        hedger.remove_replica(i)
+    for eng in engines:
+        eng.stop()
+
+    # a burst's host time, 8 active slots, the profiler and guard off / on,
+    # in turns on one engine
+    modes = (("off", "0", "0"), ("PROFILE", "1", "0"), ("PROFILE+TORCHGUARD", "1", "1"))
+    eng = engines[0]
+    for _ in range(8):
+        eng.submit(prompt(), 1 + 8 * (3 * BURST_TIMING_ROUNDS + 1))
+    eng.step()
+    burst_ms = {name: [] for name, _, _ in modes}
+    for _ in range(BURST_TIMING_ROUNDS):
+        for name, prof, guard in modes:
+            os.environ["PROFILE"], os.environ["TORCHGUARD"] = prof, guard
+            t0 = time.perf_counter()
+            eng.step()
+            burst_ms[name].append((time.perf_counter() - t0) * 1e3)
+    os.environ["PROFILE"] = os.environ["TORCHGUARD"] = "1"
+    if not eng.run_until_idle(timeout=300):
+        fail("the timing requests did not finish")
+    print("  burst step, 8 slots, host clock, median of " f"{BURST_TIMING_ROUNDS}: " + ", ".join(
+        f"{name} {statistics.median(ms):.3f} ms" for name, ms in burst_ms.items()) + f" on {smi}", flush=True)
+
+    # generate() in its models.generate region, armed: no copy, no hidden sync
+    before = torchguard.transfer_count()
+    out = generate(params, [prompt()], cfg, 16, max_seq=512, device="cuda")
+    if tuple(out.shape) != (1, 16) or torchguard.transfer_count() != before:
+        fail("generate() under the armed guard copied to the host")
+    if profiler.snapshot(region="models.generate")["regions"]["models.generate"]["count"] != 1:
+        fail("generate() did not run in its models.generate region")
+    del os.environ["PROFILE"], os.environ["TORCHGUARD"]
+    print(f"  generate() armed: no copy, no hidden sync; phase 9 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA card")
@@ -1744,6 +2071,9 @@ def main() -> None:
     phase("8 MoE serving and training path, full width")
     moe_paths = moe_phase(attention, peaks, smi)
 
+    phase("9 the token router over two engines, traced, profiled and guarded, full width")
+    router_launches = router_phase(attention, smi, cfg, params)
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
 
@@ -1760,12 +2090,13 @@ def main() -> None:
         "replaces": "odh_kubeflow_tpu/ops/attention.py:176",
         # every main path launches it: 8 per request served, 8 per train
         # step; phase 7's steps, logit fingerprints and restored endpoint;
-        # phase 8's MoE requests and steps
+        # phase 8's MoE requests and steps; phase 9's routed, drained and
+        # hedged requests
         "launches": (launches["flash_fwd"] + train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
-                     + sum(moe_launches("flash_fwd").values())),
+                     + sum(moe_launches("flash_fwd").values()) + router_launches["flash_fwd"]),
         "launches_by_path": {"serve": launches["flash_fwd"], "train": train_launches["flash_fwd"],
                              "checkpoint/restore": ckpt_launches["flash_fwd"],
-                             **moe_launches("flash_fwd")},
+                             **moe_launches("flash_fwd"), "router": router_launches["flash_fwd"]},
         "max_abs_err": main_err,
         **timing_keys(main),
         "eager_ms": main["eager_ms"],

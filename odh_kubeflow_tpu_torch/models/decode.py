@@ -21,6 +21,10 @@ An MoE layer routes the batch's tokens of each call together, as the JAX
 package does: capacity comes from the call's token count, so a prompt, a
 batch-1 `generate` step and an 8-slot engine burst each drop (or keep)
 picks by their own count. The router's aux loss is dropped here.
+
+`generate` runs inside the `models.generate` hot region (transfer budget
+0): its tokens stay on the device, and under TORCHGUARD=1 a host sync
+inside it raises (`utils/torchguard.py`).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import matmul_f32, rms_norm
+from ..utils import torchguard
 from .transformer import (
     TransformerConfig,
     _attention,
@@ -232,7 +237,10 @@ def generate(
     (batch, max_new) new tokens on `device`, where the parameters must lie.
     Sampling draws from `generator` (a torch.Generator on `device`; seed 0
     when None), so a seed repeats its tokens; it cannot reproduce
-    jax.random's draws."""
+    jax.random's draws. It takes the Gumbel-max trick of
+    jax.random.categorical: argmax of logits / temperature plus Gumbel
+    noise. torch.multinomial would check its input on the host, a sync
+    inside the models.generate region."""
     if mesh is not None:
         raise NotImplementedError("tensor-parallel generate over a mesh is not ported yet")
     dev = resolve_device(device)
@@ -251,23 +259,25 @@ def generate(
 
     def pick(step_logits):
         if sample:
-            probs = torch.softmax(step_logits / temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+            u = torch.rand(step_logits.shape, generator=generator, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+            return (step_logits / temperature + gumbel).argmax(dim=-1)
         return step_logits.argmax(dim=-1)
 
-    logits, caches = _prefill_parts(params, prompt, cfg, max_seq)
-    layers = _layer_views(params, cfg)
-    token = pick(logits)
-    out = [token]
-    for pos in range(s, s + max_new - 1):
-        positions = torch.full((b, 1), pos, dtype=torch.long, device=dev)
-        x = params["embed"].to(cfg.dtype)[token][:, None, :]
-        valid = torch.arange(max_seq, device=dev) <= pos
-        for lp, (k_cache, v_cache) in zip(layers, caches):
-            x, _, _ = _decode_layer(
-                x, lp, k_cache, v_cache, positions, valid, pos, cfg, seq_major=True
-            )
-        x = rms_norm(x, params["final_norm"])
-        token = pick(matmul_f32(x[:, 0], params["unembed"]))
-        out.append(token)
-    return torch.stack(out, dim=1)
+    with torchguard.region("models.generate", dev):
+        logits, caches = _prefill_parts(params, prompt, cfg, max_seq)
+        layers = _layer_views(params, cfg)
+        token = pick(logits)
+        out = [token]
+        for pos in range(s, s + max_new - 1):
+            positions = torch.full((b, 1), pos, dtype=torch.long, device=dev)
+            x = params["embed"].to(cfg.dtype)[token][:, None, :]
+            valid = torch.arange(max_seq, device=dev) <= pos
+            for lp, (k_cache, v_cache) in zip(layers, caches):
+                x, _, _ = _decode_layer(
+                    x, lp, k_cache, v_cache, positions, valid, pos, cfg, seq_major=True
+                )
+            x = rms_norm(x, params["final_norm"])
+            token = pick(matmul_f32(x[:, 0], params["unembed"]))
+            out.append(token)
+        return torch.stack(out, dim=1)

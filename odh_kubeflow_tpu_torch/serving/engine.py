@@ -17,6 +17,13 @@ odh_kubeflow_tpu/serving/engine.py) over models/decode.py.
   burst makes exactly one host sync (`stats()["host_syncs_last_burst"]`).
 - **Bounded admission queue.** `submit()` past `max_queue_depth` raises
   `QueueFull`: backpressure is explicit.
+- **Observability, as in the JAX engine.** Under PROFILE=1 each `step()`
+  is one `serving.decode_burst` profiler region decomposed into admit ->
+  prefill -> scan -> batched_drain -> emit phases (`utils/profiler.py`);
+  the burst runs under the `serving.decode_burst` guard (0 host copies
+  inside) and each prefill under `serving.prefill` (exactly 1), which
+  TORCHGUARD=1 enforces (`utils/torchguard.py`); each completed request
+  records an `inference.request` span under the caller's `traceparent`.
 
 Greedy decoding only, as in the JAX engine. All device work runs on the
 thread that calls `step()` (the engine's daemon thread once `start()`ed);
@@ -24,7 +31,6 @@ thread that calls `step()` (the engine's daemon thread once `start()`ed);
 """
 from __future__ import annotations
 
-import contextlib
 import logging
 import threading
 import time
@@ -40,6 +46,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.decode import _cached_attention, _layer_views, _prompt_scan
 from ..models.transformer import TransformerConfig, check_supported, layer_post_attention, layer_qkv
 from ..ops import matmul_f32, rms_norm
+from ..utils import profiler, racecheck, torchguard
+from ..utils.tracing import record_span
 from . import metrics as M
 
 log = logging.getLogger(__name__)
@@ -145,8 +153,10 @@ class ServingEngine:
     burst) the tests drive directly; `start()` runs it on a daemon thread.
 
     `params` must lie on `device`. `check_syncs` (CUDA only) runs each
-    burst under torch's sync debug mode "error", so a host sync hidden in
-    the burst raises instead of passing unnoticed."""
+    burst under torch's sync debug mode "error" (through the burst guard,
+    which keeps that process-wide switch right with several engines on
+    threads), so a host sync hidden in the burst raises instead of passing
+    unnoticed."""
 
     def __init__(
         self,
@@ -178,7 +188,6 @@ class ServingEngine:
         # per-burst host round trip while bounding admission delay
         self.decode_burst = max(1, decode_burst)
         self.clock = clock
-        self.check_syncs = check_syncs
         slot_shape = (max_slots, max_seq, cfg.kv_heads, cfg.head_dim)
         self._caches = tuple(
             (torch.zeros(slot_shape, dtype=cfg.dtype, device=self.device),
@@ -186,13 +195,16 @@ class ServingEngine:
             for _ in range(cfg.n_layers)
         )
         self._layers = tuple(_layer_views(params, cfg))
-        self._eos = torch.tensor(-1 if eos_id is None else eos_id, device=self.device)
+        # a fill, not a copy from the host: building an engine makes no sync
+        # that could land in a running engine's "error" window
+        self._eos = torch.full((), -1 if eos_id is None else eos_id, dtype=torch.long,
+                               device=self.device)
         self._lengths = np.zeros((max_slots,), np.int64)
         self._tokens = np.zeros((max_slots,), np.int64)
         self._remaining = np.zeros((max_slots,), np.int64)
         self._slots: List[Optional[RequestHandle]] = [None] * max_slots
         self._queue: Deque[RequestHandle] = deque()
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("ServingEngine._lock")
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -200,8 +212,16 @@ class ServingEngine:
         self._generated_total = 0
         self._decode_steps = 0
         self._busy_s = 0.0
-        self._host_syncs = 0
         self._host_syncs_last_burst = 0
+        # per-engine guarded regions: the compile budget is judged per
+        # consumer; the burst guard is also the check_syncs window
+        self._burst_guard = torchguard.region("serving.decode_burst", self.device,
+                                              check_syncs=check_syncs)
+        self._prefill_guard = torchguard.region("serving.prefill", self.device)
+        # compile counts are process-wide and monotonic: stats() reports
+        # those since this engine was built
+        self._compile_base = {name: torchguard.compile_count(name)
+                              for name in ("serving.decode_burst", "serving.prefill")}
 
     # ---------- submission ----------
 
@@ -260,12 +280,6 @@ class ServingEngine:
 
     # ---------- the engine iteration ----------
 
-    def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        """Every device->host copy of the engine goes through here, so the
-        syncs are counted."""
-        self._host_syncs += 1
-        return t.cpu().numpy()
-
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(arr)
         if self.device.type == "cuda":
@@ -274,32 +288,30 @@ class ServingEngine:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    @contextlib.contextmanager
-    def _sync_check(self):
-        if not (self.check_syncs and self.device.type == "cuda"):
-            yield
-            return
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-
     def step(self) -> bool:
         """Admit queued requests into free slots, then run one decode burst
         (`decode_burst` tokens per active slot). Returns False when there
-        was nothing to do."""
-        admitted = self._admit()
+        was nothing to do.
+
+        Under PROFILE=1 the whole iteration is one serving.decode_burst
+        profiler region decomposed into admit -> prefill -> scan ->
+        batched_drain -> emit phases (the burst guard inside re-enters the
+        region name and does not count twice)."""
+        with profiler.region("serving.decode_burst", consumer="engine"):
+            return self._step()
+
+    def _step(self) -> bool:
+        with profiler.phase("admit"):
+            admitted = self._admit()
         n_active = sum(h is not None for h in self._slots)
         if n_active == 0:
             self._publish_gauges()
             return bool(admitted)
         burst, n = self.decode_burst, self.max_slots
         t0 = self.clock()
-        syncs_before = self._host_syncs
+        transfers_before = torchguard.thread_transfer_count()
         extent = min(self.max_seq, int(self._lengths.max()) + burst)
-        with torch.inference_mode(), self._sync_check():
+        with profiler.phase("scan"), self._burst_guard, torch.inference_mode():
             state = self._upload(np.concatenate([self._lengths, self._tokens, self._remaining]))
             lengths, tokens, remaining, toks, actives = _decode_burst(
                 self.params, self._caches, self._layers,
@@ -309,9 +321,11 @@ class ServingEngine:
             packed = torch.cat([
                 lengths, tokens, remaining, toks.reshape(-1), actives.reshape(-1).long(),
             ])
-        # the burst's one host sync: every per-slot output in one copy
-        host = self._to_host(packed)
-        self._host_syncs_last_burst = self._host_syncs - syncs_before
+        # the burst's one host sync: every per-slot output in one copy,
+        # outside the guarded region by design (its transfer budget is 0)
+        with profiler.phase("batched_drain"):
+            host = torchguard.to_host(packed)
+        self._host_syncs_last_burst = torchguard.thread_transfer_count() - transfers_before
         self._lengths = host[:n].copy()
         self._tokens = host[n:2 * n].copy()
         self._remaining = host[2 * n:3 * n].copy()
@@ -323,12 +337,13 @@ class ServingEngine:
         self._decode_steps += burst
         per_step = burst_dt / burst
         telemetry.observe_decode_step(per_step, tokens=n_active)
-        for t in range(burst):
-            step_t = t0 + (t + 1) * per_step
-            for j, handle in enumerate(self._slots):
-                if handle is None or not actives_h[t, j]:
-                    continue
-                self._emit(j, handle, int(toks_h[t, j]), step_t)
+        with profiler.phase("emit"):
+            for t in range(burst):
+                step_t = t0 + (t + 1) * per_step
+                for j, handle in enumerate(self._slots):
+                    if handle is None or not actives_h[t, j]:
+                        continue
+                    self._emit(j, handle, int(toks_h[t, j]), step_t)
         self._publish_gauges()
         return True
 
@@ -344,12 +359,16 @@ class ServingEngine:
                     return admitted
                 handle = self._queue.popleft()
                 M.inference_queue_depth.set(float(len(self._queue)))
-            with torch.inference_mode():
-                prompt = torch.tensor([handle.prompt], dtype=torch.long, device=self.device)
+            # nested inside the step's "admit" phase: admit's self time is
+            # the scheduling, "prefill" the model work
+            with profiler.phase("prefill"), self._prefill_guard, torch.inference_mode():
+                # pinned and non-blocking: no sync beside the counted copy
+                prompt = self._upload(np.asarray([handle.prompt], np.int64))
                 logits, ks, vs = _prefill(self.params, prompt, self.cfg)
                 _insert_slot(self._caches, ks, vs, free)
-                # TTFT needs the first token now, not at the next burst
-                first = int(self._to_host(logits.argmax(dim=-1))[0])
+                # the region's one budgeted copy: TTFT needs the first token
+                # now, not at the next burst
+                first = int(torchguard.to_host(logits.argmax(dim=-1))[0])
             now = self.clock()
             handle.ttft_s = now - handle.submitted
             M.inference_ttft_seconds.observe(handle.ttft_s)
@@ -389,6 +408,19 @@ class ServingEngine:
         # budget (drain and stop cancellations still count)
         if not handle.superseded:
             M.inference_requests_total.inc(result=result)
+        record_span(
+            "inference.request",
+            traceparent=handle.traceparent,
+            start_time=handle.submitted,
+            end_time=now,
+            request_id=handle.id,
+            tokens=len(handle.tokens),
+            ttft_s=round(handle.ttft_s, 6) if handle.ttft_s is not None else None,
+            result=result,
+            # a hedge loser stays in the routed request's trace, marked: the
+            # winner's span is the one that counted
+            superseded=handle.superseded,
+        )
         handle.done.set()
 
     def _publish_gauges(self) -> None:
@@ -468,9 +500,10 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, Any]:
         """The engine's live counters, under the reference engine's keys
-        and the port's own. The recompile counts are 0: the eager engine
-        compiles nothing (once the burst or the prefill is captured as a
-        CUDA graph, its captures count there). host_transfers_last_burst is
+        and the port's own. The recompile counts are the guard's compile
+        counts since this engine was built: 0, as the eager engine compiles
+        nothing (once the burst or the prefill is captured as a CUDA graph,
+        its captures count there). host_transfers_last_burst is
         host_syncs_last_burst under the reference's name."""
         with self._lock:
             queued = len(self._queue)
@@ -481,8 +514,10 @@ class ServingEngine:
             "generated_tokens": self._generated_total,
             "decode_steps": self._decode_steps,
             "busy_s": round(self._busy_s, 6),
-            "decode_burst_recompiles": 0,
-            "prefill_recompiles": 0,
+            "decode_burst_recompiles": (torchguard.compile_count("serving.decode_burst")
+                                        - self._compile_base["serving.decode_burst"]),
+            "prefill_recompiles": (torchguard.compile_count("serving.prefill")
+                                   - self._compile_base["serving.prefill"]),
             # device->host syncs made by the last decode burst: exactly 1,
             # the batched copy of the burst's per-slot outputs
             "host_syncs_last_burst": self._host_syncs_last_burst,

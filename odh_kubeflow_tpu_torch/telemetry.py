@@ -21,35 +21,36 @@ from typing import Iterable, List, Optional, Tuple
 
 import torch
 
-from .utils.metrics import Gauge, Histogram
+from .utils import profiler
+from .utils.metrics import global_registry
 
 _STEP_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30)
 # decode needs the sub-ms resolution the train buckets lack
 _DECODE_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
                    0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30)
 
-train_step_seconds = Histogram(
+train_step_seconds = global_registry.histogram(
     "tpu_train_step_duration_seconds",
     "Per-step wall-clock of the training loop (host-observed, jit dispatch "
     "amortized by the caller's timing method)",
     buckets=_STEP_BUCKETS,
 )
-decode_step_seconds = Histogram(
+decode_step_seconds = global_registry.histogram(
     "tpu_decode_step_duration_seconds",
     "Per-token wall-clock of autoregressive decode",
     buckets=_DECODE_BUCKETS,
 )
-tokens_per_second = Gauge(
+tokens_per_second = global_registry.gauge(
     "tpu_tokens_per_second",
     "Most recent throughput, by phase (train | decode)",
     labels=("phase",),
 )
-mfu = Gauge(
+mfu = global_registry.gauge(
     "tpu_mfu",
     "Most recent model-FLOPs utilization (0-1), by phase (train | decode)",
     labels=("phase",),
 )
-device_memory_bytes = Gauge(
+device_memory_bytes = global_registry.gauge(
     "tpu_device_memory_bytes",
     "Bytes in use per local device (from the runtime's memory_stats)",
     labels=("device",),
@@ -86,12 +87,16 @@ def observe_decode_step(step_s: float, tokens: Optional[float] = None,
 
 def record_device_memory(mems: Iterable[Tuple[Optional[float], Optional[float]]]) -> None:
     """Publish per-device bytes in use from (bytes_in_use, n_allocs) pairs
-    (the probe agent's sampler shape); devices are labeled by local index."""
+    (the probe agent's sampler shape); devices are labeled by local index.
+    Under PROFILE=1 the max across devices also feeds the profiler's
+    per-region memory watermarks (`profiler.on_device_memory`)."""
+    peak: Optional[float] = None
     for i, (bytes_in_use, _allocs) in enumerate(mems):
         if bytes_in_use is not None:
             device_memory_bytes.set(float(bytes_in_use), device=str(i))
-    # the reference also feeds the profiler's per-region memory watermarks
-    # here (profiler.on_device_memory); the port's profiler is ROADMAP item 11
+            peak = float(bytes_in_use) if peak is None else max(peak, float(bytes_in_use))
+    if peak is not None:
+        profiler.on_device_memory(peak)
 
 
 def read_allocator_stats() -> Optional[List[Tuple[Optional[int], Optional[int]]]]:

@@ -7,7 +7,8 @@ views TMA cannot read; the scalar kernels at the edges of each of their
 sizes; the differentiable attention, the f32-output matmul's
 backward (plain and per expert), one train step on the card, and the MoE
 layer and train step on the card (against the CPU, and bit-equal when
-repeated). They skip with a reason
+repeated); two engines with check_syncs on threads of one process, and
+generate() under the armed guard. They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
 
@@ -478,3 +479,66 @@ def test_moe_train_step_is_deterministic_on_card(card):
     assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
     for a, b in zip(leaves_a, leaves_b):
         assert torch.equal(a, b) and a.dtype == b.dtype
+
+
+SERVE_CFG = dict(vocab=512, d_model=256, n_layers=2, n_heads=2, d_ff=512, max_seq=256,
+                 dtype=torch.bfloat16, remat=False)
+
+
+@pytest.mark.cuda
+def test_two_check_syncs_engines_on_threads_on_card(card, monkeypatch):
+    """Torch's sync debug mode is one switch for the process. Two engines
+    with check_syncs=True, each on its own thread, each serve 8 requests:
+    no request fails on the other engine's "error" window, every burst made
+    its one copy, and the mode is the caller's again afterwards. A hidden
+    sync inside a burst is still caught."""
+    from odh_kubeflow_tpu_torch.serving import engine as engine_mod
+
+    cfg = TransformerConfig(**SERVE_CFG)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=card)
+    engines = [engine_mod.ServingEngine(params, cfg, max_slots=4, max_seq=256, decode_burst=4,
+                                        check_syncs=True, device=card).start() for _ in range(2)]
+    rng = np.random.default_rng(0)
+    try:
+        handles = [eng.submit(rng.integers(0, cfg.vocab, 32).tolist(), max_new=int(n))
+                   for eng in engines for n in rng.integers(4, 24, 8)]
+        assert all(h.wait(timeout=300) for h in handles)
+    finally:
+        for eng in engines:
+            eng.stop()
+    assert [h.result for h in handles] == ["ok"] * 16
+    assert all(len(h.tokens) == h.max_new for h in handles)
+    assert [eng.stats()["host_syncs_last_burst"] for eng in engines] == [1, 1]
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    burst = engine_mod._decode_burst
+
+    def hidden_sync(*args, **kw):
+        out = burst(*args, **kw)
+        out[0].sum().item()  # a host sync the burst must not make
+        return out
+
+    monkeypatch.setattr(engine_mod, "_decode_burst", hidden_sync)
+    eng = engine_mod.ServingEngine(params, cfg, max_slots=2, max_seq=256, check_syncs=True, device=card)
+    eng.submit([1, 2, 3], max_new=8)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        eng.step()
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_guarded_generate_makes_no_host_sync_on_card(card, monkeypatch):
+    """generate() under TORCHGUARD=1 runs its models.generate region in
+    torch's "error" sync mode: it finishes, greedy and sampled, so nothing
+    in it syncs."""
+    from odh_kubeflow_tpu_torch.models import generate
+    from odh_kubeflow_tpu_torch.utils import torchguard
+
+    monkeypatch.setenv("TORCHGUARD", "1")
+    cfg = TransformerConfig(**SERVE_CFG)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=card)
+    before = torchguard.transfer_count()
+    out = generate(params, [[1, 2, 3, 4]], cfg, max_new=6, device=card)
+    sampled = generate(params, [[1, 2, 3, 4]], cfg, max_new=6, temperature=1.0, device=card)
+    assert out.shape == sampled.shape == (1, 6) and torchguard.transfer_count() == before
+    assert torch.cuda.get_sync_debug_mode() == 0
