@@ -115,7 +115,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    no recompile on both replicas; then the router's added latency (p50 of
    routed minus direct requests, bench.py:603-660), a burst step's host
    time with the profiler and guard off and on, and generate() under the
-   armed guard (no copy, no hidden sync).
+   armed guard (no copy, no hidden sync);
+10. sequence parallelism on this card: for 2 and then 4 ranks, spawned
+   processes brought up by parallel.initialize_from_env from the env names
+   the webhook injects, on gloo (the ranks share the one card, and NCCL
+   refuses two ranks on one device; the ring's payloads are staged through
+   pinned host memory, counted): the f32 ring (scalar kernels; b1 s1024
+   h8 hk2 d128), contiguous and zigzag, its out and q/k/v gradients within
+   1e-4 of the largest against one-process mha_reference, each rank's
+   launches as ring_launches (ring_balance_report's schedule) gives them;
+   a 2-layer f32 model's sp loss and summed gradients within 1e-4 against
+   one process through mha_reference, both layouts; then make_train_step
+   over the mesh on the flagship model (bf16, remat_policy "flash"),
+   global batch 2 x 8192, at sp 2 contiguous and zigzag and sp 4
+   contiguous. Before each run, every flash call of one bf16 ring at the
+   run's per-rank shapes (b2 s4096 or s2048 h8 d128; zigzag's half-pairs;
+   the backward with the ring's merged lse and delta) is held against its
+   plain version within phase 3/3b's tolerances. Against the one-process
+   step on the same batch: the same first step in f32, its loss within
+   1e-4 and each gradient leaf within 1e-4 of its own largest; the bf16
+   warm-up step's loss within 1e-4, its gradients no farther from the f32
+   ones than the one-process bf16 step's plus one bf16 ulp (per-leaf gaps
+   printed). Then 3 steps with launch counts zeroed just before and read just after
+   (8 x ring_launches tensor-core forward, dq and dk/dv launches per step
+   and rank, no scalar one: the ring is outside the layer checkpoint, so
+   no policy runs it again), no host sync of the sync debug mode's kind
+   inside the steps, losses falling and the params bit-equal across ranks;
+   step time, peak memory per rank, bytes exchanged and the transport's
+   host waits per step are printed, with a line saying that the ranks
+   share one card.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -826,7 +854,9 @@ def count_sync_warnings(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # torch's own notice that the mode is a prototype, given once per
+    # process when a mode is first set, is not a synchronisation
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def train_phase(attention, peaks, smi):
@@ -1800,6 +1830,437 @@ def router_phase(attention, smi, cfg, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: sequence parallelism, ranks spawned on this one card
+# ---------------------------------------------------------------------------
+
+SP_WORLDS = (2, 4)
+SP_RUNS = {2: ("contiguous", "zigzag"), 4: ("contiguous",)}  # world -> layouts of the train runs
+SP_BATCH = (2, 8192)  # the full-width train runs' global batch
+SP_STEPS = 3  # timed steps after the warm-up
+SP_RING_SHAPE = (1, 1024, 8, 2, 128)  # the f32 ring check: b, s, h, hk, d (global)
+SP_GRAD_CHECK = (1, 1024)  # the 2-layer f32 model's global batch
+SP_TIMEOUT_S = 600  # a rank's group (and its collectives) and the wait for one spawn's results
+SP_RING_TOLERANCE = 1e-4  # f32: out and q/k/v gradients, of the largest value
+# the bf16 warm-up loss against the one-process step's, relative: read
+# 1.8e-6 to 8.3e-6 on an H100 (PERF.md, PR 10)
+SP_LOSS_TOLERANCE = 1e-4
+# the f32 full-width step's gradients, each leaf of its own largest value
+# against the one-process f32 step's (summation order only)
+SP_GRAD_TOLERANCE = 1e-4
+BF16_ULP = 2.0 ** -8  # bf16's relative rounding step
+SP_VISIT_SEED = 11  # the bf16 ring whose every flash call is held against its plain version
+FULL_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=4096, max_seq=8192)
+
+
+def _sp_rank(rank, world, port, results):
+    """A spawned rank of phase 10: its results, or its traceback, go to the
+    parent through `results`."""
+    import traceback
+
+    try:
+        results.put((rank, _sp_rank_jobs(rank, world, port), None))
+    except BaseException:  # reported to the parent, which fails the phase
+        results.put((rank, None, traceback.format_exc()))
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted names of a params tree's leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for key, child in tree.items() for n in _leaf_names(child, f"{prefix}{key}.")]
+    return [prefix[:-1]]
+
+
+def _ring_visits_vs_plain(mesh, layout):
+    """One bf16 ring (forward and backward, through autograd) at the train
+    runs' per-rank shape (b, s/sp, 8 heads, d 128, q/k/v strided views of
+    one fused projection), each of its flash calls held against the plain
+    version on the same inputs as the ring made them: the forward's out
+    (TOLERANCE) and lse (LSE_TOLERANCE) per visit (zigzag: per half-pair,
+    strided half-views), dq and dk/dv with the ring's merged global lse and
+    delta (BWD_TOLERANCE of the plain result's largest). Returns a list of
+    (kernel, causal, error over its tolerance)."""
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.ops import ring_attention as ring_mod
+
+    b, s = SP_BATCH
+    h = FULL_WIDTH["n_heads"]
+    d = FULL_WIDTH["d_model"] // h
+    sl = s // mesh.size("sp")
+    dtype = torch.bfloat16
+    q, k, v = (t.detach().requires_grad_()
+               for t in inputs(b, sl, sl, h, h, d, dtype, seed=SP_VISIT_SEED + mesh.index("sp"), strided=True))
+    dout = inputs(b, sl, sl, h, h, d, dtype, seed=SP_VISIT_SEED + 100 + mesh.index("sp"))[0]
+    checked = []
+    fwd, dq, dkv = ring_mod.flash_attention, ring_mod.flash_bwd_dq, ring_mod.flash_bwd_dkv
+
+    def fwd_checked(q, k, v, causal=True, with_lse=False, device="cuda"):
+        out, lse = fwd(q, k, v, causal=causal, with_lse=True, device=device)
+        ref, ref_lse = attention.flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+        checked.append(("fwd", causal, max((out.float() - ref.float()).abs().max().item() / TOLERANCE[dtype],
+                                           (lse - ref_lse).abs().max().item() / LSE_TOLERANCE)))
+        return (out, lse) if with_lse else out
+
+    def bwd_checked(name, kernel, plain):
+        def call(*args):
+            got = kernel(*args)
+            want = plain(*args)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            largest = max(w.float().abs().max().item() for w in want)
+            checked.append((name, args[-1], max(_grad_err(g, w, largest) for g, w in zip(got, want))
+                            / BWD_TOLERANCE[dtype]))
+            return got if len(got) > 1 else got[0]
+        return call
+
+    ring_mod.flash_attention = fwd_checked
+    ring_mod.flash_bwd_dq = bwd_checked("dq", dq, attention.flash_bwd_dq_plain)
+    ring_mod.flash_bwd_dkv = bwd_checked("dkv", dkv, attention.flash_bwd_dkv_plain)
+    try:
+        if layout == "zigzag":
+            out = ring_mod.ring_attention_zigzag(q, k, v, mesh, use_kernel=True)
+        else:
+            out = ring_mod.ring_attention(q, k, v, mesh, causal=True, use_kernel=True)
+        out.backward(dout)
+        torch.cuda.synchronize()
+    finally:
+        ring_mod.flash_attention, ring_mod.flash_bwd_dq, ring_mod.flash_bwd_dkv = fwd, dq, dkv
+    return checked
+
+
+def _sp_rank_jobs(rank, world, port):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    # the env names the operator's webhook injects into a slice's pods
+    os.environ.update({"JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank),
+                       "TPU_WORKER_ID": str(rank), "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from odh_kubeflow_tpu_torch.models import (TransformerConfig, adamw, init_params, make_train_step,
+                                               make_zigzag_batch, state_checksum, value_and_grad)
+    from odh_kubeflow_tpu_torch.models.tree import tree_unflatten
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.ops.ring_attention import (ring_attention, ring_attention_zigzag,
+                                                           zigzag_permutation)
+    from odh_kubeflow_tpu_torch.parallel import MeshPlan, comm, initialize_from_env, shard_batch
+
+    # gloo: the ranks share one card, and NCCL refuses two ranks on one device
+    initialize_from_env(timeout_s=SP_TIMEOUT_S, backend="gloo", device="cuda")
+    mesh = MeshPlan(sp=world).build("cuda")
+    dev = mesh.device
+    out = {"device": str(dev), "transport": comm.Ring(mesh, "sp").transport()}
+
+    def natural(s):
+        return np.arange(s)
+
+    # 1. the f32 ring (scalar kernels) on q/k/v: out and gradients of sum(out**2)
+    b, s, h, hk, d = SP_RING_SHAPE
+    rng = np.random.default_rng(10)
+    qkv = [rng.standard_normal(shape).astype(np.float32)
+           for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
+    for layout in ("contiguous", "zigzag"):
+        perm = zigzag_permutation(s, world) if layout == "zigzag" else natural(s)
+        shards = shard_batch(mesh, {n: x[:, perm] for n, x in zip("qkv", qkv)})
+        q, k, v = (shards[n].requires_grad_() for n in "qkv")
+        attention.reset_launch_counts()
+        if layout == "zigzag":
+            o = ring_attention_zigzag(q, k, v, mesh)
+        else:
+            o = ring_attention(q, k, v, mesh, causal=True)
+        (o.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        out[f"ring {layout}"] = {"launches": dict(attention.launch_counts),
+                                 **{n: t.detach().cpu().numpy() for n, t in
+                                    (("out", o), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad))}}
+
+    # 2. a 2-layer f32 model: sp loss and summed gradients against one process
+    cfg32 = TransformerConfig(**FULL_WIDTH, n_layers=2, dtype=torch.float32, use_flash=True, remat=True,
+                              remat_policy="flash", seq_axis="sp")
+    params = init_params(torch.Generator().manual_seed(1), cfg32, device=dev)
+    tokens = np.random.default_rng(2).integers(0, cfg32.vocab, SP_GRAD_CHECK)
+    if rank == 0:  # the one-process reference: autograd through mha_reference
+        ref = value_and_grad(params, {"tokens": torch.as_tensor(tokens, device=dev)},
+                             dataclasses.replace(cfg32, seq_axis="", use_flash=False, remat=False))
+    for layout in ("contiguous", "zigzag"):
+        batch = make_zigzag_batch(tokens, world) if layout == "zigzag" else {"tokens": tokens}
+        attention.reset_launch_counts()
+        loss, grads = value_and_grad(params, shard_batch(mesh, batch),
+                                     dataclasses.replace(cfg32, seq_layout=layout), mesh)
+        torch.cuda.synchronize()
+        res = {"launches": dict(attention.launch_counts), "loss": loss.item()}
+        if rank == 0:
+            res["loss_err"] = abs((loss - ref[0]) / ref[0]).item()
+            res["grad_err"] = max(_grad_err(g, w) for g, w in zip(grads, ref[1]))
+        out[f"model32 {layout}"] = res
+        del grads
+    del params
+    if rank == 0:
+        del ref
+
+    # 3. the full-width train step: 1 warm-up and SP_STEPS steps per layout.
+    # The warm-up's gradients are held against the one-process step's on the
+    # same batch twice: in f32 (the model's arithmetic, each leaf within
+    # SP_GRAD_TOLERANCE of its largest), and in bf16 against the f32 one
+    # (the truth): no farther from it than the one-process bf16 step, plus
+    # one bf16 ulp at the largest. A bf16 gradient of this model is itself
+    # 1.1-1.4e-2 of the largest from the truth on an H100 (the per-leaf
+    # gaps this phase prints), so two bf16 gradients cannot agree within
+    # 1e-2 of each other. Before each layout's run, every flash call of a
+    # bf16 ring at the run's per-rank shapes is held against its plain
+    # version (_ring_visits_vs_plain).
+    tokens = np.random.default_rng(3).integers(0, FULL_WIDTH["vocab"], SP_BATCH)
+    base = TransformerConfig(**FULL_WIDTH, n_layers=8, dtype=torch.bfloat16, use_flash=True,
+                             remat=True, remat_policy="flash", seq_axis="sp")
+    one = dataclasses.replace(base, seq_axis="")
+    ref = truth = None
+    if rank == 0:  # the one-process step's loss and gradients, same batch, bf16 and f32
+        params = init_params(torch.Generator().manual_seed(0), base, device=dev)
+        ref = value_and_grad(params, {"tokens": torch.as_tensor(tokens, device=dev)}, one)
+        params = {k: (v.float() if torch.is_tensor(v) else {n: t.float() for n, t in v.items()})
+                  for k, v in params.items()}
+        truth = value_and_grad(params, {"tokens": torch.as_tensor(tokens, device=dev)},
+                               dataclasses.replace(one, dtype=torch.float32))
+        del params
+        torch.cuda.synchronize()
+    for layout in SP_RUNS[world]:
+        cfg = dataclasses.replace(base, seq_layout=layout)
+        batch = make_zigzag_batch(tokens, world) if layout == "zigzag" else {"tokens": tokens}
+        local = shard_batch(mesh, batch)
+        res = {"visits": _ring_visits_vs_plain(mesh, layout)}
+        # the f32 step: the same weights, upcast
+        params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        names = _leaf_names(params)
+        params32 = {k: (v.float() if torch.is_tensor(v) else {n: t.float() for n, t in v.items()})
+                    for k, v in params.items()}
+        loss32, grads32 = value_and_grad(params32, local, dataclasses.replace(cfg, dtype=torch.float32), mesh)
+        del params32
+        if rank == 0:
+            largest = max(w.abs().max().item() for w in truth[1])
+            res["f32_loss_err"] = abs((loss32 - truth[0]) / truth[0]).item()
+            res["f32_leaf_err"] = {n: _grad_err(g, w) for n, g, w in zip(names, grads32, truth[1])}
+        del grads32
+        opt = adamw()
+        state = opt.init(params)
+        step, _ = make_train_step(cfg, opt, mesh)
+        # the bf16 warm-up step
+        first, grads = value_and_grad(params, local, cfg, mesh)
+        if rank == 0:
+            res["loss_err"] = abs((first - ref[0]) / ref[0]).item()
+            res["ref_loss"] = ref[0].item()
+            res["grad_err"] = max(_grad_err(g, w, largest) for g, w in zip(grads, ref[1]))
+            res["grad_truth_err"] = max(_grad_err(g, w, largest) for g, w in zip(grads, truth[1]))
+            res["ref_truth_err"] = max(_grad_err(g, w, largest) for g, w in zip(ref[1], truth[1]))
+            # each leaf of its own largest: sp from f32, one process from f32, sp from one process
+            res["bf16_leaf_gaps"] = {n: (_grad_err(g, t), _grad_err(r, t), _grad_err(g, r))
+                                     for n, g, r, t in zip(names, grads, ref[1], truth[1])}
+        opt.update_(tree_unflatten(params, grads), state, params)
+        del grads
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        attention.reset_launch_counts()
+        comm.reset_exchange_counts()
+        losses = [first]
+        t0 = time.perf_counter()
+        syncs = count_sync_warnings(lambda: losses.extend(
+            step(params, state, local)[2] for _ in range(SP_STEPS)))
+        torch.cuda.synchronize()
+        res.update({
+            "step_ms": (time.perf_counter() - t0) * 1e3 / SP_STEPS,
+            "launches": dict(attention.launch_counts),
+            "exchanges": dict(comm.exchange_counts),
+            "syncs": syncs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": torch.stack(losses).tolist(),
+            "params": state_checksum(params),
+        })
+        out[f"train {layout}"] = res
+        del params, state, opt, step, local
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _spawn_ranks(world):
+    """Runs _sp_rank on `world` spawned processes; their results by rank.
+    A rank that raises, dies or takes longer than SP_TIMEOUT_S fails the
+    phase; every process is joined or killed before this returns."""
+    import multiprocessing
+    import queue
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_sp_rank, args=(r, world, port, results), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, error = {}, None
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    try:
+        while len(got) < world and error is None:
+            try:
+                rank, out, err = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r in range(world) if r not in got and procs[r].exitcode is not None]
+                if dead:
+                    error = f"ranks {dead} exited without a result"
+                elif time.monotonic() > deadline:
+                    error = f"ranks {sorted(set(range(world)) - set(got))} gave no result in {SP_TIMEOUT_S} s"
+                continue
+            if err is not None:
+                error = f"rank {rank} of {world} raised:\n{err}"
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    if error is not None:
+        fail(f"phase 10, {world} ranks: {error}")
+    return [got[r] for r in range(world)]
+
+
+def sp_phase(attention, smi):
+    """Phase 10. Returns the launches of its paths by kernel name."""
+    from odh_kubeflow_tpu_torch.ops.attention import mha_reference
+    from odh_kubeflow_tpu_torch.ops.ring_attention import ring_launches, zigzag_permutation
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' memory comes from the same card
+    print(f"  the ranks of each run share this one card ({smi}) as processes on gloo: the "
+          "times below prove the path, they are not a multi-card number", flush=True)
+    b, s, h, hk, d = SP_RING_SHAPE
+    rng = np.random.default_rng(10)
+    qkv = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().requires_grad_()
+           for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
+    ref_out = mha_reference(*qkv, causal=True)
+    (ref_out ** 2).sum().backward()
+    ref = {"out": ref_out.detach().cpu().numpy(),
+           **{n: t.grad.cpu().numpy() for n, t in zip(("dq", "dk", "dv"), qkv)}}
+    launched = {"sp f32 ring check": {}, "sp train": {}}
+
+    def add(path, counts):
+        for name, n in counts.items():
+            launched[path][name] = launched[path].get(name, 0) + n
+
+    for world in SP_WORLDS:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(world)
+        print(f"  {world} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}; "
+              f"spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
+        for layout in ("contiguous", "zigzag"):
+            perm = zigzag_permutation(s, world) if layout == "zigzag" else np.arange(s)
+            want_launches = ring_launches(world, layout)
+            errs = {}
+            for name in ("out", "dq", "dk", "dv"):
+                got = np.concatenate([r[f"ring {layout}"][name] for r in ranks], axis=1)
+                want = ref[name][:, perm]
+                errs[name] = float(np.abs(got - want).max() / np.abs(want).max())
+            per_rank = [r[f"ring {layout}"]["launches"] for r in ranks]
+            for r, counts in enumerate(per_rank):
+                want = {n: (want_launches[r] if n in ("flash_fwd_scalar",) + SCALAR_BWD else 0)
+                        for n in counts}
+                if counts != want:
+                    fail(f"f32 ring {layout}, {world} ranks: rank {r} launched {counts}, want {want} "
+                         "(ring_balance_report's schedule)")
+                add("sp f32 ring check", counts)
+            print(f"  f32 ring {layout}, sp={world}, b{b} s{s} h{h} hk{hk} d{d}: max err of the largest "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + f" (tol {SP_RING_TOLERANCE:.0e}); scalar launches per rank {want_launches}", flush=True)
+            if not max(errs.values()) <= SP_RING_TOLERANCE:
+                fail(f"the f32 ring ({layout}, sp={world}) disagrees with one-process attention: {errs}")
+            m = ranks[0][f"model32 {layout}"]
+            for r in ranks:
+                add("sp f32 ring check", r[f"model32 {layout}"]["launches"])
+            print(f"  2-layer f32 model, {layout}, sp={world}, batch {SP_GRAD_CHECK}: loss {m['loss']:.6f}, "
+                  f"rel err {m['loss_err']:.3e}, grads max err of the largest {m['grad_err']:.3e} "
+                  f"(tol {SP_RING_TOLERANCE:.0e}) against one process through mha_reference", flush=True)
+            if not (m["loss_err"] <= SP_RING_TOLERANCE and m["grad_err"] <= SP_RING_TOLERANCE):
+                fail(f"the sp f32 model ({layout}, sp={world}) disagrees with one process: {m}")
+        for layout in SP_RUNS[world]:
+            runs = [r[f"train {layout}"] for r in ranks]
+            first = runs[0]
+            want_launches = ring_launches(world, layout)
+            # every flash call of the bf16 ring at this run's shapes, against its plain version
+            visits = [run["visits"] for run in runs]
+            worst = {}
+            for r, calls in enumerate(visits):
+                for kernel in ("fwd", "dq", "dkv"):
+                    mine = [c for c in calls if c[0] == kernel]
+                    if len(mine) != want_launches[r]:
+                        fail(f"bf16 ring {layout}, {world} ranks: rank {r} made {len(mine)} {kernel} calls, "
+                             f"want {want_launches[r]}")
+                for kernel, causal, err in calls:
+                    key = (kernel, "causal" if causal else "full")
+                    worst[key] = max(worst.get(key, 0.0), err)
+            print(f"  bf16 ring {layout}, sp={world}, per rank b{SP_BATCH[0]} s{SP_BATCH[1] // world} h8 hk8 d128 "
+                  f"(strided views{', zigzag half-pairs' if layout == 'zigzag' else ''}): "
+                  f"{sum(map(len, visits))} flash calls against their plain versions, backward with the "
+                  f"ring's merged lse and delta; worst error over its tolerance per kind "
+                  + ", ".join(f"{k} {c} {e:.3f}" for (k, c), e in sorted(worst.items())), flush=True)
+            if set(worst) != {(k, c) for k in ("fwd", "dq", "dkv") for c in ("causal", "full")} \
+                    or not max(worst.values()) <= 1.0:
+                fail(f"the bf16 ring's flash calls ({layout}, sp={world}) disagree with their plain "
+                     f"versions or missed a kind: {worst}")
+            for r, run in enumerate(runs):
+                per_step = {n: c / SP_STEPS for n, c in run["launches"].items()}
+                want = {n: (8 * want_launches[r] if n in ("flash_fwd",) + TENSOR_CORE_BWD else 0)
+                        for n in per_step}
+                if per_step != want:
+                    fail(f"sp train {layout}, {world} ranks: rank {r} launched {per_step} per step, "
+                         f"want {want}")
+                add("sp train", run["launches"])
+            digests = {run["params"] for run in runs}
+            losses = first["losses"]
+            ex = first["exchanges"]
+            print(f"  train {layout}, sp={world}, global batch {SP_BATCH[0]}x{SP_BATCH[1]}, remat flash: "
+                  f"losses {', '.join(f'{x:.4f}' for x in losses)} (warm-up first); against the "
+                  f"one-process step on the same batch: f32 loss rel err {first['f32_loss_err']:.3e}, "
+                  f"grads max err of each leaf's largest {max(first['f32_leaf_err'].values()):.3e} "
+                  f"(tol {SP_GRAD_TOLERANCE:.0e}); "
+                  f"bf16 loss {first['ref_loss']:.4f} rel err {first['loss_err']:.3e} (tol "
+                  f"{SP_LOSS_TOLERANCE:.0e}), grads max err of the largest {first['grad_err']:.3e}; from "
+                  f"the f32 gradients: sp bf16 {first['grad_truth_err']:.3e}, one-process bf16 "
+                  f"{first['ref_truth_err']:.3e} (tol: the one-process + {BF16_ULP:.2e})", flush=True)
+            print("    per leaf, of its own largest: f32 sp from f32 one process; bf16 sp from f32, "
+                  "bf16 one process from f32, bf16 sp from bf16 one process: "
+                  + "; ".join(f"{n} {first['f32_leaf_err'][n]:.2e}; " + ", ".join(f"{x:.2e}" for x in gaps)
+                              for n, gaps in first["bf16_leaf_gaps"].items()), flush=True)
+            print(f"    step {max(run['step_ms'] for run in runs):.1f} ms (host clock, slowest rank; per rank "
+                  f"{[round(run['step_ms'], 1) for run in runs]}); peak memory per rank GB "
+                  f"{[round(run['peak_gb'], 2) for run in runs]}; per step and rank: ring bytes "
+                  f"{[run['exchanges']['bytes'] // SP_STEPS for run in runs]}, gradient and loss sums "
+                  f"{ex['sum_bytes'] // SP_STEPS} bytes, host waits of the staged transport "
+                  f"{[run['exchanges']['host_waits'] // SP_STEPS for run in runs]}, the host's ms in them "
+                  f"waiting for the device {[round(run['exchanges']['device_wait_s'] * 1e3 / SP_STEPS, 1) for run in runs]} "
+                  f"and in the transfers {[round(run['exchanges']['transfer_s'] * 1e3 / SP_STEPS, 1) for run in runs]}; "
+                  f"host syncs in "
+                  f"{SP_STEPS} steps (sync debug mode) {[run['syncs'] for run in runs]}; tensor-core "
+                  f"forward launches per step and rank {[8 * n for n in want_launches]}; params "
+                  f"digests {sorted(digests)} on {smi}", flush=True)
+            if not (first["f32_loss_err"] <= SP_RING_TOLERANCE
+                    and max(first["f32_leaf_err"].values()) <= SP_GRAD_TOLERANCE
+                    and first["loss_err"] <= SP_LOSS_TOLERANCE
+                    and first["grad_truth_err"] <= first["ref_truth_err"] + BF16_ULP):
+                fail(f"the sp step ({layout}, sp={world}) disagrees with the one-process step: {first}")
+            if len(digests) != 1:
+                fail(f"the params differ across ranks after the sp steps ({layout}, sp={world}): {digests}")
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                fail(f"sp train losses not finite and falling ({layout}, sp={world}): {losses}")
+            if any(run["syncs"] for run in runs):
+                fail(f"host syncs inside the sp steps ({layout}, sp={world}): {[run['syncs'] for run in runs]}")
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA card")
@@ -2074,8 +2535,14 @@ def main() -> None:
     phase("9 the token router over two engines, traced, profiled and guarded, full width")
     router_launches = router_phase(attention, smi, cfg, params)
 
+    phase("10 sequence parallelism: ring attention and the sp train step, ranks sharing this card")
+    sp_launches = sp_phase(attention, smi)
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
+
+    def sp(name):  # phase 10's launches of the kernel, summed over its ranks
+        return {path: launched[name] for path, launched in sp_launches.items() if launched.get(name)}
 
     def timing_keys(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
@@ -2093,10 +2560,12 @@ def main() -> None:
         # phase 8's MoE requests and steps; phase 9's routed, drained and
         # hedged requests
         "launches": (launches["flash_fwd"] + train_launches["flash_fwd"] + ckpt_launches["flash_fwd"]
-                     + sum(moe_launches("flash_fwd").values()) + router_launches["flash_fwd"]),
+                     + sum(moe_launches("flash_fwd").values()) + router_launches["flash_fwd"]
+                     + sum(sp("flash_fwd").values())),
         "launches_by_path": {"serve": launches["flash_fwd"], "train": train_launches["flash_fwd"],
                              "checkpoint/restore": ckpt_launches["flash_fwd"],
-                             **moe_launches("flash_fwd"), "router": router_launches["flash_fwd"]},
+                             **moe_launches("flash_fwd"), "router": router_launches["flash_fwd"],
+                             **sp("flash_fwd")},
         "max_abs_err": main_err,
         **timing_keys(main),
         "eager_ms": main["eager_ms"],
@@ -2112,11 +2581,12 @@ def main() -> None:
         # the demo model's serving path (f32, d 16) and phase 6's f32
         # gradient check (d 128, s 512)
         "launches": (demo_launches["flash_fwd_scalar"] + grad_check_launches["flash_fwd_scalar"]
-                     + ckpt_launches["flash_fwd_scalar"] + sum(moe_launches("flash_fwd_scalar").values())),
+                     + ckpt_launches["flash_fwd_scalar"] + sum(moe_launches("flash_fwd_scalar").values())
+                     + sum(sp("flash_fwd_scalar").values())),
         "launches_by_path": {"serve demo model": demo_launches["flash_fwd_scalar"],
                              "f32 gradient check": grad_check_launches["flash_fwd_scalar"],
                              "checkpoint/restore": ckpt_launches["flash_fwd_scalar"],
-                             **moe_launches("flash_fwd_scalar")},
+                             **moe_launches("flash_fwd_scalar"), **sp("flash_fwd_scalar")},
         "max_abs_err": f32_main_err,
         **timing_keys(scalar),
         "eager_ms": scalar["eager_ms"],
@@ -2144,9 +2614,10 @@ def main() -> None:
             "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": f"odh_kubeflow_tpu/ops/attention.py:{line} ({fn})",
-            "launches": launched[name] + ckpt_launches[name] + sum(moe_launches(name).values()),
+            "launches": (launched[name] + ckpt_launches[name] + sum(moe_launches(name).values())
+                         + sum(sp(name).values())),
             "launches_by_path": {path: launched[name], "checkpoint/restore": ckpt_launches[name],
-                                 **moe_launches(name)},
+                                 **moe_launches(name), **sp(name)},
             "max_abs_err": bwd_err[name],
             **timing_keys(t),
             "library": t["library"],

@@ -21,7 +21,9 @@ from .transformer import (
     init_params,
     loss_fn,
     make_train_step,
+    make_zigzag_batch,
     next_token_ce,
+    value_and_grad,
 )
 
 __all__ = [
@@ -42,6 +44,7 @@ __all__ = [
     "make_checkpoint_hook",
     "make_restore_hook",
     "make_train_step",
+    "make_zigzag_batch",
     "moe_ffn",
     "next_token_ce",
     "opt_state_from_numpy",
@@ -52,4 +55,5 @@ __all__ = [
     "routing_stats",
     "save_train_state",
     "state_checksum",
+    "value_and_grad",
 ]

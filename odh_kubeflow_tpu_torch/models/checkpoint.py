@@ -204,7 +204,7 @@ def restore_train_state(directory: str, like: Any, step: Optional[int] = None, m
     FileNotFoundError; a tree, shape or dtype that differs from `like`
     raises, naming the leaf's path; nothing is cast."""
     if mesh is not None:
-        raise NotImplementedError("restoring onto a mesh waits for the port's multi-GPU layer")
+        raise NotImplementedError("restoring onto a mesh is not ported yet: ROADMAP Queue 1 item 13.3 (restore onto a mesh)")
     directory = os.path.abspath(directory)
     if step is None:
         step = latest_step(directory)

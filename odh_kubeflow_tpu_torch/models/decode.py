@@ -242,7 +242,7 @@ def generate(
     noise. torch.multinomial would check its input on the host, a sync
     inside the models.generate region."""
     if mesh is not None:
-        raise NotImplementedError("tensor-parallel generate over a mesh is not ported yet")
+        raise NotImplementedError("tensor-parallel generate over a mesh is not ported yet: ROADMAP Queue 1 item 13.1 (tp decode)")
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
     b, s = prompt.shape

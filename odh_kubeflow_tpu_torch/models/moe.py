@@ -268,7 +268,7 @@ def moe_ffn(x: torch.Tensor, params, cfg: MoEConfig, mesh=None,
     if mesh is not None or ep_axis:
         raise NotImplementedError(
             "expert parallelism (a mesh or ep_axis: _moe_ffn_ep_indexed, _moe_ffn_manual) "
-            "is not ported yet"
+            "is not ported yet: ROADMAP Queue 1 item 13.4 (the ep MoE)"
         )
     if cfg.dispatch in ("auto", "indexed"):
         return _moe_ffn_indexed(x, params, cfg)

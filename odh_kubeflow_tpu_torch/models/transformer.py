@@ -1,5 +1,14 @@
 """Flagship decoder-only transformer (counterpart of
-odh_kubeflow_tpu/models/transformer.py), dense or MoE, single-device.
+odh_kubeflow_tpu/models/transformer.py), dense or MoE.
+
+On one device, or with a `mesh` (parallel.MeshPlan.build) of data (dp,
+fsdp) and sequence (sp) axes: each rank then runs its local (batch, seq)
+shard (parallel.shard_batch) with global positions, attention is ring
+attention over the sp ranks (cfg.seq_axis, cfg.seq_layout), and the loss
+and summed gradients are the global ones on every rank. Params stay
+replicated on every rank; sharding them (fsdp, tp), experts (ep) and
+stages (pp) raise NotImplementedError naming the ROADMAP item that ports
+them.
 
 Parameters are plain dicts of tensors in the JAX package's layout, stacked
 over layers: ``layers[name]`` is ``(L, ...)`` and the QKV projection is one
@@ -32,6 +41,9 @@ from torch.utils.checkpoint import (
 
 from ..device import DeviceLike, resolve_device
 from ..ops import apply_rope, flash_attention, matmul_f32, mha_reference, rms_norm
+from ..ops.ring_attention import ring_attention, ring_attention_zigzag, zigzag_permutation
+from ..parallel import comm
+from ..parallel.mesh import REPLICA_AXES
 from .moe import MOE_AXES, MoEConfig, _dense_init, init_moe_params, moe_ffn
 from .optim import adamw
 from .tree import tree_leaves, tree_map, tree_unflatten
@@ -152,10 +164,47 @@ def layer_view(params, layer: int) -> Dict[str, torch.Tensor]:
     return {name: t[layer] for name, t in params["layers"].items()}
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    """Single-device causal attention; GQA k/v are consumed natively."""
-    if cfg.seq_axis:
-        raise NotImplementedError("ring attention over a sequence axis is not ported yet")
+# mesh axis -> the ROADMAP Queue 1 item that ports the model over it
+_MESH_ITEMS = {
+    "tp": "item 13.2 (the fsdp/tp sharded train step, param_specs)",
+    "ep": "item 13.4 (the ep MoE)",
+    "pp": "item 13.5 (the pipelines)",
+}
+
+
+def check_mesh(mesh, cfg: TransformerConfig, what: str) -> None:
+    """Raise for what the mesh path does not run yet: a tp, ep or pp axis,
+    an MoE config, or a live sp axis without cfg.seq_axis = "sp"."""
+    if mesh is None:
+        return
+    for axis, item in _MESH_ITEMS.items():
+        if mesh.sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{what} over a mesh with {axis}={mesh.sizes[axis]} is not ported yet: ROADMAP Queue 1 {item}"
+            )
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{what} of an MoE config over a mesh is not ported yet: ROADMAP Queue 1 {_MESH_ITEMS['ep']}"
+        )
+    if cfg.seq_axis not in ("", "sp"):
+        raise ValueError(f"cfg.seq_axis {cfg.seq_axis!r}: the sequence shards over the mesh's sp axis")
+    if mesh.sizes["sp"] > 1 and not cfg.seq_axis:
+        raise ValueError('a mesh with sp > 1 shards the sequence: set cfg.seq_axis="sp" for ring attention')
+
+
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
+    """Causal attention; GQA k/v are consumed natively. With cfg.seq_axis
+    and a mesh, ring attention over the sp ranks in cfg.seq_layout,
+    whatever use_flash says (its kernel path on CUDA tensors)."""
+    if cfg.seq_axis and cfg.seq_axis_bound:
+        raise NotImplementedError(
+            "a sequence axis bound by an enclosing pipeline stage is not ported yet: "
+            f"ROADMAP Queue 1 {_MESH_ITEMS['pp']}"
+        )
+    if cfg.seq_axis and mesh is not None:
+        if cfg.seq_layout == "zigzag":
+            return ring_attention_zigzag(q, k, v, mesh, axis_name=cfg.seq_axis)
+        return ring_attention(q, k, v, mesh, axis_name=cfg.seq_axis, causal=True)
     if cfg.seq_layout == "zigzag":
         raise ValueError(
             'seq_layout="zigzag" requires a live ring (cfg.seq_axis set and '
@@ -199,11 +248,11 @@ def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig):
     return x + act @ layer_params["wo_mlp"], 0.0
 
 
-def _layer(x, layer_params, positions, cfg: TransformerConfig):
+def _layer(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
     """One pre-norm block. x: (batch, seq, d_model). Returns (x, aux), as
     layer_post_attention does."""
     q, k, v = layer_qkv(x, layer_params, positions, cfg)
-    attn = _attention(q, k, v, cfg)
+    attn = _attention(q, k, v, cfg, mesh)
     return layer_post_attention(x, attn, layer_params, cfg)
 
 
@@ -228,7 +277,15 @@ _REMAT_SAVES = {
 def _remat_context(cfg: TransformerConfig):
     """cfg.remat_policy as a `context_fn` for torch.utils.checkpoint (the
     counterpart of `_remat_policy`); "" saves nothing, so the backward
-    recomputes the whole layer, the flash forward included."""
+    recomputes the whole layer, the flash forward included.
+
+    Under a ring (cfg.seq_axis with a mesh), `forward` checkpoints the two
+    halves of the layer around the ring and leaves the ring out, under
+    every policy: the ring's Function saves its inputs and (out, lse), so
+    the backward runs neither the ring's forward kernels nor its
+    exchanges again. (The reference's policies name the flash op's
+    residuals, which its ring does not carry, so there the ring recomputes
+    under every policy.)"""
     if cfg.remat_policy == "":
         return noop_context_fn
     saves = _REMAT_SAVES.get(cfg.remat_policy)
@@ -246,24 +303,33 @@ def _remat_context(cfg: TransformerConfig):
 def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None,
             with_aux=False):
     """f32 logits (batch, seq, vocab) for next-token prediction. tokens:
-    (batch, seq) integer tensor on the parameters' device. with_aux=True
+    (batch, seq) integer tensor on the parameters' device; with a mesh,
+    this rank's shard, whose positions default to the contiguous shard's
+    global ones. with_aux=True
     also returns the router aux loss summed over layers (0-d f32; zero for
     a dense config). Under grad mode with cfg.remat, each layer runs under
     torch.utils.checkpoint with the save set of cfg.remat_policy."""
-    if mesh is not None:
-        raise NotImplementedError("sharded forward over a mesh is not ported yet")
     check_supported(cfg)
+    check_mesh(mesh, cfg, "forward")
     b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-    body = _layer
+        # a contiguous sequence shard starts at its global position
+        offset = mesh.index("sp") * s if mesh is not None else 0
+        positions = (offset + torch.arange(s, device=tokens.device)).expand(b, s)
+    ring = bool(cfg.seq_axis) and mesh is not None
+    body = partial(_layer, mesh=mesh)
     if cfg.remat and torch.is_grad_enabled():
         context_fn = _remat_context(cfg)
+        # the layer draws no random numbers: no RNG state to restore
+        remat = partial(checkpoint, use_reentrant=False, context_fn=context_fn,
+                        preserve_rng_state=False)
 
         def body(x, layer_params, positions, cfg):
-            # the layer draws no random numbers: no RNG state to restore
-            return checkpoint(_layer, x, layer_params, positions, cfg, use_reentrant=False,
-                              context_fn=context_fn, preserve_rng_state=False)
+            if not ring:
+                return remat(_layer, x, layer_params, positions, cfg)
+            q, k, v = remat(layer_qkv, x, layer_params, positions, cfg)
+            attn = _attention(q, k, v, cfg, mesh)
+            return remat(layer_post_attention, x, attn, layer_params, cfg)
 
     x = params["embed"].to(cfg.dtype)[tokens]
     aux = 0.0
@@ -306,9 +372,10 @@ def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
     """Causal LM cross-entropy, plus router_aux_weight times the mean
     per-layer router aux loss for an MoE config. batch: {"tokens": (b, s)}
     with optional "positions", and optional "targets" with an optional
-    "loss_mask"."""
+    "loss_mask". With a mesh, batch is this rank's shard and the loss is
+    the global batch's on every rank (see `_sharded_loss`)."""
     if mesh is not None:
-        raise NotImplementedError("sharded loss over a mesh is not ported yet")
+        return _sharded_loss(params, batch, cfg, mesh)
     tokens = batch["tokens"]
     targets = batch.get("targets")
     if targets is None and cfg.seq_layout == "zigzag":
@@ -328,6 +395,101 @@ def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
     return loss
 
 
+class _GlobalValue(torch.autograd.Function):
+    """Returns `value` (the same bits on every rank) while the gradient
+    flows to `local`, the rank's differentiable share of it."""
+
+    @staticmethod
+    def forward(ctx, local, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _next_token_targets(tokens, mesh, cfg: TransformerConfig):
+    """(targets, mask) of a contiguous sequence shard, as the reference's
+    global roll gives them: position i's label is token i+1, so the last
+    column's labels are the first tokens of the next sp shard, which each
+    rank receives from it over the sp ring (one reversed shift of a (b, 1)
+    column). The last shard receives the first shard's, the roll's
+    wrap-around, and masks them as the reference masks its last position."""
+    b, s = tokens.shape
+    ring = comm.Ring(mesh, cfg.seq_axis or "sp")
+    nxt = comm.shift(ring, [tokens[:, :1]], reverse=True)[0]
+    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+    last = ring.index == ring.size - 1
+    mask = (torch.arange(s, device=tokens.device) < s - int(last)).float()
+    return targets, mask.expand(b, s)
+
+
+def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
+    """The global batch's masked-mean cross-entropy on this rank's shard:
+    the masked sums of the rank's terms and its mask are summed over the
+    data and sp ranks; the rank differentiates its own terms over the
+    global count, so the gradients summed over those ranks are the global
+    loss's, and every rank returns the global value."""
+    check_mesh(mesh, cfg, "loss_fn")
+    tokens = batch["tokens"]
+    targets = batch.get("targets")
+    if targets is None and cfg.seq_layout == "zigzag":
+        raise ValueError(
+            'seq_layout="zigzag" needs explicit batch targets/loss_mask '
+            "(models.make_zigzag_batch)"
+        )
+    logits = forward(params, tokens, cfg, mesh, positions=batch.get("positions"))
+    if targets is None:
+        targets, mask = _next_token_targets(tokens, mesh, cfg)
+    else:
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(tokens.shape, device=logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, targets[..., None].long())[..., 0]
+    num = ((tl - lse) * mask).sum()
+    num_all, den_all = comm.all_reduce_sum([num.detach(), mask.sum()],
+                                           mesh.group(REPLICA_AXES)[0])
+    den = den_all.clamp_min(1.0)
+    return _GlobalValue.apply(-num / den, -num_all / den)
+
+
+def make_zigzag_batch(tokens, sp: int):
+    """The zigzag-ordered batch for cfg.seq_layout="zigzag": tokens
+    permuted into zigzag storage order, next-token targets taken in natural
+    order first (so chunk boundaries are right), per-token global
+    positions, and a loss_mask zeroing the one fabricated label (natural
+    position s-1's rolled target is token 0). With the mask, loss_fn
+    equals the contiguous path's. tokens: (b, s) numpy array or tensor."""
+    tokens = torch.as_tensor(tokens)
+    b, s = tokens.shape
+    perm = torch.as_tensor(zigzag_permutation(s, sp), device=tokens.device)
+    targets = torch.roll(tokens, -1, dims=1)
+    positions = perm[None, :].expand(b, s)
+    return {
+        "tokens": tokens[:, perm],
+        "targets": targets[:, perm],
+        "positions": positions,
+        "loss_mask": (positions != s - 1).float(),
+    }
+
+
+def value_and_grad(params, batch, cfg: TransformerConfig, mesh=None):
+    """(loss, gradients as a list in tree_leaves order), taken with
+    respect to detached aliases of the params. With a mesh, the gradients
+    are summed over the data and sp ranks (in f32, then cast to each
+    param's dtype): every rank holds the same bits, the global loss's
+    gradient."""
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_fn(live, batch, cfg, mesh)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    group = mesh.group(REPLICA_AXES)[0] if mesh is not None else None
+    if group is not None:
+        grads = [s.to(g.dtype) for s, g in zip(comm.all_reduce_sum(grads, group), grads)]
+    return loss.detach(), grads
+
+
 def make_train_step(cfg: TransformerConfig, optimizer=None, mesh=None):
     """(step, optimizer) with step(params, opt_state, batch) -> (params,
     opt_state, loss). The default optimizer is `adamw()`, which matches the
@@ -336,18 +498,16 @@ def make_train_step(cfg: TransformerConfig, optimizer=None, mesh=None):
     counterpart of the reference's buffer donation) and returned; loss is a
     0-d tensor on the params' device, not copied to the host. Gradients are
     taken with respect to detached aliases of the params, so the caller's
-    tensors never require grad."""
-    if mesh is not None:
-        raise NotImplementedError("sharded train step over a mesh is not ported yet")
+    tensors never require grad. With a mesh, batch is this rank's shard
+    (parallel.shard_batch), the gradients are summed over the data and sp
+    ranks, and every rank applies the same update to its replica."""
     check_supported(cfg)
+    check_mesh(mesh, cfg, "make_train_step")
     optimizer = optimizer or adamw()
 
     def step(params, opt_state, batch):
-        live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss = loss_fn(live, batch, cfg)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
+        loss, grads = value_and_grad(params, batch, cfg, mesh)
         optimizer.update_(tree_unflatten(params, grads), opt_state, params)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step, optimizer

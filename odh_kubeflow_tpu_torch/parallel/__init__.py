@@ -1,0 +1,22 @@
+"""Workbench parallelism for the port (counterpart of odh_kubeflow_tpu/parallel):
+the env the webhook injects turns into a torch.distributed world and a mesh
+of its ranks with two calls:
+
+    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, MeshPlan
+    rank, world = initialize_from_env()          # multi-process bring-up
+    mesh = MeshPlan.auto(world, want_sp=world).build()
+"""
+from .distributed import initialize_from_env, rank_device, reinitialize_after_repair
+from .mesh import AXES, Mesh, MeshPlan, batch_spec, logical_to_spec, shard_batch
+
+__all__ = [
+    "AXES",
+    "Mesh",
+    "MeshPlan",
+    "batch_spec",
+    "initialize_from_env",
+    "logical_to_spec",
+    "rank_device",
+    "reinitialize_after_repair",
+    "shard_batch",
+]

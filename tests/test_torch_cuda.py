@@ -28,6 +28,7 @@ from odh_kubeflow_tpu_torch.ops.attention import (
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    mha_reference,
 )
 
 torch_threads.cap()
@@ -542,3 +543,87 @@ def test_guarded_generate_makes_no_host_sync_on_card(card, monkeypatch):
     sampled = generate(params, [[1, 2, 3, 4]], cfg, max_new=6, temperature=1.0, device=card)
     assert out.shape == sampled.shape == (1, 6) and torchguard.transfer_count() == before
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# sequence parallelism on the card: ranks spawned on the one card share it
+# over gloo (NCCL refuses two ranks on one device), the ring's payloads
+# staged through pinned host memory
+SP_RING_CASES = [(layout, dtype) for layout in ("contiguous", "zigzag") for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_attention_on_card_matches_one_device(card, world):
+    """The ring's kernel path on the card (scalar kernels in f32,
+    tensor-core kernels in bf16 d128), both layouts: out and q/k/v
+    gradients of sum(out**2) against mha_reference over the whole
+    sequence, and each rank's kernel launches as the ring's schedule."""
+    import torch_dist
+    from odh_kubeflow_tpu_torch.ops.ring_attention import ring_launches, zigzag_permutation
+
+    rng = np.random.default_rng(world)
+    b, s, h, hk, d = 1, 512, 8, 2, 128
+    full = [rng.standard_normal(shape).astype(np.float32) for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
+    cases = []
+    for layout, dtype in SP_RING_CASES:
+        perm = zigzag_permutation(s, world) if layout == "zigzag" else np.arange(s)
+        q, k, v = (x[:, perm] for x in full)
+        cases.append((f"{layout}-{dtype}", "torch_sp_cases:ring_case_typed",
+                      dict(q=q, k=k, v=v, layout=layout, dtype=dtype, device="cuda")))
+    res = torch_dist.run_ranks(world, cases, device="cuda")
+    for layout, dtype in SP_RING_CASES:
+        tdtype = getattr(torch, dtype)
+        qkv = [torch.from_numpy(x).to(card, tdtype).requires_grad_() for x in full]
+        out = mha_reference(*qkv, causal=True)
+        (out.float() ** 2).sum().backward()
+        perm = zigzag_permutation(s, world) if layout == "zigzag" else np.arange(s)
+        want = [t.detach().float().cpu().numpy()[:, perm] for t in (out, *(x.grad for x in qkv))]
+        ranks = res[f"{layout}-{dtype}"]
+        tol = BWD_TOLERANCE[tdtype] if dtype == "bfloat16" else 1e-4
+        for name, w in zip(("out", "dq", "dk", "dv"), want):
+            got = np.concatenate([r[name] for r in ranks], axis=1)
+            err = float(np.abs(got - w).max()) / float(np.abs(w).max())
+            assert err <= (TOLERANCE[tdtype] if name == "out" else tol), (layout, dtype, name, err)
+        kernel = attention._fwd_kernel_for(tdtype, d)
+        dq_k, dkv_k = attention._bwd_kernel_for(tdtype, d)
+        for r, n in enumerate(ring_launches(world, layout)):
+            got = ranks[r]["kernel_launches"]
+            assert (got[kernel], got[dq_k], got[dkv_k]) == (n, n, n), (layout, dtype, r, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_sp_train_step_on_card_matches_one_process(card, layout):
+    """value_and_grad over an sp=2 mesh on the card (f32, 2 layers, the
+    scalar kernels through the ring) against one process, and one
+    make_train_step step leaving the params bit-equal across ranks."""
+    import dataclasses
+
+    import torch_dist
+    from odh_kubeflow_tpu_torch.models import make_zigzag_batch, value_and_grad
+
+    cfg = TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                            dtype=torch.float32, remat=True, remat_policy="flash", seq_axis="sp",
+                            seq_layout=layout)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 128))
+    batch = make_zigzag_batch(tokens, 2) if layout == "zigzag" else {"tokens": torch.as_tensor(tokens)}
+    nparams = tree_map(lambda t: t.numpy(), params)
+    res = torch_dist.run_ranks(2, [("sp", "torch_sp_cases:model_case", dict(
+        params=nparams, batch={k: v.numpy() for k, v in batch.items()},
+        cfg=cfg, plan={"sp": 2}, use_kernel=None, train_step=True,
+        device="cuda"))], device="cuda")["sp"]
+    one = dataclasses.replace(cfg, seq_axis="", seq_layout="contiguous")
+    cparams = tree_map(lambda t: t.to(card), params)
+    want_loss, want = value_and_grad(cparams, {"tokens": torch.as_tensor(tokens, device=card)}, one)
+    assert abs(res[0]["loss"] - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    largest = max(w.abs().max().item() for w in want)
+    for g, w in zip(res[0]["grads"], want):
+        assert float(np.abs(g - w.cpu().numpy()).max()) / largest <= 1e-4
+    assert len({r["params_digest"] for r in res}) == 1
+    from odh_kubeflow_tpu_torch.ops.ring_attention import ring_launches
+
+    for r, n in enumerate(ring_launches(2, layout)):  # remat "flash" runs the ring once
+        got = res[r]["kernel_launches"]
+        assert (got["flash_fwd_scalar"], got["flash_bwd_dq_scalar"], got["flash_bwd_dkv_scalar"]) == \
+            (cfg.n_layers * n,) * 3, (r, got)

@@ -46,6 +46,9 @@ def test_forbidden_prefix_rule():
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules() + ["chip_smoke"]
     assert "odh_kubeflow_tpu_torch.serving.__main__" in mods
+    assert {"odh_kubeflow_tpu_torch.parallel", "odh_kubeflow_tpu_torch.parallel.mesh",
+            "odh_kubeflow_tpu_torch.parallel.distributed", "odh_kubeflow_tpu_torch.parallel.comm",
+            "odh_kubeflow_tpu_torch.ops.ring_attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -8,6 +8,7 @@ runs attention through `flash_attention` (its plain version on the CPU);
 the JAX config through its reference, as on a non-TPU host.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -155,11 +156,14 @@ def test_unported_features_raise(models):
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         init_params(None, dataclasses.replace(cfg, moe={"n_experts": 4}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        forward(params, tokens, dataclasses.replace(cfg, seq_axis="sp"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        forward(params, tokens, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a sequence axis without a mesh runs on one device, as in the JAX package
+    assert torch.equal(forward(params, tokens, dataclasses.replace(cfg, seq_axis="sp")),
+                       forward(params, tokens, cfg))
+    # the mesh path runs data and sequence axes; a tp axis waits for its item
+    tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
+    with pytest.raises(NotImplementedError, match="mesh with tp=2 .* item 13.2"):
+        forward(params, tokens, cfg, mesh=tp_mesh)
+    with pytest.raises(NotImplementedError, match="mesh .* item 13.1"):
         generate(params, [[1]], cfg, max_new=2, mesh=object(), device="cpu")
     # inference ignores the training-time sequence sharding, as in the JAX package
     sharded = generate(params, [[1, 2]], dataclasses.replace(cfg, seq_axis="sp"), max_new=3,

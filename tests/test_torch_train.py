@@ -11,6 +11,7 @@ to optax's eager update on identical gradients on this CPU; the tests allow
 round once where torch rounds after each op.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -172,10 +173,15 @@ def test_loss_fn_refuses_what_is_not_ported(models):
         loss_fn(params, batch, dataclasses.replace(cfg, seq_layout="zigzag"))
     with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         loss_fn(params, batch, dataclasses.replace(cfg, moe={"n_experts": 4}))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        loss_fn(params, batch, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(cfg, mesh=object())
+    # the mesh path runs data and sequence axes; tp, ep and pp wait for their items
+    for axis, item in (("tp", "13.2"), ("ep", "13.4"), ("pp", "13.5")):
+        sizes = dict(dp=1, fsdp=1, pp=1, ep=1, tp=1, sp=1)
+        sizes[axis] = 2
+        mesh = types.SimpleNamespace(sizes=sizes)
+        with pytest.raises(NotImplementedError, match=f"mesh with {axis}=2 .* item {item}"):
+            loss_fn(params, batch, cfg, mesh=mesh)
+        with pytest.raises(NotImplementedError, match=f"mesh with {axis}=2 .* item {item}"):
+            make_train_step(cfg, mesh=mesh)
 
 
 def _count_flash_forwards(monkeypatch):
