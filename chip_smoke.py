@@ -127,8 +127,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    a 2-layer f32 model's sp loss and summed gradients within 1e-4 against
    one process through mha_reference, both layouts; then make_train_step
    over the mesh on the flagship model (bf16, remat_policy "flash"),
-   global batch 2 x 8192, at sp 2 contiguous and zigzag and sp 4
-   contiguous. Before each run, every flash call of one bf16 ring at the
+   global batch 2 x 8192, at sp 2 contiguous and zigzag (8 layers) and sp
+   4 contiguous (2 layers). Before each run, every flash call of one bf16 ring at the
    run's per-rank shapes (b2 s4096 or s2048 h8 d128; zigzag's half-pairs;
    the backward with the ring's merged lse and delta) is held against its
    plain version within phase 3/3b's tolerances. Against the one-process
@@ -137,13 +137,40 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    warm-up step's loss within 1e-4, its gradients no farther from the f32
    ones than the one-process bf16 step's plus one bf16 ulp (per-leaf gaps
    printed). Then 3 steps with launch counts zeroed just before and read just after
-   (8 x ring_launches tensor-core forward, dq and dk/dv launches per step
+   (layers x ring_launches tensor-core forward, dq and dk/dv launches per step
    and rank, no scalar one: the ring is outside the layer checkpoint, so
    no policy runs it again), no host sync of the sync debug mode's kind
    inside the steps, losses falling and the params bit-equal across ranks;
    step time, peak memory per rank, bytes exchanged and the transport's
    host waits per step are printed, with a line saying that the ranks
    share one card.
+11. fsdp and tp on this card: first tools/gloo_cuda_probe.py's readings
+   (which collectives gloo moves on a CUDA tensor); then 4 ranks, spawned
+   and brought up by parallel.initialize_from_env from the webhook's env
+   names on gloo, sharing the card, train the flagship (bf16, remat
+   "flash") at fsdp 2 x tp 2, global batch 8 x 2048, and at tp 2 x sp 2
+   zigzag, global batch 2 x 8192, params, gradients and AdamW state sharded
+   as param_specs says. Before each run every flash call at the run's
+   per-rank shapes (b4 s2048 h4 hk4 d128; the zigzag ring's b2 s4096 h4
+   visits) is held against its plain version within phase 3/3b's
+   tolerances. Against the one-process step on the same batch: the first
+   step in f32, its loss within 1e-4 and each gathered gradient leaf within
+   1e-4 of its own largest; the bf16 warm-up loss within 1e-4 relative and
+   its gathered gradients no farther from the f32 ones than the
+   one-process bf16 step's plus one bf16 ulp. Then 3 steps with launch
+   counts zeroed just before and read just after (8 tensor-core forward,
+   dq and dk/dv launches per step and rank, x ring_launches under sp; no
+   scalar one), no host sync inside the steps, losses falling, every
+   replicated leaf bit-equal across the ranks that hold it; step time,
+   peak memory per rank and the bytes per step and rank of each kind of
+   exchange printed. In the fsdp 2 x tp 2 run each rank serves a
+   NotebookAgent whose hooks close over its blocks: /tpu/checkpoint
+   driven on all four at once gives four equal acks of the gathered
+   state's checksum (bytes per rank and wall time printed), /tpu/restore
+   onto a fresh init acks it too, and the step resumed from the restored
+   blocks is bit-equal to the uninterrupted one; the saved step restored
+   onto the tp 2 x sp 2 mesh and onto one process gives the saved params
+   (checksum) and the next step's loss within 1e-4 relative.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1836,6 +1863,10 @@ def router_phase(attention, smi, cfg, params):
 
 SP_WORLDS = (2, 4)
 SP_RUNS = {2: ("contiguous", "zigzag"), 4: ("contiguous",)}  # world -> layouts of the train runs
+# world -> layers of the full-width train runs: the sp 4 run at 2 layers
+# keeps the smoke and the card tests within 1.5x of their time before phase
+# 11 (every check stays; the widths are the flagship's)
+SP_LAYERS = {2: 8, 4: 2}
 SP_BATCH = (2, 8192)  # the full-width train runs' global batch
 SP_STEPS = 3  # timed steps after the warm-up
 SP_RING_SHAPE = (1, 1024, 8, 2, 128)  # the f32 ring check: b, s, h, hk, d (global)
@@ -1853,15 +1884,15 @@ SP_VISIT_SEED = 11  # the bf16 ring whose every flash call is held against its p
 FULL_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=4096, max_seq=8192)
 
 
-def _sp_rank(rank, world, port, results):
-    """A spawned rank of phase 10: its results, or its traceback, go to the
-    parent through `results`."""
+def _rank_main(job, rank, world, port, results, go, *args):
+    """A spawned rank of phases 10 and 11: job's results, or its traceback,
+    go to the parent through `results`."""
     import traceback
 
     try:
-        results.put((rank, _sp_rank_jobs(rank, world, port), None))
+        results.put((rank, "done", job(rank, world, port, results, go, *args)))
     except BaseException:  # reported to the parent, which fails the phase
-        results.put((rank, None, traceback.format_exc()))
+        results.put((rank, "error", traceback.format_exc()))
 
 
 def _leaf_names(tree, prefix=""):
@@ -1871,9 +1902,9 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def _ring_visits_vs_plain(mesh, layout):
-    """One bf16 ring (forward and backward, through autograd) at the train
-    runs' per-rank shape (b, s/sp, 8 heads, d 128, q/k/v strided views of
+def _ring_visits_vs_plain(mesh, layout, b=SP_BATCH[0], s=SP_BATCH[1], h=FULL_WIDTH["n_heads"]):
+    """One bf16 ring (forward and backward, through autograd) at a train
+    run's per-rank shape (b, s/sp, h heads, d 128, q/k/v strided views of
     one fused projection), each of its flash calls held against the plain
     version on the same inputs as the ring made them: the forward's out
     (TOLERANCE) and lse (LSE_TOLERANCE) per visit (zigzag: per half-pair,
@@ -1883,9 +1914,7 @@ def _ring_visits_vs_plain(mesh, layout):
     from odh_kubeflow_tpu_torch.ops import attention
     from odh_kubeflow_tpu_torch.ops import ring_attention as ring_mod
 
-    b, s = SP_BATCH
-    h = FULL_WIDTH["n_heads"]
-    d = FULL_WIDTH["d_model"] // h
+    d = FULL_WIDTH["d_model"] // FULL_WIDTH["n_heads"]
     sl = s // mesh.size("sp")
     dtype = torch.bfloat16
     q, k, v = (t.detach().requires_grad_()
@@ -1927,7 +1956,7 @@ def _ring_visits_vs_plain(mesh, layout):
     return checked
 
 
-def _sp_rank_jobs(rank, world, port):
+def _sp_rank_jobs(rank, world, port, results, go):
     import dataclasses
 
     import torch.distributed as dist
@@ -2010,7 +2039,7 @@ def _sp_rank_jobs(rank, world, port):
     # bf16 ring at the run's per-rank shapes is held against its plain
     # version (_ring_visits_vs_plain).
     tokens = np.random.default_rng(3).integers(0, FULL_WIDTH["vocab"], SP_BATCH)
-    base = TransformerConfig(**FULL_WIDTH, n_layers=8, dtype=torch.bfloat16, use_flash=True,
+    base = TransformerConfig(**FULL_WIDTH, n_layers=SP_LAYERS[world], dtype=torch.bfloat16, use_flash=True,
                              remat=True, remat_policy="flash", seq_axis="sp")
     one = dataclasses.replace(base, seq_axis="")
     ref = truth = None
@@ -2083,10 +2112,13 @@ def _sp_rank_jobs(rank, world, port):
     return out
 
 
-def _spawn_ranks(world):
-    """Runs _sp_rank on `world` spawned processes; their results by rank.
-    A rank that raises, dies or takes longer than SP_TIMEOUT_S fails the
-    phase; every process is joined or killed before this returns."""
+def _spawn_ranks(world, job, what, *args, on_agents=None):
+    """Runs job(rank, world, port, results, go, *args) on `world` spawned
+    processes; their results by rank. A rank may post (rank, "agent", port)
+    first: once every rank has, on_agents(ports) runs here and then `go` is
+    set for the ranks. A rank that raises, dies or takes longer than
+    SP_TIMEOUT_S fails the phase; every process is joined or killed before
+    this returns."""
     import multiprocessing
     import queue
     import socket
@@ -2096,16 +2128,17 @@ def _spawn_ranks(world):
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_sp_rank, args=(r, world, port, results), daemon=True)
+    go = ctx.Event()
+    procs = [ctx.Process(target=_rank_main, args=(job, r, world, port, results, go, *args), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
-    got, error = {}, None
+    got, agents, error = {}, {}, None
     deadline = time.monotonic() + SP_TIMEOUT_S
     try:
         while len(got) < world and error is None:
             try:
-                rank, out, err = results.get(timeout=1.0)
+                rank, kind, payload = results.get(timeout=1.0)
             except queue.Empty:
                 dead = [r for r in range(world) if r not in got and procs[r].exitcode is not None]
                 if dead:
@@ -2113,9 +2146,15 @@ def _spawn_ranks(world):
                 elif time.monotonic() > deadline:
                     error = f"ranks {sorted(set(range(world)) - set(got))} gave no result in {SP_TIMEOUT_S} s"
                 continue
-            if err is not None:
-                error = f"rank {rank} of {world} raised:\n{err}"
-            got[rank] = out
+            if kind == "error":
+                error = f"rank {rank} of {world} raised:\n{payload}"
+            elif kind == "agent":
+                agents[rank] = payload
+                if len(agents) == world:
+                    on_agents([agents[r] for r in range(world)])
+                    go.set()
+            else:
+                got[rank] = payload
     finally:
         for p in procs:
             p.join(timeout=30)
@@ -2124,7 +2163,7 @@ def _spawn_ranks(world):
                 p.kill()
                 p.join(timeout=30)
     if error is not None:
-        fail(f"phase 10, {world} ranks: {error}")
+        fail(f"{what}, {world} ranks: {error}")
     return [got[r] for r in range(world)]
 
 
@@ -2153,7 +2192,7 @@ def sp_phase(attention, smi):
 
     for world in SP_WORLDS:
         t0 = time.perf_counter()
-        ranks = _spawn_ranks(world)
+        ranks = _spawn_ranks(world, _sp_rank_jobs, "phase 10")
         print(f"  {world} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}; "
               f"spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
         for layout in ("contiguous", "zigzag"):
@@ -2212,7 +2251,7 @@ def sp_phase(attention, smi):
                      f"versions or missed a kind: {worst}")
             for r, run in enumerate(runs):
                 per_step = {n: c / SP_STEPS for n, c in run["launches"].items()}
-                want = {n: (8 * want_launches[r] if n in ("flash_fwd",) + TENSOR_CORE_BWD else 0)
+                want = {n: (SP_LAYERS[world] * want_launches[r] if n in ("flash_fwd",) + TENSOR_CORE_BWD else 0)
                         for n in per_step}
                 if per_step != want:
                     fail(f"sp train {layout}, {world} ranks: rank {r} launched {per_step} per step, "
@@ -2221,7 +2260,7 @@ def sp_phase(attention, smi):
             digests = {run["params"] for run in runs}
             losses = first["losses"]
             ex = first["exchanges"]
-            print(f"  train {layout}, sp={world}, global batch {SP_BATCH[0]}x{SP_BATCH[1]}, remat flash: "
+            print(f"  train {layout}, sp={world}, {SP_LAYERS[world]} layers, global batch {SP_BATCH[0]}x{SP_BATCH[1]}, remat flash: "
                   f"losses {', '.join(f'{x:.4f}' for x in losses)} (warm-up first); against the "
                   f"one-process step on the same batch: f32 loss rel err {first['f32_loss_err']:.3e}, "
                   f"grads max err of each leaf's largest {max(first['f32_leaf_err'].values()):.3e} "
@@ -2237,14 +2276,14 @@ def sp_phase(attention, smi):
             print(f"    step {max(run['step_ms'] for run in runs):.1f} ms (host clock, slowest rank; per rank "
                   f"{[round(run['step_ms'], 1) for run in runs]}); peak memory per rank GB "
                   f"{[round(run['peak_gb'], 2) for run in runs]}; per step and rank: ring bytes "
-                  f"{[run['exchanges']['bytes'] // SP_STEPS for run in runs]}, gradient and loss sums "
+                  f"{[run['exchanges']['ring_bytes'] // SP_STEPS for run in runs]}, gradient and loss sums "
                   f"{ex['sum_bytes'] // SP_STEPS} bytes, host waits of the staged transport "
                   f"{[run['exchanges']['host_waits'] // SP_STEPS for run in runs]}, the host's ms in them "
                   f"waiting for the device {[round(run['exchanges']['device_wait_s'] * 1e3 / SP_STEPS, 1) for run in runs]} "
                   f"and in the transfers {[round(run['exchanges']['transfer_s'] * 1e3 / SP_STEPS, 1) for run in runs]}; "
                   f"host syncs in "
                   f"{SP_STEPS} steps (sync debug mode) {[run['syncs'] for run in runs]}; tensor-core "
-                  f"forward launches per step and rank {[8 * n for n in want_launches]}; params "
+                  f"forward launches per step and rank {[SP_LAYERS[world] * n for n in want_launches]}; params "
                   f"digests {sorted(digests)} on {smi}", flush=True)
             if not (first["f32_loss_err"] <= SP_RING_TOLERANCE
                     and max(first["f32_leaf_err"].values()) <= SP_GRAD_TOLERANCE
@@ -2259,6 +2298,475 @@ def sp_phase(attention, smi):
                 fail(f"host syncs inside the sp steps ({layout}, sp={world}): {[run['syncs'] for run in runs]}")
     print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launched
+
+
+SHARD_WORLD = 4
+# phase 11's runs: name -> (plan, global batch, layout): phase 6's batch at
+# fsdp 2 x tp 2, phase 10's at tp 2 x sp 2 zigzag
+SHARD_RUNS = {
+    "fsdp2 x tp2": ({"fsdp": 2, "tp": 2}, (8, 2048), "contiguous"),
+    "tp2 x sp2 zigzag": ({"tp": 2, "sp": 2}, SP_BATCH, "zigzag"),
+}
+SHARD_CHECKPOINT_RUN = "fsdp2 x tp2"  # the run whose state goes through the agents' routes
+SHARD_STEPS = 3  # timed steps after the warm-up
+
+
+def _flash_calls_vs_plain(b, s, h, d):
+    """The flash calls of a layer of the sharded step without a ring, at its
+    per-rank shape (q/k/v strided views of one fused projection, bf16,
+    causal): the forward with lse, then dq and dk/dv with that lse and
+    delta = rowsum(dO * out), each held against its plain version on the
+    same inputs. Returns [(kernel, True, error over its tolerance)]."""
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    dtype = torch.bfloat16
+    q, k, v = inputs(b, s, s, h, h, d, dtype, seed=SP_VISIT_SEED, strided=True)
+    dout = inputs(b, s, s, h, h, d, dtype, seed=SP_VISIT_SEED + 100)[0]
+    out, lse = attention.flash_attention(q, k, v, causal=True, with_lse=True, device=q.device)
+    ref, ref_lse = attention.flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    checked = [("fwd", True, max((out.float() - ref.float()).abs().max().item() / TOLERANCE[dtype],
+                                 (lse - ref_lse).abs().max().item() / LSE_TOLERANCE))]
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dout, lse, delta, True)
+    got, want = attention.flash_bwd_dq(*args), attention.flash_bwd_dq_plain(*args)
+    checked.append(("dq", True, _grad_err(got, want) / BWD_TOLERANCE[dtype]))
+    got, want = attention.flash_bwd_dkv(*args), attention.flash_bwd_dkv_plain(*args)
+    largest = max(w.float().abs().max().item() for w in want)
+    checked.append(("dkv", True, max(_grad_err(g, w, largest) for g, w in zip(got, want))
+                    / BWD_TOLERANCE[dtype]))
+    torch.cuda.synchronize()
+    return checked
+
+
+def _replicas(tree, placements, mesh):
+    """{leaf: (the rank's coordinates on the axes that cut it, the digest of
+    its block)}: ranks with equal coordinates hold one block."""
+    from odh_kubeflow_tpu_torch.models import state_checksum
+    from odh_kubeflow_tpu_torch.models.convert import placement_at
+
+    out = {}
+    for name in _leaf_names(tree):
+        path = tuple(name.split("."))
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        cut = placement_at(placements, path).axes()
+        out[name] = (tuple(mesh.coords[a] for a in cut), state_checksum({"x": leaf}))
+    return out
+
+
+def _shard_rank_jobs(rank, world, port, results, go, ckpt_dir):
+    """Phase 11 in one rank: both runs in turn, the checkpoint through the
+    agent's routes in the first, and the saved step restored onto the
+    second run's mesh."""
+    import torch.distributed as dist
+
+    os.environ.update({"JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank),
+                       "TPU_WORKER_ID": str(rank), "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from odh_kubeflow_tpu_torch.parallel import MeshPlan, comm, initialize_from_env
+
+    # gloo: the ranks share one card, and NCCL refuses two ranks on one device
+    initialize_from_env(timeout_s=SP_TIMEOUT_S, backend="gloo", device="cuda")
+    from odh_kubeflow_tpu_torch.models import init_params
+    from odh_kubeflow_tpu_torch.parallel import rank_device
+
+    # the global params of both runs (the same seed and widths)
+    full = init_params(torch.Generator().manual_seed(0), _shard_cfg({}, "contiguous"), device=rank_device("cuda"))
+    out, saved = {}, {}
+    for name, (plan, shape, layout) in SHARD_RUNS.items():
+        mesh = MeshPlan(**plan).build("cuda")
+        out["device"] = str(mesh.device)
+        out.setdefault("transport", comm.transport(mesh.group("tp")[0], mesh.device))
+        if saved:
+            out["restored onto " + name] = _restore_onto(mesh, saved, full)
+        out[name] = _shard_run(mesh, full, shape, layout, name == SHARD_CHECKPOINT_RUN, results, go, ckpt_dir,
+                               saved)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _shard_cfg(plan, layout):
+    from odh_kubeflow_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(**FULL_WIDTH, n_layers=8, dtype=torch.bfloat16, use_flash=True, remat=True,
+                             remat_policy="flash", seq_axis="sp" if plan.get("sp", 1) > 1 else "",
+                             seq_layout=layout)
+
+
+def _shard_run(mesh, full, shape, layout, checkpoint, results, go, ckpt_dir, saved):
+    """One run of phase 11 in this rank: the flash calls at the per-rank
+    shapes against their plain versions; the first step in f32 and the
+    bf16 warm-up against the one-process step on the same batch (rank 0
+    holds the one-process references; the gradients are gathered); three
+    timed steps; with `checkpoint`, the agent's routes."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.models import (adamw, gather_params, make_train_step,
+                                               make_zigzag_batch, shard_params, state_checksum,
+                                               train_state_placements, value_and_grad)
+    from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import comm, shard_batch
+
+    dev = mesh.device
+    plan = {a: n for a, n in mesh.sizes.items() if n > 1}
+    sp, tp = mesh.sizes["sp"], mesh.sizes["tp"]
+    cfg = _shard_cfg(plan, layout)
+    one = dataclasses.replace(cfg, seq_axis="", seq_layout="contiguous")
+    tokens = np.random.default_rng(3).integers(0, FULL_WIDTH["vocab"], shape)
+    batch = make_zigzag_batch(tokens, sp) if layout == "zigzag" else {"tokens": tokens}
+    local = shard_batch(mesh, batch)
+    b_rank = shape[0] // mesh.size(("dp", "fsdp"))
+    h_rank = cfg.n_heads // tp
+    res = {"shape": f"b{b_rank} s{shape[1] // sp} h{h_rank} hk{h_rank} d{cfg.head_dim}"}
+    if sp > 1:
+        res["visits"] = _ring_visits_vs_plain(mesh, layout, b_rank, shape[1], h_rank)
+    else:
+        res["visits"] = _flash_calls_vs_plain(b_rank, shape[1], h_rank, cfg.head_dim)
+    names = _leaf_names(full)
+    ref = truth = None
+    if mesh.rank == 0:  # the one-process step's loss and gradients, same batch, bf16 and f32
+        one_batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+        ref = value_and_grad(full, one_batch, one)
+        full32 = tree_map(lambda t: t.float(), full)
+        truth = value_and_grad(full32, one_batch, dataclasses.replace(one, dtype=torch.float32))
+        del full32
+        torch.cuda.synchronize()
+    # the f32 step: the same weights, upcast, then sharded
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = shard_params(tree_map(lambda t: t.float(), full), cfg32, mesh)
+    loss32, grads32 = value_and_grad(params32, local, cfg32, mesh)
+    grads32 = gather_params(tree_unflatten(params32, grads32), cfg32, mesh)
+    del params32
+    if mesh.rank == 0:
+        res["f32_loss_err"] = abs((loss32 - truth[0]) / truth[0]).item()
+        res["f32_leaf_err"] = {n: _grad_err(g, w) for n, g, w in
+                               zip(names, tree_leaves(grads32), truth[1])}
+    del grads32
+    params = shard_params(full, cfg, mesh)
+    opt = adamw()
+    state = opt.init(params)
+    step, _ = make_train_step(cfg, opt, mesh)
+    # the bf16 warm-up step
+    first, grads = value_and_grad(params, local, cfg, mesh)
+    gathered = tree_leaves(gather_params(tree_unflatten(params, grads), cfg, mesh))
+    if mesh.rank == 0:
+        largest = max(w.abs().max().item() for w in truth[1])
+        res["loss_err"] = abs((first - ref[0]) / ref[0]).item()
+        res["ref_loss"] = ref[0].item()
+        res["grad_err"] = max(_grad_err(g, w, largest) for g, w in zip(gathered, ref[1]))
+        res["grad_truth_err"] = max(_grad_err(g, w, largest) for g, w in zip(gathered, truth[1]))
+        res["ref_truth_err"] = max(_grad_err(g, w, largest) for g, w in zip(ref[1], truth[1]))
+        res["bf16_leaf_gaps"] = {n: (_grad_err(g, t), _grad_err(r, t), _grad_err(g, r))
+                                 for n, g, r, t in zip(names, gathered, ref[1], truth[1])}
+    del gathered, ref, truth
+    opt.update_(tree_unflatten(params, grads), state, params)
+    del grads
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    comm.reset_exchange_counts()
+    losses = [first]
+    t0 = time.perf_counter()
+    syncs = count_sync_warnings(lambda: losses.extend(
+        step(params, state, local)[2] for _ in range(SHARD_STEPS)))
+    torch.cuda.synchronize()
+    res.update({
+        "step_ms": (time.perf_counter() - t0) * 1e3 / SHARD_STEPS,
+        "launches": dict(attention.launch_counts),
+        "exchanges": dict(comm.exchange_counts),
+        "syncs": syncs,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": torch.stack(losses).tolist(),
+    })
+    train_state = {"params": params, "opt_state": state}
+    placements = train_state_placements(cfg, mesh)
+    res["replicas"] = _replicas(train_state, placements, mesh)
+    if checkpoint:
+        res["checkpoint"] = _checkpoint_through_agent(mesh, cfg, step, opt, train_state, placements, local,
+                                                      results, go, ckpt_dir, saved)
+        saved["tokens"] = tokens
+    return res
+
+
+def _checkpoint_through_agent(mesh, cfg, step, opt, train_state, placements, local, results, go, ckpt_dir,
+                              saved):
+    """This rank's NotebookAgent, its hooks closing over its blocks: the
+    parent drives /tpu/checkpoint and then /tpu/restore (onto a fresh init
+    from another seed) on all ranks at once; then the uninterrupted step
+    and the step resumed from the restored blocks."""
+    from odh_kubeflow_tpu_torch.models import (gather_tree, init_params, make_checkpoint_hook,
+                                               make_restore_hook, restore_train_state, shard_params,
+                                               state_checksum)
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.probe import CudaMonitor, NotebookAgent
+
+    step_no = int(train_state["opt_state"]["count"])
+    global_state = gather_tree(train_state, placements, mesh)
+    out = {"step": step_no, "global_checksum": state_checksum(global_state),
+           "params_checksum": state_checksum(global_state["params"])}
+    del global_state
+    fresh = shard_params(init_params(torch.Generator().manual_seed(7), cfg, device=mesh.device), cfg, mesh)
+    fresh_state = {"params": fresh, "opt_state": opt.init(fresh)}
+    mon = CudaMonitor(chips_expected=1, window_s=3.0, sample_period_s=1.0, metrics_port=0,
+                      utilization_reader=lambda: None)
+    agent = NotebookAgent(mon, checkpoint_hook=make_checkpoint_hook(
+        ckpt_dir, lambda: (step_no, train_state), mesh=mesh, placements=placements))
+    agent.restore_hook = make_restore_hook(ckpt_dir, lambda: fresh_state, mesh=mesh, placements=placements)
+    _, agent_port, close = agent.serve()
+    try:
+        results.put((mesh.rank, "agent", agent_port))
+        if not go.wait(SP_TIMEOUT_S):
+            raise TimeoutError("the parent did not drive the agents")
+    finally:
+        close()
+    step_dir = os.path.join(ckpt_dir, str(step_no))
+    out["bytes_written"] = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)
+                               if f.startswith(f"shard-{mesh.rank:05d}-"))
+    # the run that is never interrupted
+    _, _, loss_ref = step(train_state["params"], train_state["opt_state"], local)
+    out["ref_loss"] = loss_ref.item()
+    out["ref_digest"] = state_checksum(train_state["params"])
+    # resumed from the restored blocks
+    t0 = time.perf_counter()
+    restored = restore_train_state(ckpt_dir, fresh_state, mesh=mesh, placements=placements)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    before = dict(attention.launch_counts)
+    _, _, loss_res = step(restored["params"], restored["opt_state"], local)
+    torch.cuda.synchronize()
+    out["resumed_launches"] = _launches_since(attention, before)
+    out["resumed_loss"] = loss_res.item()
+    out["resumed_digest"] = state_checksum(restored["params"])
+    saved.update(dir=ckpt_dir, step=step_no, params_checksum=out["params_checksum"], ref_loss=out["ref_loss"])
+    return out
+
+
+def _restore_onto(mesh, saved, full):
+    """The checkpointed step restored onto this run's mesh (onto blocks of
+    zeros): the gathered params' checksum, and the next step's loss on the
+    checkpointed run's batch (contiguous layout)."""
+    from odh_kubeflow_tpu_torch.models import (adamw, gather_params, make_train_step, restore_train_state,
+                                               shard_params, state_checksum, train_state_placements)
+    from odh_kubeflow_tpu_torch.models.tree import tree_map
+    from odh_kubeflow_tpu_torch.parallel import shard_batch
+
+    cfg = _shard_cfg({a: n for a, n in mesh.sizes.items() if n > 1}, "contiguous")
+    like = shard_params(tree_map(torch.zeros_like, full), cfg, mesh)
+    opt = adamw()
+    restored = restore_train_state(saved["dir"], {"params": like, "opt_state": opt.init(like)},
+                                   step=saved["step"], mesh=mesh, placements=train_state_placements(cfg, mesh))
+    out = {"params_checksum": state_checksum(gather_params(restored["params"], cfg, mesh))}
+    step, _ = make_train_step(cfg, opt, mesh)
+    _, _, loss = step(restored["params"], restored["opt_state"],
+                      shard_batch(mesh, {"tokens": saved["tokens"]}))
+    out["loss"] = loss.item()
+    return out
+
+
+def _drive_agents(ports):
+    """/tpu/checkpoint on every rank's agent at once, then /tpu/restore: the
+    acks and the wall time of each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = {}
+    with ThreadPoolExecutor(len(ports)) as pool:
+        for route in ("/tpu/checkpoint", "/tpu/restore"):
+            t0 = time.perf_counter()
+            out[route] = list(pool.map(lambda p: _get("127.0.0.1", p, route), ports))
+            out[route + " s"] = time.perf_counter() - t0
+    return out
+
+
+def _one_process_restore(saved, smi):
+    """The checkpointed step restored onto one process: the params'
+    checksum and the next step's loss."""
+    from odh_kubeflow_tpu_torch.models import (adamw, init_params, make_train_step, restore_train_state,
+                                               state_checksum)
+
+    cfg = _shard_cfg({}, "contiguous")
+    like = init_params(torch.Generator().manual_seed(9), cfg, device="cuda")
+    opt = adamw()
+    restored = restore_train_state(saved["dir"], {"params": like, "opt_state": opt.init(like)},
+                                   step=saved["step"])
+    out = {"params_checksum": state_checksum(restored["params"])}
+    step, _ = make_train_step(cfg, opt)
+    _, _, loss = step(restored["params"], restored["opt_state"],
+                      {"tokens": torch.as_tensor(saved["tokens"], device="cuda")})
+    out["loss"] = loss.item()
+    return out
+
+
+def shard_phase(attention, smi):
+    """Phase 11. Returns the launches of its paths by kernel name."""
+    import shutil
+    import tempfile
+
+    from odh_kubeflow_tpu_torch.ops.ring_attention import ring_launches
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' memory comes from the same card
+    probe = subprocess.run([sys.executable, os.path.join("tools", "gloo_cuda_probe.py")],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                           timeout=300)
+    readings = [line for line in probe.stdout.splitlines() if line.startswith("gloo ")]
+    for line in readings:
+        print(f"  {line}", flush=True)
+    if probe.returncode != 0 or len(readings) != 5:
+        fail(f"tools/gloo_cuda_probe.py exited {probe.returncode} with {len(readings)} readings: "
+             f"{probe.stderr[-2000:]}")
+    print(f"  the {SHARD_WORLD} ranks of each run share this one card ({smi}) as processes brought up "
+          "by initialize_from_env from the webhook's env names, on gloo, every collective on a CUDA "
+          "tensor staged through pinned host memory: the times below prove the path, they are not a "
+          "multi-card number", flush=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="shard-ckpt-")
+    drive = {}
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(SHARD_WORLD, _shard_rank_jobs, "phase 11", ckpt_dir,
+                             on_agents=lambda ports: drive.update(_drive_agents(ports)))
+        print(f"  {SHARD_WORLD} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}; "
+              f"spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
+        launched = {}
+        for name, (plan, shape, layout) in SHARD_RUNS.items():
+            runs = [r[name] for r in ranks]
+            _check_shard_run(name, plan, shape, layout, runs, smi, ring_launches)
+            for run in runs:
+                for kernel, n in run["launches"].items():
+                    launched[kernel] = launched.get(kernel, 0) + n
+        ck = [r[SHARD_CHECKPOINT_RUN]["checkpoint"] for r in ranks]
+        _check_shard_checkpoint(ck, drive, smi)
+        saved = {"dir": ckpt_dir, "step": ck[0]["step"], "ref_loss": ck[0]["ref_loss"],
+                 "tokens": np.random.default_rng(3).integers(0, FULL_WIDTH["vocab"],
+                                                             SHARD_RUNS[SHARD_CHECKPOINT_RUN][1])}
+        for name in SHARD_RUNS:
+            onto = [r.get("restored onto " + name) for r in ranks]
+            if onto[0] is not None:
+                _check_restored(f"the {name} mesh", onto[0], onto, ck[0])
+        one = _one_process_restore(saved, smi)
+        _check_restored("one process", one, [one], ck[0])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"shard train": launched}
+
+
+def _check_restored(where, first, per_rank, ck):
+    rel = abs(first["loss"] - ck["ref_loss"]) / abs(ck["ref_loss"])
+    print(f"  the saved step restored onto {where}: params checksum "
+          f"{sorted({r['params_checksum'] for r in per_rank})} (saved {ck['params_checksum']}); the next "
+          f"step's loss {first['loss']:.6f} against the uninterrupted {ck['ref_loss']:.6f}, rel err "
+          f"{rel:.3e} (tol {SP_LOSS_TOLERANCE:.0e})", flush=True)
+    if {r["params_checksum"] for r in per_rank} != {ck["params_checksum"]} or not rel <= SP_LOSS_TOLERANCE:
+        fail(f"the step restored onto {where} differs from the saved one: {per_rank}")
+
+
+def _check_shard_run(name, plan, shape, layout, runs, smi, ring_launches):
+    first = runs[0]
+    sp = plan.get("sp", 1)
+    sched = ring_launches(sp, layout) if sp > 1 else [1]
+    worst = {}
+    for r, run in enumerate(runs):
+        calls = run["visits"]
+        for kernel in ("fwd", "dq", "dkv"):
+            mine = [c for c in calls if c[0] == kernel]
+            if len(mine) != sched[r % sp]:
+                fail(f"{name}: rank {r} made {len(mine)} {kernel} calls, want {sched[r % sp]}")
+        for kernel, causal, err in calls:
+            key = (kernel, "causal" if causal else "full")
+            worst[key] = max(worst.get(key, 0.0), err)
+    kinds = {(k, c) for k in ("fwd", "dq", "dkv") for c in (("causal", "full") if sp > 1 else ("causal",))}
+    print(f"  {name}, per rank {first['shape']} (strided views"
+          f"{', zigzag half-pairs' if layout == 'zigzag' else ''}): "
+          f"{sum(len(run['visits']) for run in runs)} flash calls against their plain versions; worst "
+          f"error over its tolerance per kind " + ", ".join(f"{k} {c} {e:.3f}" for (k, c), e in sorted(worst.items())),
+          flush=True)
+    if set(worst) != kinds or not max(worst.values()) <= 1.0:
+        fail(f"{name}: the flash calls disagree with their plain versions or missed a kind: {worst}")
+    for r, run in enumerate(runs):
+        per_step = {n: c / SHARD_STEPS for n, c in run["launches"].items()}
+        want = {n: (8 * sched[r % sp] if n in ("flash_fwd",) + TENSOR_CORE_BWD else 0) for n in per_step}
+        if per_step != want:
+            fail(f"{name}: rank {r} launched {per_step} per step, want {want}")
+    losses = first["losses"]
+    print(f"  train {name}, global batch {shape[0]}x{shape[1]}, remat flash: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (warm-up first); against the one-process step on the "
+          f"same batch: f32 loss rel err {first['f32_loss_err']:.3e}, gathered grads max err of each "
+          f"leaf's largest {max(first['f32_leaf_err'].values()):.3e} (tol {SP_GRAD_TOLERANCE:.0e}); bf16 "
+          f"loss {first['ref_loss']:.4f} rel err {first['loss_err']:.3e} (tol {SP_LOSS_TOLERANCE:.0e}), "
+          f"grads max err of the largest {first['grad_err']:.3e}; from the f32 gradients: sharded bf16 "
+          f"{first['grad_truth_err']:.3e}, one-process bf16 {first['ref_truth_err']:.3e} (tol: the "
+          f"one-process + {BF16_ULP:.2e})", flush=True)
+    print("    per leaf, of its own largest: f32 sharded from f32 one process; bf16 sharded from f32, "
+          "bf16 one process from f32, bf16 sharded from bf16 one process: "
+          + "; ".join(f"{n} {first['f32_leaf_err'][n]:.2e}; " + ", ".join(f"{x:.2e}" for x in gaps)
+                      for n, gaps in first["bf16_leaf_gaps"].items()), flush=True)
+    kinds = ("gather", "scatter", "tp_sum", "vocab", "ring", "sum")
+    print(f"    step {max(run['step_ms'] for run in runs):.1f} ms (host clock, slowest rank; per rank "
+          f"{[round(run['step_ms'], 1) for run in runs]}); peak memory per rank GB "
+          f"{[round(run['peak_gb'], 2) for run in runs]}; per step and rank, bytes (and exchanges): "
+          + ", ".join(f"{k} {first['exchanges'][k + '_bytes'] // SHARD_STEPS} ({first['exchanges'][k] // SHARD_STEPS})"
+                      for k in kinds)
+          + f"; host waits of the staged transport {[run['exchanges']['host_waits'] // SHARD_STEPS for run in runs]}, "
+          f"the host's ms in them waiting for the device "
+          f"{[round(run['exchanges']['device_wait_s'] * 1e3 / SHARD_STEPS, 1) for run in runs]} and in the "
+          f"transfers {[round(run['exchanges']['transfer_s'] * 1e3 / SHARD_STEPS, 1) for run in runs]}; host "
+          f"syncs in {SHARD_STEPS} steps (sync debug mode) {[run['syncs'] for run in runs]}; tensor-core "
+          f"launches per step and rank {[8 * sched[r % sp] for r in range(len(runs))]} on {smi}", flush=True)
+    if not (first["f32_loss_err"] <= SP_RING_TOLERANCE
+            and max(first["f32_leaf_err"].values()) <= SP_GRAD_TOLERANCE
+            and first["loss_err"] <= SP_LOSS_TOLERANCE
+            and first["grad_truth_err"] <= first["ref_truth_err"] + BF16_ULP):
+        fail(f"the sharded step ({name}) disagrees with the one-process step: "
+             f"{ {k: v for k, v in first.items() if k not in ('replicas', 'visits')} }")
+    bad = []
+    for leaf in first["replicas"]:
+        blocks = {}
+        for run in runs:
+            coords, digest = run["replicas"][leaf]
+            blocks.setdefault(coords, set()).add(digest)
+        bad += [leaf for d in blocks.values() if len(d) != 1]
+    print(f"    replicated leaves bit-equal across the ranks that hold them: "
+          f"{len(first['replicas']) - len(set(bad))} of {len(first['replicas'])} leaves", flush=True)
+    if bad:
+        fail(f"{name}: replicated leaves differ across ranks: {sorted(set(bad))}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"{name}: train losses not finite and falling: {losses}")
+    if any(run["syncs"] for run in runs):
+        fail(f"{name}: host syncs inside the steps: {[run['syncs'] for run in runs]}")
+
+
+def _check_shard_checkpoint(ck, drive, smi):
+    want = {"saved": True, "step": ck[0]["step"], "checksum": ck[0]["global_checksum"]}
+    acks = drive["/tpu/checkpoint"]
+    restore_acks = drive["/tpu/restore"]
+    print(f"  /tpu/checkpoint on the {len(acks)} ranks' agents at once: {drive['/tpu/checkpoint s']:.3f} s, "
+          f"acks {acks}; bytes written per rank {[c['bytes_written'] for c in ck]} "
+          f"({sum(c['bytes_written'] for c in ck) / 1e9:.3f} GB); /tpu/restore onto a fresh init: "
+          f"{drive['/tpu/restore s']:.3f} s, acks {restore_acks}; restore_train_state alone per rank s "
+          f"{[round(c['restore_s'], 3) for c in ck]}, on {smi}", flush=True)
+    if acks != [want] * len(ck) or {c["global_checksum"] for c in ck} != {want["checksum"]}:
+        fail(f"checkpoint acks {acks}, want four equal acks {want} (the gathered state's checksum)")
+    if restore_acks != [{"restored": True, "step": want["step"], "checksum": want["checksum"],
+                         "reason": None}] * len(ck):
+        fail(f"restore acks {restore_acks}, want step {want['step']} and checksum {want['checksum']}")
+    print(f"  resumed step: losses {[c['resumed_loss'] for c in ck]} (uninterrupted "
+          f"{[c['ref_loss'] for c in ck]}), params bit-equal per rank "
+          f"{[c['resumed_digest'] == c['ref_digest'] for c in ck]}; launches {ck[0]['resumed_launches']}",
+          flush=True)
+    if any(c["resumed_loss"] != c["ref_loss"] or c["resumed_digest"] != c["ref_digest"] for c in ck):
+        fail("the resumed sharded step differs from the uninterrupted one")
+    want_launches = {"flash_fwd": 8, "flash_fwd_scalar": 0, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+                     "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    if any(c["resumed_launches"] != want_launches for c in ck):
+        fail(f"the resumed steps launched {[c['resumed_launches'] for c in ck]}, want {want_launches}")
 
 
 def main() -> None:
@@ -2538,10 +3046,13 @@ def main() -> None:
     phase("10 sequence parallelism: ring attention and the sp train step, ranks sharing this card")
     sp_launches = sp_phase(attention, smi)
 
+    phase("11 the fsdp/tp sharded train step and the sharded checkpoint, ranks sharing this card")
+    sp_launches.update(shard_phase(attention, smi))
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
 
-    def sp(name):  # phase 10's launches of the kernel, summed over its ranks
+    def sp(name):  # phases 10 and 11's launches of the kernel, summed over their ranks
         return {path: launched[name] for path, launched in sp_launches.items() if launched.get(name)}
 
     def timing_keys(t):

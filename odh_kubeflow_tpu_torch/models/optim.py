@@ -14,7 +14,10 @@ for step, at the same dtypes and rounding points:
 A Python scalar times a bf16 tensor is a bf16 product in JAX, with the
 scalar itself rounded to bf16 (a weak type); `_weak` gives torch the same
 rounded scalar. State lives on the params' device, count included, so an
-update never copies to the host.
+update never copies to the host. Over a mesh each rank updates its own
+blocks of the params and moments with their global gradients: the update
+is elementwise, so it needs no exchange, and the count (replicated) stays
+bit-equal on every rank.
 """
 from __future__ import annotations
 

@@ -2,13 +2,24 @@
 odh_kubeflow_tpu/models/transformer.py), dense or MoE.
 
 On one device, or with a `mesh` (parallel.MeshPlan.build) of data (dp,
-fsdp) and sequence (sp) axes: each rank then runs its local (batch, seq)
-shard (parallel.shard_batch) with global positions, attention is ring
-attention over the sp ranks (cfg.seq_axis, cfg.seq_layout), and the loss
-and summed gradients are the global ones on every rank. Params stay
-replicated on every rank; sharding them (fsdp, tp), experts (ep) and
-stages (pp) raise NotImplementedError naming the ROADMAP item that ports
-them.
+fsdp), tensor (tp) and sequence (sp) axes: each rank then runs its local
+(batch, seq) shard (parallel.shard_batch) with global positions on its
+shard of the params (`param_specs`; models.shard_params cuts them), and
+the loss and gradients are the global ones. fsdp: every leaf is cut on its
+"embed" dim, and each layer gathers its weights before use (ZeRO-3; the
+layer checkpoint gathers them again in the backward), the embedding table
+and the unembedding whole before the lookup and the logits; the gathers'
+gradients are reduce-scattered back to the blocks. tp: `wqkv`, `wi_gate`,
+`wi_up` and the unembedding are column-parallel over heads, mlp and vocab,
+`wo` and `wo_mlp` row-parallel, their partial products summed over tp in
+f32 and then cast (the reference's rounding point), and the residual
+stream stays replicated over tp; attention, flash or the ring over sp, runs
+on the rank's own h/tp query and kv_heads/tp kv heads, so a rank's `wqkv`
+block holds its own [q | k | v] heads (on disk and in the checksum the leaf
+keeps the reference's global layout). The loss is taken over the vocab
+shards (max, sum of exponentials and the target logit over tp). Experts
+(ep) and stages (pp) raise NotImplementedError naming the ROADMAP item
+that ports them.
 
 Parameters are plain dicts of tensors in the JAX package's layout, stacked
 over layers: ``layers[name]`` is ``(L, ...)`` and the QKV projection is one
@@ -43,7 +54,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import apply_rope, flash_attention, matmul_f32, mha_reference, rms_norm
 from ..ops.ring_attention import ring_attention, ring_attention_zigzag, zigzag_permutation
 from ..parallel import comm
-from ..parallel.mesh import REPLICA_AXES
+from ..parallel.mesh import DATA_SEQ_AXES, REPLICA_AXES, Placement, logical_to_spec
 from .moe import MOE_AXES, MoEConfig, _dense_init, init_moe_params, moe_ffn
 from .optim import adamw
 from .tree import tree_leaves, tree_map, tree_unflatten
@@ -164,17 +175,94 @@ def layer_view(params, layer: int) -> Dict[str, torch.Tensor]:
     return {name: t[layer] for name, t in params["layers"].items()}
 
 
+# param name -> logical axes, the reference's (leading "layers" axis on the
+# stacked per-layer params)
+_LAYER_AXES: Dict[str, tuple] = {
+    "attn_norm": ("layers", "norm"),
+    "wqkv": ("layers", "embed", "heads", "head_dim"),
+    "wo": ("layers", "heads", "head_dim", "embed"),
+    "mlp_norm": ("layers", "norm"),
+    "wi_gate": ("layers", "embed", "mlp"),
+    "wi_up": ("layers", "embed", "mlp"),
+    "wo_mlp": ("layers", "mlp", "embed"),
+}
+_TOP_AXES: Dict[str, tuple] = {
+    # the input table's vocab dim is never cut: the forward gathers the
+    # table whole before the lookup
+    "embed": (None, "embed"),
+    "final_norm": ("norm",),
+    "unembed": ("embed", "vocab"),
+}
+# an MoE config's expert weights (the reference's models/moe.py MOE_AXES;
+# its router is replicated)
+_EXPERT_AXES: Dict[str, tuple] = {
+    "we_gate": ("expert", "embed", "mlp"),
+    "we_up": ("expert", "embed", "mlp"),
+    "we_out": ("expert", "mlp", "embed"),
+}
+# per-layer weight -> its "embed" dim in one layer's view, which fsdp cuts
+# and a layer gathers
+_FSDP_DIM = {name: axes.index("embed") - 1 for name, axes in _LAYER_AXES.items() if "embed" in axes}
+
+
+def _layer_axes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    axes = dict(_LAYER_AXES)
+    if cfg.moe is not None:
+        for name in ("wi_gate", "wi_up", "wo_mlp"):
+            del axes[name]
+        axes["router"] = ("layers", None, None)
+        axes.update({name: ("layers",) + ax for name, ax in _EXPERT_AXES.items()})
+    return axes
+
+
+def param_specs(cfg: TransformerConfig, mesh=None) -> Dict[str, Any]:
+    """The tree of specs (one entry per dim: None, a mesh axis or a tuple
+    of them, trailing Nones dropped) matching init_params' structure: the
+    reference's `param_specs` as tuples. Under GQA the fused QKV head axis
+    (n_heads + 2*kv_heads) is replicated where tp does not divide it, as
+    the reference does."""
+    layers = {k: logical_to_spec(ax, mesh) for k, ax in _layer_axes(cfg).items()}
+    if mesh is not None and cfg.kv_heads != cfg.n_heads:
+        if (cfg.n_heads + 2 * cfg.kv_heads) % max(1, mesh.sizes["tp"]):
+            spec = list(layers["wqkv"])
+            spec[2] = None
+            layers["wqkv"] = tuple(spec)
+    top = {k: logical_to_spec(ax, mesh) for k, ax in _TOP_AXES.items()}
+    return {**top, "layers": layers}
+
+
+def param_placements(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
+    """`param_specs` as parallel.Placements: where tp cuts the fused QKV
+    head axis, a rank's block is its own q, k and v heads (the segments
+    n_heads, kv_heads, kv_heads, each cut over tp)."""
+    specs = param_specs(cfg, mesh)
+    out = {k: Placement(v) for k, v in specs.items() if k != "layers"}
+    out["layers"] = {k: Placement(v) for k, v in specs["layers"].items()}
+    wqkv = specs["layers"]["wqkv"]
+    if len(wqkv) > 2 and wqkv[2] is not None:
+        out["layers"]["wqkv"] = Placement(wqkv, ((2, (cfg.n_heads, cfg.kv_heads, cfg.kv_heads)),))
+    return out
+
+
+def train_state_placements(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
+    """The placements of a train state {"params", "opt_state"} (AdamW's mu
+    and nu as the params; its count replicated), for the sharded checkpoint
+    (models.save_train_state, restore_train_state)."""
+    params = param_placements(cfg, mesh)
+    return {"params": params, "opt_state": {"count": Placement(), "mu": params, "nu": params}}
+
+
 # mesh axis -> the ROADMAP Queue 1 item that ports the model over it
 _MESH_ITEMS = {
-    "tp": "item 13.2 (the fsdp/tp sharded train step, param_specs)",
     "ep": "item 13.4 (the ep MoE)",
     "pp": "item 13.5 (the pipelines)",
 }
 
 
 def check_mesh(mesh, cfg: TransformerConfig, what: str) -> None:
-    """Raise for what the mesh path does not run yet: a tp, ep or pp axis,
-    an MoE config, or a live sp axis without cfg.seq_axis = "sp"."""
+    """Raise for what the mesh path does not run: an ep or pp axis, an MoE
+    config, kv_heads that tp does not divide, a width that its axis does
+    not divide, or a live sp axis without cfg.seq_axis = "sp"."""
     if mesh is None:
         return
     for axis, item in _MESH_ITEMS.items():
@@ -186,10 +274,77 @@ def check_mesh(mesh, cfg: TransformerConfig, what: str) -> None:
         raise NotImplementedError(
             f"{what} of an MoE config over a mesh is not ported yet: ROADMAP Queue 1 {_MESH_ITEMS['ep']}"
         )
+    tp, fsdp = mesh.sizes["tp"], mesh.sizes["fsdp"]
+    if cfg.kv_heads % tp:
+        # a rank's q heads would share kv heads with another rank's: the
+        # reference's GSPMD reshards the fused axis, the port keeps each
+        # rank's own [q | k | v] heads (where tp does not divide the fused
+        # axis either, the reference replicates it: the same configs)
+        raise NotImplementedError(
+            f"{what} with kv_heads={cfg.kv_heads} over tp={tp} (kv_heads % tp != 0) is not ported yet: "
+            "ROADMAP Queue 1 item 13.1 (tp decode, and tp with shared kv heads)"
+        )
+    for name, n, axis, size in (("n_heads", cfg.n_heads, "tp", tp), ("d_ff", cfg.d_ff, "tp", tp),
+                                ("vocab", cfg.vocab, "tp", tp), ("d_model", cfg.d_model, "fsdp", fsdp)):
+        if n % size:
+            raise ValueError(f"{name}={n} does not split over {axis}={size}")
     if cfg.seq_axis not in ("", "sp"):
         raise ValueError(f"cfg.seq_axis {cfg.seq_axis!r}: the sequence shards over the mesh's sp axis")
     if mesh.sizes["sp"] > 1 and not cfg.seq_axis:
         raise ValueError('a mesh with sp > 1 shards the sequence: set cfg.seq_axis="sp" for ring attention')
+
+
+def _groups(mesh):
+    """(fsdp group, tp group) of a mesh; None for a dead axis or no mesh."""
+    if mesh is None:
+        return None, None
+    return mesh.group("fsdp")[0], mesh.group("tp")[0]
+
+
+def _local_cfg(cfg: TransformerConfig, mesh) -> TransformerConfig:
+    """cfg with the widths of one tp rank's shard (its heads, kv heads and
+    d_ff; head_dim pinned), as the layer functions consume them."""
+    tp = mesh.sizes["tp"] if mesh is not None else 1
+    if tp == 1:
+        return cfg
+    return replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.kv_heads // tp,
+                   d_ff=cfg.d_ff // tp, head_dim_override=cfg.head_dim)
+
+
+def _gathered(layer_params, names, mesh):
+    """The layer's weights `names` gathered whole over fsdp (ZeRO-3: before
+    use; the gradient is reduce-scattered back to the block)."""
+    fsdp = _groups(mesh)[0]
+    if fsdp is None:
+        return layer_params
+    out = dict(layer_params)
+    for name in names:
+        out[name] = comm.gather_shards(layer_params[name], fsdp, _FSDP_DIM[name])
+    return out
+
+
+def _row_parallel(a, w, cfg: TransformerConfig, tp):
+    """a (..., k) @ w (k, n) for a row-parallel product over tp: each rank's
+    partial product in f32, summed over tp, then cast to cfg.dtype."""
+    return comm.tp_sum(matmul_f32(a, w), tp).to(cfg.dtype)
+
+
+def _global_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    d, h, hd, f, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers
+    return {"embed": (cfg.vocab, d), "final_norm": (d,), "unembed": (d, cfg.vocab), "layers": {
+        "attn_norm": (L, d), "wqkv": (L, d, h + 2 * cfg.kv_heads, hd), "wo": (L, h, hd, d),
+        "mlp_norm": (L, d), "wi_gate": (L, d, f), "wi_up": (L, d, f), "wo_mlp": (L, f, d)}}
+
+
+def check_shards(params, cfg: TransformerConfig, mesh) -> None:
+    """Raise unless every leaf has the shape of this rank's block (params
+    from models.shard_params)."""
+    want = tree_map(lambda shape, pl: pl.local_shape(shape, mesh.sizes), _global_shapes(cfg),
+                    param_placements(cfg, mesh))
+    got = tree_map(lambda _, t: tuple(t.shape), want, params)
+    if got != want:
+        raise ValueError(f"params are not this rank's blocks over the mesh {mesh.sizes} "
+                         f"(models.shard_params cuts them): shapes {got}, want {want}")
 
 
 def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
@@ -215,10 +370,14 @@ def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
     return mha_reference(q, k, v, causal=True)
 
 
-def layer_qkv(x, layer_params, positions, cfg: TransformerConfig):
+def layer_qkv(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
     """Pre-norm, fused QKV projection, rope. Returns q (batch, seq, n_heads,
-    head_dim) and k/v (batch, seq, kv_heads, head_dim)."""
-    y = rms_norm(x, layer_params["attn_norm"])
+    head_dim) and k/v (batch, seq, kv_heads, head_dim). With a mesh, cfg
+    has one tp rank's widths (_local_cfg) and the weights are its blocks:
+    wqkv is gathered over fsdp and its input enters the tp shard."""
+    tp = _groups(mesh)[1]
+    layer_params = _gathered(layer_params, ("wqkv",), mesh)
+    y = comm.tp_enter(rms_norm(x, layer_params["attn_norm"]), tp)
     qkv = torch.einsum("bsd,dnh->bsnh", y, layer_params["wqkv"])
     h, kv = cfg.n_heads, cfg.kv_heads
     q, k, v = qkv.split([h, kv, kv], dim=2)
@@ -227,14 +386,20 @@ def layer_qkv(x, layer_params, positions, cfg: TransformerConfig):
     return q, k, v
 
 
-def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig):
+def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=None):
     """Output projection + MLP (routed experts or dense SwiGLU). Returns
     (x, aux): aux is the layer's router aux loss (0-d f32) for MoE, and the
     Python float 0.0 for a dense layer (no device op). The dense SwiGLU
     uses the pre-concatenated `wi_fused` (d, 2f) when the view carries one
-    (the decode fast path)."""
-    x = x + torch.einsum("bsnh,nhd->bsd", attn, layer_params["wo"])
-    y = rms_norm(x, layer_params["mlp_norm"])
+    (the decode fast path). With a mesh, as layer_qkv: the weights are
+    gathered over fsdp, and under tp wo and wo_mlp are row-parallel."""
+    tp = _groups(mesh)[1]
+    layer_params = _gathered(layer_params, ("wo", "wi_gate", "wi_up", "wo_mlp"), mesh)
+    if tp is None:
+        x = x + torch.einsum("bsnh,nhd->bsd", attn, layer_params["wo"])
+    else:
+        x = x + _row_parallel(attn.flatten(2), layer_params["wo"].flatten(0, 1), cfg, tp)
+    y = comm.tp_enter(rms_norm(x, layer_params["mlp_norm"]), tp)
     if cfg.moe is not None:
         mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved)
         return x + mlp_out, aux
@@ -245,15 +410,17 @@ def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig):
         gate = matmul_f32(y, layer_params["wi_gate"])
         up = matmul_f32(y, layer_params["wi_up"])
     act = (F.silu(gate) * up).to(cfg.dtype)
-    return x + act @ layer_params["wo_mlp"], 0.0
+    if tp is None:
+        return x + act @ layer_params["wo_mlp"], 0.0
+    return x + _row_parallel(act, layer_params["wo_mlp"], cfg, tp), 0.0
 
 
 def _layer(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
     """One pre-norm block. x: (batch, seq, d_model). Returns (x, aux), as
     layer_post_attention does."""
-    q, k, v = layer_qkv(x, layer_params, positions, cfg)
+    q, k, v = layer_qkv(x, layer_params, positions, cfg, mesh)
     attn = _attention(q, k, v, cfg, mesh)
-    return layer_post_attention(x, attn, layer_params, cfg)
+    return layer_post_attention(x, attn, layer_params, cfg, mesh)
 
 
 _FLASH_OP = torch.ops.odh_kubeflow_tpu_torch.flash_fwd
@@ -305,12 +472,18 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None,
     """f32 logits (batch, seq, vocab) for next-token prediction. tokens:
     (batch, seq) integer tensor on the parameters' device; with a mesh,
     this rank's shard, whose positions default to the contiguous shard's
-    global ones. with_aux=True
-    also returns the router aux loss summed over layers (0-d f32; zero for
-    a dense config). Under grad mode with cfg.remat, each layer runs under
-    torch.utils.checkpoint with the save set of cfg.remat_policy."""
+    global ones, params are this rank's blocks (models.shard_params), and
+    under tp the logits are the rank's vocab block (batch, seq, vocab/tp).
+    with_aux=True also returns the router aux loss summed over layers (0-d
+    f32; zero for a dense config). Under grad mode with cfg.remat, each
+    layer runs under torch.utils.checkpoint with the save set of
+    cfg.remat_policy."""
     check_supported(cfg)
     check_mesh(mesh, cfg, "forward")
+    if mesh is not None:
+        check_shards(params, cfg, mesh)
+    fsdp, tp = _groups(mesh)
+    lcfg = _local_cfg(cfg, mesh)
     b, s = tokens.shape
     if positions is None:
         # a contiguous sequence shard starts at its global position
@@ -326,18 +499,18 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None, positions=None,
 
         def body(x, layer_params, positions, cfg):
             if not ring:
-                return remat(_layer, x, layer_params, positions, cfg)
-            q, k, v = remat(layer_qkv, x, layer_params, positions, cfg)
+                return remat(partial(_layer, mesh=mesh), x, layer_params, positions, cfg)
+            q, k, v = remat(partial(layer_qkv, mesh=mesh), x, layer_params, positions, cfg)
             attn = _attention(q, k, v, cfg, mesh)
-            return remat(layer_post_attention, x, attn, layer_params, cfg)
+            return remat(partial(layer_post_attention, mesh=mesh), x, attn, layer_params, cfg)
 
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = comm.gather_shards(params["embed"], fsdp, 1).to(cfg.dtype)[tokens]
     aux = 0.0
     for layer in range(cfg.n_layers):
-        x, layer_aux = body(x, layer_view(params, layer), positions, cfg)
+        x, layer_aux = body(x, layer_view(params, layer), positions, lcfg)
         aux = aux + layer_aux
-    x = rms_norm(x, params["final_norm"])
-    logits = matmul_f32(x, params["unembed"])
+    x = comm.tp_enter(rms_norm(x, params["final_norm"]), tp)
+    logits = matmul_f32(x, comm.gather_shards(params["unembed"], fsdp, 0))
     if with_aux:
         # a dense config's aux is the float 0.0: made on the device, since a
         # Python scalar copied to the card would sync the host
@@ -424,12 +597,29 @@ def _next_token_targets(tokens, mesh, cfg: TransformerConfig):
     return targets, mask.expand(b, s)
 
 
+def _vocab_parallel_terms(logits, targets, tp, tp_index: int):
+    """(lse, target logit) of each position from this tp rank's vocab block
+    of the logits (batch, seq, vocab/tp), without gathering them: the max
+    over tp (no gradient), then the sums of exponentials and the target
+    logit (from the rank whose block holds it) summed over tp in f32."""
+    width = logits.shape[-1]
+    m = comm.all_reduce_max(logits.detach().amax(-1), tp)
+    local = targets.long() - tp_index * width
+    inside = (local >= 0) & (local < width)
+    tl = logits.gather(-1, local.clamp(0, width - 1)[..., None])[..., 0]
+    sums = comm.tp_sum(torch.stack([(logits - m[..., None]).exp().sum(-1),
+                                    torch.where(inside, tl, torch.zeros_like(tl))]), tp, "vocab")
+    return sums[0].log() + m, sums[1]
+
+
 def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
     """The global batch's masked-mean cross-entropy on this rank's shard:
     the masked sums of the rank's terms and its mask are summed over the
     data and sp ranks; the rank differentiates its own terms over the
     global count, so the gradients summed over those ranks are the global
-    loss's, and every rank returns the global value."""
+    loss's, and every rank returns the global value. Under tp the terms
+    come from the vocab shards (_vocab_parallel_terms), the same on every
+    tp rank."""
     check_mesh(mesh, cfg, "loss_fn")
     tokens = batch["tokens"]
     targets = batch.get("targets")
@@ -445,8 +635,12 @@ def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(tokens.shape, device=logits.device)
-    lse = torch.logsumexp(logits, dim=-1)
-    tl = logits.gather(-1, targets[..., None].long())[..., 0]
+    tp = _groups(mesh)[1]
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(-1, targets[..., None].long())[..., 0]
+    else:
+        lse, tl = _vocab_parallel_terms(logits, targets, tp, mesh.index("tp"))
     num = ((tl - lse) * mask).sum()
     num_all, den_all = comm.all_reduce_sum([num.detach(), mask.sum()],
                                            mesh.group(REPLICA_AXES)[0])
@@ -474,19 +668,36 @@ def make_zigzag_batch(tokens, sp: int):
     }
 
 
+def _sum_grads(grads, params, cfg: TransformerConfig, mesh):
+    """The global gradients of this rank's blocks: a leaf that fsdp cuts,
+    already reduce-scattered over fsdp by its gather, is summed over dp and
+    sp; every other leaf over dp, fsdp and sp (each group in f32 in one
+    buffer, then cast to the leaf's dtype). tp needs no sum: a leaf cut
+    over tp has its own gradient on each rank, and a leaf replicated over
+    tp the same bits on each (its input's gradient was summed over tp)."""
+    placements = tree_leaves(tree_map(lambda _, pl: pl, params, param_placements(cfg, mesh)))
+    out = list(grads)
+    for sharded, axes in ((True, DATA_SEQ_AXES), (False, REPLICA_AXES)):
+        group = mesh.group(axes)[0]
+        idx = [i for i, pl in enumerate(placements) if ("fsdp" in pl.axes()) == sharded]
+        if group is None or not idx:
+            continue
+        for i, summed in zip(idx, comm.all_reduce_sum([grads[i] for i in idx], group)):
+            out[i] = summed.to(grads[i].dtype)
+    return out
+
+
 def value_and_grad(params, batch, cfg: TransformerConfig, mesh=None):
     """(loss, gradients as a list in tree_leaves order), taken with
     respect to detached aliases of the params. With a mesh, the gradients
-    are summed over the data and sp ranks (in f32, then cast to each
-    param's dtype): every rank holds the same bits, the global loss's
-    gradient."""
+    are those of this rank's blocks of the global loss, summed as
+    `_sum_grads` says: every rank that holds a block holds the same bits."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss = loss_fn(live, batch, cfg, mesh)
         grads = torch.autograd.grad(loss, tree_leaves(live))
-    group = mesh.group(REPLICA_AXES)[0] if mesh is not None else None
-    if group is not None:
-        grads = [s.to(g.dtype) for s, g in zip(comm.all_reduce_sum(grads, group), grads)]
+    if mesh is not None:
+        grads = _sum_grads(grads, params, cfg, mesh)
     return loss.detach(), grads
 
 
@@ -498,9 +709,11 @@ def make_train_step(cfg: TransformerConfig, optimizer=None, mesh=None):
     counterpart of the reference's buffer donation) and returned; loss is a
     0-d tensor on the params' device, not copied to the host. Gradients are
     taken with respect to detached aliases of the params, so the caller's
-    tensors never require grad. With a mesh, batch is this rank's shard
-    (parallel.shard_batch), the gradients are summed over the data and sp
-    ranks, and every rank applies the same update to its replica."""
+    tensors never require grad. With a mesh, params and optimizer state
+    are this rank's blocks (models.shard_params; `opt.init` of them), batch
+    is this rank's shard (parallel.shard_batch), and each rank updates its
+    blocks with their global gradients (AdamW is elementwise: no exchange;
+    its count is replicated)."""
     check_supported(cfg)
     check_mesh(mesh, cfg, "make_train_step")
     optimizer = optimizer or adamw()

@@ -7,12 +7,13 @@ of its ranks with two calls:
     mesh = MeshPlan.auto(world, want_sp=world).build()
 """
 from .distributed import initialize_from_env, rank_device, reinitialize_after_repair
-from .mesh import AXES, Mesh, MeshPlan, batch_spec, logical_to_spec, shard_batch
+from .mesh import AXES, Mesh, MeshPlan, Placement, batch_spec, logical_to_spec, shard_batch
 
 __all__ = [
     "AXES",
     "Mesh",
     "MeshPlan",
+    "Placement",
     "batch_spec",
     "initialize_from_env",
     "logical_to_spec",

@@ -1,6 +1,12 @@
-"""The exchanges of the port's multi-process paths: a shift around a ring of
-ranks (the counterpart of `lax.ppermute` over one mesh axis) and a sum over
-a group (`lax.psum`), over `torch.distributed` process groups.
+"""The exchanges of the port's multi-process paths, over `torch.distributed`
+process groups: a shift around a ring of ranks (the counterpart of
+`lax.ppermute` over one mesh axis), a sum or max over a group (`lax.psum`,
+`lax.pmax`), and the collectives of sharded params: an all-gather over fsdp
+(ZeRO-3: a layer's weights gathered before use) whose gradient is a
+reduce-scatter, and the tensor-parallel pair of autograd Functions, the
+identity whose gradient is summed over tp (`tp_enter`, at each
+column-parallel input) and the sum over tp whose gradient is the identity
+(`tp_sum`, at each row-parallel output).
 
 Each exchange packs its tensors into one byte payload (every tensor at a
 16-byte aligned offset, so the unpacked views keep their alignment) and
@@ -12,9 +18,16 @@ The transport follows the group's backend and the tensor's device, never a
 failure: NCCL moves CUDA tensors and gloo CPU tensors directly; gloo's
 point-to-point ops read a tensor through its host pointer, so a CUDA
 payload on a gloo group (ranks sharing one card, which NCCL refuses) is
-copied to pinned host memory, sent, and copied back. That copy is explicit
-and counted: the host waits for each staged payload before it sends it
+copied to pinned host memory, sent, and copied back; every collective on a
+CUDA tensor over gloo is staged so. That copy is explicit and counted: the
+host waits for each staged payload before it sends it
 (`exchange_counts["host_waits"]`).
+
+`exchange_counts` counts each kind of exchange and its bytes: "ring" (the
+payload this rank sends), "sum" (sums over the data axes: gradients and
+the loss), "gather" (the gathered tensor), "scatter" (the f32 tensor
+reduce-scattered), "tp_sum" (the tensor-parallel sums, forward and
+backward) and "vocab" (the vocab-parallel loss's max and sums over tp).
 """
 from __future__ import annotations
 
@@ -28,14 +41,19 @@ from .mesh import Mesh
 
 ALIGN = 16
 STAGED = "gloo, staged through pinned host memory"
+# the tensor collectives under their newer names where torch has them (the
+# older names warn from torch 2.13 on); the same semantics
+_all_gather_tensor = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
 
-# counts since the last reset_exchange_counts(): ring exchanges and their
-# payload bytes sent by this rank, sums and their bytes, the host waits of
-# staged transfers, and the host's seconds blocked in them: waiting for the
-# device to hand over a staged payload (its queued work and the copy), and
-# in the transfers themselves
-exchange_counts = {"exchanges": 0, "bytes": 0, "sums": 0, "sum_bytes": 0, "host_waits": 0,
-                   "device_wait_s": 0.0, "transfer_s": 0.0}
+KINDS = ("ring", "sum", "gather", "scatter", "tp_sum", "vocab")
+# counts since the last reset_exchange_counts(): the exchanges of each kind
+# and their bytes (`<kind>_bytes`), the host waits of staged transfers, and
+# the host's seconds blocked in them: waiting for the device to hand over a
+# staged payload (its queued work and the copy), and in the transfers
+# themselves
+exchange_counts = {**{k: 0 for kind in KINDS for k in (kind, kind + "_bytes")},
+                   "host_waits": 0, "device_wait_s": 0.0, "transfer_s": 0.0}
 
 
 def reset_exchange_counts() -> None:
@@ -104,8 +122,7 @@ class _Exchange:
             self.event = torch.cuda.Event()
             self.event.record()
             self.payload = host
-        exchange_counts["exchanges"] += 1
-        exchange_counts["bytes"] += self.payload.numel()
+        _count("ring", self.payload.numel())
         self.works = None if self.staged else self._post()
 
     def _post(self):
@@ -133,6 +150,11 @@ class _Exchange:
             recv = torch.empty(recv.shape, dtype=torch.uint8, device=self.ring.device)
             recv.copy_(self.recv, non_blocking=True)
         return _unpack(recv, self.meta)
+
+
+def _count(kind: str, nbytes: int) -> None:
+    exchange_counts[kind] += 1
+    exchange_counts[kind + "_bytes"] += int(nbytes)
 
 
 def _host_wait(event) -> None:
@@ -173,26 +195,147 @@ class RingShift(torch.autograd.Function):
         return (None, *shift(ctx.ring, grads, reverse=True))
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of a CUDA tensor, which the host waits for
+    (counted): the staged transport's hand-over."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    _host_wait(event)
+    return host
+
+
+def _timed(fn, *args, **kwargs) -> None:
+    t0 = time.perf_counter()
+    fn(*args, **kwargs)
+    exchange_counts["transfer_s"] += time.perf_counter() - t0
+
+
+def _reduce(t: torch.Tensor, group, op, kind: str) -> torch.Tensor:
+    """All-reduce over `group` of a contiguous tensor the caller owns (it is
+    reduced in place, or staged through pinned host memory for CUDA on
+    gloo and returned anew)."""
+    _count(kind, t.numel() * t.element_size())
+    if transport(group, t.device) != STAGED:
+        _timed(dist.all_reduce, t, op=op, group=group)
+        return t
+    host = _to_host(t)
+    _timed(dist.all_reduce, host, op=op, group=group)
+    return torch.empty_like(t).copy_(host, non_blocking=True)
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group, kind: str = "sum") -> List[torch.Tensor]:
     """The sum over `group` of each tensor, in f32, packed into one buffer
     (staged through pinned host memory for CUDA tensors on a gloo group).
     Every rank of the group receives the same bits. `group` None (a dead
     axis) returns the tensors as f32."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     if group is not None:
-        exchange_counts["sums"] += 1
-        exchange_counts["sum_bytes"] += flat.numel() * 4
-        staged = transport(group, flat.device) == STAGED
-        if staged:
-            host = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            _host_wait(event)
-        t0 = time.perf_counter()
-        dist.all_reduce(host if staged else flat, group=group)
-        exchange_counts["transfer_s"] += time.perf_counter() - t0
-        if staged:
-            flat = torch.empty_like(flat).copy_(host, non_blocking=True)
+        flat = _reduce(flat, group, dist.ReduceOp.SUM, kind)
     parts = torch.split(flat, [t.numel() for t in tensors])
     return [p.view(t.shape) for p, t in zip(parts, tensors)]
+
+
+def all_reduce_max(t: torch.Tensor, group, kind: str = "vocab") -> torch.Tensor:
+    """The elementwise max over `group` (no gradient); `group` None returns
+    `t`."""
+    if group is None:
+        return t
+    return _reduce(t.detach().clone(memory_format=torch.contiguous_format), group,
+                   dist.ReduceOp.MAX, kind)
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0, kind: str = "gather") -> torch.Tensor:
+    """The blocks of `group`'s ranks joined along `dim`, in their index
+    order (the inverse of cutting `dim` into equal blocks); `group` None
+    returns `t`."""
+    if group is None:
+        return t
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _count(kind, out.numel() * out.element_size())
+    if transport(group, x.device) != STAGED:
+        _timed(_all_gather_tensor, out, x, group=group)
+    else:
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        _timed(_all_gather_tensor, host, _to_host(x), group=group)
+        out.copy_(host, non_blocking=True)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0, kind: str = "scatter") -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `t` over `group`, summed
+    in f32 and returned in f32 (the transpose of `all_gather`); `group`
+    None returns `t` in f32."""
+    if group is None:
+        return t.float()
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).float().contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=torch.float32, device=x.device)
+    _count(kind, x.numel() * 4)
+    if transport(group, x.device) != STAGED:
+        _timed(_reduce_scatter_tensor, out, x, op=dist.ReduceOp.SUM, group=group)
+    else:
+        host = torch.empty(out.shape, dtype=torch.float32, pin_memory=True)
+        _timed(_reduce_scatter_tensor, host, _to_host(x), op=dist.ReduceOp.SUM, group=group)
+        out.copy_(host, non_blocking=True)
+    return out.movedim(0, dim)
+
+
+class GatherShards(torch.autograd.Function):
+    """ZeRO-3's gather: the forward joins the group's blocks along `dim`
+    (`all_gather`), the backward reduce-scatters the gradient of the whole
+    tensor back to this rank's block (summed in f32, then cast to the
+    block's dtype)."""
+
+    @staticmethod
+    def forward(ctx, block, group, dim):
+        ctx.group, ctx.dim, ctx.dtype = group, dim, block.dtype
+        return all_gather(block, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.group, ctx.dim).to(ctx.dtype), None, None
+
+
+class TpEnter(torch.autograd.Function):
+    """The identity at a column-parallel input (replicated over tp); its
+    gradient, a partial sum on each tp rank, is summed over tp in f32 and
+    cast to the input's dtype (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum([grad], ctx.group, "tp_sum")[0].to(grad.dtype), None
+
+
+class TpSum(torch.autograd.Function):
+    """The sum over tp of partial results (a row-parallel product's, in
+    f32; the vocab-parallel loss's sums); its gradient is the identity, as
+    the sum's consumers are replicated over tp (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        return all_reduce_sum([x], group, kind)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else TpEnter.apply(x, group)
+
+
+def tp_sum(x: torch.Tensor, group, kind: str = "tp_sum") -> torch.Tensor:
+    return x if group is None else TpSum.apply(x, group, kind)
+
+
+def gather_shards(block: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return block if group is None else GatherShards.apply(block, group, dim)

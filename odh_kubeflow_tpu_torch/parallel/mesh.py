@@ -2,25 +2,36 @@
 odh_kubeflow_tpu/parallel/mesh.py).
 
 The axes and their order are the reference's: ``dp`` (data, params
-replicated), ``fsdp`` (data, params sharded ZeRO-style in the reference),
-``pp`` (pipeline stages), ``ep`` (experts), ``tp`` (heads / mlp hidden) and
-``sp`` (sequence, ring attention), with tp and sp innermost. Tensors carry
-*logical* axis names ("batch", "seq", "heads", ...) that `logical_to_spec`
-maps onto mesh axes through RULES.
+replicated), ``fsdp`` (data, params sharded ZeRO-style on their "embed"
+dim), ``pp`` (pipeline stages), ``ep`` (experts), ``tp`` (heads / mlp
+hidden / vocab) and ``sp`` (sequence, ring attention), with tp and sp
+innermost. Tensors carry *logical* axis names ("batch", "seq", "embed",
+...) that `logical_to_spec` maps onto mesh axes through RULES.
 
 JAX hands the mesh to XLA, which inserts the collectives. Here each process
 is one rank of a `torch.distributed` world and runs its own shard:
 `MeshPlan.build` places the ranks on the axes in the reference's order and
-creates a `dist.new_group` for each tuple of GROUP_AXES that is live: the sp
-ring, and the data and sequence axes together, which a train step sums its
-gradients over. The other axes get their groups in the slice that first
-reduces over them; `Mesh.ranks` names any axes' ranks without one. Plain
+creates a `dist.new_group` for each tuple of GROUP_AXES that is live, in
+that order on every rank (`new_group` is collective): the sp ring; tp, which
+the tensor-parallel products sum over; fsdp, which a layer's weights are
+gathered over and their gradients reduce-scattered over; (dp, sp), which
+the gradients of fsdp-sharded params are then summed over; and the replica
+(dp, fsdp, sp), which the loss and the gradients of every other param are
+summed over. `Mesh.ranks` names any axes' ranks without a group. Plain
 groups rather than a `DeviceMesh`: a DeviceMesh binds each rank to a
 device of its own and creates a communicator per dim for its device type,
 and the ranks of a one-card run share one device on the gloo backend.
+
+A `Placement` says where a global tensor lives on the mesh: its spec, and
+the segments of a dim whose blocks interleave (the fused QKV projection's
+[q | k | v] heads, each rank holding its own q, k and v heads). Its
+`pieces` map a rank's local tensor onto global coordinates; the params'
+shards (models/convert.py) and the sharded checkpoint (models/checkpoint.py)
+are cut and joined through them.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -48,11 +59,16 @@ RULES: Dict[str, Union[str, Tuple[str, ...], None]] = {
     "stage": "pp",
 }
 
-# the data and sequence axes: a replica of the params under sp, which the
-# train step sums gradients over
+# the data and sequence axes: the loss and the gradients of params that no
+# axis of them shards are summed over these
 REPLICA_AXES = ("dp", "fsdp", "sp")
-# the axis tuples a mesh makes process groups for: the ring, and the replica
-GROUP_AXES = (("sp",), REPLICA_AXES)
+# the data axes besides fsdp: the gradients of fsdp-sharded params, once
+# reduce-scattered over fsdp, are summed over these
+DATA_SEQ_AXES = ("dp", "sp")
+# the axis tuples a mesh makes process groups for, in creation order: the
+# ring, the tensor-parallel sums, the ZeRO gathers and reduce-scatters, the
+# sharded params' gradient sum, and the replica
+GROUP_AXES = (("sp",), ("tp",), ("fsdp",), DATA_SEQ_AXES, REPLICA_AXES)
 
 
 @dataclass(frozen=True)
@@ -138,7 +154,7 @@ class Mesh:
         self.sizes = plan.sizes()
         self.shape = tuple(self.sizes[a] for a in AXES)
         self.grid = np.arange(plan.n_devices).reshape(self.shape)
-        self.coords = dict(zip(AXES, (int(i) for i in np.unravel_index(rank, self.shape))))
+        self.coords = self.coords_of(rank)
         # live axes (size > 1) tuple -> (group, ranks of this rank's group)
         self._groups: Dict[Tuple[str, ...], tuple] = {}
         for axes in GROUP_AXES:
@@ -175,10 +191,15 @@ class Mesh:
     def index(self, axes: Union[str, Sequence[str]]) -> int:
         """This rank's index along `axes` taken together, row-major in AXES
         order (as the reference's sharding over a tuple of axes)."""
-        idx = 0
-        for a in self.live(axes):
-            idx = idx * self.sizes[a] + self.coords[a]
-        return idx
+        return axes_index(axes, self.coords, self.sizes)
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of any rank of the mesh."""
+        return dict(zip(AXES, (int(i) for i in np.unravel_index(rank, self.shape))))
+
+    @property
+    def world(self) -> int:
+        return int(self.grid.size)
 
     def ranks(self, axes: Union[str, Sequence[str]]) -> list:
         """The global ranks that share this rank's coordinates off `axes`,
@@ -198,6 +219,90 @@ class Mesh:
         if live not in self._groups:
             raise KeyError(f"mesh has no group for axes {live}; it builds {sorted(self._groups)}")
         return self._groups[live]
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    """A spec entry (None, an axis or a tuple of axes) as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axes_index(axes, coords: Dict[str, int], sizes: Dict[str, int]) -> int:
+    """The index along `axes` taken together (live ones, row-major in AXES
+    order) of the rank at `coords`."""
+    axes = _axes_of(axes)
+    idx = 0
+    for a in AXES:
+        if a in axes and sizes[a] > 1:
+            idx = idx * sizes[a] + coords[a]
+    return idx
+
+
+def axes_size(axes, sizes: Dict[str, int]) -> int:
+    return int(np.prod([sizes[a] for a in _axes_of(axes)], dtype=np.int64))
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a global tensor lives on a mesh. `spec` has one entry per dim
+    (None, a mesh axis, or a tuple of them; missing trailing entries are
+    None), as `logical_to_spec` gives it: the dim is cut into equal blocks
+    over those axes, and a rank holds the block at its index. `segments`
+    holds (dim, sizes) for a dim made of segments that are each cut so
+    (the fused QKV heads [q | k | v]): a rank's block of that dim is its
+    block of every segment, in segment order. A tensor replicated on every
+    axis is Placement()."""
+
+    spec: tuple = ()
+    segments: tuple = ()
+
+    def _dims(self, ndim: int):
+        """Per dim: (axes, segment sizes or None)."""
+        segs = dict(self.segments)
+        return [(_axes_of(self.spec[d]) if d < len(self.spec) else (), segs.get(d)) for d in range(ndim)]
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes that cut the tensor."""
+        return tuple(a for entry in self.spec for a in _axes_of(entry))
+
+    def local_shape(self, global_shape, sizes: Dict[str, int]) -> Tuple[int, ...]:
+        out = []
+        for dim, (axes, segs) in zip(global_shape, self._dims(len(global_shape))):
+            n = axes_size(axes, sizes)
+            for part in (segs or (dim,)):
+                if part % n:
+                    raise ValueError(f"a dim of {dim} (segment {part}) does not split over {axes} ({n})")
+            out.append(dim // n)
+        return tuple(out)
+
+    def global_shape(self, local_shape, sizes: Dict[str, int]) -> Tuple[int, ...]:
+        return tuple(sum(segs) if segs else dim * axes_size(axes, sizes)
+                     for dim, (axes, segs) in zip(local_shape, self._dims(len(local_shape))))
+
+    def pieces(self, global_shape, coords: Dict[str, int], sizes: Dict[str, int]):
+        """[(local offsets, global offsets, shape)]: the boxes of the global
+        tensor that the rank at `coords` holds, and where they sit in its
+        local tensor."""
+        per_dim = []
+        for dim, (axes, segs) in zip(global_shape, self._dims(len(global_shape))):
+            n, i = axes_size(axes, sizes), axes_index(axes, coords, sizes)
+            runs, local, start = [], 0, 0
+            for part in (segs or (dim,)):
+                runs.append((local, start + i * (part // n), part // n))
+                local += part // n
+                start += part
+            per_dim.append(runs)
+        out = []
+        for combo in itertools.product(*per_dim):
+            out.append((tuple(c[0] for c in combo), tuple(c[1] for c in combo), tuple(c[2] for c in combo)))
+        return out
+
+    def writer(self, coords: Dict[str, int], sizes: Dict[str, int]) -> bool:
+        """Whether the rank at `coords` writes its block (orbax's replica-0
+        rule): its index is 0 on every axis that does not cut the tensor."""
+        cut = self.axes()
+        return all(coords[a] == 0 for a in AXES if a not in cut)
 
 
 def logical_to_spec(logical_axes: Sequence[Optional[str]], mesh=None) -> tuple:

@@ -16,6 +16,18 @@ on the CPU, against the JAX package's orbax-backed module.
   tolerance of tests/test_torch_model.py).
 - Serving: `build_engine_from_env` with SERVING_CHECKPOINT serves the
   greedy tokens of `generate()` on the saved params.
+- Several ranks (spawned gloo ranks, tests/torch_dist.py; f32, 2 layers,
+  GQA 4/2, tests/test_torch_sp.py's config): 2 and 4 ranks driving
+  `make_checkpoint_hook` at one step into one directory (ROADMAP Queue 3
+  entry 4) never raise and ack one checksum, 20 times, and saving steps
+  0-39 each with max_to_keep 3 leaves the newest 3; a save from sp 2
+  restores onto sp 4 and onto one process; at fsdp 2 x tp 2 every rank's
+  hook (its blocks) acks the checksum of the gathered state, and the
+  restore hook acks it too; a one-process save restores onto fsdp 2 x tp 2;
+  tests/test_checkpoint.py:36 on 8 ranks at fsdp 2 x tp 2 x sp 2 (two
+  steps, save, one step; a fresh init restored with mesh= takes the same
+  step with atol 0), restored onto dp 2 x fsdp 2 x tp 2 and onto one
+  process with the same checksum.
 """
 import dataclasses
 import json
@@ -28,6 +40,7 @@ import pytest
 import torch
 
 import __graft_entry__
+import torch_dist
 import torch_threads
 from odh_kubeflow_tpu.models import TransformerConfig as JaxConfig
 from odh_kubeflow_tpu.models import checkpoint as ref
@@ -35,6 +48,7 @@ from odh_kubeflow_tpu.models import init_params as jax_init_params
 from odh_kubeflow_tpu.models import prefill as jax_prefill
 from odh_kubeflow_tpu_torch.models import (
     TransformerConfig,
+    adamw,
     generate,
     init_params,
     latest_step,
@@ -48,7 +62,8 @@ from odh_kubeflow_tpu_torch.models import (
     save_train_state,
     state_checksum,
 )
-from odh_kubeflow_tpu_torch.models.tree import tree_leaves
+from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
+from odh_kubeflow_tpu_torch.parallel import MeshPlan
 from odh_kubeflow_tpu_torch.serving.server import build_engine_from_env
 
 torch_threads.cap()
@@ -182,8 +197,9 @@ def test_restore_refuses_another_tree_shape_or_dtype(tmp_path):
     with pytest.raises(ValueError, match="want \\['b', 'extra', 'layers'\\]"):
         restore_train_state(d, {"layers": {"w": torch.zeros(2, 3)}, "b": torch.zeros(3),
                                 "extra": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        restore_train_state(d, {"b": torch.zeros(3)}, mesh=object())
+    # onto a mesh the tree is checked the same way
+    with pytest.raises(ValueError, match="want \\['b'\\]"):
+        restore_train_state(d, {"b": torch.zeros(3)}, mesh=MeshPlan().build("cpu"))
 
 
 def test_save_refuses_a_leaf_that_is_not_a_tensor(tmp_path):
@@ -294,3 +310,116 @@ def test_serving_checkpoint_serves_the_saved_params(tmp_path):
     for h, p in zip(handles, prompts):
         assert h.result == "ok"
         assert h.tokens == generate(params, [p], cfg, 6, device="cpu")[0].tolist()
+
+
+# the multi-rank cases: tests/test_torch_sp.py's config
+RANKS_JCFG = JaxConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64,
+                       dtype=jnp.float32, use_flash=False, remat=False)
+RANKS_TOKENS = np.random.default_rng(1).integers(0, RANKS_JCFG.vocab, (4, 32)).astype(np.int32)
+TRIALS, STEPS = 20, 40
+
+
+def ranks_cfg(sp=False):
+    return dataclasses.replace(port_config(RANKS_JCFG), remat=True, remat_policy="flash",
+                               seq_axis="sp" if sp else "")
+
+
+def _train_state(params):
+    return {"params": params, "opt_state": adamw().init(params)}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Three spawns (2, 4 and 8 ranks) over one root directory: a save of
+    one spawn is restored in the next."""
+    root = tmp_path_factory.mktemp("ranks")
+    nparams = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), jax.device_get(jax_init_params(jax.random.PRNGKey(0), RANKS_JCFG)))
+    # a one-process save, restored onto fsdp 2 x tp 2
+    save_train_state(str(root / "whole"), 4, _train_state(params_from_numpy(nparams, "float32", device="cpu")))
+    common = dict(params=nparams)
+    out = {2: torch_dist.run_ranks(2, [
+        ("hooks", "torch_shard_cases:concurrent_hooks_case",
+         dict(directory=str(root / "hooks2"), trials=TRIALS, steps=STEPS)),
+        ("sp save", "torch_shard_cases:replicated_save_case",
+         dict(directory=str(root / "sp"), cfg=ranks_cfg(True), plan={"sp": 2}, **common))])}
+    out[4] = torch_dist.run_ranks(4, [
+        ("hooks", "torch_shard_cases:concurrent_hooks_case",
+         dict(directory=str(root / "hooks4"), trials=TRIALS, steps=STEPS)),
+        ("sp restore", "torch_shard_cases:replicated_restore_case",
+         dict(directory=str(root / "sp"), cfg=ranks_cfg(True), plan={"sp": 4}, **common)),
+        ("sharded hooks", "torch_shard_cases:sharded_hooks_case",
+         dict(directory=str(root / "sharded"), batch={"tokens": RANKS_TOKENS}, cfg=ranks_cfg(),
+              plan={"fsdp": 2, "tp": 2}, **common)),
+        ("whole restore", "torch_shard_cases:restore_case",
+         dict(directory=str(root / "whole"), cfg=ranks_cfg(), plan={"fsdp": 2, "tp": 2}, **common))])
+    out[8] = torch_dist.run_ranks(8, [
+        ("resume", "torch_shard_cases:resume_case",
+         dict(directory=str(root / "resume"), batch={"tokens": RANKS_TOKENS}, cfg=ranks_cfg(True),
+              plan={"fsdp": 2, "tp": 2, "sp": 2}, other_plan={"dp": 2, "fsdp": 2, "tp": 2}, **common))])
+    return root, nparams, out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_concurrent_hooks_at_one_step_end_in_one_save(ranks, world):
+    """ROADMAP Queue 3 entry 4: every rank's hook at the same step into one
+    directory (each rank holds the one replicated state) acks, none
+    raises, all acks are equal and the step reads back; ranks saving
+    steps 0..39 (max_to_keep 3) without a barrier leave the newest 3."""
+    per = ranks[2][world]["hooks"]
+    want = per[0]["want"]
+    for r in per:
+        assert r["acks"] == [{"step": 7, "checksum": want}] * TRIALS
+        assert r["restored"] == [want] * TRIALS
+        assert r["listing"] == [str(s) for s in range(STEPS - 3, STEPS)]
+
+
+def test_sp2_save_restores_onto_sp4_and_one_process(ranks):
+    root, nparams, out = ranks
+    params = params_from_numpy(nparams, "float32", device="cpu")
+    want = state_checksum(_train_state(params))
+    assert [r["ack"] for r in out[2]["sp save"]] == [{"step": 3, "checksum": want}] * 2
+    assert all(r["checksum"] == want for r in out[2]["sp save"])
+    # the replicated state restores whole onto every rank of another mesh
+    assert [r["checksum"] for r in out[4]["sp restore"]] == [want] * 4
+    assert all(r["device"] == "cpu" for r in out[4]["sp restore"])
+    fresh = port_params(5, ranks_cfg())
+    restored = restore_train_state(str(root / "sp"), _train_state(fresh))
+    assert state_checksum(restored) == want
+    # the same leaves, walked in one key order
+    assert_trees_equal(restored["params"], tree_map(lambda _, t: t, restored["params"], params))
+
+
+def test_sharded_hooks_ack_the_global_checksum(ranks):
+    """fsdp 2 x tp 2: every rank's hook saves its blocks; all acks carry the
+    checksum of the gathered global state (what one process holding it
+    would ack); the restore hooks onto a fresh init ack it too; the
+    restored blocks are the saved ones; one process restores the global
+    state with that checksum."""
+    root, _, out = ranks
+    per = out[4]["sharded hooks"]
+    want = per[0]["global"]
+    assert [r["ack"] for r in per] == [{"step": 1, "checksum": want}] * 4
+    assert [r["restored_ack"] for r in per] == [{"restored": True, "step": 1, "checksum": want}] * 4
+    assert all(r["same_blocks"] for r in per)
+    like = _train_state(port_params(9, ranks_cfg()))
+    assert state_checksum(restore_train_state(str(root / "sharded"), like)) == want
+    # a one-process save restores onto the sharded mesh
+    whole = _train_state(params_from_numpy(ranks[1], "float32", device="cpu"))
+    assert [r["checksum"] for r in out[4]["whole restore"]] == [state_checksum(whole)] * 4
+
+
+def test_sharded_save_restore_resume_exact(ranks):
+    """tests/test_checkpoint.py::test_save_restore_resume_exact on 8 ranks at
+    fsdp 2 x tp 2 x sp 2: the step from the restored state gives the
+    uninterrupted run's loss, bit for bit, on every rank; the save restores
+    onto dp 2 x fsdp 2 x tp 2 and onto one process with its checksum."""
+    root, _, out = ranks
+    per = out[8]["resume"]
+    assert all(r["resumed_loss"] == r["ref_loss"] for r in per)
+    assert len({r["ref_loss"] for r in per}) == 1
+    assert all(r["count"] == 2 for r in per)
+    checksum = per[0]["checksum"]
+    assert all(r["checksum"] == checksum and r["other"] == checksum for r in per)
+    like = _train_state(port_params(9, ranks_cfg()))
+    assert state_checksum(restore_train_state(str(root / "resume"), like)) == checksum

@@ -8,7 +8,10 @@ sizes; the differentiable attention, the f32-output matmul's
 backward (plain and per expert), one train step on the card, and the MoE
 layer and train step on the card (against the CPU, and bit-equal when
 repeated); two engines with check_syncs on threads of one process, and
-generate() under the armed guard. They skip with a reason
+generate() under the armed guard; the sharded step's flash calls at its
+per-rank shapes, parallel.comm's collectives on CUDA tensors over gloo
+against their CPU results, and the fsdp 2 x tp 2 step against one process.
+They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
 
@@ -627,3 +630,82 @@ def test_sp_train_step_on_card_matches_one_process(card, layout):
         got = res[r]["kernel_launches"]
         assert (got["flash_fwd_scalar"], got["flash_bwd_dq_scalar"], got["flash_bwd_dkv_scalar"]) == \
             (cfg.n_layers * n,) * 3, (r, got)
+
+
+# the fsdp/tp sharded step on the card: ranks spawned on the one card share
+# it over gloo, every collective on a CUDA tensor staged through pinned
+# host memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 4, 4, 128), (2, 512, 2, 1, 128)], ids=["fsdp2-tp2", "gqa-tp2"])
+def test_sharded_step_flash_calls_on_card(card, shape):
+    """The flash calls of the sharded step at its per-rank shapes (phase
+    11's fsdp 2 x tp 2 layer, b4 s2048 h4 d128; and a GQA 4/2 layer at tp 2)
+    on strided views of one fused projection: the forward with lse, dq and
+    dk/dv, each against its plain version."""
+    b, s, h, hk, d = shape
+    qkv = torch.randn((b, s, h + 2 * hk, d), device=card).to(torch.bfloat16)
+    q, k, v = qkv.split([h, hk, hk], dim=2)
+    out, lse = flash_attention(q, k, v, causal=True, with_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCE[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    dout = torch.randn(q.shape, device=card).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _check_bwd_on_card(q, k, v, dout, lse, delta, True)
+
+
+@pytest.mark.cuda
+def test_comm_collectives_on_card_match_cpu(card):
+    """Each collective of parallel.comm and its autograd Functions on CUDA
+    tensors over gloo (staged) against the same on CPU tensors: the same
+    bits, and the staged transport's host waits counted."""
+    import torch_dist
+
+    res = torch_dist.run_ranks(2, [(dev, "torch_shard_cases:comm_case", dict(device=dev))
+                                   for dev in ("cpu", "cuda")], device="cuda")
+    for r in range(2):
+        got, want = res["cuda"][r], res["cpu"][r]
+        assert want["host_waits"] == 0 and got["host_waits"] > 0
+        for name in want:
+            if name == "host_waits":
+                continue
+            for g, w in zip(_flat(got[name]), _flat(want[name])):
+                np.testing.assert_array_equal(g, w, err_msg=f"rank {r} {name}")
+
+
+def _flat(x):
+    return [y for item in x for y in _flat(item)] if isinstance(x, (list, tuple)) else [x]
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_card_matches_one_process(card):
+    """value_and_grad at fsdp 2 x tp 2 on the card (f32, 2 layers, GQA 4/2:
+    the scalar kernels) against one process, the gathered gradients within
+    1e-4 of the largest; one make_train_step step launches each scalar
+    kernel once a layer, and leaves the replicated leaves bit-equal."""
+    import torch_dist
+    from odh_kubeflow_tpu_torch.models import value_and_grad
+
+    cfg = TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                            dtype=torch.float32, remat=True, remat_policy="flash")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (4, 128))
+    res = torch_dist.run_ranks(4, [("step", "torch_shard_cases:sharded_step_case", dict(
+        params=tree_map(lambda t: t.numpy(), params), tokens=tokens, cfg=cfg, plan={"fsdp": 2, "tp": 2},
+        device="cuda"))], device="cuda")["step"]
+    want_loss, want = value_and_grad(tree_map(lambda t: t.to(card), params),
+                                     {"tokens": torch.as_tensor(tokens, device=card)}, cfg)
+    assert all(abs(r["loss"] - want_loss.item()) <= 1e-5 * abs(want_loss.item()) for r in res)
+    largest = max(w.abs().max().item() for w in want)
+    for g, w in zip(res[0]["grads"], want):
+        assert float(np.abs(g - w.cpu().numpy()).max()) / largest <= 1e-4
+    for r in res:
+        got = r["kernel_launches"]
+        assert (got["flash_fwd_scalar"], got["flash_bwd_dq_scalar"], got["flash_bwd_dkv_scalar"]) == \
+            (cfg.n_layers,) * 3, got
+    for name in res[0]["replicas"]:
+        blocks = {}
+        for r in res:
+            coords, digest = r["replicas"][name]
+            blocks.setdefault(coords, set()).add(digest)
+        assert all(len(d) == 1 for d in blocks.values()), name

@@ -159,10 +159,15 @@ def test_unported_features_raise(models):
     # a sequence axis without a mesh runs on one device, as in the JAX package
     assert torch.equal(forward(params, tokens, dataclasses.replace(cfg, seq_axis="sp")),
                        forward(params, tokens, cfg))
-    # the mesh path runs data and sequence axes; a tp axis waits for its item
+    # the mesh path runs data, tensor and sequence axes on this rank's
+    # blocks of the params: whole params over a tp axis are refused; an ep
+    # axis waits for its item
     tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
-    with pytest.raises(NotImplementedError, match="mesh with tp=2 .* item 13.2"):
+    with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
         forward(params, tokens, cfg, mesh=tp_mesh)
+    ep_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=2, tp=1, sp=1))
+    with pytest.raises(NotImplementedError, match="mesh with ep=2 .* item 13.4"):
+        forward(params, tokens, cfg, mesh=ep_mesh)
     with pytest.raises(NotImplementedError, match="mesh .* item 13.1"):
         generate(params, [[1]], cfg, max_new=2, mesh=object(), device="cpu")
     # inference ignores the training-time sequence sharding, as in the JAX package

@@ -213,10 +213,13 @@ def test_rank_groups_follow_the_reference_axis_order(ranks, world):
                 index = tuple(slice(None) if a in live else coords[a] for a in AXES)
                 want = grid[index].reshape(-1).tolist() if live else [r]
                 assert ranks_ == want, (plan, axes)
-            # process groups only for the ring and the replica, with the same ranks
+            # process groups for GROUP_AXES only (the ring, tp, fsdp, the
+            # sharded params' gradient sum, the replica), each with its ranks
             assert set(got["built"]) == set(GROUP_AXES)
             for axes, ranks_ in got["built"].items():
-                assert ranks_ == got["groups"]["sp" if axes == ("sp",) else ("dp", "fsdp", "sp")], (plan, axes)
+                live = [a for a in AXES if a in axes and sizes[a] > 1]
+                index = tuple(slice(None) if a in live else coords[a] for a in AXES)
+                assert ranks_ == (grid[index].reshape(-1).tolist() if live else [r]), (plan, axes)
             assert got["index_batch"] == coords["dp"] * sizes["fsdp"] + coords["fsdp"]
             ring = got["groups"]["sp"] if sizes["sp"] > 1 else got["groups"][("dp", "fsdp", "sp")]
             prev = ring[(ring.index(r) - 1) % len(ring)]

@@ -173,8 +173,14 @@ def test_loss_fn_refuses_what_is_not_ported(models):
         loss_fn(params, batch, dataclasses.replace(cfg, seq_layout="zigzag"))
     with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         loss_fn(params, batch, dataclasses.replace(cfg, moe={"n_experts": 4}))
-    # the mesh path runs data and sequence axes; tp, ep and pp wait for their items
-    for axis, item in (("tp", "13.2"), ("ep", "13.4"), ("pp", "13.5")):
+    # the mesh path runs data, tensor and sequence axes (whole params over
+    # tp are refused: the step takes this rank's blocks); ep and pp wait
+    # for their items
+    tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
+    with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
+        loss_fn(params, batch, cfg, mesh=tp_mesh)
+    make_train_step(cfg, mesh=tp_mesh)
+    for axis, item in (("ep", "13.4"), ("pp", "13.5")):
         sizes = dict(dp=1, fsdp=1, pp=1, ep=1, tp=1, sp=1)
         sizes[axis] = 2
         mesh = types.SimpleNamespace(sizes=sizes)
