@@ -171,6 +171,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    blocks is bit-equal to the uninterrupted one; the saved step restored
    onto the tp 2 x sp 2 mesh and onto one process gives the saved params
    (checksum) and the next step's loss within 1e-4 relative.
+12. tensor parallelism in decode, shared kv heads and the ep MoE on this
+   card, ranks spawned as in phase 11 (2, then 4): (a) generate(mesh=) of
+   phase 5's flagship at tp 2 and fsdp 2 x tp 2, 8 prompts of 128, max_new
+   64: the flash forward at the per-rank prefill shape (b8 s128 h4 hk4
+   d128, no lse) against its plain version, the first step's logits (each
+   rank's vocab block) within 2e-2 of the largest of one process's, every
+   rank the same tokens (their agreement with one process printed), launch
+   counts zeroed just before and read just after (8 tensor-core forward
+   launches per generate and rank), per-token host time, and bytes a token
+   by kind equal to the count from the shapes (the f32 tp sums, the
+   vocab-parallel argmax; no gather); the same shapes in f32 at 2 layers:
+   logits within 1e-4, greedy tokens and sampled tokens (one seed) equal to
+   one process; (b) tp 4 with n_kv_heads 2 (each rank's 2 q heads read one
+   kv head; wqkv replicated over tp), f32, 2 layers of the flagship's
+   widths: the loss and gathered gradients within 1e-4 of each leaf's
+   largest against one process, greedy tokens equal; (c) bench.py:389-400's
+   MoE train step (remat "") at ep 2 x tp 2 and ep 2 x fsdp 2, global batch
+   8 x 2048, with phase 11's gates: each flash call at the per-rank shapes
+   (b8 s2048 h4, b4 s2048 h8) against its plain version; against one
+   process routing each data shard alone (the ep path's capacity), the f32
+   2-layer step per leaf within 1e-4, the bf16 loss within 1e-4 relative,
+   the bf16 gradients within the one-process distance + one ulp; 16/8/8
+   tensor-core launches per step and rank; no host sync; every replicated
+   leaf bit-equal; the (exchanges, bytes) per step and rank of each kind
+   equal to the count from the shapes; the drop rate and the dispatch
+   share's bound printed; the ep 2 x tp 2 state checkpointed through four
+   agents at once (equal acks), resumed bit-equal, and restored onto one
+   process (checksum, next loss within 1e-4 relative).
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2585,13 +2613,13 @@ def _drive_agents(ports):
     return out
 
 
-def _one_process_restore(saved, smi):
-    """The checkpointed step restored onto one process: the params'
-    checksum and the next step's loss."""
+def _one_process_restore(saved, smi, cfg=None):
+    """The checkpointed step (of `cfg`, phase 11's by default) restored
+    onto one process: the params' checksum and the next step's loss."""
     from odh_kubeflow_tpu_torch.models import (adamw, init_params, make_train_step, restore_train_state,
                                                state_checksum)
 
-    cfg = _shard_cfg({}, "contiguous")
+    cfg = cfg or _shard_cfg({}, "contiguous")
     like = init_params(torch.Generator().manual_seed(9), cfg, device="cuda")
     opt = adamw()
     restored = restore_train_state(saved["dir"], {"params": like, "opt_state": opt.init(like)},
@@ -2743,7 +2771,7 @@ def _check_shard_run(name, plan, shape, layout, runs, smi, ring_launches):
         fail(f"{name}: host syncs inside the steps: {[run['syncs'] for run in runs]}")
 
 
-def _check_shard_checkpoint(ck, drive, smi):
+def _check_shard_checkpoint(ck, drive, smi, want_launches=None):
     want = {"saved": True, "step": ck[0]["step"], "checksum": ck[0]["global_checksum"]}
     acks = drive["/tpu/checkpoint"]
     restore_acks = drive["/tpu/restore"]
@@ -2763,10 +2791,583 @@ def _check_shard_checkpoint(ck, drive, smi):
           flush=True)
     if any(c["resumed_loss"] != c["ref_loss"] or c["resumed_digest"] != c["ref_digest"] for c in ck):
         fail("the resumed sharded step differs from the uninterrupted one")
-    want_launches = {"flash_fwd": 8, "flash_fwd_scalar": 0, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
-                     "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    want_launches = want_launches or {"flash_fwd": 8, "flash_fwd_scalar": 0, "flash_bwd_dq": 8,
+                                      "flash_bwd_dkv": 8, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
     if any(c["resumed_launches"] != want_launches for c in ck):
         fail(f"the resumed steps launched {[c['resumed_launches'] for c in ck]}, want {want_launches}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: tensor-parallel generate, tp with shared kv heads, and the ep
+# MoE train step, ranks spawned on this one card
+# ---------------------------------------------------------------------------
+
+EP_WORLD = 4
+SERVE_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=4096, max_seq=2048)  # bench.py:951-961
+SERVE_LAYERS = 8
+# (a) phase 5's flagship through generate(mesh=): mesh name -> plan
+TP_DECODE_MESHES = {"tp2": {"tp": 2}, "fsdp2 x tp2": {"fsdp": 2, "tp": 2}}
+TP_PROMPTS = (8, 128)  # prompts x tokens
+TP_MAX_NEW = 64
+TP_F32_LAYERS = 2  # the f32 run of the same shapes
+TP_SAMPLE = (0.8, 5)  # the f32 sampled run's temperature and generator seed
+# the first step's logits of a tp rank's vocab block against one process's,
+# bf16, of the largest |logit|
+TP_LOGIT_TOLERANCE = TOLERANCE[torch.bfloat16]
+# (b) tp 4 with n_kv_heads 2 (tp does not divide kv_heads), f32, the
+# flagship's widths
+SHARED_KV = dict(n_kv_heads=2, n_layers=2)
+SHARED_TP = 4
+SHARED_BATCH = (2, 512)
+SHARED_PROMPTS = (2, 32)
+SHARED_MAX_NEW = 16
+# (c) bench.py:389-400's MoE train step (phase 8's config)
+MOE_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=2048, max_seq=2048)
+EP_RUNS = {"ep2 x tp2": {"ep": 2, "tp": 2}, "ep2 x fsdp2": {"ep": 2, "fsdp": 2}}
+EP_BATCH = (8, 2048)
+EP_LAYERS = 8
+EP_STEPS = 3  # timed steps after the warm-up
+EP_F32_LAYERS = 2  # the f32 step held per leaf against one process
+EP_CHECKPOINT_RUN = "ep2 x tp2"  # the run whose state goes through the agents' routes
+
+
+def _serve_cfg(layers, dtype):
+    """Phase 5's flagship serving config (bench.py:951-961) at `layers`."""
+    from odh_kubeflow_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(**SERVE_WIDTH, n_layers=layers, dtype=dtype, use_flash=True, remat=False)
+
+
+def _moe_cfg(layers, dtype):
+    from odh_kubeflow_tpu_torch.models import MoEConfig, TransformerConfig
+
+    return TransformerConfig(**MOE_WIDTH, n_layers=layers, dtype=dtype, use_flash=True, remat=True,
+                             remat_policy="", moe=MoEConfig(n_experts=8, experts_per_token=2, capacity_factor=1.25))
+
+
+def _tp_prompts():
+    return np.random.default_rng(12).integers(0, SERVE_WIDTH["vocab"], TP_PROMPTS)
+
+
+def _tp_decode_reference():
+    """Phase 12 (a)'s one-process references on the card: the bf16
+    flagship's first-step logits and greedy tokens, and the f32 2-layer
+    model's greedy and sampled tokens."""
+    from odh_kubeflow_tpu_torch.models import generate, init_params
+    from odh_kubeflow_tpu_torch.models.decode import _prefill_parts
+
+    prompts = torch.as_tensor(_tp_prompts(), device="cuda")
+    out = {}
+    for key, cfg in (("bf16", _serve_cfg(SERVE_LAYERS, torch.bfloat16)),
+                     ("f32", _serve_cfg(TP_F32_LAYERS, torch.float32))):
+        params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+        with torch.no_grad():
+            out[key + " logits"] = _prefill_parts(params, prompts, cfg, TP_PROMPTS[1] + TP_MAX_NEW)[0].float().cpu().numpy()
+        out[key] = generate(params, prompts, cfg, TP_MAX_NEW, device="cuda").cpu().numpy()
+        if key == "f32":
+            gen = torch.Generator(device="cuda").manual_seed(TP_SAMPLE[1])
+            out["f32 sampled"] = generate(params, prompts, cfg, TP_MAX_NEW, generator=gen,
+                                          temperature=TP_SAMPLE[0], device="cuda").cpu().numpy()
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_bytes(plan, b, s, cfg):
+    """Phase 12 (c)'s exchanges per step and rank by kind, from the shapes:
+    {kind: (exchanges, bytes)}. remat "" recomputes every layer in the
+    backward up to the last op whose saved tensors the backward needs: the
+    gathers and wo's tp sum again, not the experts' sum over ep nor the
+    aux mean after it (the checkpoint's early stop); the fsdp gathers move
+    bf16, every sum and reduce-scatter f32."""
+    fsdp, tp, ep = plan.get("fsdp", 1), plan.get("tp", 1), plan.get("ep", 1)
+    L, d, V, hd = cfg.n_layers, cfg.d_model, cfg.vocab, cfg.head_dim
+    h, kv, moe = cfg.n_heads, cfg.kv_heads, cfg.moe_resolved
+    e_local, f = moe.n_experts // ep, moe.d_ff
+    rows = b // fsdp * s * d * 4  # an f32 activation of the rank's tokens
+    attn_w = d * (h + 2 * kv) // tp * hd + h // tp * hd * d  # wqkv and wo blocks after the fsdp gather
+    expert = e_local * d * f // tp  # one stack after the fsdp gather
+    out = {k: (0, 0) for k in ("gather", "scatter", "tp_sum", "vocab", "ep", "aux", "sum")}
+    gathers = scatters = []
+    if fsdp > 1:  # per layer: wqkv, wo, three stacks; twice forward, once backward
+        gathers = [(10 * L, 2 * L * (attn_w + 3 * expert) * 2), (2, (V * d + d * V // tp) * 2)]
+        scatters = [(5 * L, L * (attn_w + 3 * expert) * 4), (2, (V * d + d * V // tp) * 4)]
+    if tp > 1:  # the stacks over tp, twice forward
+        gathers = gathers + [(6 * L, 2 * L * 3 * e_local * d * f * 2)]
+        # wo's sum twice forward, the qkv input's once backward; the unembedding's input
+        out["tp_sum"] = (3 * L + 1, (3 * L + 1) * rows)
+    out["gather"] = tuple(map(sum, zip((0, 0), *gathers)))
+    out["scatter"] = tuple(map(sum, zip((0, 0), *scatters)))
+    out["vocab"] = (2, 3 * rows // d) if tp > 1 else (0, 0)
+    out["ep"] = (2 * L, 2 * L * rows)  # the sum forward, the tokens' gradient backward
+    data = fsdp > 1
+    out["aux"] = (L, L * 4) if data else (0, 0)
+    router = L * d * moe.n_experts * 4
+    # the router's gradient over ep; the replica's: the loss's two values,
+    # then the leaves no axis of it cuts (the norms and the router)
+    out["sum"] = (1 + 2 * data, router + data * (8 + (2 * L * d + d) * 4 + router))
+    return out
+
+
+def ep_phase(attention, smi):
+    """Phase 12. Returns the launches of its paths by kernel name."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' memory comes from the same card
+    print(f"  the ranks of each run share this one card ({smi}) as processes brought up by "
+          "initialize_from_env from the webhook's env names, on gloo, every collective on a CUDA tensor "
+          "staged through pinned host memory: the times below prove the path, they are not a "
+          "multi-card number", flush=True)
+    t0 = time.perf_counter()
+    ref = _tp_decode_reference()
+    print(f"  (a) one-process references: {time.perf_counter() - t0:.1f} s", flush=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ep-ckpt-")
+    drive = {}
+    launched = {}
+
+    def add(path, counts):
+        into = launched.setdefault(path, {})
+        for kernel, n in counts.items():
+            into[kernel] = into.get(kernel, 0) + n
+
+    try:
+        ranks = {}
+        for world, parts in ((2, ("tp2",)), (EP_WORLD, ("fsdp2 x tp2", "shared kv", "ep"))):
+            t0 = time.perf_counter()
+            got = _spawn_ranks(world, _ep_rank_jobs, "phase 12", ckpt_dir, parts,
+                               on_agents=lambda ports: drive.update(_drive_agents(ports)))
+            print(f"  {world} ranks on {got[0]['device']}, transport: {got[0]['transport']}; spawn to "
+                  f"results {time.perf_counter() - t0:.1f} s", flush=True)
+            for key in got[0]:
+                ranks[key] = [r[key] for r in got]
+        for name, plan in TP_DECODE_MESHES.items():
+            _check_tp_decode(name, plan, ranks[name], ref, smi)
+            for run in ranks[name]:
+                add("tp generate", run["launches"])
+        del ref
+        _check_shared_kv(ranks["shared kv"], smi)
+        for run in ranks["shared kv"]:
+            add("shared kv f32", run["launches"])
+        for name, plan in EP_RUNS.items():
+            _check_ep_run(name, plan, ranks[name], smi)
+            for run in ranks[name]:
+                add("ep train", run["launches"])
+        ck = [r["checkpoint"] for r in ranks[EP_CHECKPOINT_RUN]]
+        want = {"flash_fwd": 2 * EP_LAYERS, "flash_fwd_scalar": 0, "flash_bwd_dq": EP_LAYERS,
+                "flash_bwd_dkv": EP_LAYERS, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+        _check_shard_checkpoint(ck, drive, smi, want)
+        saved = {"dir": ckpt_dir, "step": ck[0]["step"], "ref_loss": ck[0]["ref_loss"],
+                 "tokens": np.random.default_rng(14).integers(0, MOE_WIDTH["vocab"], EP_BATCH)}
+        one = _one_process_restore(saved, smi, _moe_cfg(EP_LAYERS, torch.bfloat16))
+        _check_restored("one process", one, [one], ck[0])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
+def _ep_rank_jobs(rank, world, port, results, go, ckpt_dir, parts):
+    """Phase 12 in one rank: each of `parts` in turn."""
+    import torch.distributed as dist
+
+    os.environ.update({"JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank),
+                       "TPU_WORKER_ID": str(rank), "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from odh_kubeflow_tpu_torch.parallel import MeshPlan, comm, initialize_from_env
+
+    # gloo: the ranks share one card, and NCCL refuses two ranks on one device
+    initialize_from_env(timeout_s=SP_TIMEOUT_S, backend="gloo", device="cuda")
+    out = {}
+    for part in parts:
+        if part in TP_DECODE_MESHES:
+            mesh = MeshPlan(**TP_DECODE_MESHES[part]).build("cuda")
+            out[part] = _tp_decode_run(mesh)
+        elif part == "shared kv":
+            mesh = MeshPlan(tp=SHARED_TP).build("cuda")
+            out[part] = _shared_kv_run(mesh)
+        else:
+            saved = {}
+            for name, plan in EP_RUNS.items():
+                mesh = MeshPlan(**plan).build("cuda")
+                out[name] = _ep_run(mesh, name == EP_CHECKPOINT_RUN, results, go, ckpt_dir, saved)
+        out["device"] = str(mesh.device)
+        group = mesh.group("tp")[0] if mesh.sizes["tp"] > 1 else mesh.group("ep")[0]
+        out.setdefault("transport", comm.transport(group, mesh.device))
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _flash_fwd_vs_plain(b, s, h, d):
+    """The flash forward without lse at a tp rank's prefill shape (q/k/v
+    strided views of one fused projection, bf16, causal) against its plain
+    version: the error over its tolerance."""
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    dtype = torch.bfloat16
+    q, k, v = inputs(b, s, s, h, h, d, dtype, seed=SP_VISIT_SEED, strided=True)
+    out = attention.flash_attention(q, k, v, causal=True, device=q.device)
+    ref = attention.flash_attention_plain(q, k, v, causal=True)
+    return (out.float() - ref.float()).abs().max().item() / TOLERANCE[dtype]
+
+
+def _tp_decode_run(mesh):
+    """Phase 12 (a) in one rank: the flagship's first-step logits (the
+    rank's vocab block) and generate(mesh=)'s tokens, per-token time and
+    bytes by kind, in bf16 at 8 layers, then the greedy and sampled tokens
+    of the f32 2-layer model."""
+    from odh_kubeflow_tpu_torch.models import generate, init_params, shard_params
+    from odh_kubeflow_tpu_torch.models.decode import _prefill_parts
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import comm
+
+    dev = mesh.device
+    tp = mesh.sizes["tp"]
+    prompts = torch.as_tensor(_tp_prompts(), device=dev)
+    cfg = _serve_cfg(SERVE_LAYERS, torch.bfloat16)
+    local = shard_params(init_params(torch.Generator().manual_seed(0), cfg, device=dev), cfg, mesh)
+    b, s = TP_PROMPTS
+    res = {"shape": f"b{b} s{s} h{cfg.n_heads // tp} hk{cfg.n_heads // tp} d{cfg.head_dim}",
+           "visit": _flash_fwd_vs_plain(b, s, cfg.n_heads // tp, cfg.head_dim)}
+    with torch.no_grad():
+        res["logits"] = _prefill_parts(local, prompts, cfg, s + TP_MAX_NEW, mesh)[0].float().cpu().numpy()
+    generate(local, prompts, cfg, 2, mesh=mesh)  # warm-up
+    timed = {}
+    for n in (1, TP_MAX_NEW):
+        attention.reset_launch_counts()
+        comm.reset_exchange_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = generate(local, prompts, cfg, n, mesh=mesh)
+        torch.cuda.synchronize()
+        timed[n] = (time.perf_counter() - t0, dict(comm.exchange_counts), dict(attention.launch_counts))
+    res["tokens"] = tokens.cpu().numpy()
+    steps = TP_MAX_NEW - 1
+    res["token_ms"] = (timed[TP_MAX_NEW][0] - timed[1][0]) * 1e3 / steps
+    res["generate_s"] = timed[TP_MAX_NEW][0]
+    res["token_bytes"] = {k: (timed[TP_MAX_NEW][1][k + "_bytes"] - timed[1][1][k + "_bytes"]) / steps
+                          for k in ("tp_sum", "argmax", "gather", "vocab")}
+    res["exchanges"] = timed[TP_MAX_NEW][1]
+    res["launches"] = timed[TP_MAX_NEW][2]
+    del local
+    cfg32 = _serve_cfg(TP_F32_LAYERS, torch.float32)
+    local = shard_params(init_params(torch.Generator().manual_seed(0), cfg32, device=dev), cfg32, mesh)
+    with torch.no_grad():
+        res["f32 logits"] = _prefill_parts(local, prompts, cfg32, s + TP_MAX_NEW, mesh)[0].float().cpu().numpy()
+    res["f32"] = generate(local, prompts, cfg32, TP_MAX_NEW, mesh=mesh).cpu().numpy()
+    gen = torch.Generator(device=dev).manual_seed(TP_SAMPLE[1])
+    res["f32 sampled"] = generate(local, prompts, cfg32, TP_MAX_NEW, generator=gen, temperature=TP_SAMPLE[0],
+                                  mesh=mesh).cpu().numpy()
+    res["offset"] = mesh.index("tp") * (cfg.vocab // tp)
+    return res
+
+
+def _check_tp_decode(name, plan, runs, ref, smi):
+    vocab = ref["bf16 logits"].shape[-1]
+    errs, f32_errs = [], []
+    for run in runs:
+        width = run["logits"].shape[-1]
+        want = ref["bf16 logits"][:, run["offset"]:run["offset"] + width]
+        errs.append(float(np.abs(run["logits"] - want).max() / np.abs(ref["bf16 logits"]).max()))
+        want = ref["f32 logits"][:, run["offset"]:run["offset"] + width]
+        f32_errs.append(float(np.abs(run["f32 logits"] - want).max() / np.abs(ref["f32 logits"]).max()))
+    first = runs[0]
+    same = float((first["tokens"] == ref["bf16"]).mean())
+    first_same = float((first["tokens"][:, 0] == ref["bf16"][:, 0]).mean())
+    tokens_equal = all(np.array_equal(r["tokens"], first["tokens"]) for r in runs)
+    f32_equal = all(np.array_equal(r["f32"], ref["f32"]) for r in runs)
+    sampled_equal = all(np.array_equal(r["f32 sampled"], ref["f32 sampled"]) for r in runs)
+    n_layers, d = SERVE_LAYERS, SERVE_WIDTH["d_model"]
+    want_launches = {"flash_fwd": n_layers, "flash_fwd_scalar": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                     "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    b = TP_PROMPTS[0]
+    want_bytes = {"tp_sum": 2 * n_layers * b * d * 4, "argmax": b * (4 + 8), "gather": 0, "vocab": 0}
+    tb = first["token_bytes"]
+    print(f"  (a) generate over {name}, the flagship (bf16, {n_layers} layers, vocab block {vocab // plan['tp']} a "
+          f"rank), {TP_PROMPTS[0]} prompts of {TP_PROMPTS[1]}, max_new {TP_MAX_NEW}: the flash forward at the "
+          f"per-rank prefill {first['shape']} against its plain version, worst "
+          f"{max(r['visit'] for r in runs):.3f} of its tolerance; first-step logits against one process, max "
+          f"err of the largest {max(errs):.3e} (tol {TP_LOGIT_TOLERANCE:.0e}); first tokens equal "
+          f"{first_same:.3f}, all tokens {same:.3f}, every rank the same tokens {tokens_equal}", flush=True)
+    print(f"    {first['token_ms']:.2f} ms a token (host clock, rank 0; whole generate "
+          f"{first['generate_s']:.2f} s), bytes a token and rank: tp sums {tb['tp_sum']:.0f}, argmax "
+          f"{tb['argmax']:.0f}, gathers {tb['gather']:.0f}, vocab {tb['vocab']:.0f} (want {want_bytes}); "
+          f"launches per generate and rank {[r['launches'] for r in runs][0]}; f32 {TP_F32_LAYERS} layers: "
+          f"logits max err {max(f32_errs):.3e} (tol {SP_GRAD_TOLERANCE:.0e}), greedy tokens equal one process {f32_equal}, sampled "
+          f"(T {TP_SAMPLE[0]}, seed {TP_SAMPLE[1]}) equal {sampled_equal} on {smi}", flush=True)
+    if not (max(r["visit"] for r in runs) <= 1.0 and max(errs) <= TP_LOGIT_TOLERANCE and tokens_equal
+            and max(f32_errs) <= SP_GRAD_TOLERANCE and f32_equal and sampled_equal):
+        fail(f"tp generate over {name} disagrees with one process")
+    if any(r["launches"] != want_launches for r in runs):
+        fail(f"tp generate over {name} launched {[r['launches'] for r in runs]}, want {want_launches}")
+    if tb != want_bytes:
+        fail(f"tp generate over {name} moved {tb} a token, want {want_bytes}")
+
+
+def _shared_kv_run(mesh):
+    """Phase 12 (b) in one rank: the f32 2-layer flagship with n_kv_heads 2
+    over tp 4: the loss and gathered gradients, and greedy tokens, against
+    one process (rank 0)."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import (gather_params, generate, init_params, shard_params,
+                                               value_and_grad)
+    from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_unflatten
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import shard_batch
+
+    dev = mesh.device
+    cfg = dataclasses.replace(_serve_cfg(SHARED_KV["n_layers"], torch.float32),
+                              n_kv_heads=SHARED_KV["n_kv_heads"], remat=True, remat_policy="flash")
+    full = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    tokens = np.random.default_rng(13).integers(0, cfg.vocab, SHARED_BATCH)
+    prompts = torch.as_tensor(np.random.default_rng(15).integers(0, cfg.vocab, SHARED_PROMPTS), device=dev)
+    res = {}
+    if mesh.rank == 0:
+        ref = value_and_grad(full, {"tokens": torch.as_tensor(tokens, device=dev)}, cfg)
+        ref_tokens = generate(full, prompts, cfg, SHARED_MAX_NEW, device=dev)
+    local = shard_params(full, cfg, mesh)
+    del full
+    attention.reset_launch_counts()
+    loss, grads = value_and_grad(local, shard_batch(mesh, {"tokens": tokens}), cfg, mesh)
+    torch.cuda.synchronize()
+    res["launches"] = dict(attention.launch_counts)
+    gathered = tree_leaves(gather_params(tree_unflatten(local, grads), cfg, mesh))
+    res["tokens"] = generate(local, prompts, cfg, SHARED_MAX_NEW, mesh=mesh).cpu().numpy()
+    res["shape"] = f"b{SHARED_BATCH[0]} s{SHARED_BATCH[1]} h{cfg.n_heads // SHARED_TP} hk1 d{cfg.head_dim} f32"
+    if mesh.rank == 0:
+        res["loss_err"] = abs((loss - ref[0]) / ref[0]).item()
+        res["leaf_err"] = max(_grad_err(g, w) for g, w in zip(gathered, ref[1]))
+        res["tokens_equal"] = bool(np.array_equal(res["tokens"], ref_tokens.cpu().numpy()))
+    return res
+
+
+def _check_shared_kv(runs, smi):
+    first = runs[0]
+    same = all(np.array_equal(r["tokens"], first["tokens"]) for r in runs)
+    print(f"  (b) tp {SHARED_TP} with n_kv_heads {SHARED_KV['n_kv_heads']} (each rank 2 q heads and the kv head "
+          f"they read, wqkv replicated over tp), the flagship's widths in f32 at {SHARED_KV['n_layers']} layers, "
+          f"batch {SHARED_BATCH[0]}x{SHARED_BATCH[1]} (per rank {first['shape']}): loss rel err "
+          f"{first['loss_err']:.3e}, gathered grads max err of each leaf's largest {first['leaf_err']:.3e} (tol "
+          f"{SP_GRAD_TOLERANCE:.0e}); greedy tokens ({SHARED_PROMPTS[0]} prompts, max_new {SHARED_MAX_NEW}) equal "
+          f"one process {first['tokens_equal']}, every rank the same {same}; launches per rank "
+          f"{first['launches']} on {smi}", flush=True)
+    if not (first["loss_err"] <= SP_GRAD_TOLERANCE and first["leaf_err"] <= SP_GRAD_TOLERANCE
+            and first["tokens_equal"] and same):
+        fail(f"tp with shared kv heads disagrees with one process: {first}")
+    want = {"flash_fwd": 0, "flash_fwd_scalar": SHARED_KV["n_layers"], "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq_scalar": SHARED_KV["n_layers"], "flash_bwd_dkv_scalar": SHARED_KV["n_layers"]}
+    if any(r["launches"] != want for r in runs):
+        fail(f"the shared-kv step launched {[r['launches'] for r in runs]}, want {want}")
+
+
+def _one_process_vg(params, tokens, cfg, shards):
+    """The one-process loss and gradients (f32) of the global batch as a
+    mesh with `shards` data shards routes it: each shard's tokens routed
+    alone (capacity from its count, as the reference's ep path), the loss
+    and gradients averaged over the shards (each counts the same number of
+    targets)."""
+    from odh_kubeflow_tpu_torch.models import value_and_grad
+
+    loss, grads = 0.0, None
+    for part in torch.as_tensor(tokens, device=params["embed"].device).chunk(shards):
+        l, g = value_and_grad(params, {"tokens": part}, cfg)
+        loss = loss + l.float() / shards
+        g = [x.float() / shards for x in g]
+        grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+        del l
+    return loss, grads
+
+
+def _ep_run(mesh, checkpoint, results, go, ckpt_dir, saved):
+    """One run of phase 12 (c) in this rank: the flash calls at the per-rank
+    shapes against their plain versions; the f32 2-layer step and the bf16
+    warm-up against one process on the same batch (rank 0 holds the
+    references; the gradients are gathered); three timed steps; the drop
+    rate and dispatch share; with `checkpoint`, the agent's routes."""
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.models import (adamw, dispatch_only, gather_params, init_params,
+                                               make_train_step, routing_stats, shard_params,
+                                               train_state_placements, transformer, value_and_grad)
+    from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import comm, shard_batch
+
+    dev = mesh.device
+    plan = {a: n for a, n in mesh.sizes.items() if n > 1}
+    shards = mesh.size(("dp", "fsdp"))
+    tp = mesh.sizes["tp"]
+    cfg = _moe_cfg(EP_LAYERS, torch.bfloat16)
+    tokens = np.random.default_rng(14).integers(0, cfg.vocab, EP_BATCH)
+    local_batch = shard_batch(mesh, {"tokens": tokens})
+    b_rank, h_rank = EP_BATCH[0] // shards, cfg.n_heads // tp
+    res = {"shape": f"b{b_rank} s{EP_BATCH[1]} h{h_rank} hk{h_rank} d{cfg.head_dim}", "plan": plan}
+    res["visits"] = _flash_calls_vs_plain(b_rank, EP_BATCH[1], h_rank, cfg.head_dim)
+    # the f32 2-layer step against one process (per leaf)
+    cfg32 = _moe_cfg(EP_F32_LAYERS, torch.float32)
+    full32 = init_params(torch.Generator().manual_seed(3), cfg32, device=dev)
+    if mesh.rank == 0:
+        ref32 = _one_process_vg(full32, tokens, cfg32, shards)
+    local32 = shard_params(full32, cfg32, mesh)
+    del full32
+    loss32, grads32 = value_and_grad(local32, local_batch, cfg32, mesh)
+    gathered32 = tree_leaves(gather_params(tree_unflatten(local32, grads32), cfg32, mesh))
+    if mesh.rank == 0:
+        res["f32_loss_err"] = abs((loss32 - ref32[0]) / ref32[0]).item()
+        res["f32_leaf_err"] = {n: _grad_err(g, w) for n, g, w in
+                               zip(_leaf_names(local32), gathered32, ref32[1])}
+        del ref32
+    del local32, grads32, gathered32
+    torch.cuda.empty_cache()
+    # the bf16 model: one-process references (bf16, and f32 for the truth)
+    full = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    names = _leaf_names(full)
+    ref = truth = None
+    if mesh.rank == 0:
+        ref = _one_process_vg(full, tokens, cfg, shards)
+        full32 = tree_map(lambda t: t.float(), full)
+        truth = _one_process_vg(full32, tokens, _moe_cfg(EP_LAYERS, torch.float32), shards)
+        del full32
+        torch.cuda.empty_cache()
+    params = shard_params(full, cfg, mesh)
+    del full
+    opt = adamw()
+    state = opt.init(params)
+    step, _ = make_train_step(cfg, opt, mesh)
+    first, grads = value_and_grad(params, local_batch, cfg, mesh)
+    gathered = tree_leaves(gather_params(tree_unflatten(params, grads), cfg, mesh))
+    if mesh.rank == 0:
+        largest = max(w.abs().max().item() for w in truth[1])
+        res["loss_err"] = abs((first - ref[0]) / ref[0]).item()
+        res["ref_loss"] = ref[0].item()
+        # the bf16 losses' distances from the f32 one's
+        res["loss_truth_errs"] = (abs((first - truth[0]) / truth[0]).item(),
+                                  abs((ref[0] - truth[0]) / truth[0]).item())
+        res["grad_err"] = max(_grad_err(g, w, largest) for g, w in zip(gathered, ref[1]))
+        res["grad_truth_err"] = max(_grad_err(g, w, largest) for g, w in zip(gathered, truth[1]))
+        res["ref_truth_err"] = max(_grad_err(g, w, largest) for g, w in zip(ref[1], truth[1]))
+        res["bf16_leaf_gaps"] = {n: (_grad_err(g, t), _grad_err(r, t), _grad_err(g, r))
+                                 for n, g, r, t in zip(names, gathered, ref[1], truth[1])}
+    del gathered, ref, truth
+    opt.update_(tree_unflatten(params, grads), state, params)
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    comm.reset_exchange_counts()
+    losses = [first]
+    t0 = time.perf_counter()
+    syncs = count_sync_warnings(lambda: losses.extend(
+        step(params, state, local_batch)[2] for _ in range(EP_STEPS)))
+    torch.cuda.synchronize()
+    res.update({
+        "step_ms": (time.perf_counter() - t0) * 1e3 / EP_STEPS,
+        "launches": dict(attention.launch_counts),
+        "exchanges": dict(comm.exchange_counts),
+        "syncs": syncs,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": torch.stack(losses).tolist(),
+    })
+    # routing at layer 0's inputs of the rank's tokens: the drop rate, and
+    # routing + dispatch + combine of every expert's picks alone (the
+    # rank's own experts' are a part of it): the dispatch share's bound
+    with torch.no_grad():
+        x0 = comm.gather_shards(params["embed"], mesh.group("fsdp")[0], 1)[local_batch["tokens"]]
+        router0 = {"router": params["layers"]["router"][0]}
+        res["drop_rate"] = routing_stats(x0, router0, cfg.moe_resolved)["drop_rate"].item()
+        res["dispatch_ms"] = time_ms(lambda: dispatch_only(x0, router0, cfg.moe_resolved), runs=5, reps=3)
+    del x0
+    train_state = {"params": params, "opt_state": state}
+    placements = train_state_placements(cfg, mesh)
+    res["replicas"] = _replicas(train_state, placements, mesh)
+    if checkpoint:
+        res["checkpoint"] = _checkpoint_through_agent(mesh, cfg, step, opt, train_state, placements, local_batch,
+                                                      results, go, ckpt_dir, saved)
+    del params, state, train_state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _check_ep_run(name, plan, runs, smi):
+    first = runs[0]
+    cfg = _moe_cfg(EP_LAYERS, torch.bfloat16)
+    worst = {}
+    for r, run in enumerate(runs):
+        for kernel, causal, err in run["visits"]:
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+    print(f"  (c) {name}, per rank {first['shape']} (strided views): "
+          f"{sum(len(run['visits']) for run in runs)} flash calls against their plain versions; worst error "
+          f"over its tolerance " + ", ".join(f"{k} {e:.3f}" for k, e in sorted(worst.items())), flush=True)
+    if set(worst) != {"fwd", "dq", "dkv"} or not max(worst.values()) <= 1.0:
+        fail(f"{name}: the flash calls disagree with their plain versions: {worst}")
+    want = {"flash_fwd": 2 * EP_LAYERS, "flash_fwd_scalar": 0, "flash_bwd_dq": EP_LAYERS,
+            "flash_bwd_dkv": EP_LAYERS, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    for r, run in enumerate(runs):
+        per_step = {n: c / EP_STEPS for n, c in run["launches"].items()}
+        if per_step != want:
+            fail(f"{name}: rank {r} launched {per_step} per step, want {want}")
+    losses = first["losses"]
+    print(f"  train {name}, the MoE of bench.py:389-400, global batch {EP_BATCH[0]}x{EP_BATCH[1]}, remat '': "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)} (warm-up first); against one process on the same "
+          f"batch (each data shard routed alone, as the ep path routes it): f32 {EP_F32_LAYERS} layers loss rel "
+          f"err {first['f32_loss_err']:.3e}, gathered grads max err of each leaf's largest "
+          f"{max(first['f32_leaf_err'].values()):.3e} (tol {SP_GRAD_TOLERANCE:.0e}); bf16 loss "
+          f"{first['ref_loss']:.4f} rel err {first['loss_err']:.3e} (tol {SP_LOSS_TOLERANCE:.0e}; from the f32 "
+          f"loss: sharded {first['loss_truth_errs'][0]:.3e}, one process {first['loss_truth_errs'][1]:.3e}), grads max "
+          f"err of the largest {first['grad_err']:.3e}; from the f32 gradients: sharded bf16 "
+          f"{first['grad_truth_err']:.3e}, one-process bf16 {first['ref_truth_err']:.3e} (tol: the one-process "
+          f"+ {BF16_ULP:.2e})", flush=True)
+    print("    per leaf, of its own largest: f32 sharded from f32 one process; bf16 sharded from f32, bf16 one "
+          "process from f32, bf16 sharded from bf16 one process: "
+          + "; ".join(f"{n} {first['f32_leaf_err'][n]:.2e}; " + ", ".join(f"{x:.2e}" for x in gaps)
+                      for n, gaps in first["bf16_leaf_gaps"].items()), flush=True)
+    want_bytes = _ep_bytes(plan, *EP_BATCH, cfg)
+    got_bytes = {k: (first["exchanges"][k] // EP_STEPS, first["exchanges"][k + "_bytes"] // EP_STEPS)
+                 for k in want_bytes}
+    print(f"    step {max(run['step_ms'] for run in runs):.1f} ms (host clock, slowest rank; per rank "
+          f"{[round(run['step_ms'], 1) for run in runs]}); peak memory per rank GB "
+          f"{[round(run['peak_gb'], 2) for run in runs]}; per step and rank, (exchanges, bytes) by kind "
+          f"{got_bytes} (from the shapes {want_bytes}); host waits of the staged transport "
+          f"{[run['exchanges']['host_waits'] // EP_STEPS for run in runs]}, the host's ms in them waiting for "
+          f"the device {[round(run['exchanges']['device_wait_s'] * 1e3 / EP_STEPS, 1) for run in runs]} and in "
+          f"the transfers {[round(run['exchanges']['transfer_s'] * 1e3 / EP_STEPS, 1) for run in runs]}; host "
+          f"syncs in {EP_STEPS} steps (sync debug mode) {[run['syncs'] for run in runs]}; tensor-core launches "
+          f"per step and rank {want}", flush=True)
+    step_ms = max(run["step_ms"] for run in runs)
+    print(f"    drop rate at layer 0's inputs per rank {[round(run['drop_rate'], 4) for run in runs]}; "
+          f"dispatch_only at a rank's tokens (all experts' picks) {first['dispatch_ms']:.4f} ms: dispatch "
+          f"share bound 3 x {EP_LAYERS} x {first['dispatch_ms']:.4f} / {step_ms:.1f} ms = "
+          f"{3 * EP_LAYERS * first['dispatch_ms'] / step_ms:.2%} on {smi}", flush=True)
+    if not (first["f32_loss_err"] <= SP_RING_TOLERANCE
+            and max(first["f32_leaf_err"].values()) <= SP_GRAD_TOLERANCE
+            and first["loss_err"] <= SP_LOSS_TOLERANCE
+            and first["grad_truth_err"] <= first["ref_truth_err"] + BF16_ULP):
+        fail(f"the ep step ({name}) disagrees with one process: "
+             f"{ {k: v for k, v in first.items() if k not in ('replicas', 'visits', 'checkpoint')} }")
+    if got_bytes != want_bytes:
+        fail(f"{name}: exchanges per step {got_bytes}, want from the shapes {want_bytes}")
+    bad = []
+    for leaf in first["replicas"]:
+        blocks = {}
+        for run in runs:
+            coords, digest = run["replicas"][leaf]
+            blocks.setdefault(coords, set()).add(digest)
+        bad += [leaf for d in blocks.values() if len(d) != 1]
+    print(f"    replicated leaves bit-equal across the ranks that hold them: "
+          f"{len(first['replicas']) - len(set(bad))} of {len(first['replicas'])} leaves", flush=True)
+    if bad:
+        fail(f"{name}: replicated leaves differ across ranks: {sorted(set(bad))}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"{name}: train losses not finite and falling: {losses}")
+    if any(run["syncs"] for run in runs):
+        fail(f"{name}: host syncs inside the steps: {[run['syncs'] for run in runs]}")
 
 
 def main() -> None:
@@ -3049,10 +3650,14 @@ def main() -> None:
     phase("11 the fsdp/tp sharded train step and the sharded checkpoint, ranks sharing this card")
     sp_launches.update(shard_phase(attention, smi))
 
+    phase("12 tensor-parallel generate, tp with shared kv heads and the ep MoE train step, ranks sharing "
+          "this card")
+    sp_launches.update(ep_phase(attention, smi))
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
 
-    def sp(name):  # phases 10 and 11's launches of the kernel, summed over their ranks
+    def sp(name):  # phases 10-12's launches of the kernel, summed over their ranks
         return {path: launched[name] for path, launched in sp_launches.items() if launched.get(name)}
 
     def timing_keys(t):

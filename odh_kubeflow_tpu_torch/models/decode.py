@@ -25,6 +25,21 @@ picks by their own count. The router's aux loss is dropped here.
 `generate` runs inside the `models.generate` hot region (transfer budget
 0): its tokens stay on the device, and under TORCHGUARD=1 a host sync
 inside it raises (`utils/torchguard.py`).
+
+`generate(mesh=)` runs tensor-parallel, as the reference's `generate` with
+its `_cache_constrainer`: the params are this rank's blocks
+(models.shard_params); each layer's fsdp blocks (and an MoE layer's expert
+stacks, to their ep block) are gathered once before the token loop; q/k/v,
+`wo` and the MLP are tp-parallel, the row-parallel sums in f32; the flat
+cache holds the rank's kv heads only (kv_heads/tp * batch, kv-head-major),
+so attention stays local (where tp does not divide kv_heads, each rank
+caches the kv heads its q heads read, shared with the ranks that read them
+too, as the reference leaves that cache unconstrained). The logits stay a
+vocab block per rank: greedy picks take the vocab-parallel argmax, and
+sampling draws the Gumbel noise over the whole vocab from the caller's
+generator on every rank, each adding its own slice, so a seed gives the
+one-process run's tokens. The prompt is not sharded: the ranks of dp,
+fsdp, sp and ep repeat the same tokens, as in the reference.
 """
 from __future__ import annotations
 
@@ -35,10 +50,20 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import matmul_f32, rms_norm
+from ..parallel import comm
 from ..utils import torchguard
+from .moe import _expert_blocks
 from .transformer import (
+    _FSDP_DIM,
     TransformerConfig,
     _attention,
+    _gathered,
+    _groups,
+    _local_cfg,
+    _rank_qkv,
+    _shared_kv,
+    check_mesh,
+    check_shards,
     check_supported,
     layer_post_attention,
     layer_qkv,
@@ -70,13 +95,23 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
     )
 
 
-def _layer_views(params, cfg: TransformerConfig) -> List[Dict[str, torch.Tensor]]:
+def _layer_views(params, cfg: TransformerConfig, mesh=None) -> List[Dict[str, torch.Tensor]]:
     """Per-layer weight views, taken once; a dense layer's gate|up are
     concatenated into one (d, 2f) `wi_fused` so each token does one FFN-in
-    matmul."""
+    matmul. With a mesh, the views hold what the rank's token step reads:
+    the fsdp blocks gathered whole, the expert stacks gathered to the
+    rank's ep block, and where tp does not divide kv_heads the rank's
+    columns of the replicated `wqkv`."""
+    lcfg = _local_cfg(cfg, mesh)
     views = []
     for layer in range(cfg.n_layers):
         lp = layer_view(params, layer)
+        if mesh is not None:
+            lp = _gathered(lp, [n for n in _FSDP_DIM if n in lp], cfg, mesh)
+            if cfg.moe is not None:
+                lp = _expert_blocks(lp, cfg.moe_resolved, mesh)
+            if _shared_kv(cfg, mesh):
+                lp["wqkv"] = _rank_qkv(lp["wqkv"], lcfg, mesh)
         if cfg.moe is None:
             lp["wi_fused"] = torch.cat([lp["wi_gate"], lp["wi_up"]], dim=-1)
         views.append(lp)
@@ -121,11 +156,12 @@ def _cached_attention_flat(q, k_cache, v_cache, valid, cfg: TransformerConfig):
 
 
 def _decode_layer(h, layer_params, k_cache, v_cache, positions, valid, pos: int,
-                  cfg: TransformerConfig, seq_major: bool = False):
+                  cfg: TransformerConfig, seq_major: bool = False, mesh=None):
     """One layer of single-token decode: QKV for the new token, in-place
     cache write at `pos`, grouped attention against the cache, projection +
-    MLP. `seq_major` selects the flat generate() cache layout."""
-    q, k, v = layer_qkv(h, layer_params, positions, cfg)  # q: (b,1,h,hd)
+    MLP. `seq_major` selects the flat generate() cache layout. With a mesh,
+    cfg has the rank's widths and the views are `_layer_views`'."""
+    q, k, v = layer_qkv(h, layer_params, positions, cfg, mesh)  # q: (b,1,h,hd)
     if seq_major:
         b = k.shape[0]
         # (b, 1, c, hd) -> kv-head-major (c*b, 1, hd)
@@ -136,29 +172,40 @@ def _decode_layer(h, layer_params, k_cache, v_cache, positions, valid, pos: int,
         k_cache[:, pos:pos + 1] = k
         v_cache[:, pos:pos + 1] = v
         attn = _cached_attention(q, k_cache, v_cache, valid, cfg)
-    return layer_post_attention(h, attn, layer_params, cfg)[0], k_cache, v_cache
+    x, _ = layer_post_attention(h, attn, layer_params, cfg, mesh, replicated_batch=True)
+    return x, k_cache, v_cache
 
 
-def _prompt_scan(params, tokens: torch.Tensor, cfg: TransformerConfig):
+def _whole_tables(params, mesh):
+    """(embedding table, unembedding) gathered whole over fsdp (the
+    unembedding stays the rank's vocab block under tp)."""
+    fsdp = _groups(mesh)[0]
+    return (comm.gather_shards(params["embed"], fsdp, 1),
+            comm.gather_shards(params["unembed"], fsdp, 0))
+
+
+def _prompt_scan(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
     """Shared prompt forward: last-position f32 logits (b, vocab) plus each
     layer's K/V, (b, s, kv_heads, head_dim). Flash attention does the
-    O(s^2) work."""
+    O(s^2) work. With a mesh: the rank's vocab block of the logits and its
+    kv heads (cfg's widths stay global; the layers run the rank's)."""
     check_supported(cfg)
     # inference prompts are natural-order on one device: plain contiguous
     # causal attention is right even for models trained sequence-sharded
-    cfg = replace(cfg, seq_axis="", seq_layout="contiguous")
+    cfg = _local_cfg(replace(cfg, seq_axis="", seq_layout="contiguous"), mesh)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params["embed"].to(cfg.dtype)[tokens]
+    embed, unembed = _whole_tables(params, mesh)
+    x = embed.to(cfg.dtype)[tokens]
     ks, vs = [], []
     for layer in range(cfg.n_layers):
         lp = layer_view(params, layer)
-        q, k, v = layer_qkv(x, lp, positions, cfg)
-        x = layer_post_attention(x, _attention(q, k, v, cfg), lp, cfg)[0]
+        q, k, v = layer_qkv(x, lp, positions, cfg, mesh)
+        x = layer_post_attention(x, _attention(q, k, v, cfg), lp, cfg, mesh, replicated_batch=True)[0]
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"])
-    return matmul_f32(x[:, -1], params["unembed"]), ks, vs
+    return matmul_f32(x[:, -1], unembed), ks, vs
 
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -201,16 +248,17 @@ def decode_step(params, cache: KVCache, token: torch.Tensor,
     return matmul_f32(x[:, 0], params["unembed"]), cache
 
 
-def _prefill_parts(params, tokens, cfg: TransformerConfig, max_seq: int):
+def _prefill_parts(params, tokens, cfg: TransformerConfig, max_seq: int, mesh=None):
     """Prompt forward returning last-position logits and per-layer FLAT
     (kv_heads*batch, max_seq, head_dim) cache buffers: the generate-loop
-    layout."""
+    layout (with a mesh, the rank's kv heads)."""
     b, s = tokens.shape
-    logits, ks, vs = _prompt_scan(params, tokens, cfg)
-    shape = (cfg.kv_heads * b, max_seq, cfg.head_dim)
+    logits, ks, vs = _prompt_scan(params, tokens, cfg, mesh)
+    kv = ks[0].shape[2]
+    shape = (kv * b, max_seq, cfg.head_dim)
 
     def flat(x):  # (b, s, c, d) -> (c*b, s, d)
-        return x.permute(2, 0, 1, 3).reshape(cfg.kv_heads * b, s, cfg.head_dim)
+        return x.permute(2, 0, 1, 3).reshape(kv * b, s, cfg.head_dim)
 
     caches = []
     for layer in range(cfg.n_layers):
@@ -240,9 +288,14 @@ def generate(
     jax.random's draws. It takes the Gumbel-max trick of
     jax.random.categorical: argmax of logits / temperature plus Gumbel
     noise. torch.multinomial would check its input on the host, a sync
-    inside the models.generate region."""
+    inside the models.generate region. With a mesh (this rank's device;
+    params this rank's blocks), every rank of it calls generate with the
+    same prompt and generator seed and returns the same tokens (the module
+    docstring); a pp axis raises."""
     if mesh is not None:
-        raise NotImplementedError("tensor-parallel generate over a mesh is not ported yet: ROADMAP Queue 1 item 13.1 (tp decode)")
+        check_mesh(mesh, cfg, "generate")
+        check_shards(params, cfg, mesh)
+        device = mesh.device
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
     b, s = prompt.shape
@@ -256,28 +309,34 @@ def generate(
     sample = temperature > 0.0
     if sample and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    tp = _groups(mesh)[1]
+    width = cfg.vocab // mesh.sizes["tp"] if mesh is not None else cfg.vocab
+    offset = mesh.index("tp") * width if mesh is not None else 0
 
     def pick(step_logits):
+        # step_logits: this rank's vocab block (the whole vocab off a mesh)
         if sample:
-            u = torch.rand(step_logits.shape, generator=generator, device=dev)
+            u = torch.rand((b, cfg.vocab), generator=generator, device=dev)
             gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
-            return (step_logits / temperature + gumbel).argmax(dim=-1)
-        return step_logits.argmax(dim=-1)
+            step_logits = step_logits / temperature + gumbel[:, offset:offset + width]
+        return comm.vocab_argmax(step_logits, tp, offset)
 
+    lcfg = _local_cfg(cfg, mesh)
     with torchguard.region("models.generate", dev):
-        logits, caches = _prefill_parts(params, prompt, cfg, max_seq)
-        layers = _layer_views(params, cfg)
+        logits, caches = _prefill_parts(params, prompt, cfg, max_seq, mesh)
+        layers = _layer_views(params, cfg, mesh)
+        embed, unembed = _whole_tables(params, mesh)
         token = pick(logits)
         out = [token]
         for pos in range(s, s + max_new - 1):
             positions = torch.full((b, 1), pos, dtype=torch.long, device=dev)
-            x = params["embed"].to(cfg.dtype)[token][:, None, :]
+            x = embed.to(cfg.dtype)[token][:, None, :]
             valid = torch.arange(max_seq, device=dev) <= pos
             for lp, (k_cache, v_cache) in zip(layers, caches):
                 x, _, _ = _decode_layer(
-                    x, lp, k_cache, v_cache, positions, valid, pos, cfg, seq_major=True
+                    x, lp, k_cache, v_cache, positions, valid, pos, lcfg, seq_major=True, mesh=mesh
                 )
             x = rms_norm(x, params["final_norm"])
-            token = pick(matmul_f32(x[:, 0], params["unembed"]))
+            token = pick(matmul_f32(x[:, 0], unembed))
             out.append(token)
         return torch.stack(out, dim=1)

@@ -12,8 +12,31 @@ consumed by one of two dispatches:
   combine products, O(N·E·C·d).
 
 Tokens routed to an expert past `capacity_factor * N * k / E` are dropped
-(combine weight 0). The expert-parallel paths (`_moe_ffn_manual`,
-`_moe_ffn_ep_indexed`) are not ported; `moe_ffn` refuses a mesh.
+(combine weight 0).
+
+Over a mesh (`moe_ffn(mesh=)`), as the reference's `moe_ffn` picks:
+
+- **a live ep axis** (`_moe_ffn_ep_indexed`, the reference's shard_map):
+  tokens are replicated over ep and keep their data shard (dp, fsdp, sp);
+  the expert stacks, stored cut over ep, fsdp (embed) and tp (mlp), are
+  gathered to their ep block at the boundary (the fsdp gather's gradient
+  reduce-scattered, the tp gather's sliced: every tp rank runs the same
+  experts on the same tokens); then `_moe_ffn_manual`: each ep rank routes
+  all its tokens with the whole router, slot-packs the picks of its own
+  experts and runs them, and one sum over ep completes the combine (there
+  is no all-to-all). Capacity comes from the shard's token count, and the
+  aux loss is averaged over the data axes.
+- **no live ep axis**: the reference's GSPMD routes the global batch, so
+  the port joins the data shards' tokens (all-gathered, the gradient
+  reduce-scattered), runs the one-device path on the whole batch with the
+  experts gathered whole, and keeps its own rows: exact, at the cost of
+  every data rank running every token's experts.
+
+`replicated_batch=True` (decode, whose ranks hold the whole batch) routes
+the whole batch as one, on either path: the reference's decode runs its
+layers without the mesh, so GSPMD routes the global batch there too.
+The dense dispatch over a live ep axis (the reference's einsum-induced
+all-to-alls, kept there for A/B) is not ported and raises.
 
 Nothing here syncs with the host: capacity comes from the static token
 count, and routing uses no `nonzero`, boolean-mask indexing or `.item()`.
@@ -32,6 +55,8 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..ops import matmul_f32
+from ..parallel import comm
+from ..parallel.mesh import REPLICA_AXES, data_axes, logical_to_spec
 
 
 @dataclass(frozen=True)
@@ -50,6 +75,8 @@ class MoEConfig:
 
 # the expert params of a layer (the transformer stacks them over layers)
 MOE_AXES = ("router", "we_gate", "we_up", "we_out")
+# an expert stack -> (its embed dim, its mlp dim) in one layer's view
+_EXPERT_DIMS = {"we_gate": (1, 2), "we_up": (1, 2), "we_out": (2, 1)}
 
 
 def _dense_init(generator: torch.Generator, shape, fan_in: int, dtype: torch.dtype,
@@ -260,18 +287,134 @@ def routing_stats(x: torch.Tensor, params, cfg: MoEConfig) -> Dict[str, Any]:
     }
 
 
-def moe_ffn(x: torch.Tensor, params, cfg: MoEConfig, mesh=None,
-            ep_axis: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn_manual(x: torch.Tensor, params, cfg: MoEConfig, ep_axis: str,
+                    mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ep rank's MoE over tokens replicated on its ep axis (the
+    reference's `moe.py:239-277`): the router is whole and the expert
+    stacks hold this rank's e_local experts. Every pick is routed as on
+    one device; the picks of other ranks' experts are masked, the rank's
+    own are slot-packed, run and combined, and the sum over ep completes
+    the combine. The aux loss comes from the whole router's logits, the
+    same on every ep rank. Capacity comes from this call's token count.
+    The rank's combine stays f32 into the sum over ep, which is cast
+    once, as one device rounds the combine; the reference casts each
+    rank's part before its sum (the same in f32, one more bf16 rounding
+    of every output there)."""
+    group = mesh.group(ep_axis)[0]
+    e_local = params["we_gate"].shape[0]
+    rank = mesh.index(ep_axis)
+    x = comm.ep_enter(x, group)
+    flat, capacity, logits = _route(x, params, cfg)
+    choice, gate, pos, keep, aux = route_indices(logits, cfg.experts_per_token, capacity)
+    local_choice = choice - rank * e_local
+    lkeep = keep & (local_choice >= 0) & (local_choice < e_local)
+    expert_in, dest, slot_pick = _indexed_dispatch(flat, local_choice, pos, lkeep, e_local, capacity)
+    expert_out = _expert_mlp(expert_in, params, x.dtype)
+    out = _indexed_combine(expert_out, dest, slot_pick, gate, lkeep, torch.float32)
+    return comm.ep_sum(out, group).to(x.dtype).reshape(x.shape), aux
+
+
+def _expert_blocks(params, cfg: MoEConfig, mesh):
+    """The layer's expert stacks gathered from their stored blocks to the
+    rank's ep block: over fsdp on the embed dim (ZeRO's gather: the ranks'
+    tokens differ, so the gradient is reduce-scattered) and over tp on the
+    mlp dim (every tp rank runs the same experts: the gradient is sliced).
+    A dim that is whole already (decode gathers its views once) is kept."""
+    fsdp, tp = mesh.group("fsdp")[0], mesh.group("tp")[0]
+    d = params["router"].shape[0]
+    out = dict(params)
+    for name, (embed_dim, mlp_dim) in _EXPERT_DIMS.items():
+        w = params[name]
+        if w.shape[embed_dim] != d:
+            w = comm.gather_shards(w, fsdp, embed_dim)
+        if w.shape[mlp_dim] != cfg.d_ff:
+            w = comm.gather_slices(w, tp, mlp_dim)
+        out[name] = w
+    return out
+
+
+def _data_cut(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's (batch, seq) block of a whole batch, as the reference's
+    shard_map cuts its (batch, seq) dims over the data axes."""
+    for dim, axes in enumerate(logical_to_spec(("batch", "seq"), mesh)):
+        if axes is not None:
+            n = mesh.size(axes)
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split over {axes} ({n})")
+            x = x.narrow(dim, mesh.index(axes) * (x.shape[dim] // n), x.shape[dim] // n)
+    return x
+
+
+def _data_join(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole batch from the data ranks' (batch, seq) blocks, in the
+    global order (the inverse of `_data_cut`), all-gathered over the
+    replica group; the gradient is reduce-scattered back to the block."""
+    group = mesh.group(REPLICA_AXES)[0]
+    if group is None:
+        return x
+    b, s = x.shape[:2]
+    n_b, n_s = mesh.size(("dp", "fsdp")), mesh.size("sp")
+    whole = comm.gather_shards(x.unsqueeze(0), group, 0)
+    whole = whole.reshape(n_b, n_s, b, s, *x.shape[2:]).transpose(1, 2)
+    return whole.reshape(n_b * b, n_s * s, *x.shape[2:])
+
+
+def _moe_ffn_ep_indexed(x: torch.Tensor, params, cfg: MoEConfig, mesh,
+                        replicated_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The live-ep path (the reference's `moe.py:339-393`): the expert
+    stacks gathered to their ep block, `_moe_ffn_manual` on this rank's
+    data shard (the whole batch with replicated_batch), the aux loss
+    averaged over the data axes. Its gradient
+    counts the aux once: every ep rank holds the same aux and sums its
+    tokens' and the router's gradients over ep, and every data rank
+    differentiates its own share (the sums over the data axes follow)."""
+    axes = () if replicated_batch else data_axes(mesh)
+    out, aux = _moe_ffn_manual(x, _expert_blocks(params, cfg, mesh), cfg, "ep", mesh)
+    n_data = mesh.size(axes) if axes else 1
+    aux = comm.aux_mean(aux, mesh.group(REPLICA_AXES)[0] if axes else None,
+                        1.0 / (n_data * mesh.size("ep")))
+    return out, aux
+
+
+def _moe_ffn_global(x: torch.Tensor, params, cfg: MoEConfig, mesh,
+                    replicated_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """No live ep axis: the global batch routed as on one device (the
+    reference's GSPMD path), on every data rank, which keeps its own rows.
+    The aux loss is the global batch's on every rank; its gradient counts
+    it once over the data ranks."""
+    axes = data_axes(mesh)
+    whole = x if replicated_batch else _data_join(x, mesh)
+    ffn = _moe_ffn_dense if cfg.dispatch == "dense" else _moe_ffn_indexed
+    out, aux = ffn(whole, _expert_blocks(params, cfg, mesh), cfg)
+    n_data = 1 if replicated_batch or not axes else mesh.size(axes)
+    aux = comm.aux_mean(aux, None, 1.0 / n_data)
+    return (out if replicated_batch else _data_cut(out, mesh)), aux
+
+
+def moe_ffn(x: torch.Tensor, params, cfg: MoEConfig, mesh=None, ep_axis: str = "",
+            replicated_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(batch, seq, d) -> (batch, seq, d) in x's dtype, and the router aux
     loss (0-d f32). `params` holds the MOE_AXES names (a layer's view may
-    hold more)."""
-    if mesh is not None or ep_axis:
-        raise NotImplementedError(
-            "expert parallelism (a mesh or ep_axis: _moe_ffn_ep_indexed, _moe_ffn_manual) "
-            "is not ported yet: ROADMAP Queue 1 item 13.4 (the ep MoE)"
-        )
-    if cfg.dispatch in ("auto", "indexed"):
-        return _moe_ffn_indexed(x, params, cfg)
+    hold more). The path is picked as the reference's `moe_ffn` picks it:
+    `ep_axis` (a caller whose tokens are replicated over that axis and
+    whose expert stacks are the rank's ep block) runs `_moe_ffn_manual`;
+    a mesh (x this rank's data shard, or with replicated_batch the whole
+    batch; the stacks this rank's stored blocks) runs the ep path where ep
+    is live, else the global batch's routing; no mesh runs on one
+    device."""
+    if cfg.dispatch not in ("auto", "indexed", "dense"):
+        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}: use auto, indexed or dense")
+    if ep_axis:
+        return _moe_ffn_manual(x, params, cfg, ep_axis, mesh)
+    if mesh is not None:
+        if mesh.sizes["ep"] > 1:
+            if cfg.dispatch == "dense":
+                raise NotImplementedError(
+                    "the dense MoE dispatch over a live ep axis (the reference's einsum-induced "
+                    "all-to-alls, kept for A/B) is not ported: use dispatch auto or indexed"
+                )
+            return _moe_ffn_ep_indexed(x, params, cfg, mesh, replicated_batch)
+        return _moe_ffn_global(x, params, cfg, mesh, replicated_batch)
     if cfg.dispatch == "dense":
         return _moe_ffn_dense(x, params, cfg)
-    raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}: use auto, indexed or dense")
+    return _moe_ffn_indexed(x, params, cfg)

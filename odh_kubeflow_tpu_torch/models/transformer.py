@@ -2,7 +2,7 @@
 odh_kubeflow_tpu/models/transformer.py), dense or MoE.
 
 On one device, or with a `mesh` (parallel.MeshPlan.build) of data (dp,
-fsdp), tensor (tp) and sequence (sp) axes: each rank then runs its local
+fsdp), expert (ep), tensor (tp) and sequence (sp) axes: each rank then runs its local
 (batch, seq) shard (parallel.shard_batch) with global positions on its
 shard of the params (`param_specs`; models.shard_params cuts them), and
 the loss and gradients are the global ones. fsdp: every leaf is cut on its
@@ -16,10 +16,18 @@ f32 and then cast (the reference's rounding point), and the residual
 stream stays replicated over tp; attention, flash or the ring over sp, runs
 on the rank's own h/tp query and kv_heads/tp kv heads, so a rank's `wqkv`
 block holds its own [q | k | v] heads (on disk and in the checksum the leaf
-keeps the reference's global layout). The loss is taken over the vocab
-shards (max, sum of exponentials and the target logit over tp). Experts
-(ep) and stages (pp) raise NotImplementedError naming the ROADMAP item
-that ports them.
+keeps the reference's global layout). Where tp does not divide kv_heads
+(a rank's q heads read a kv head another rank's read too), `wqkv` is
+stored replicated over tp, and each rank slices its q heads and the kv
+heads they read from it, its gradient summed over tp; the reference
+replicates the fused axis only where tp does not divide it and reshards
+it otherwise (GSPMD), so the storage differs there and the result does
+not. The loss is taken over the vocab shards (max, sum of exponentials
+and the target logit over tp). An MoE config runs `moe_ffn(mesh=)`: its
+input stays replicated over tp (every tp rank runs the same experts on
+the same tokens, as the reference's GSPMD does) and over ep (models/moe.py);
+the loss adds router_aux_weight times the aux loss over n_layers. Stages
+(pp) raise NotImplementedError naming the ROADMAP item that ports them.
 
 Parameters are plain dicts of tensors in the JAX package's layout, stacked
 over layers: ``layers[name]`` is ``(L, ...)`` and the QKV projection is one
@@ -231,16 +239,40 @@ def param_specs(cfg: TransformerConfig, mesh=None) -> Dict[str, Any]:
     return {**top, "layers": layers}
 
 
+def _shared_kv(cfg: TransformerConfig, mesh) -> bool:
+    """Whether a tp rank's q heads read kv heads that another rank's read
+    too (kv_heads % tp != 0)."""
+    return mesh is not None and cfg.kv_heads % mesh.sizes["tp"] != 0
+
+
+def _rank_kv_heads(n_heads: int, kv_heads: int, tp: int, rank: int) -> list:
+    """The kv heads tp rank `rank`'s q heads read, where tp does not divide
+    kv_heads: one head when the rank's q heads all fall in one group (the
+    group size a multiple of h/tp), else one per q head (repeated where
+    two of them share it), so every rank has the same count."""
+    group, local = n_heads // kv_heads, n_heads // tp
+    heads = [(rank * local + i) // group for i in range(local)]
+    return heads[:1] if group % local == 0 else heads
+
+
 def param_placements(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
     """`param_specs` as parallel.Placements: where tp cuts the fused QKV
     head axis, a rank's block is its own q, k and v heads (the segments
-    n_heads, kv_heads, kv_heads, each cut over tp)."""
+    n_heads, kv_heads, kv_heads, each cut over tp); where tp does not
+    divide kv_heads, the fused axis is replicated over tp (each rank
+    slices the heads it reads: `_rank_qkv`)."""
     specs = param_specs(cfg, mesh)
     out = {k: Placement(v) for k, v in specs.items() if k != "layers"}
     out["layers"] = {k: Placement(v) for k, v in specs["layers"].items()}
     wqkv = specs["layers"]["wqkv"]
     if len(wqkv) > 2 and wqkv[2] is not None:
-        out["layers"]["wqkv"] = Placement(wqkv, ((2, (cfg.n_heads, cfg.kv_heads, cfg.kv_heads)),))
+        if _shared_kv(cfg, mesh):
+            spec = wqkv[:2]
+            while spec and spec[-1] is None:
+                spec = spec[:-1]
+            out["layers"]["wqkv"] = Placement(spec)
+        else:
+            out["layers"]["wqkv"] = Placement(wqkv, ((2, (cfg.n_heads, cfg.kv_heads, cfg.kv_heads)),))
     return out
 
 
@@ -254,15 +286,14 @@ def train_state_placements(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
 
 # mesh axis -> the ROADMAP Queue 1 item that ports the model over it
 _MESH_ITEMS = {
-    "ep": "item 13.4 (the ep MoE)",
     "pp": "item 13.5 (the pipelines)",
 }
 
 
 def check_mesh(mesh, cfg: TransformerConfig, what: str) -> None:
-    """Raise for what the mesh path does not run: an ep or pp axis, an MoE
-    config, kv_heads that tp does not divide, a width that its axis does
-    not divide, or a live sp axis without cfg.seq_axis = "sp"."""
+    """Raise for what the mesh path does not run: a pp axis, a width that
+    its axis does not divide, or a live sp axis without cfg.seq_axis =
+    "sp"."""
     if mesh is None:
         return
     for axis, item in _MESH_ITEMS.items():
@@ -270,22 +301,15 @@ def check_mesh(mesh, cfg: TransformerConfig, what: str) -> None:
             raise NotImplementedError(
                 f"{what} over a mesh with {axis}={mesh.sizes[axis]} is not ported yet: ROADMAP Queue 1 {item}"
             )
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{what} of an MoE config over a mesh is not ported yet: ROADMAP Queue 1 {_MESH_ITEMS['ep']}"
-        )
-    tp, fsdp = mesh.sizes["tp"], mesh.sizes["fsdp"]
-    if cfg.kv_heads % tp:
-        # a rank's q heads would share kv heads with another rank's: the
-        # reference's GSPMD reshards the fused axis, the port keeps each
-        # rank's own [q | k | v] heads (where tp does not divide the fused
-        # axis either, the reference replicates it: the same configs)
-        raise NotImplementedError(
-            f"{what} with kv_heads={cfg.kv_heads} over tp={tp} (kv_heads % tp != 0) is not ported yet: "
-            "ROADMAP Queue 1 item 13.1 (tp decode, and tp with shared kv heads)"
-        )
-    for name, n, axis, size in (("n_heads", cfg.n_heads, "tp", tp), ("d_ff", cfg.d_ff, "tp", tp),
-                                ("vocab", cfg.vocab, "tp", tp), ("d_model", cfg.d_model, "fsdp", fsdp)):
+    tp, fsdp, ep = mesh.sizes["tp"], mesh.sizes["fsdp"], mesh.sizes["ep"]
+    widths = [("n_heads", cfg.n_heads, "tp", tp), ("vocab", cfg.vocab, "tp", tp),
+              ("d_model", cfg.d_model, "fsdp", fsdp)]
+    moe = cfg.moe_resolved
+    if moe is None:
+        widths.append(("d_ff", cfg.d_ff, "tp", tp))
+    else:
+        widths += [("the experts' d_ff", moe.d_ff, "tp", tp), ("n_experts", moe.n_experts, "ep", ep)]
+    for name, n, axis, size in widths:
         if n % size:
             raise ValueError(f"{name}={n} does not split over {axis}={size}")
     if cfg.seq_axis not in ("", "sp"):
@@ -302,25 +326,48 @@ def _groups(mesh):
 
 
 def _local_cfg(cfg: TransformerConfig, mesh) -> TransformerConfig:
-    """cfg with the widths of one tp rank's shard (its heads, kv heads and
-    d_ff; head_dim pinned), as the layer functions consume them."""
+    """cfg with the widths of one tp rank's shard (its heads, the kv heads
+    they read: kv_heads/tp, or `_rank_kv_heads`' count where tp does not
+    divide kv_heads; d_ff; head_dim pinned), as the layer functions consume
+    them. An MoE config keeps its experts' width (they run whole)."""
     tp = mesh.sizes["tp"] if mesh is not None else 1
     if tp == 1:
         return cfg
-    return replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.kv_heads // tp,
-                   d_ff=cfg.d_ff // tp, head_dim_override=cfg.head_dim)
+    kv = (len(_rank_kv_heads(cfg.n_heads, cfg.kv_heads, tp, 0)) if _shared_kv(cfg, mesh)
+          else cfg.kv_heads // tp)
+    return replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=kv, d_ff=cfg.d_ff // tp,
+                   head_dim_override=cfg.head_dim, moe=cfg.moe_resolved)
 
 
-def _gathered(layer_params, names, mesh):
+def _gathered(layer_params, names, cfg: TransformerConfig, mesh):
     """The layer's weights `names` gathered whole over fsdp (ZeRO-3: before
-    use; the gradient is reduce-scattered back to the block)."""
+    use; the gradient is reduce-scattered back to the block). A weight
+    whose embed dim is whole already (decode gathers its views once) is
+    kept."""
     fsdp = _groups(mesh)[0]
     if fsdp is None:
         return layer_params
     out = dict(layer_params)
     for name in names:
-        out[name] = comm.gather_shards(layer_params[name], fsdp, _FSDP_DIM[name])
+        if layer_params[name].shape[_FSDP_DIM[name]] != cfg.d_model:
+            out[name] = comm.gather_shards(layer_params[name], fsdp, _FSDP_DIM[name])
     return out
+
+
+def _rank_qkv(w, cfg: TransformerConfig, mesh):
+    """A layer's whole fused QKV weight (d, h + 2*kv, head_dim), replicated
+    over tp where tp does not divide kv_heads, cut to the columns this tp
+    rank reads: its q heads, then the kv heads they read (`_rank_kv_heads`)
+    of k and of v. cfg has the rank's widths (`_local_cfg`). A slice's
+    gradient is the rank's part of the leaf's, summed over tp later."""
+    tp = mesh.sizes["tp"]
+    local, h = cfg.n_heads, cfg.n_heads * tp
+    kv = (w.shape[1] - h) // 2
+    rank = mesh.index("tp")
+    heads = _rank_kv_heads(h, kv, tp, rank)
+    return torch.cat([w[:, rank * local:(rank + 1) * local]]
+                     + [w[:, h + j:h + j + 1] for j in heads]
+                     + [w[:, h + kv + j:h + kv + j + 1] for j in heads], dim=1)
 
 
 def _row_parallel(a, w, cfg: TransformerConfig, tp):
@@ -331,9 +378,16 @@ def _row_parallel(a, w, cfg: TransformerConfig, tp):
 
 def _global_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     d, h, hd, f, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers
-    return {"embed": (cfg.vocab, d), "final_norm": (d,), "unembed": (d, cfg.vocab), "layers": {
-        "attn_norm": (L, d), "wqkv": (L, d, h + 2 * cfg.kv_heads, hd), "wo": (L, h, hd, d),
-        "mlp_norm": (L, d), "wi_gate": (L, d, f), "wi_up": (L, d, f), "wo_mlp": (L, f, d)}}
+    layers = {"attn_norm": (L, d), "wqkv": (L, d, h + 2 * cfg.kv_heads, hd), "wo": (L, h, hd, d),
+              "mlp_norm": (L, d)}
+    moe = cfg.moe_resolved
+    if moe is None:
+        layers.update({"wi_gate": (L, d, f), "wi_up": (L, d, f), "wo_mlp": (L, f, d)})
+    else:
+        e, fe = moe.n_experts, moe.d_ff
+        layers.update({"router": (L, d, e), "we_gate": (L, e, d, fe), "we_up": (L, e, d, fe),
+                       "we_out": (L, e, fe, d)})
+    return {"embed": (cfg.vocab, d), "final_norm": (d,), "unembed": (d, cfg.vocab), "layers": layers}
 
 
 def check_shards(params, cfg: TransformerConfig, mesh) -> None:
@@ -376,9 +430,12 @@ def layer_qkv(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
     has one tp rank's widths (_local_cfg) and the weights are its blocks:
     wqkv is gathered over fsdp and its input enters the tp shard."""
     tp = _groups(mesh)[1]
-    layer_params = _gathered(layer_params, ("wqkv",), mesh)
+    layer_params = _gathered(layer_params, ("wqkv",), cfg, mesh)
     y = comm.tp_enter(rms_norm(x, layer_params["attn_norm"]), tp)
-    qkv = torch.einsum("bsd,dnh->bsnh", y, layer_params["wqkv"])
+    w = layer_params["wqkv"]
+    if w.shape[1] != cfg.n_heads + 2 * cfg.kv_heads:
+        w = _rank_qkv(w, cfg, mesh)
+    qkv = torch.einsum("bsd,dnh->bsnh", y, w)
     h, kv = cfg.n_heads, cfg.kv_heads
     q, k, v = qkv.split([h, kv, kv], dim=2)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -386,23 +443,31 @@ def layer_qkv(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
     return q, k, v
 
 
-def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=None):
+def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=None,
+                         replicated_batch: bool = False):
     """Output projection + MLP (routed experts or dense SwiGLU). Returns
     (x, aux): aux is the layer's router aux loss (0-d f32) for MoE, and the
     Python float 0.0 for a dense layer (no device op). The dense SwiGLU
     uses the pre-concatenated `wi_fused` (d, 2f) when the view carries one
     (the decode fast path). With a mesh, as layer_qkv: the weights are
-    gathered over fsdp, and under tp wo and wo_mlp are row-parallel."""
+    gathered over fsdp, under tp wo and wo_mlp are row-parallel, and an
+    MoE layer runs `moe_ffn(mesh=)` on its input replicated over tp
+    (replicated_batch: x is the whole batch on every rank, as in decode)."""
     tp = _groups(mesh)[1]
-    layer_params = _gathered(layer_params, ("wo", "wi_gate", "wi_up", "wo_mlp"), mesh)
+    dense = ("wi_gate", "wi_up", "wo_mlp") if cfg.moe is None else ()
+    layer_params = _gathered(layer_params, ("wo",) + dense, cfg, mesh)
     if tp is None:
         x = x + torch.einsum("bsnh,nhd->bsd", attn, layer_params["wo"])
     else:
         x = x + _row_parallel(attn.flatten(2), layer_params["wo"].flatten(0, 1), cfg, tp)
-    y = comm.tp_enter(rms_norm(x, layer_params["mlp_norm"]), tp)
     if cfg.moe is not None:
-        mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved)
+        y = rms_norm(x, layer_params["mlp_norm"])
+        if mesh is None:
+            mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved)
+        else:
+            mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved, mesh, "", replicated_batch)
         return x + mlp_out, aux
+    y = comm.tp_enter(rms_norm(x, layer_params["mlp_norm"]), tp)
     wi_fused = layer_params.get("wi_fused")
     if wi_fused is not None:
         gate, up = matmul_f32(y, wi_fused).chunk(2, dim=-1)
@@ -628,7 +693,7 @@ def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
             'seq_layout="zigzag" needs explicit batch targets/loss_mask '
             "(models.make_zigzag_batch)"
         )
-    logits = forward(params, tokens, cfg, mesh, positions=batch.get("positions"))
+    logits, aux = forward(params, tokens, cfg, mesh, positions=batch.get("positions"), with_aux=True)
     if targets is None:
         targets, mask = _next_token_targets(tokens, mesh, cfg)
     else:
@@ -645,7 +710,12 @@ def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
     num_all, den_all = comm.all_reduce_sum([num.detach(), mask.sum()],
                                            mesh.group(REPLICA_AXES)[0])
     den = den_all.clamp_min(1.0)
-    return _GlobalValue.apply(-num / den, -num_all / den)
+    loss = _GlobalValue.apply(-num / den, -num_all / den)
+    if cfg.moe is not None:
+        # the aux loss is the same on every rank; its gradient counts it
+        # once over the ranks (models/moe.py)
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def make_zigzag_batch(tokens, sp: int):
@@ -668,23 +738,43 @@ def make_zigzag_batch(tokens, sp: int):
     }
 
 
+def _leaf_names(tree) -> list:
+    """The last key of each leaf's path, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in (_leaf_names(v) if isinstance(v, dict) else [k])]
+    return [None]
+
+
 def _sum_grads(grads, params, cfg: TransformerConfig, mesh):
     """The global gradients of this rank's blocks: a leaf that fsdp cuts,
     already reduce-scattered over fsdp by its gather, is summed over dp and
     sp; every other leaf over dp, fsdp and sp (each group in f32 in one
-    buffer, then cast to the leaf's dtype). tp needs no sum: a leaf cut
-    over tp has its own gradient on each rank, and a leaf replicated over
-    tp the same bits on each (its input's gradient was summed over tp)."""
+    buffer; the leaf's dtype at the end). Before those: the router's, a
+    partial sum on each ep rank (its own experts' gates; the aux loss's
+    part counted 1/ep a rank), is summed over ep, and where tp does not
+    divide kv_heads the replicated `wqkv`'s, a partial sum on each tp rank
+    (its q heads and the kv heads they read), over tp. No other leaf is
+    summed over tp or ep: a leaf cut over them has its own gradient on
+    each rank (an expert stack gathered over tp has the same one on every
+    tp rank, sliced), and a leaf replicated over them the same bits on
+    each (its input's gradient was summed over tp and ep where it
+    entered)."""
     placements = tree_leaves(tree_map(lambda _, pl: pl, params, param_placements(cfg, mesh)))
+    names = _leaf_names(params)
     out = list(grads)
-    for sharded, axes in ((True, DATA_SEQ_AXES), (False, REPLICA_AXES)):
-        group = mesh.group(axes)[0]
-        idx = [i for i, pl in enumerate(placements) if ("fsdp" in pl.axes()) == sharded]
+
+    def add(idx, group):
         if group is None or not idx:
-            continue
-        for i, summed in zip(idx, comm.all_reduce_sum([grads[i] for i in idx], group)):
-            out[i] = summed.to(grads[i].dtype)
-    return out
+            return
+        for i, summed in zip(idx, comm.all_reduce_sum([out[i] for i in idx], group)):
+            out[i] = summed
+
+    if _shared_kv(cfg, mesh):
+        add([i for i, n in enumerate(names) if n == "wqkv"], mesh.group("tp")[0])
+    add([i for i, n in enumerate(names) if n == "router"], mesh.group("ep")[0])
+    for sharded, axes in ((True, DATA_SEQ_AXES), (False, REPLICA_AXES)):
+        add([i for i, pl in enumerate(placements) if ("fsdp" in pl.axes()) == sharded], mesh.group(axes)[0])
+    return [o.to(g.dtype) for o, g in zip(out, grads)]
 
 
 def value_and_grad(params, batch, cfg: TransformerConfig, mesh=None):

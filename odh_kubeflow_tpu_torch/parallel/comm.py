@@ -23,11 +23,25 @@ CUDA tensor over gloo is staged so. That copy is explicit and counted: the
 host waits for each staged payload before it sends it
 (`exchange_counts["host_waits"]`).
 
+The expert-parallel pair (`ep_enter`, `ep_sum`) is the tp pair over ep:
+tokens are replicated over ep, each ep rank's experts give a partial
+output, summed over ep (the reference's `lax.psum` inside its shard_map);
+the output's cotangent is the same on every ep rank, so the sum's
+gradient is the identity, and the tokens' gradient, partial on each ep
+rank, is summed over ep where they enter. `gather_slices` joins blocks
+that every rank then uses alike (the experts over tp): its gradient is
+this rank's block of the gradient, sliced, not summed. `aux_mean` is the
+mean of a per-rank scalar over a group whose gradient is scaled by the
+caller (the MoE aux loss). `vocab_argmax` is the argmax over a
+vocab-parallel row without gathering it.
+
 `exchange_counts` counts each kind of exchange and its bytes: "ring" (the
 payload this rank sends), "sum" (sums over the data axes: gradients and
 the loss), "gather" (the gathered tensor), "scatter" (the f32 tensor
 reduce-scattered), "tp_sum" (the tensor-parallel sums, forward and
-backward) and "vocab" (the vocab-parallel loss's max and sums over tp).
+backward), "vocab" (the vocab-parallel loss's max and sums over tp), "ep"
+(the expert-parallel sums, forward and backward), "aux" (the aux loss's
+mean) and "argmax" (the vocab-parallel argmax's max and index).
 """
 from __future__ import annotations
 
@@ -46,7 +60,7 @@ STAGED = "gloo, staged through pinned host memory"
 _all_gather_tensor = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 _reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
 
-KINDS = ("ring", "sum", "gather", "scatter", "tp_sum", "vocab")
+KINDS = ("ring", "sum", "gather", "scatter", "tp_sum", "vocab", "ep", "aux", "argmax")
 # counts since the last reset_exchange_counts(): the exchanges of each kind
 # and their bytes (`<kind>_bytes`), the host waits of staged transfers, and
 # the host's seconds blocked in them: waiting for the device to hand over a
@@ -301,18 +315,19 @@ class GatherShards(torch.autograd.Function):
 
 
 class TpEnter(torch.autograd.Function):
-    """The identity at a column-parallel input (replicated over tp); its
-    gradient, a partial sum on each tp rank, is summed over tp in f32 and
-    cast to the input's dtype (Megatron's f)."""
+    """The identity at a column-parallel input (replicated over tp, or over
+    ep at the experts' input); its gradient, a partial sum on each rank, is
+    summed over the group in f32 and cast to the input's dtype (Megatron's
+    f)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_sum([grad], ctx.group, "tp_sum")[0].to(grad.dtype), None
+        return all_reduce_sum([grad], ctx.group, ctx.kind)[0].to(grad.dtype), None, None
 
 
 class TpSum(torch.autograd.Function):
@@ -330,7 +345,7 @@ class TpSum(torch.autograd.Function):
 
 
 def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
-    return x if group is None else TpEnter.apply(x, group)
+    return x if group is None else TpEnter.apply(x, group, "tp_sum")
 
 
 def tp_sum(x: torch.Tensor, group, kind: str = "tp_sum") -> torch.Tensor:
@@ -339,3 +354,74 @@ def tp_sum(x: torch.Tensor, group, kind: str = "tp_sum") -> torch.Tensor:
 
 def gather_shards(block: torch.Tensor, group, dim: int) -> torch.Tensor:
     return block if group is None else GatherShards.apply(block, group, dim)
+
+
+def ep_enter(x: torch.Tensor, group) -> torch.Tensor:
+    """The tokens entering the experts of an ep rank: the identity, whose
+    gradient is summed over ep."""
+    return x if group is None else TpEnter.apply(x, group, "ep")
+
+
+def ep_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ep of the experts' partial outputs, in f32; its
+    gradient is the identity."""
+    return x.float() if group is None else TpSum.apply(x, group, "ep")
+
+
+class GatherSlices(torch.autograd.Function):
+    """The blocks of a group joined along `dim`, for ranks that then compute
+    the same thing from the whole (the experts over tp): the gradient is
+    the same on every rank of the group, and a rank's block of it is
+    sliced out, with no exchange."""
+
+    @staticmethod
+    def forward(ctx, block, group, dim):
+        ctx.dim, ctx.width = dim, block.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather(block, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.width, ctx.width), None, None
+
+
+def gather_slices(block: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return block if group is None else GatherSlices.apply(block, group, dim)
+
+
+class AuxMean(torch.autograd.Function):
+    """The mean over `group` of a 0-d f32 value (a sum in f32 over the
+    group, then divided by its size); the gradient is `grad_scale` times
+    the incoming one, with no exchange: the caller says how many ranks
+    count the same term (each rank differentiates its own share)."""
+
+    @staticmethod
+    def forward(ctx, x, group, grad_scale):
+        ctx.grad_scale = grad_scale
+        if group is None:
+            return x.float().clone()
+        return all_reduce_sum([x], group, "aux")[0] / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.grad_scale, None, None
+
+
+def aux_mean(x: torch.Tensor, group, grad_scale: float) -> torch.Tensor:
+    return AuxMean.apply(x, group, grad_scale)
+
+
+def vocab_argmax(logits: torch.Tensor, group, offset: int) -> torch.Tensor:
+    """argmax over the last dim of a row cut into vocab blocks over `group`
+    (this rank's block starts at global index `offset`), without gathering
+    it: each rank's block maximum, the max over the group
+    (`all_reduce_max`), then the lowest global index among the ranks that
+    hold it, so ties go to the lowest index as `argmax`'s do. Returns int64
+    global indices; `group` None is the plain argmax."""
+    if group is None:
+        return logits.argmax(dim=-1)
+    value, index = logits.max(dim=-1)
+    top = all_reduce_max(value, group, "argmax")
+    lowest = torch.iinfo(torch.int64).min
+    cand = torch.where(value == top, -(index + offset), torch.full_like(index, lowest))
+    return -all_reduce_max(cand, group, "argmax")

@@ -15,9 +15,11 @@ creates a `dist.new_group` for each tuple of GROUP_AXES that is live, in
 that order on every rank (`new_group` is collective): the sp ring; tp, which
 the tensor-parallel products sum over; fsdp, which a layer's weights are
 gathered over and their gradients reduce-scattered over; (dp, sp), which
-the gradients of fsdp-sharded params are then summed over; and the replica
+the gradients of fsdp-sharded params are then summed over; the replica
 (dp, fsdp, sp), which the loss and the gradients of every other param are
-summed over. `Mesh.ranks` names any axes' ranks without a group. Plain
+summed over; and ep, which the experts' outputs and the router's gradients
+are summed over (appended last, so the groups of meshes without a live ep
+axis keep their order). `Mesh.ranks` names any axes' ranks without a group. Plain
 groups rather than a `DeviceMesh`: a DeviceMesh binds each rank to a
 device of its own and creates a communicator per dim for its device type,
 and the ranks of a one-card run share one device on the gloo backend.
@@ -67,8 +69,8 @@ REPLICA_AXES = ("dp", "fsdp", "sp")
 DATA_SEQ_AXES = ("dp", "sp")
 # the axis tuples a mesh makes process groups for, in creation order: the
 # ring, the tensor-parallel sums, the ZeRO gathers and reduce-scatters, the
-# sharded params' gradient sum, and the replica
-GROUP_AXES = (("sp",), ("tp",), ("fsdp",), DATA_SEQ_AXES, REPLICA_AXES)
+# sharded params' gradient sum, the replica, and the expert sums
+GROUP_AXES = (("sp",), ("tp",), ("fsdp",), DATA_SEQ_AXES, REPLICA_AXES, ("ep",))
 
 
 @dataclass(frozen=True)
@@ -332,6 +334,18 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]], mesh=None) -> tuple:
         out.append(live(RULES[name]))
     while out and out[-1] is None:
         out.pop()
+    return tuple(out)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The live mesh axes of an activation's (batch, seq) dims (the axes of
+    `logical_to_spec(("batch", "seq", None), mesh)`): the axes a token
+    shard's statistics are averaged over, as the reference's
+    `_moe_ffn_ep_indexed` averages its aux loss. Their group is the
+    replica's (REPLICA_AXES)."""
+    out = []
+    for entry in logical_to_spec(("batch", "seq", None), mesh):
+        out.extend(_axes_of(entry))
     return tuple(out)
 
 

@@ -10,7 +10,9 @@ layer and train step on the card (against the CPU, and bit-equal when
 repeated); two engines with check_syncs on threads of one process, and
 generate() under the armed guard; the sharded step's flash calls at its
 per-rank shapes, parallel.comm's collectives on CUDA tensors over gloo
-against their CPU results, and the fsdp 2 x tp 2 step against one process.
+against their CPU results, and the fsdp 2 x tp 2 step against one process;
+tp generate at tp 2, the tp 4 step with n_kv_heads 2, and the ep 2 x tp 2
+MoE layer and step, against one process on the card.
 They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
@@ -658,17 +660,24 @@ def test_sharded_step_flash_calls_on_card(card, shape):
 def test_comm_collectives_on_card_match_cpu(card):
     """Each collective of parallel.comm and its autograd Functions on CUDA
     tensors over gloo (staged) against the same on CPU tensors: the same
-    bits, and the staged transport's host waits counted."""
+    bits, and the staged transport's host waits counted; the ep pair,
+    gather_slices, aux_mean and vocab_argmax too."""
     import torch_dist
 
     res = torch_dist.run_ranks(2, [(dev, "torch_shard_cases:comm_case", dict(device=dev))
-                                   for dev in ("cpu", "cuda")], device="cuda")
+                                   for dev in ("cpu", "cuda")]
+                               + [("ep " + dev, "torch_ep_cases:comm_ep_case", dict(device=dev))
+                                  for dev in ("cpu", "cuda")], device="cuda")
     for r in range(2):
         got, want = res["cuda"][r], res["cpu"][r]
         assert want["host_waits"] == 0 and got["host_waits"] > 0
         for name in want:
             if name == "host_waits":
                 continue
+            for g, w in zip(_flat(got[name]), _flat(want[name])):
+                np.testing.assert_array_equal(g, w, err_msg=f"rank {r} {name}")
+        got, want = res["ep cuda"][r], res["ep cpu"][r]
+        for name in want:
             for g, w in zip(_flat(got[name]), _flat(want[name])):
                 np.testing.assert_array_equal(g, w, err_msg=f"rank {r} {name}")
 
@@ -709,3 +718,123 @@ def test_sharded_train_step_on_card_matches_one_process(card):
             coords, digest = r["replicas"][name]
             blocks.setdefault(coords, set()).add(digest)
         assert all(len(d) == 1 for d in blocks.values()), name
+
+
+# tensor-parallel generate, shared kv heads and the ep MoE on the card:
+# ranks spawned on the one card share it over gloo, as above
+
+SMALL = dict(vocab=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512, dtype=torch.float32)
+SHARED_CFG = TransformerConfig(**SMALL, remat=True, remat_policy="flash")
+EP_CFG = TransformerConfig(**SMALL, remat=True, remat_policy="",
+                           moe=MoEConfig(n_experts=4, experts_per_token=2, capacity_factor=1.25, d_ff=256))
+EP_MOE = MoEConfig(n_experts=4, experts_per_token=2, capacity_factor=1.25, d_ff=64)
+EP_FFN_PLANS = {"ep2-tp2": {"ep": 2, "tp": 2}, "ep2-fsdp2": {"ep": 2, "fsdp": 2}}
+
+
+@pytest.fixture(scope="module")
+def ep_card_ranks():
+    """One spawn of 4 ranks sharing the card for the shared-kv step, the ep
+    MoE step and moe_ffn at each ep plan (on CUDA and on CPU tensors), and
+    the one-process inputs they are held against."""
+    if not hopper_present("cuda"):
+        pytest.skip("needs a Hopper card (compute capability 9.0) with CUDA")
+    import torch_dist
+    from odh_kubeflow_tpu_torch.models.moe import init_moe_params
+
+    tokens = np.random.default_rng(1).integers(0, 256, (4, 128))
+    params = {name: init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+              for name, cfg in (("shared", SHARED_CFG), ("ep", EP_CFG))}
+    moe_params = tree_map(lambda t: t.numpy(), init_moe_params(torch.Generator().manual_seed(0), 32, EP_MOE,
+                                                               torch.float32, "cpu"))
+    x = np.random.default_rng(1).standard_normal((4, 16, 32)).astype(np.float32)
+    cases = [(name, "torch_shard_cases:sharded_step_case", dict(
+        params=tree_map(lambda t: t.numpy(), params[name]), tokens=tokens, cfg=cfg, plan=plan, device="cuda"))
+        for name, cfg, plan in (("shared", SHARED_CFG, {"tp": 4}), ("ep", EP_CFG, {"ep": 2, "tp": 2}))]
+    cases += [(f"{pid} {dev}", "torch_ep_cases:moe_case", dict(
+        params=moe_params, x=x, cfg=EP_MOE, plan=plan, aux_weight=0.5, device=dev))
+        for pid, plan in EP_FFN_PLANS.items() for dev in ("cpu", "cuda")]
+    return torch_dist.run_ranks(4, cases, device="cuda"), params, tokens
+
+
+@pytest.mark.cuda
+def test_tp_generate_on_card_matches_one_process(card):
+    """generate(mesh=) at tp 2 on the card (f32, 2 layers, GQA 4/2: the
+    scalar forward kernel in the prefill): greedy and sampled tokens equal
+    the one-process run on the card, on every rank."""
+    import torch_dist
+    import torch_ep_cases
+
+    cfg = TransformerConfig(**SMALL, remat=False)
+    params = tree_map(lambda t: t.numpy(), init_params(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (2, 16))
+    runs = [(0.0, 0), (0.8, 7)]
+    res = torch_dist.run_ranks(2, [("gen", "torch_ep_cases:decode_case", dict(
+        params=params, prompt=prompt, cfg=cfg, plan={"tp": 2}, max_new=12, runs=runs, device="cuda"))],
+        device="cuda")["gen"]
+    want = torch_ep_cases.sampled_reference(params, prompt, cfg, 12, runs, device=card)
+    for r in res:
+        for got, w in zip(r, want):
+            np.testing.assert_array_equal(got["tokens"], w)
+
+
+def _sharded_vs_one_process(card, ep_card_ranks, name, cfg):
+    from odh_kubeflow_tpu_torch.models import value_and_grad
+
+    ranks, params, tokens = ep_card_ranks
+    res = ranks[name]
+    want_loss, want = value_and_grad(tree_map(lambda t: t.to(card), params[name]),
+                                     {"tokens": torch.as_tensor(tokens, device=card)}, cfg)
+    assert all(abs(r["loss"] - want_loss.item()) <= 1e-5 * abs(want_loss.item()) for r in res)
+    for g, w in zip(res[0]["grads"], want):
+        assert float(np.abs(g - w.cpu().numpy()).max()) / w.abs().max().item() <= 1e-4
+    for name in res[0]["replicas"]:
+        blocks = {}
+        for r in res:
+            coords, digest = r["replicas"][name]
+            blocks.setdefault(coords, set()).add(digest)
+        assert all(len(d) == 1 for d in blocks.values()), name
+    return res
+
+
+@pytest.mark.cuda
+def test_shared_kv_heads_step_on_card_matches_one_process(card, ep_card_ranks):
+    """value_and_grad at tp 4 with n_kv_heads 2 on the card (f32, 2
+    layers: each rank's q head reads a kv head another rank's reads too)
+    against one process, each gathered gradient leaf within 1e-4 of its
+    largest; one step leaves the replicated leaves bit-equal."""
+    res = _sharded_vs_one_process(card, ep_card_ranks, "shared", SHARED_CFG)
+    for r in res:
+        got = r["kernel_launches"]
+        assert (got["flash_fwd_scalar"], got["flash_bwd_dq_scalar"], got["flash_bwd_dkv_scalar"]) == \
+            (SHARED_CFG.n_layers,) * 3, got
+
+
+@pytest.mark.cuda
+def test_ep_moe_step_on_card_matches_one_process(card, ep_card_ranks):
+    """The MoE step at ep 2 x tp 2 on the card (f32, 2 layers, remat "",
+    capacity factor 1.25: the tokens are not cut, so the capacity is one
+    process's) against one process, each gathered gradient leaf within
+    1e-4 of its largest; one step launches each scalar kernel as one
+    process does, and leaves the replicated leaves bit-equal."""
+    res = _sharded_vs_one_process(card, ep_card_ranks, "ep", EP_CFG)
+    n = EP_CFG.n_layers
+    for r in res:
+        got = r["kernel_launches"]
+        assert (got["flash_fwd_scalar"], got["flash_bwd_dq_scalar"], got["flash_bwd_dkv_scalar"]) == \
+            (2 * n, n, n), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", sorted(EP_FFN_PLANS))
+def test_ep_moe_ffn_on_card_matches_cpu(card, ep_card_ranks, plan):
+    """moe_ffn(mesh=) on ranks sharing the card: out, aux and every
+    gradient equal the same ranks' run on CPU tensors within 1e-5 of the
+    largest (f32: summation order only)."""
+    ranks = ep_card_ranks[0]
+    for got, want in zip(ranks[f"{plan} cuda"], ranks[f"{plan} cpu"]):
+        assert abs(got["aux"] - want["aux"]) <= 1e-6
+        for key in ("out", "dx"):
+            assert np.abs(got[key] - want[key]).max() <= 1e-5 * max(1.0, np.abs(want[key]).max())
+    for name, want in ranks[f"{plan} cpu"][0]["grads"].items():
+        got = ranks[f"{plan} cuda"][0]["grads"][name]
+        assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), name

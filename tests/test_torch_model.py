@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import __graft_entry__
+from odh_kubeflow_tpu_torch.parallel import MeshPlan
 from odh_kubeflow_tpu.models import TransformerConfig as JaxConfig
 from odh_kubeflow_tpu.models import decode_step as jax_decode_step
 from odh_kubeflow_tpu.models import forward as jax_forward
@@ -159,17 +160,24 @@ def test_unported_features_raise(models):
     # a sequence axis without a mesh runs on one device, as in the JAX package
     assert torch.equal(forward(params, tokens, dataclasses.replace(cfg, seq_axis="sp")),
                        forward(params, tokens, cfg))
-    # the mesh path runs data, tensor and sequence axes on this rank's
-    # blocks of the params: whole params over a tp axis are refused; an ep
-    # axis waits for its item
+    # the mesh path runs data, expert, tensor and sequence axes on this
+    # rank's blocks of the params: whole params over a tp axis are refused;
+    # a pp axis waits for its item, in forward and in generate
     tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
     with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
         forward(params, tokens, cfg, mesh=tp_mesh)
-    ep_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=2, tp=1, sp=1))
-    with pytest.raises(NotImplementedError, match="mesh with ep=2 .* item 13.4"):
-        forward(params, tokens, cfg, mesh=ep_mesh)
-    with pytest.raises(NotImplementedError, match="mesh .* item 13.1"):
-        generate(params, [[1]], cfg, max_new=2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
+        generate(params, [[1]], cfg, max_new=2, mesh=tp_mesh, device="cpu")
+    pp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=2, ep=1, tp=1, sp=1))
+    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
+        forward(params, tokens, cfg, mesh=pp_mesh)
+    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
+        generate(params, [[1]], cfg, max_new=2, mesh=pp_mesh, device="cpu")
+    # generate over a mesh runs (tp parity over gloo ranks:
+    # tests/test_torch_tp_decode.py); a one-rank mesh is the one-process run
+    one = MeshPlan().build("cpu")
+    assert torch.equal(generate(params, [[1, 2, 3]], cfg, max_new=4, mesh=one, device="cpu"),
+                       generate(params, [[1, 2, 3]], cfg, max_new=4, device="cpu"))
     # inference ignores the training-time sequence sharding, as in the JAX package
     sharded = generate(params, [[1, 2]], dataclasses.replace(cfg, seq_axis="sp"), max_new=3,
                        device="cpu")

@@ -14,6 +14,7 @@ exactly equal. bf16 moe_ffn outputs within 2e-2 with the routing asserted
 identical.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -283,13 +284,22 @@ def test_top1_router_learns_from_the_lm_loss():
 
 
 def test_moe_ffn_refuses_a_mesh_and_unknown_dispatch():
+    """moe_ffn runs over a mesh (the ep paths' parity over gloo ranks is
+    tests/test_torch_ep.py): on a one-rank mesh, and through
+    _moe_ffn_manual with ep_axis, it is the one-device result; the dense
+    dispatch over a live ep axis and an unknown dispatch are refused."""
+    from odh_kubeflow_tpu_torch.parallel import MeshPlan
+
     cfg = MoEConfig(n_experts=4, d_ff=F)
     _, tp = _moe_params(9, JaxMoE(n_experts=4, d_ff=F))
-    x = torch.zeros((1, 4, D))
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        moe_ffn(x, tp, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        moe_ffn(x, tp, cfg, ep_axis="ep")
+    x = torch.from_numpy(_rng(9).standard_normal((2, 8, D)).astype(np.float32))
+    want_out, want_aux = moe_ffn(x, tp, cfg)
+    one = MeshPlan().build("cpu")
+    for out, aux in (moe_ffn(x, tp, cfg, mesh=one), moe_ffn(x, tp, cfg, mesh=one, ep_axis="ep")):
+        assert torch.equal(out, want_out) and torch.equal(aux, want_aux)
+    ep_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=2, tp=1, sp=1))
+    with pytest.raises(NotImplementedError, match="dense MoE dispatch over a live ep axis"):
+        moe_ffn(x, tp, dataclasses.replace(cfg, dispatch="dense"), mesh=ep_mesh)
     with pytest.raises(ValueError, match="unknown MoE dispatch"):
         moe_ffn(x, tp, dataclasses.replace(cfg, dispatch="sparse"))
 

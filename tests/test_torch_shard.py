@@ -125,10 +125,19 @@ def test_param_specs_match_reference(name, plan):
     assert param_specs(port_cfg(jcfg)) == jax.tree_util.tree_map(
         tuple, jax_param_specs(jcfg), is_leaf=lambda x: isinstance(x, PartitionSpec))
     # the placements carry the specs; the fused axis cut over tp carries
-    # its [q | k | v] segments
+    # its [q | k | v] segments, except where tp does not divide kv_heads:
+    # there the port keeps wqkv replicated over tp (each rank slices its
+    # heads), wherever the reference cuts the fused axis
     placements = param_placements(port_cfg(jcfg), mesh)
+    shared = jcfg.kv_heads % mesh.sizes["tp"] != 0
+    want_specs = jax.tree_util.tree_map(lambda x: x, got, is_leaf=lambda x: isinstance(x, tuple))
+    if shared and len(got["layers"]["wqkv"]) > 2 and got["layers"]["wqkv"][2] is not None:
+        spec = tuple(got["layers"]["wqkv"][:2])
+        while spec and spec[-1] is None:
+            spec = spec[:-1]
+        want_specs["layers"]["wqkv"] = spec
     assert jax.tree_util.tree_map(lambda p: p.spec, placements,
-                                  is_leaf=lambda x: hasattr(x, "spec")) == got
+                                  is_leaf=lambda x: hasattr(x, "spec")) == want_specs
     wqkv = placements["layers"]["wqkv"]
     cut = len(wqkv.spec) > 2 and wqkv.spec[2] is not None
     assert wqkv.segments == (((2, (jcfg.n_heads, jcfg.kv_heads, jcfg.kv_heads)),) if cut else ())
@@ -136,13 +145,25 @@ def test_param_specs_match_reference(name, plan):
 
 @pytest.mark.parametrize("name,tp", [("gqa-8-2", 8), ("gqa-32-4", 8), ("gqa-4-2", 4)])
 def test_kv_heads_tp_does_not_divide_raises(name, tp):
-    """A rank's q heads would share kv heads with another rank's (the
-    replicated fused axis is such a config): NotImplementedError naming
-    the case and the ROADMAP item."""
+    """A rank's q heads share kv heads with another rank's (the replicated
+    fused axis is such a config): check_mesh no longer raises; wqkv is
+    replicated over tp, and each rank's widths are its q heads and the kv
+    heads they read (one head, or one per q head where they span groups
+    unevenly). The parity over gloo ranks: tests/test_torch_tp_decode.py
+    and tests/test_torch_ep.py (tp 4 with kv_heads 2)."""
+    from odh_kubeflow_tpu_torch.models.transformer import _local_cfg, _rank_kv_heads
+
     cfg = port_cfg(dataclasses.replace(JCFG, **SPEC_CFGS[name]))
     mesh = types.SimpleNamespace(sizes=MeshPlan(tp=tp).sizes())
-    with pytest.raises(NotImplementedError, match=r"kv_heads % tp != 0.*ROADMAP Queue 1 item 13.1"):
-        check_mesh(mesh, cfg, "forward")
+    check_mesh(mesh, cfg, "forward")
+    assert param_placements(cfg, mesh)["layers"]["wqkv"].axes() == ()
+    local = _local_cfg(cfg, mesh)
+    heads = [_rank_kv_heads(cfg.n_heads, cfg.kv_heads, tp, r) for r in range(tp)]
+    assert local.n_heads == cfg.n_heads // tp and {len(h) for h in heads} == {local.kv_heads}
+    group = cfg.n_heads // cfg.kv_heads
+    for r, mine in enumerate(heads):  # every q head of the rank reads a kv head it holds
+        q_heads = range(r * local.n_heads, (r + 1) * local.n_heads)
+        assert all(q // group == mine[i * len(mine) // local.n_heads] for i, q in enumerate(q_heads))
 
 
 @pytest.fixture(scope="module")

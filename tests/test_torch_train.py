@@ -29,9 +29,11 @@ from odh_kubeflow_tpu.models import make_train_step as jax_make_train_step
 from odh_kubeflow_tpu.models.transformer import causal_ce as jax_causal_ce
 from odh_kubeflow_tpu.models.transformer import next_token_ce as jax_next_token_ce
 from odh_kubeflow_tpu_torch.models import (
+    MoEConfig,
     TransformerConfig,
     adamw,
     causal_ce,
+    init_params,
     loss_fn,
     make_train_step,
     next_token_ce,
@@ -40,6 +42,7 @@ from odh_kubeflow_tpu_torch.models import (
 )
 from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_map
 from odh_kubeflow_tpu_torch.ops import attention, matmul_f32
+from odh_kubeflow_tpu_torch.parallel import MeshPlan
 
 torch_threads.cap()
 
@@ -173,21 +176,32 @@ def test_loss_fn_refuses_what_is_not_ported(models):
         loss_fn(params, batch, dataclasses.replace(cfg, seq_layout="zigzag"))
     with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         loss_fn(params, batch, dataclasses.replace(cfg, moe={"n_experts": 4}))
-    # the mesh path runs data, tensor and sequence axes (whole params over
-    # tp are refused: the step takes this rank's blocks); ep and pp wait
-    # for their items
+    # the mesh path runs data, expert, tensor and sequence axes (whole
+    # params over tp are refused: the step takes this rank's blocks); pp
+    # waits for its item
     tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
     with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
         loss_fn(params, batch, cfg, mesh=tp_mesh)
     make_train_step(cfg, mesh=tp_mesh)
-    for axis, item in (("ep", "13.4"), ("pp", "13.5")):
-        sizes = dict(dp=1, fsdp=1, pp=1, ep=1, tp=1, sp=1)
-        sizes[axis] = 2
-        mesh = types.SimpleNamespace(sizes=sizes)
-        with pytest.raises(NotImplementedError, match=f"mesh with {axis}=2 .* item {item}"):
-            loss_fn(params, batch, cfg, mesh=mesh)
-        with pytest.raises(NotImplementedError, match=f"mesh with {axis}=2 .* item {item}"):
-            make_train_step(cfg, mesh=mesh)
+    # ep runs, an MoE config too (parity over gloo ranks:
+    # tests/test_torch_ep.py); an expert count ep does not divide is refused
+    ep_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=2, tp=1, sp=1))
+    make_train_step(cfg, mesh=ep_mesh)
+    moe_cfg = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, d_ff=64))
+    make_train_step(moe_cfg, mesh=ep_mesh)
+    with pytest.raises(ValueError, match="n_experts=3 does not split over ep=2"):
+        make_train_step(dataclasses.replace(cfg, moe=MoEConfig(n_experts=3, d_ff=64)), mesh=ep_mesh)
+    pp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=2, ep=1, tp=1, sp=1))
+    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
+        loss_fn(params, batch, cfg, mesh=pp_mesh)
+    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
+        make_train_step(cfg, mesh=pp_mesh)
+    # a one-rank mesh is the one-process loss, the MoE config's aux included
+    one = MeshPlan().build("cpu")
+    assert torch.equal(loss_fn(params, batch, cfg, mesh=one), loss_fn(params, batch, cfg))
+    moe_params = init_params(torch.Generator().manual_seed(3), moe_cfg, device="cpu")
+    assert torch.allclose(loss_fn(moe_params, batch, moe_cfg, mesh=one), loss_fn(moe_params, batch, moe_cfg),
+                          rtol=1e-6, atol=0)
 
 
 def _count_flash_forwards(monkeypatch):
