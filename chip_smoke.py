@@ -127,8 +127,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    a 2-layer f32 model's sp loss and summed gradients within 1e-4 against
    one process through mha_reference, both layouts; then make_train_step
    over the mesh on the flagship model (bf16, remat_policy "flash"),
-   global batch 2 x 8192, at sp 2 contiguous and zigzag (8 layers) and sp
-   4 contiguous (2 layers). Before each run, every flash call of one bf16 ring at the
+   global batch 2 x 8192, at sp 2 contiguous and zigzag (4 layers) and sp
+   4 contiguous (2 layers): depths cut (SP_LAYERS) to keep the smoke and
+   the card tests near 900 s. Before each run, every flash call of one bf16 ring at the
    run's per-rank shapes (b2 s4096 or s2048 h8 d128; zigzag's half-pairs;
    the backward with the ring's merged lse and delta) is held against its
    plain version within phase 3/3b's tolerances. Against the one-process
@@ -148,7 +149,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (which collectives gloo moves on a CUDA tensor); then 4 ranks, spawned
    and brought up by parallel.initialize_from_env from the webhook's env
    names on gloo, sharing the card, train the flagship (bf16, remat
-   "flash") at fsdp 2 x tp 2, global batch 8 x 2048, and at tp 2 x sp 2
+   "flash"; SHARD_LAYERS 4 of its 8 layers, the depth cut to keep the smoke
+   and the card tests near 900 s) at fsdp 2 x tp 2, global batch 8 x 2048, and at tp 2 x sp 2
    zigzag, global batch 2 x 8192, params, gradients and AdamW state sharded
    as param_specs says. Before each run every flash call at the run's
    per-rank shapes (b4 s2048 h4 hk4 d128; the zigzag ring's b2 s4096 h4
@@ -158,7 +160,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    1e-4 of its own largest; the bf16 warm-up loss within 1e-4 relative and
    its gathered gradients no farther from the f32 ones than the
    one-process bf16 step's plus one bf16 ulp. Then 3 steps with launch
-   counts zeroed just before and read just after (8 tensor-core forward,
+   counts zeroed just before and read just after (4 tensor-core forward,
    dq and dk/dv launches per step and rank, x ring_launches under sp; no
    scalar one), no host sync inside the steps, losses falling, every
    replicated leaf bit-equal across the ranks that hold it; step time,
@@ -187,18 +189,51 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kv head; wqkv replicated over tp), f32, 2 layers of the flagship's
    widths: the loss and gathered gradients within 1e-4 of each leaf's
    largest against one process, greedy tokens equal; (c) bench.py:389-400's
-   MoE train step (remat "") at ep 2 x tp 2 and ep 2 x fsdp 2, global batch
+   MoE train step (remat "") at EP_LAYERS 4 of its 8 layers (the depth cut
+   to keep the smoke and the card tests near 900 s) at ep 2 x tp 2 and ep 2 x fsdp 2, global batch
    8 x 2048, with phase 11's gates: each flash call at the per-rank shapes
    (b8 s2048 h4, b4 s2048 h8) against its plain version; against one
    process routing each data shard alone (the ep path's capacity), the f32
    2-layer step per leaf within 1e-4, the bf16 loss within 1e-4 relative,
-   the bf16 gradients within the one-process distance + one ulp; 16/8/8
+   the bf16 gradients within the one-process distance + one ulp; 8/4/4
    tensor-core launches per step and rank; no host sync; every replicated
    leaf bit-equal; the (exchanges, bytes) per step and rank of each kind
    equal to the count from the shapes; the drop rate and the dispatch
    share's bound printed; the ep 2 x tp 2 state checkpointed through four
    agents at once (equal acks), resumed bit-equal, and restored onto one
    process (checksum, next loss within 1e-4 relative).
+13. the pipelines on this card, 4 ranks spawned as in phase 11: (a) before
+   each full-width run every flash call at its per-rank shapes (b2 s2048
+   h4 at pp 2 x tp 2, b1 s2048 h8 at pp 2 x fsdp 2, b2 s2048 h8 at pp 2 x
+   ep 2; at pp 2 x sp 2 one bf16 zigzag ring of b1 s4096 h8, its
+   half-pairs) held against its plain version within phase 3/3b's
+   tolerances; (b) the f32 flagship at 2 layers (4 for v 2), batch 8 x
+   512, n_micro 4, through GPipe, 1F1B and interleaved 1F1B (v 2) at pp 2
+   x tp 2 and interleaved 1F1B at pp 2 x fsdp 2: the loss and each
+   gathered gradient leaf (pipeline layout) within 1e-4 (of its largest)
+   of one process, the scalar launches per rank the schedule's; (c) 8
+   layers in bf16, 1 warm-up and 2 timed steps: the flagship's 1F1B at pp
+   2 x tp 2 and interleaved 1F1B (v 2) at pp 2 x fsdp 2, global batch 8 x
+   2048, n_micro 4; phase 8's MoE by 1F1B at pp 2 x ep 2, the same batch;
+   GPipe at pp 2 x sp 2 zigzag on phase 10's 2 x 8192 (n_micro 2, one
+   sequence a microbatch). Gates: the warm-up loss within 1e-4 relative of
+   one process's on the same batch (the MoE's averaged over the
+   microbatches, each routed alone: the pipeline's capacity); losses
+   falling; (exchanges, bytes) per step and rank of every kind but the
+   ring equal to `_pp_bytes`' count from the shapes; tensor-core launches
+   per step and rank of n_micro x layers/stages each of forward, dq and
+   dk/dv for GPipe (x `ring_launches`' 5 under zigzag sp 2), the forward
+   twice for 1F1B (its recompute from the saved stage input), no scalar
+   one; no host sync of the sync debug mode's kind inside the steps (the
+   staged transport's waits are counted apart); every replicated leaf
+   bit-equal across its ranks. Reported, not gated: step time (slowest
+   rank), peak memory per rank, each rank's share of the step in the stage
+   hops beside the bubble (S-1)/(n_micro x v + S-1), the share in gloo
+   transfers, and the peak memory of one step of GPipe against 1F1B at pp
+   2 x tp 2 with n_micro 4 and 8. (d) The pp 2 x tp 2 1F1B state through
+   four agents' /tpu/checkpoint and /tpu/restore at once: equal acks of
+   the gathered state's checksum, the resumed step bit-equal to the
+   uninterrupted one with 32/16/16 launches.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1894,7 +1929,7 @@ SP_RUNS = {2: ("contiguous", "zigzag"), 4: ("contiguous",)}  # world -> layouts 
 # world -> layers of the full-width train runs: the sp 4 run at 2 layers
 # keeps the smoke and the card tests within 1.5x of their time before phase
 # 11 (every check stays; the widths are the flagship's)
-SP_LAYERS = {2: 8, 4: 2}
+SP_LAYERS = {2: 4, 4: 2}
 SP_BATCH = (2, 8192)  # the full-width train runs' global batch
 SP_STEPS = 3  # timed steps after the warm-up
 SP_RING_SHAPE = (1, 1024, 8, 2, 128)  # the f32 ring check: b, s, h, hk, d (global)
@@ -2337,6 +2372,9 @@ SHARD_RUNS = {
 }
 SHARD_CHECKPOINT_RUN = "fsdp2 x tp2"  # the run whose state goes through the agents' routes
 SHARD_STEPS = 3  # timed steps after the warm-up
+# the runs' depth (of the flagship's 8 layers), cut to keep the smoke and the
+# card tests near 900 s
+SHARD_LAYERS = 4
 
 
 def _flash_calls_vs_plain(b, s, h, d):
@@ -2420,7 +2458,7 @@ def _shard_rank_jobs(rank, world, port, results, go, ckpt_dir):
 def _shard_cfg(plan, layout):
     from odh_kubeflow_tpu_torch.models import TransformerConfig
 
-    return TransformerConfig(**FULL_WIDTH, n_layers=8, dtype=torch.bfloat16, use_flash=True, remat=True,
+    return TransformerConfig(**FULL_WIDTH, n_layers=SHARD_LAYERS, dtype=torch.bfloat16, use_flash=True, remat=True,
                              remat_policy="flash", seq_axis="sp" if plan.get("sp", 1) > 1 else "",
                              seq_layout=layout)
 
@@ -2525,11 +2563,12 @@ def _shard_run(mesh, full, shape, layout, checkpoint, results, go, ckpt_dir, sav
 
 
 def _checkpoint_through_agent(mesh, cfg, step, opt, train_state, placements, local, results, go, ckpt_dir,
-                              saved):
+                              saved, layout=None):
     """This rank's NotebookAgent, its hooks closing over its blocks: the
     parent drives /tpu/checkpoint and then /tpu/restore (onto a fresh init
-    from another seed) on all ranks at once; then the uninterrupted step
-    and the step resumed from the restored blocks."""
+    from another seed, put in the run's `layout` first: the pipeline's)
+    on all ranks at once; then the uninterrupted step and the step resumed
+    from the restored blocks."""
     from odh_kubeflow_tpu_torch.models import (gather_tree, init_params, make_checkpoint_hook,
                                                make_restore_hook, restore_train_state, shard_params,
                                                state_checksum)
@@ -2541,7 +2580,8 @@ def _checkpoint_through_agent(mesh, cfg, step, opt, train_state, placements, loc
     out = {"step": step_no, "global_checksum": state_checksum(global_state),
            "params_checksum": state_checksum(global_state["params"])}
     del global_state
-    fresh = shard_params(init_params(torch.Generator().manual_seed(7), cfg, device=mesh.device), cfg, mesh)
+    fresh = init_params(torch.Generator().manual_seed(7), cfg, device=mesh.device)
+    fresh = shard_params(layout(fresh) if layout is not None else fresh, cfg, mesh)
     fresh_state = {"params": fresh, "opt_state": opt.init(fresh)}
     mon = CudaMonitor(chips_expected=1, window_s=3.0, sample_period_s=1.0, metrics_port=0,
                       utilization_reader=lambda: None)
@@ -2720,7 +2760,8 @@ def _check_shard_run(name, plan, shape, layout, runs, smi, ring_launches):
         fail(f"{name}: the flash calls disagree with their plain versions or missed a kind: {worst}")
     for r, run in enumerate(runs):
         per_step = {n: c / SHARD_STEPS for n, c in run["launches"].items()}
-        want = {n: (8 * sched[r % sp] if n in ("flash_fwd",) + TENSOR_CORE_BWD else 0) for n in per_step}
+        want = {n: (SHARD_LAYERS * sched[r % sp] if n in ("flash_fwd",) + TENSOR_CORE_BWD else 0)
+                for n in per_step}
         if per_step != want:
             fail(f"{name}: rank {r} launched {per_step} per step, want {want}")
     losses = first["losses"]
@@ -2747,7 +2788,8 @@ def _check_shard_run(name, plan, shape, layout, runs, smi, ring_launches):
           f"{[round(run['exchanges']['device_wait_s'] * 1e3 / SHARD_STEPS, 1) for run in runs]} and in the "
           f"transfers {[round(run['exchanges']['transfer_s'] * 1e3 / SHARD_STEPS, 1) for run in runs]}; host "
           f"syncs in {SHARD_STEPS} steps (sync debug mode) {[run['syncs'] for run in runs]}; tensor-core "
-          f"launches per step and rank {[8 * sched[r % sp] for r in range(len(runs))]} on {smi}", flush=True)
+          f"launches per step and rank {[SHARD_LAYERS * sched[r % sp] for r in range(len(runs))]} on {smi}",
+          flush=True)
     if not (first["f32_loss_err"] <= SP_RING_TOLERANCE
             and max(first["f32_leaf_err"].values()) <= SP_GRAD_TOLERANCE
             and first["loss_err"] <= SP_LOSS_TOLERANCE
@@ -2791,8 +2833,9 @@ def _check_shard_checkpoint(ck, drive, smi, want_launches=None):
           flush=True)
     if any(c["resumed_loss"] != c["ref_loss"] or c["resumed_digest"] != c["ref_digest"] for c in ck):
         fail("the resumed sharded step differs from the uninterrupted one")
-    want_launches = want_launches or {"flash_fwd": 8, "flash_fwd_scalar": 0, "flash_bwd_dq": 8,
-                                      "flash_bwd_dkv": 8, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    n = SHARD_LAYERS
+    want_launches = want_launches or {"flash_fwd": n, "flash_fwd_scalar": 0, "flash_bwd_dq": n,
+                                      "flash_bwd_dkv": n, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
     if any(c["resumed_launches"] != want_launches for c in ck):
         fail(f"the resumed steps launched {[c['resumed_launches'] for c in ck]}, want {want_launches}")
 
@@ -2825,7 +2868,7 @@ SHARED_MAX_NEW = 16
 MOE_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=2048, max_seq=2048)
 EP_RUNS = {"ep2 x tp2": {"ep": 2, "tp": 2}, "ep2 x fsdp2": {"ep": 2, "fsdp": 2}}
 EP_BATCH = (8, 2048)
-EP_LAYERS = 8
+EP_LAYERS = 4
 EP_STEPS = 3  # timed steps after the warm-up
 EP_F32_LAYERS = 2  # the f32 step held per leaf against one process
 EP_CHECKPOINT_RUN = "ep2 x tp2"  # the run whose state goes through the agents' routes
@@ -3370,6 +3413,475 @@ def _check_ep_run(name, plan, runs, smi):
         fail(f"{name}: host syncs inside the steps: {[run['syncs'] for run in runs]}")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: the pipelines (GPipe, 1F1B, interleaved 1F1B) over a pp axis,
+# ranks spawned on this one card
+# ---------------------------------------------------------------------------
+
+PP_WORLD = 4
+PP_STEPS = 2  # timed steps after the warm-up
+PP_BATCH = (8, 2048)  # the dense and MoE runs' global batch
+PP_MICRO = 4
+# (c) name -> (plan, config, schedule, n_chunks, global batch, n_micro): the
+# flagship (phase 6) and phase 8's MoE, 8 layers, bf16; the sp run takes
+# phase 10's 2 x 8192 zigzag, whose 2 sequences make 2 microbatches
+PP_RUNS = {
+    "1f1b pp2 x tp2": ({"pp": 2, "tp": 2}, "dense", "1f1b", 1, PP_BATCH, PP_MICRO),
+    "interleaved 1f1b pp2 x fsdp2": ({"fsdp": 2, "pp": 2}, "dense", "1f1b", 2, PP_BATCH, PP_MICRO),
+    "1f1b pp2 x ep2 moe": ({"pp": 2, "ep": 2}, "moe", "1f1b", 1, PP_BATCH, PP_MICRO),
+    "gpipe pp2 x sp2 zigzag": ({"pp": 2, "sp": 2}, "zigzag", "gpipe", 1, SP_BATCH, 2),
+}
+PP_CHECKPOINT_RUN = "1f1b pp2 x tp2"  # the run whose state goes through the agents' routes
+# (b) f32 at 2 layers (4 for v 2), batch 8 x 512: name -> (plan, schedule, n_chunks)
+PP_F32_RUNS = {
+    "gpipe pp2 x tp2": ({"pp": 2, "tp": 2}, "gpipe", 1),
+    "1f1b pp2 x tp2": ({"pp": 2, "tp": 2}, "1f1b", 1),
+    "interleaved 1f1b pp2 x tp2": ({"pp": 2, "tp": 2}, "1f1b", 2),
+    "interleaved 1f1b pp2 x fsdp2": ({"fsdp": 2, "pp": 2}, "1f1b", 2),
+}
+PP_F32_BATCH = (8, 512)
+# peak memory per rank, GPipe against 1F1B at pp 2 x tp 2 (the flagship, bf16)
+PP_MEMORY_MICRO = (4, 8)
+PP_KINDS = ("pp", "pp_bcast", "pp_sum", "gather", "scatter", "tp_sum", "vocab", "ep", "aux", "sum")
+
+
+def _pp_cfg(name, layers, dtype):
+    """Phase 13's configurations: the flagship (phase 6's widths), its
+    zigzag sp form, and phase 8's MoE."""
+    import dataclasses
+
+    if name == "moe":
+        return _moe_cfg(layers, dtype)
+    cfg = _shard_cfg({}, "contiguous")
+    cfg = dataclasses.replace(cfg, n_layers=layers, dtype=dtype, remat=False, remat_policy="")
+    if name == "zigzag":
+        cfg = dataclasses.replace(cfg, seq_axis="sp", seq_layout="zigzag")
+    return cfg
+
+
+def _pp_bytes(plan, schedule, n_chunks, batch, cfg, n_micro, stage):
+    """The exchanges of one pipeline step of the rank at pipeline stage
+    `stage`, by kind, from the shapes: {kind: (exchanges, bytes)} (the ring
+    of sp inside the stages is not counted here). Per layer visit (each of
+    a stage's layers once per microbatch; 1F1B runs its forward twice, the
+    forward visit and the recompute): under the stages' tp the
+    row-parallel sums forward and the column-parallel inputs' gradients
+    (2 and 2 dense, 1 and 1 MoE), under ep the experts' sum and the
+    tokens' gradient, in f32. The hops: every visit's output goes on but
+    the last virtual stage's, every visit's input cotangent back but the
+    first's. GPipe broadcasts the output (every stage runs the head), 1F1B
+    runs the head per microbatch on the last stage; the head's input
+    gradient (tp_sum) and the vocab-parallel loss's max and sums. fsdp:
+    the stage's dense weights gathered once a step and reduce-scattered
+    once, the embedding on the first stage and the unembedding where the
+    head runs. Over pp one sum of what one stage computed; over the data
+    axes the loss's and the gradients' sums (`_sum_grads`), over ep the
+    router's."""
+    g = {a: plan.get(a, 1) for a in ("dp", "fsdp", "pp", "ep", "tp", "sp")}
+    S, fsdp, tp, ep = g["pp"], g["fsdp"], g["tp"], g["ep"]
+    first, last, gpipe = stage == 0, stage == S - 1, schedule == "gpipe"
+    B, s = batch[0] // (g["dp"] * fsdp), batch[1] // g["sp"]
+    m, mb = n_micro, batch[0] // (g["dp"] * fsdp) // n_micro
+    d, V, h, kv, hd, f = cfg.d_model, cfg.vocab, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
+    A = torch.empty((), dtype=cfg.dtype).element_size()
+    Ls = cfg.n_layers // S
+    moe = cfg.moe_resolved
+    t = tp if tp > 1 and h % tp == 0 and kv % tp == 0 and (moe is not None or f % tp == 0) else 1
+    rows, visits = mb * s * d, m * Ls
+    out = {k: [0, 0] for k in PP_KINDS}
+
+    def add(kind, n, nbytes):
+        out[kind][0] += n
+        out[kind][1] += nbytes
+
+    hops = 2 * m * n_chunks - (m if last else 0) - (m if first else 0)
+    add("pp", hops, hops * rows * A)
+    heads = [B] if gpipe else [mb] * m if last else []
+    if gpipe:
+        add("pp_bcast", 1, B * s * d * A)
+    gathered = [Ls * d * (h + 2 * kv) // t * hd, Ls * (h // t) * hd * d]
+    if moe is None:
+        gathered += [Ls * d * f // t] * 2 + [Ls * f // t * d]
+    if fsdp > 1:
+        add("gather", len(gathered), sum(gathered) * A)
+        add("scatter", len(gathered), sum(gathered) * 4)
+        if first:
+            add("gather", 1, V * d * A)
+            add("scatter", 1, V * d * 4)
+        if heads:
+            add("gather", 1, d * V // tp * A)
+            add("scatter", 1, d * V // tp * 4)
+    emb = V * d // fsdp
+    add("pp_sum", 1, ((1 + emb) if gpipe else (2 + emb + d + d * V // (fsdp * tp))) * 4)
+    per_visit = (2, 2) if moe is None else (1, 1)
+    if t > 1:
+        n = visits * (sum(per_visit) if gpipe else 2 * per_visit[0] + per_visit[1])
+        add("tp_sum", n, n * rows * 4)
+    if tp > 1:
+        for bh in heads:
+            add("tp_sum", 1, bh * s * d * 4)
+            add("vocab", 2, 3 * bh * s * 4)
+    # this rank's leaves: (elements, cut over fsdp)
+    leaves = [(V * d // fsdp, fsdp > 1), (d, False), (d * V // (fsdp * tp), fsdp > 1), (Ls * d, False),
+              (Ls * d, False)] + [(n // fsdp, fsdp > 1) for n in gathered]
+    if moe is not None:
+        e = moe.n_experts
+        leaves += [(Ls * d * e, False)] + [(Ls * e // ep * d * moe.d_ff, False)] * 3
+        if ep > 1:
+            n = visits * (2 if gpipe else 3)
+            add("ep", n, n * rows * 4)
+            add("sum", 1, Ls * d * e * 4)
+    if g["dp"] * fsdp * g["sp"] > 1:
+        add("sum", 1, 8)  # the loss's sums over the data axes
+        if gpipe and moe is not None:
+            add("aux", 1, 4)
+        add("sum", 1, sum(n for n, cut in leaves if not cut) * 4)
+    if g["dp"] * g["sp"] > 1 and fsdp > 1:
+        add("sum", 1, sum(n for n, cut in leaves if cut) * 4)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def pp_phase(attention, smi):
+    """Phase 13. Returns the launches of its paths by kernel name."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' memory comes from the same card
+    print(f"  the {PP_WORLD} ranks of each run share this one card ({smi}) as processes brought up by "
+          "initialize_from_env from the webhook's env names, on gloo, every stage hop and collective on a "
+          "CUDA tensor staged through pinned host memory: the stages take turns on the device, so the "
+          "times below prove the path, they are not a multi-card number", flush=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="pp-ckpt-")
+    drive = {}
+    launched = {}
+
+    def add(path, counts):
+        into = launched.setdefault(path, {})
+        for kernel, n in counts.items():
+            into[kernel] = into.get(kernel, 0) + n
+
+    try:
+        t0 = time.perf_counter()
+        got = _spawn_ranks(PP_WORLD, _pp_rank_jobs, "phase 13", ckpt_dir,
+                           on_agents=lambda ports: drive.update(_drive_agents(ports)))
+        print(f"  {PP_WORLD} ranks on {got[0]['device']}, transport: {got[0]['transport']}; spawn to results "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ranks = {key: [r[key] for r in got] for key in got[0]}
+        for name, (plan, schedule, v) in PP_F32_RUNS.items():
+            _check_pp_f32(name, plan, schedule, v, ranks["f32 " + name], smi)
+            for run in ranks["f32 " + name]:
+                add("pp f32 exactness", run["launches"])
+        for name, spec in PP_RUNS.items():
+            _check_pp_run(name, spec, ranks[name], smi)
+            for run in ranks[name]:
+                add("pp train", run["launches"])
+        _check_pp_memory(ranks["memory"], smi)
+        for run in ranks["memory"]:
+            add("pp memory", run["launches"])
+        ck = [r["checkpoint"] for r in ranks[PP_CHECKPOINT_RUN]]
+        n = PP_MICRO * 8 // 2
+        _check_shard_checkpoint(ck, drive, smi, {"flash_fwd": 2 * n, "flash_fwd_scalar": 0, "flash_bwd_dq": n,
+                                                 "flash_bwd_dkv": n, "flash_bwd_dq_scalar": 0,
+                                                 "flash_bwd_dkv_scalar": 0})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
+def _pp_rank_jobs(rank, world, port, results, go, ckpt_dir):
+    """Phase 13 in one rank: the f32 runs, the full-width runs (the
+    checkpoint through the agent's routes in one), the memory runs."""
+    import torch.distributed as dist
+
+    os.environ.update({"JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank),
+                       "TPU_WORKER_ID": str(rank), "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from odh_kubeflow_tpu_torch.parallel import MeshPlan, comm, initialize_from_env
+
+    # gloo: the ranks share one card, and NCCL refuses two ranks on one device
+    initialize_from_env(timeout_s=SP_TIMEOUT_S, backend="gloo", device="cuda")
+    out, saved = {}, {}
+    for name, (plan, schedule, v) in PP_F32_RUNS.items():
+        mesh = MeshPlan(**plan).build("cuda")
+        out["f32 " + name] = _pp_f32_run(mesh, schedule, v)
+        torch.cuda.empty_cache()
+    for name, (plan, cfg_name, schedule, v, batch, n_micro) in PP_RUNS.items():
+        mesh = MeshPlan(**plan).build("cuda")
+        out[name] = _pp_run(mesh, cfg_name, schedule, v, batch, n_micro, name == PP_CHECKPOINT_RUN, results, go,
+                            ckpt_dir, saved)
+        torch.cuda.empty_cache()
+    mesh = MeshPlan(pp=2, tp=2).build("cuda")
+    out["memory"] = _pp_memory(mesh)
+    out["device"] = str(mesh.device)
+    out["transport"] = comm.transport(mesh.group("pp")[0], mesh.device)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _pp_vg(schedule):
+    from odh_kubeflow_tpu_torch.models import pp_1f1b_value_and_grad, pp_value_and_grad
+
+    return pp_1f1b_value_and_grad if schedule == "1f1b" else pp_value_and_grad
+
+
+def _pp_f32_run(mesh, schedule, v):
+    """Phase 13 (b) in one rank: the f32 flagship at 2 layers (4 for v 2)
+    through the pipeline against one process on the same batch (rank 0):
+    the loss and each gathered gradient leaf (in the pipeline layout), and
+    the launches of the step."""
+    from odh_kubeflow_tpu_torch.models import (gather_params, init_params, shard_params, to_pp_params,
+                                               value_and_grad)
+    from odh_kubeflow_tpu_torch.models.tree import tree_leaves, tree_unflatten
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import shard_batch
+
+    cfg = _pp_cfg("dense", 2 * v, torch.float32)
+    full = init_params(torch.Generator().manual_seed(3), cfg, device=mesh.device)
+    tokens = np.random.default_rng(15).integers(0, cfg.vocab, PP_F32_BATCH)
+    res = {}
+    if mesh.rank == 0:
+        loss, grads = value_and_grad(full, {"tokens": torch.as_tensor(tokens, device=mesh.device)}, cfg)
+        ref = (loss, tree_leaves(to_pp_params(tree_unflatten(full, grads), 2, cfg, mesh, v)))
+        del grads
+    staged = to_pp_params(full, 2, cfg, mesh, v)
+    local, names = shard_params(staged, cfg, mesh), _leaf_names(staged)
+    del full, staged
+    attention.reset_launch_counts()
+    loss, grads = _pp_vg(schedule)(local, shard_batch(mesh, {"tokens": tokens}), cfg, mesh, PP_MICRO, v)
+    torch.cuda.synchronize()
+    res["launches"] = dict(attention.launch_counts)
+    gathered = tree_leaves(gather_params(tree_unflatten(local, grads), cfg, mesh))
+    if mesh.rank == 0:
+        res["loss_err"] = abs((loss - ref[0]) / ref[0]).item()
+        res["leaf_err"] = {n: _grad_err(g, w) for n, g, w in zip(names, gathered, ref[1])}
+    return res
+
+
+def _check_pp_f32(name, plan, schedule, v, runs, smi):
+    first = runs[0]
+    layers = 2 * v
+    n = PP_MICRO * layers // 2
+    want = {"flash_fwd": 0, "flash_fwd_scalar": n * (2 if schedule == "1f1b" else 1), "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_dq_scalar": n, "flash_bwd_dkv_scalar": n}
+    print(f"  (b) f32 {name} (v {v}, {layers} layers, global batch {PP_F32_BATCH[0]}x{PP_F32_BATCH[1]}, n_micro "
+          f"{PP_MICRO}) against one process: loss rel err {first['loss_err']:.3e}, gathered grads max err of "
+          f"each leaf's largest {max(first['leaf_err'].values()):.3e} (tol {SP_GRAD_TOLERANCE:.0e}; worst leaf "
+          f"{max(first['leaf_err'], key=first['leaf_err'].get)}); scalar launches per rank "
+          f"{[r['launches'] for r in runs][0]} on {smi}", flush=True)
+    if not (first["loss_err"] <= SP_GRAD_TOLERANCE and max(first["leaf_err"].values()) <= SP_GRAD_TOLERANCE):
+        fail(f"the f32 pipeline ({name}) disagrees with one process: {first}")
+    if any(r["launches"] != want for r in runs):
+        fail(f"the f32 pipeline ({name}) launched {[r['launches'] for r in runs]}, want {want} per rank")
+
+
+def _pp_batch(cfg_name, batch, mesh):
+    """The run's global batch (zigzag-ordered for the zigzag run), this
+    rank's shard of it, and the natural-order tokens."""
+    from odh_kubeflow_tpu_torch.models import make_zigzag_batch
+    from odh_kubeflow_tpu_torch.parallel import shard_batch
+
+    tokens = np.random.default_rng(16).integers(0, FULL_WIDTH["vocab"], batch)
+    if cfg_name == "zigzag":
+        glob = {k: t.numpy() for k, t in make_zigzag_batch(tokens, mesh.sizes["sp"]).items()}
+    else:
+        glob = {"tokens": tokens}
+    return shard_batch(mesh, glob), tokens
+
+
+def _pp_one_process_loss(full, tokens, cfg, n_micro):
+    """The one-process loss of the run's global batch (natural order, no
+    mesh): the dense model's on the whole batch, the MoE model's averaged
+    over the microbatches each routed alone (the pipeline's capacity)."""
+    import dataclasses
+
+    from odh_kubeflow_tpu_torch.models import loss_fn
+
+    cfg = dataclasses.replace(cfg, seq_axis="", seq_layout="contiguous")
+    parts = torch.as_tensor(tokens, device=full["embed"].device).chunk(n_micro if cfg.moe is not None else 1)
+    with torch.no_grad():
+        return sum(loss_fn(full, {"tokens": p}, cfg).float() for p in parts).item() / len(parts)
+
+
+def _pp_run(mesh, cfg_name, schedule, v, batch, n_micro, checkpoint, results, go, ckpt_dir, saved):
+    """One full-width run of phase 13 (c) in this rank: the flash calls at
+    the per-rank shapes against their plain versions; the warm-up loss
+    against one process (rank 0); PP_STEPS timed steps; with
+    `checkpoint`, the agent's routes."""
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.models import (init_params, make_pp_train_step, pp_train_state_placements,
+                                               shard_params, to_pp_params)
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import comm
+
+    cfg = _pp_cfg(cfg_name, 8, torch.bfloat16)
+    plan = {a: n for a, n in mesh.sizes.items() if n > 1}
+    local_batch, tokens = _pp_batch(cfg_name, batch, mesh)
+    tp_stage = mesh.sizes["tp"]
+    mb = batch[0] // mesh.size(("dp", "fsdp")) // n_micro
+    h = cfg.n_heads // tp_stage
+    res = {"plan": plan, "stage": mesh.coords["pp"]}
+    if cfg.seq_axis:
+        res["shape"] = f"b{mb} s{batch[1] // mesh.sizes['sp']} h{h} d{cfg.head_dim} (zigzag half-pairs)"
+        res["visits"] = _ring_visits_vs_plain(mesh, "zigzag", b=mb, s=batch[1], h=h)
+    else:
+        res["shape"] = f"b{mb} s{batch[1]} h{h} hk{h} d{cfg.head_dim}"
+        res["visits"] = _flash_calls_vs_plain(mb, batch[1], h, cfg.head_dim)
+    full = init_params(torch.Generator().manual_seed(0), cfg, device=mesh.device)
+    if mesh.rank == 0:
+        res["ref_loss"] = _pp_one_process_loss(full, tokens, cfg, n_micro)
+    local = shard_params(to_pp_params(full, 2, cfg, mesh, v), cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    step, opt = make_pp_train_step(cfg, mesh, n_micro, schedule=schedule, n_chunks=v)
+    state = opt.init(local)
+    first = step(local, state, local_batch)[2]
+    if mesh.rank == 0:
+        res["loss_err"] = abs(first.item() - res["ref_loss"]) / abs(res["ref_loss"])
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    comm.reset_exchange_counts()
+    losses = [first]
+    t0 = time.perf_counter()
+    syncs = count_sync_warnings(lambda: losses.extend(step(local, state, local_batch)[2] for _ in range(PP_STEPS)))
+    torch.cuda.synchronize()
+    res.update({
+        "step_ms": (time.perf_counter() - t0) * 1e3 / PP_STEPS,
+        "launches": dict(attention.launch_counts),
+        "exchanges": dict(comm.exchange_counts),
+        "syncs": syncs,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": torch.stack(losses).float().tolist(),
+    })
+    train_state = {"params": local, "opt_state": state}
+    placements = pp_train_state_placements(cfg, mesh, v)
+    res["replicas"] = _replicas(train_state, placements, mesh)
+    if checkpoint:
+        res["checkpoint"] = _checkpoint_through_agent(
+            mesh, cfg, step, opt, train_state, placements, local_batch, results, go, ckpt_dir, saved,
+            layout=lambda params: to_pp_params(params, 2, cfg, mesh, v))
+    del local, state, train_state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _check_pp_run(name, spec, runs, smi):
+    from odh_kubeflow_tpu_torch.ops.ring_attention import ring_launches
+
+    plan, cfg_name, schedule, v, batch, n_micro = spec
+    first = runs[0]
+    cfg = _pp_cfg(cfg_name, 8, torch.bfloat16)
+    worst = {}
+    for run in runs:
+        for kernel, causal, err in run["visits"]:
+            key = (kernel, "causal" if causal else "full")
+            worst[key] = max(worst.get(key, 0.0), err)
+    print(f"  (a) {name}, per rank {first['shape']} (strided views): "
+          f"{sum(len(run['visits']) for run in runs)} flash calls against their plain versions; worst error "
+          f"over its tolerance " + ", ".join(f"{k} {c} {e:.3f}" for (k, c), e in sorted(worst.items())),
+          flush=True)
+    if {k for k, _ in worst} != {"fwd", "dq", "dkv"} or not max(worst.values()) <= 1.0:
+        fail(f"{name}: the flash calls disagree with their plain versions: {worst}")
+    S = plan["pp"]
+    calls = n_micro * cfg.n_layers // S * (ring_launches(plan["sp"], "zigzag")[0] if cfg.seq_axis else 1)
+    want = {"flash_fwd": calls * (2 if schedule == "1f1b" else 1), "flash_fwd_scalar": 0, "flash_bwd_dq": calls,
+            "flash_bwd_dkv": calls, "flash_bwd_dq_scalar": 0, "flash_bwd_dkv_scalar": 0}
+    for r, run in enumerate(runs):
+        per_step = {k: c / PP_STEPS for k, c in run["launches"].items()}
+        if per_step != want:
+            fail(f"{name}: rank {r} launched {per_step} per step, want {want}")
+    losses = first["losses"]
+    what = "averaged over its microbatches each routed alone" if cfg.moe is not None else "on the whole batch"
+    print(f"  (c) train {name} (v {v}, n_micro {n_micro}, 8 layers bf16), global batch {batch[0]}x{batch[1]}: "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)} (warm-up first); one process {what}: "
+          f"{first['ref_loss']:.4f}, rel err {first['loss_err']:.3e} (tol {SP_LOSS_TOLERANCE:.0e}); "
+          f"tensor-core launches per step and rank {want}", flush=True)
+    kinds = [k for k in PP_KINDS]
+    got = {}
+    for run in runs:
+        want_b = _pp_bytes(plan, schedule, v, batch, cfg, n_micro, run["stage"])
+        got_b = {k: (run["exchanges"][k] // PP_STEPS, run["exchanges"][k + "_bytes"] // PP_STEPS) for k in kinds}
+        got[run["stage"]] = (got_b, want_b)
+        if got_b != want_b:
+            fail(f"{name}: stage {run['stage']} exchanged {got_b} per step, want from the shapes {want_b}")
+    bubble = (S - 1) / (n_micro * v + S - 1)
+    print(f"    step {max(run['step_ms'] for run in runs):.1f} ms (host clock, slowest rank; per rank "
+          f"{[round(run['step_ms'], 1) for run in runs]}); peak memory per rank GB "
+          f"{[round(run['peak_gb'], 2) for run in runs]}; per step and rank, (exchanges, bytes) by kind, equal "
+          f"to the count from the shapes: " + "; ".join(f"stage {st}: {b[0]}" for st, b in sorted(got.items()))
+          + f"; ring (sp, not gated) {[(run['exchanges']['ring'] // PP_STEPS, run['exchanges']['ring_bytes'] // PP_STEPS) for run in runs]}",
+          flush=True)
+    print(f"    per rank, the share of the step the host spent in the stage hops and the broadcast (waiting "
+          f"for a neighbour or the transfer) "
+          f"{[round(run['exchanges']['pp_s'] * 1e3 / PP_STEPS / run['step_ms'], 3) for run in runs]} against "
+          f"the bubble (S-1)/(m*v+S-1) = {bubble:.3f}; in gloo transfers of every kind "
+          f"{[round(run['exchanges']['transfer_s'] * 1e3 / PP_STEPS / run['step_ms'], 3) for run in runs]}, "
+          f"waiting for the device to hand over staged payloads "
+          f"{[round(run['exchanges']['device_wait_s'] * 1e3 / PP_STEPS / run['step_ms'], 3) for run in runs]}; "
+          f"host syncs in {PP_STEPS} steps (sync debug mode) {[run['syncs'] for run in runs]} on {smi}",
+          flush=True)
+    if not first["loss_err"] <= SP_LOSS_TOLERANCE:
+        fail(f"{name}: the warm-up loss {losses[0]} is not within {SP_LOSS_TOLERANCE} of one process's "
+             f"{first['ref_loss']}")
+    bad = []
+    for leaf in first["replicas"]:
+        blocks = {}
+        for run in runs:
+            coords, digest = run["replicas"][leaf]
+            blocks.setdefault(coords, set()).add(digest)
+        bad += [leaf for d in blocks.values() if len(d) != 1]
+    print(f"    replicated leaves bit-equal across the ranks that hold them: "
+          f"{len(first['replicas']) - len(set(bad))} of {len(first['replicas'])} leaves", flush=True)
+    if bad:
+        fail(f"{name}: replicated leaves differ across ranks: {sorted(set(bad))}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"{name}: train losses not finite and falling: {losses}")
+    if any(run["syncs"] for run in runs):
+        fail(f"{name}: host syncs inside the steps: {[run['syncs'] for run in runs]}")
+
+
+def _pp_memory(mesh):
+    """Peak memory of one step per rank, GPipe against 1F1B, at each of
+    PP_MEMORY_MICRO microbatch counts (the flagship, bf16, pp 2 x tp 2,
+    global batch 8 x 2048), and the launches of those steps."""
+    from odh_kubeflow_tpu_torch.models import init_params, make_pp_train_step, shard_params, to_pp_params
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    cfg = _pp_cfg("dense", 8, torch.bfloat16)
+    local_batch, _ = _pp_batch("dense", PP_BATCH, mesh)
+    local = shard_params(to_pp_params(init_params(torch.Generator().manual_seed(0), cfg, device=mesh.device), 2,
+                                      cfg, mesh), cfg, mesh)
+    out = {"peak_gb": {}}
+    attention.reset_launch_counts()
+    for schedule in ("gpipe", "1f1b"):
+        for m in PP_MEMORY_MICRO:
+            step, opt = make_pp_train_step(cfg, mesh, m, schedule=schedule)
+            state = opt.init(local)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step(local, state, local_batch)
+            torch.cuda.synchronize()
+            out["peak_gb"][f"{schedule} n_micro {m}"] = torch.cuda.max_memory_allocated() / 1e9
+            del state
+    out["launches"] = dict(attention.launch_counts)
+    return out
+
+
+def _check_pp_memory(runs, smi):
+    print(f"  peak memory of one step per rank GB, the flagship at pp 2 x tp 2, global batch "
+          f"{PP_BATCH[0]}x{PP_BATCH[1]}: " + "; ".join(
+              f"{k} {[round(r['peak_gb'][k], 2) for r in runs]}" for k in runs[0]["peak_gb"]) + f" on {smi}",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA card")
@@ -3654,10 +4166,13 @@ def main() -> None:
           "this card")
     sp_launches.update(ep_phase(attention, smi))
 
+    phase("13 the pipelines: GPipe, 1F1B and interleaved 1F1B over a pp axis, ranks sharing this card")
+    sp_launches.update(pp_phase(attention, smi))
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
 
-    def sp(name):  # phases 10-12's launches of the kernel, summed over their ranks
+    def sp(name):  # phases 10-13's launches of the kernel, summed over their ranks
         return {path: launched[name] for path, launched in sp_launches.items() if launched.get(name)}
 
     def timing_keys(t):

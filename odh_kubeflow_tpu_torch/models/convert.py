@@ -8,6 +8,7 @@ which holds every bf16 value exactly.
 
 `shard_params` cuts a global params tree into this rank's blocks, as
 `device_put(p, NamedSharding(mesh, param_specs(cfg, mesh)))` places them
+(`pp_param_specs` for the pipeline layout of `to_pp_params`)
 (`shard_tree` does so for any tree and its placements: AdamW's state goes
 as its params, its count replicated); `gather_params` joins the blocks of
 every rank back into the global tree, for tests, checksums and the smoke,
@@ -25,7 +26,7 @@ import torch.distributed as dist
 from ..device import DeviceLike, resolve_device
 from ..parallel import comm
 from ..parallel.mesh import Placement
-from .transformer import param_placements, resolve_dtype
+from .transformer import param_placements, pp_chunks, pp_param_placements, resolve_dtype
 
 
 def params_from_numpy(tree: Any, dtype: Any, device: DeviceLike = "cuda") -> Any:
@@ -132,11 +133,19 @@ def tree_of(paths: Any, fn) -> Any:
     return fn(paths)
 
 
+def placements_of(params: Any, cfg: Any, mesh) -> Any:
+    """The placements of params in their layout: pp_param_placements for
+    the pipeline layout (to_pp_params), param_placements otherwise."""
+    chunks = pp_chunks(params)
+    return pp_param_placements(cfg, mesh, chunks) if chunks else param_placements(cfg, mesh)
+
+
 def shard_params(params: Any, cfg: Any, mesh) -> Any:
-    """This rank's block of every leaf of global params, on mesh.device."""
-    return shard_tree(params, param_placements(cfg, mesh), mesh)
+    """This rank's block of every leaf of global params, on mesh.device
+    (params in the pipeline layout are cut as pp_param_placements says)."""
+    return shard_tree(params, placements_of(params, cfg, mesh), mesh)
 
 
 def gather_params(params: Any, cfg: Any, mesh) -> Any:
     """The global params from every rank's blocks (collective)."""
-    return gather_tree(params, param_placements(cfg, mesh), mesh)
+    return gather_tree(params, placements_of(params, cfg, mesh), mesh)

@@ -26,8 +26,15 @@ not. The loss is taken over the vocab shards (max, sum of exponentials
 and the target logit over tp). An MoE config runs `moe_ffn(mesh=)`: its
 input stays replicated over tp (every tp rank runs the same experts on
 the same tokens, as the reference's GSPMD does) and over ep (models/moe.py);
-the loss adds router_aux_weight times the aux loss over n_layers. Stages
-(pp) raise NotImplementedError naming the ROADMAP item that ports them.
+the loss adds router_aux_weight times the aux loss over n_layers. A mesh
+with a live pp axis runs these entry points replicated over pp (the
+reference's param_specs name no stage axis): the pp ranks compute alike.
+
+Pipeline parallelism (pp) has its own entry points (`pp_forward`,
+`pp_loss_fn`, `pp_value_and_grad`, `pp_1f1b_value_and_grad`,
+`make_pp_train_step`), on params in the stage-stacked layout of
+`to_pp_params` cut as `pp_param_placements` says; `_pp_manual_layout`
+says how tp, fsdp (ZeRO stage storage) and sp compose inside the stages.
 
 Parameters are plain dicts of tensors in the JAX package's layout, stacked
 over layers: ``layers[name]`` is ``(L, ...)`` and the QKV projection is one
@@ -62,7 +69,9 @@ from ..device import DeviceLike, resolve_device
 from ..ops import apply_rope, flash_attention, matmul_f32, mha_reference, rms_norm
 from ..ops.ring_attention import ring_attention, ring_attention_zigzag, zigzag_permutation
 from ..parallel import comm
-from ..parallel.mesh import DATA_SEQ_AXES, REPLICA_AXES, Placement, logical_to_spec
+from ..parallel.mesh import AXES, DATA_SEQ_AXES, REPLICA_AXES, Placement, axes_index, logical_to_spec
+from ..parallel.pipeline import pipeline_apply, pipeline_value_and_grad_1f1b, pipeline_value_and_grad_gpipe, stack_stages
+from ..parallel.interleaved_1f1b import pipeline_value_and_grad_interleaved_1f1b
 from .moe import MOE_AXES, MoEConfig, _dense_init, init_moe_params, moe_ffn
 from .optim import adamw
 from .tree import tree_leaves, tree_map, tree_unflatten
@@ -284,23 +293,12 @@ def train_state_placements(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
     return {"params": params, "opt_state": {"count": Placement(), "mu": params, "nu": params}}
 
 
-# mesh axis -> the ROADMAP Queue 1 item that ports the model over it
-_MESH_ITEMS = {
-    "pp": "item 13.5 (the pipelines)",
-}
-
-
 def check_mesh(mesh, cfg: TransformerConfig, what: str) -> None:
-    """Raise for what the mesh path does not run: a pp axis, a width that
-    its axis does not divide, or a live sp axis without cfg.seq_axis =
-    "sp"."""
+    """Raise for what the mesh path does not run: a width that its axis
+    does not divide, or a live sp axis without cfg.seq_axis = "sp". A pp
+    axis replicates the non-pipelined entry points over its ranks."""
     if mesh is None:
         return
-    for axis, item in _MESH_ITEMS.items():
-        if mesh.sizes[axis] > 1:
-            raise NotImplementedError(
-                f"{what} over a mesh with {axis}={mesh.sizes[axis]} is not ported yet: ROADMAP Queue 1 {item}"
-            )
     tp, fsdp, ep = mesh.sizes["tp"], mesh.sizes["fsdp"], mesh.sizes["ep"]
     widths = [("n_heads", cfg.n_heads, "tp", tp), ("vocab", cfg.vocab, "tp", tp),
               ("d_model", cfg.d_model, "fsdp", fsdp)]
@@ -405,11 +403,10 @@ def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
     """Causal attention; GQA k/v are consumed natively. With cfg.seq_axis
     and a mesh, ring attention over the sp ranks in cfg.seq_layout,
     whatever use_flash says (its kernel path on CUDA tensors)."""
-    if cfg.seq_axis and cfg.seq_axis_bound:
-        raise NotImplementedError(
-            "a sequence axis bound by an enclosing pipeline stage is not ported yet: "
-            f"ROADMAP Queue 1 {_MESH_ITEMS['pp']}"
-        )
+    if cfg.seq_axis and cfg.seq_axis_bound and mesh is None:
+        # a pipeline stage's config (_pp_manual_layout): its ring runs on the
+        # stage's mesh, on the sequence shards the stage was handed
+        raise ValueError("cfg.seq_axis_bound: the stage's ring needs the stage's mesh")
     if cfg.seq_axis and mesh is not None:
         if cfg.seq_layout == "zigzag":
             return ring_attention_zigzag(q, k, v, mesh, axis_name=cfg.seq_axis)
@@ -444,7 +441,7 @@ def layer_qkv(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
 
 
 def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=None,
-                         replicated_batch: bool = False):
+                         replicated_batch: bool = False, ep_axis: str = ""):
     """Output projection + MLP (routed experts or dense SwiGLU). Returns
     (x, aux): aux is the layer's router aux loss (0-d f32) for MoE, and the
     Python float 0.0 for a dense layer (no device op). The dense SwiGLU
@@ -452,7 +449,9 @@ def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=Non
     (the decode fast path). With a mesh, as layer_qkv: the weights are
     gathered over fsdp, under tp wo and wo_mlp are row-parallel, and an
     MoE layer runs `moe_ffn(mesh=)` on its input replicated over tp
-    (replicated_batch: x is the whole batch on every rank, as in decode)."""
+    (replicated_batch: x is the whole batch on every rank, as in decode),
+    or with `ep_axis` (a pipeline stage: its tokens replicated over that
+    axis, its expert stacks the rank's ep block) `_moe_ffn_manual`."""
     tp = _groups(mesh)[1]
     dense = ("wi_gate", "wi_up", "wo_mlp") if cfg.moe is None else ()
     layer_params = _gathered(layer_params, ("wo",) + dense, cfg, mesh)
@@ -465,7 +464,7 @@ def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=Non
         if mesh is None:
             mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved)
         else:
-            mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved, mesh, "", replicated_batch)
+            mlp_out, aux = moe_ffn(y, layer_params, cfg.moe_resolved, mesh, ep_axis, replicated_batch)
         return x + mlp_out, aux
     y = comm.tp_enter(rms_norm(x, layer_params["mlp_norm"]), tp)
     wi_fused = layer_params.get("wi_fused")
@@ -480,12 +479,12 @@ def layer_post_attention(x, attn, layer_params, cfg: TransformerConfig, mesh=Non
     return x + _row_parallel(act, layer_params["wo_mlp"], cfg, tp), 0.0
 
 
-def _layer(x, layer_params, positions, cfg: TransformerConfig, mesh=None):
+def _layer(x, layer_params, positions, cfg: TransformerConfig, mesh=None, ep_axis: str = ""):
     """One pre-norm block. x: (batch, seq, d_model). Returns (x, aux), as
     layer_post_attention does."""
     q, k, v = layer_qkv(x, layer_params, positions, cfg, mesh)
     attn = _attention(q, k, v, cfg, mesh)
-    return layer_post_attention(x, attn, layer_params, cfg, mesh)
+    return layer_post_attention(x, attn, layer_params, cfg, mesh, ep_axis=ep_axis)
 
 
 _FLASH_OP = torch.ops.odh_kubeflow_tpu_torch.flash_fwd
@@ -614,15 +613,8 @@ def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
     the global batch's on every rank (see `_sharded_loss`)."""
     if mesh is not None:
         return _sharded_loss(params, batch, cfg, mesh)
-    tokens = batch["tokens"]
-    targets = batch.get("targets")
-    if targets is None and cfg.seq_layout == "zigzag":
-        # rolling zigzag-ordered tokens gives storage-order successors: wrong
-        # labels at every chunk boundary
-        raise ValueError(
-            'seq_layout="zigzag" needs explicit batch targets/loss_mask '
-            "(models.make_zigzag_batch)"
-        )
+    _check_targets(batch, cfg)
+    tokens, targets = batch["tokens"], batch.get("targets")
     logits, aux = forward(params, tokens, cfg, positions=batch.get("positions"), with_aux=True)
     if targets is None:
         loss = next_token_ce(logits, tokens)
@@ -677,6 +669,46 @@ def _vocab_parallel_terms(logits, targets, tp, tp_index: int):
     return sums[0].log() + m, sums[1]
 
 
+def _check_targets(batch, cfg: TransformerConfig) -> None:
+    if batch.get("targets") is None and cfg.seq_layout == "zigzag":
+        # rolling zigzag-ordered tokens gives storage-order successors: wrong
+        # labels at every chunk boundary
+        raise ValueError(
+            'seq_layout="zigzag" needs explicit batch targets/loss_mask '
+            "(models.make_zigzag_batch)"
+        )
+
+
+def _ce_terms(logits, targets, mask, mesh):
+    """The rank's masked sum of log p(target) over its positions (the
+    vocab shards' under tp), differentiable."""
+    tp = _groups(mesh)[1]
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(-1, targets[..., None].long())[..., 0]
+    else:
+        lse, tl = _vocab_parallel_terms(logits, targets, tp, mesh.index("tp"))
+    return ((tl - lse) * mask).sum()
+
+
+def _global_ce(logits, batch, cfg: TransformerConfig, mesh):
+    """The global batch's masked-mean cross-entropy from this rank's
+    logits (its vocab block under tp) of its shard of `batch`, as
+    `_sharded_loss` takes it."""
+    tokens, targets = batch["tokens"], batch.get("targets")
+    if targets is None:
+        targets, mask = _next_token_targets(tokens, mesh, cfg)
+    else:
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(tokens.shape, device=logits.device)
+    num = _ce_terms(logits, targets, mask, mesh)
+    num_all, den_all = comm.all_reduce_sum([num.detach(), mask.sum()],
+                                           mesh.group(REPLICA_AXES)[0])
+    den = den_all.clamp_min(1.0)
+    return _GlobalValue.apply(-num / den, -num_all / den)
+
+
 def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
     """The global batch's masked-mean cross-entropy on this rank's shard:
     the masked sums of the rank's terms and its mask are summed over the
@@ -686,31 +718,9 @@ def _sharded_loss(params, batch, cfg: TransformerConfig, mesh):
     come from the vocab shards (_vocab_parallel_terms), the same on every
     tp rank."""
     check_mesh(mesh, cfg, "loss_fn")
-    tokens = batch["tokens"]
-    targets = batch.get("targets")
-    if targets is None and cfg.seq_layout == "zigzag":
-        raise ValueError(
-            'seq_layout="zigzag" needs explicit batch targets/loss_mask '
-            "(models.make_zigzag_batch)"
-        )
-    logits, aux = forward(params, tokens, cfg, mesh, positions=batch.get("positions"), with_aux=True)
-    if targets is None:
-        targets, mask = _next_token_targets(tokens, mesh, cfg)
-    else:
-        mask = batch.get("loss_mask")
-        if mask is None:
-            mask = torch.ones(tokens.shape, device=logits.device)
-    tp = _groups(mesh)[1]
-    if tp is None:
-        lse = torch.logsumexp(logits, dim=-1)
-        tl = logits.gather(-1, targets[..., None].long())[..., 0]
-    else:
-        lse, tl = _vocab_parallel_terms(logits, targets, tp, mesh.index("tp"))
-    num = ((tl - lse) * mask).sum()
-    num_all, den_all = comm.all_reduce_sum([num.detach(), mask.sum()],
-                                           mesh.group(REPLICA_AXES)[0])
-    den = den_all.clamp_min(1.0)
-    loss = _GlobalValue.apply(-num / den, -num_all / den)
+    _check_targets(batch, cfg)
+    logits, aux = forward(params, batch["tokens"], cfg, mesh, positions=batch.get("positions"), with_aux=True)
+    loss = _global_ce(logits, batch, cfg, mesh)
     if cfg.moe is not None:
         # the aux loss is the same on every rank; its gradient counts it
         # once over the ranks (models/moe.py)
@@ -745,7 +755,7 @@ def _leaf_names(tree) -> list:
     return [None]
 
 
-def _sum_grads(grads, params, cfg: TransformerConfig, mesh):
+def _sum_grads(grads, params, cfg: TransformerConfig, mesh, placements=None):
     """The global gradients of this rank's blocks: a leaf that fsdp cuts,
     already reduce-scattered over fsdp by its gather, is summed over dp and
     sp; every other leaf over dp, fsdp and sp (each group in f32 in one
@@ -758,8 +768,10 @@ def _sum_grads(grads, params, cfg: TransformerConfig, mesh):
     each rank (an expert stack gathered over tp has the same one on every
     tp rank, sliced), and a leaf replicated over them the same bits on
     each (its input's gradient was summed over tp and ep where it
-    entered)."""
-    placements = tree_leaves(tree_map(lambda _, pl: pl, params, param_placements(cfg, mesh)))
+    entered). `placements` (the pipeline's, `pp_param_placements`) replaces
+    param_placements; there no leaf is summed over tp."""
+    shared_kv = placements is None and _shared_kv(cfg, mesh)
+    placements = tree_leaves(tree_map(lambda _, pl: pl, params, placements or param_placements(cfg, mesh)))
     names = _leaf_names(params)
     out = list(grads)
 
@@ -769,7 +781,7 @@ def _sum_grads(grads, params, cfg: TransformerConfig, mesh):
         for i, summed in zip(idx, comm.all_reduce_sum([out[i] for i in idx], group)):
             out[i] = summed
 
-    if _shared_kv(cfg, mesh):
+    if shared_kv:
         add([i for i, n in enumerate(names) if n == "wqkv"], mesh.group("tp")[0])
     add([i for i, n in enumerate(names) if n == "router"], mesh.group("ep")[0])
     for sharded, axes in ((True, DATA_SEQ_AXES), (False, REPLICA_AXES)):
@@ -810,6 +822,456 @@ def make_train_step(cfg: TransformerConfig, optimizer=None, mesh=None):
 
     def step(params, opt_state, batch):
         loss, grads = value_and_grad(params, batch, cfg, mesh)
+        optimizer.update_(tree_unflatten(params, grads), opt_state, params)
+        return params, opt_state, loss
+
+    return step, optimizer
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (the pp axis)
+# ---------------------------------------------------------------------------
+
+
+class _StageMesh:
+    """The mesh as a pipeline stage's layers see it: fsdp dead (the
+    stage's weights were gathered once for the step, `_pp_prepare`), tp
+    live only where the stages run tensor parallelism (`_pp_manual_layout`),
+    every other axis as the mesh has it (sp's ring, ep's experts)."""
+
+    def __init__(self, mesh, tp_live: bool):
+        # a mesh of sizes alone (as the spec functions take) has no rank
+        self.mesh, self.rank = mesh, getattr(mesh, "rank", None)
+        self.device, self.coords = getattr(mesh, "device", None), getattr(mesh, "coords", None)
+        self.sizes = dict(mesh.sizes, fsdp=1, tp=mesh.sizes["tp"] if tp_live else 1)
+
+    def live(self, axes):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in AXES if a in axes and self.sizes[a] > 1)
+
+    def group(self, axes):
+        live = self.live(axes)
+        return self.mesh.group(live) if live else (None, [self.rank])
+
+    def index(self, axes) -> int:
+        return axes_index(axes, self.coords, self.sizes)
+
+    def size(self, axes) -> int:
+        out = 1
+        for a in self.live(axes):
+            out *= self.sizes[a]
+        return out
+
+
+def _pp_manual_layout(cfg: TransformerConfig, mesh):
+    """How tp, fsdp and sp compose inside the pipeline stages (the one
+    source of truth for the pp functions, pp_param_specs and to_pp_params,
+    as the reference's). Returns (tp_axis, gather_axes, cfg_stage):
+
+    - tp_axis "tp" when the stages run tensor parallelism: tp divides
+      n_heads, kv_heads and (dense) d_ff; cfg_stage then carries one tp
+      rank's widths (`_local_cfg`), its wo and wo_mlp row-parallel. Else
+      the stage compute is replicated over tp.
+    - gather_axes: leaf -> its embed dim (after the stage dims) where the
+      weight is stored fsdp-cut and gathered once per step (ZeRO: its
+      gradient reduce-scattered once); the MoE experts are not (they keep
+      their ep block).
+    - cfg_stage.seq_axis_bound under a live sp axis: the stages get
+      sequence shards and run the ring themselves."""
+    sizes = mesh.sizes
+    tp, fsdp, pp = sizes["tp"], sizes["fsdp"], sizes["pp"]
+    tp_axis = ""
+    if (pp > 1 and tp > 1 and cfg.n_heads % tp == 0 and cfg.kv_heads % tp == 0
+            and (cfg.moe is not None or cfg.d_ff % tp == 0)):
+        tp_axis = "tp"
+    gather_axes = {}
+    if pp > 1 and fsdp > 1 and cfg.d_model % fsdp == 0:
+        gather_axes = {"wqkv": 1, "wo": 3}
+        if cfg.moe is None:
+            gather_axes.update({"wi_gate": 1, "wi_up": 1, "wo_mlp": 2})
+    cfg_stage = _local_cfg(cfg, _StageMesh(mesh, bool(tp_axis)))
+    if pp > 1 and cfg.seq_axis and sizes.get(cfg.seq_axis, 1) > 1:
+        cfg_stage = replace(cfg_stage, seq_axis_bound=True)
+    return tp_axis, gather_axes, cfg_stage
+
+
+def _interleave_wqkv(wqkv, h: int, kv: int, tp: int):
+    """Reorder the fused [q heads | k heads | v heads] axis (second-to-last)
+    so each contiguous 1/tp slab is [q_r | k_r | v_r]: a tp block of the
+    result holds its own heads of all three projections (the reference's
+    layout for the pipeline stages)."""
+    q, k, v = wqkv.split([h, kv, kv], dim=-2)
+    parts = [torch.cat([q.chunk(tp, -2)[r], k.chunk(tp, -2)[r], v.chunk(tp, -2)[r]], dim=-2)
+             for r in range(tp)]
+    return torch.cat(parts, dim=-2)
+
+
+def to_pp_params(params, n_stages: int, cfg: TransformerConfig = None, mesh=None, n_chunks: int = 1):
+    """(L, ...)-stacked params -> the pipeline storage layout: layers (S,
+    L/S, ...) (or (S, v, L/(S*v), ...) for n_chunks = v), everything else
+    unchanged. With cfg and mesh, also the wqkv head interleave that
+    stages running tp need (`_pp_manual_layout`): pass them whenever the
+    mesh has a live tp axis."""
+    layers = params["layers"]
+    if cfg is not None and mesh is not None and _pp_manual_layout(cfg, mesh)[0]:
+        layers = {**layers, "wqkv": _interleave_wqkv(layers["wqkv"], cfg.n_heads, cfg.kv_heads,
+                                                     mesh.sizes["tp"])}
+    return {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": stack_stages(layers, n_stages, n_chunks=n_chunks)}
+
+
+def pp_param_specs(cfg: TransformerConfig, mesh, n_stages: int, n_chunks: int = 1):
+    """param_specs for the pipeline layout, the reference's tuples: the
+    per-layer leaves' leading stage dim cut over pp; inside a stage, dense
+    weights cut their heads/mlp dim over tp (the stage's tensor-parallel
+    block) and their embed dim over fsdp (gathered once per step), MoE
+    expert stacks their expert dim over ep, norms and the router
+    replicated; the interleaved layout has its chunk dim after pp.
+    n_stages is the reference's argument (mesh's pp size)."""
+    del n_stages
+    base = param_specs(cfg, mesh)
+    tp_axis, gather_axes, _ = _pp_manual_layout(cfg, mesh)
+    tp = "tp" if tp_axis else None
+
+    def fs(name):
+        return "fsdp" if name in gather_axes else None
+
+    manual = {
+        "wqkv": ("pp", None, fs("wqkv"), tp, None),
+        "wo": ("pp", None, tp, None, fs("wo")),
+        "wi_gate": ("pp", None, fs("wi_gate"), tp),
+        "wi_up": ("pp", None, fs("wi_up"), tp),
+        "wo_mlp": ("pp", None, tp, fs("wo_mlp")),
+    }
+
+    def add_stage(name):
+        if cfg.moe is not None and name in _EXPERT_AXES:
+            out = ("pp", None, "ep")
+        else:
+            out = manual.get(name, ("pp",))
+        return (out[0], None, *out[1:]) if n_chunks > 1 else out
+
+    return {**{k: v for k, v in base.items() if k != "layers"},
+            "layers": {k: add_stage(k) for k in base["layers"]}}
+
+
+def pp_param_placements(cfg: TransformerConfig, mesh, n_chunks: int = 1) -> Dict[str, Any]:
+    """pp_param_specs as parallel.Placements (the wqkv of a tp stage is
+    interleaved already, so its blocks are plain cuts)."""
+    specs = pp_param_specs(cfg, mesh, mesh.sizes["pp"], n_chunks)
+    out = {k: Placement(v) for k, v in specs.items() if k != "layers"}
+    out["layers"] = {k: Placement(v) for k, v in specs["layers"].items()}
+    return out
+
+
+def pp_train_state_placements(cfg: TransformerConfig, mesh, n_chunks: int = 1) -> Dict[str, Any]:
+    """The placements of a pipeline train state {"params", "opt_state"}
+    (AdamW's mu and nu as the params, its count replicated), for the
+    sharded checkpoint."""
+    params = pp_param_placements(cfg, mesh, n_chunks)
+    return {"params": params, "opt_state": {"count": Placement(), "mu": params, "nu": params}}
+
+
+def pp_chunks(params) -> int:
+    """The layout of `params` (global or a rank's blocks): 0 for the plain
+    (L, ...) stack, else the chunk count v of the pipeline layout ((S, L/S,
+    ...) is v = 1, (S, v, Lg, ...) is v)."""
+    ndim = params["layers"]["attn_norm"].dim()
+    return 0 if ndim == 2 else 1 if ndim == 3 else params["layers"]["attn_norm"].shape[1]
+
+
+def _check_pp_shards(params, cfg: TransformerConfig, mesh, n_chunks: int) -> None:
+    S = mesh.sizes["pp"]
+    shapes = _global_shapes(cfg)
+    lead = (S,) if n_chunks == 1 else (S, n_chunks)
+    shapes["layers"] = {n: lead + (sh[0] // (S * n_chunks),) + sh[1:] for n, sh in shapes["layers"].items()}
+    want = tree_map(lambda shape, pl: pl.local_shape(shape, mesh.sizes), shapes,
+                    pp_param_placements(cfg, mesh, n_chunks))
+    got = tree_map(lambda _, t: tuple(t.shape), want, params)
+    if got != want:
+        raise ValueError(f"params are not this rank's pipeline blocks over the mesh {mesh.sizes} "
+                         f"(to_pp_params, then models.shard_params): shapes {got}, want {want}")
+
+
+def _pp_check(params, cfg: TransformerConfig, mesh, n_chunks: int) -> None:
+    check_supported(cfg)
+    check_mesh(mesh, cfg, "the pipeline")
+    if mesh.sizes["pp"] < 2:
+        # the reference runs its one stage inline there: the port's
+        # non-pipelined entry points are that path
+        raise ValueError("the pipeline needs pp > 1: run forward, loss_fn or make_train_step at pp == 1")
+    if cfg.n_layers % (mesh.sizes["pp"] * n_chunks):
+        raise ValueError(f"{cfg.n_layers} layers not divisible into {mesh.sizes['pp']} stages"
+                         + (f" x {n_chunks} chunks" if n_chunks > 1 else ""))
+    _check_pp_shards(params, cfg, mesh, n_chunks)
+
+
+def _pp_positions(cfg: TransformerConfig, mesh, s: int, device) -> torch.Tensor:
+    """(1, s) positions of a stage's sequence shard: the whole sequence,
+    or under sp the shard's global positions from its sp index in either
+    layout (zigzag: chunks r and 2*sp-1-r, back to back)."""
+    ar = torch.arange(s, device=device)
+    if not (cfg.seq_axis and mesh.sizes.get(cfg.seq_axis, 1) > 1):
+        return ar[None]
+    r, n = mesh.index(cfg.seq_axis), mesh.sizes[cfg.seq_axis]
+    if cfg.seq_layout == "zigzag":
+        c = s // 2
+        return torch.cat([r * c + ar[:c], (2 * n - 1 - r) * c + ar[:c]])[None]
+    return (r * s + ar)[None]
+
+
+class _PPStep:
+    """What one pipeline call needs on this rank: the stage layout, the
+    stage function, the stage's weights gathered once over fsdp, and the
+    transposes of those gathers for the gradients."""
+
+    def __init__(self, params, cfg: TransformerConfig, mesh, n_chunks: int, s_local: int,
+                 head_once: bool = False):
+        # head_once: the head runs on the last stage only (1F1B), so its
+        # gradients are summed over pp with the embedding's
+        self.cfg, self.mesh, self.n_chunks, self.head_once = cfg, mesh, n_chunks, head_once
+        self.tp_axis, gather_axes, self.cfg_stage = _pp_manual_layout(cfg, mesh)
+        self.stage_mesh = _StageMesh(mesh, bool(self.tp_axis))
+        self.fsdp, self.tp = _groups(mesh)
+        lead = 2 if n_chunks > 1 else 1
+        self.dims = {n: ax + lead for n, ax in gather_axes.items()}
+        # the ZeRO gather, once per step (per pipeline call)
+        self.stage = {n: comm.all_gather(t.detach(), self.fsdp, self.dims[n]) if n in self.dims else t.detach()
+                      for n, t in params["layers"].items()}
+        self.ep_axis = "ep" if cfg.moe is not None else ""
+        self.positions = _pp_positions(cfg, mesh, s_local, mesh.device)
+        self.stage_index = mesh.coords["pp"]
+        self.first, self.last = self.stage_index == 0, self.stage_index == mesh.sizes["pp"] - 1
+
+    def stage_fn(self, chunk, h):
+        aux = 0.0
+        for layer in range(next(iter(chunk.values())).shape[0]):
+            h, a = _layer(h, {n: t[layer] for n, t in chunk.items()}, self.positions, self.cfg_stage,
+                          self.stage_mesh, ep_axis=self.ep_axis)
+            aux = aux + a
+        return h, aux
+
+    def embed(self, params, tokens):
+        """(the gathered table as a leaf, the first stage's input x) on the
+        first stage; (None, an empty tensor of x's shape) elsewhere."""
+        b, s = tokens.shape
+        if not self.first:
+            return None, torch.empty((b, s, self.cfg.d_model), dtype=self.cfg.dtype, device=tokens.device)
+        table = comm.all_gather(params["embed"].detach(), self.fsdp, 1).requires_grad_()
+        with torch.enable_grad():
+            return table, table.to(self.cfg.dtype)[tokens]
+
+    def head_leaves(self, params):
+        return [params["final_norm"].detach().requires_grad_(),
+                comm.all_gather(params["unembed"].detach(), self.fsdp, 0).requires_grad_()]
+
+    def logits(self, head, y):
+        x = comm.tp_enter(rms_norm(y, head[0]), self.tp)
+        return matmul_f32(x, head[1])
+
+    def stage_grads(self, d_stage):
+        """The stage's f32 gradients reduce-scattered over fsdp where the
+        weights were gathered (the gather's transpose)."""
+        return {n: comm.reduce_scatter(g, self.fsdp, self.dims[n]) if n in self.dims else g
+                for n, g in d_stage.items()}
+
+    def aux_seed(self, n_micro: int) -> float:
+        """d loss / d (one visit's aux): router_aux_weight / n_layers over the
+        microbatches and the data shards (the reference's mean over them),
+        over ep too: every ep rank holds the same aux, and its gradients
+        to the router and the tokens are summed over ep."""
+        if self.cfg.moe is None:
+            return 0.0
+        return (self.cfg.moe.router_aux_weight / self.cfg.n_layers
+                / (n_micro * self.mesh.size(REPLICA_AXES) * self.mesh.size("ep")))
+
+
+def pp_forward(params, tokens, cfg: TransformerConfig, mesh, n_micro: int = 4, with_aux=False,
+               n_chunks: int = 1):
+    """Pipeline-parallel forward: f32 logits (batch, seq, vocab/tp) of this
+    rank's shard of the batch (`shard_batch`), on every stage. params are
+    this rank's blocks of the pipeline layout (`to_pp_params`, then
+    `shard_params`). The embedding runs on the first stage, the
+    microbatches stream through the stages (parallel/pipeline.py), and the
+    final norm and unembedding run on every stage from the last stage's
+    broadcast output, as the reference's replicate them over pp.
+
+    Inside the stages (_pp_manual_layout): tp's column- and row-parallel
+    products, the ZeRO gather of the stage's weights once per call, ep's
+    experts (`_moe_ffn_manual` on the tokens of one microbatch: capacity
+    from its token count, so at one capacity factor a pipelined MoE drops
+    tokens at a tighter threshold than one process on the whole batch),
+    and sp's ring. with_aux also returns the aux loss averaged over the
+    microbatches (0-d f32). Runs without a graph."""
+    _pp_check(params, cfg, mesh, n_chunks)
+    run = _PPStep(params, cfg, mesh, n_chunks, tokens.shape[1])
+    with torch.no_grad():
+        _, x = run.embed(params, tokens)
+        y, aux = pipeline_apply(run.stage_fn, run.stage, x, mesh, n_micro, with_aux=True, n_chunks=n_chunks,
+                                seq_axis=cfg.seq_axis if run.cfg_stage.seq_axis_bound else "")
+        logits = run.logits(run.head_leaves(params), y)
+    if with_aux:
+        return logits, aux / n_micro
+    return logits
+
+
+def pp_loss_fn(params, batch, cfg: TransformerConfig, mesh, n_micro: int = 4, n_chunks: int = 1):
+    """The pipeline's loss (the reference's pp_loss_fn): the global batch's
+    cross-entropy (explicit targets and loss_mask honoured; zigzag without
+    targets raises), plus router_aux_weight times the aux over n_layers
+    for MoE. The same value on every rank; no graph (its gradients:
+    pp_value_and_grad)."""
+    _check_targets(batch, cfg)
+    logits, aux = pp_forward(params, batch["tokens"], cfg, mesh, n_micro, with_aux=True, n_chunks=n_chunks)
+    loss = _global_ce(logits, batch, cfg, mesh)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
+
+
+def _pp_finish(params, cfg: TransformerConfig, mesh, run: _PPStep, table, x, dx, d_stage, pp_parts, d_head):
+    """Every leaf's global gradient from this rank's parts: the embedding's
+    from x's cotangent (first stage), reduce-scattered over fsdp; the
+    stage's reduce-scattered where it was gathered; what one stage
+    computed (the embedding's, in 1F1B the head's, and `pp_parts`, the
+    loss and aux scalars) summed over pp in one exchange; then the sums
+    over the data axes (`_sum_grads` on the pipeline's placements).
+    Returns (the pp-summed scalars, the gradients in tree_leaves order)."""
+    fsdp = run.fsdp
+    if run.first:
+        d_embed = comm.reduce_scatter(torch.autograd.grad(x, table, dx)[0], fsdp, 1)
+    else:
+        d_embed = torch.zeros(params["embed"].shape, device=params["embed"].device)
+    d_final, d_unembed = d_head
+    if d_unembed.shape != params["unembed"].shape:
+        d_unembed = comm.reduce_scatter(d_unembed, fsdp, 0)
+    summed = comm.all_reduce_sum([*pp_parts, d_embed, *([d_final, d_unembed] if run.head_once else [])],
+                                 mesh.group("pp")[0], "pp_sum")
+    scalars = summed[:len(pp_parts)]
+    d_embed = summed[len(pp_parts)]
+    if run.head_once:
+        d_final, d_unembed = summed[len(pp_parts) + 1:]
+    grads = {"embed": d_embed, "final_norm": d_final.float(), "unembed": d_unembed.float(),
+             "layers": run.stage_grads(d_stage)}
+    leaves = tree_leaves(tree_map(lambda _, g: g, params, grads))
+    leaves = _sum_grads(leaves, params, cfg, mesh, pp_param_placements(cfg, mesh, run.n_chunks))
+    return scalars, [g.to(p.dtype) for g, p in zip(leaves, tree_leaves(params))]
+
+
+def pp_value_and_grad(params, batch, cfg: TransformerConfig, mesh, n_micro: int = 4, n_chunks: int = 1):
+    """GPipe's (loss, gradients in tree_leaves order): the counterpart of
+    the reference's jax.value_and_grad(pp_loss_fn). Every microbatch's
+    stage graph is kept (O(n_micro) activations); the head runs on every
+    stage from the broadcast output (as pp_loss_fn), the last stage seeds
+    the backward, which runs microbatch by microbatch in reverse with
+    explicit cotangent hops. The gradients are the global ones of this
+    rank's blocks; the loss is the same on every rank."""
+    _check_targets(batch, cfg)
+    _pp_check(params, cfg, mesh, n_chunks)
+    tokens = batch["tokens"]
+    run = _PPStep(params, cfg, mesh, n_chunks, tokens.shape[1])
+    table, x = run.embed(params, tokens)
+    head = run.head_leaves(params)
+
+    def head_fn(y):
+        y = y.detach().requires_grad_()
+        with torch.enable_grad():
+            ce = _global_ce(run.logits(head, y), batch, cfg, mesh)
+            grads = torch.autograd.grad(ce, head + [y])
+        return (ce.detach(), grads[:2]), grads[2]
+
+    (ce, d_head), aux, d_stage, dx = pipeline_value_and_grad_gpipe(
+        run.stage_fn, head_fn, run.stage, x.detach(), mesh, n_micro, n_chunks=n_chunks,
+        aux_seed=run.aux_seed(n_micro))
+    (aux,), grads = _pp_finish(params, cfg, mesh, run, table, x, dx, d_stage, [aux], d_head)
+    loss = ce
+    if cfg.moe is not None:
+        group = mesh.group(REPLICA_AXES)[0]
+        aux = comm.all_reduce_sum([aux], group, "aux")[0] if group is not None else aux
+        loss = loss + cfg.moe.router_aux_weight * aux / (cfg.n_layers * n_micro * mesh.size(REPLICA_AXES))
+    return loss, grads
+
+
+def pp_1f1b_value_and_grad(params, batch, cfg: TransformerConfig, mesh, n_micro: int = 4,
+                           n_chunks: int = 1):
+    """1F1B counterpart of pp_value_and_grad (the reference's
+    pp_1f1b_value_and_grad): the same stage layout and loss, but each
+    microbatch's backward runs right behind the last stage's forward, so a
+    rank holds O(stages) stage inputs instead of O(n_micro) activations.
+    The loss head (final norm, unembedding, next-token cross-entropy)
+    runs on the last stage per microbatch; the embedding's gradient closes
+    over the input's cotangent. n_chunks = v > 1 runs interleaved 1F1B
+    (parallel/interleaved_1f1b.py) on the (S, v, L/(S*v), ...) layout.
+    MoE: the aux loss's cotangent is the constant seed. A live sp axis and
+    explicit targets raise NotImplementedError, as the reference's."""
+    if cfg.seq_axis and mesh.sizes.get(cfg.seq_axis, 1) > 1:
+        raise NotImplementedError(
+            "sp inside pipeline stages is composed with the GPipe schedule "
+            "only (pp_loss_fn); the 1F1B engines do not thread sequence "
+            "shards through their backward buffers"
+        )
+    if "targets" in batch:
+        raise NotImplementedError(
+            "explicit batch targets/loss_mask are supported by the GPipe "
+            "schedule only (pp_loss_fn); the 1F1B loss head computes "
+            "next-token CE from tokens"
+        )
+    _pp_check(params, cfg, mesh, n_chunks)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if b % n_micro:
+        raise ValueError(f"per-data-shard batch {b} not divisible by n_micro {n_micro}")
+    run = _PPStep(params, cfg, mesh, n_chunks, s, head_once=True)
+    table, x = run.embed(params, tokens)
+    head = run.head_leaves(params) if run.last else None
+    mb = b // n_micro
+    scale = 1.0 / (n_micro * mesh.size(REPLICA_AXES))
+    mask = (torch.arange(s, device=tokens.device) < s - 1).float().expand(mb, s)
+
+    def loss_head(i, y):
+        tok = tokens[i * mb:(i + 1) * mb]
+        y = y.detach().requires_grad_()
+        with torch.enable_grad():
+            num = _ce_terms(run.logits(head, y), torch.roll(tok, -1, dims=1), mask, mesh)
+            loss = -num / mask.sum()
+            grads = torch.autograd.grad(loss * scale, head + [y])
+        return loss.detach(), grads
+
+    engine = (pipeline_value_and_grad_interleaved_1f1b if n_chunks > 1 else pipeline_value_and_grad_1f1b)
+    extra = (n_chunks,) if n_chunks > 1 else ()
+    loss, aux, d_stage, d_head, dx, _ = engine(
+        run.stage_fn, loss_head, run.stage, x.detach(), mesh, n_micro, *extra, aux_seed=run.aux_seed(n_micro))
+    if d_head is None:
+        d_head = [torch.zeros(params["final_norm"].shape, device=x.device),
+                  torch.zeros(params["unembed"].shape, device=x.device)]
+    (loss, aux), grads = _pp_finish(params, cfg, mesh, run, table, x, dx, d_stage, [loss, aux], d_head)
+    group = mesh.group(REPLICA_AXES)[0]
+    if group is not None:
+        loss, aux = comm.all_reduce_sum([loss, aux], group)
+    total = loss * scale
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_weight / cfg.n_layers * aux * scale
+    return total, grads
+
+
+def make_pp_train_step(cfg: TransformerConfig, mesh, n_micro: int = 4, optimizer=None,
+                       schedule: str = "gpipe", n_chunks: int = 1):
+    """Pipeline-parallel train step (step, optimizer), step(params,
+    opt_state, batch) -> (params, opt_state, loss) on this rank's pipeline
+    blocks and batch shard, updated in place as make_train_step's.
+    schedule "gpipe" (pp_value_and_grad: O(n_micro) activations) or "1f1b"
+    (pp_1f1b_value_and_grad: O(stages)); both take n_chunks = v > 1
+    virtual stages (1f1b with chunks is Megatron's interleaved 1F1B). The
+    default optimizer is `adamw()`."""
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    check_supported(cfg)
+    check_mesh(mesh, cfg, "make_pp_train_step")
+    optimizer = optimizer or adamw()
+    vg = pp_1f1b_value_and_grad if schedule == "1f1b" else pp_value_and_grad
+
+    def step(params, opt_state, batch):
+        loss, grads = vg(params, batch, cfg, mesh, n_micro, n_chunks)
         optimizer.update_(tree_unflatten(params, grads), opt_state, params)
         return params, opt_state, loss
 

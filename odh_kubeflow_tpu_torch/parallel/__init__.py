@@ -7,7 +7,10 @@ of its ranks with two calls:
     mesh = MeshPlan.auto(world, want_sp=world).build()
 """
 from .distributed import initialize_from_env, rank_device, reinitialize_after_repair
+from .interleaved_1f1b import build_schedule as build_interleaved_1f1b_schedule
+from .interleaved_1f1b import pipeline_value_and_grad_interleaved_1f1b
 from .mesh import AXES, Mesh, MeshPlan, Placement, batch_spec, logical_to_spec, shard_batch
+from .pipeline import pipeline_apply, pipeline_value_and_grad_1f1b, pipeline_value_and_grad_gpipe, stack_stages
 
 __all__ = [
     "AXES",
@@ -15,9 +18,15 @@ __all__ = [
     "MeshPlan",
     "Placement",
     "batch_spec",
+    "build_interleaved_1f1b_schedule",
     "initialize_from_env",
     "logical_to_spec",
+    "pipeline_apply",
+    "pipeline_value_and_grad_1f1b",
+    "pipeline_value_and_grad_gpipe",
+    "pipeline_value_and_grad_interleaved_1f1b",
     "rank_device",
     "reinitialize_after_repair",
     "shard_batch",
+    "stack_stages",
 ]

@@ -41,7 +41,21 @@ the loss), "gather" (the gathered tensor), "scatter" (the f32 tensor
 reduce-scattered), "tp_sum" (the tensor-parallel sums, forward and
 backward), "vocab" (the vocab-parallel loss's max and sums over tp), "ep"
 (the expert-parallel sums, forward and backward), "aux" (the aux loss's
-mean) and "argmax" (the vocab-parallel argmax's max and index).
+mean), "argmax" (the vocab-parallel argmax's max and index), and the
+pipeline's: "pp" (the stage hops: each activation this rank sends to the
+next stage and each cotangent it sends back to the previous one),
+"pp_bcast" (the last stage's output broadcast to every stage) and "pp_sum"
+(sums over the stages: the loss, the aux loss and the gradients of the
+leaves that one stage computes).
+
+The stage hops (`pp_exchange`) carry only real payloads down the chain
+(and across its wrap only where an interleaved chunk continues on the
+first stage): the reference's `ppermute` moves a masked payload on every
+link at every step. Every send and receive of one step of a schedule is
+posted in one `batch_isend_irecv`, forward-direction ops before
+backward-direction ones and each direction under its own tag, so two
+neighbours in opposite phases (one sending an activation, the other a
+cotangent) never wait on each other.
 """
 from __future__ import annotations
 
@@ -60,14 +74,19 @@ STAGED = "gloo, staged through pinned host memory"
 _all_gather_tensor = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 _reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
 
-KINDS = ("ring", "sum", "gather", "scatter", "tp_sum", "vocab", "ep", "aux", "argmax")
+KINDS = ("ring", "sum", "gather", "scatter", "tp_sum", "vocab", "ep", "aux", "argmax", "pp", "pp_bcast",
+         "pp_sum")
+# the tags of the stage hops: activations down the chain, cotangents back
+FWD_TAG, BWD_TAG = 0, 1
 # counts since the last reset_exchange_counts(): the exchanges of each kind
 # and their bytes (`<kind>_bytes`), the host waits of staged transfers, and
 # the host's seconds blocked in them: waiting for the device to hand over a
 # staged payload (its queued work and the copy), and in the transfers
-# themselves
+# themselves; and the host's seconds in the stage hops and the broadcast
+# from the call to the return (a stage waiting there for its neighbour is
+# in the pipeline's bubble)
 exchange_counts = {**{k: 0 for kind in KINDS for k in (kind, kind + "_bytes")},
-                   "host_waits": 0, "device_wait_s": 0.0, "transfer_s": 0.0}
+                   "host_waits": 0, "device_wait_s": 0.0, "transfer_s": 0.0, "pp_s": 0.0}
 
 
 def reset_exchange_counts() -> None:
@@ -425,3 +444,66 @@ def vocab_argmax(logits: torch.Tensor, group, offset: int) -> torch.Tensor:
     lowest = torch.iinfo(torch.int64).min
     cand = torch.where(value == top, -(index + offset), torch.full_like(index, lowest))
     return -all_reduce_max(cand, group, "argmax")
+
+
+def pp_exchange(group, device, sends, recvs) -> List[torch.Tensor]:
+    """One step of a pipeline schedule's stage hops: `sends` is a list of
+    (global rank, tag, tensor), `recvs` of (global rank, tag, shape,
+    dtype); returns the received tensors on `device`, in `recvs` order.
+    All of them are posted at once (forward tag first), so neighbours
+    that send to each other in the same step cannot deadlock. CUDA
+    tensors on a gloo group are staged through pinned host memory: the
+    host waits once for the sends' copies (counted). Each send counts
+    as one "pp" exchange of its bytes."""
+    if not sends and not recvs:
+        return []
+    t_call = time.perf_counter()
+    staged = transport(group, device) == STAGED
+    payloads = []
+    for peer, tag, t in sends:
+        t = t.contiguous()
+        _count("pp", t.numel() * t.element_size())
+        if staged:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            t = host
+        payloads.append((peer, tag, t))
+    if staged and payloads:
+        event = torch.cuda.Event()
+        event.record()
+        _host_wait(event)
+    bufs = [(peer, tag, torch.empty(shape, dtype=dtype, device="cpu" if staged else device,
+                                    pin_memory=staged))
+            for peer, tag, shape, dtype in recvs]
+    ops = []
+    for tag in sorted({tag for _, tag, _ in payloads} | {tag for _, tag, _ in bufs}):
+        ops += [dist.P2POp(dist.isend, t, peer, group, tag) for peer, tg, t in payloads if tg == tag]
+        ops += [dist.P2POp(dist.irecv, t, peer, group, tag) for peer, tg, t in bufs if tg == tag]
+    t0 = time.perf_counter()
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    exchange_counts["transfer_s"] += time.perf_counter() - t0
+    if staged:
+        bufs = [(peer, tag, torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t, non_blocking=True))
+                for peer, tag, t in bufs]
+    exchange_counts["pp_s"] += time.perf_counter() - t_call
+    return [t for _, _, t in bufs]
+
+
+def broadcast(t: torch.Tensor, group, src: int, kind: str = "pp_bcast") -> torch.Tensor:
+    """`t` of global rank `src` on every rank of `group` (the other ranks
+    pass a tensor of its shape and dtype to receive into, which they must
+    not read before). Returns the tensor on `t`'s device; counted once of
+    its bytes on every rank."""
+    t_call = time.perf_counter()
+    t = t.contiguous()
+    _count(kind, t.numel() * t.element_size())
+    if transport(group, t.device) != STAGED:
+        _timed(dist.broadcast, t, src, group=group)
+    else:
+        host = _to_host(t) if dist.get_rank() == src else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        _timed(dist.broadcast, host, src, group=group)
+        t = torch.empty_like(t).copy_(host, non_blocking=True)
+    exchange_counts["pp_s"] += time.perf_counter() - t_call
+    return t
+

@@ -17,9 +17,10 @@ the tensor-parallel products sum over; fsdp, which a layer's weights are
 gathered over and their gradients reduce-scattered over; (dp, sp), which
 the gradients of fsdp-sharded params are then summed over; the replica
 (dp, fsdp, sp), which the loss and the gradients of every other param are
-summed over; and ep, which the experts' outputs and the router's gradients
-are summed over (appended last, so the groups of meshes without a live ep
-axis keep their order). `Mesh.ranks` names any axes' ranks without a group. Plain
+summed over; ep, which the experts' outputs and the router's gradients
+are summed over; and pp, the pipeline's stage hops, its output broadcast
+and its sums over stages (ep and pp appended last, in that order, so the
+groups of meshes without a live ep or pp axis keep their order). `Mesh.ranks` names any axes' ranks without a group. Plain
 groups rather than a `DeviceMesh`: a DeviceMesh binds each rank to a
 device of its own and creates a communicator per dim for its device type,
 and the ranks of a one-card run share one device on the gloo backend.
@@ -69,8 +70,9 @@ REPLICA_AXES = ("dp", "fsdp", "sp")
 DATA_SEQ_AXES = ("dp", "sp")
 # the axis tuples a mesh makes process groups for, in creation order: the
 # ring, the tensor-parallel sums, the ZeRO gathers and reduce-scatters, the
-# sharded params' gradient sum, the replica, and the expert sums
-GROUP_AXES = (("sp",), ("tp",), ("fsdp",), DATA_SEQ_AXES, REPLICA_AXES, ("ep",))
+# sharded params' gradient sum, the replica, the expert sums and the
+# pipeline's stages
+GROUP_AXES = (("sp",), ("tp",), ("fsdp",), DATA_SEQ_AXES, REPLICA_AXES, ("ep",), ("pp",))
 
 
 @dataclass(frozen=True)

@@ -48,7 +48,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "odh_kubeflow_tpu_torch.serving.__main__" in mods
     assert {"odh_kubeflow_tpu_torch.parallel", "odh_kubeflow_tpu_torch.parallel.mesh",
             "odh_kubeflow_tpu_torch.parallel.distributed", "odh_kubeflow_tpu_torch.parallel.comm",
-            "odh_kubeflow_tpu_torch.ops.ring_attention"} <= set(mods)
+            "odh_kubeflow_tpu_torch.ops.ring_attention", "odh_kubeflow_tpu_torch.parallel.pipeline",
+            "odh_kubeflow_tpu_torch.parallel.interleaved_1f1b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -31,8 +31,10 @@ from odh_kubeflow_tpu_torch.models import (
     generate,
     init_params,
     params_from_numpy,
+    pp_forward,
     prefill,
 )
+from odh_kubeflow_tpu_torch.models.transformer import check_mesh
 
 ATOL = 1e-4
 ENTRY = __graft_entry__._tiny_cfg(jnp)  # the shape entry() builds, MHA
@@ -162,17 +164,19 @@ def test_unported_features_raise(models):
                        forward(params, tokens, cfg))
     # the mesh path runs data, expert, tensor and sequence axes on this
     # rank's blocks of the params: whole params over a tp axis are refused;
-    # a pp axis waits for its item, in forward and in generate
+    # a pp axis replicates forward and generate over its ranks (parity over
+    # gloo ranks: tests/test_torch_pp_sp_moe.py), and the pipeline's
+    # forward refuses params that are not in its stage layout
     tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
     with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
         forward(params, tokens, cfg, mesh=tp_mesh)
     with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
         generate(params, [[1]], cfg, max_new=2, mesh=tp_mesh, device="cpu")
     pp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=2, ep=1, tp=1, sp=1))
-    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
-        forward(params, tokens, cfg, mesh=pp_mesh)
-    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
-        generate(params, [[1]], cfg, max_new=2, mesh=pp_mesh, device="cpu")
+    check_mesh(pp_mesh, cfg, "forward")
+    check_mesh(pp_mesh, cfg, "generate")
+    with pytest.raises(ValueError, match="not this rank's pipeline blocks .*to_pp_params"):
+        pp_forward(params, tokens, cfg, pp_mesh)
     # generate over a mesh runs (tp parity over gloo ranks:
     # tests/test_torch_tp_decode.py); a one-rank mesh is the one-process run
     one = MeshPlan().build("cpu")

@@ -35,6 +35,7 @@ from odh_kubeflow_tpu_torch.models import (
     causal_ce,
     init_params,
     loss_fn,
+    make_pp_train_step,
     make_train_step,
     next_token_ce,
     opt_state_from_numpy,
@@ -177,8 +178,9 @@ def test_loss_fn_refuses_what_is_not_ported(models):
     with pytest.raises(TypeError, match="MoEConfig"):  # MoE is ported; a dict is no config
         loss_fn(params, batch, dataclasses.replace(cfg, moe={"n_experts": 4}))
     # the mesh path runs data, expert, tensor and sequence axes (whole
-    # params over tp are refused: the step takes this rank's blocks); pp
-    # waits for its item
+    # params over tp are refused: the step takes this rank's blocks); a pp
+    # axis replicates the step over its ranks, and the pipeline's step
+    # refuses params that are not in its stage layout
     tp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=1, ep=1, tp=2, sp=1))
     with pytest.raises(ValueError, match="not this rank's blocks .*shard_params"):
         loss_fn(params, batch, cfg, mesh=tp_mesh)
@@ -192,10 +194,10 @@ def test_loss_fn_refuses_what_is_not_ported(models):
     with pytest.raises(ValueError, match="n_experts=3 does not split over ep=2"):
         make_train_step(dataclasses.replace(cfg, moe=MoEConfig(n_experts=3, d_ff=64)), mesh=ep_mesh)
     pp_mesh = types.SimpleNamespace(sizes=dict(dp=1, fsdp=1, pp=2, ep=1, tp=1, sp=1))
-    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
-        loss_fn(params, batch, cfg, mesh=pp_mesh)
-    with pytest.raises(NotImplementedError, match="mesh with pp=2 .* item 13.5"):
-        make_train_step(cfg, mesh=pp_mesh)
+    make_train_step(cfg, mesh=pp_mesh)
+    step, _ = make_pp_train_step(cfg, pp_mesh)
+    with pytest.raises(ValueError, match="not this rank's pipeline blocks .*to_pp_params"):
+        step(params, None, batch)
     # a one-rank mesh is the one-process loss, the MoE config's aux included
     one = MeshPlan().build("cpu")
     assert torch.equal(loss_fn(params, batch, cfg, mesh=one), loss_fn(params, batch, cfg))
