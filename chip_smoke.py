@@ -234,6 +234,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    four agents' /tpu/checkpoint and /tpu/restore at once: equal acks of
    the gathered state's checksum, the resumed step bit-equal to the
    uninterrupted one with 32/16/16 launches.
+14. the device layer (alone: tools/device_phase.py), ranks started by torchrun
+   from the env the port's GPU planner renders into a pod: (a) plan_slice
+   ("h100") is 1 x 1; `python -m torch.distributed.run` with the pod env
+   apply_slice renders (and PET_NODE_RANK 0) starts one worker, which
+   calls initialize_from_env() and rank_device(), then prefill and
+   generate of phase 5's flagship (8 prompts of 128, max_new 32) and, in
+   the first of three fresh launches only, one make_train_step step at 8 x
+   2048, remat "flash": 8 tensor-core forward launches per prefill, 8/8/8
+   per step, no scalar one; the flash forward at the prefill's shape (b8
+   s128 h8 hk8 d128, no lse) against its plain version within phase 3's
+   tolerance, after the timed path; launch -> CUDA context up, world
+   formed and first token printed (p50 and the first launch: the first
+   compiles Python's bytecode into the phase's temporary directory, the
+   later two read it, as an image with compiled bytecode would). (b)
+   plan_slice("h100",
+   topology="2x2"): two torchrun "pods" of 2 workers each, their env
+   rendered, node ranks 0 and 1, the master moved to 127.0.0.1 and a free
+   port (no cluster DNS; printed), the 4 ranks sharing this card on gloo:
+   RANK = node_rank x 2 + LOCAL_RANK, distinct 0..3, world 4;
+   slice_mesh_axes gives fsdp 2 x tp 2 with each tp group one pod's ranks;
+   the flash calls at the per-rank shape (b4 s2048 h4 hk4 d128) within
+   phase 3/3b's tolerances; one bf16 step of the flagship's widths at 2
+   layers, global batch 8 x 2048, its loss within 1e-4 relative of one
+   process's; a second step with no host sync and 2/2/2 tensor-core
+   launches per rank, no scalar one.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -249,8 +274,10 @@ import time
 import urllib.request
 import warnings
 
-import numpy as np
-import torch
+STARTED = time.time()  # in phase 14's torchrun worker: its start, before torch is imported
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # published dense bf16 tensor-core FLOP/s, HBM bytes/s and f32 FLOP/s
 # outside the tensor cores (NVIDIA data sheets), by a part of the name torch
@@ -3882,7 +3909,303 @@ def _check_pp_memory(runs, smi):
           flush=True)
 
 
+# phase 14: the device layer, ranks started by torchrun from a rendered pod env
+DEVICE_PROMPTS = (8, 128)  # (a): prompts x tokens
+DEVICE_MAX_NEW = 32
+DEVICE_TRAIN_BATCH = (8, 2048)
+DEVICE_LAUNCHES = 3  # (a)'s fresh launches; the first also trains
+DEVICE_MESH_TOPOLOGY = "2x2"
+DEVICE_MESH_LAYERS = 2  # (b)'s depth of the flagship's 8 layers
+DEVICE_MESH_BATCH = (8, 2048)
+DEVICE_PROCESS_TIMEOUT_S = 300  # one torchrun process, its workers' bring-up and work included
+DEVICE_INIT_TIMEOUT_S = 120  # (b)'s gloo group: its init and collectives
+DEVICE_TORCHRUN_NAMES = ("RANK", "LOCAL_RANK", "GROUP_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE")
+TENSOR_CORE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _device_torchrun(pods, out_dir, what, *args, pycache):
+    """Starts one `python -m torch.distributed.run chip_smoke.py
+    --device-worker ...` per pod env, all at once, and waits for all within
+    DEVICE_PROCESS_TIMEOUT_S (tests/torch_dist.py's run_processes). Python's
+    bytecode goes to `pycache`, where the next launch reads it (the card's
+    machine may forbid writing bytecode: PYTHONDONTWRITEBYTECODE is dropped,
+    and nothing is written outside the phase's directory). Returns the
+    workers' results by global rank; a process that fails or does not exit
+    in time fails the phase."""
+    import torch_dist
+
+    out_dir.mkdir(parents=True)
+    argv = [sys.executable, "-m", "torch.distributed.run", os.path.abspath(__file__), "--device-worker",
+            *args, str(out_dir), repr(time.time())]
+    env = {k: v for k, v in torch_dist.clean_env().items() if k != "PYTHONDONTWRITEBYTECODE"}
+    env["PYTHONPYCACHEPREFIX"] = str(pycache)
+    got = torch_dist.run_processes([(argv, {**env, **pod}) for pod in pods], out_dir, DEVICE_PROCESS_TIMEOUT_S)
+    bad = [f"--- torchrun {i} ({code}):\n{log[-4000:]}" for i, (code, log) in enumerate(got) if code != 0]
+    if bad:
+        fail(f"{what}: torchrun processes failed:\n" + "\n".join(bad))
+    results = {}
+    for path in sorted(out_dir.glob("rank-*.json")):
+        run = json.loads(path.read_text())
+        results[run["rank"]] = run
+    return results
+
+
+def device_phase(attention, smi):
+    """Phase 14 (docstring item 14). Returns the launches of its paths by
+    kernel name."""
+    import tempfile
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    with tempfile.TemporaryDirectory(prefix="device-phase-") as tmp:
+        return _device_phase(attention, smi, Path(tmp))
+
+
+def _device_phase(attention, smi, out_root):
+    import torch_dist
+    from odh_kubeflow_tpu_torch.gpu import plan_slice, validate_spec
+
+    t_phase = time.perf_counter()
+    zero = {name: 0 for name in attention.launch_counts}
+    pycache = out_root / "pycache"
+
+    # (a) one host x one card
+    shape = validate_spec({"accelerator": "h100"})
+    if (shape.hosts, shape.chips_per_host) != (1, 1) or shape != plan_slice("h100"):
+        fail(f"plan_slice('h100') planned {shape}, want 1 x 1")
+    env = torch_dist.pod_env(shape, 0)
+    print(f"  (a) {shape.accelerator_type} {shape.topology}: the pod env apply_slice renders "
+          f"{sorted(env.items())}", flush=True)
+    runs = []
+    for i in range(DEVICE_LAUNCHES):
+        got = _device_torchrun([env], out_root / f"serve-{i}", f"phase 14 (a) launch {i}", "serve",
+                               str(int(i == 0)), pycache=pycache)
+        if sorted(got) != [0]:
+            fail(f"phase 14 (a): want one rank, got {sorted(got)}")
+        runs.append(got[0])
+    serve = dict(zero)
+    for i, run in enumerate(runs):
+        want = {n: (SERVE_LAYERS if n == "flash_fwd" else 0) for n in zero}
+        for what in ("prefill", "generate"):
+            if run["launches"][what] != want:
+                fail(f"phase 14 (a) launch {i}: {what} launched {run['launches'][what]}, want {want}")
+            for n, c in run["launches"][what].items():
+                serve[n] += c
+        if run["device"] != "cuda:0" or run["world"] != [0, 1]:
+            fail(f"phase 14 (a) launch {i}: device {run['device']}, world {run['world']}")
+        if not run["tokens_ok"]:
+            fail(f"phase 14 (a) launch {i}: generate's tokens {run['tokens_shape']} are not in the vocabulary "
+                 "or their first differ from prefill's argmax")
+        if not run["visit"] <= 1.0:
+            fail(f"phase 14 (a) launch {i}: the flash forward at the prefill's shape disagrees with its plain "
+                 f"version: {run['visit']:.3f} of its tolerance")
+    first = runs[0]
+    want = {n: (SERVE_LAYERS if n in TENSOR_CORE else 0) for n in zero}
+    if first["launches"]["train"] != want or not np.isfinite(first["train_loss"]):
+        fail(f"phase 14 (a): the train step launched {first['launches']['train']} (want {want}), "
+             f"loss {first['train_loss']}")
+    b, s = DEVICE_PROMPTS
+    print(f"  (a) {DEVICE_LAUNCHES} fresh launches of `torchrun` with that env, prefill + generate of the flagship "
+          f"({b} prompts x {s}, max_new {DEVICE_MAX_NEW}) on {first['device']}: forward launches per prefill "
+          f"{first['launches']['prefill']['flash_fwd']} and per generate {first['launches']['generate']['flash_fwd']}, "
+          f"no scalar one; the flash forward at the prefill's {first['shape']} against its plain version, "
+          f"worst {max(run['visit'] for run in runs):.3f} of its tolerance; the first launch's train step "
+          f"({DEVICE_TRAIN_BATCH[0]} x {DEVICE_TRAIN_BATCH[1]}, remat flash) loss {first['train_loss']:.4f}, "
+          f"launches {first['launches']['train']}", flush=True)
+    steps = (("started", "worker started"), ("context", "CUDA context up"), ("world", "world formed"),
+             ("params", "params on the card"), ("first_token", "first token"))
+    times = {k: [run["times"][k] for run in runs] for k, _ in steps}
+    print("  (a) launch -> " + "; ".join(
+        f"{label} p50 {statistics.median(times[k]):.3f} s (first launch {times[k][0]:.3f} s; all "
+        f"{[round(t, 3) for t in times[k]]})" for k, label in steps)
+        + f"; the first launch compiles Python's bytecode, the later two read it; on {smi}", flush=True)
+
+    # (b) two hosts x two cards, on gloo on this card
+    shape = plan_slice("h100", topology=DEVICE_MESH_TOPOLOGY)
+    master = ("127.0.0.1", torch_dist.free_port())
+    rendered = torch_dist.pod_env(shape, 0)
+    pods = [torch_dist.pod_env(shape, node, master) for node in range(shape.hosts)]
+    print(f"  (b) {shape.accelerator_type} {shape.topology}: two pods' env as apply_slice renders it; the master "
+          f"{rendered['PET_MASTER_ADDR']}:{rendered['PET_MASTER_PORT']} replaced by {master[0]}:{master[1]} (no "
+          f"cluster DNS here); node ranks 0 and 1; the 4 ranks share this one card on gloo ({smi}): this proves "
+          "the bring-up and the step right, not their scaling", flush=True)
+    got = _device_torchrun(pods, out_root / "mesh", "phase 14 (b)", "mesh", "0", pycache=pycache)
+    if sorted(got) != list(range(shape.chips)):
+        fail(f"phase 14 (b): ranks {sorted(got)}, want 0..{shape.chips - 1}")
+    for r, run in got.items():
+        env = run["env"]
+        node, local = int(env["GROUP_RANK"]), int(env["LOCAL_RANK"])
+        if not (int(env["RANK"]) == r == node * shape.chips_per_host + local and run["world"] == [r, shape.chips]
+                and int(env["WORLD_SIZE"]) == shape.chips):
+            fail(f"phase 14 (b): rank {r} got {env} and world {run['world']}")
+        if run["plan"] != {"fsdp": 2, "tp": 2} or run["tp_ranks"] != [node * 2, node * 2 + 1]:
+            fail(f"phase 14 (b): rank {r} planned {run['plan']} with tp group {run['tp_ranks']}, want fsdp 2 x "
+                 f"tp 2 with its pod's ranks {[node * 2, node * 2 + 1]}")
+    worst = {}
+    for run in got.values():
+        for kernel, _, err in run["visits"]:
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+    print(f"  (b) ranks RANK = node_rank x 2 + LOCAL_RANK: "
+          f"{[(got[r]['env']['GROUP_RANK'], got[r]['env']['LOCAL_RANK'], r) for r in sorted(got)]}, world "
+          f"{shape.chips}; slice_mesh_axes: {got[0]['plan']}, tp groups "
+          f"{sorted({tuple(run['tp_ranks']) for run in got.values()})} (one pod each); devices "
+          f"{sorted({run['device'] for run in got.values()})}", flush=True)
+    print(f"  (b) per rank {got[0]['shape']} (strided views): {sum(len(run['visits']) for run in got.values())} "
+          f"flash calls against their plain versions; worst error over its tolerance "
+          + ", ".join(f"{k} {e:.3f}" for k, e in sorted(worst.items())), flush=True)
+    if set(worst) != {"fwd", "dq", "dkv"} or not max(worst.values()) <= 1.0:
+        fail(f"phase 14 (b): the flash calls disagree with their plain versions: {worst}")
+    ref = got[0]
+    print(f"  (b) train, {DEVICE_MESH_LAYERS} layers of the flagship's widths, bf16, global batch "
+          f"{DEVICE_MESH_BATCH[0]}x{DEVICE_MESH_BATCH[1]}, remat flash: losses {[round(x, 4) for x in ref['losses']]}; "
+          f"the first against one process's {ref['ref_loss']:.4f}: rel err {ref['loss_err']:.3e} (tol "
+          f"{SP_LOSS_TOLERANCE:.0e}); the second step: host syncs {[run['syncs'] for run in got.values()]}, "
+          f"{[round(run['step_ms'], 1) for run in got.values()]} ms per rank (host clock); launches per rank "
+          f"{got[0]['launches']}", flush=True)
+    if not (ref["loss_err"] <= SP_LOSS_TOLERANCE and all(np.isfinite(ref["losses"]))):
+        fail(f"phase 14 (b): the sharded loss disagrees with one process's: {ref['loss_err']}")
+    if len({tuple(run["losses"]) for run in got.values()}) != 1:
+        fail(f"phase 14 (b): the ranks' losses differ: {[run['losses'] for run in got.values()]}")
+    if any(run["syncs"] for run in got.values()):
+        fail(f"phase 14 (b): host syncs inside the step: {[run['syncs'] for run in got.values()]}")
+    want = {n: (DEVICE_MESH_LAYERS if n in TENSOR_CORE else 0) for n in zero}
+    mesh = dict(zero)
+    for r, run in got.items():
+        if run["launches"] != want:
+            fail(f"phase 14 (b): rank {r} launched {run['launches']} in a step, want {want}")
+        for n, c in run["launches"].items():
+            mesh[n] += c
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"device layer: torchrun serve": serve, "device layer: torchrun train": first["launches"]["train"],
+            "device layer: torchrun 2x2 fsdp2 x tp2": mesh}
+
+
+def _device_worker(mode, train, out_dir, t0):
+    """One rank of phase 14, started by torchrun (`chip_smoke.py
+    --device-worker MODE TRAIN OUT_DIR T0`): bring-up from the pod env, then
+    (a)'s serving (and train step) or (b)'s mesh step; its result goes to
+    OUT_DIR/rank-R.json, its times from T0, the parent's launch."""
+    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device
+
+    t0 = float(t0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    torch.empty(1, device=dev)
+    torch.cuda.synchronize(dev)
+    t_context = time.time()
+    if mode == "serve":
+        world = initialize_from_env()
+    else:  # the ranks share one card: gloo, as NCCL refuses two ranks on one device
+        world = initialize_from_env(timeout_s=DEVICE_INIT_TIMEOUT_S, backend="gloo", device="cuda")
+    t_world = time.time()
+    out = {"rank": world[0], "world": list(world), "device": str(dev),
+           "env": {n: os.environ.get(n) for n in DEVICE_TORCHRUN_NAMES}}
+    out.update(_device_serve(dev, train == "1", t0) if mode == "serve" else _device_mesh(dev))
+    out["times"] = dict(out.get("times", {}), started=STARTED - t0, context=t_context - t0, world=t_world - t0)
+    with open(os.path.join(out_dir, f"rank-{world[0]}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _device_serve(dev, train, t0):
+    """(a) in the one rank: prefill's first token (timed from the launch),
+    generate, the flash forward at the prefill's shape against its plain
+    version (after the timed path), and in the first launch one train
+    step."""
+    from odh_kubeflow_tpu_torch.models import TransformerConfig, generate, init_params, make_train_step, prefill
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    cfg = _serve_cfg(SERVE_LAYERS, torch.bfloat16)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, DEVICE_PROMPTS), device=dev)
+    torch.cuda.synchronize(dev)
+    t_params = time.time()
+    launches = {}
+    attention.reset_launch_counts()
+    logits, _ = prefill(params, tokens, cfg, max_seq=DEVICE_PROMPTS[1] + DEVICE_MAX_NEW)
+    first = logits.argmax(-1).cpu()  # the first token on the host
+    t_first = time.time()
+    launches["prefill"] = dict(attention.launch_counts)
+    attention.reset_launch_counts()
+    out = generate(params, tokens, cfg, DEVICE_MAX_NEW, device=dev).cpu()
+    launches["generate"] = dict(attention.launch_counts)
+    res = {"times": {"params": t_params - t0, "first_token": t_first - t0}, "launches": launches,
+           "tokens_shape": list(out.shape),
+           "tokens_ok": (tuple(out.shape) == (DEVICE_PROMPTS[0], DEVICE_MAX_NEW) and bool((out >= 0).all())
+                         and bool((out < cfg.vocab).all()) and bool((out[:, 0] == first).all())),
+           "shape": f"b{DEVICE_PROMPTS[0]} s{DEVICE_PROMPTS[1]} h{cfg.n_heads} hk{cfg.n_heads} d{cfg.head_dim}",
+           "visit": _flash_fwd_vs_plain(*DEVICE_PROMPTS, cfg.n_heads, cfg.head_dim)}
+    del params
+    if train:
+        cfg = TransformerConfig(**SERVE_WIDTH, n_layers=SERVE_LAYERS, dtype=torch.bfloat16, use_flash=True,
+                                remat=True, remat_policy="flash")
+        params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, DEVICE_TRAIN_BATCH),
+                                           device=dev)}
+        step, opt = make_train_step(cfg)
+        state = opt.init(params)
+        attention.reset_launch_counts()
+        _, _, loss = step(params, state, batch)
+        torch.cuda.synchronize(dev)
+        launches["train"] = dict(attention.launch_counts)
+        res["train_loss"] = loss.item()
+    return res
+
+
+def _device_mesh(dev):
+    """(b) in one of the 4 ranks: slice_mesh_axes over the slice the env
+    names, the flash calls at the per-rank shape against their plain
+    versions, one step against one process's loss, a second step counted
+    for host syncs and launches."""
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.gpu import slice_from_env
+    from odh_kubeflow_tpu_torch.models import TransformerConfig, init_params, make_train_step, shard_params
+    from odh_kubeflow_tpu_torch.models import value_and_grad
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.parallel import shard_batch, slice_mesh_axes
+
+    plan = slice_mesh_axes(slice_from_env())
+    mesh = plan.build("cuda")
+    cfg = TransformerConfig(**FULL_WIDTH, n_layers=DEVICE_MESH_LAYERS, dtype=torch.bfloat16, use_flash=True,
+                            remat=True, remat_policy="flash")
+    b_rank, h_rank = DEVICE_MESH_BATCH[0] // mesh.size(("dp", "fsdp")), cfg.n_heads // mesh.sizes["tp"]
+    res = {"plan": {a: n for a, n in plan.sizes().items() if n > 1}, "tp_ranks": mesh.ranks("tp"),
+           "shape": f"b{b_rank} s{DEVICE_MESH_BATCH[1]} h{h_rank} hk{h_rank} d{cfg.head_dim}",
+           "visits": _flash_calls_vs_plain(b_rank, DEVICE_MESH_BATCH[1], h_rank, cfg.head_dim)}
+    full = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab, DEVICE_MESH_BATCH)
+    if mesh.rank == 0:  # the one-process loss on the same batch
+        res["ref_loss"] = value_and_grad(full, {"tokens": torch.as_tensor(tokens, device=dev)}, cfg)[0].item()
+        torch.cuda.empty_cache()
+    local = shard_params(full, cfg, mesh)
+    del full
+    batch = shard_batch(mesh, {"tokens": tokens})
+    step, opt = make_train_step(cfg, mesh=mesh)
+    state = opt.init(local)
+    local, state, first = step(local, state, batch)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    attention.reset_launch_counts()
+    losses = [first]
+    t = time.perf_counter()
+    res["syncs"] = count_sync_warnings(lambda: losses.append(step(local, state, batch)[2]))
+    torch.cuda.synchronize(dev)
+    res["step_ms"] = (time.perf_counter() - t) * 1e3
+    res["launches"] = dict(attention.launch_counts)
+    res["losses"] = torch.stack(losses).tolist()
+    if mesh.rank == 0:
+        res["loss_err"] = abs(res["losses"][0] - res["ref_loss"]) / abs(res["ref_loss"])
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--device-worker"]:  # phase 14's script in a rank torchrun starts
+        _device_worker(*sys.argv[2:6])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA card")
     try:
@@ -4169,10 +4492,13 @@ def main() -> None:
     phase("13 the pipelines: GPipe, 1F1B and interleaved 1F1B over a pp axis, ranks sharing this card")
     sp_launches.update(pp_phase(attention, smi))
 
+    phase("14 the device layer: ranks started by torchrun from a rendered pod env, on this card")
+    sp_launches.update(device_phase(attention, smi))
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
 
-    def sp(name):  # phases 10-13's launches of the kernel, summed over their ranks
+    def sp(name):  # phases 10-14's launches of the kernel, summed over their ranks
         return {path: launched[name] for path, launched in sp_launches.items() if launched.get(name)}
 
     def timing_keys(t):

@@ -1,7 +1,8 @@
-"""API errors the port's serving fleet raises and catches (the port's own
-copy of the part of odh_kubeflow_tpu/apimachinery/errors.py it needs):
-`TooManyRequestsError`, the 429 that flow control sheds with and the
-router turns into `QueueFull`."""
+"""API errors the port raises and catches (the port's own copy of the part
+of odh_kubeflow_tpu/apimachinery/errors.py it needs): `TooManyRequestsError`,
+the 429 that flow control sheds with and the router turns into `QueueFull`,
+and `InvalidError`, the 422 of a `spec.tpu` that the GPU slice planner
+(gpu/topology.py) cannot plan."""
 from __future__ import annotations
 
 
@@ -15,6 +16,11 @@ class ApiError(Exception):
         if not message and kind:
             message = f'{self.reason}: {kind} "{name}"'
         super().__init__(message or self.reason)
+
+
+class InvalidError(ApiError):
+    code = 422
+    reason = "Invalid"
 
 
 class TooManyRequestsError(ApiError):

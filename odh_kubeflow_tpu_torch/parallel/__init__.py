@@ -1,12 +1,13 @@
 """Workbench parallelism for the port (counterpart of odh_kubeflow_tpu/parallel):
-the env the webhook injects turns into a torch.distributed world and a mesh
-of its ranks with two calls:
+the pod's env (torchrun's, from gpu/env.py, or the webhook's) turns into a
+torch.distributed world and a mesh of its ranks with a few calls:
 
-    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, MeshPlan
+    from odh_kubeflow_tpu_torch.gpu import slice_from_env
+    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, slice_mesh_axes
     rank, world = initialize_from_env()          # multi-process bring-up
-    mesh = MeshPlan.auto(world, want_sp=world).build()
+    mesh = slice_mesh_axes(slice_from_env()).build()
 """
-from .distributed import initialize_from_env, rank_device, reinitialize_after_repair
+from .distributed import initialize_from_env, rank_device, reinitialize_after_repair, slice_mesh_axes
 from .interleaved_1f1b import build_schedule as build_interleaved_1f1b_schedule
 from .interleaved_1f1b import pipeline_value_and_grad_interleaved_1f1b
 from .mesh import AXES, Mesh, MeshPlan, Placement, batch_spec, logical_to_spec, shard_batch
@@ -28,5 +29,6 @@ __all__ = [
     "rank_device",
     "reinitialize_after_repair",
     "shard_batch",
+    "slice_mesh_axes",
     "stack_stages",
 ]

@@ -191,7 +191,8 @@ class CudaMonitor(TPUMonitor):
     Chips visible are `torch.cuda.device_count()`: a machine with no card
     reports 0 and is never ready; the CPU is never counted as a chip. The
     env is the reference's: NB_TPU_CHIPS_EXPECTED (over NB_TPU_HOSTS hosts)
-    and JAX_PROCESS_ID."""
+    and JAX_PROCESS_ID, or in a GPU pod (gpu/env.py) the node rank
+    PET_NODE_RANK where JAX_PROCESS_ID is absent."""
 
     def __init__(
         self,
@@ -206,7 +207,7 @@ class CudaMonitor(TPUMonitor):
         if self._expected is None:
             self._expected = int(os.environ.get("NB_TPU_CHIPS_EXPECTED", "0") or 0)
         self._hosts = int(os.environ.get("NB_TPU_HOSTS", "1") or 1)
-        self._process_id = int(os.environ.get("JAX_PROCESS_ID", "0") or 0)
+        self._process_id = int(os.environ.get("JAX_PROCESS_ID") or os.environ.get("PET_NODE_RANK") or 0)
         self._window_s = window_s
         self._activity: List[Tuple[float, float]] = []  # (timestamp, busy seconds)
         # bring-up counts as activity: a monitor cannot certify idleness it

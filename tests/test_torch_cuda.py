@@ -12,7 +12,8 @@ generate() under the armed guard; the sharded step's flash calls at its
 per-rank shapes, parallel.comm's collectives on CUDA tensors over gloo
 against their CPU results, and the fsdp 2 x tp 2 step against one process;
 tp generate at tp 2, the tp 4 step with n_kv_heads 2, and the ep 2 x tp 2
-MoE layer and step, against one process on the card.
+MoE layer and step, against one process on the card; torchrun's LOCAL_RANK
+picking the card.
 They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
@@ -838,3 +839,21 @@ def test_ep_moe_ffn_on_card_matches_cpu(card, ep_card_ranks, plan):
     for name, want in ranks[f"{plan} cpu"][0]["grads"].items():
         got = ranks[f"{plan} cuda"][0]["grads"][name]
         assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), name
+
+
+@pytest.mark.cuda
+def test_torchrun_local_rank_picks_the_card(card, monkeypatch):
+    """Under torchrun's worker env (a fake LOCAL_RANK 0, WORLD_SIZE 1),
+    rank_device is cuda:0 (LOCAL_RANK mod the cards, whatever the
+    reference's process id says), and initialize_from_env is a no-op that
+    returns (0, 1)."""
+    import torch.distributed as dist
+
+    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device
+
+    for name, value in {"LOCAL_RANK": "0", "WORLD_SIZE": "1", "RANK": "0", "JAX_PROCESS_ID": "5"}.items():
+        monkeypatch.setenv(name, value)
+    assert rank_device() == torch.device("cuda", 0)
+    assert initialize_from_env() == (0, 1) and not dist.is_initialized()
+    monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count()))
+    assert rank_device() == torch.device("cuda", 0)

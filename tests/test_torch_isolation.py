@@ -18,7 +18,10 @@ from odh_kubeflow_tpu_torch.ops import _build
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "odh_kubeflow_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port, the smoke (phase 14's torchrun worker script too), the helper its phase 14 imports from
+# tests/, and the phase's runner in tools/
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist.py",
+                                        REPO / "tools" / "device_phase.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -49,7 +52,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert {"odh_kubeflow_tpu_torch.parallel", "odh_kubeflow_tpu_torch.parallel.mesh",
             "odh_kubeflow_tpu_torch.parallel.distributed", "odh_kubeflow_tpu_torch.parallel.comm",
             "odh_kubeflow_tpu_torch.ops.ring_attention", "odh_kubeflow_tpu_torch.parallel.pipeline",
-            "odh_kubeflow_tpu_torch.parallel.interleaved_1f1b"} <= set(mods)
+            "odh_kubeflow_tpu_torch.parallel.interleaved_1f1b", "odh_kubeflow_tpu_torch.gpu",
+            "odh_kubeflow_tpu_torch.gpu.topology", "odh_kubeflow_tpu_torch.gpu.env",
+            "odh_kubeflow_tpu_torch.gpu.podspec"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -281,6 +281,27 @@ def test_env_hosts_division_and_process_id(monkeypatch):
     assert mon.chips_expected() == 2 and mon.process_id() == 0
 
 
+@pytest.mark.parametrize("node_rank", [0, 1])
+def test_readiness_reports_the_node_rank_under_the_gpu_pod_env(monkeypatch, node_rank):
+    """A GPU pod's sidecar gets gpu_env + ordinal_env (PET_NODE_RANK from the
+    pod index) and no JAX_PROCESS_ID: the readiness route reports the node
+    rank, and one host's cards as expected; JAX_PROCESS_ID still wins."""
+    from odh_kubeflow_tpu_torch.gpu import gpu_env, ordinal_env, plan_slice
+
+    shape = plan_slice("h100", topology="2x8")
+    for e in gpu_env(shape, "nb", "nb-hosts", "user"):
+        monkeypatch.setenv(e["name"], e["value"])
+    (rank_env,) = ordinal_env()
+    monkeypatch.setenv(rank_env["name"], str(node_rank))  # the downward API's value
+    monkeypatch.delenv("JAX_PROCESS_ID", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    ready = agent.NotebookAgent(monitor=monitor()).routes("/tpu/readiness")
+    assert ready["process_id"] == node_rank
+    assert ready["chips_expected"] == 8 and ready["chips_visible"] == 8 and ready["ready"] is True
+    monkeypatch.setenv("JAX_PROCESS_ID", "3")
+    assert agent.NotebookAgent(monitor=monitor()).routes("/tpu/readiness")["process_id"] == 3
+
+
 def test_the_cpu_is_never_a_chip():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: this machine has chips")

@@ -12,17 +12,29 @@ case as a list indexed by rank. Several cases share one spawn, so the
 start-up is paid once. The group's init has a timeout, and so has the
 wait for the results: a hung rank fails the test (RankFailure), it never
 holds the run.
+
+The pods of a planned GPU slice, started by torchrun as a pod would start
+them (tests/test_torch_torchrun.py and chip_smoke.py's phase 14):
+`pod_env(shape, ordinal)` is one pod's env as `gpu.apply_slice` renders it,
+and `run_processes` starts every torchrun process at once, each in a
+session of its own, and stops each at a shared deadline.
 """
 import importlib
 import multiprocessing
 import os
 import queue
+import signal
 import socket
+import subprocess
 import time
 import traceback
 
 INIT_TIMEOUT_S = 60
 RUN_TIMEOUT_S = 300
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# names a process may carry that would change a pod's bring-up
+POD_PREFIXES = ("PET_", "JAX_", "TPU_", "NB_TPU_", "TORCHELASTIC_")
+POD_NAMES = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "GROUP_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 class RankFailure(RuntimeError):
@@ -109,3 +121,74 @@ def run_ranks(world: int, cases, timeout_s: float = RUN_TIMEOUT_S, device: str =
     if errors:
         raise RankFailure("\n".join(errors))
     return {name: [got[r][name] for r in range(world)] for name, _, _ in cases}
+
+
+def clean_env() -> dict:
+    """This process's env without the names of a pod's bring-up, with the
+    repository on PYTHONPATH."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(POD_PREFIXES) and k not in POD_NAMES}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def statefulset() -> dict:
+    """The JSON of a notebook's StatefulSet before a slice is put in."""
+    return {"metadata": {"name": "nb", "namespace": "user", "labels": {"notebook-name": "nb"}},
+            "spec": {"replicas": 1, "serviceName": "nb-hosts",
+                     "template": {"spec": {"containers": [{"name": "nb", "image": "img"}]}}}}
+
+
+def pod_env(shape, ordinal: int, master=None) -> dict:
+    """One pod's env as gpu.apply_slice renders it into the primary
+    container, the downward API resolved to the pod's ordinal. `master`
+    (host, port) replaces the rendered PET_MASTER_ADDR/PORT: there is no
+    cluster DNS off the cluster."""
+    from odh_kubeflow_tpu_torch.gpu import apply_slice
+
+    env = {}
+    for e in apply_slice(statefulset(), shape)["spec"]["template"]["spec"]["containers"][0]["env"]:
+        env[e["name"]] = str(ordinal) if "valueFrom" in e else e["value"]
+    env.setdefault("PET_NODE_RANK", str(ordinal))
+    if master is not None:
+        env.update(PET_MASTER_ADDR=master[0], PET_MASTER_PORT=str(master[1]))
+    return env
+
+
+def stop(proc) -> None:
+    """SIGTERM to the process's group (torchrun then stops its workers, each
+    in a session of its own), SIGKILL after a grace period."""
+    if proc.poll() is not None:
+        return
+    os.killpg(proc.pid, signal.SIGTERM)
+    try:
+        proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def run_processes(commands, log_dir, timeout_s: float) -> list:
+    """Starts every (argv, env) at once from the repository, each in a
+    session of its own with its output in LOG_DIR/process-I.log, waits for
+    all against one deadline and stops every one still running. Returns
+    [(exit code, or "no exit in N s", log text)]."""
+    procs, codes = [], []
+    try:
+        for i, (argv, env) in enumerate(commands):
+            with open(os.path.join(log_dir, f"process-{i}.log"), "w") as log:
+                procs.append(subprocess.Popen(argv, env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                                              start_new_session=True))
+        deadline = time.monotonic() + timeout_s
+        for proc in procs:
+            try:
+                codes.append(proc.wait(timeout=max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(f"no exit in {timeout_s} s")
+    finally:
+        for proc in procs:
+            stop(proc)
+    out = []
+    for i, code in enumerate(codes):
+        with open(os.path.join(log_dir, f"process-{i}.log")) as log:
+            out.append((code, log.read()))
+    return out
