@@ -239,15 +239,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ("h100") is 1 x 1; `python -m torch.distributed.run` with the pod env
    apply_slice renders (and PET_NODE_RANK 0) starts one worker, which
    calls initialize_from_env() and rank_device(), then prefill and
-   generate of phase 5's flagship (8 prompts of 128, max_new 32) and, in
-   the first of three fresh launches only, one make_train_step step at 8 x
-   2048, remat "flash": 8 tensor-core forward launches per prefill, 8/8/8
+   generate of phase 5's flagship (8 prompts of 128, max_new 32) and one
+   make_train_step step at 8 x 2048, remat "flash", in one fresh launch
+   (phase 15's three launches from the reconciler's env give the
+   fresh-launch p50): 8 tensor-core forward launches per prefill, 8/8/8
    per step, no scalar one; the flash forward at the prefill's shape (b8
    s128 h8 hk8 d128, no lse) against its plain version within phase 3's
    tolerance, after the timed path; launch -> CUDA context up, world
-   formed and first token printed (p50 and the first launch: the first
-   compiles Python's bytecode into the phase's temporary directory, the
-   later two read it, as an image with compiled bytecode would). (b)
+   formed and first token printed (the launch compiles Python's bytecode
+   into the phase's temporary directory). (b)
    plan_slice("h100",
    topology="2x2"): two torchrun "pods" of 2 workers each, their env
    rendered, node ranks 0 and 1, the master moved to 127.0.0.1 and a free
@@ -259,6 +259,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    layers, global batch 8 x 2048, its loss within 1e-4 relative of one
    process's; a second step with no host sync and 2/2/2 tensor-core
    launches per rank, no scalar one.
+15. the operator (alone: tools/operator_phase.py), from a Notebook CR to
+   a GPU pod serving the flagship on this card and back to a freed card:
+   the port's SimCluster with one h100 1x1 node (nvidia.com/gpu 1), a
+   Manager wired by hand with NotebookReconciler, EventMirrorController,
+   ProbeStatusController (0.2 s) and CullingReconciler (2 s idle, checks
+   every 0.5 s); the kubelet runs each pod through
+   probe.behavior.pod_process_behavior: `torchrun chip_smoke.py
+   --device-worker operator` with the env the reconciler rendered into
+   the pod (the workers sharing one bytecode directory in the phase's
+   temporary directory), beside a NotebookAgent over the card's
+   CudaMonitor; each worker serves as phase 14 (a) does, writes its
+   result and holds its CUDA context until SIGTERM. nb-0 and nb-1 are
+   created at once: one binds (the scheduler takes them in no fixed
+   order; say nb-0), nb-1 stays Pending with a FailedScheduling naming
+   nvidia.com/gpu mirrored onto the notebook; nb-0 comes mesh-ready,
+   serves, goes idle and is culled; nb-1 binds on the freed card, serves
+   and is culled; nb-2 follows alone. Gates: each set requests
+   nvidia.com/gpu 1 with PET_STANDALONE and PET_NPROC_PER_NODE 1; each
+   worker on cuda:0; 8 tensor-core forward launches per prefill and per
+   generate, no scalar one; the forward at the prefill's shape within
+   phase 3's tolerance; status.tpu meshReady and firstReadyTime set; the
+   stop annotation the culler's (its flight-recorder transition); the set
+   at 0 replicas; after each cull no process of the pod alive and
+   nvidia-smi's compute apps back to the phase's start; the notebooks
+   bound and stopped in turn (by resourceVersion). Printed per notebook
+   and as a p50 of the three, with the card's name and power limit: CR ->
+   bound, -> mesh-ready, -> the worker's CUDA context, -> first token;
+   idle -> culled; culled -> card free.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -3913,7 +3941,7 @@ def _check_pp_memory(runs, smi):
 DEVICE_PROMPTS = (8, 128)  # (a): prompts x tokens
 DEVICE_MAX_NEW = 32
 DEVICE_TRAIN_BATCH = (8, 2048)
-DEVICE_LAUNCHES = 3  # (a)'s fresh launches; the first also trains
+DEVICE_LAUNCHES = 1  # (a)'s fresh launches, the first also training; phase 15's launch three more
 DEVICE_MESH_TOPOLOGY = "2x2"
 DEVICE_MESH_LAYERS = 2  # (b)'s depth of the flagship's 8 layers
 DEVICE_MESH_BATCH = (8, 2048)
@@ -4018,7 +4046,7 @@ def _device_phase(attention, smi, out_root):
     print("  (a) launch -> " + "; ".join(
         f"{label} p50 {statistics.median(times[k]):.3f} s (first launch {times[k][0]:.3f} s; all "
         f"{[round(t, 3) for t in times[k]]})" for k, label in steps)
-        + f"; the first launch compiles Python's bytecode, the later two read it; on {smi}", flush=True)
+        + f"; the launch compiles Python's bytecode; on {smi}", flush=True)
 
     # (b) two hosts x two cards, on gloo on this card
     shape = plan_slice("h100", topology=DEVICE_MESH_TOPOLOGY)
@@ -4081,10 +4109,14 @@ def _device_phase(attention, smi, out_root):
 
 
 def _device_worker(mode, train, out_dir, t0):
-    """One rank of phase 14, started by torchrun (`chip_smoke.py
+    """One rank of phase 14 or 15, started by torchrun (`chip_smoke.py
     --device-worker MODE TRAIN OUT_DIR T0`): bring-up from the pod env, then
-    (a)'s serving (and train step) or (b)'s mesh step; its result goes to
-    OUT_DIR/rank-R.json, its times from T0, the parent's launch."""
+    (a)'s serving (and train step), (b)'s mesh step, or phase 15's
+    "operator" mode: (a)'s serving in a notebook pod, after which the rank
+    holds its CUDA context until SIGTERM, as a notebook kernel holds its
+    card. Its result goes to OUT_DIR/rank-R.json (written whole, then
+    renamed), its times from T0, the parent's launch (phase 15 passes 0:
+    times since the epoch)."""
     from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device
 
     t0 = float(t0)
@@ -4095,17 +4127,23 @@ def _device_worker(mode, train, out_dir, t0):
     torch.empty(1, device=dev)
     torch.cuda.synchronize(dev)
     t_context = time.time()
-    if mode == "serve":
+    if mode in ("serve", "operator"):
         world = initialize_from_env()
     else:  # the ranks share one card: gloo, as NCCL refuses two ranks on one device
         world = initialize_from_env(timeout_s=DEVICE_INIT_TIMEOUT_S, backend="gloo", device="cuda")
     t_world = time.time()
-    out = {"rank": world[0], "world": list(world), "device": str(dev),
-           "env": {n: os.environ.get(n) for n in DEVICE_TORCHRUN_NAMES}}
-    out.update(_device_serve(dev, train == "1", t0) if mode == "serve" else _device_mesh(dev))
-    out["times"] = dict(out.get("times", {}), started=STARTED - t0, context=t_context - t0, world=t_world - t0)
-    with open(os.path.join(out_dir, f"rank-{world[0]}.json"), "w") as f:
+    out = {"rank": world[0], "world": list(world), "device": str(dev), "pid": os.getpid(),
+           "env": {n: os.environ.get(n) for n in DEVICE_TORCHRUN_NAMES + OPERATOR_POD_NAMES}}
+    out.update(_device_serve(dev, train == "1", t0) if mode != "mesh" else _device_mesh(dev))
+    out["times"] = dict(out.get("times", {}), started=STARTED - t0, context=t_context - t0, world=t_world - t0,
+                        done=time.time() - t0)
+    path = os.path.join(out_dir, f"rank-{world[0]}.json")
+    with open(path + ".tmp", "w") as f:
         json.dump(out, f)
+    os.replace(path + ".tmp", path)
+    if mode == "operator":
+        while True:  # SIGTERM's default action ends the process
+            time.sleep(3600)
 
 
 def _device_serve(dev, train, t0):
@@ -4200,6 +4238,115 @@ def _device_mesh(dev):
     dist.barrier()
     dist.destroy_process_group()
     return res
+
+
+# phase 15: the operator, from a Notebook CR to a pod serving the flagship on this card and back
+OPERATOR_WAVES = (("nb-0", "nb-1"), ("nb-2",))  # notebooks created at once, wave after wave
+OPERATOR_POD_NAMES = ("PET_STANDALONE", "PET_NPROC_PER_NODE", "NB_TPU_CHIPS_EXPECTED", "TPU_ACCELERATOR_TYPE")
+OPERATOR_PROBE_S = 0.2  # the readiness gate's period
+OPERATOR_CULL_IDLE_S = 2.0  # the culler's idle time
+OPERATOR_CHECK_S = 0.5  # the culler's check period
+OPERATOR_WINDOW_S = 2.0  # the agents' CudaMonitor window (no idle verdict before one)
+OPERATOR_SAMPLE_S = 0.25  # its sample period, and how long nvidia-smi's reading is reused
+OPERATOR_GRACE_S = 20.0  # a culled pod's SIGTERM -> SIGKILL
+OPERATOR_STEP_TIMEOUT_S = 120  # each wait of the sequence
+OPERATOR_BUDGET_S = 120  # the phase fails past it
+
+
+def operator_phase(attention, smi):
+    """Phase 15 (docstring item 15), through tests/torch_operator_flow.py's
+    flow. Returns the launches of its path by kernel name."""
+    import tempfile
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    with tempfile.TemporaryDirectory(prefix="operator-phase-") as tmp:
+        return _operator_phase(attention, smi, Path(tmp))
+
+
+def _operator_phase(attention, smi, out_root):
+    import torch_dist
+    import torch_operator_flow as flow
+    from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
+
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in torch_dist.clean_env().items() if k != "PYTHONDONTWRITEBYTECODE"}
+    env["PYTHONPYCACHEPREFIX"] = str(out_root / "pycache")  # the pods' launches share one bytecode directory
+    apps_before = flow.compute_app_pids()
+    print(f"  the port's SimCluster: one h100 1x1 node (one card, nvidia.com/gpu 1); a Manager with "
+          f"NotebookReconciler, EventMirrorController, ProbeStatusController (every {OPERATOR_PROBE_S} s) and "
+          f"CullingReconciler (idle {OPERATOR_CULL_IDLE_S} s, checks every {OPERATOR_CHECK_S} s); each pod "
+          f"runs `torchrun chip_smoke.py --device-worker operator` with the env the reconciler rendered, "
+          f"beside a NotebookAgent over CudaMonitor(window {OPERATOR_WINDOW_S} s, samples every "
+          f"{OPERATOR_SAMPLE_S} s) that counts the cards the pod's processes hold; compute apps on the card "
+          f"before: {apps_before}", flush=True)
+    try:
+        seen = flow.run(
+            out_root, lambda out_dir: [sys.executable, "-m", "torch.distributed.run", os.path.abspath(__file__),
+                                       "--device-worker", "operator", "0", str(out_dir), "0.0"],
+            cuda_monitor(OPERATOR_WINDOW_S, OPERATOR_SAMPLE_S), waves=OPERATOR_WAVES,
+            cfg=dict(readiness_probe_period_s=OPERATOR_PROBE_S, enable_culling=True,
+                     cull_idle_time_min=OPERATOR_CULL_IDLE_S / 60.0,
+                     idleness_check_period_min=OPERATOR_CHECK_S / 60.0),
+            env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
+            while_serving=flow.compute_app_pids)
+        flow.check(seen, "cuda:0", gate_waits=True)  # the gate reads the pod's processes, not this one
+    except AssertionError as e:
+        fail(f"phase 15: {e}")
+
+    zero = {n: 0 for n in attention.launch_counts}
+    want = {n: (SERVE_LAYERS if n == "flash_fwd" else 0) for n in zero}
+    launched = dict(zero)
+    names = seen["turns"]
+    rows = {}
+    for name in names:
+        got = seen[name]
+        run = got["result"]
+        for what in ("prefill", "generate"):
+            if run["launches"][what] != want:
+                fail(f"phase 15 {name}: {what} launched {run['launches'][what]}, want {want}")
+            for n, c in run["launches"][what].items():
+                launched[n] += c
+        if run["device"] != "cuda:0" or not run["tokens_ok"]:
+            fail(f"phase 15 {name}: device {run['device']}, tokens ok {run['tokens_ok']}")
+        if not run["visit"] <= 1.0:
+            fail(f"phase 15 {name}: the flash forward at the prefill's shape disagrees with its plain version: "
+                 f"{run['visit']:.3f} of its tolerance")
+        t0 = got["created"]
+        rows[name] = {"CR -> bound": got["bound"][0] - t0, "CR -> mesh-ready": got["mesh-ready"][0] - t0,
+                      "CR -> worker started": run["times"]["started"] - t0,
+                      "CR -> CUDA context": run["times"]["context"] - t0,
+                      "CR -> first token": run["times"]["first_token"] - t0,
+                      "idle -> culled": got["stopped"][0] - run["times"]["done"],
+                      "culled -> card free": got["free"] - got["stopped"][0]}
+    order = [seen[n][k][1] for n in names for k in ("bound", "stopped")]
+    waited = next(n for n in names if "pending" in seen[n])
+    first = seen[names[0]]["result"]
+    print(f"  {waited} Pending while another held the card: {seen[waited]['pending']!r} (mirrored onto the "
+          f"notebook); the card's turns {names}, resourceVersions bound/stopped in turn: {order}", flush=True)
+    print(f"  each pod: StatefulSet requests nvidia.com/gpu 1 with PET_STANDALONE 1, PET_NPROC_PER_NODE 1 (the "
+          f"worker saw {first['env']['PET_STANDALONE']}, {first['env']['PET_NPROC_PER_NODE']}, NB_TPU_CHIPS_EXPECTED "
+          f"{first['env']['NB_TPU_CHIPS_EXPECTED']}); worker on {first['device']}; prefill + generate of the flagship "
+          f"({DEVICE_PROMPTS[0]} prompts x {DEVICE_PROMPTS[1]}, max_new {DEVICE_MAX_NEW}): forward launches per "
+          f"prefill {first['launches']['prefill']['flash_fwd']}, per generate "
+          f"{first['launches']['generate']['flash_fwd']}, no scalar one; the flash forward at the prefill's "
+          f"{first['shape']} against its plain version, worst {max(seen[n]['result']['visit'] for n in names):.3f} "
+          f"of its tolerance; status.tpu meshReady with firstReadyTime once the pod's processes held the card "
+          f"(chips visible {seen[names[0]]['status']['chipsVisible']}; each agent's readiness "
+          f"{seen[names[0]]['agent ready']}); the stop annotation the culler's; the set "
+          f"at 0", flush=True)
+    print("  compute apps while a worker served: " + "; ".join(
+        f"{n} {seen[n]['serving']}" for n in names) + f"; after each cull {apps_before} (the culled pods' pids "
+        + "; ".join(f"{n} {seen[n]['pids']}" for n in names) + " gone)", flush=True)
+    for label in rows[names[0]]:
+        values = [rows[n][label] for n in names]
+        print(f"  {label}: p50 {statistics.median(values):.3f} s ({', '.join(f'{n} {v:.3f}' for n, v in zip(names, values))})"
+              f"; {smi}", flush=True)
+    took = time.perf_counter() - t_phase
+    print(f"  phase 15 took {took:.1f} s (budget {OPERATOR_BUDGET_S} s)", flush=True)
+    if took > OPERATOR_BUDGET_S:
+        fail(f"phase 15 took {took:.1f} s, over its budget of {OPERATOR_BUDGET_S} s")
+    return {"operator": launched}
 
 
 def main() -> None:
@@ -4495,10 +4642,13 @@ def main() -> None:
     phase("14 the device layer: ranks started by torchrun from a rendered pod env, on this card")
     sp_launches.update(device_phase(attention, smi))
 
+    phase("15 the operator: Notebook CR -> a GPU pod serving the flagship -> culled, on this card")
+    sp_launches.update(operator_phase(attention, smi))
+
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}
 
-    def sp(name):  # phases 10-14's launches of the kernel, summed over their ranks
+    def sp(name):  # phases 10-15's launches of the kernel, summed over their ranks
         return {path: launched[name] for path, launched in sp_launches.items() if launched.get(name)}
 
     def timing_keys(t):

@@ -1,2 +1,20 @@
-"""The piece of the control plane the port's router needs: flow control
-(`cluster.flowcontrol`)."""
+"""The port's in-process cluster: the store and typed client, the
+StatefulSet controller, the GPU-aware gang scheduler, the kubelet and the
+`SimCluster` fixture that boots them (copies of odh_kubeflow_tpu/cluster's,
+adapted to `nvidia.com/gpu` nodes), and flow control
+(`cluster.flowcontrol`), which the router uses."""
+from .client import Client, retry_on_conflict
+from .store import (
+    ADDED,
+    DELETED,
+    DROPPED,
+    MODIFIED,
+    AdmissionRequest,
+    Store,
+    Watch,
+    WatchEvent,
+)
+from .kubelet import Behavior, Kubelet, NodeLifecycle, PodDecision
+from .scheduler import Scheduler
+from .sim import SimCluster
+from .statefulset import StatefulSetController

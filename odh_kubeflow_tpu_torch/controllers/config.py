@@ -1,0 +1,82 @@
+"""Controller configuration.
+
+The reference stacks CLI flags + env vars + kustomize params (SURVEY §5
+config/flag system); this build centralizes them in one dataclass whose
+from_env() reads the same env names the reference uses, so deployment
+manifests translate directly."""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+@dataclass
+class Config:
+    """The fields that the port's controllers read. The JAX package's Config
+    also holds the knobs of its repair, suspend, pool, serving, job, SLO,
+    canary, autoscale, accounting and router controllers, and the
+    deployment-surface env table; each comes back with the controller that
+    reads it."""
+
+    # core reconciler (reference notebook_controller.go:238,514,576-599)
+    cluster_domain: str = "cluster.local"
+    add_fsgroup: bool = True
+
+    # culling (reference culling_controller.go:525-558; minutes, same defaults)
+    enable_culling: bool = False
+    cull_idle_time_min: float = 1440.0
+    idleness_check_period_min: float = 1.0
+    dev_mode: bool = False
+
+    # accelerator culling signal: require BOTH Jupyter-idle and device-idle
+    tpu_idle_threshold: float = 0.05  # duty cycle below which the slice is idle
+    probe_port: int = 8889
+    # probe circuit breaker (runtime/breaker.py): after `threshold`
+    # consecutive jupyter-probe failures for one notebook, skip probing it
+    # for a growing cooldown instead of paying connect timeouts every cycle
+    probe_breaker_threshold: int = 3
+    probe_breaker_cooldown_s: float = 30.0
+    # device-visibility readiness gate (controllers/probe_status.py): poll
+    # cadence for /tpu/readiness until the mesh gate is green
+    readiness_probe_period_s: float = 10.0
+    # MaxConcurrentReconciles analog: worker threads per controller. The
+    # workqueue's per-key single-flight makes >1 safe
+    max_concurrent_reconciles: int = 4
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        c = cls()
+        c.cluster_domain = os.environ.get("CLUSTER_DOMAIN", c.cluster_domain)
+        c.add_fsgroup = _env_bool("ADD_FSGROUP", c.add_fsgroup)
+        c.enable_culling = _env_bool("ENABLE_CULLING", c.enable_culling)
+        if os.environ.get("CULL_IDLE_TIME"):
+            c.cull_idle_time_min = float(os.environ["CULL_IDLE_TIME"])
+        if os.environ.get("IDLENESS_CHECK_PERIOD"):
+            c.idleness_check_period_min = float(os.environ["IDLENESS_CHECK_PERIOD"])
+        if os.environ.get("TPU_IDLE_THRESHOLD"):
+            c.tpu_idle_threshold = max(0.0, float(os.environ["TPU_IDLE_THRESHOLD"]))
+        c.dev_mode = _env_bool("DEV", c.dev_mode)
+        if os.environ.get("PROBE_BREAKER_THRESHOLD"):
+            c.probe_breaker_threshold = max(
+                1, int(os.environ["PROBE_BREAKER_THRESHOLD"])
+            )
+        if os.environ.get("PROBE_BREAKER_COOLDOWN_S"):
+            c.probe_breaker_cooldown_s = float(
+                os.environ["PROBE_BREAKER_COOLDOWN_S"]
+            )
+        if os.environ.get("READINESS_PROBE_PERIOD_S"):
+            c.readiness_probe_period_s = float(os.environ["READINESS_PROBE_PERIOD_S"])
+        if os.environ.get("MAX_CONCURRENT_RECONCILES"):
+            # clamp: 0/negative would spawn no workers and silently disable
+            # every controller
+            c.max_concurrent_reconciles = max(
+                1, int(os.environ["MAX_CONCURRENT_RECONCILES"])
+            )
+        return c

@@ -188,8 +188,10 @@ class CudaMonitor(TPUMonitor):
 
     Both device readers can be injected: `device_reader() -> [(bytes,
     allocs), ...] or None` and `utilization_reader() -> 0..1 or None`.
-    Chips visible are `torch.cuda.device_count()`: a machine with no card
-    reports 0 and is never ready; the CPU is never counted as a chip. The
+    Chips visible are `torch.cuda.device_count()`, or what `chips_reader()`
+    counts (a pod's agent counts the cards its pod's processes hold,
+    probe/behavior.py): a machine with no card reports 0 and is never
+    ready; the CPU is never counted as a chip. The
     env is the reference's: NB_TPU_CHIPS_EXPECTED (over NB_TPU_HOSTS hosts)
     and JAX_PROCESS_ID, or in a GPU pod (gpu/env.py) the node rank
     PET_NODE_RANK where JAX_PROCESS_ID is absent."""
@@ -202,6 +204,7 @@ class CudaMonitor(TPUMonitor):
         sample_period_s: float = 5.0,
         device_reader: Optional[Callable[[], Optional[DeviceReading]]] = None,
         utilization_reader: Optional[Callable[[], Optional[float]]] = None,
+        chips_reader: Optional[Callable[[], int]] = None,
     ):
         self._expected = chips_expected
         if self._expected is None:
@@ -230,6 +233,7 @@ class CudaMonitor(TPUMonitor):
         self._primed = False
         self._read_devices = device_reader or read_allocator_stats
         self._read_utilization = utilization_reader or NvidiaSmiUtilization()
+        self._read_chips = chips_reader
 
     def record_activity(self, busy_seconds: float = 0.0) -> None:
         now = time.time()
@@ -316,6 +320,8 @@ class CudaMonitor(TPUMonitor):
     # -- TPUMonitor interface --
 
     def chips_visible(self) -> int:
+        if self._read_chips is not None:
+            return self._read_chips()
         try:
             return torch.cuda.device_count()
         except (RuntimeError, AssertionError):

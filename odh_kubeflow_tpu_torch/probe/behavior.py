@@ -1,0 +1,366 @@
+"""Kubelet behaviors of the port's SimCluster (cluster/kubelet.py's
+`PodDecision`): what runs in a notebook pod once the kubelet starts it.
+
+- `sim_agent_behavior` (counterpart of odh_kubeflow_tpu/probe/agent.py's):
+  one in-process `NotebookAgent` per pod over a scripted `SimTPUMonitor`,
+  its cards taken from the pod's `nvidia.com/gpu` request. The CPU tests'
+  fixture.
+- `pod_process_behavior`: the pod's container as real processes. Its
+  `serve(pod)` starts the container's command with the env the reconciler
+  rendered into that pod (`valueFrom` field refs resolved against the pod,
+  as a kubelet does), and an in-process `NotebookAgent` over the monitor
+  the caller builds (`cuda_monitor`: the card's `CudaMonitor`, whose chips
+  visible are the cards the pod's own processes hold open); it returns
+  `(host, port, close)`, and `close` stops the processes: SIGTERM to the
+  command's process group (torchrun forwards it to its workers, which it
+  starts in sessions of their own), SIGKILL to every process of the tree
+  after a grace period, and an error if one outlives that.
+
+A GPU node is bound to one GPU pod at a time (the scheduler's rule), so
+before a GPU pod's processes start, those of any earlier pod on the same
+node are stopped: the device plugin hands a card out only once the last
+container holding it is gone.
+"""
+from __future__ import annotations
+
+import os
+import re
+import signal
+import subprocess
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Pattern, Sequence, Set, Union
+
+from ..gpu import GPU_RESOURCE
+from .agent import CudaMonitor, KernelState, NotebookAgent, NvidiaSmiUtilization, SimTPUMonitor, TPUMonitor
+
+
+def pod_chips(pod: Any) -> int:
+    """The pod's `nvidia.com/gpu` request, summed over its containers."""
+    return sum(
+        int(((c.resources.requests if c.resources else None) or {}).get(GPU_RESOURCE, "0") or 0)
+        for c in pod.spec.containers
+    )
+
+
+def sim_agent_behavior(agents: Dict[Any, NotebookAgent], duty: float = 0.9,
+                       kernels_busy: bool = True, chips: Optional[int] = None,
+                       visible_chips: Optional[Any] = None):
+    """Kubelet-sim pod behavior running one NotebookAgent per notebook pod.
+
+    Caches one agent per (pod name, uid, container restarts), aliased under
+    the bare pod name for scripting (`agents["nb-0"]`, always the latest
+    incarnation). Chips default to the pod's `nvidia.com/gpu` request.
+    `visible_chips` degrades reported visibility from agent birth: an int
+    for all pods, or {pod_name: chips}. The reference's `cold_start_s`
+    (a warm slice pool's fast path) waits for the slice pools' port."""
+    from ..cluster.kubelet import PodDecision
+    from ..controllers import constants as C
+
+    def behavior(pod: Any) -> Optional[PodDecision]:
+        if not (
+            pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL)
+            or pod.metadata.labels.get(C.INFERENCE_NAME_LABEL)
+            or pod.metadata.labels.get(C.JOB_NAME_LABEL)
+        ):
+            return None
+        # a crash-restarted container gets a fresh agent: its predecessor's
+        # close() is permanent
+        restarts = sum(s.restart_count for s in pod.status.container_statuses)
+        key = (pod.metadata.name, pod.metadata.uid, restarts)
+        if key not in agents:
+            n_chips = pod_chips(pod) if chips is None else chips
+            kernels = KernelState()
+            if kernels_busy:
+                kernels.set_busy()
+            else:
+                kernels.set_idle(time.time())
+            visible = n_chips
+            if isinstance(visible_chips, dict):
+                visible = visible_chips.get(pod.metadata.name, n_chips)
+            elif visible_chips is not None:
+                visible = visible_chips
+            agent = NotebookAgent(monitor=SimTPUMonitor(chips=visible, expected=n_chips, duty=duty),
+                                  kernels=kernels)
+            agent.identity = f"{pod.metadata.namespace}/{pod.metadata.name}"
+            agents[key] = agent
+            agents[pod.metadata.name] = agent
+        agent = agents[key]
+        return PodDecision(serve=lambda p: agent.serve())
+
+    return behavior
+
+
+# ---------------------------------------------------------------------------
+# real processes
+# ---------------------------------------------------------------------------
+
+_FIELD_REF = re.compile(r"^metadata\.(labels|annotations)\['([^']+)'\]$")
+
+
+def field_ref(pod: Any, path: str) -> str:
+    """A downward-API fieldPath of the pod, as the kubelet resolves it."""
+    m = _FIELD_REF.match(path)
+    if m:
+        return getattr(pod.metadata, m.group(1)).get(m.group(2), "")
+    if path == "metadata.name":
+        return pod.metadata.name
+    if path == "metadata.namespace":
+        return pod.metadata.namespace
+    if path == "spec.nodeName":
+        return pod.spec.node_name
+    raise ValueError(f"unsupported downward-API fieldPath {path!r}")
+
+
+def container_env(pod: Any, container: Any) -> Dict[str, str]:
+    """The container's env as its process sees it: values as written, and
+    `valueFrom.fieldRef` resolved against the pod."""
+    env = {}
+    for e in container.env:
+        if e.value_from is not None:
+            ref = e.value_from.field_ref or {}
+            if "fieldPath" not in ref:
+                raise ValueError(f"env {e.name}: only fieldRef valueFrom is supported, got {e.value_from.to_dict()}")
+            env[e.name] = field_ref(pod, ref["fieldPath"])
+        else:
+            env[e.name] = e.value
+    return env
+
+
+def _primary(pod: Any) -> Any:
+    from ..controllers import constants as C
+
+    name = pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL, "")
+    return next((c for c in pod.spec.containers if c.name == name), pod.spec.containers[0])
+
+
+def _children() -> Dict[int, List[int]]:
+    """ppid -> pids, from /proc."""
+    out: Dict[int, List[int]] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        out.setdefault(int(fields[1]), []).append(int(entry))
+    return out
+
+
+def process_tree(pid: int) -> List[int]:
+    """pid and every live descendant of it."""
+    children, out, todo = _children(), [], [pid]
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        todo += children.get(p, [])
+    return out
+
+
+# the device node of card N; a process with a CUDA context on a card holds
+# it open
+_CARD_NODE = re.compile(r"^/dev/nvidia(\d+)$")
+
+
+def cards_held(pid: int, node: Pattern[str] = _CARD_NODE) -> Set[int]:
+    """The cards whose device node pid or a descendant of it holds open,
+    by the number `node` matches in the path."""
+    out: Set[int] = set()
+    for p in process_tree(pid):
+        try:
+            fds = os.listdir(f"/proc/{p}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                m = node.match(os.readlink(f"/proc/{p}/fd/{fd}"))
+            except OSError:
+                continue
+            if m:
+                out.add(int(m.group(1)))
+    return out
+
+
+def _alive(pid: int) -> bool:
+    """Running, and not a zombie waiting for its parent."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return False
+    return stat[stat.rindex(")") + 2] != "Z"
+
+
+class PodProcesses:
+    """One pod's container, started as a process in a session of its own,
+    its output in `log_path`."""
+
+    def __init__(self, argv: Sequence[str], env: Dict[str, str], cwd: Optional[str], log_path: str,
+                 node: str):
+        self.node = node
+        self.log_path = log_path
+        with open(log_path, "w") as log:
+            self.proc = subprocess.Popen(list(argv), env=env, cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+                                         start_new_session=True)
+        self.pids: List[int] = [self.proc.pid]
+        self._lock = threading.Lock()
+        self.closed = False
+
+    def running(self) -> bool:
+        return self.proc.poll() is None
+
+    def cards(self) -> Set[int]:
+        """The cards the pod's processes hold."""
+        return cards_held(self.proc.pid) if self.running() else set()
+
+    def close(self, grace_s: float) -> None:
+        """SIGTERM to the process group, SIGKILL to every process of the
+        tree (snapshotted before the signals, so workers in sessions of
+        their own are among them) after `grace_s`; raises if any outlives
+        SIGKILL. Idempotent."""
+        with self._lock:
+            if self.closed:
+                return
+            tree = process_tree(self.proc.pid) if self.running() else [self.proc.pid]
+            self.pids = sorted(set(self.pids) | set(tree))
+            if self.running():
+                os.killpg(self.proc.pid, signal.SIGTERM)
+                try:
+                    self.proc.wait(timeout=grace_s)
+                except subprocess.TimeoutExpired:
+                    pass
+            deadline = time.monotonic() + grace_s
+            while any(_alive(p) for p in self.pids if p != self.proc.pid) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            for p in self.pids:
+                if _alive(p):
+                    try:
+                        os.kill(p, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+            if self.running():
+                self.proc.wait(timeout=grace_s)
+            deadline = time.monotonic() + grace_s
+            while any(_alive(p) for p in self.pids) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            self.closed = True
+            left = [p for p in self.pids if _alive(p)]
+        if left:
+            raise RuntimeError(f"processes {left} of the pod outlived SIGKILL")
+
+
+class ProcessKernels:
+    """What /api/kernels reports for a pod whose work is a process: one
+    kernel, busy until `idle_since()` returns a time (the work finished),
+    then idle since that time. It has no terminals."""
+
+    def __init__(self, idle_since: Callable[[], Optional[float]]):
+        self._idle_since = idle_since
+        self._state = KernelState()
+        self._state.set_busy()
+        self._done: Optional[float] = None
+
+    @property
+    def kernels(self) -> List[Dict[str, Any]]:
+        if self._done is None:
+            self._done = self._idle_since()
+            if self._done is None:
+                self._state.set_busy()  # last_activity follows the clock while busy
+            else:
+                self._state.set_idle(self._done)
+        return self._state.kernels
+
+    @property
+    def terminals(self) -> List[Dict[str, Any]]:
+        return []
+
+
+Monitor = Callable[[Any, int, PodProcesses], TPUMonitor]
+
+
+def cuda_monitor(window_s: float, sample_period_s: float) -> Monitor:
+    """A monitor factory: the card's CudaMonitor with explicit chips
+    expected (the pod's request), window and sample period, nvidia-smi's
+    reading reused for one sample period, and as chips visible the cards
+    that the pod's processes hold: the gate opens once the pod's workload
+    has its card, not because the operator's process sees one."""
+
+    def make(pod: Any, chips: int, procs: PodProcesses) -> TPUMonitor:
+        return CudaMonitor(chips_expected=chips, window_s=window_s, sample_period_s=sample_period_s,
+                           utilization_reader=NvidiaSmiUtilization(ttl_s=sample_period_s),
+                           chips_reader=lambda: len(procs.cards()))
+
+    return make
+
+
+def pod_process_behavior(
+    command: Union[Sequence[str], Callable[[Any], Sequence[str]]],
+    log_dir: str,
+    *,
+    monitor: Monitor,
+    idle_since: Callable[[Any], Optional[float]],
+    env: Optional[Dict[str, str]] = None,
+    cwd: Optional[str] = None,
+    grace_s: float = 20.0,
+    processes: Optional[Dict[str, PodProcesses]] = None,
+):
+    """Kubelet behavior that runs a notebook pod's container as processes.
+
+    `command` is the container's argv (or pod -> argv); its env is `env`
+    (this process's by default) under the primary container's rendered env.
+    Each pod's output goes to `log_dir/<pod>-<uid8>.log`. `monitor(pod,
+    chips, processes) -> TPUMonitor` builds the agent's device view
+    (`cuda_monitor` for the card); `idle_since(pod)` is when the pod's work finished, None
+    while it runs (what /api/kernels reports). `processes` (by pod name,
+    the latest incarnation) is filled for the caller to read."""
+    from ..cluster.kubelet import PodDecision
+    from ..controllers import constants as C
+
+    base_env = dict(os.environ if env is None else env)
+    processes = {} if processes is None else processes
+    live: Dict[str, PodProcesses] = {}  # pod uid -> its processes, until closed
+    lock = threading.Lock()
+
+    def reap_node(node: str, uid: str) -> None:
+        """Stops the processes of earlier pods on a GPU node."""
+        with lock:
+            stale = [(u, p) for u, p in live.items() if p.node == node and u != uid]
+        for u, p in stale:
+            p.close(grace_s)
+            with lock:
+                live.pop(u, None)
+
+    def serve(pod: Any):
+        chips = pod_chips(pod)
+        if chips:
+            reap_node(pod.spec.node_name, pod.metadata.uid)
+        argv = command(pod) if callable(command) else command
+        procs = PodProcesses(argv, {**base_env, **container_env(pod, _primary(pod))}, cwd,
+                             os.path.join(log_dir, f"{pod.metadata.name}-{pod.metadata.uid[:8]}.log"),
+                             pod.spec.node_name)
+        with lock:
+            live[pod.metadata.uid] = procs
+        processes[pod.metadata.name] = procs
+        agent = NotebookAgent(monitor=monitor(pod, chips, procs), kernels=ProcessKernels(lambda: idle_since(pod)))
+        agent.identity = f"{pod.metadata.namespace}/{pod.metadata.name}"
+        host, port, close_agent = agent.serve()
+
+        def close() -> None:
+            close_agent()
+            try:
+                procs.close(grace_s)
+            finally:
+                with lock:
+                    live.pop(pod.metadata.uid, None)
+
+        return host, port, close
+
+    def behavior(pod: Any) -> Optional[PodDecision]:
+        if not pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL):
+            return None
+        return PodDecision(serve=serve)
+
+    return behavior

@@ -1,1 +1,2 @@
 """Host-side utilities of the port."""
+from .quantity import parse_quantity

@@ -1,0 +1,162 @@
+"""INVCHECK=1: the opt-in runtime invariant monitor (the port's copy of
+odh_kubeflow_tpu/utils/invcheck.py, with the one write-tier invariant whose
+objects the port has).
+
+RACECHECK catches lock misuse; INVCHECK catches state misuse: after every
+store write it re-judges the cross-object invariants and raises
+`InvariantViolation` at the exact write that broke one.
+
+- **chip budget**: cards on GPU nodes hosting bound pods never exceed the
+  monitor's `chip_budget` (`CHIP_BUDGET` env by default); unset/0 skips
+  the check.
+
+The reference's machine-transition, pool-claim and checkpoint-before-suspend
+invariants judge the suspend, repair, slice-pool and job machines, which the
+port does not have yet; a caller adds its own checks with `Monitor(extra=)`.
+
+Zero-cost when off: the store holds `invariants=None` and pays one
+attribute check per write.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Dict, List, Optional
+
+CtxCheck = Callable[["WriteContext"], Optional[str]]
+
+
+def enabled() -> bool:
+    return os.environ.get("INVCHECK", "") not in ("", "0", "false")
+
+
+class InvariantViolation(RuntimeError):
+    """A store write broke a declared global invariant."""
+
+    def __init__(self, invariant: str, detail: str):
+        super().__init__(f"[{invariant}] {detail}")
+        self.invariant = invariant
+        self.detail = detail
+
+
+class WriteContext:
+    """One observed write: old/new object (None = create/delete) plus a
+    read view of the whole store (peek_raw: lock-held, fault-hook-free)
+    and the observing monitor's knobs (chip_budget)."""
+
+    __slots__ = ("store", "api_version", "kind", "old", "new", "chip_budget")
+
+    def __init__(self, store: Any, api_version: str, kind: str,
+                 old: Optional[dict], new: Optional[dict],
+                 chip_budget: Optional[int] = None):
+        self.store = store
+        self.api_version = api_version
+        self.kind = kind
+        self.old = old
+        self.new = new
+        self.chip_budget = chip_budget
+
+    def objects(self, api_version: str, kind: str) -> List[dict]:
+        return self.store.peek_raw(api_version, kind)
+
+    def name(self) -> str:
+        meta = (self.new or self.old or {}).get("metadata", {})
+        ns = meta.get("namespace", "")
+        return f"{ns}/{meta.get('name', '?')}" if ns else meta.get("name", "?")
+
+
+# ---------------------------------------------------------------------------
+# write-tier invariants
+# ---------------------------------------------------------------------------
+
+
+def check_chip_budget(ctx: WriteContext) -> Optional[str]:
+    """Cards on GPU nodes hosting bound pods never exceed the configured
+    budget. Judged only on Pod writes (the binds) — calm-path Notebook
+    status churn costs nothing."""
+    if ctx.kind != "Pod":
+        return None
+    budget = ctx.chip_budget or 0
+    if budget <= 0:
+        return None
+    from ..gpu import GKE_GPU_ACCELERATOR_LABEL, GPU_RESOURCE
+
+    hosting = {
+        ((p.get("spec") or {}).get("nodeName") or "")
+        for p in ctx.objects("v1", "Pod")
+        if not (p.get("metadata", {}) or {}).get("deletionTimestamp")
+    }
+    hosting.discard("")
+    bound = 0
+    for node in ctx.objects("v1", "Node"):
+        meta = node.get("metadata", {}) or {}
+        if meta.get("name") not in hosting:
+            continue
+        if GKE_GPU_ACCELERATOR_LABEL not in (meta.get("labels") or {}):
+            continue
+        cap = ((node.get("status") or {}).get("capacity") or {})
+        try:
+            bound += int(cap.get(GPU_RESOURCE, 0))
+        except (TypeError, ValueError):
+            pass
+    if bound > budget:
+        return (
+            f"chips bound ({bound}) exceed CHIP_BUDGET ({budget}) after a "
+            f"write to pod {ctx.name()}"
+        )
+    return None
+
+
+WRITE_INVARIANTS: Dict[str, CtxCheck] = {
+    "chip-budget": check_chip_budget,
+}
+
+
+def _env_chip_budget() -> Optional[int]:
+    try:
+        return int(os.environ["CHIP_BUDGET"])
+    except (KeyError, ValueError):
+        return None
+
+
+class Monitor:
+    """The store's write hook. Collecting mode (explorer) records
+    violations and lets execution continue — the scheduler wants the full
+    trace; raising mode (INVCHECK=1 soaks) fails the offending write.
+
+    `chip_budget` is PER-MONITOR (explorer worlds inject their scenario's
+    budget without arming the check for every other store in the process);
+    the default comes from the CHIP_BUDGET env the soak deployments set."""
+
+    def __init__(self, extra: Dict[str, CtxCheck] = {},
+                 collect: bool = False,
+                 chip_budget: Optional[int] = None):
+        self.checks: Dict[str, CtxCheck] = dict(WRITE_INVARIANTS)
+        self.checks.update(extra)
+        self.collect = collect
+        self.chip_budget = (
+            chip_budget if chip_budget is not None else _env_chip_budget()
+        )
+        self.violations: List[InvariantViolation] = []
+
+    def observe(self, store: Any, api_version: str, kind: str,
+                old: Optional[dict], new: Optional[dict]) -> None:
+        ctx = WriteContext(store, api_version, kind, old, new,
+                           chip_budget=self.chip_budget)
+        for name, check in self.checks.items():
+            detail = check(ctx)
+            if detail is None:
+                continue
+            violation = InvariantViolation(name, detail)
+            if self.collect:
+                self.violations.append(violation)
+            else:
+                raise violation
+
+    def reset(self) -> None:
+        self.violations.clear()
+
+
+def store_monitor() -> Optional[Monitor]:
+    """What Store.__init__ installs: a raising monitor under INVCHECK=1,
+    nothing otherwise (one attribute check per write when off)."""
+    return Monitor() if enabled() else None

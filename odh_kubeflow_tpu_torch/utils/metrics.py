@@ -10,11 +10,17 @@ workload telemetry (`telemetry`), the profiler's `profile_*` families
 family's `snapshot()` is what `ServingEngine.stats()["metrics"]` and
 `telemetry.snapshot()` show. No HTTP route serves `render()`: the JAX
 serving pod serves no `/metrics` either.
+
+The control plane's families (workqueue, reconcile, informer, client
+retries) register here too, from `runtime.metrics`; the notebook
+controllers' `NotebookMetrics` adds a pull-style collector
+(`add_collector`) that `render()` runs first.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 
 def escape_label_value(value: str) -> str:
@@ -85,6 +91,29 @@ class Gauge(_Metric):
         with self._lock:
             self._values[key] = value
 
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
+
+
+class _HistogramTimer:
+    """`with histogram.time(**labels):` observes the elapsed monotonic time
+    on exit."""
+
+    def __init__(self, histogram: "Histogram", labels: Dict[str, str]):
+        self._histogram, self._labels, self._t0 = histogram, labels, 0.0
+
+    def __enter__(self) -> "_HistogramTimer":
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self._histogram.observe(time.monotonic() - self._t0, **self._labels)
+
 
 class Histogram(_Metric):
     type_name = "histogram"
@@ -108,6 +137,9 @@ class Histogram(_Metric):
                     counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
             self._totals[key] = self._totals.get(key, 0) + 1
+
+    def time(self, **labels: str) -> _HistogramTimer:
+        return _HistogramTimer(self, labels)
 
     def _snapshot_key(self, key: Tuple[str, ...]) -> dict:
         counts = self._counts.get(key, [0] * len(self.buckets))
@@ -146,6 +178,7 @@ class Registry:
 
     def __init__(self) -> None:
         self._metrics: Dict[str, _Metric] = {}
+        self._collectors: List[Callable[[], None]] = []
         self._lock = threading.Lock()
 
     def counter(self, name: str, help: str = "", labels: Sequence[str] = ()) -> Counter:
@@ -167,9 +200,26 @@ class Registry:
         with self._lock:
             return self._metrics.get(name)
 
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """fn runs before each render and may set gauges (pull-style)."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def remove_collector(self, fn: Callable[[], None]) -> None:
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def run_collectors(self) -> None:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            fn()
+
     def render(self) -> str:
         with self._lock:
             families = list(self._metrics.values())
+        self.run_collectors()
         lines: List[str] = []
         for m in families:
             lines.append(f"# HELP {m.name} {escape_help(m.help)}")

@@ -1,7 +1,7 @@
-"""RACECHECK=1: the opt-in lock-order checker (the port's copy of the
-lock-order half of odh_kubeflow_tpu/utils/racecheck.py).
+"""RACECHECK=1: the opt-in race checker (the port's copy of
+odh_kubeflow_tpu/utils/racecheck.py).
 
-Every instrumented acquisition records an edge from each lock the thread
+1. Lock order. Every instrumented acquisition records an edge from each lock the thread
 already holds to the one it is taking. Before blocking, the global
 acquisition graph is checked: if the new edge closes a cycle,
 `LockOrderError` raises deterministically, the first time both orders have
@@ -9,14 +9,19 @@ been seen, not in the rare run where two threads interleave into the
 deadlock. Re-acquiring a non-reentrant lock the thread already holds raises
 too, instead of deadlocking.
 
+2. Cache-owned object mutation (`guard_cache_object`). The informer cache
+deep-copies on every read; under RACECHECK the copy is replaced by a write
+barrier: reads return the cache-owned dict wrapped in GuardDict/GuardList,
+whose mutators raise `CacheMutationError`. `copy.deepcopy()` launders a
+guard into plain mutable data.
+
 Zero cost when off: `make_lock`/`make_rlock` return plain threading
-primitives unless RACECHECK is set when the lock is made. The tracing,
-flow-control, breaker and router copies of the port take their locks here.
-The reference's informer-cache write barrier is control plane and is not
-copied.
+primitives unless RACECHECK is set when the lock is made, and
+`guard_cache_object` is the identity.
 """
 from __future__ import annotations
 
+import copy
 import os
 import threading
 from typing import Any, Dict, List, Optional, Tuple
@@ -150,3 +155,138 @@ def make_lock(name: str) -> Any:
 
 def make_rlock(name: str) -> Any:
     return RaceCheckLock(name, reentrant=True) if enabled() else threading.RLock()
+
+
+class CacheMutationError(RuntimeError):
+    """In-place mutation of an informer-cache-owned object."""
+
+
+# ---------------------------------------------------------------------------
+# cache write barrier
+# ---------------------------------------------------------------------------
+
+
+def _mutation(op: str, path: str) -> CacheMutationError:
+    return CacheMutationError(
+        f"in-place {op} on informer-cache-owned object at {path!r} — "
+        f"copy.deepcopy() the object before mutating it (the cache is "
+        f"shared by every reader)"
+    )
+
+
+class GuardDict(dict):
+    """A dict the cache still owns: reads work natively (it IS a dict, so
+    json/isinstance/iteration behave), every mutator raises, and deepcopy
+    launders back to plain mutable data."""
+
+    __slots__ = ("_rc_path",)
+
+    def _raise(self, op: str) -> None:
+        raise _mutation(op, getattr(self, "_rc_path", "?"))
+
+    def __setitem__(self, k: Any, v: Any) -> None:
+        self._raise(f"__setitem__({k!r})")
+
+    def __delitem__(self, k: Any) -> None:
+        self._raise(f"__delitem__({k!r})")
+
+    def update(self, *a: Any, **kw: Any) -> None:
+        self._raise("update()")
+
+    def pop(self, *a: Any) -> Any:
+        self._raise("pop()")
+
+    def popitem(self) -> Any:
+        self._raise("popitem()")
+
+    def setdefault(self, k: Any, default: Any = None) -> Any:
+        self._raise(f"setdefault({k!r})")
+
+    def clear(self) -> None:
+        self._raise("clear()")
+
+    def __ior__(self, other: Any) -> "GuardDict":
+        self._raise("|= merge")
+        return self
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> Dict[str, Any]:
+        return {copy.deepcopy(k, memo): copy.deepcopy(v, memo) for k, v in self.items()}
+
+    def __reduce__(self) -> Any:  # pickling yields plain data too
+        return (dict, (dict(self),))
+
+
+class GuardList(list):
+    __slots__ = ("_rc_path",)
+
+    def _raise(self, op: str) -> None:
+        raise _mutation(op, getattr(self, "_rc_path", "?"))
+
+    def __setitem__(self, i: Any, v: Any) -> None:
+        self._raise(f"__setitem__({i!r})")
+
+    def __delitem__(self, i: Any) -> None:
+        self._raise(f"__delitem__({i!r})")
+
+    def append(self, v: Any) -> None:
+        self._raise("append()")
+
+    def extend(self, v: Any) -> None:
+        self._raise("extend()")
+
+    def insert(self, i: int, v: Any) -> None:
+        self._raise("insert()")
+
+    def pop(self, i: int = -1) -> Any:
+        self._raise("pop()")
+
+    def remove(self, v: Any) -> None:
+        self._raise("remove()")
+
+    def clear(self) -> None:
+        self._raise("clear()")
+
+    def sort(self, *a: Any, **kw: Any) -> None:
+        self._raise("sort()")
+
+    def reverse(self) -> None:
+        self._raise("reverse()")
+
+    def __iadd__(self, other: Any) -> "GuardList":
+        self._raise("+=")
+        return self
+
+    def __imul__(self, other: Any) -> "GuardList":
+        self._raise("*=")
+        return self
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> List[Any]:
+        return [copy.deepcopy(v, memo) for v in self]
+
+    def __reduce__(self) -> Any:
+        return (list, (list(self),))
+
+
+def _guard(value: Any, path: str) -> Any:
+    if isinstance(value, GuardDict) or isinstance(value, GuardList):
+        return value
+    if isinstance(value, dict):
+        g = GuardDict(
+            {k: _guard(v, f"{path}.{k}") for k, v in value.items()}
+        )
+        g._rc_path = path
+        return g
+    if isinstance(value, list):
+        gl = GuardList(_guard(v, f"{path}[{i}]") for i, v in enumerate(value))
+        gl._rc_path = path
+        return gl
+    return value
+
+
+def guard_cache_object(obj: Any, path: str = "cache-object") -> Any:
+    """Wrap a cache-owned dict in the write barrier (identity when RACECHECK
+    is off). Readers get full dict semantics; writers get CacheMutationError
+    until they deepcopy."""
+    if not enabled():
+        return obj
+    return _guard(obj, path)

@@ -30,6 +30,11 @@ from typing import Any, Dict, List, Optional
 from . import racecheck
 from .metrics import global_registry
 
+# the Notebook annotation that carries a notebook's trace: the reconciler
+# copies it into the pod template, so the kubelet and the readiness gate
+# join the same trace from the object in hand
+TRACEPARENT_ANNOTATION = "notebooks.tpu.kubeflow.org/traceparent"
+
 # ---------------------------------------------------------------------------
 # W3C trace-context primitives
 # ---------------------------------------------------------------------------
@@ -511,3 +516,7 @@ class InMemoryExporter:
 
     def by_name(self, name: str) -> List[Span]:
         return [s for s in self.spans if s.name == name]
+
+
+# the notebook reconciler's tracer, like the OTel global tracer provider
+reconcile_tracer = Tracer("notebook-reconciler")

@@ -13,7 +13,7 @@ per-rank shapes, parallel.comm's collectives on CUDA tensors over gloo
 against their CPU results, and the fsdp 2 x tp 2 step against one process;
 tp generate at tp 2, the tp 4 step with n_kv_heads 2, and the ep 2 x tp 2
 MoE layer and step, against one process on the card; torchrun's LOCAL_RANK
-picking the card.
+picking the card; the operator's notebook pods as processes on the card.
 They skip with a reason
 where there is no Hopper card. This file imports no jax, so it runs on a
 CUDA image without it:
@@ -857,3 +857,20 @@ def test_torchrun_local_rank_picks_the_card(card, monkeypatch):
     assert initialize_from_env() == (0, 1) and not dist.is_initialized()
     monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count()))
     assert rank_device() == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_notebook_pods_as_processes_on_card(card, tmp_path):
+    """tests/test_torch_operator_process.py's flow with the worker on the
+    card and the agents over the card's CudaMonitor, which counts the cards
+    the pod's processes hold: the gate opens once the pod holds its card
+    (first not ready, then ready), and nvidia-smi
+    lists none of a culled pod's processes, and as many compute apps as
+    before."""
+    import torch_operator_flow
+    from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
+
+    seen = torch_operator_flow.run(tmp_path, torch_operator_flow.pod_worker("cuda"),
+                                   cuda_monitor(window_s=2.0, sample_period_s=0.5),
+                                   released=torch_operator_flow.card_released())
+    torch_operator_flow.check(seen, "cuda", gate_waits=True)

@@ -18,10 +18,13 @@ from odh_kubeflow_tpu_torch.ops import _build
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "odh_kubeflow_tpu_torch"
-# the port, the smoke (phase 14's torchrun worker script too), the helper its phase 14 imports from
-# tests/, and the phase's runner in tools/
+# the port, the smoke (phase 14's and 15's torchrun worker script too), the helper its phases 14
+# and 15 import from tests/, the phases' runners in tools/, and the operator flow's helpers that the
+# card tests import
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist.py",
-                                        REPO / "tools" / "device_phase.py"]
+                                        REPO / "tools" / "device_phase.py", REPO / "tools" / "operator_phase.py",
+                                        REPO / "tests" / "torch_operator_flow.py",
+                                        REPO / "tests" / "torch_pod_worker.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -54,7 +57,11 @@ def test_importing_every_port_module_loads_no_jax():
             "odh_kubeflow_tpu_torch.ops.ring_attention", "odh_kubeflow_tpu_torch.parallel.pipeline",
             "odh_kubeflow_tpu_torch.parallel.interleaved_1f1b", "odh_kubeflow_tpu_torch.gpu",
             "odh_kubeflow_tpu_torch.gpu.topology", "odh_kubeflow_tpu_torch.gpu.env",
-            "odh_kubeflow_tpu_torch.gpu.podspec"} <= set(mods)
+            "odh_kubeflow_tpu_torch.gpu.podspec", "odh_kubeflow_tpu_torch.apimachinery.errors",
+            "odh_kubeflow_tpu_torch.cluster.store", "odh_kubeflow_tpu_torch.cluster.sim",
+            "odh_kubeflow_tpu_torch.runtime.manager", "odh_kubeflow_tpu_torch.controllers.notebook",
+            "odh_kubeflow_tpu_torch.controllers.probe_status", "odh_kubeflow_tpu_torch.controllers.culling",
+            "odh_kubeflow_tpu_torch.probe.behavior"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -2,8 +2,8 @@
 """chip_smoke.py's phase 14 alone on one NVIDIA Hopper card: the kernels
 built from this checkout, then `chip_smoke.device_phase` (ranks started by
 `python -m torch.distributed.run` from the env that the port's GPU planner
-renders into a pod: (a) one host x one card, three fresh launches serving
-the flagship, the first also training; (b) two hosts x two cards, 4 ranks
+renders into a pod: (a) one host x one card, a fresh launch serving the
+flagship and training it; (b) two hosts x two cards, 4 ranks
 sharing the card on gloo, fsdp 2 x tp 2 against one process). It fails as
 the smoke does.
 

@@ -1,0 +1,40 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's phase 15 alone on one NVIDIA Hopper card: the kernels
+built from this checkout, then `chip_smoke.operator_phase` (the port's
+operator on a SimCluster with one h100 1x1 node: three Notebook CRs, each
+pod a `torchrun` serving the flagship beside a NotebookAgent over the
+card's CudaMonitor, which counts the cards the pod's processes hold, each
+culled and its card freed in turn). It fails as
+the smoke does.
+
+    python3 tools/operator_phase.py     # from the repository root
+"""
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from odh_kubeflow_tpu_torch.ops import _build, attention  # noqa: E402
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch.cuda.is_available() is false: this needs an NVIDIA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, torch.__version__, torch.version.cuda, flush=True)
+    torch.empty(1, device="cuda")  # a CUDA context in this process, as the smoke holds one by phase 15
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print("launches", chip_smoke.operator_phase(attention, smi), flush=True)
+
+
+if __name__ == "__main__":
+    main()
