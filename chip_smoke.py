@@ -176,8 +176,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 12. tensor parallelism in decode, shared kv heads and the ep MoE on this
    card, ranks spawned as in phase 11 (2, then 4): (a) generate(mesh=) of
    phase 5's flagship at tp 2 and fsdp 2 x tp 2, 8 prompts of 128, max_new
-   64: the flash forward at the per-rank prefill shape (b8 s128 h4 hk4
-   d128, no lse) against its plain version, the first step's logits (each
+   TP_MAX_NEW 32 (64 before phase 15 took on admission): the flash forward
+   at the per-rank prefill shape (b8 s128 h4 hk4 d128, no lse) against its plain version, the first step's logits (each
    rank's vocab block) within 2e-2 of the largest of one process's, every
    rank the same tokens (their agreement with one process printed), launch
    counts zeroed just before and read just after (8 tensor-core forward
@@ -191,7 +191,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    largest against one process, greedy tokens equal; (c) bench.py:389-400's
    MoE train step (remat "") at EP_LAYERS 4 of its 8 layers (the depth cut
    to keep the smoke and the card tests near 900 s) at ep 2 x tp 2 and ep 2 x fsdp 2, global batch
-   8 x 2048, with phase 11's gates: each flash call at the per-rank shapes
+   8 x 2048, a warm-up and EP_STEPS 2 timed steps (3 before phase 15 took
+   on admission), with phase 11's gates: each flash call at the per-rank shapes
    (b8 s2048 h4, b4 s2048 h8) against its plain version; against one
    process routing each data shard alone (the ep path's capacity), the f32
    2-layer step per leaf within 1e-4, the bf16 loss within 1e-4 relative,
@@ -261,21 +262,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    launches per rank, no scalar one.
 15. the operator (alone: tools/operator_phase.py), from a Notebook CR to
    a GPU pod serving the flagship on this card and back to a freed card:
-   the port's SimCluster with one h100 1x1 node (nvidia.com/gpu 1), a
-   Manager wired by hand with NotebookReconciler, EventMirrorController,
-   ProbeStatusController (0.2 s) and CullingReconciler (2 s idle, checks
-   every 0.5 s); the kubelet runs each pod through
+   the port's SimCluster with one h100 1x1 node (nvidia.com/gpu 1), its
+   store's admission chain running NotebookWebhook, a Manager wired by
+   hand with NotebookReconciler, EventMirrorController,
+   TPUWorkbenchReconciler, ProbeStatusController (0.2 s) and
+   CullingReconciler (2 s idle, checks every 0.5 s); the kubelet runs each
+   pod through
    probe.behavior.pod_process_behavior: `torchrun chip_smoke.py
    --device-worker operator` with the env the reconciler rendered into
    the pod (the workers sharing one bytecode directory in the phase's
    temporary directory), beside a NotebookAgent over the card's
-   CudaMonitor; each worker serves as phase 14 (a) does, writes its
-   result and holds its CUDA context until SIGTERM. nb-0 and nb-1 are
-   created at once: one binds (the scheduler takes them in no fixed
+   CudaMonitor, which counts the cards on which a process of the pod
+   holds a CUDA context (it maps the card's node and /dev/nvidia-uvm);
+   each worker serves as phase 14 (a) does, writes its result and holds
+   its CUDA context until SIGTERM. First nb-denied (h100 3x5, a slice
+   gpu.plan_slice refuses) is denied at admission: no object of it is
+   stored, no pod starts, the card's compute apps stay as they were, and
+   no torchrun starts. nb-0 and nb-1 are created at once: one binds (the scheduler takes them in no fixed
    order; say nb-0), nb-1 stays Pending with a FailedScheduling naming
    nvidia.com/gpu mirrored onto the notebook; nb-0 comes mesh-ready,
    serves, goes idle and is culled; nb-1 binds on the freed card, serves
-   and is culled; nb-2 follows alone. Gates: each set requests
+   and is culled; nb-2 follows alone; each culled notebook is deleted
+   once its card is free. Gates: every CR admitted with the
+   reconciliation lock and the traceparent of its notebook.ready root,
+   the lock lifted by the extension before the pod was bound, the
+   notebook's HTTPRoute and NetworkPolicies present while it serves and
+   gone once it is deleted; the root closed by the gate at mesh-ready,
+   within one gate period of the watch event; mesh-ready no earlier than
+   the worker's CUDA context less one gate period; each set requests
    nvidia.com/gpu 1 with PET_STANDALONE and PET_NPROC_PER_NODE 1; each
    worker on cuda:0; 8 tensor-core forward launches per prefill and per
    generate, no scalar one; the forward at the prefill's shape within
@@ -285,8 +299,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    nvidia-smi's compute apps back to the phase's start; the notebooks
    bound and stopped in turn (by resourceVersion). Printed per notebook
    and as a p50 of the three, with the card's name and power limit: CR ->
-   bound, -> mesh-ready, -> the worker's CUDA context, -> first token;
-   idle -> culled; culled -> card free.
+   bound, -> mesh-ready (the watch event, and the root's duration), ->
+   the worker's CUDA context, -> first token; idle -> culled; culled ->
+   card free.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2906,7 +2921,7 @@ SERVE_LAYERS = 8
 # (a) phase 5's flagship through generate(mesh=): mesh name -> plan
 TP_DECODE_MESHES = {"tp2": {"tp": 2}, "fsdp2 x tp2": {"fsdp": 2, "tp": 2}}
 TP_PROMPTS = (8, 128)  # prompts x tokens
-TP_MAX_NEW = 64
+TP_MAX_NEW = 32  # 64 until the smoke's budget needed the time back for phase 15's admission
 TP_F32_LAYERS = 2  # the f32 run of the same shapes
 TP_SAMPLE = (0.8, 5)  # the f32 sampled run's temperature and generator seed
 # the first step's logits of a tp rank's vocab block against one process's,
@@ -2924,7 +2939,7 @@ MOE_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=2048, max_seq=2048)
 EP_RUNS = {"ep2 x tp2": {"ep": 2, "tp": 2}, "ep2 x fsdp2": {"ep": 2, "fsdp": 2}}
 EP_BATCH = (8, 2048)
 EP_LAYERS = 4
-EP_STEPS = 3  # timed steps after the warm-up
+EP_STEPS = 2  # timed steps after the warm-up (3 until phase 15 needed the time)
 EP_F32_LAYERS = 2  # the f32 step held per leaf against one process
 EP_CHECKPOINT_RUN = "ep2 x tp2"  # the run whose state goes through the agents' routes
 
@@ -3285,7 +3300,7 @@ def _ep_run(mesh, checkpoint, results, go, ckpt_dir, saved):
     """One run of phase 12 (c) in this rank: the flash calls at the per-rank
     shapes against their plain versions; the f32 2-layer step and the bf16
     warm-up against one process on the same batch (rank 0 holds the
-    references; the gradients are gathered); three timed steps; the drop
+    references; the gradients are gathered); EP_STEPS timed steps; the drop
     rate and dispatch share; with `checkpoint`, the agent's routes."""
     import torch.distributed as dist
 
@@ -4273,13 +4288,14 @@ def _operator_phase(attention, smi, out_root):
     env = {k: v for k, v in torch_dist.clean_env().items() if k != "PYTHONDONTWRITEBYTECODE"}
     env["PYTHONPYCACHEPREFIX"] = str(out_root / "pycache")  # the pods' launches share one bytecode directory
     apps_before = flow.compute_app_pids()
-    print(f"  the port's SimCluster: one h100 1x1 node (one card, nvidia.com/gpu 1); a Manager with "
-          f"NotebookReconciler, EventMirrorController, ProbeStatusController (every {OPERATOR_PROBE_S} s) and "
+    print(f"  the port's SimCluster: one h100 1x1 node (one card, nvidia.com/gpu 1), NotebookWebhook in its "
+          f"store's admission chain; a Manager with NotebookReconciler, EventMirrorController, "
+          f"TPUWorkbenchReconciler, ProbeStatusController (every {OPERATOR_PROBE_S} s) and "
           f"CullingReconciler (idle {OPERATOR_CULL_IDLE_S} s, checks every {OPERATOR_CHECK_S} s); each pod "
           f"runs `torchrun chip_smoke.py --device-worker operator` with the env the reconciler rendered, "
           f"beside a NotebookAgent over CudaMonitor(window {OPERATOR_WINDOW_S} s, samples every "
-          f"{OPERATOR_SAMPLE_S} s) that counts the cards the pod's processes hold; compute apps on the card "
-          f"before: {apps_before}", flush=True)
+          f"{OPERATOR_SAMPLE_S} s) that counts the cards on which the pod's processes hold a CUDA context; "
+          f"compute apps on the card before: {apps_before}", flush=True)
     try:
         seen = flow.run(
             out_root, lambda out_dir: [sys.executable, "-m", "torch.distributed.run", os.path.abspath(__file__),
@@ -4289,7 +4305,7 @@ def _operator_phase(attention, smi, out_root):
                      cull_idle_time_min=OPERATOR_CULL_IDLE_S / 60.0,
                      idleness_check_period_min=OPERATOR_CHECK_S / 60.0),
             env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
-            while_serving=flow.compute_app_pids)
+            while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids)
         flow.check(seen, "cuda:0", gate_waits=True)  # the gate reads the pod's processes, not this one
     except AssertionError as e:
         fail(f"phase 15: {e}")
@@ -4314,6 +4330,7 @@ def _operator_phase(attention, smi, out_root):
                  f"{run['visit']:.3f} of its tolerance")
         t0 = got["created"]
         rows[name] = {"CR -> bound": got["bound"][0] - t0, "CR -> mesh-ready": got["mesh-ready"][0] - t0,
+                      "notebook.ready root (admission -> gate)": got["root"][0]["duration_ms"] / 1e3,
                       "CR -> worker started": run["times"]["started"] - t0,
                       "CR -> CUDA context": run["times"]["context"] - t0,
                       "CR -> first token": run["times"]["first_token"] - t0,
@@ -4331,10 +4348,28 @@ def _operator_phase(attention, smi, out_root):
           f"prefill {first['launches']['prefill']['flash_fwd']}, per generate "
           f"{first['launches']['generate']['flash_fwd']}, no scalar one; the flash forward at the prefill's "
           f"{first['shape']} against its plain version, worst {max(seen[n]['result']['visit'] for n in names):.3f} "
-          f"of its tolerance; status.tpu meshReady with firstReadyTime once the pod's processes held the card "
+          f"of its tolerance; status.tpu meshReady with firstReadyTime once a pod process held the card under "
+          f"a CUDA context "
           f"(chips visible {seen[names[0]]['status']['chipsVisible']}; each agent's readiness "
           f"{seen[names[0]]['agent ready']}); the stop annotation the culler's; the set "
           f"at 0", flush=True)
+    denied = seen["denied"]
+    print(f"  {denied['name']} ({flow.DENIED[1]} {flow.DENIED[2]}) denied at admission: {denied['error']!r}; "
+          f"objects of it stored {denied['left']}, at the end {denied['left at the end']}; compute apps before "
+          f"and after its admission {denied['card'][0]} -> {denied['card'][1]}", flush=True)
+    print("  admission and the extension: " + "; ".join(
+        f"{n} admitted with the lock and traceparent {seen[n]['admitted'][flow.C.TRACEPARENT_ANNOTATION]}, "
+        f"unlocked at resourceVersion {seen[n]['unlocked'][1]} before bound at {seen[n]['bound'][1]}, "
+        f"serving beside {sorted(seen[n]['while running'])}, all gone once deleted" for n in names), flush=True)
+    print("  the readiness root, opened at admission and closed by the gate, against the watch event: " + "; ".join(
+        f"{n} root {seen[n]['root'][0]['duration_ms'] / 1e3:.3f} s, CR -> mesh-ready event "
+        f"{seen[n]['mesh-ready'][0] - seen[n]['created']:.3f} s, event after the root's end by "
+        f"{flow.root_lag(seen[n]):.3f} s" for n in names) + f" (within one gate period, {OPERATOR_PROBE_S} s)",
+        flush=True)
+    print("  mesh-ready against the worker's CUDA context (gate: no earlier than the context less one gate "
+          f"period, {OPERATOR_PROBE_S} s): " + "; ".join(
+              f"{n} {seen[n]['mesh-ready'][0] - seen[n]['result']['times']['context']:+.3f} s" for n in names),
+          flush=True)
     print("  compute apps while a worker served: " + "; ".join(
         f"{n} {seen[n]['serving']}" for n in names) + f"; after each cull {apps_before} (the culled pods' pids "
         + "; ".join(f"{n} {seen[n]['pids']}" for n in names) + " gone)", flush=True)

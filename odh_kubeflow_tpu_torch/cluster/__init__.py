@@ -1,7 +1,8 @@
 """The port's in-process cluster: the store and typed client, the
 StatefulSet controller, the GPU-aware gang scheduler, the kubelet and the
 `SimCluster` fixture that boots them (copies of odh_kubeflow_tpu/cluster's,
-adapted to `nvidia.com/gpu` nodes), and flow control
+adapted to `nvidia.com/gpu` nodes), the admission webhook dispatcher and its
+pooled transport (`cluster.remote.HostPool`), and flow control
 (`cluster.flowcontrol`), which the router uses."""
 from .client import Client, retry_on_conflict
 from .store import (
@@ -18,3 +19,4 @@ from .kubelet import Behavior, Kubelet, NodeLifecycle, PodDecision
 from .scheduler import Scheduler
 from .sim import SimCluster
 from .statefulset import StatefulSetController
+from .webhook_dispatch import WebhookDispatcher

@@ -1,8 +1,11 @@
 """The port's Notebook controllers (copies of odh_kubeflow_tpu/controllers'
-notebook, probe-status and culling reconcilers, on GPU slices)."""
+notebook, probe-status and culling reconcilers, the admission webhook and the
+workbench extension, on GPU slices)."""
 from . import constants
 from .config import Config
 from .metrics import NotebookMetrics
 from .notebook import EventMirrorController, NotebookReconciler, hosts_service_name
 from .culling import CullingReconciler
 from .probe_status import ProbeStatusController
+from .webhook import NotebookWebhook
+from .extension import TPUWorkbenchReconciler

@@ -19,8 +19,8 @@ def _env_bool(name: str, default: bool) -> bool:
 
 @dataclass
 class Config:
-    """The fields that the port's controllers read. The JAX package's Config
-    also holds the knobs of its repair, suspend, pool, serving, job, SLO,
+    """The fields that the port's controllers, webhook and extension read.
+    The JAX package's Config also holds the knobs of its repair, suspend, pool, serving, job, SLO,
     canary, autoscale, accounting and router controllers, and the
     deployment-surface env table; each comes back with the controller that
     reads it."""
@@ -50,6 +50,15 @@ class Config:
     # workqueue's per-key single-flight makes >1 safe
     max_concurrent_reconciles: int = 4
 
+    # extension controller / webhook (reference odh main.go + webhook consts)
+    auth_proxy_image: str = "kube-rbac-proxy:latest"
+    gateway_name: str = "data-science-gateway"
+    gateway_namespace: str = "openshift-ingress"
+    controller_namespace: str = "tpu-notebooks-system"
+    set_pipeline_rbac: bool = False
+    set_pipeline_secret: bool = False
+    inject_cluster_proxy_env: bool = False
+
     @classmethod
     def from_env(cls) -> "Config":
         c = cls()
@@ -63,6 +72,17 @@ class Config:
         if os.environ.get("TPU_IDLE_THRESHOLD"):
             c.tpu_idle_threshold = max(0.0, float(os.environ["TPU_IDLE_THRESHOLD"]))
         c.dev_mode = _env_bool("DEV", c.dev_mode)
+        c.auth_proxy_image = os.environ.get("AUTH_PROXY_IMAGE", c.auth_proxy_image)
+        c.gateway_name = os.environ.get("NOTEBOOK_GATEWAY_NAME", c.gateway_name)
+        c.gateway_namespace = os.environ.get(
+            "NOTEBOOK_GATEWAY_NAMESPACE", c.gateway_namespace
+        )
+        c.controller_namespace = os.environ.get("K8S_NAMESPACE", c.controller_namespace)
+        c.set_pipeline_rbac = _env_bool("SET_PIPELINE_RBAC", c.set_pipeline_rbac)
+        c.set_pipeline_secret = _env_bool("SET_PIPELINE_SECRET", c.set_pipeline_secret)
+        c.inject_cluster_proxy_env = _env_bool(
+            "INJECT_CLUSTER_PROXY_ENV", c.inject_cluster_proxy_env
+        )
         if os.environ.get("PROBE_BREAKER_THRESHOLD"):
             c.probe_breaker_threshold = max(
                 1, int(os.environ["PROBE_BREAKER_THRESHOLD"])

@@ -32,11 +32,15 @@ Over a mesh (`moe_ffn(mesh=)`), as the reference's `moe_ffn` picks:
   experts gathered whole, and keeps its own rows: exact, at the cost of
   every data rank running every token's experts.
 
+- **the dense dispatch over a live ep axis** (`_moe_ffn_ep_dense`, the
+  reference's GSPMD einsums whose shardings induce the all-to-alls, kept
+  for A/B): the global batch routed as on one device, each ep rank's
+  one-hot dispatch and combine cut to its own experts, and one f32 sum
+  over ep completes the combine.
+
 `replicated_batch=True` (decode, whose ranks hold the whole batch) routes
-the whole batch as one, on either path: the reference's decode runs its
+the whole batch as one, on every path: the reference's decode runs its
 layers without the mesh, so GSPMD routes the global batch there too.
-The dense dispatch over a live ep axis (the reference's einsum-induced
-all-to-alls, kept there for A/B) is not ported and raises.
 
 Nothing here syncs with the host: capacity comes from the static token
 count, and routing uses no `nonzero`, boolean-mask indexing or `.item()`.
@@ -376,6 +380,35 @@ def _moe_ffn_ep_indexed(x: torch.Tensor, params, cfg: MoEConfig, mesh,
     return out, aux
 
 
+def _moe_ffn_ep_dense(x: torch.Tensor, params, cfg: MoEConfig, mesh,
+                      replicated_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense dispatch over a live ep axis (the reference's GSPMD
+    einsums, `moe.py:423-468`): the global batch joined from the data
+    ranks and routed as on one device (capacity, drops and the aux loss
+    from the whole batch's count, as `_moe_ffn_dense`'s), the (N, E, C)
+    one-hot dispatch and combine cut to this rank's ep block of experts,
+    those experts run with the expert stacks gathered to the block, the
+    combine kept in f32 into the sum over ep and cast once, and the rank's
+    own rows kept. Every ep and data rank holds the same aux, so its
+    gradient is scaled to count it once over both."""
+    group = mesh.group("ep")[0]
+    blocks = _expert_blocks(params, cfg, mesh)
+    e_local = blocks["we_gate"].shape[0]
+    first = mesh.index("ep") * e_local
+    whole = comm.ep_enter(x if replicated_batch else _data_join(x, mesh), group)
+    flat, capacity, logits = _route(whole, blocks, cfg)
+    dispatch, combine, aux = route_topk(logits, cfg.experts_per_token, capacity)
+    dispatch, combine = (t.narrow(1, first, e_local) for t in (dispatch, combine))
+    expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), flat)
+    expert_out = _expert_mlp(expert_in, blocks, x.dtype)
+    out = torch.einsum("nec,ecd->nd", combine, expert_out.float())
+    out = comm.ep_sum(out, group).to(x.dtype).reshape(whole.shape)
+    axes = () if replicated_batch else data_axes(mesh)
+    n_data = mesh.size(axes) if axes else 1
+    aux = comm.aux_mean(aux, None, 1.0 / (n_data * mesh.size("ep")))
+    return (out if replicated_batch else _data_cut(out, mesh)), aux
+
+
 def _moe_ffn_global(x: torch.Tensor, params, cfg: MoEConfig, mesh,
                     replicated_batch: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """No live ep axis: the global batch routed as on one device (the
@@ -409,10 +442,7 @@ def moe_ffn(x: torch.Tensor, params, cfg: MoEConfig, mesh=None, ep_axis: str = "
     if mesh is not None:
         if mesh.sizes["ep"] > 1:
             if cfg.dispatch == "dense":
-                raise NotImplementedError(
-                    "the dense MoE dispatch over a live ep axis (the reference's einsum-induced "
-                    "all-to-alls, kept for A/B) is not ported: use dispatch auto or indexed"
-                )
+                return _moe_ffn_ep_dense(x, params, cfg, mesh, replicated_batch)
             return _moe_ffn_ep_indexed(x, params, cfg, mesh, replicated_batch)
         return _moe_ffn_global(x, params, cfg, mesh, replicated_batch)
     if cfg.dispatch == "dense":

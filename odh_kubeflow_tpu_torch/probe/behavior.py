@@ -10,7 +10,8 @@
   rendered into that pod (`valueFrom` field refs resolved against the pod,
   as a kubelet does), and an in-process `NotebookAgent` over the monitor
   the caller builds (`cuda_monitor`: the card's `CudaMonitor`, whose chips
-  visible are the cards the pod's own processes hold open); it returns
+  visible are the cards on which a process of the pod holds a CUDA
+  context, `cards_in_context`); it returns
   `(host, port, close)`, and `close` stops the processes: SIGTERM to the
   command's process group (torchrun forwards it to its workers, which it
   starts in sessions of their own), SIGKILL to every process of the tree
@@ -160,27 +161,34 @@ def process_tree(pid: int) -> List[int]:
     return out
 
 
-# the device node of card N; a process with a CUDA context on a card holds
-# it open
+# the device node of card N. The driver's initialisation (cuInit: any
+# device query, torchrun's launcher, an NVML-only tool) opens it with
+# /dev/nvidiactl and /dev/nvidia-uvm and maps it; only a CUDA context maps
+# /dev/nvidia-uvm as well (tools/gate_nodes.py on an H100: the launcher
+# never does, the worker at its context)
 _CARD_NODE = re.compile(r"^/dev/nvidia(\d+)$")
+_CONTEXT_NODE = re.compile(r"^/dev/nvidia-uvm$")
 
 
-def cards_held(pid: int, node: Pattern[str] = _CARD_NODE) -> Set[int]:
-    """The cards whose device node pid or a descendant of it holds open,
-    by the number `node` matches in the path."""
+def _mapped(pid: int) -> Set[str]:
+    """The paths of the files pid maps into its memory."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return {parts[5].strip() for parts in (line.split(maxsplit=5) for line in f) if len(parts) == 6}
+    except OSError:
+        return set()
+
+
+def cards_in_context(pid: int, node: Pattern[str] = _CARD_NODE,
+                     context: Pattern[str] = _CONTEXT_NODE) -> Set[int]:
+    """The cards on which pid or a descendant of it holds a CUDA context:
+    the numbers `node` matches in the paths a process maps, once that
+    process also maps a path `context` matches."""
     out: Set[int] = set()
     for p in process_tree(pid):
-        try:
-            fds = os.listdir(f"/proc/{p}/fd")
-        except OSError:
-            continue
-        for fd in fds:
-            try:
-                m = node.match(os.readlink(f"/proc/{p}/fd/{fd}"))
-            except OSError:
-                continue
-            if m:
-                out.add(int(m.group(1)))
+        paths = _mapped(p)
+        if any(context.match(path) for path in paths):
+            out |= {int(m.group(1)) for m in map(node.match, paths) if m}
     return out
 
 
@@ -213,8 +221,8 @@ class PodProcesses:
         return self.proc.poll() is None
 
     def cards(self) -> Set[int]:
-        """The cards the pod's processes hold."""
-        return cards_held(self.proc.pid) if self.running() else set()
+        """The cards on which the pod's processes hold a CUDA context."""
+        return cards_in_context(self.proc.pid) if self.running() else set()
 
     def close(self, grace_s: float) -> None:
         """SIGTERM to the process group, SIGKILL to every process of the
@@ -285,8 +293,10 @@ def cuda_monitor(window_s: float, sample_period_s: float) -> Monitor:
     """A monitor factory: the card's CudaMonitor with explicit chips
     expected (the pod's request), window and sample period, nvidia-smi's
     reading reused for one sample period, and as chips visible the cards
-    that the pod's processes hold: the gate opens once the pod's workload
-    has its card, not because the operator's process sees one."""
+    on which the pod's processes hold a CUDA context (`PodProcesses.cards`):
+    the gate opens once the pod's workload has its device runtime up, as
+    the reference's agent counts `jax.local_devices()`, not when the
+    driver is first opened nor because the operator's process sees a card."""
 
     def make(pod: Any, chips: int, procs: PodProcesses) -> TPUMonitor:
         return CudaMonitor(chips_expected=chips, window_s=window_s, sample_period_s=sample_period_s,

@@ -1,6 +1,6 @@
 """The control plane's metric families (the port's copy of the families of
-odh_kubeflow_tpu/runtime/metrics.py that its store, client, workqueue,
-controllers and informers emit), registered in the port's one registry,
+odh_kubeflow_tpu/runtime/metrics.py that its store, client, webhook
+dispatcher, workqueue, controllers and informers emit), registered in the port's one registry,
 `utils.metrics.global_registry`, which this module re-exports."""
 from __future__ import annotations
 
@@ -22,6 +22,11 @@ client_retries_total = global_registry.counter(
     "client_retries_total",
     "Client-side request retries, by cause (429 throttle, ...)",
     labels=("cause",),
+)
+webhook_dispatch_failures_total = global_registry.counter(
+    "webhook_dispatch_failures_total",
+    "Admission webhook callout failures, by the failurePolicy applied",
+    labels=("policy",),
 )
 fenced_writes_total = global_registry.counter(
     "fenced_writes_total",

@@ -518,5 +518,7 @@ class InMemoryExporter:
         return [s for s in self.spans if s.name == name]
 
 
-# the notebook reconciler's tracer, like the OTel global tracer provider
+# the admission webhook's and the notebook reconciler's tracers, like the
+# OTel global tracer provider
+webhook_tracer = Tracer("notebook-webhook")
 reconcile_tracer = Tracer("notebook-reconciler")

@@ -861,16 +861,19 @@ def test_torchrun_local_rank_picks_the_card(card, monkeypatch):
 
 @pytest.mark.cuda
 def test_notebook_pods_as_processes_on_card(card, tmp_path):
-    """tests/test_torch_operator_process.py's flow with the worker on the
-    card and the agents over the card's CudaMonitor, which counts the cards
-    the pod's processes hold: the gate opens once the pod holds its card
-    (first not ready, then ready), and nvidia-smi
-    lists none of a culled pod's processes, and as many compute apps as
-    before."""
+    """tests/test_torch_operator_process.py's flow (admission, the
+    extension, the denied slice) with the worker on the card and the agents
+    over the card's CudaMonitor, which counts the cards on which the pod's
+    processes hold a CUDA context: the gate opens once the pod's worker has
+    its context (first not ready, then ready; no pod mesh-ready before its
+    worker's context less one gate period), the denied notebook leaves the
+    card's compute apps as they were, and nvidia-smi lists none of a culled
+    pod's processes, and as many compute apps as before."""
     import torch_operator_flow
     from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
 
     seen = torch_operator_flow.run(tmp_path, torch_operator_flow.pod_worker("cuda"),
                                    cuda_monitor(window_s=2.0, sample_period_s=0.5),
-                                   released=torch_operator_flow.card_released())
+                                   released=torch_operator_flow.card_released(),
+                                   card_state=torch_operator_flow.compute_app_pids)
     torch_operator_flow.check(seen, "cuda", gate_waits=True)

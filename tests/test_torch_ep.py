@@ -16,6 +16,12 @@ spawn of 4 ranks for every case.
   mesh (per-shard capacity and the aux averaged over the data axes, as
   the reference's), within 1e-5; one make_train_step step leaves every
   replicated leaf bit-equal across its ranks.
+- The dense dispatch (`dispatch="dense"`) over those two ep meshes: out,
+  aux and the gradients against the reference's dense `moe_ffn(mesh=)`
+  (its GSPMD einsums: the global batch's capacity and aux), within 1e-5;
+  at ep 2 x tp 2, whose tokens are not cut over a data axis, also against
+  the port's indexed ep path, and the model's loss and gradients against
+  the reference's dense `loss_fn` and the port's indexed run.
 - tp 4 with n_kv_heads 2 (kv_heads % tp != 0): the loss and gathered
   gradients against the JAX loss on the same mesh, within 1e-5.
 - Each rank's `shard_params` block of the ep leaves equals the JAX
@@ -65,6 +71,12 @@ JCFG = JaxConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff
                  dtype=jnp.float32, use_flash=False, remat=False,
                  moe=JaxMoE(n_experts=8, experts_per_token=2, capacity_factor=1.25, d_ff=32))
 DENSE = dataclasses.replace(JCFG, moe=None)
+# the dense dispatch (the reference's A/B knob) on the same layer and model
+MOE_DENSE = dataclasses.replace(MOE, dispatch="dense")
+JCFG_DENSE = dataclasses.replace(JCFG, moe=dataclasses.replace(JCFG.moe, dispatch="dense"))
+# the ep mesh whose tokens are not cut over a data axis: the indexed ep
+# path's per-shard capacity is the global batch's there
+WHOLE_PLAN = EP_PLANS[0]
 TOKENS = np.random.default_rng(2).integers(0, JCFG.vocab, (4, 32)).astype(np.int32)
 
 
@@ -145,6 +157,12 @@ def ranks(moe_params, model_params, tmp_path_factory):
                       dict(params=model_params["moe"], batch={"tokens": TOKENS}, cfg=run_cfg(JCFG), plan=plan,
                            use_kernel=None, train_step=True)))
     for plan in EP_PLANS:
+        cases.append((f"moe dense {_id(plan)}", "torch_ep_cases:moe_case",
+                      dict(params=moe_params, x=X, cfg=port_moe(MOE_DENSE), plan=plan, aux_weight=AUX_WEIGHT)))
+    cases.append((f"model dense {_id(WHOLE_PLAN)}", "torch_shard_cases:model_case",
+                  dict(params=model_params["moe"], batch={"tokens": TOKENS}, cfg=run_cfg(JCFG_DENSE),
+                       plan=WHOLE_PLAN, use_kernel=None)))
+    for plan in EP_PLANS:
         cases.append((f"shard {_id(plan)}", "torch_shard_cases:shard_case",
                       dict(params=model_params["moe"], cfg=port_cfg(JCFG), plan=plan)))
     cases.append(("shared kv", "torch_shard_cases:model_case",
@@ -160,11 +178,11 @@ def ranks(moe_params, model_params, tmp_path_factory):
     return out
 
 
-def _jax_moe(params, plan):
+def _jax_moe(params, plan, cfg=MOE):
     mesh = _jmesh(plan)
 
     def f(p, x):
-        out, aux = jmoe.moe_ffn(x, p, MOE, mesh=mesh)
+        out, aux = jmoe.moe_ffn(x, p, cfg, mesh=mesh)
         return jnp.sum(out ** 2) + AUX_WEIGHT * aux, (out, aux)
 
     (_, (out, aux)), (gp, gx) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
@@ -204,6 +222,47 @@ def test_moe_ffn_on_ep_mesh_matches_jax(moe_params, ranks, plan):
     else:
         assert ex["ep"] == ex["aux"] == 0
         assert (ex["scatter"], ex["scatter_bytes"]) >= (1, X.size * 4)
+
+
+@pytest.mark.parametrize("plan", EP_PLANS, ids=_id)
+def test_dense_dispatch_on_ep_mesh_matches_jax_and_the_indexed_path(moe_params, ranks, plan):
+    """The dense dispatch over a live ep axis: each rank's one-hot dispatch
+    and combine over its own experts, one f32 sum over ep, the global
+    batch's capacity and aux, as the reference's dense einsums compute."""
+    out, aux, grads, dx = _jax_moe(moe_params, plan, MOE_DENSE)
+    per = ranks[f"moe dense {_id(plan)}"]
+    for r in per:
+        _close(r["out"], _rows(out, r["coords"], plan), "out")
+        _close(r["dx"], _rows(dx, r["coords"], plan), "dx")
+        assert abs(r["aux"] - aux) <= ATOL
+    assert sorted(per[0]["grads"]) == sorted(grads)
+    for name, want in grads.items():
+        assert np.abs(want).max() > 0, name
+        _close(per[0]["grads"][name], want, name)
+    ex = per[0]["exchanges"]
+    assert (ex["ep"], ex["ep_bytes"]) == (2, 2 * X.size * 4)
+    assert ex["aux"] == 0
+    if plan == WHOLE_PLAN:  # no data axis: the indexed ep path routes the same tokens
+        for dense, indexed in zip(per, ranks[f"moe {_id(plan)}"]):
+            _close(dense["out"], indexed["out"], "out vs indexed")
+            _close(dense["dx"], indexed["dx"], "dx vs indexed")
+            assert abs(dense["aux"] - indexed["aux"]) <= ATOL
+        for name, want in ranks[f"moe {_id(plan)}"][0]["grads"].items():
+            _close(per[0]["grads"][name], want, f"{name} vs indexed")
+
+
+def test_dense_dispatch_model_loss_on_ep_mesh_matches_jax_and_the_indexed_run(model_params, ranks):
+    want_loss, want = _jax_loss(model_params["moe"], JCFG_DENSE, WHOLE_PLAN)
+    per, indexed = ranks[f"model dense {_id(WHOLE_PLAN)}"], ranks[f"model {_id(WHOLE_PLAN)}"]
+    assert len({r["loss"] for r in per}) == 1
+    assert abs(per[0]["loss"] - want_loss) <= ATOL
+    assert abs(per[0]["loss"] - indexed[0]["loss"]) <= ATOL
+    assert len(per[0]["grads"]) == len(want) == len(indexed[0]["grads"])
+    for g, w, i in zip(per[0]["grads"], want, indexed[0]["grads"]):
+        assert g.shape == w.shape
+        _close(g, w)
+        _close(g, i)
+    _assert_replicas_equal(per, "grad_replicas")
 
 
 def _jax_loss(params, jcfg, plan):

@@ -1,15 +1,22 @@
 """The port's operator with notebook pods that are real processes, on the
 CPU (`probe.behavior.pod_process_behavior`, tests/torch_operator_flow.py):
 a `torchrun` per pod from the env the reconciler rendered, running a tiny
-worker on the CPU beside an agent over `SimTPUMonitor`. The worker sees
-PET_STANDALONE, PET_NPROC_PER_NODE and NB_TPU_CHIPS_EXPECTED as rendered;
-the gate opens; the cull terminates the pod's process group, no pid left;
-the second notebook, Pending on the one-card pool, binds after the cull.
-The same flow runs on the card in tests/test_torch_cuda.py. Also the
-downward-API resolution, the process stop and the count of the cards a
-pod's processes hold (the card's gate) on their own."""
+worker on the CPU beside an agent over `SimTPUMonitor`, behind the port's
+admission webhook and workbench extension. An unplannable slice is denied
+at admission and leaves nothing behind; each notebook is admitted with the
+lock and its readiness root's traceparent, gets its route and policies,
+and is unlocked before it binds. The worker sees PET_STANDALONE,
+PET_NPROC_PER_NODE and NB_TPU_CHIPS_EXPECTED as rendered; the gate opens
+and closes the root; the cull terminates the pod's process group, no pid
+left; the second notebook, Pending on the one-card pool, binds after the
+cull; a deleted notebook takes its route and policies with it. The same
+flow runs on the card in tests/test_torch_cuda.py. Also the downward-API
+resolution, the process stop and the cards a pod's process tree holds
+under a CUDA context on their own (the gate's reading of one process's
+mappings is tests/test_torch_gate.py)."""
 import os
 import re
+import subprocess
 import sys
 import time
 from types import SimpleNamespace
@@ -23,7 +30,7 @@ from odh_kubeflow_tpu_torch.probe.agent import NotebookAgent, SimTPUMonitor
 from odh_kubeflow_tpu_torch.probe.behavior import (
     PodProcesses,
     ProcessKernels,
-    cards_held,
+    cards_in_context,
     container_env,
     cuda_monitor,
     process_tree,
@@ -77,30 +84,44 @@ def test_close_stops_a_tree_whose_children_left_the_group(tmp_path):
 
 
 def test_cards_held_are_the_device_nodes_the_pod_tree_holds_open(tmp_path):
-    """A child of the pod holding a card's node open (as a torchrun worker
-    holds /dev/nvidiaN under its CUDA context) counts; a node held open by
-    a process outside the pod's tree does not; a stopped pod holds none."""
-    for n in (0, 3):
-        (tmp_path / f"nvidia{n}").write_text("")
-    node = re.compile(rf"^{re.escape(str(tmp_path))}/nvidia(\d+)$")
-    child = f"import time; f = open({str(tmp_path / 'nvidia3')!r}); time.sleep(600)"
+    """A child of the pod mapping a card's node and the context node (as a
+    torchrun worker maps /dev/nvidiaN and /dev/nvidia-uvm under its CUDA
+    context) counts that card; the same nodes mapped by a process outside
+    the pod's tree do not; a stopped pod holds none."""
+    for name in ("nvidia0", "nvidia3", "nvidia-uvm"):
+        (tmp_path / name).write_bytes(b"\0")
+    root = re.escape(str(tmp_path))
+    node, context = re.compile(rf"^{root}/nvidia(\d+)$"), re.compile(rf"^{root}/nvidia-uvm$")
+
+    def mapping(*names):
+        return "; ".join(f"f{i} = open({str(tmp_path / n)!r}, 'r+b'); m{i} = mmap.mmap(f{i}.fileno(), 1)"
+                         for i, n in enumerate(names))
+
+    child = f"import mmap, time; {mapping('nvidia3', 'nvidia-uvm')}; time.sleep(600)"
     parent = f"import subprocess, sys, time; subprocess.Popen([sys.executable, '-c', {child!r}]); time.sleep(600)"
-    with open(tmp_path / "nvidia0"):  # held by this process, not the pod's
+    outside = subprocess.Popen([sys.executable, "-c", f"import mmap, time; {mapping('nvidia0', 'nvidia-uvm')}; "
+                                "time.sleep(600)"])
+    try:
         procs = PodProcesses([sys.executable, "-c", parent], dict(os.environ), None, str(tmp_path / "log"), "n")
         try:
             deadline = time.monotonic() + 30
-            while not cards_held(procs.proc.pid, node) and time.monotonic() < deadline:
+            while not cards_in_context(procs.proc.pid, node, context) and time.monotonic() < deadline:
                 time.sleep(0.05)
-            assert cards_held(procs.proc.pid, node) == {3}
-            assert procs.cards() == set()  # no process of the tree holds a card's /dev node
+            assert cards_in_context(procs.proc.pid, node, context) == {3}
+            assert cards_in_context(outside.pid, node, context) in (set(), {0})  # {0} once it has mapped
+            assert procs.cards() == set()  # no process of the tree maps a card's /dev node
         finally:
             procs.close(grace_s=1.0)
-        assert cards_held(procs.proc.pid, node) == set() and procs.cards() == set()
+        assert cards_in_context(procs.proc.pid, node, context) == set() and procs.cards() == set()
+    finally:
+        outside.kill()
+        outside.wait(timeout=30)
 
 
 def test_the_card_gate_reads_the_cards_the_pod_holds():
     """cuda_monitor's agent is ready once the pod's processes hold their
-    card, whatever cards the operator's own process sees; a pod's kernels
+    card under a CUDA context (`PodProcesses.cards`), whatever cards the
+    operator's own process sees; a pod's kernels
     source has no terminals, a fresh list each time."""
     held = set()
     agent = NotebookAgent(monitor=cuda_monitor(window_s=1.0, sample_period_s=0.5)(

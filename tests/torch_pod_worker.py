@@ -6,7 +6,8 @@ reconciler rendered. Imports no jax.
 
 Each rank brings the world up with the port's `initialize_from_env`, puts a
 tensor on DEVICE ("cpu", or "cuda": the rank's card, which creates its CUDA
-context), writes its env, rank, pid and the time it was done to
+context), writes its env, rank, pid, the time its tensor was on the device
+(its CUDA context) and the time it was done to
 OUT_DIR/rank-R.json (written whole, then renamed), and holds until
 SIGTERM, as a notebook kernel holds its card.
 """
@@ -32,9 +33,12 @@ def main(device: str, out_dir: str) -> None:
     rank, world = initialize_from_env(timeout_s=60, device=device)
     dev = rank_device(device)
     x = torch.ones(64, 64, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    context = time.time()
     total = float((x @ x).sum())
     out = {"rank": rank, "world": [rank, world], "device": str(dev), "pid": os.getpid(), "ppid": os.getppid(),
-           "sum": total, "env": {n: os.environ.get(n) for n in NAMES}, "times": {"done": time.time()}}
+           "sum": total, "env": {n: os.environ.get(n) for n in NAMES}, "times": {"context": context, "done": time.time()}}
     path = os.path.join(out_dir, f"rank-{rank}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(out, f)

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 15 alone on one NVIDIA Hopper card: the kernels
 built from this checkout, then `chip_smoke.operator_phase` (the port's
-operator on a SimCluster with one h100 1x1 node: three Notebook CRs, each
-pod a `torchrun` serving the flagship beside a NotebookAgent over the
-card's CudaMonitor, which counts the cards the pod's processes hold, each
-culled and its card freed in turn). It fails as
-the smoke does.
+operator on a SimCluster with one h100 1x1 node, behind the admission
+webhook and beside the workbench extension: an unplannable Notebook denied
+at admission, then three Notebook CRs, each pod a `torchrun` serving the
+flagship beside a NotebookAgent over the card's CudaMonitor, which counts
+the cards on which the pod's processes hold a CUDA context, each culled,
+its card freed and the notebook deleted in turn). It fails as the smoke
+does.
 
     python3 tools/operator_phase.py     # from the repository root
 """
