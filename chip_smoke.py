@@ -137,7 +137,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    1e-4 and each gradient leaf within 1e-4 of its own largest; the bf16
    warm-up step's loss within 1e-4, its gradients no farther from the f32
    ones than the one-process bf16 step's plus one bf16 ulp (per-leaf gaps
-   printed). Then 3 steps with launch counts zeroed just before and read just after
+   printed). Then SP_STEPS 2 steps with launch counts zeroed just before and read just after
    (layers x ring_launches tensor-core forward, dq and dk/dv launches per step
    and rank, no scalar one: the ring is outside the layer checkpoint, so
    no policy runs it again), no host sync of the sync debug mode's kind
@@ -159,7 +159,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    step in f32, its loss within 1e-4 and each gathered gradient leaf within
    1e-4 of its own largest; the bf16 warm-up loss within 1e-4 relative and
    its gathered gradients no farther from the f32 ones than the
-   one-process bf16 step's plus one bf16 ulp. Then 3 steps with launch
+   one-process bf16 step's plus one bf16 ulp. Then SHARD_STEPS 2 steps with launch
    counts zeroed just before and read just after (4 tensor-core forward,
    dq and dk/dv launches per step and rank, x ring_launches under sp; no
    scalar one), no host sync inside the steps, losses falling, every
@@ -212,8 +212,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    512, n_micro 4, through GPipe, 1F1B and interleaved 1F1B (v 2) at pp 2
    x tp 2 and interleaved 1F1B at pp 2 x fsdp 2: the loss and each
    gathered gradient leaf (pipeline layout) within 1e-4 (of its largest)
-   of one process, the scalar launches per rank the schedule's; (c) 8
-   layers in bf16, 1 warm-up and 2 timed steps: the flagship's 1F1B at pp
+   of one process, the scalar launches per rank the schedule's; (c)
+   PP_LAYERS 4 of the flagship's 8 layers in bf16 (the depth cut to keep
+   the smoke in its budget), 1 warm-up and PP_STEPS 1 timed step: its 1F1B at pp
    2 x tp 2 and interleaved 1F1B (v 2) at pp 2 x fsdp 2, global batch 8 x
    2048, n_micro 4; phase 8's MoE by 1F1B at pp 2 x ep 2, the same batch;
    GPipe at pp 2 x sp 2 zigzag on phase 10's 2 x 8192 (n_micro 2, one
@@ -234,7 +235,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    2 x tp 2 with n_micro 4 and 8. (d) The pp 2 x tp 2 1F1B state through
    four agents' /tpu/checkpoint and /tpu/restore at once: equal acks of
    the gathered state's checksum, the resumed step bit-equal to the
-   uninterrupted one with 32/16/16 launches.
+   uninterrupted one with 16/8/8 launches.
 14. the device layer (alone: tools/device_phase.py), ranks started by torchrun
    from the env the port's GPU planner renders into a pod: (a) plan_slice
    ("h100") is 1 x 1; `python -m torch.distributed.run` with the pod env
@@ -265,8 +266,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the port's SimCluster with one h100 1x1 node (nvidia.com/gpu 1), its
    store's admission chain running NotebookWebhook, a Manager wired by
    hand with NotebookReconciler, EventMirrorController,
-   TPUWorkbenchReconciler, ProbeStatusController (0.2 s) and
-   CullingReconciler (2 s idle, checks every 0.5 s); the kubelet runs each
+   TPUWorkbenchReconciler, ProbeStatusController (0.2 s),
+   CullingReconciler (2 s idle, checks every 0.5 s) and
+   SliceRepairController (a 30 s checkpoint window); the kubelet runs each
    pod through
    probe.behavior.pod_process_behavior: `torchrun chip_smoke.py
    --device-worker operator` with the env the reconciler rendered into
@@ -301,7 +303,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    and as a p50 of the three, with the card's name and power limit: CR ->
    bound, -> mesh-ready (the watch event, and the root's duration), ->
    the worker's CUDA context, -> first token; idle -> culled; culled ->
-   card free.
+   card free. The repair episode, on nb-2 (before its wave a second h100
+   1x1 node joins in a pool of its own; both stand for this card): its
+   worker (`--device-worker repair`) serves, then trains the flagship's
+   widths at 2 layers, bf16, remat "flash", 8 x 2048, for 2 steps and
+   takes step 3 on a copy of its state; its node is preempted (grace 60
+   s); the repair opens Degraded (HostPreempted), drives the pod's
+   /tpu/checkpoint, which the agent forwards to the worker (it saves the
+   state at step 2 into the notebook's checkpoint directory and acks step
+   and checksum), writes checkpoint-saved, evicts the pod (its processes
+   stop before its object goes), and the replacement binds on the other
+   pool's node, re-forms its world with reinitialize_after_repair,
+   restores step 2 and takes step 3. Gates (tests/torch_operator_flow.py
+   check_repair): the ack before the eviction; the machine degraded ->
+   repairing -> rest, Degraded from HostPreempted to Repaired; no process
+   of the old pod alive once the replacement is bound; the slice.repair
+   span on the notebook.ready trace; one repair and one MTTR observation;
+   a slice-degraded incident bundle; the restored checksum the ack's; step
+   3's loss and params checksum bit-equal to the first worker's; mesh-ready
+   again no earlier than the replacement's CUDA context less one gate
+   period; 2/2/2 tensor-core launches in every step of both incarnations,
+   no scalar one. Printed: preempt -> Degraded -> ack (with the save's
+   seconds and GB) -> evicted -> rebound -> mesh-ready again -> resumed
+   step, the MTTR and the goodput ratio; the phase's time and the
+   episode's, each against its own budget (120 s for the phase less the
+   episode, 45 s for the episode).
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -317,7 +343,7 @@ import time
 import urllib.request
 import warnings
 
-STARTED = time.time()  # in phase 14's torchrun worker: its start, before torch is imported
+STARTED = time.time()  # the process's start (the smoke's, or a torchrun worker's), before torch is imported
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -2001,7 +2027,7 @@ SP_RUNS = {2: ("contiguous", "zigzag"), 4: ("contiguous",)}  # world -> layouts 
 # 11 (every check stays; the widths are the flagship's)
 SP_LAYERS = {2: 4, 4: 2}
 SP_BATCH = (2, 8192)  # the full-width train runs' global batch
-SP_STEPS = 3  # timed steps after the warm-up
+SP_STEPS = 2  # timed steps after the warm-up (3 until the smoke needed the time)
 SP_RING_SHAPE = (1, 1024, 8, 2, 128)  # the f32 ring check: b, s, h, hk, d (global)
 SP_GRAD_CHECK = (1, 1024)  # the 2-layer f32 model's global batch
 SP_TIMEOUT_S = 600  # a rank's group (and its collectives) and the wait for one spawn's results
@@ -2441,7 +2467,7 @@ SHARD_RUNS = {
     "tp2 x sp2 zigzag": ({"tp": 2, "sp": 2}, SP_BATCH, "zigzag"),
 }
 SHARD_CHECKPOINT_RUN = "fsdp2 x tp2"  # the run whose state goes through the agents' routes
-SHARD_STEPS = 3  # timed steps after the warm-up
+SHARD_STEPS = 2  # timed steps after the warm-up (3 until the smoke needed the time)
 # the runs' depth (of the flagship's 8 layers), cut to keep the smoke and the
 # card tests near 900 s
 SHARD_LAYERS = 4
@@ -3490,11 +3516,12 @@ def _check_ep_run(name, plan, runs, smi):
 # ---------------------------------------------------------------------------
 
 PP_WORLD = 4
-PP_STEPS = 2  # timed steps after the warm-up
+PP_STEPS = 1  # timed steps after the warm-up (2 until the smoke needed the time)
 PP_BATCH = (8, 2048)  # the dense and MoE runs' global batch
 PP_MICRO = 4
+PP_LAYERS = 4  # (c)'s and the memory steps' depth of the flagship's 8 layers (as phases 10-12's)
 # (c) name -> (plan, config, schedule, n_chunks, global batch, n_micro): the
-# flagship (phase 6) and phase 8's MoE, 8 layers, bf16; the sp run takes
+# flagship (phase 6) and phase 8's MoE, PP_LAYERS layers, bf16; the sp run takes
 # phase 10's 2 x 8192 zigzag, whose 2 sequences make 2 microbatches
 PP_RUNS = {
     "1f1b pp2 x tp2": ({"pp": 2, "tp": 2}, "dense", "1f1b", 1, PP_BATCH, PP_MICRO),
@@ -3651,7 +3678,7 @@ def pp_phase(attention, smi):
         for run in ranks["memory"]:
             add("pp memory", run["launches"])
         ck = [r["checkpoint"] for r in ranks[PP_CHECKPOINT_RUN]]
-        n = PP_MICRO * 8 // 2
+        n = PP_MICRO * PP_LAYERS // 2
         _check_shard_checkpoint(ck, drive, smi, {"flash_fwd": 2 * n, "flash_fwd_scalar": 0, "flash_bwd_dq": n,
                                                  "flash_bwd_dkv": n, "flash_bwd_dq_scalar": 0,
                                                  "flash_bwd_dkv_scalar": 0})
@@ -3789,7 +3816,7 @@ def _pp_run(mesh, cfg_name, schedule, v, batch, n_micro, checkpoint, results, go
     from odh_kubeflow_tpu_torch.ops import attention
     from odh_kubeflow_tpu_torch.parallel import comm
 
-    cfg = _pp_cfg(cfg_name, 8, torch.bfloat16)
+    cfg = _pp_cfg(cfg_name, PP_LAYERS, torch.bfloat16)
     plan = {a: n for a, n in mesh.sizes.items() if n > 1}
     local_batch, tokens = _pp_batch(cfg_name, batch, mesh)
     tp_stage = mesh.sizes["tp"]
@@ -3847,7 +3874,7 @@ def _check_pp_run(name, spec, runs, smi):
 
     plan, cfg_name, schedule, v, batch, n_micro = spec
     first = runs[0]
-    cfg = _pp_cfg(cfg_name, 8, torch.bfloat16)
+    cfg = _pp_cfg(cfg_name, PP_LAYERS, torch.bfloat16)
     worst = {}
     for run in runs:
         for kernel, causal, err in run["visits"]:
@@ -3869,7 +3896,7 @@ def _check_pp_run(name, spec, runs, smi):
             fail(f"{name}: rank {r} launched {per_step} per step, want {want}")
     losses = first["losses"]
     what = "averaged over its microbatches each routed alone" if cfg.moe is not None else "on the whole batch"
-    print(f"  (c) train {name} (v {v}, n_micro {n_micro}, 8 layers bf16), global batch {batch[0]}x{batch[1]}: "
+    print(f"  (c) train {name} (v {v}, n_micro {n_micro}, {PP_LAYERS} layers bf16), global batch {batch[0]}x{batch[1]}: "
           f"losses {', '.join(f'{x:.4f}' for x in losses)} (warm-up first); one process {what}: "
           f"{first['ref_loss']:.4f}, rel err {first['loss_err']:.3e} (tol {SP_LOSS_TOLERANCE:.0e}); "
           f"tensor-core launches per step and rank {want}", flush=True)
@@ -3924,7 +3951,7 @@ def _pp_memory(mesh):
     from odh_kubeflow_tpu_torch.models import init_params, make_pp_train_step, shard_params, to_pp_params
     from odh_kubeflow_tpu_torch.ops import attention
 
-    cfg = _pp_cfg("dense", 8, torch.bfloat16)
+    cfg = _pp_cfg("dense", PP_LAYERS, torch.bfloat16)
     local_batch, _ = _pp_batch("dense", PP_BATCH, mesh)
     local = shard_params(to_pp_params(init_params(torch.Generator().manual_seed(0), cfg, device=mesh.device), 2,
                                       cfg, mesh), cfg, mesh)
@@ -4129,11 +4156,21 @@ def _device_worker(mode, train, out_dir, t0):
     (a)'s serving (and train step), (b)'s mesh step, or phase 15's
     "operator" mode: (a)'s serving in a notebook pod, after which the rank
     holds its CUDA context until SIGTERM, as a notebook kernel holds its
-    card. Its result goes to OUT_DIR/rank-R.json (written whole, then
-    renamed), its times from T0, the parent's launch (phase 15 passes 0:
-    times since the epoch)."""
-    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device
+    card. Phase 15's "repair" mode is the repaired notebook's worker
+    (tests/torch_pod_worker.py `repair_run` at REPAIR_LAYERS of the
+    flagship, bf16, remat "flash", on DEVICE_TRAIN_BATCH): the first pod
+    serves as "operator" does, then trains and answers the forwarded
+    checkpoint requests until SIGTERM; its replacement re-forms its world
+    with `reinitialize_after_repair`, restores the notebook's checkpoint
+    and takes the next step. Its result goes to OUT_DIR/rank-R.json (written
+    whole, then renamed), its times from T0, the parent's launch (phase 15
+    passes 0: times since the epoch)."""
+    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device, reinitialize_after_repair
 
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_pod_worker
+
+    resumed = mode == "repair" and torch_pod_worker.resuming(out_dir)
     t0 = float(t0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4142,16 +4179,33 @@ def _device_worker(mode, train, out_dir, t0):
     torch.empty(1, device=dev)
     torch.cuda.synchronize(dev)
     t_context = time.time()
-    if mode in ("serve", "operator"):
+    if resumed:
+        world = reinitialize_after_repair()
+    elif mode in ("serve", "operator", "repair"):
         world = initialize_from_env()
     else:  # the ranks share one card: gloo, as NCCL refuses two ranks on one device
         world = initialize_from_env(timeout_s=DEVICE_INIT_TIMEOUT_S, backend="gloo", device="cuda")
     t_world = time.time()
     out = {"rank": world[0], "world": list(world), "device": str(dev), "pid": os.getpid(),
            "env": {n: os.environ.get(n) for n in DEVICE_TORCHRUN_NAMES + OPERATOR_POD_NAMES}}
-    out.update(_device_serve(dev, train == "1", t0) if mode != "mesh" else _device_mesh(dev))
+    if mode == "mesh":
+        out.update(_device_mesh(dev))
+    elif not resumed:
+        out.update(_device_serve(dev, train == "1", t0))
     out["times"] = dict(out.get("times", {}), started=STARTED - t0, context=t_context - t0, world=t_world - t0,
                         done=time.time() - t0)
+    if mode == "repair":
+        import signal
+
+        from odh_kubeflow_tpu_torch.models import TransformerConfig
+
+        stop = threading.Event()
+        signal.signal(signal.SIGTERM, lambda *a: stop.set())
+        cfg = TransformerConfig(**SERVE_WIDTH, n_layers=REPAIR_LAYERS, dtype=torch.bfloat16, use_flash=True,
+                                remat=True, remat_policy="flash")
+        torch_pod_worker.repair_run(dev, out_dir, cfg, lambda i: {"tokens": torch.as_tensor(
+            np.random.default_rng(100 + i).integers(0, cfg.vocab, DEVICE_TRAIN_BATCH), device=dev)}, out, stop)
+        return
     path = os.path.join(out_dir, f"rank-{world[0]}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(out, f)
@@ -4265,7 +4319,10 @@ OPERATOR_WINDOW_S = 2.0  # the agents' CudaMonitor window (no idle verdict befor
 OPERATOR_SAMPLE_S = 0.25  # its sample period, and how long nvidia-smi's reading is reused
 OPERATOR_GRACE_S = 20.0  # a culled pod's SIGTERM -> SIGKILL
 OPERATOR_STEP_TIMEOUT_S = 120  # each wait of the sequence
-OPERATOR_BUDGET_S = 120  # the phase fails past it
+OPERATOR_BUDGET_S = 120  # the phase, less the repair episode, fails past it
+OPERATOR_REPAIR = "nb-2"  # the notebook whose node is preempted once its worker has trained
+REPAIR_LAYERS = 2  # the repaired notebook's depth of the flagship's 8 layers (phase 14 (b)'s)
+REPAIR_BUDGET_S = 45  # the repair episode fails past it: 25.1 s on the card in its first run, and a margin
 
 
 def operator_phase(attention, smi):
@@ -4290,22 +4347,26 @@ def _operator_phase(attention, smi, out_root):
     apps_before = flow.compute_app_pids()
     print(f"  the port's SimCluster: one h100 1x1 node (one card, nvidia.com/gpu 1), NotebookWebhook in its "
           f"store's admission chain; a Manager with NotebookReconciler, EventMirrorController, "
-          f"TPUWorkbenchReconciler, ProbeStatusController (every {OPERATOR_PROBE_S} s) and "
-          f"CullingReconciler (idle {OPERATOR_CULL_IDLE_S} s, checks every {OPERATOR_CHECK_S} s); each pod "
-          f"runs `torchrun chip_smoke.py --device-worker operator` with the env the reconciler rendered, "
-          f"beside a NotebookAgent over CudaMonitor(window {OPERATOR_WINDOW_S} s, samples every "
-          f"{OPERATOR_SAMPLE_S} s) that counts the cards on which the pod's processes hold a CUDA context; "
-          f"compute apps on the card before: {apps_before}", flush=True)
+          f"TPUWorkbenchReconciler, ProbeStatusController (every {OPERATOR_PROBE_S} s), "
+          f"CullingReconciler (idle {OPERATOR_CULL_IDLE_S} s, checks every {OPERATOR_CHECK_S} s) and "
+          f"SliceRepairController (checkpoint window {flow.REPAIR_CFG['checkpoint_window_s']} s, Config's default "
+          f"backoff); each pod "
+          f"runs `torchrun chip_smoke.py --device-worker operator` ({OPERATOR_REPAIR}'s: `repair`) with the env "
+          f"the reconciler rendered, beside a NotebookAgent over CudaMonitor(window {OPERATOR_WINDOW_S} s, samples "
+          f"every {OPERATOR_SAMPLE_S} s) that counts the cards on which the pod's processes hold a CUDA context; "
+          f"before {OPERATOR_REPAIR}'s wave a second h100 1x1 node joins in a pool of its own (both nodes stand "
+          f"for this card); compute apps on the card before: {apps_before}", flush=True)
     try:
         seen = flow.run(
-            out_root, lambda out_dir: [sys.executable, "-m", "torch.distributed.run", os.path.abspath(__file__),
-                                       "--device-worker", "operator", "0", str(out_dir), "0.0"],
+            out_root, lambda out_dir, repair: [
+                sys.executable, "-m", "torch.distributed.run", os.path.abspath(__file__), "--device-worker",
+                "repair" if repair else "operator", "0", str(out_dir), "0.0"],
             cuda_monitor(OPERATOR_WINDOW_S, OPERATOR_SAMPLE_S), waves=OPERATOR_WAVES,
             cfg=dict(readiness_probe_period_s=OPERATOR_PROBE_S, enable_culling=True,
                      cull_idle_time_min=OPERATOR_CULL_IDLE_S / 60.0,
                      idleness_check_period_min=OPERATOR_CHECK_S / 60.0),
             env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
-            while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids)
+            while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids, repair=OPERATOR_REPAIR)
         flow.check(seen, "cuda:0", gate_waits=True)  # the gate reads the pod's processes, not this one
     except AssertionError as e:
         fail(f"phase 15: {e}")
@@ -4334,7 +4395,8 @@ def _operator_phase(attention, smi, out_root):
                       "CR -> worker started": run["times"]["started"] - t0,
                       "CR -> CUDA context": run["times"]["context"] - t0,
                       "CR -> first token": run["times"]["first_token"] - t0,
-                      "idle -> culled": got["stopped"][0] - run["times"]["done"],
+                      # the repaired notebook's kernel goes idle once its replacement has stepped
+                      "idle -> culled": got["stopped"][0] - got.get("repair", got)["result"]["times"]["done"],
                       "culled -> card free": got["free"] - got["stopped"][0]}
     order = [seen[n][k][1] for n in names for k in ("bound", "stopped")]
     waited = next(n for n in names if "pending" in seen[n])
@@ -4377,11 +4439,57 @@ def _operator_phase(attention, smi, out_root):
         values = [rows[n][label] for n in names]
         print(f"  {label}: p50 {statistics.median(values):.3f} s ({', '.join(f'{n} {v:.3f}' for n, v in zip(names, values))})"
               f"; {smi}", flush=True)
+    repair_launches = _operator_repair(seen[OPERATOR_REPAIR], smi, zero)
     took = time.perf_counter() - t_phase
-    print(f"  phase 15 took {took:.1f} s (budget {OPERATOR_BUDGET_S} s)", flush=True)
-    if took > OPERATOR_BUDGET_S:
-        fail(f"phase 15 took {took:.1f} s, over its budget of {OPERATOR_BUDGET_S} s")
-    return {"operator": launched}
+    episode = seen[OPERATOR_REPAIR]["repair"]["wall"]
+    print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s (budgets: "
+          f"{OPERATOR_BUDGET_S} s without the episode, {REPAIR_BUDGET_S} s the episode); {smi}", flush=True)
+    if took - episode > OPERATOR_BUDGET_S:
+        fail(f"phase 15 took {took - episode:.1f} s without the repair episode, over its budget of "
+             f"{OPERATOR_BUDGET_S} s")
+    if episode > REPAIR_BUDGET_S:
+        fail(f"phase 15's repair episode took {episode:.1f} s, over its budget of {REPAIR_BUDGET_S} s")
+    return {"operator": launched, **repair_launches}
+
+
+def _operator_repair(got, smi, zero):
+    """Phase 15's repair episode, past torch_operator_flow.check_repair's
+    gates: every flash launch of both incarnations' steps on the tensor-core
+    kernels (REPAIR_LAYERS each of forward, dq and dk/dv a step, no scalar
+    one); the episode's edges printed. Returns the launches by path."""
+    r, train = got["repair"], got["result"]["train"]
+    resumed = r["result"]["resumed"]
+    want = {n: (REPAIR_LAYERS if n in TENSOR_CORE else 0) for n in zero}
+    for i, launched in enumerate(train["launches"] + [resumed["launches"]]):
+        if {**zero, **launched} != want:
+            fail(f"phase 15 {OPERATOR_REPAIR}: train step {i + 1} launched {launched}, want {want}")
+    _, ack = r["acks"][0]
+    t0 = r["preempted"]
+    print(f"  {OPERATOR_REPAIR} trained {train['steps']} steps of the flagship's widths at {REPAIR_LAYERS} layers, bf16, "
+          f"{DEVICE_TRAIN_BATCH[0]} x {DEVICE_TRAIN_BATCH[1]}, remat flash (losses "
+          f"{[round(x, 4) for x in train['losses']]}), and step {train['next']['step']} on a copy: loss "
+          f"{train['next']['loss']:.6f}, params {train['next']['checksum']}; its node {r['old node']} (pool "
+          f"{r['old pool']}) preempted with a grace of {r['grace']:.0f} s", flush=True)
+    print(f"  repair: preempt -> Degraded (HostPreempted) {r['degraded'] - t0:.3f} s; -> ack "
+          f"{r['acks'][0][0] - t0:.3f} s (the worker's save {ack['seconds']:.3f} s, {ack['bytes'] / 1e9:.3f} GB, step "
+          f"{ack['step']}, checksum {ack['checksum']}; checkpoint-saved {r['checkpoint-saved']}); -> evicted "
+          f"{r['old terminating'] - t0:.3f} s; -> the old pod's processes gone {r['old closed at'] - t0:.3f} s; -> "
+          f"rebound on {r['node']} (pool {r['pool']}) {r['rebound'] - t0:.3f} s; -> the replacement's CUDA context "
+          f"{r['result']['times']['context'] - t0:.3f} s; -> mesh-ready again {r['mesh-ready again'] - t0:.3f} s; -> "
+          f"resumed step {r['result']['times']['done'] - t0:.3f} s; {smi}", flush=True)
+    (span,) = [a for a in r["spans"]["slice.repair"] if a["result"] == "repaired"]
+    print(f"  repair: MTTR {span['mttr_s']:.3f} s (slice.repair on the notebook.ready trace, cause {span['cause']}, "
+          f"attempts {span['attempts']}); goodput ratio {r['goodput']:.4f}; states {r['states']}; Degraded "
+          f"{r['conditions']}; counters {r['counters']}; incidents {r['incidents']}; the replacement restored step "
+          f"{resumed['restored']['step']} ({resumed['restored']['checksum']}) in {resumed['restored']['seconds']:.3f} "
+          f"s and took step {resumed['step']}: loss {resumed['loss']:.6f}, params {resumed['checksum']}, bit-equal "
+          f"to the uninterrupted run's; launches per step {resumed['launches']}; {smi}", flush=True)
+    steps = dict(zero)
+    for launched in train["launches"]:
+        for n, c in launched.items():
+            steps[n] += c
+    return {f"operator repair: train ({train['steps']} steps, step {train['next']['step']} on a copy)": steps,
+            "operator repair: resumed step": {**zero, **resumed["launches"]}}
 
 
 def main() -> None:
@@ -4764,6 +4872,7 @@ def main() -> None:
             **timing_keys(t),
             "library": t["library"],
         })
+    print(f"the smoke took {time.time() - STARTED:.1f} s on {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 StatefulSet controller, the GPU-aware gang scheduler, the kubelet and the
 `SimCluster` fixture that boots them (copies of odh_kubeflow_tpu/cluster's,
 adapted to `nvidia.com/gpu` nodes), the admission webhook dispatcher and its
-pooled transport (`cluster.remote.HostPool`), and flow control
-(`cluster.flowcontrol`), which the router uses."""
+pooled transport (`cluster.remote.HostPool`), the fault injector
+(`cluster.faults`), and flow control (`cluster.flowcontrol`), which the
+router uses."""
 from .client import Client, retry_on_conflict
 from .store import (
     ADDED,
@@ -14,6 +15,15 @@ from .store import (
     Store,
     Watch,
     WatchEvent,
+)
+from .faults import (
+    MAINTENANCE_WINDOW_ANNOTATION,
+    PREEMPTION_TAINT_KEY,
+    FaultInjector,
+    FaultRule,
+    seeded_bad_day,
+    seeded_pool_bad_day,
+    seeded_slice_bad_day,
 )
 from .kubelet import Behavior, Kubelet, NodeLifecycle, PodDecision
 from .scheduler import Scheduler

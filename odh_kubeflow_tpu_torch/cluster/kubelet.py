@@ -5,7 +5,15 @@ reference can never assert pod behavior in-process — this build can. Pods
 transition Pending -> Running -> Ready under a pluggable PodBehavior, which
 can also start a REAL localhost HTTP server per pod (the in-pod probe agent),
 registered in the cluster DNS so the culling controller's HTTP probes travel
-an actual socket."""
+an actual socket. A pod whose behavior asks for it (`PodDecision.graceful`,
+a pod whose containers are real processes) is deleted gracefully, as a
+kubelet deletes every pod: the kubelet holds a finalizer on it while its
+containers run, so a delete only marks it terminating; once its containers
+have stopped the finalizer comes off and the object goes (a container
+that outlives its stop keeps the object, and the stop is tried again
+until it holds). A StatefulSet
+recreates the ordinal only then, so two pods of one identity never run
+at once."""
 from __future__ import annotations
 
 import itertools
@@ -25,16 +33,15 @@ from ..apimachinery import (
 from ..runtime.controller import Request, Result
 from ..runtime.manager import Manager
 from ..utils import racecheck
-
-# the GKE host-preemption contract on a Node (the reference's
-# cluster/faults.py): a cluster-autoscaler-style taint and a
-# maintenance-window notice carrying the drain deadline
-PREEMPTION_TAINT_KEY = "DeletionCandidateOfClusterAutoscaler"
-MAINTENANCE_WINDOW_ANNOTATION = "cloud.google.com/active-node-maintenance"
+from .client import retry_on_conflict
+from .faults import MAINTENANCE_WINDOW_ANNOTATION, PREEMPTION_TAINT_KEY
 
 log = logging.getLogger(__name__)
 
 _ip_seq = itertools.count(2)
+
+# held on a graceful pod while its containers run
+TERMINATION_FINALIZER = "kubelet.sim/containers"
 
 
 @dataclass
@@ -46,6 +53,8 @@ class PodDecision:
     # start a real server for this pod; returns (host, port) or
     # (host, port, close_fn) to register in cluster DNS
     serve: Optional[Callable[[Pod], tuple]] = None
+    # delete the pod object only once close_fn has returned
+    graceful: bool = False
 
 
 # behavior(pod) -> PodDecision; matched first-wins
@@ -89,22 +98,33 @@ class Kubelet:
                 return None
             return (entry[1], entry[2])
 
-    def _drop_state(self, key: str, expect_uid: Optional[str] = None) -> None:
-        """Clear per-pod state (closing any server). With expect_uid, only
-        state belonging to a DIFFERENT uid is cleared (pod recreation)."""
+    def _drop_state(self, key: str, expect_uid: Optional[str] = None, keep_failed: bool = False) -> bool:
+        """Clear per-pod state (closing any server, outside the lock: a
+        pod's processes can take seconds to stop, and cluster DNS must keep
+        answering meanwhile). With expect_uid, only state belonging to a
+        DIFFERENT uid is cleared (pod recreation). Returns False when the
+        close raised; with keep_failed the entry then stays, unreachable
+        (port 0), for the next call to close again."""
+        close = None
         with self._lock:
             entry = self._servers.get(key)
             if entry and (expect_uid is None or entry[0] != expect_uid):
                 self._servers.pop(key, None)
-                if entry[3] is not None:
-                    try:
-                        entry[3]()
-                    except Exception:
-                        pass
+                close = entry[3]
             started = self._started_at.get(key)
             if started and (expect_uid is None or started[0] != expect_uid):
                 self._started_at.pop(key, None)
                 self._starting.pop(key, None)
+        if close is not None:
+            try:
+                close()
+            except Exception:
+                log.exception("closing the server of pod %s failed", key)
+                if keep_failed:
+                    with self._lock:
+                        self._servers.setdefault(key, (entry[0], entry[1], 0, close))
+                return False
+        return True
 
     def shutdown_servers(self) -> None:
         with self._lock:
@@ -139,6 +159,14 @@ class Kubelet:
             return None
         # recreated pod (same name, new uid): reset start time / server
         self._drop_state(req.key, expect_uid=pod.metadata.uid)
+        if pod.metadata.deletion_timestamp and TERMINATION_FINALIZER in pod.metadata.finalizers:
+            # graceful deletion: stop the containers, then let the object
+            # go; while one outlives its stop, the object stays and the stop
+            # is tried again
+            if not self._drop_state(req.key, keep_failed=True):
+                return Result(requeue_after=1.0)
+            self._release(pod)
+            return None
         if not pod.spec.node_name or pod.metadata.deletion_timestamp:
             return None
 
@@ -232,6 +260,14 @@ class Kubelet:
             with self._lock:
                 have_server = key in self._servers
             if not have_server:
+                if decision.graceful and TERMINATION_FINALIZER not in pod.metadata.finalizers:
+                    try:
+                        pod = self.client.patch(Pod, pod.metadata.namespace, pod.metadata.name, {
+                            "metadata": {"finalizers": [*pod.metadata.finalizers, TERMINATION_FINALIZER]}})
+                    except (ConflictError, NotFoundError):
+                        return Result(requeue_after=0.02)
+                    if pod.metadata.deletion_timestamp:
+                        return Result(requeue_after=0.0)
                 result = decision.serve(pod)
                 host, port = result[0], result[1]
                 close = result[2] if len(result) > 2 else None
@@ -331,6 +367,20 @@ class Kubelet:
             Condition(type="Ready", status="False", reason="CrashLoopBackOff"),
         ]
         self._update_status(pod)
+
+    def _release(self, pod: Pod) -> None:
+        """Takes the termination finalizer off a pod whose containers have
+        stopped; the store then removes the object."""
+        def attempt():
+            cur = self.client.get(Pod, pod.metadata.namespace, pod.metadata.name)
+            if TERMINATION_FINALIZER in cur.metadata.finalizers:
+                self.client.patch(Pod, pod.metadata.namespace, pod.metadata.name, {"metadata": {
+                    "finalizers": [f for f in cur.metadata.finalizers if f != TERMINATION_FINALIZER]}})
+
+        try:
+            retry_on_conflict(attempt)
+        except NotFoundError:
+            pass
 
     def _update_status(self, pod: Pod) -> None:
         try:

@@ -4,9 +4,8 @@ odh_kubeflow_tpu/cluster/sim.py, with GPU node pools).
 Boots the store plus the system controllers (scheduler, statefulset, kubelet)
 on their own manager — the analog of envtest + KinD — extended with GPU node
 pools and real per-pod HTTP servers. Product controllers run on a SEPARATE
-manager, like a controller process and an API server. The reference's fault
-injector (cluster/faults.py) is not ported yet: the store's `faults` seam
-stays None."""
+manager, like a controller process and an API server. Every cluster carries
+a fault injector (cluster/faults.py), inert until rules are added."""
 from __future__ import annotations
 
 import time
@@ -21,24 +20,25 @@ from ..apimachinery import (
     rfc3339_precise,
 )
 from ..runtime.manager import Manager
-from ..gpu import GKE_GPU_ACCELERATOR_LABEL, GKE_NODEPOOL_LABEL, GPU_RESOURCE, plan_slice
+from ..gpu import GKE_GPU_ACCELERATOR_LABEL, GKE_NODEPOOL_LABEL, GPU_RESOURCE, GPU_TOPOLOGY_LABEL, plan_slice
 from .client import Client
-from .kubelet import (
+from .faults import (
     MAINTENANCE_WINDOW_ANNOTATION,
     PREEMPTION_TAINT_KEY,
-    Behavior,
-    Kubelet,
-    NodeLifecycle,
-    PodDecision,
+    FaultInjector,
 )
+from .kubelet import Behavior, Kubelet, NodeLifecycle, PodDecision
 from .scheduler import Scheduler
 from .statefulset import StatefulSetController
 from .store import Store
 
 
 class SimCluster:
-    def __init__(self) -> None:
-        self.store = Store()
+    def __init__(self, faults: Optional[FaultInjector] = None) -> None:
+        # every cluster carries an injector (inert until rules are added):
+        # tests script faults without rebuilding the fixture
+        self.faults = faults or FaultInjector()
+        self.store = Store(faults=self.faults)
         self.client = Client(self.store)
         # system controllers are the CLUSTER side (kube-controller-manager /
         # kubelet analogs): they read authoritative store state, not a cache
@@ -51,6 +51,7 @@ class SimCluster:
         self.sts_controller.setup()
         self.kubelet.setup()
         self.node_lifecycle.setup()
+        self.faults.bind_cluster(self)
         self._started = False
 
     # -- lifecycle --
@@ -79,7 +80,7 @@ class SimCluster:
     ) -> List[Node]:
         """One GKE-style GPU node pool per slice: `slices` slices of
         `accelerator`/`topology`, each slice its own pool `{name}-{i}`. Each
-        node carries the pool and GKE accelerator labels, the
+        node carries the pool, GKE accelerator and slice-shape labels, the
         `nvidia.com/gpu=present:NoSchedule` taint, and one host's cards as
         allocatable `nvidia.com/gpu` (gpu.plan_slice)."""
         shape = plan_slice(accelerator, topology=topology)
@@ -92,6 +93,7 @@ class SimCluster:
                 node.metadata.labels = {
                     GKE_NODEPOOL_LABEL: pool,
                     GKE_GPU_ACCELERATOR_LABEL: shape.gke_accelerator,
+                    GPU_TOPOLOGY_LABEL: shape.topology,
                 }
                 node.spec = {
                     "taints": [
@@ -131,8 +133,9 @@ class SimCluster:
     # -- host preemption / maintenance (the slice-level fault substrate) --
     @staticmethod
     def _retry_persistent(fn, attempts: int = 40) -> None:
-        """Scripted writes (taint/restore) must land even while
-        controllers race them to 409s or flow control sheds them with 429s."""
+        """Scripted writes (taint/restore) must land even while the
+        cluster's own injector is throwing 409/429 at everything — the fault
+        being scripted must not eat the script."""
         from ..apimachinery import ConflictError, TooManyRequestsError
 
         for i in range(attempts):
@@ -251,6 +254,9 @@ class SimCluster:
         import urllib.request
 
         u = urlparse(url)
+        # probe-agent network partition: injected at the transport, so the
+        # agent itself stays healthy and heals the instant the rule lifts
+        self.faults.check("probe.http", host=u.hostname or "", url=url)
         target = self.resolve(u.hostname or "")
         if target is None:
             raise ConnectionError(f"no endpoints for {u.hostname}")

@@ -19,7 +19,7 @@ from ..apimachinery import Condition, NotFoundError
 from ..apimachinery import get_condition as _get_in_list
 from ..apimachinery import set_condition as _upsert_in_list
 from ..cluster.client import retry_on_conflict
-from ..utils.flightrecorder import recorder
+from ..runtime.flightrecorder import recorder
 from . import constants as C
 
 # condition types owned by the repair/SLO stack, NOT the pod-condition

@@ -20,7 +20,7 @@ def _env_bool(name: str, default: bool) -> bool:
 @dataclass
 class Config:
     """The fields that the port's controllers, webhook and extension read.
-    The JAX package's Config also holds the knobs of its repair, suspend, pool, serving, job, SLO,
+    The JAX package's Config also holds the knobs of its suspend, pool, serving, job, SLO,
     canary, autoscale, accounting and router controllers, and the
     deployment-surface env table; each comes back with the controller that
     reads it."""
@@ -46,6 +46,14 @@ class Config:
     # device-visibility readiness gate (controllers/probe_status.py): poll
     # cadence for /tpu/readiness until the mesh gate is green
     readiness_probe_period_s: float = 10.0
+    # slice repair (controllers/slice_repair.py): the checkpoint-before-evict
+    # window (how long a Degraded slice gets to save state before the gang is
+    # evicted), and the bounded jittered retry while capacity recovers —
+    # attempt N waits ~ base * 2^N (+/- jitter), RepairFailed after max
+    checkpoint_window_s: float = 30.0
+    repair_max_attempts: int = 6
+    repair_backoff_s: float = 1.0
+    repair_backoff_max_s: float = 30.0
     # MaxConcurrentReconciles analog: worker threads per controller. The
     # workqueue's per-key single-flight makes >1 safe
     max_concurrent_reconciles: int = 4
@@ -93,6 +101,16 @@ class Config:
             )
         if os.environ.get("READINESS_PROBE_PERIOD_S"):
             c.readiness_probe_period_s = float(os.environ["READINESS_PROBE_PERIOD_S"])
+        if os.environ.get("CHECKPOINT_WINDOW_S"):
+            c.checkpoint_window_s = float(os.environ["CHECKPOINT_WINDOW_S"])
+        if os.environ.get("REPAIR_MAX_ATTEMPTS"):
+            # clamp: at least one attempt, or every degradation would be
+            # declared RepairFailed before the first re-placement
+            c.repair_max_attempts = max(1, int(os.environ["REPAIR_MAX_ATTEMPTS"]))
+        if os.environ.get("REPAIR_BACKOFF_S"):
+            c.repair_backoff_s = float(os.environ["REPAIR_BACKOFF_S"])
+        if os.environ.get("REPAIR_BACKOFF_MAX_S"):
+            c.repair_backoff_max_s = float(os.environ["REPAIR_BACKOFF_MAX_S"])
         if os.environ.get("MAX_CONCURRENT_RECONCILES"):
             # clamp: 0/negative would spawn no workers and silently disable
             # every controller

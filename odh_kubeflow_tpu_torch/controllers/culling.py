@@ -28,7 +28,7 @@ from ..apimachinery import NotFoundError, now_rfc3339, parse_time, rfc3339
 from ..cluster.client import retry_on_conflict
 from ..runtime.breaker import CircuitBreaker
 from ..runtime.controller import Request, Result
-from ..utils.flightrecorder import recorder
+from ..runtime.flightrecorder import recorder
 from ..runtime.manager import Manager
 from ..gpu import plan_slice
 from . import constants as C

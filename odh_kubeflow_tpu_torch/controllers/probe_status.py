@@ -31,7 +31,7 @@ from ..api.notebook import Notebook, TPUStatus
 from ..apimachinery import NotFoundError, now_rfc3339, parse_time
 from ..cluster.client import retry_on_conflict
 from ..runtime.controller import Request, Result
-from ..utils.flightrecorder import recorder
+from ..runtime.flightrecorder import recorder
 from ..runtime.manager import Manager
 from ..gpu import plan_slice
 from ..utils import tracing

@@ -13,6 +13,7 @@ from .topology import (
     GKE_GPU_ACCELERATOR_LABEL,
     GKE_NODEPOOL_LABEL,
     GPU_RESOURCE,
+    GPU_TOPOLOGY_LABEL,
     GPUGeneration,
     SliceShape,
     parse_topology,
@@ -27,6 +28,7 @@ __all__ = [
     "GKE_NODEPOOL_LABEL",
     "GPU_ENV_ANNOTATION",
     "GPU_RESOURCE",
+    "GPU_TOPOLOGY_LABEL",
     "GPUGeneration",
     "SliceShape",
     "apply_slice",

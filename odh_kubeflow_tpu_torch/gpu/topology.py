@@ -20,6 +20,10 @@ generations (v5e and v6e in odh_kubeflow_tpu/tpu/topology.py): the size of
 slice that this operator's per-ordinal readiness and utilization sweeps
 and its slice repair were built for, not a limit of the hardware.
 
+A pod selects its node by the card's GKE accelerator label and by the
+pool's slice shape (`GPU_TOPOLOGY_LABEL`), as the reference's select by the
+TPU accelerator and topology labels.
+
 The reference's `chips_per_host_bounds` and `host_bounds` describe the
 TPU_* torus layout of a host's chips and of the hosts in the slice. They
 have no counterpart: a host's cards are all-to-all on NVSwitch, and the
@@ -36,6 +40,12 @@ from ..apimachinery import InvalidError
 GPU_RESOURCE = "nvidia.com/gpu"  # the NVIDIA device plugin's resource
 GKE_GPU_ACCELERATOR_LABEL = "cloud.google.com/gke-accelerator"
 GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
+# the slice shape ("HOSTSxCARDS") of a GPU node's pool. GKE labels a TPU
+# pool's nodes with its topology and the reference's pods select on it; a
+# GPU pool has no such label, so the pool carries this one (set on its
+# nodes when the pool is made) and a slice's pods select on it: a one-host
+# pod never lands on a node of a multi-host pool of the same card
+GPU_TOPOLOGY_LABEL = "notebooks.opendatahub.io/gpu-topology"
 
 
 @dataclass(frozen=True)
@@ -81,7 +91,7 @@ class SliceShape:
         return f"{self.accelerator}-{self.chips}"
 
     def node_selector(self) -> Dict[str, str]:
-        return {GKE_GPU_ACCELERATOR_LABEL: self.gke_accelerator}
+        return {GKE_GPU_ACCELERATOR_LABEL: self.gke_accelerator, GPU_TOPOLOGY_LABEL: self.topology}
 
 
 def plan_slice(accelerator: str, topology: str = "", chips: int = 0) -> SliceShape:

@@ -7,7 +7,8 @@ with the same JSON as the reference's agent:
 - GET /tpu/readiness   -> {"chips_visible", "chips_expected", "ready",
                            "process_id", "device_health", "chips_failed",
                            "ici_degraded"}: the readiness gate counts every
-  host's report,
+  host's report; the same body with 503 while the host's device runtime
+  has not come up yet (`TPUMonitor.came_up`),
 - GET /tpu/utilization -> {"duty_cycle", "last_busy", "warming"}: the culler
   reclaims a card only when it is both Jupyter-idle and device-idle,
 - GET /tpu/checkpoint, /tpu/restore -> the acks of the checkpoint and
@@ -36,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..telemetry import read_allocator_stats, record_device_memory
-from ..utils.flightrecorder import recorder
+from ..runtime.flightrecorder import recorder
 
 # how long a scraped or nvidia-smi reading is reused: a dead exporter's
 # connect timeout, or a slow nvidia-smi, must not land on every probe
@@ -98,6 +99,14 @@ class TPUMonitor:
         """True when the host observes degraded chip-to-chip links. No
         monitor here observes links; the sim scripts it."""
         return False
+
+    def came_up(self) -> bool:
+        """False while the host's device runtime has not come up since the
+        monitor started: the agent then answers /tpu/readiness with 503, a
+        host still coming up, which the gate does not read as missing
+        chips. Default True: monitors whose view is valid from the first
+        read."""
+        return True
 
 
 def _uuid_key(uuid: str) -> str:
@@ -190,8 +199,9 @@ class CudaMonitor(TPUMonitor):
     allocs), ...] or None` and `utilization_reader() -> 0..1 or None`.
     Chips visible are `torch.cuda.device_count()`, or what `chips_reader()`
     counts (a pod's agent counts the cards its pod's processes hold,
-    probe/behavior.py): a machine with no card reports 0 and is never
-    ready; the CPU is never counted as a chip. The
+    probe/behavior.py, and such a view has not come up until it first
+    counts every expected card): a machine with no card reports 0 and is
+    never ready; the CPU is never counted as a chip. The
     env is the reference's: NB_TPU_CHIPS_EXPECTED (over NB_TPU_HOSTS hosts)
     and JAX_PROCESS_ID, or in a GPU pod (gpu/env.py) the node rank
     PET_NODE_RANK where JAX_PROCESS_ID is absent."""
@@ -234,6 +244,10 @@ class CudaMonitor(TPUMonitor):
         self._read_devices = device_reader or read_allocator_stats
         self._read_utilization = utilization_reader or NvidiaSmiUtilization()
         self._read_chips = chips_reader
+        # a pod's view (chips_reader) starts before the pod's workload has
+        # its CUDA context: until it first sees every expected card, the
+        # host is coming up, not short of cards
+        self._came_up = chips_reader is None
 
     def record_activity(self, busy_seconds: float = 0.0) -> None:
         now = time.time()
@@ -321,7 +335,10 @@ class CudaMonitor(TPUMonitor):
 
     def chips_visible(self) -> int:
         if self._read_chips is not None:
-            return self._read_chips()
+            visible = self._read_chips()
+            if visible and visible >= max(1, self._expected // max(1, self._hosts)):
+                self._came_up = True
+            return visible
         try:
             return torch.cuda.device_count()
         except (RuntimeError, AssertionError):
@@ -331,6 +348,9 @@ class CudaMonitor(TPUMonitor):
         if self._expected:
             return max(1, self._expected // max(1, self._hosts))
         return self.chips_visible()
+
+    def came_up(self) -> bool:
+        return self._came_up
 
     def process_id(self) -> int:
         return self._process_id
@@ -490,7 +510,7 @@ class NotebookAgent:
                     chips_visible=visible, chips_expected=expected,
                     ici_degraded=ici_degraded,
                 )
-            return {
+            report = {
                 "chips_visible": visible,
                 "chips_expected": expected,
                 "ready": ready,
@@ -499,6 +519,13 @@ class NotebookAgent:
                 "chips_failed": max(0, expected - visible),
                 "ici_degraded": ici_degraded,
             }
+            if not self.monitor.came_up():
+                # bring-up, not a fault: the probe reads a 503 as a host not
+                # ready yet (HostUnreachable, judged after a dwell), where
+                # the same report with 200 would be ChipFailure, which the
+                # slice-repair controller trusts at once
+                report["_status"] = 503
+            return report
         if path.endswith("/tpu/checkpoint"):
             hook = self.checkpoint_hook
             if hook is None:
@@ -552,10 +579,11 @@ class NotebookAgent:
                     self.send_response(404)
                     self.end_headers()
                     return
+                status = payload.pop("_status", 200)
                 body = json.dumps(
                     payload["_raw"] if "_raw" in payload else payload
                 ).encode()
-                self.send_response(200)
+                self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.end_headers()
                 self.wfile.write(body)

@@ -15,7 +15,11 @@
   `(host, port, close)`, and `close` stops the processes: SIGTERM to the
   command's process group (torchrun forwards it to its workers, which it
   starts in sessions of their own), SIGKILL to every process of the tree
-  after a grace period, and an error if one outlives that.
+  after a grace period, and an error if one outlives that. The kubelet
+  deletes such a pod gracefully: its object goes only once `close` has
+  returned. The agent's /tpu/checkpoint can be forwarded to the pod's
+  worker (`forward_checkpoint`, answered by `answer_checkpoint` in the
+  worker), since the agent runs in another process than the train state.
 
 A GPU node is bound to one GPU pod at a time (the scheduler's rule), so
 before a GPU pod's processes start, those of any earlier pod on the same
@@ -24,6 +28,8 @@ container holding it is gone.
 """
 from __future__ import annotations
 
+import itertools
+import json
 import os
 import re
 import signal
@@ -216,6 +222,7 @@ class PodProcesses:
         self.pids: List[int] = [self.proc.pid]
         self._lock = threading.Lock()
         self.closed = False
+        self.closed_at: Optional[float] = None  # when the last process of the tree was gone
 
     def running(self) -> bool:
         return self.proc.poll() is None
@@ -228,7 +235,8 @@ class PodProcesses:
         """SIGTERM to the process group, SIGKILL to every process of the
         tree (snapshotted before the signals, so workers in sessions of
         their own are among them) after `grace_s`; raises if any outlives
-        SIGKILL. Idempotent."""
+        SIGKILL, and is then not closed: the next call tries again.
+        Idempotent once it has returned."""
         with self._lock:
             if self.closed:
                 return
@@ -254,8 +262,10 @@ class PodProcesses:
             deadline = time.monotonic() + grace_s
             while any(_alive(p) for p in self.pids) and time.monotonic() < deadline:
                 time.sleep(0.05)
-            self.closed = True
             left = [p for p in self.pids if _alive(p)]
+            if not left:
+                self.closed = True
+                self.closed_at = time.time()
         if left:
             raise RuntimeError(f"processes {left} of the pod outlived SIGKILL")
 
@@ -296,7 +306,11 @@ def cuda_monitor(window_s: float, sample_period_s: float) -> Monitor:
     on which the pod's processes hold a CUDA context (`PodProcesses.cards`):
     the gate opens once the pod's workload has its device runtime up, as
     the reference's agent counts `jax.local_devices()`, not when the
-    driver is first opened nor because the operator's process sees a card."""
+    driver is first opened nor because the operator's process sees a card.
+    Until the pod's processes first hold every card, the agent answers its
+    readiness with 503 (`CudaMonitor.came_up`): a pod Ready before its
+    worker's CUDA context is coming up, not a ChipFailure; a card lost
+    after that is one."""
 
     def make(pod: Any, chips: int, procs: PodProcesses) -> TPUMonitor:
         return CudaMonitor(chips_expected=chips, window_s=window_s, sample_period_s=sample_period_s,
@@ -304,6 +318,73 @@ def cuda_monitor(window_s: float, sample_period_s: float) -> Monitor:
                            chips_reader=lambda: len(procs.cards()))
 
     return make
+
+
+# the checkpoint request a pod's agent forwards to its worker, and the ack
+# the worker writes back for it (one file per request id)
+CHECKPOINT_REQUEST = "checkpoint-request.json"
+
+
+def _checkpoint_ack(directory: str, request_id: str) -> str:
+    return os.path.join(directory, f"checkpoint-ack-{request_id}.json")
+
+
+def _write_json(path: str, obj: Dict[str, Any]) -> None:
+    """Written whole, then renamed: a reader never sees half a file."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def forward_checkpoint(directory: str, deadline_s: float) -> Callable[[], dict]:
+    """A checkpoint hook for the agent of a pod whose train state lives in
+    its worker process: it writes a request into `directory` (the pod's
+    own), waits up to `deadline_s` for the worker's ack
+    (`answer_checkpoint`) and returns it, {"step", "checksum", ...}. A
+    worker that does not ack in time, or acks a failed save, makes the hook
+    raise, and the agent then reports the save as not done; the hook never
+    acks on the worker's behalf."""
+    seq = itertools.count()
+
+    def hook() -> dict:
+        request_id = f"{os.getpid()}-{time.time_ns()}-{next(seq)}"
+        ack_path = _checkpoint_ack(directory, request_id)
+        _write_json(os.path.join(directory, CHECKPOINT_REQUEST), {"id": request_id, "at": time.time()})
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            if os.path.exists(ack_path):
+                with open(ack_path) as f:
+                    ack = json.load(f)
+                if ack.get("error"):
+                    raise RuntimeError(f"the worker's save failed: {ack['error']}")
+                return ack
+            time.sleep(0.02)
+        raise TimeoutError(f"the pod's worker did not ack checkpoint request {request_id} in {deadline_s} s")
+
+    return hook
+
+
+def answer_checkpoint(directory: str, save: Callable[[], dict], answered: Set[str]) -> Optional[dict]:
+    """The worker's half of `forward_checkpoint`: if a request is waiting in
+    `directory` that is not in `answered`, runs `save()` and writes its ack
+    (or the error it raised) for that request; returns the ack, None when
+    nothing was asked. Call it from the worker's loop."""
+    path = os.path.join(directory, CHECKPOINT_REQUEST)
+    try:
+        with open(path) as f:
+            request = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if request["id"] in answered:
+        return None
+    answered.add(request["id"])
+    try:
+        ack = dict(save())
+    except Exception as e:  # reported to the agent in the ack
+        ack = {"error": repr(e)}
+    ack["id"] = request["id"]
+    _write_json(_checkpoint_ack(directory, request["id"]), ack)
+    return ack
 
 
 def pod_process_behavior(
@@ -316,6 +397,7 @@ def pod_process_behavior(
     cwd: Optional[str] = None,
     grace_s: float = 20.0,
     processes: Optional[Dict[str, PodProcesses]] = None,
+    checkpoint_hook: Optional[Callable[[Any], Callable[[], dict]]] = None,
 ):
     """Kubelet behavior that runs a notebook pod's container as processes.
 
@@ -324,8 +406,10 @@ def pod_process_behavior(
     Each pod's output goes to `log_dir/<pod>-<uid8>.log`. `monitor(pod,
     chips, processes) -> TPUMonitor` builds the agent's device view
     (`cuda_monitor` for the card); `idle_since(pod)` is when the pod's work finished, None
-    while it runs (what /api/kernels reports). `processes` (by pod name,
-    the latest incarnation) is filled for the caller to read."""
+    while it runs (what /api/kernels reports). `processes` (by pod uid: a
+    StatefulSet's replacement pod keeps its predecessor's name) is filled
+    for the caller to read. `checkpoint_hook(pod)`, when given, is the
+    hook of the pod's agent's /tpu/checkpoint (`forward_checkpoint`)."""
     from ..cluster.kubelet import PodDecision
     from ..controllers import constants as C
 
@@ -353,24 +437,23 @@ def pod_process_behavior(
                              pod.spec.node_name)
         with lock:
             live[pod.metadata.uid] = procs
-        processes[pod.metadata.name] = procs
-        agent = NotebookAgent(monitor=monitor(pod, chips, procs), kernels=ProcessKernels(lambda: idle_since(pod)))
+        processes[pod.metadata.uid] = procs
+        agent = NotebookAgent(monitor=monitor(pod, chips, procs), kernels=ProcessKernels(lambda: idle_since(pod)),
+                              checkpoint_hook=checkpoint_hook(pod) if checkpoint_hook is not None else None)
         agent.identity = f"{pod.metadata.namespace}/{pod.metadata.name}"
         host, port, close_agent = agent.serve()
 
         def close() -> None:
             close_agent()
-            try:
-                procs.close(grace_s)
-            finally:
-                with lock:
-                    live.pop(pod.metadata.uid, None)
+            procs.close(grace_s)  # a pod whose processes outlive it stays live, its card held
+            with lock:
+                live.pop(pod.metadata.uid, None)
 
         return host, port, close
 
     def behavior(pod: Any) -> Optional[PodDecision]:
         if not pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL):
             return None
-        return PodDecision(serve=serve)
+        return PodDecision(serve=serve, graceful=True)
 
     return behavior

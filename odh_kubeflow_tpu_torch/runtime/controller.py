@@ -11,7 +11,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 from ..utils.logging import log_context
-from ..utils.flightrecorder import recorder
+from .flightrecorder import recorder
 from .metrics import (
     reconcile_duration_seconds,
     reconcile_errors_total,

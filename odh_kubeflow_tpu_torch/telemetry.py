@@ -1,6 +1,6 @@
-"""Workload telemetry of the port (counterpart of the workload half of
-odh_kubeflow_tpu/tpu/telemetry.py): train/decode step-time histograms,
-throughput and MFU gauges, and per-device memory.
+"""Telemetry of the port (counterpart of odh_kubeflow_tpu/tpu/telemetry.py):
+train/decode step-time histograms, throughput and MFU gauges, per-device
+memory, and the slice interruption/repair families with goodput.
 
 The families keep the reference's names, help text and buckets, because
 the manager's scrape and alert rules read those names. Sources:
@@ -10,10 +10,10 @@ the manager's scrape and alert rules read those names. Sources:
   decode burst),
 - the probe agent's allocator sampler (probe/agent.py `CudaMonitor`), which
   feeds `record_device_memory` from the `read_allocator_stats` it already
-  takes for activity detection.
-
-The slice-repair families and goodput accounting are control plane and
-stay in the JAX package.
+  takes for activity detection,
+- the slice-repair controller (controllers/slice_repair.py), which observes
+  the `tpu_slice_*` families at detection and completion and feeds
+  `goodput` on every reconcile.
 """
 from __future__ import annotations
 
@@ -56,13 +56,81 @@ device_memory_bytes = global_registry.gauge(
     labels=("device",),
 )
 
+# ---- slice interruption / repair telemetry: what the accelerator layer does
+# TO the fleet, and how fast the repair loop heals it. Source:
+# controllers/slice_repair.py observes these at detection / completion. ----
+
+slice_interruptions_total = global_registry.counter(
+    "tpu_slice_interruptions_total",
+    "Slice-level interruptions detected (a Ready slice going Degraded), "
+    "by cause (HostPreempted | ChipFailure | ICIDegraded | HostUnreachable)",
+    labels=("cause",),
+)
+slice_repair_duration_seconds = global_registry.histogram(
+    "tpu_slice_repair_duration_seconds",
+    "Degraded -> Ready-again wall-clock per repaired slice (MTTR)",
+    buckets=(0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120, 300, 600),
+)
+slice_repairs_total = global_registry.counter(
+    "tpu_slice_repairs_total",
+    "Completed repair episodes, by result (repaired | failed)",
+    labels=("result",),
+)
+slice_checkpoint_saves_total = global_registry.counter(
+    "tpu_slice_checkpoint_saves_total",
+    "Hosts that acked a checkpoint save inside a checkpoint-before-evict "
+    "window",
+)
+slice_goodput_ratio = global_registry.gauge(
+    "tpu_slice_goodput_ratio",
+    "Cumulative fraction of tracked slice-lifetime spent Ready rather than "
+    "Degraded/Repairing (1.0 = no interruption downtime observed)",
+)
+slice_repairs_in_progress = global_registry.gauge(
+    "tpu_slice_repairs_in_progress",
+    "Notebooks currently inside a repair episode (any repair state). The "
+    "alert manager's slice-repair inhibitor keys off this: readiness-"
+    "category burn alerts are suppressed while > 0 (ARCHITECTURE.md)",
+)
+
+
+class GoodputAccounting:
+    """Cumulative goodput bookkeeping behind `tpu_slice_goodput_ratio`.
+
+    The slice-repair controller calls `observe(lifetime_s, downtime_s)` on
+    every reconcile: the delta since the notebook was last seen extends
+    tracked lifetime, and counts as downtime when the notebook was in any
+    repair state for that interval. One process-wide instance — goodput is
+    a fleet number. The accumulators live in the goodput ledger
+    (runtime/accounting.py `slice_goodput`); lifetime - downtime is the
+    "good" numerator, lifetime the total."""
+
+    def __init__(self) -> None:
+        from .runtime.accounting import slice_goodput
+
+        self._ledger = slice_goodput
+        self._ledger.bind_gauge(slice_goodput_ratio)
+
+    def observe(self, lifetime_s: float, downtime_s: float = 0.0) -> None:
+        lifetime_s = max(0.0, lifetime_s)
+        downtime_s = min(max(0.0, downtime_s), lifetime_s)
+        self._ledger.record(lifetime_s - downtime_s, lifetime_s)
+
+    def reset_for_test(self) -> None:
+        self._ledger.reset_for_test()
+
+
+goodput = GoodputAccounting()
+
 FAMILIES = (train_step_seconds, decode_step_seconds, tokens_per_second, mfu,
             device_memory_bytes)
+SLICE_FAMILIES = (slice_interruptions_total, slice_repair_duration_seconds, slice_repairs_total,
+                  slice_checkpoint_saves_total, slice_goodput_ratio, slice_repairs_in_progress)
 
 
 def snapshot() -> dict:
     """Every family's current value, by name."""
-    return {family.name: family.snapshot() for family in FAMILIES}
+    return {family.name: family.snapshot() for family in FAMILIES + SLICE_FAMILIES}
 
 
 def observe_train_step(step_s: float, tokens: Optional[float] = None,

@@ -1,18 +1,24 @@
 """INVCHECK=1: the opt-in runtime invariant monitor (the port's copy of
-odh_kubeflow_tpu/utils/invcheck.py, with the one write-tier invariant whose
+odh_kubeflow_tpu/utils/invcheck.py, with the write-tier invariants whose
 objects the port has).
 
 RACECHECK catches lock misuse; INVCHECK catches state misuse: after every
 store write it re-judges the cross-object invariants and raises
 `InvariantViolation` at the exact write that broke one.
 
+- **machine-transition legality**: an observed old->new change of a state
+  annotation must be a declared transition of its machine spec
+  (analysis/machines.py; same-state re-asserts are always legal). The
+  store serializes writes, so observed transitions are real transitions —
+  a lost-update race that lands an undeclared edge is caught
+  deterministically.
 - **chip budget**: cards on GPU nodes hosting bound pods never exceed the
   monitor's `chip_budget` (`CHIP_BUDGET` env by default); unset/0 skips
   the check.
 
-The reference's machine-transition, pool-claim and checkpoint-before-suspend
-invariants judge the suspend, repair, slice-pool and job machines, which the
-port does not have yet; a caller adds its own checks with `Monitor(extra=)`.
+The reference's pool-claim and checkpoint-before-suspend invariants judge
+the slice-pool and suspend machines' controllers, which the port does not
+have yet; a caller adds its own checks with `Monitor(extra=)`.
 
 Zero-cost when off: the store holds `invariants=None` and pays one
 attribute check per write.
@@ -64,9 +70,56 @@ class WriteContext:
         return f"{ns}/{meta.get('name', '?')}" if ns else meta.get("name", "?")
 
 
+def _annotations(obj: Optional[dict]) -> Dict[str, str]:
+    return ((obj or {}).get("metadata", {}) or {}).get("annotations", {}) or {}
+
+
 # ---------------------------------------------------------------------------
 # write-tier invariants
 # ---------------------------------------------------------------------------
+
+
+def check_machine_transitions(ctx: WriteContext) -> Optional[str]:
+    """Observed state-annotation changes must be declared transitions
+    (analysis/machines.py). Each machine is judged only
+    against writes of its own kind: the suspend/repair/culling machines on
+    Notebooks, the inference machine on InferenceEndpoints, the job machine
+    on TPUJobs."""
+    if ctx.kind not in ("Notebook", "InferenceEndpoint", "TPUJob"):
+        return None
+    from ..analysis.machines import MACHINES
+    from ..controllers import constants as C
+
+    old_ann, new_ann = _annotations(ctx.old), _annotations(ctx.new)
+    for spec in MACHINES:
+        if spec.kind != ctx.kind:
+            continue
+        key = getattr(C, spec.annotation)
+        old_state = spec.classify_value(
+            old_ann.get(key), dynamic=False
+        )
+        new_raw = new_ann.get(key)
+        new_state = spec.classify_value(new_raw)
+        if new_state is None:
+            # not a declared literal: a stop timestamp etc. maps through
+            # dynamic_state; anything else is an undeclared state value
+            new_state = spec.dynamic_state if new_raw is not None else ""
+            if new_state is None:
+                return (
+                    f"{spec.name} machine: {ctx.name()} written with "
+                    f"undeclared state value {new_raw!r}"
+                )
+        if old_state is None:
+            old_state = spec.dynamic_state if old_ann.get(key) is not None else ""
+        if old_state == new_state:
+            continue
+        if not spec.allows(old_state, new_state):
+            return (
+                f"{spec.name} machine: {ctx.name()} transitioned "
+                f"{old_state or 'rest'!r} -> {new_state or 'rest'!r}, which "
+                "is not a declared transition (analysis/machines.py)"
+            )
+    return None
 
 
 def check_chip_budget(ctx: WriteContext) -> Optional[str]:
@@ -107,6 +160,7 @@ def check_chip_budget(ctx: WriteContext) -> Optional[str]:
 
 
 WRITE_INVARIANTS: Dict[str, CtxCheck] = {
+    "machine-transition": check_machine_transitions,
     "chip-budget": check_chip_budget,
 }
 

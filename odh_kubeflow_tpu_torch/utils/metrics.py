@@ -67,6 +67,12 @@ class _Metric:
                 return self._values.get((), 0.0)
             return {",".join(key): v for key, v in self._values.items()}
 
+    def clear(self) -> None:
+        """Drop every series, returning the family to its never-observed
+        state (a cleared ratio gauge reads as no data, not as 0.0)."""
+        with self._lock:
+            self._values.clear()
+
     def render_lines(self) -> List[str]:
         with self._lock:
             lines = [f"{self.name} 0"] if not self._values and not self.labels else []
@@ -137,6 +143,13 @@ class Histogram(_Metric):
                     counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
             self._totals[key] = self._totals.get(key, 0) + 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._values.clear()
+            self._counts.clear()
+            self._sums.clear()
+            self._totals.clear()
 
     def time(self, **labels: str) -> _HistogramTimer:
         return _HistogramTimer(self, labels)

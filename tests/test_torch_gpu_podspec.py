@@ -25,7 +25,8 @@ from odh_kubeflow_tpu.tpu import ordinal_env as jax_ordinal_env
 from odh_kubeflow_tpu.tpu import plan_slice as jax_plan_slice
 from odh_kubeflow_tpu.tpu import tpu_env
 from odh_kubeflow_tpu_torch.apimachinery import InvalidError
-from odh_kubeflow_tpu_torch.gpu import GKE_GPU_ACCELERATOR_LABEL, GPU_ENV_ANNOTATION, GPU_RESOURCE, apply_slice
+from odh_kubeflow_tpu_torch.gpu import (GKE_GPU_ACCELERATOR_LABEL, GPU_ENV_ANNOTATION, GPU_RESOURCE,
+                                        GPU_TOPOLOGY_LABEL, apply_slice)
 from odh_kubeflow_tpu_torch.gpu import gpu_env, ordinal_env
 from odh_kubeflow_tpu_torch.gpu import plan_slice, validate_spec
 
@@ -109,7 +110,7 @@ def test_statefulsets_equal_outside_the_device_fields():
         e["name"] for e in ordinal_env()}
     user = {e.name for e in USER_ENV}
     assert _strip(jax_sts, TPU_RESOURCE, (GKE_TPU_ACCELERATOR_LABEL, GKE_TPU_TOPOLOGY_LABEL),
-                  jax_device - user) == _strip(port_sts, GPU_RESOURCE, (GKE_GPU_ACCELERATOR_LABEL,),
+                  jax_device - user) == _strip(port_sts, GPU_RESOURCE, (GKE_GPU_ACCELERATOR_LABEL, GPU_TOPOLOGY_LABEL),
                                                port_device - user)
 
 
@@ -124,9 +125,9 @@ def test_device_fields_map_one_to_one():
     jres, pres = jpod["containers"][0]["resources"], ppod["containers"][0]["resources"]
     for kind in ("requests", "limits"):
         assert jres[kind] == {TPU_RESOURCE: "4"} and pres[kind] == {GPU_RESOURCE: str(shape.chips_per_host)}
-    # the node selector: the accelerator key (GPUs name no topology label)
+    # the node selector: the accelerator and the pool's slice shape
     assert jpod["nodeSelector"] == {GKE_TPU_ACCELERATOR_LABEL: "tpu-v5p-slice", GKE_TPU_TOPOLOGY_LABEL: "2x2x4"}
-    assert ppod["nodeSelector"] == {GKE_GPU_ACCELERATOR_LABEL: "nvidia-h100-80gb"}
+    assert ppod["nodeSelector"] == {GKE_GPU_ACCELERATOR_LABEL: "nvidia-h100-80gb", GPU_TOPOLOGY_LABEL: shape.topology}
     # the ordinal env: the same field path, torchrun's node rank
     jenv, penv = _env(jpod["containers"][0]), _env(ppod["containers"][0])
     assert penv["PET_NODE_RANK"] == jenv["JAX_PROCESS_ID"] == jenv["TPU_WORKER_ID"]

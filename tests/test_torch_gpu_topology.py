@@ -11,8 +11,8 @@ import torch_threads
 from odh_kubeflow_tpu.apimachinery import InvalidError as JaxInvalidError
 from odh_kubeflow_tpu.tpu import plan_slice as jax_plan_slice
 from odh_kubeflow_tpu_torch.apimachinery import InvalidError
-from odh_kubeflow_tpu_torch.gpu import (GENERATIONS, GKE_GPU_ACCELERATOR_LABEL, GPU_RESOURCE, plan_slice,
-                                        slice_from_env)
+from odh_kubeflow_tpu_torch.gpu import (GENERATIONS, GKE_GPU_ACCELERATOR_LABEL, GPU_RESOURCE, GPU_TOPOLOGY_LABEL,
+                                        plan_slice, slice_from_env)
 
 torch_threads.cap()
 
@@ -37,7 +37,7 @@ def test_topologies_pinned(topology, want):
     assert (s.chips, s.hosts, s.chips_per_host, s.multi_host) == want
     assert s.topology == topology.lower()
     assert s.accelerator_type == f"h100-{want[0]}"
-    assert s.node_selector() == {GKE_GPU_ACCELERATOR_LABEL: "nvidia-h100-80gb"}
+    assert s.node_selector() == {GKE_GPU_ACCELERATOR_LABEL: "nvidia-h100-80gb", GPU_TOPOLOGY_LABEL: topology.lower()}
     # the fields a reader of the reference finds on its SliceShape
     ref = jax_plan_slice("v5p", topology="2x2x4")
     assert all(hasattr(s, f) and hasattr(ref, f) for f in SHAPE_FIELDS)

@@ -15,12 +15,12 @@ own scheme, store and tracing buffer. Each side's cluster and manager stop
 in a `finally`.
 """
 import copy
-import threading
 import time
 from types import SimpleNamespace
 
 import pytest
 
+import torch_sides
 import torch_threads
 from test_torch_gpu_podspec import _strip
 
@@ -63,7 +63,7 @@ JAX = SimpleNamespace(
 PORT = SimpleNamespace(
     name="port", apps=p_apps, core=p_core, nb=p_notebook, am=p_am, cluster=p_cluster, ctrl=p_ctrl,
     C=p_ctrl.constants, runtime=p_runtime, behavior=p_probe.sim_agent_behavior,
-    resource=p_gpu.GPU_RESOURCE, selector_keys=(p_gpu.GKE_GPU_ACCELERATOR_LABEL,),
+    resource=p_gpu.GPU_RESOURCE, selector_keys=(p_gpu.GKE_GPU_ACCELERATOR_LABEL, p_gpu.GPU_TOPOLOGY_LABEL),
     plan=p_gpu.plan_slice,
     slices={"one-host": ("h100", "1x4"), "multi-host": ("h100", "2x8")},
     add_pool=lambda cluster, *a: cluster.add_gpu_pool(*a),
@@ -152,27 +152,7 @@ def wait_for(fn, timeout=20.0, msg="condition"):
 def both(scenario, **env_kw):
     """Runs scenario(env) on the JAX side and the port side at once, each in
     its own cluster; returns {"jax": result, "port": result}."""
-    results, errors = {}, {}
-
-    def run(side):
-        env = None
-        try:
-            env = Env(side, **env_kw)
-            results[side.name] = scenario(env)
-        except BaseException as e:  # re-raised in the test's thread
-            errors[side.name] = e
-        finally:
-            if env is not None:
-                env.stop()
-
-    threads = [threading.Thread(target=run, args=(side,)) for side in SIDES]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for name, e in errors.items():
-        raise AssertionError(f"the {name} side failed: {e!r}") from e
-    return results
+    return torch_sides.both(scenario, lambda side: Env(side, **env_kw), lambda env: env.stop(), sides=SIDES)
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,10 @@ from types import SimpleNamespace
 import pytest
 
 import torch_operator_flow
+import torch_pod_worker
 import torch_threads
 from odh_kubeflow_tpu_torch.api.core import Container, EnvVar, EnvVarSource, Pod
-from odh_kubeflow_tpu_torch.probe.agent import NotebookAgent, SimTPUMonitor
+from odh_kubeflow_tpu_torch.probe.agent import CudaMonitor, NotebookAgent, SimTPUMonitor
 from odh_kubeflow_tpu_torch.probe.behavior import (
     PodProcesses,
     ProcessKernels,
@@ -44,6 +45,74 @@ def test_notebook_pods_as_processes_on_the_cpu(tmp_path):
         tmp_path, torch_operator_flow.pod_worker("cpu"),
         monitor=lambda pod, chips, procs: SimTPUMonitor(chips=chips, expected=chips, duty=0.0))
     torch_operator_flow.check(seen, "cpu")
+
+
+def test_notebook_pod_preempted_checkpointed_and_resumed_on_the_cpu(tmp_path):
+    """The flow's repair episode on the CPU: the worker trains a tiny model,
+    its node is preempted, the SliceRepairController drives the forwarded
+    /tpu/checkpoint, evicts the pod (its processes stop before its object
+    goes), the replacement binds in the other pool, restores the acked
+    checkpoint and takes the next step bit-equal to the first worker's."""
+    seen = torch_operator_flow.run(
+        tmp_path, torch_operator_flow.pod_worker("cpu"), waves=(("nb-r",),), repair="nb-r",
+        monitor=lambda pod, chips, procs: SimTPUMonitor(chips=chips, expected=chips, duty=0.0))
+    torch_operator_flow.check(seen, "cpu")
+    assert seen["nb-r"]["repair"]["result"]["resumed"]["step"] == torch_pod_worker.REPAIR_STEPS + 1
+
+
+def test_a_replacement_whose_cards_come_up_late_is_not_evicted(tmp_path):
+    """The repair episode at Config's default backoff, each pod's card view
+    empty for its first LAG_S seconds, as a pod's is on the card until its
+    worker's CUDA context (`cuda_monitor`): the agent answers its readiness
+    with 503 meanwhile, which the gate reads as a host coming up, not as a
+    ChipFailure, and the controller waits for the replacement instead of
+    evicting it again."""
+    lag_s = 3.0
+
+    def monitor(pod, chips, procs):
+        started = time.monotonic()
+        return CudaMonitor(chips_expected=chips, window_s=1.0, sample_period_s=0.25, device_reader=lambda: None,
+                           utilization_reader=lambda: 0.0,
+                           chips_reader=lambda: chips if time.monotonic() - started >= lag_s else 0)
+
+    seen = torch_operator_flow.run(
+        tmp_path, torch_operator_flow.pod_worker("cpu"), waves=(("nb-r",),), repair="nb-r", monitor=monitor)
+    torch_operator_flow.check(seen, "cpu")
+    r = seen["nb-r"]["repair"]
+    assert r["mesh-ready again"] - r["rebound"] >= lag_s, r
+
+
+def test_the_readiness_is_503_until_the_pods_cards_first_come_up():
+    """cuda_monitor's agent over HTTP: 503 (the host coming up) until the
+    pod's processes first hold their card, 200 and ready then, and 200
+    with the card failed once it is lost after that (a ChipFailure)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    held = set()
+    agent = NotebookAgent(monitor=cuda_monitor(window_s=1.0, sample_period_s=0.5)(
+        None, 1, SimpleNamespace(cards=lambda: held)), kernels=ProcessKernels(lambda: None))
+    host, port, close = agent.serve()
+
+    def readiness():
+        try:
+            with urllib.request.urlopen(f"http://{host}:{port}/tpu/readiness", timeout=10) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        coming_up = readiness()
+        held.add(0)
+        up = readiness()
+        held.clear()
+        lost = readiness()
+    finally:
+        close()
+    assert coming_up[0] == 503 and coming_up[1]["ready"] is False and "_status" not in coming_up[1], coming_up
+    assert up == (200, {**up[1], "ready": True, "chips_visible": 1, "chips_failed": 0}), up
+    assert lost == (200, {**lost[1], "ready": False, "chips_visible": 0, "chips_failed": 1}), lost
 
 
 def test_container_env_resolves_field_refs():

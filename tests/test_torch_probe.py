@@ -31,7 +31,7 @@ from odh_kubeflow_tpu_torch import device, telemetry
 from odh_kubeflow_tpu_torch.models import TransformerConfig, init_params
 from odh_kubeflow_tpu_torch.probe import agent
 from odh_kubeflow_tpu_torch.serving.engine import ServingEngine
-from odh_kubeflow_tpu_torch.utils.flightrecorder import recorder
+from odh_kubeflow_tpu_torch.runtime.flightrecorder import recorder
 
 torch_threads.cap()
 

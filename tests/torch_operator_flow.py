@@ -20,6 +20,20 @@ idle, the culler stops the notebook, the stop terminates the pod's
 processes, the next notebook binds on the freed card, and the culled one is
 deleted, its route and policies with it. The next wave starts once the last
 of a wave is culled.
+
+The manager also runs the SliceRepairController. With `repair` set to a
+notebook, a second h100 1x1 node in a pool of its own joins before that
+notebook's wave (both nodes stand for the one card, and the contention of
+the earlier waves is kept), and once that notebook's worker has written its
+first result, its node is preempted: the repair opens Degraded
+(HostPreempted), drives the pod's /tpu/checkpoint (forwarded to the
+worker, `probe.behavior.forward_checkpoint`), writes `checkpoint-saved`,
+evicts the pod, whose processes stop before its object goes (the kubelet's
+graceful deletion), and the replacement pod binds on the other pool's node,
+restores the notebook's checkpoint and takes the next step. Each pod's
+directory is <notebook>/<pod uid> under the run's directory (a replacement
+pod keeps its predecessor's name); <notebook>/checkpoints is the notebook's
+volume.
 """
 import json
 import subprocess
@@ -30,12 +44,13 @@ from pathlib import Path
 
 import torch_dist
 from odh_kubeflow_tpu_torch.api.apps import StatefulSet
-from odh_kubeflow_tpu_torch.api.core import Container, Event, Pod
+from odh_kubeflow_tpu_torch.api.core import Container, Event, Node, Pod
 from odh_kubeflow_tpu_torch.api.gateway import HTTPRoute
 from odh_kubeflow_tpu_torch.api.networking import NetworkPolicy
 from odh_kubeflow_tpu_torch.api.notebook import Notebook, TPUSpec
 from odh_kubeflow_tpu_torch.apimachinery import AdmissionDeniedError, NotFoundError
 from odh_kubeflow_tpu_torch.cluster import SimCluster
+from odh_kubeflow_tpu_torch import telemetry
 from odh_kubeflow_tpu_torch.controllers import (
     Config,
     CullingReconciler,
@@ -43,15 +58,17 @@ from odh_kubeflow_tpu_torch.controllers import (
     NotebookReconciler,
     NotebookWebhook,
     ProbeStatusController,
+    SliceRepairController,
     TPUWorkbenchReconciler,
     constants as C,
 )
 from odh_kubeflow_tpu_torch.controllers.extension import route_name
 from odh_kubeflow_tpu_torch.gpu import GPU_RESOURCE
-from odh_kubeflow_tpu_torch.probe.behavior import pod_process_behavior
+from odh_kubeflow_tpu_torch.gpu import GKE_NODEPOOL_LABEL
+from odh_kubeflow_tpu_torch.probe.behavior import forward_checkpoint, pod_process_behavior
 from odh_kubeflow_tpu_torch.runtime import Manager
 from odh_kubeflow_tpu_torch.utils import tracing
-from odh_kubeflow_tpu_torch.utils.flightrecorder import recorder
+from odh_kubeflow_tpu_torch.runtime.flightrecorder import recorder
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = str(REPO / "tests" / "torch_pod_worker.py")
@@ -59,12 +76,18 @@ NS = "user"
 CFG = dict(readiness_probe_period_s=0.2, enable_culling=True,
            cull_idle_time_min=1.0 / 60.0,  # 1 s idle
            idleness_check_period_min=0.2 / 60.0)
+# the repair's knob under every cfg: a window the save fits in (the backoff
+# and attempts are Config's defaults)
+REPAIR_CFG = dict(checkpoint_window_s=30.0)
 DENIED = ("nb-denied", "h100", "3x5")  # a notebook whose slice the planner refuses: 5 cards a host
+OTHER_POOL = "h100-b"  # the repair's fallback pool
 
 
 def pod_worker(device):
-    """The container command of tests/torch_pod_worker.py on `device`."""
-    return lambda out_dir: [sys.executable, "-m", "torch.distributed.run", WORKER, device, str(out_dir)]
+    """The container command of tests/torch_pod_worker.py on `device`: the
+    repair worker for the notebook the flow repairs."""
+    return lambda out_dir, repair: [sys.executable, "-m", "torch.distributed.run", WORKER, device, str(out_dir),
+                                    "repair" if repair else "serve"]
 
 
 def wait_for(fn, timeout, msg):
@@ -115,14 +138,21 @@ def alive(pids):
 
 
 def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None, grace_s=15.0, timeout=120.0,
-        released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None):
+        released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None, repair=None):
     """Drives the flow; returns what it saw.
 
-    `command(out_dir) -> argv` is the container's command. Its worker writes
+    `command(out_dir, repaired) -> argv` is the container's command
+    (`repaired`: the pod is the repaired notebook's). Its worker writes
     out_dir/rank-0.json whole with "pid", "env", "world", "device" and
     "times": {"context": its CUDA context (or the CPU tensor), "done": its
     work finished, epoch seconds}; the notebook's kernel is busy until
     then. `monitor(pod, chips, processes)` builds the agents' device view.
+    `repair` names the notebook whose node is preempted (with a grace of
+    twice the checkpoint window) once its first worker has written its
+    result: that worker writes "train" with "next" (step k+1's "step",
+    "loss" and "checksum" from a copy of its state) and no "done", answers
+    the forwarded checkpoint requests, and its replacement writes "resumed"
+    (what it restored, the step it took) and "done".
     `env` is the pods' base env (torch_dist.clean_env() with one OMP
     thread by default). `released(pids)` is what else must hold, after a
     culled pod's processes are stopped, before its card counts as free;
@@ -133,26 +163,41 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     log_dir.mkdir(parents=True)
     if env is None:
         env = dict(torch_dist.clean_env(), OMP_NUM_THREADS="1")
-    processes = {}
+    processes = {}  # pod uid -> its processes
+    acks = []  # (when, pod uid, the forwarded checkpoint's ack or the error it raised)
+    config = Config(**{**REPAIR_CFG, **cfg})
 
-    def out_dir(name):
-        d = out_root / name
+    def pod_dir(pod):
+        d = out_root / pod.metadata.labels[C.NOTEBOOK_NAME_LABEL] / pod.metadata.uid
         d.mkdir(parents=True, exist_ok=True)
         return d
 
     def idle_since(pod):
-        got = result(out_dir(pod.metadata.labels[C.NOTEBOOK_NAME_LABEL]))
+        got = result(pod_dir(pod))
         return got["times"]["done"] if got else None
 
+    def checkpoint_hook(pod):
+        forward = forward_checkpoint(str(pod_dir(pod)), deadline_s=0.8 * config.checkpoint_window_s)
+
+        def hook():
+            try:
+                ack = forward()
+            except Exception as e:  # recorded, then reported to the agent as it would be
+                acks.append((time.time(), pod.metadata.uid, repr(e)))
+                raise
+            acks.append((time.time(), pod.metadata.uid, ack))
+            return ack
+
+        return hook
+
     cluster = SimCluster().start()
-    config = Config(**cfg)
     mgr = Manager(cluster.store)
     timeline = None
     try:
         cluster.add_pod_behavior(pod_process_behavior(
-            lambda pod: command(out_dir(pod.metadata.labels[C.NOTEBOOK_NAME_LABEL])), str(log_dir),
+            lambda pod: command(pod_dir(pod), pod.metadata.labels[C.NOTEBOOK_NAME_LABEL] == repair), str(log_dir),
             env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since, grace_s=grace_s,
-            processes=processes))
+            processes=processes, checkpoint_hook=checkpoint_hook))
         cluster.add_gpu_pool("h100", "h100", "1x1")
         NotebookWebhook(mgr.client, config).register(cluster.store)
         NotebookReconciler(mgr, config).setup()
@@ -160,6 +205,12 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         TPUWorkbenchReconciler(mgr, config).setup()
         ProbeStatusController(mgr, config, http_get=cluster.http_get).setup()
         CullingReconciler(mgr, config, http_get=cluster.http_get).setup()
+        slice_repair = SliceRepairController(mgr, config, http_get=cluster.http_get)
+        # the node signal alone: no second episode from the old agent going
+        # away, and the save may take the whole window
+        slice_repair.unreachable_dwell_s = 3600.0
+        slice_repair.CHECKPOINT_TIMEOUT_S = config.checkpoint_window_s
+        slice_repair.setup()
         mgr.start()
         timeline = Timeline(cluster.store)
 
@@ -174,6 +225,10 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
 
         def pod(name):
             return cluster.client.get(Pod, NS, f"{name}-0")
+
+        def procs_of(name):
+            """The processes of the notebook's current pod."""
+            return processes.get(pod(name).metadata.uid)
 
         def mirrored_failure(name):
             return next((e.message for e in cluster.client.list(Event, namespace=NS)
@@ -205,6 +260,78 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 pass
             return out
 
+        def repair_counters():
+            return {"repaired": telemetry.slice_repairs_total.value(result="repaired"),
+                    "failed": telemetry.slice_repairs_total.value(result="failed"),
+                    "interruptions": telemetry.slice_interruptions_total.value(cause="HostPreempted"),
+                    "checkpoint saves": telemetry.slice_checkpoint_saves_total.value(),
+                    "mttr observations": telemetry.slice_repair_duration_seconds.snapshot()["count"]}
+
+        def pool_of(node):
+            return cluster.client.get(Node, "", node).metadata.labels[GKE_NODEPOOL_LABEL]
+
+        def repair_episode(name, got):
+            """Preempts the node of the notebook's pod, follows the repair to
+            the replacement pod's result, and returns what it saw: each
+            edge's time (this process's clock), the forwarded ack, the
+            state and Degraded values the notebook went through, the repair
+            spans on the notebook's trace, the counters' deltas, the
+            incident bundles and the replacement's result."""
+            old = pod(name)
+            before, wall0 = repair_counters(), time.time()
+            ep = {"preempted": wall0, "old uid": old.metadata.uid, "old node": old.spec.node_name,
+                  "old pool": pool_of(old.spec.node_name)}
+            ep["grace"] = 2 * config.checkpoint_window_s
+            cluster.preempt_node(old.spec.node_name, grace_s=ep["grace"])
+            new = wait(lambda: (p := pod(name)).metadata.uid != old.metadata.uid and p.spec.node_name and p,
+                       f"{name}'s replacement pod bound")
+            # the old pod's tree as its stop saw it, and its worker
+            ep["old alive at rebound"] = alive(sorted(set(processes[old.metadata.uid].pids) | {got["result"]["pid"]}))
+            ep.update({"uid": new.metadata.uid, "node": new.spec.node_name, "pool": pool_of(new.spec.node_name)})
+
+            def resumed():
+                procs = processes.get(new.metadata.uid)
+                done = result(pod_dir(new))
+                assert done or procs is None or procs.running(), \
+                    f"{name}'s replacement torchrun exited {procs.proc.returncode}\n{logs()}"
+                return done
+
+            ep["result"] = wait(resumed, f"{name}'s replacement worker")
+
+            def repaired():
+                nb = notebook(name)
+                cond = next((c for c in nb.status.conditions if c.type == C.TPU_DEGRADED_CONDITION), None)
+                return (C.TPU_REPAIR_STATE_ANNOTATION not in nb.metadata.annotations and cond is not None
+                        and (cond.status, cond.reason) == ("False", "Repaired") and nb.status.tpu.mesh_ready)
+
+            wait(repaired, f"{name} repaired")
+            wait(lambda: repair_counters()["mttr observations"] > before["mttr observations"],
+                 f"{name}'s repair observed")
+            for edge in ("terminating", "deleted"):
+                ep[f"old {edge}"] = wait(lambda: timeline.pod(old.metadata.uid, edge),
+                                         f"the watches to see {name}'s old pod {edge}")[0]
+            ep["rebound"] = timeline.pod(new.metadata.uid, "bound")[0]
+            log = wait(lambda: (entries := timeline.notebook_log(name))[-1][2:] == ("", ("False", "Repaired"), True)
+                       and entries, f"the watches to see {name} repaired")
+            ep["degraded"] = next(t for t, _, _, cond, _ in log if t >= wall0 and cond == ("True", "HostPreempted"))
+            # the gate's rising edge after the eviction (an entry written before
+            # the gate saw the old pod go still carries its stale meshReady)
+            ep["mesh-ready again"] = next(t for (t, _, _, _, ready), (_, _, _, _, was) in zip(log[1:], log)
+                                          if t >= ep["old terminating"] and ready and not was)
+            ep["states"] = [st for i, (_, _, st, _, _) in enumerate(log) if i == 0 or log[i - 1][2] != st]
+            ep["conditions"] = list(dict.fromkeys(cond for _, _, _, cond, _ in log if cond is not None))
+            ep["acks"] = [(t, ack) for t, uid, ack in acks if uid == old.metadata.uid]
+            ep["checkpoint-saved"] = notebook(name).metadata.annotations.get(C.TPU_CHECKPOINT_SAVED_ANNOTATION)
+            trace_id = (tracing.parse_traceparent(got["admitted"].get(C.TRACEPARENT_ANNOTATION)) or ("",))[0]
+            ep["spans"] = {n: [sp["attributes"] for sp in tracing.recent_spans(trace_id=trace_id, name=n)]
+                           for n in ("slice.checkpoint", "slice.repair", "slice.reschedule")}
+            ep["counters"] = {k: v - before[k] for k, v in repair_counters().items()}
+            ep["incidents"] = [i["reason"] for i in recorder.incidents() if i["subject"] == f"{NS}/{name}"]
+            ep["goodput"] = telemetry.slice_goodput_ratio.value()
+            ep["old closed at"] = processes[old.metadata.uid].closed_at
+            ep["wall"] = time.time() - wall0
+            return ep
+
         seen = {"turns": [], "gate period": config.readiness_probe_period_s}
         name, accelerator, topology = DENIED
         state = card_state()
@@ -215,6 +342,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             seen["denied"] = {"name": name, "error": str(e), "left": owned_by(name),
                               "card": (state, card_state())}
         for wave in waves:
+            if repair in wave:
+                cluster.add_gpu_pool(OTHER_POOL, "h100", "1x1")
             for name in wave:
                 seen[name] = {"created": time.time()}
                 created = cluster.client.create(new_notebook(name))
@@ -234,8 +363,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 got["set"] = {"requests": dict(container.resources.requests), "env": container.env_dict()}
 
                 def served():
-                    procs = processes.get(f"{name}-0")
-                    done = result(out_dir(name))
+                    procs = procs_of(name)
+                    done = result(pod_dir(pod(name)))
                     assert done or procs is None or procs.running(), \
                         f"{name}'s torchrun exited {procs.proc.returncode}\n{logs()}"
                     return done
@@ -243,21 +372,25 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 got["result"] = wait(served, f"{name}'s worker")
                 got["while running"] = owned_by(name)
                 # the agent's readiness edges, as its device view saw them
-                got["agent ready"] = [r["ready"] for r in recorder.records("probe-agent")
+                got["agent ready"] = [r["ready"] for r in timeline.records("probe-agent")
                                       if r.get("pod") == f"{NS}/{name}-0"]
                 got["serving"] = while_serving()
+                got["uid"] = pod(name).metadata.uid
+                if name == repair:
+                    got["repair"] = repair_episode(name, got)
                 wait(lambda: notebook(name).metadata.annotations.get(C.STOP_ANNOTATION, C.RECONCILIATION_LOCK_VALUE)
                      != C.RECONCILIATION_LOCK_VALUE, f"{name} culled")
                 wait(lambda: cluster.client.get(StatefulSet, NS, name).spec.replicas == 0, f"{name}'s set at 0")
                 wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.NOTEBOOK_NAME_LABEL: name}),
                      f"{name}'s pod deleted")
-                procs = processes[f"{name}-0"]
-                got["pids"] = sorted(set(procs.pids) | {got["result"]["pid"]})
-                wait(lambda: procs.closed and not alive(got["pids"]) and released(got["pids"]),
+                incarnations = [got] + ([got["repair"]] if "repair" in got else [])
+                procs = [processes[i["uid"]] for i in incarnations]
+                got["pids"] = sorted({p for ps in procs for p in ps.pids} | {i["result"]["pid"] for i in incarnations})
+                wait(lambda: all(ps.closed for ps in procs) and not alive(got["pids"]) and released(got["pids"]),
                      f"{name}'s processes {got['pids']} gone and its card released")
                 got["free"] = time.time()
                 got["alive"] = alive(got["pids"])
-                got["culls"] = [r for r in recorder.records("transition")
+                got["culls"] = [r for r in timeline.records("transition")
                                 if r.get("machine") == "culling" and r.get("notebook") == f"{NS}/{name}"]
                 for what in ("unlocked", "bound", "mesh-ready", "stopped"):
                     got[what] = wait(lambda: timeline.get(f"{name} {what}"), f"the watches to see {name} {what}")
@@ -280,7 +413,10 @@ class Timeline:
     the event's arrival) and at which resourceVersion (one counter for the
     whole store) each notebook's pod was first bound, and each notebook
     first went without its reconciliation lock, was first mesh-ready (and
-    its status.tpu then) and first stopped."""
+    its status.tpu then) and first stopped. It also copies the flight
+    recorder's agent readiness edges and machine transitions as they come
+    (`records`): the ring is bounded, and the control plane's own records
+    and spans turn it over in seconds."""
 
     def __init__(self, store):
         self._watches = [store.watch("v1", "Pod"), store.watch("kubeflow.org/v1beta1", "Notebook")]
@@ -288,7 +424,13 @@ class Timeline:
         self._lock = threading.Lock()
         self.first = {}  # "<notebook> bound|mesh-ready|stopped" -> (time, rv)
         self.ready_status = {}  # notebook -> status.tpu's JSON when first mesh-ready
+        self.pods = {}  # pod uid -> {"bound" | "terminating" | "deleted": (time, rv)}
+        # notebook -> [(time, rv, repair state, Degraded (status, reason) or
+        # None, meshReady)], one entry each time one of the three changed
+        self.log = {}
+        self._kept = {}  # (t, kind, subject) -> a flight-recorder record of a kept kind
         self._threads = [threading.Thread(target=self._run, args=(w,), daemon=True) for w in self._watches]
+        self._threads.append(threading.Thread(target=self._copy_records, daemon=True))
         for t in self._threads:
             t.start()
 
@@ -296,8 +438,25 @@ class Timeline:
         obj, now = ev.object, time.time()
         meta = obj.get("metadata", {})
         keys, tpu = [], (obj.get("status") or {}).get("tpu") or {}
+        rv = int(meta.get("resourceVersion", 0))
         if obj.get("kind") == "Pod" and obj.get("spec", {}).get("nodeName"):
             keys.append(f"{(meta.get('labels') or {}).get(C.NOTEBOOK_NAME_LABEL)} bound")
+        if obj.get("kind") == "Pod":
+            edges = [e for e, on in (("bound", obj.get("spec", {}).get("nodeName")),
+                                     ("terminating", meta.get("deletionTimestamp")),
+                                     ("deleted", ev.type == "DELETED")) if on]
+            with self._lock:
+                for edge in edges:
+                    self.pods.setdefault(meta.get("uid"), {}).setdefault(edge, (now, rv))
+        if obj.get("kind") == "Notebook" and ev.type != "DELETED":
+            cond = next(((c.get("status"), c.get("reason")) for c in (obj.get("status") or {}).get("conditions") or []
+                         if c.get("type") == C.TPU_DEGRADED_CONDITION), None)
+            entry = ((meta.get("annotations") or {}).get(C.TPU_REPAIR_STATE_ANNOTATION, ""), cond,
+                     bool(tpu.get("meshReady")))
+            with self._lock:
+                log = self.log.setdefault(meta.get("name"), [])
+                if not log or log[-1][2:] != entry:
+                    log.append((now, rv) + entry)
         if obj.get("kind") == "Notebook":
             if (meta.get("annotations") or {}).get(C.STOP_ANNOTATION) != C.RECONCILIATION_LOCK_VALUE:
                 keys.append(f"{meta.get('name')} unlocked")
@@ -308,7 +467,7 @@ class Timeline:
                 keys.append(f"{meta.get('name')} stopped")
         with self._lock:
             for key in keys:
-                self.first.setdefault(key, (now, int(meta.get("resourceVersion", 0))))
+                self.first.setdefault(key, (now, rv))
             if tpu.get("meshReady"):
                 self.ready_status.setdefault(meta.get("name"), tpu)
 
@@ -320,9 +479,36 @@ class Timeline:
             if ev is not None:
                 self._note(ev)
 
+    KEPT = ("probe-agent", "transition")
+
+    def _copy_records(self):
+        while not self._done.wait(0.05):
+            for r in recorder.records():
+                if r["kind"] in self.KEPT:
+                    with self._lock:
+                        self._kept.setdefault((r["t"], r["kind"], r.get("pod"), r.get("notebook")), r)
+
+    def records(self, kind):
+        """The kept flight-recorder records of `kind`, oldest first."""
+        for r in recorder.records(kind):  # what the copier has not seen yet
+            with self._lock:
+                self._kept.setdefault((r["t"], r["kind"], r.get("pod"), r.get("notebook")), r)
+        with self._lock:
+            return [r for key, r in sorted(self._kept.items(), key=lambda kv: kv[0][0]) if key[1] == kind]
+
     def get(self, key):
         with self._lock:
             return self.first.get(key)
+
+    def pod(self, uid, edge):
+        """(time, rv) when the watch first saw the pod bound, terminating or
+        deleted."""
+        with self._lock:
+            return self.pods.get(uid, {}).get(edge)
+
+    def notebook_log(self, name):
+        with self._lock:
+            return list(self.log.get(name, []))
 
     def stop(self):
         self._done.set()
@@ -338,8 +524,54 @@ def root_lag(got):
     return got["mesh-ready"][0] - got["root"][0]["end_time"]
 
 
+def check_repair(got, period, gate_waits):
+    """The repair episode's gates (run(repair=...)): the forwarded ack came
+    before the old pod's eviction and is the `checkpoint-saved` step; the
+    machine went degraded -> repairing -> rest with Degraded opened by
+    HostPreempted and closed Repaired; the replacement bound on the other
+    pool's node only once every process of the old pod was gone (its stop
+    returned before its object went, and none of its pids was alive when
+    the replacement was seen bound); the
+    slice.repair span (HostPreempted, repaired) is on the notebook's
+    `notebook.ready` trace; one repair and one MTTR observation counted,
+    the MTTR within the episode's wall time; a slice-degraded incident
+    bundle; the replacement restored the acked step and checksum and its
+    step k+1 is bit-equal to the first worker's (loss and params checksum);
+    with `gate_waits`, mesh-ready again no earlier than the replacement's
+    CUDA context less one gate period."""
+    r, train = got["repair"], got["result"]["train"]
+    assert [type(a) for _, a in r["acks"]] == [dict], r["acks"]
+    ack_at, ack = r["acks"][0]
+    assert ack["step"] == train["steps"] and ack["checksum"] == train["state checksum"], (ack, train)
+    assert r["preempted"] < r["degraded"] <= ack_at < r["old terminating"] <= r["old deleted"], r
+    assert r["checkpoint-saved"] == str(ack["step"]), r["checkpoint-saved"]
+    assert r["states"] == ["", "degraded", "repairing", ""], r["states"]
+    assert r["conditions"][0] == ("True", "HostPreempted") and r["conditions"][-1] == ("False", "Repaired"), \
+        r["conditions"]
+    assert r["node"] != r["old node"] and r["pool"] == OTHER_POOL != r["old pool"], r
+    assert r["old closed at"] is not None and r["old closed at"] <= r["old deleted"] <= r["rebound"], r
+    assert r["old alive at rebound"] == [], r["old alive at rebound"]
+    (repaired,) = [a for a in r["spans"]["slice.repair"] if a["result"] == "repaired"]
+    assert repaired["cause"] == "HostPreempted" and 0 < repaired["mttr_s"] <= r["wall"], repaired
+    assert [a["hosts_acked"] for a in r["spans"]["slice.checkpoint"]] == [1], r["spans"]
+    assert len(r["spans"]["slice.reschedule"]) == 1, r["spans"]
+    assert r["counters"] == {"repaired": 1, "failed": 0, "interruptions": 1, "checkpoint saves": 1,
+                             "mttr observations": 1}, r["counters"]
+    assert "slice-degraded" in r["incidents"] and 0 < r["goodput"] <= 1, r
+    resumed = r["result"]["resumed"]
+    assert resumed["restored"]["step"] == ack["step"] and resumed["restored"]["checksum"] == ack["checksum"], \
+        (resumed, ack)
+    want = train["next"]
+    assert (resumed["step"], resumed["loss"], resumed["checksum"]) == (want["step"], want["loss"], want["checksum"]), \
+        (resumed, want)
+    if gate_waits:
+        assert r["mesh-ready again"] >= r["result"]["times"]["context"] - period, \
+            r["mesh-ready again"] - r["result"]["times"]["context"]
+
+
 def check(seen, device, chips_expected=1, gate_waits=False):
-    """The assertions every caller makes on run()'s result. `gate_waits`:
+    """The assertions every caller makes on run()'s result (and, for a
+    repaired notebook, `check_repair`'s). `gate_waits`:
     each pod's agent first reported not ready, then ready (its device view
     follows the pod's processes, not this process), and no pod was
     mesh-ready before its worker's CUDA context, less one gate period."""
@@ -359,7 +591,7 @@ def check(seen, device, chips_expected=1, gate_waits=False):
         assert {f"NetworkPolicy/{name}-ctrl-np", f"HTTPRoute/nb-{NS}-{name}"} <= set(got["while running"]), \
             got["while running"]
         # the root opened at admission, closed by the gate at mesh-ready
-        assert len(got["root"]) == 1 and got["root"][0]["start_time"] <= got["mesh-ready"][0], got["root"]
+        assert len(got["root"]) == 1 and got["root"][0]["start_time"] <= got["mesh-ready"][0], (name, got["root"])
         assert 0 <= root_lag(got) <= period, (root_lag(got), got["root"])
         if gate_waits:
             assert got["mesh-ready"][0] >= got["result"]["times"]["context"] - period, \
@@ -378,8 +610,10 @@ def check(seen, device, chips_expected=1, gate_waits=False):
             status
         assert got["culls"], f"{name}'s stop annotation did not come from the culler"
         if gate_waits:
-            assert got["agent ready"][:1] == [False] and True in got["agent ready"], got["agent ready"]
+            assert got["agent ready"][:1] == [False] and True in got["agent ready"], (name, got["agent ready"])
         assert got["alive"] == [], got
+        if "repair" in got:
+            check_repair(got, period, gate_waits)
     # each took the card in turn: bound, stopped, and only then the next bound
     order = [seen[n][k][1] for n in turns for k in ("bound", "stopped")]
     assert order == sorted(order), dict(zip([f"{n} {k}" for n in turns for k in ("bound", "stopped")], order))

@@ -2,7 +2,7 @@
 started by `python -m torch.distributed.run` from the env the port's
 reconciler rendered. Imports no jax.
 
-    torch_pod_worker.py DEVICE OUT_DIR
+    torch_pod_worker.py DEVICE OUT_DIR [MODE]
 
 Each rank brings the world up with the port's `initialize_from_env`, puts a
 tensor on DEVICE ("cpu", or "cuda": the rank's card, which creates its CUDA
@@ -10,6 +10,12 @@ context), writes its env, rank, pid, the time its tensor was on the device
 (its CUDA context) and the time it was done to
 OUT_DIR/rank-R.json (written whole, then renamed), and holds until
 SIGTERM, as a notebook kernel holds its card.
+
+MODE "repair" is the worker of a notebook whose pod the flow preempts
+(`repair_run`, which chip_smoke.py's card worker shares): it trains a tiny
+model and answers the forwarded checkpoint requests until SIGTERM, or, in
+the pod that replaced it, restores the notebook's latest checkpoint and
+takes the next step.
 """
 import json
 import os
@@ -18,33 +24,154 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 NAMES = ("PET_STANDALONE", "PET_NPROC_PER_NODE", "PET_NNODES", "NB_TPU_CHIPS_EXPECTED", "NB_TPU_HOSTS",
          "TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY", "RANK", "LOCAL_RANK", "WORLD_SIZE")
+REPAIR_STEPS = 2  # the steps the first incarnation takes before it is preempted
 
 
-def main(device: str, out_dir: str) -> None:
-    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device
+def write_result(out_dir, out):
+    """rank-R.json, written whole, then renamed."""
+    path = os.path.join(out_dir, f"rank-{out['rank']}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def checkpoint_dir(out_dir):
+    """The notebook's checkpoint directory (its volume): beside the pods'
+    own directories, so the pod that replaces a preempted one finds it."""
+    return os.path.join(os.path.dirname(os.path.abspath(out_dir)), "checkpoints")
+
+
+def resuming(out_dir):
+    """Whether the notebook has a finished checkpoint, that is whether this
+    pod replaces one that saved."""
+    from odh_kubeflow_tpu_torch.models import latest_step
+
+    return latest_step(checkpoint_dir(out_dir)) is not None
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _launches(attention):
+    return {k: v for k, v in attention.launch_counts.items() if v}
+
+
+def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS):
+    """A notebook's train loop across a slice repair, filling `out` and
+    writing it (`write_result`).
+
+    First incarnation (no checkpoint yet): `steps` train steps, each step's
+    loss and flash launches; then step k+1 on a copy of the state at step k,
+    so the run that is never interrupted is known before any ack: its loss
+    and params checksum. The result is written with no "done" time (the
+    kernel stays busy); then the forwarded checkpoint requests are answered
+    (probe.behavior.answer_checkpoint: save the state at step k, ack its
+    step, checksum, seconds and bytes) until `stop`.
+
+    A later incarnation (the notebook's checkpoint directory holds a step):
+    restore the latest step onto a state initialised from another seed,
+    check its checksum, take step k+1 and write its loss and params checksum
+    with the "done" time. `batch_of(i)` is the batch of the step from i to
+    i + 1."""
+    from odh_kubeflow_tpu_torch.models import (
+        init_params, latest_step, make_checkpoint_hook, make_train_step, restore_train_state, state_checksum)
+    from odh_kubeflow_tpu_torch.models.tree import tree_map
+    from odh_kubeflow_tpu_torch.ops import attention
+    from odh_kubeflow_tpu_torch.probe.behavior import answer_checkpoint
+
+    ckpt = checkpoint_dir(out_dir)
+    step_fn, opt = make_train_step(cfg)
+    saved = latest_step(ckpt)
+    if saved is not None:
+        params = init_params(torch.Generator().manual_seed(1), cfg, device=dev)
+        like = {"params": params, "opt_state": opt.init(params)}
+        t0 = time.time()
+        state = restore_train_state(ckpt, like, step=saved)
+        _sync(dev)
+        restored = {"step": saved, "checksum": state_checksum(state), "seconds": time.time() - t0}
+        attention.reset_launch_counts()
+        _, _, loss = step_fn(state["params"], state["opt_state"], batch_of(saved))
+        _sync(dev)
+        out["resumed"] = {"restored": restored, "step": int(state["opt_state"]["count"]), "loss": loss.item(),
+                          "checksum": state_checksum(state["params"]), "launches": _launches(attention)}
+        out["times"]["done"] = time.time()
+        write_result(out_dir, out)
+        stop.wait()
+        return
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    state = {"params": params, "opt_state": opt.init(params)}
+    losses, launches = [], []
+    for i in range(steps):
+        attention.reset_launch_counts()
+        losses.append(step_fn(state["params"], state["opt_state"], batch_of(i))[2])
+        _sync(dev)
+        launches.append(_launches(attention))
+    k = int(state["opt_state"]["count"])
+    twin = tree_map(torch.clone, state)
+    attention.reset_launch_counts()
+    _, _, loss = step_fn(twin["params"], twin["opt_state"], batch_of(k))
+    _sync(dev)
+    launches.append(_launches(attention))
+    following = {"step": k + 1, "loss": loss.item(), "checksum": state_checksum(twin["params"])}
+    del twin
+    out["train"] = {"steps": k, "losses": [x.item() for x in losses], "launches": launches, "next": following,
+                    "state checksum": state_checksum(state)}
+    out["times"]["done"] = None  # busy: the notebook keeps working until it is preempted
+    write_result(out_dir, out)
+    hook = make_checkpoint_hook(ckpt, lambda: (k, state))
+
+    def save():
+        t0 = time.time()
+        ack = hook()
+        step_dir = os.path.join(ckpt, str(k))
+        ack.update(seconds=time.time() - t0, at=time.time(),
+                   bytes=sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)))
+        return ack
+
+    answered = set()
+    while not stop.is_set():
+        answer_checkpoint(out_dir, save, answered)
+        stop.wait(0.02)
+
+
+def tiny_cfg():
+    """The CPU flow's model: two layers of a few dozen widths, f32."""
+    from odh_kubeflow_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab=64, d_model=32, n_layers=2, n_heads=2, d_ff=64, max_seq=32,
+                             dtype=torch.float32, use_flash=True, remat=True, remat_policy="flash")
+
+
+def main(device: str, out_dir: str, mode: str = "serve") -> None:
+    from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device, reinitialize_after_repair
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     torch.set_num_threads(1)
-    rank, world = initialize_from_env(timeout_s=60, device=device)
+    again = mode == "repair" and resuming(out_dir)
+    rank, world = (reinitialize_after_repair if again else initialize_from_env)(timeout_s=60, device=device)
     dev = rank_device(device)
     x = torch.ones(64, 64, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     context = time.time()
     total = float((x @ x).sum())
     out = {"rank": rank, "world": [rank, world], "device": str(dev), "pid": os.getpid(), "ppid": os.getppid(),
            "sum": total, "env": {n: os.environ.get(n) for n in NAMES}, "times": {"context": context, "done": time.time()}}
-    path = os.path.join(out_dir, f"rank-{rank}.json")
-    with open(path + ".tmp", "w") as f:
-        json.dump(out, f)
-    os.replace(path + ".tmp", path)
+    if mode == "repair":
+        cfg = tiny_cfg()
+        repair_run(dev, out_dir, cfg, lambda i: {"tokens": torch.as_tensor(
+            np.random.default_rng(100 + i).integers(0, cfg.vocab, (2, 16)), device=dev)}, out, stop)
+        return
+    write_result(out_dir, out)
     stop.wait()
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])

@@ -6,8 +6,10 @@ webhook and beside the workbench extension: an unplannable Notebook denied
 at admission, then three Notebook CRs, each pod a `torchrun` serving the
 flagship beside a NotebookAgent over the card's CudaMonitor, which counts
 the cards on which the pod's processes hold a CUDA context, each culled,
-its card freed and the notebook deleted in turn). It fails as the smoke
-does.
+its card freed and the notebook deleted in turn; nb-2's node preempted
+after its worker has trained, the pod checkpointed through the forwarded
+/tpu/checkpoint, evicted, re-placed in a second pool and resumed bit-equal
+by the SliceRepairController). It fails as the smoke does.
 
     python3 tools/operator_phase.py     # from the repository root
 """
