@@ -116,8 +116,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    routed minus direct requests, bench.py:603-660), a burst step's host
    time with the profiler and guard off and on, and generate() under the
    armed guard (no copy, no hidden sync);
-10. sequence parallelism on this card: for 2 and then 4 ranks, spawned
-   processes brought up by parallel.initialize_from_env from the env names
+10. sequence parallelism on this card: one spawn of 4 ranks (sp 4 over
+   the world, then sp 2 over a mesh of its ranks 0 and 1, a sub-group of
+   the world whose other ranks wait), processes brought up by
+   parallel.initialize_from_env from the env names
    the webhook injects, on gloo (the ranks share the one card, and NCCL
    refuses two ranks on one device; the ring's payloads are staged through
    pinned host memory, counted): the f32 ring (scalar kernels; b1 s1024
@@ -145,8 +147,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    step time, peak memory per rank, bytes exchanged and the transport's
    host waits per step are printed, with a line saying that the ranks
    share one card.
-11. fsdp and tp on this card: first tools/gloo_cuda_probe.py's readings
-   (which collectives gloo moves on a CUDA tensor); then 4 ranks, spawned
+11. fsdp and tp on this card: tools/gloo_cuda_probe.py's readings (which
+   collectives gloo moves on a CUDA tensor), taken while the phase's ranks
+   start up; 4 ranks, spawned
    and brought up by parallel.initialize_from_env from the webhook's env
    names on gloo, sharing the card, train the flagship (bf16, remat
    "flash"; SHARD_LAYERS 4 of its 8 layers, the depth cut to keep the smoke
@@ -174,7 +177,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    onto the tp 2 x sp 2 mesh and onto one process gives the saved params
    (checksum) and the next step's loss within 1e-4 relative.
 12. tensor parallelism in decode, shared kv heads and the ep MoE on this
-   card, ranks spawned as in phase 11 (2, then 4): (a) generate(mesh=) of
+   card, one spawn of 4 ranks as in phase 11 (tp 2 on a mesh over its
+   ranks 0 and 1; the one-process references computed while the ranks
+   start up): (a) generate(mesh=) of
    phase 5's flagship at tp 2 and fsdp 2 x tp 2, 8 prompts of 128, max_new
    TP_MAX_NEW 32 (64 before phase 15 took on admission): the flash forward
    at the per-rank prefill shape (b8 s128 h4 hk4 d128, no lse) against its plain version, the first step's logits (each
@@ -325,9 +330,38 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    period; 2/2/2 tensor-core launches in every step of both incarnations,
    no scalar one. Printed: preempt -> Degraded -> ack (with the save's
    seconds and GB) -> evicted -> rebound -> mesh-ready again -> resumed
-   step, the MTTR and the goodput ratio; the phase's time and the
-   episode's, each against its own budget (120 s for the phase less the
-   episode, 45 s for the episode).
+   step, the MTTR and the goodput ratio. The promotion episode, after
+   nb-2's resumed step 3 (its replacement's worker, `--device-worker
+   promote`, stays busy, reports its params' logit fingerprint and answers
+   the forwarded checkpoint requests): tests/torch_standin.py suspends nb-2
+   (its forwarded /tpu/checkpoint saves step 3, the stop, its processes
+   gone, its pool released warm, the suspend's annotations), ep-0 is
+   created with spec.notebookRef nb-2 and its checkpoint directory, and
+   the InferenceEndpointReconciler claims the released pool under
+   user/ep-0; ep-0's pod runs `python -m odh_kubeflow_tpu_torch.serving`
+   (the model config in SERVING_MODEL_CONFIG), whose agent is ready once
+   it has restored the whole saved train state and listens; Loading
+   verifies the restore through the forwarded /tpu/restore; 8 requests
+   (prompt 128, MAX_NEWS) at once to its server; then its stop. Gates
+   (check_promotion and _operator_promotion): a warm bind
+   (EndpointPromoted, promotions{warm} +1, the endpoint.promotion span on
+   the endpoint's trace, the pool claimed before the pod bound on it);
+   states "" -> loading -> serving -> draining -> terminated; mesh-ready
+   no earlier than the serving process's CUDA context less one gate
+   period; the restore's checksum the save's, verifications{ok} +1 and
+   no other, "restore verified"; the served params' logit fingerprint
+   nb-2's; the route while Serving, status.url; all 8 requests 200;
+   REPAIR_LAYERS tensor-core forward launches per prefill and no other
+   kernel; the forward at the prefill's shape within phase 3's tolerance;
+   the route deleted before the set went to 0; Terminated, the pool warm
+   again, no process of the pod alive, the card's compute apps back to
+   the phase's start. Printed: each edge from the stop to the first token,
+   TTFT median and max, tokens/s, and stop -> route gone -> Terminated ->
+   card free. The phase's time and each episode's, against their budgets
+   (120 s for the phase less the episodes, 45 s for the repair episode,
+   PROMOTION_BUDGET_S for the promotion).
+
+Every phase prints its time when it ends, and the end a line of them all.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -383,8 +417,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+PHASE_TIMES = {}  # phase -> its seconds, as each ends
+_CURRENT = []  # the running phase's (name, start)
+
+
 def phase(name: str) -> None:
+    """Ends the running phase (its time printed) and starts `name`."""
+    end_phase()
+    _CURRENT[:] = [name, time.perf_counter()]
     print(f"== {name}", flush=True)
+
+
+def end_phase() -> None:
+    if _CURRENT:
+        name, t0 = _CURRENT
+        PHASE_TIMES[name.split()[0]] = time.perf_counter() - t0
+        print(f"   (phase {name.split()[0]} took {PHASE_TIMES[name.split()[0]]:.1f} s)", flush=True)
+        _CURRENT.clear()
 
 
 def inputs(b, sq, sk, h, hk, d, dtype, seed, strided=False):
@@ -2116,8 +2165,10 @@ def _ring_visits_vs_plain(mesh, layout, b=SP_BATCH[0], s=SP_BATCH[1], h=FULL_WID
 
 
 def _sp_rank_jobs(rank, world, port, results, go):
-    import dataclasses
-
+    """Phase 10 in one rank of the one spawn: for each sp size of
+    SP_WORLDS, largest first, its runs over a mesh of the world's first sp
+    ranks (a sub-group of the world for sp 2, whose other ranks wait);
+    {sp: results} of the meshes this rank was in."""
     import torch.distributed as dist
 
     # the env names the operator's webhook injects into a slice's pods
@@ -2125,17 +2176,36 @@ def _sp_rank_jobs(rank, world, port, results, go):
                        "TPU_WORKER_ID": str(rank), "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}"})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from odh_kubeflow_tpu_torch.parallel import MeshPlan, initialize_from_env
+
+    # gloo: the ranks share one card, and NCCL refuses two ranks on one device
+    initialize_from_env(timeout_s=SP_TIMEOUT_S, backend="gloo", device="cuda")
+    out = {}
+    for sp in sorted(SP_WORLDS, reverse=True):
+        mesh = MeshPlan(sp=sp).build("cuda", ranks=range(sp))
+        if mesh is not None:
+            out[sp] = _sp_runs(rank, sp, mesh)
+        torch.cuda.empty_cache()
+        dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _sp_runs(rank, world, mesh):
+    """Phase 10's runs over one sp mesh of `world` ranks, in one of them."""
+    import dataclasses
+
+    import torch.distributed as dist
+
     from odh_kubeflow_tpu_torch.models import (TransformerConfig, adamw, init_params, make_train_step,
                                                make_zigzag_batch, state_checksum, value_and_grad)
     from odh_kubeflow_tpu_torch.models.tree import tree_unflatten
     from odh_kubeflow_tpu_torch.ops import attention
     from odh_kubeflow_tpu_torch.ops.ring_attention import (ring_attention, ring_attention_zigzag,
                                                            zigzag_permutation)
-    from odh_kubeflow_tpu_torch.parallel import MeshPlan, comm, initialize_from_env, shard_batch
+    from odh_kubeflow_tpu_torch.parallel import comm, shard_batch
 
-    # gloo: the ranks share one card, and NCCL refuses two ranks on one device
-    initialize_from_env(timeout_s=SP_TIMEOUT_S, backend="gloo", device="cuda")
-    mesh = MeshPlan(sp=world).build("cuda")
+    group = mesh.group("sp")[0]
     dev = mesh.device
     out = {"device": str(dev), "transport": comm.Ring(mesh, "sp").transport()}
 
@@ -2245,7 +2315,7 @@ def _sp_rank_jobs(rank, world, port, results, go):
         opt.update_(tree_unflatten(params, grads), state, params)
         del grads
         torch.cuda.synchronize()
-        dist.barrier()
+        dist.barrier(group=group)
         torch.cuda.reset_peak_memory_stats()
         attention.reset_launch_counts()
         comm.reset_exchange_counts()
@@ -2266,18 +2336,18 @@ def _sp_rank_jobs(rank, world, port, results, go):
         out[f"train {layout}"] = res
         del params, state, opt, step, local
         torch.cuda.empty_cache()
-    dist.barrier()
-    dist.destroy_process_group()
+    dist.barrier(group=group)
     return out
 
 
-def _spawn_ranks(world, job, what, *args, on_agents=None):
+def _spawn_ranks(world, job, what, *args, on_agents=None, meanwhile=None):
     """Runs job(rank, world, port, results, go, *args) on `world` spawned
-    processes; their results by rank. A rank may post (rank, "agent", port)
-    first: once every rank has, on_agents(ports) runs here and then `go` is
-    set for the ranks. A rank that raises, dies or takes longer than
-    SP_TIMEOUT_S fails the phase; every process is joined or killed before
-    this returns."""
+    processes; their results by rank. `meanwhile()`, when given, runs here
+    once the processes are started, while they start up. A rank may post
+    (rank, "agent", port) first: once every rank has, on_agents(ports) runs
+    here and then `go` is set for the ranks. A rank that raises, dies or
+    takes longer than SP_TIMEOUT_S fails the phase; every process is joined
+    or killed before this returns."""
     import multiprocessing
     import queue
     import socket
@@ -2295,6 +2365,8 @@ def _spawn_ranks(world, job, what, *args, on_agents=None):
     got, agents, error = {}, {}, None
     deadline = time.monotonic() + SP_TIMEOUT_S
     try:
+        if meanwhile is not None:
+            meanwhile()
         while len(got) < world and error is None:
             try:
                 rank, kind, payload = results.get(timeout=1.0)
@@ -2349,11 +2421,14 @@ def sp_phase(attention, smi):
         for name, n in counts.items():
             launched[path][name] = launched[path].get(name, 0) + n
 
+    t0 = time.perf_counter()
+    spawned = _spawn_ranks(max(SP_WORLDS), _sp_rank_jobs, "phase 10")
+    print(f"  one spawn of {max(SP_WORLDS)} ranks, the sp {min(SP_WORLDS)} runs on a mesh over ranks "
+          f"0-{min(SP_WORLDS) - 1} of its world: spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
     for world in SP_WORLDS:
-        t0 = time.perf_counter()
-        ranks = _spawn_ranks(world, _sp_rank_jobs, "phase 10")
-        print(f"  {world} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}; "
-              f"spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
+        ranks = [r[world] for r in spawned[:world]]
+        print(f"  sp {world}: {world} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}",
+              flush=True)
         for layout in ("contiguous", "zigzag"):
             perm = zigzag_permutation(s, world) if layout == "zigzag" else np.arange(s)
             want_launches = ring_launches(world, layout)
@@ -2777,15 +2852,18 @@ def shard_phase(attention, smi):
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()  # the ranks' memory comes from the same card
-    probe = subprocess.run([sys.executable, os.path.join("tools", "gloo_cuda_probe.py")],
-                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                           timeout=300)
-    readings = [line for line in probe.stdout.splitlines() if line.startswith("gloo ")]
-    for line in readings:
-        print(f"  {line}", flush=True)
-    if probe.returncode != 0 or len(readings) != 5:
-        fail(f"tools/gloo_cuda_probe.py exited {probe.returncode} with {len(readings)} readings: "
-             f"{probe.stderr[-2000:]}")
+
+    def gloo_probe():  # here, while the ranks start up
+        probe = subprocess.run([sys.executable, os.path.join("tools", "gloo_cuda_probe.py")],
+                               cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                               timeout=300)
+        readings = [line for line in probe.stdout.splitlines() if line.startswith("gloo ")]
+        for line in readings:
+            print(f"  {line}", flush=True)
+        if probe.returncode != 0 or len(readings) != 5:
+            fail(f"tools/gloo_cuda_probe.py exited {probe.returncode} with {len(readings)} readings: "
+                 f"{probe.stderr[-2000:]}")
+
     print(f"  the {SHARD_WORLD} ranks of each run share this one card ({smi}) as processes brought up "
           "by initialize_from_env from the webhook's env names, on gloo, every collective on a CUDA "
           "tensor staged through pinned host memory: the times below prove the path, they are not a "
@@ -2795,7 +2873,7 @@ def shard_phase(attention, smi):
     try:
         t0 = time.perf_counter()
         ranks = _spawn_ranks(SHARD_WORLD, _shard_rank_jobs, "phase 11", ckpt_dir,
-                             on_agents=lambda ports: drive.update(_drive_agents(ports)))
+                             on_agents=lambda ports: drive.update(_drive_agents(ports)), meanwhile=gloo_probe)
         print(f"  {SHARD_WORLD} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}; "
               f"spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
         launched = {}
@@ -3059,9 +3137,6 @@ def ep_phase(attention, smi):
           "initialize_from_env from the webhook's env names, on gloo, every collective on a CUDA tensor "
           "staged through pinned host memory: the times below prove the path, they are not a "
           "multi-card number", flush=True)
-    t0 = time.perf_counter()
-    ref = _tp_decode_reference()
-    print(f"  (a) one-process references: {time.perf_counter() - t0:.1f} s", flush=True)
     ckpt_dir = tempfile.mkdtemp(prefix="ep-ckpt-")
     drive = {}
     launched = {}
@@ -3072,15 +3147,22 @@ def ep_phase(attention, smi):
             into[kernel] = into.get(kernel, 0) + n
 
     try:
-        ranks = {}
-        for world, parts in ((2, ("tp2",)), (EP_WORLD, ("fsdp2 x tp2", "shared kv", "ep"))):
-            t0 = time.perf_counter()
-            got = _spawn_ranks(world, _ep_rank_jobs, "phase 12", ckpt_dir, parts,
-                               on_agents=lambda ports: drive.update(_drive_agents(ports)))
-            print(f"  {world} ranks on {got[0]['device']}, transport: {got[0]['transport']}; spawn to "
-                  f"results {time.perf_counter() - t0:.1f} s", flush=True)
-            for key in got[0]:
-                ranks[key] = [r[key] for r in got]
+        ref = {}
+
+        def references():  # here, while the ranks start up
+            t_ref = time.perf_counter()
+            ref.update(_tp_decode_reference())
+            print(f"  (a) one-process references, while the ranks start: {time.perf_counter() - t_ref:.1f} s",
+                  flush=True)
+
+        t0 = time.perf_counter()
+        got = _spawn_ranks(EP_WORLD, _ep_rank_jobs, "phase 12", ckpt_dir, ("tp2", "fsdp2 x tp2", "shared kv", "ep"),
+                           on_agents=lambda ports: drive.update(_drive_agents(ports)), meanwhile=references)
+        print(f"  one spawn of {EP_WORLD} ranks on {got[0]['device']}, transport: {got[0]['transport']}; the tp2 "
+              f"generate on a mesh over ranks 0-1 of its world; spawn to results {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        # each part's results from the ranks of its mesh (tp2's: ranks 0 and 1)
+        ranks = {key: [r[key] for r in got if key in r] for key in got[0]}
         for name, plan in TP_DECODE_MESHES.items():
             _check_tp_decode(name, plan, ranks[name], ref, smi)
             for run in ranks[name]:
@@ -3122,8 +3204,14 @@ def _ep_rank_jobs(rank, world, port, results, go, ckpt_dir, parts):
     out = {}
     for part in parts:
         if part in TP_DECODE_MESHES:
-            mesh = MeshPlan(**TP_DECODE_MESHES[part]).build("cuda")
-            out[part] = _tp_decode_run(mesh)
+            # a mesh over the world's first ranks when the plan needs fewer
+            plan = MeshPlan(**TP_DECODE_MESHES[part])
+            mesh = plan.build("cuda", ranks=range(plan.n_devices))
+            if mesh is not None:
+                out[part] = _tp_decode_run(mesh)
+            dist.barrier()
+            if mesh is None:
+                continue
         elif part == "shared kv":
             mesh = MeshPlan(tp=SHARED_TP).build("cuda")
             out[part] = _shared_kv_run(mesh)
@@ -4162,7 +4250,10 @@ def _device_worker(mode, train, out_dir, t0):
     serves as "operator" does, then trains and answers the forwarded
     checkpoint requests until SIGTERM; its replacement re-forms its world
     with `reinitialize_after_repair`, restores the notebook's checkpoint
-    and takes the next step. Its result goes to OUT_DIR/rank-R.json (written
+    and takes the next step. Mode "promote" is "repair" for the notebook
+    phase 15 then promotes: the replacement stays busy after its step,
+    reports its params' logit fingerprint and answers the forwarded
+    checkpoint requests until SIGTERM. Its result goes to OUT_DIR/rank-R.json (written
     whole, then renamed), its times from T0, the parent's launch (phase 15
     passes 0: times since the epoch)."""
     from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device, reinitialize_after_repair
@@ -4170,7 +4261,7 @@ def _device_worker(mode, train, out_dir, t0):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import torch_pod_worker
 
-    resumed = mode == "repair" and torch_pod_worker.resuming(out_dir)
+    resumed = mode in ("repair", "promote") and torch_pod_worker.resuming(out_dir)
     t0 = float(t0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4181,7 +4272,7 @@ def _device_worker(mode, train, out_dir, t0):
     t_context = time.time()
     if resumed:
         world = reinitialize_after_repair()
-    elif mode in ("serve", "operator", "repair"):
+    elif mode in ("serve", "operator", "repair", "promote"):
         world = initialize_from_env()
     else:  # the ranks share one card: gloo, as NCCL refuses two ranks on one device
         world = initialize_from_env(timeout_s=DEVICE_INIT_TIMEOUT_S, backend="gloo", device="cuda")
@@ -4194,17 +4285,15 @@ def _device_worker(mode, train, out_dir, t0):
         out.update(_device_serve(dev, train == "1", t0))
     out["times"] = dict(out.get("times", {}), started=STARTED - t0, context=t_context - t0, world=t_world - t0,
                         done=time.time() - t0)
-    if mode == "repair":
+    if mode in ("repair", "promote"):
         import signal
-
-        from odh_kubeflow_tpu_torch.models import TransformerConfig
 
         stop = threading.Event()
         signal.signal(signal.SIGTERM, lambda *a: stop.set())
-        cfg = TransformerConfig(**SERVE_WIDTH, n_layers=REPAIR_LAYERS, dtype=torch.bfloat16, use_flash=True,
-                                remat=True, remat_policy="flash")
+        cfg = _repair_cfg()
         torch_pod_worker.repair_run(dev, out_dir, cfg, lambda i: {"tokens": torch.as_tensor(
-            np.random.default_rng(100 + i).integers(0, cfg.vocab, DEVICE_TRAIN_BATCH), device=dev)}, out, stop)
+            np.random.default_rng(100 + i).integers(0, cfg.vocab, DEVICE_TRAIN_BATCH), device=dev)}, out, stop,
+            promote=mode == "promote")
         return
     path = os.path.join(out_dir, f"rank-{world[0]}.json")
     with open(path + ".tmp", "w") as f:
@@ -4323,6 +4412,20 @@ OPERATOR_BUDGET_S = 120  # the phase, less the repair episode, fails past it
 OPERATOR_REPAIR = "nb-2"  # the notebook whose node is preempted once its worker has trained
 REPAIR_LAYERS = 2  # the repaired notebook's depth of the flagship's 8 layers (phase 14 (b)'s)
 REPAIR_BUDGET_S = 45  # the repair episode fails past it: 25.1 s on the card in its first run, and a margin
+OPERATOR_ENDPOINT = "ep-0"  # the InferenceEndpoint nb-2 is promoted into
+PROMOTION_SLOTS = 8  # its engine's slots (spec.serving.maxBatchSlots)
+PROMOTION_MAX_SEQ = 512
+PROMOTION_DRAIN_S = 1.0  # spec.serving.drainTimeoutS: the route-first drain's window
+PROMOTION_BUDGET_S = 40  # the promotion episode fails past it: 20.5 s on the card in its first run, and a margin
+
+
+def _repair_cfg():
+    """The repaired (and promoted) notebook's model: the flagship's widths
+    at REPAIR_LAYERS layers, bf16, remat "flash"."""
+    from odh_kubeflow_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(**SERVE_WIDTH, n_layers=REPAIR_LAYERS, dtype=torch.bfloat16, use_flash=True,
+                             remat=True, remat_policy="flash")
 
 
 def operator_phase(attention, smi):
@@ -4356,17 +4459,23 @@ def _operator_phase(attention, smi, out_root):
           f"every {OPERATOR_SAMPLE_S} s) that counts the cards on which the pod's processes hold a CUDA context; "
           f"before {OPERATOR_REPAIR}'s wave a second h100 1x1 node joins in a pool of its own (both nodes stand "
           f"for this card); compute apps on the card before: {apps_before}", flush=True)
+    rng = np.random.default_rng(15)
+    promotion = flow.Promotion(
+        model_config=flow.model_config(_repair_cfg()), device="cuda",
+        requests=[(rng.integers(0, SERVE_WIDTH["vocab"], DEVICE_PROMPTS[1]).tolist(), n) for n in MAX_NEWS],
+        slots=PROMOTION_SLOTS, max_seq=PROMOTION_MAX_SEQ, drain_s=PROMOTION_DRAIN_S, name=OPERATOR_ENDPOINT)
     try:
         seen = flow.run(
-            out_root, lambda out_dir, repair: [
+            out_root, lambda out_dir, role: [
                 sys.executable, "-m", "torch.distributed.run", os.path.abspath(__file__), "--device-worker",
-                "repair" if repair else "operator", "0", str(out_dir), "0.0"],
+                "operator" if role == "serve" else role, "0", str(out_dir), "0.0"],
             cuda_monitor(OPERATOR_WINDOW_S, OPERATOR_SAMPLE_S), waves=OPERATOR_WAVES,
             cfg=dict(readiness_probe_period_s=OPERATOR_PROBE_S, enable_culling=True,
                      cull_idle_time_min=OPERATOR_CULL_IDLE_S / 60.0,
                      idleness_check_period_min=OPERATOR_CHECK_S / 60.0),
             env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
-            while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids, repair=OPERATOR_REPAIR)
+            while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids, repair=OPERATOR_REPAIR,
+            promotion=promotion)
         flow.check(seen, "cuda:0", gate_waits=True)  # the gate reads the pod's processes, not this one
     except AssertionError as e:
         fail(f"phase 15: {e}")
@@ -4394,10 +4503,12 @@ def _operator_phase(attention, smi, out_root):
                       "notebook.ready root (admission -> gate)": got["root"][0]["duration_ms"] / 1e3,
                       "CR -> worker started": run["times"]["started"] - t0,
                       "CR -> CUDA context": run["times"]["context"] - t0,
-                      "CR -> first token": run["times"]["first_token"] - t0,
-                      # the repaired notebook's kernel goes idle once its replacement has stepped
-                      "idle -> culled": got["stopped"][0] - got.get("repair", got)["result"]["times"]["done"],
-                      "culled -> card free": got["free"] - got["stopped"][0]}
+                      "CR -> first token": run["times"]["first_token"] - t0}
+        if "promotion" not in got:  # the promoted notebook is stopped by its suspend, never idle
+            # the repaired notebook's kernel goes idle once its replacement has stepped
+            rows[name].update({
+                "idle -> culled": got["stopped"][0] - got.get("repair", got)["result"]["times"]["done"],
+                "culled -> card free": got["free"] - got["stopped"][0]})
     order = [seen[n][k][1] for n in names for k in ("bound", "stopped")]
     waited = next(n for n in names if "pending" in seen[n])
     first = seen[names[0]]["result"]
@@ -4436,20 +4547,26 @@ def _operator_phase(attention, smi, out_root):
         f"{n} {seen[n]['serving']}" for n in names) + f"; after each cull {apps_before} (the culled pods' pids "
         + "; ".join(f"{n} {seen[n]['pids']}" for n in names) + " gone)", flush=True)
     for label in rows[names[0]]:
-        values = [rows[n][label] for n in names]
-        print(f"  {label}: p50 {statistics.median(values):.3f} s ({', '.join(f'{n} {v:.3f}' for n, v in zip(names, values))})"
+        named = [(n, rows[n][label]) for n in names if label in rows[n]]
+        values = [v for _, v in named]
+        print(f"  {label}: p50 {statistics.median(values):.3f} s ({', '.join(f'{n} {v:.3f}' for n, v in named)})"
               f"; {smi}", flush=True)
     repair_launches = _operator_repair(seen[OPERATOR_REPAIR], smi, zero)
+    promotion_launches = _operator_promotion(seen[OPERATOR_REPAIR], promotion, smi, zero)
     took = time.perf_counter() - t_phase
     episode = seen[OPERATOR_REPAIR]["repair"]["wall"]
-    print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s (budgets: "
-          f"{OPERATOR_BUDGET_S} s without the episode, {REPAIR_BUDGET_S} s the episode); {smi}", flush=True)
-    if took - episode > OPERATOR_BUDGET_S:
-        fail(f"phase 15 took {took - episode:.1f} s without the repair episode, over its budget of "
+    promoted = seen[OPERATOR_REPAIR]["promotion"]["wall"]
+    print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s and the promotion episode "
+          f"{promoted:.1f} s (budgets: {OPERATOR_BUDGET_S} s without the episodes, {REPAIR_BUDGET_S} s the repair, "
+          f"{PROMOTION_BUDGET_S} s the promotion); {smi}", flush=True)
+    if took - episode - promoted > OPERATOR_BUDGET_S:
+        fail(f"phase 15 took {took - episode - promoted:.1f} s without its episodes, over its budget of "
              f"{OPERATOR_BUDGET_S} s")
     if episode > REPAIR_BUDGET_S:
         fail(f"phase 15's repair episode took {episode:.1f} s, over its budget of {REPAIR_BUDGET_S} s")
-    return {"operator": launched, **repair_launches}
+    if promoted > PROMOTION_BUDGET_S:
+        fail(f"phase 15's promotion episode took {promoted:.1f} s, over its budget of {PROMOTION_BUDGET_S} s")
+    return {"operator": launched, **repair_launches, **promotion_launches}
 
 
 def _operator_repair(got, smi, zero):
@@ -4476,7 +4593,7 @@ def _operator_repair(got, smi, zero):
           f"{r['old terminating'] - t0:.3f} s; -> the old pod's processes gone {r['old closed at'] - t0:.3f} s; -> "
           f"rebound on {r['node']} (pool {r['pool']}) {r['rebound'] - t0:.3f} s; -> the replacement's CUDA context "
           f"{r['result']['times']['context'] - t0:.3f} s; -> mesh-ready again {r['mesh-ready again'] - t0:.3f} s; -> "
-          f"resumed step {r['result']['times']['done'] - t0:.3f} s; {smi}", flush=True)
+          f"resumed step {r['result']['times']['stepped'] - t0:.3f} s; {smi}", flush=True)
     (span,) = [a for a in r["spans"]["slice.repair"] if a["result"] == "repaired"]
     print(f"  repair: MTTR {span['mttr_s']:.3f} s (slice.repair on the notebook.ready trace, cause {span['cause']}, "
           f"attempts {span['attempts']}); goodput ratio {r['goodput']:.4f}; states {r['states']}; Degraded "
@@ -4490,6 +4607,61 @@ def _operator_repair(got, smi, zero):
             steps[n] += c
     return {f"operator repair: train ({train['steps']} steps, step {train['next']['step']} on a copy)": steps,
             "operator repair: resumed step": {**zero, **resumed["launches"]}}
+
+
+def _operator_promotion(got, promotion, smi, zero):
+    """Phase 15's promotion episode, past torch_operator_flow.check_promotion's
+    gates: the serving process's flash launches are REPAIR_LAYERS
+    tensor-core forwards per prefill (one prefill a request) and no other
+    kernel, and the forward at the prefill's shape is within phase 3's
+    tolerance of its plain version; the episode's edges printed, each line
+    with the card. Returns the launches by path."""
+    import torch_operator_flow as flow
+
+    pe = got["promotion"]
+    n = len(promotion.requests)
+    launched = {**zero, **pe["exit"]["launches"]}
+    want = {k: (REPAIR_LAYERS * n if k == "flash_fwd" else 0) for k in zero}
+    if launched != want:
+        fail(f"phase 15 {OPERATOR_ENDPOINT}: the serving process launched {launched} for {n} requests, want {want}")
+    d = SERVE_WIDTH["d_model"] // SERVE_WIDTH["n_heads"]
+    visit = _flash_fwd_vs_plain(1, DEVICE_PROMPTS[1], SERVE_WIDTH["n_heads"], d)
+    if not visit <= 1.0:
+        fail(f"phase 15 {OPERATOR_ENDPOINT}: the flash forward at the prefill's shape disagrees with its plain "
+             f"version: {visit:.3f} of its tolerance")
+    t0, ready = pe["t0"], pe["ready"]
+    times, restore = ready["times"], ready["restore"]
+    (rt, rack), = pe["restores"]
+    _, ack = pe["ack"]
+    replies = pe["replies"]
+    ttfts = [body["ttft_s"] for _, body, _, _ in replies]
+    first_token = min(sent + body["ttft_s"] for _, body, sent, _ in replies)
+    tokens = sum(len(body["tokens"]) for _, body, _, _ in replies)
+    wall = max(done for _, _, _, done in replies) - pe["requests sent"]
+    print(f"  promotion: {OPERATOR_REPAIR} suspended by the stand-in: stop -> the forwarded save's ack "
+          f"{pe['ack'][0] - t0:.3f} s (step {ack['step']}, checksum {ack['checksum']}) -> its processes gone, "
+          f"pool {pe['released pool']} released warm, suspended {pe['suspended'] - t0:.3f} s; {smi}", flush=True)
+    print(f"  promotion: create {OPERATOR_ENDPOINT} {pe['created'] - t0:.3f} s -> promoted {pe['promoted'][0] - t0:.3f} s "
+          f"-> pool claimed under {flow.NS}/{OPERATOR_ENDPOINT} {pe['claimed'][0] - t0:.3f} s -> bound on "
+          f"{pe['served node']} (pool {pe['served pool']}) {pe['bound'][0] - t0:.3f} s -> the serving process's CUDA "
+          f"context {times['context'] - t0:.3f} s -> restored {times['restored'] - t0:.3f} s ({restore['seconds']:.3f} s, "
+          f"{restore['bytes'] / 1e9:.3f} GB, step {restore['step']}, checksum {restore['checksum']}) -> listening "
+          f"{times['listening'] - t0:.3f} s -> restore ack {rt - t0:.3f} s (verified: {rack['checksum']} = the save's) "
+          f"-> mesh-ready {pe['mesh-ready'][0] - t0:.3f} s (the context {pe['mesh-ready'][0] - times['context']:+.3f} s) "
+          f"-> Serving {pe['serving'][0] - t0:.3f} s -> first token {first_token - t0:.3f} s; {smi}", flush=True)
+    print(f"  promotion: logit fingerprint served {ready['logit_fingerprint']} = the notebook's "
+          f"{got['repair']['result']['resumed']['logit_fingerprint']}; route {pe['route while serving']}, url "
+          f"{pe['url']}; {n} requests (prompt {DEVICE_PROMPTS[1]}, max_new {list(MAX_NEWS)}): all 200, TTFT median "
+          f"{statistics.median(ttfts) * 1e3:.2f} ms, max {max(ttfts) * 1e3:.2f} ms, {tokens / wall:.1f} tokens/s "
+          f"({tokens} tokens in {wall:.3f} s); forward launches {launched['flash_fwd']} ({REPAIR_LAYERS} a prefill), "
+          f"no scalar one; the flash forward at the prefill's shape {visit:.3f} of its tolerance; counters "
+          f"{pe['counters']}; {smi}", flush=True)
+    stop = pe["stop"]
+    print(f"  promotion: stop -> route gone {pe['route gone'][0] - stop:.3f} s (rv {pe['route gone'][1]}) -> the set "
+          f"at 0 {pe['set at 0'][0] - stop:.3f} s (rv {pe['set at 0'][1]}) -> Terminated {pe['terminated'][0] - stop:.3f} s "
+          f"-> card free {pe['card free'] - stop:.3f} s (pool {pe['served pool']} {pe['served pool after']}); states "
+          f"{pe['states']}; the episode {pe['wall']:.1f} s; {smi}", flush=True)
+    return {f"operator promotion: {n} requests served by {OPERATOR_ENDPOINT}": launched}
 
 
 def main() -> None:
@@ -4872,6 +5044,9 @@ def main() -> None:
             **timing_keys(t),
             "library": t["library"],
         })
+    end_phase()
+    print("phase times: " + ", ".join(f"{n} {t:.1f} s" for n, t in PHASE_TIMES.items())
+          + f"; {smi}", flush=True)
     print(f"the smoke took {time.time() - STARTED:.1f} s on {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """The port's in-process cluster: the store and typed client, the
 StatefulSet controller, the GPU-aware gang scheduler, the kubelet and the
 `SimCluster` fixture that boots them (copies of odh_kubeflow_tpu/cluster's,
-adapted to `nvidia.com/gpu` nodes), the admission webhook dispatcher and its
+adapted to `nvidia.com/gpu` nodes), the warm slice pool
+(`cluster.slicepool`), the admission webhook dispatcher and its
 pooled transport (`cluster.remote.HostPool`), the fault injector
 (`cluster.faults`), and flow control (`cluster.flowcontrol`), which the
 router uses."""
@@ -28,5 +29,6 @@ from .faults import (
 from .kubelet import Behavior, Kubelet, NodeLifecycle, PodDecision
 from .scheduler import Scheduler
 from .sim import SimCluster
+from .slicepool import PoolEntry, SlicePool
 from .statefulset import StatefulSetController
 from .webhook_dispatch import WebhookDispatcher

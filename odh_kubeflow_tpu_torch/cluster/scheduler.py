@@ -17,9 +17,7 @@ hosts of one pool share a network fabric). Placement rules:
   the moment capacity frees (node added/restored, a scheduled pod deleted) —
   a waiting gang must not sit out a full backoff window after the slice it
   needs opens up,
-- **warm slice pools** (the reference's cluster/slicepool.py; the port
-  keeps its annotation names here, its prewarmer is not ported yet): a pool
-  whose nodes carry
+- **warm slice pools** (cluster/slicepool.py): a pool whose nodes carry
   `pool-state=warm` is held for resume binds — no pods land there until the
   suspend controller claims it or the reclaimer returns it to general
   capacity; `pool-state=claimed` pools accept ONLY the claiming notebook's
@@ -36,13 +34,13 @@ from ..runtime.controller import Request, Result
 from ..runtime.manager import Manager
 from ..gpu import GKE_NODEPOOL_LABEL, GPU_RESOURCE
 from ..utils import parse_quantity
+from .slicepool import (
+    POOL_CLAIMED_BY_ANNOTATION,
+    POOL_STATE_ANNOTATION,
+    POOL_STATE_CLAIMED,
+    POOL_STATE_WARM,
+)
 from .store import DELETED
-
-# the warm-pool state a Node carries (the reference's cluster/slicepool.py)
-POOL_STATE_ANNOTATION = "notebooks.tpu.kubeflow.org/pool-state"
-POOL_CLAIMED_BY_ANNOTATION = "notebooks.tpu.kubeflow.org/pool-claimed-by"
-POOL_STATE_WARM = "warm"
-POOL_STATE_CLAIMED = "claimed"
 
 
 def claim_owner_labels() -> tuple:
@@ -291,7 +289,7 @@ class Scheduler:
     def _pool_reservation(pool_nodes: List[Node]) -> Optional[str]:
         """None = unreserved; "" = warm (held for resume binds, takes
         nobody); "ns/name" = claimed by that notebook. Judged off the lead
-        node — the claim CAS serializes on it."""
+        node — the claim CAS serializes on it (cluster/slicepool.py)."""
         lead = min(pool_nodes, key=lambda n: n.metadata.name)
         state = lead.metadata.annotations.get(POOL_STATE_ANNOTATION, "")
         if state == POOL_STATE_WARM:

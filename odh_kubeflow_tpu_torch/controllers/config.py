@@ -57,6 +57,15 @@ class Config:
     # MaxConcurrentReconciles analog: worker threads per controller. The
     # workqueue's per-key single-flight makes >1 safe
     max_concurrent_reconciles: int = 4
+    # how long a GPU pod must sit unschedulable before the reclaimer acts —
+    # the scheduler's capacity-freed fast path gets first shot
+    reclaim_pending_grace_s: float = 1.0
+    # inference serving (controllers/inference.py): how long Loading gets to
+    # reach mesh-ready + verified restore before LoadFailed, and the default
+    # drain window a stopped endpoint's in-flight requests get (overridable
+    # per-endpoint via spec.serving.drainTimeoutS)
+    serving_loading_window_s: float = 30.0
+    serving_drain_timeout_s: float = 5.0
 
     # extension controller / webhook (reference odh main.go + webhook consts)
     auth_proxy_image: str = "kube-rbac-proxy:latest"
@@ -116,5 +125,19 @@ class Config:
             # every controller
             c.max_concurrent_reconciles = max(
                 1, int(os.environ["MAX_CONCURRENT_RECONCILES"])
+            )
+        if os.environ.get("RECLAIM_PENDING_GRACE_S"):
+            c.reclaim_pending_grace_s = max(
+                0.0, float(os.environ["RECLAIM_PENDING_GRACE_S"])
+            )
+        if os.environ.get("SERVING_LOADING_WINDOW_S"):
+            # clamp: a zero window would declare LoadFailed before the first
+            # readiness probe ever ran
+            c.serving_loading_window_s = max(
+                0.1, float(os.environ["SERVING_LOADING_WINDOW_S"])
+            )
+        if os.environ.get("SERVING_DRAIN_TIMEOUT_S"):
+            c.serving_drain_timeout_s = max(
+                0.0, float(os.environ["SERVING_DRAIN_TIMEOUT_S"])
             )
         return c

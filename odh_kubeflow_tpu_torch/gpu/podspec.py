@@ -54,14 +54,16 @@ def _primary_container(pod_spec: Dict[str, Any], name: str) -> Dict[str, Any]:
 
 
 def apply_slice(sts: Dict[str, Any], shape: SliceShape, namespace: str = "",
-                cluster_domain: str = "cluster.local") -> Dict[str, Any]:
+                cluster_domain: str = "cluster.local", container: Optional[str] = None) -> Dict[str, Any]:
     """Puts a GPU slice into a StatefulSet's JSON, in place, and returns it:
     replicas = hosts (a stopped set's 0 stays 0), the node selector, the
     `nvidia.com/gpu` toleration (once), the primary container's
     `nvidia.com/gpu` requests and limits of one host's cards, `gpu_env`
     without overriding a name the user set, and on a multi-host slice the
-    ordinal env. The pod DNS rides the set's name and its headless
-    serviceName, which stays as it is; `namespace` defaults to the set's.
+    ordinal env. The primary container is the one named `container`
+    (default: the set's notebook-name label, else the set's name), else the
+    first. The pod DNS rides the set's name and its headless serviceName,
+    which stays as it is; `namespace` defaults to the set's.
 
     The names it rendered are listed in the set's GPU_ENV_ANNOTATION, and a
     later apply (another shape) drops them before it renders the new shape's:
@@ -79,18 +81,19 @@ def apply_slice(sts: Dict[str, Any], shape: SliceShape, namespace: str = "",
     if not any(t.get("key") == GPU_RESOURCE for t in tolerations):
         tolerations.append({"key": GPU_RESOURCE, "operator": "Exists", "effect": "NoSchedule"})
 
-    name = meta.get("labels", {}).get(NOTEBOOK_NAME_LABEL, meta.get("name", ""))
-    container = _primary_container(pod_spec, name)
-    resources = container.setdefault("resources", {})
+    if container is None:
+        container = meta.get("labels", {}).get(NOTEBOOK_NAME_LABEL, meta.get("name", ""))
+    primary = _primary_container(pod_spec, container)
+    resources = primary.setdefault("resources", {})
     for kind in ("requests", "limits"):
         resources.setdefault(kind, {})[GPU_RESOURCE] = str(shape.chips_per_host)
     annotations = meta.setdefault("annotations", {})
     rendered = set(filter(None, annotations.get(GPU_ENV_ANNOTATION, "").split(",")))
-    env = [e for e in container.get("env", []) if e["name"] not in rendered]
+    env = [e for e in primary.get("env", []) if e["name"] not in rendered]
     user = {e["name"] for e in env}
     added = [e for e in gpu_env(shape, meta["name"], service, namespace or meta.get("namespace", ""),
                                 cluster_domain) + (ordinal_env() if shape.multi_host else [])
              if e["name"] not in user]
-    container["env"] = env + added
+    primary["env"] = env + added
     annotations[GPU_ENV_ANNOTATION] = ",".join(e["name"] for e in added)
     return sts

@@ -501,6 +501,15 @@ def make_restore_hook(directory: str, like_provider: Callable[[], Any],
     return hook
 
 
+def saved_keys(directory: str, step: int) -> List[str]:
+    """The top-level keys of the train state a finished step holds (e.g.
+    ["opt_state", "params"]), whole or per shard, without reading a leaf."""
+    step_dir = os.path.join(os.path.abspath(directory), str(int(step)))
+    if not _finished(step_dir):
+        raise FileNotFoundError(f"no checkpoint of step {step} under {directory!r}")
+    return sorted(_Saved(step_dir).tree())
+
+
 def restore_train_state(directory: str, like: Any, step: Optional[int] = None, mesh=None,
                         placements: Any = None) -> Any:
     """Restore a step (the latest by default) onto `like`, whatever mesh or

@@ -20,7 +20,10 @@ the gradients of fsdp-sharded params are then summed over; the replica
 summed over; ep, which the experts' outputs and the router's gradients
 are summed over; and pp, the pipeline's stage hops, its output broadcast
 and its sums over stages (ep and pp appended last, in that order, so the
-groups of meshes without a live ep or pp axis keep their order). `Mesh.ranks` names any axes' ranks without a group. Plain
+groups of meshes without a live ep or pp axis keep their order). `Mesh.ranks` names any axes' ranks without a group. A mesh may
+hold a sub-group of the world's ranks (`build(ranks=...)`), as a JAX mesh
+may hold a subset of the devices: every rank of the world still creates
+its groups, and its collectives stay within it. Plain
 groups rather than a `DeviceMesh`: a DeviceMesh binds each rank to a
 device of its own and creates a communicator per dim for its device type,
 and the ranks of a one-card run share one device on the gloo backend.
@@ -127,38 +130,47 @@ class MeshPlan:
             return MeshPlan(dp=1, fsdp=rest, pp=pp, ep=ep, tp=tp, sp=sp)
         return MeshPlan(dp=rest, fsdp=1, pp=pp, ep=ep, tp=tp, sp=sp)
 
-    def build(self, device: DeviceLike = "cuda") -> "Mesh":
-        """This rank's `Mesh`. The world's ranks fill the grid (dp, fsdp, pp,
-        ep, tp, sp) in row-major order, so sp and then tp are innermost, as
-        the reference's device grid. A plan of one device needs no process
-        group; otherwise torch.distributed must be initialized
-        (parallel.initialize_from_env) with a world of n_devices ranks. Every
-        rank must call build, in the same order as its other group
-        creations: `dist.new_group` is collective. `device` is resolved per
-        rank by parallel.rank_device."""
+    def build(self, device: DeviceLike = "cuda", ranks: Optional[Sequence[int]] = None) -> Optional["Mesh"]:
+        """This rank's `Mesh`. The mesh's ranks — the world's, or `ranks`, a
+        sub-group of it, as a JAX mesh may hold a subset of the devices —
+        fill the grid (dp, fsdp, pp, ep, tp, sp) in row-major order, so sp
+        and then tp are innermost, as the reference's device grid. A plan of
+        one device over the whole world needs no process group; otherwise
+        torch.distributed must be initialized (parallel.initialize_from_env).
+        Every rank of the world must call build, members of `ranks` or not,
+        in the same order as its other group creations: `dist.new_group` is
+        collective. A rank outside `ranks` gets None. `device` is resolved
+        per rank by parallel.rank_device."""
         from .distributed import rank_device
 
         world, rank = 1, 0
         if dist.is_initialized():
             world, rank = dist.get_world_size(), dist.get_rank()
-        if world != self.n_devices:
-            raise ValueError(
-                f"MeshPlan{self.sizes()} needs {self.n_devices} ranks, got a world of {world}"
-            )
-        return Mesh(self, rank, rank_device(device))
+        members = list(range(world)) if ranks is None else [int(r) for r in ranks]
+        if len(members) != self.n_devices:
+            got = f"a world of {world}" if ranks is None else f"ranks {members}"
+            raise ValueError(f"MeshPlan{self.sizes()} needs {self.n_devices} ranks, got {got}")
+        if len(set(members)) != len(members) or not all(0 <= r < world for r in members):
+            raise ValueError(f"ranks {members} are not distinct ranks of a world of {world}")
+        mesh = Mesh(self, rank, rank_device(device), members)
+        return mesh if rank in members else None
 
 
 class Mesh:
     """One rank's view of a built MeshPlan: its coordinate on each axis, its
-    device, and the process groups of the axes it reduces or rings over."""
+    device, and the process groups of the axes it reduces or rings over.
+    `grid` holds the mesh's global ranks at their coordinates; `rank` is
+    this process's global rank."""
 
-    def __init__(self, plan: MeshPlan, rank: int, device: torch.device):
+    def __init__(self, plan: MeshPlan, rank: int, device: torch.device, ranks: Optional[Sequence[int]] = None):
         self.rank = rank
         self.device = device
         self.sizes = plan.sizes()
         self.shape = tuple(self.sizes[a] for a in AXES)
-        self.grid = np.arange(plan.n_devices).reshape(self.shape)
-        self.coords = self.coords_of(rank)
+        members = list(range(plan.n_devices)) if ranks is None else list(ranks)
+        self.grid = np.asarray(members, dtype=np.int64).reshape(self.shape)
+        self._position = {r: i for i, r in enumerate(members)}
+        self.coords = self.coords_of(rank) if rank in self._position else None
         # live axes (size > 1) tuple -> (group, ranks of this rank's group)
         self._groups: Dict[Tuple[str, ...], tuple] = {}
         for axes in GROUP_AXES:
@@ -198,11 +210,12 @@ class Mesh:
         return axes_index(axes, self.coords, self.sizes)
 
     def coords_of(self, rank: int) -> Dict[str, int]:
-        """The coordinates of any rank of the mesh."""
-        return dict(zip(AXES, (int(i) for i in np.unravel_index(rank, self.shape))))
+        """The coordinates of any rank of the mesh (a global rank)."""
+        return dict(zip(AXES, (int(i) for i in np.unravel_index(self._position[rank], self.shape))))
 
     @property
     def world(self) -> int:
+        """The mesh's number of ranks."""
         return int(self.grid.size)
 
     def ranks(self, axes: Union[str, Sequence[str]]) -> list:

@@ -1,5 +1,6 @@
 """Kubelet behaviors of the port's SimCluster (cluster/kubelet.py's
-`PodDecision`): what runs in a notebook pod once the kubelet starts it.
+`PodDecision`): what runs in a notebook or endpoint pod once the kubelet
+starts it.
 
 - `sim_agent_behavior` (counterpart of odh_kubeflow_tpu/probe/agent.py's):
   one in-process `NotebookAgent` per pod over a scripted `SimTPUMonitor`,
@@ -19,7 +20,10 @@
   deletes such a pod gracefully: its object goes only once `close` has
   returned. The agent's /tpu/checkpoint can be forwarded to the pod's
   worker (`forward_checkpoint`, answered by `answer_checkpoint` in the
-  worker), since the agent runs in another process than the train state.
+  worker), since the agent runs in another process than the train state,
+  and an InferenceEndpoint pod's /tpu/restore to its serving process
+  (`forward_restore`, `answer_restore`), whose agent is not ready until
+  that process has restored and listens (`serving_ready`).
 
 A GPU node is bound to one GPU pod at a time (the scheduler's rule), so
 before a GPU pod's processes start, those of any earlier pod on the same
@@ -52,17 +56,47 @@ def pod_chips(pod: Any) -> int:
 
 def sim_agent_behavior(agents: Dict[Any, NotebookAgent], duty: float = 0.9,
                        kernels_busy: bool = True, chips: Optional[int] = None,
-                       visible_chips: Optional[Any] = None):
-    """Kubelet-sim pod behavior running one NotebookAgent per notebook pod.
+                       visible_chips: Optional[Any] = None, cold_start_s: float = 0.0,
+                       node_lookup: Optional[Callable[[str], Any]] = None):
+    """Kubelet-sim pod behavior running one NotebookAgent per notebook,
+    endpoint or job pod.
 
     Caches one agent per (pod name, uid, container restarts), aliased under
     the bare pod name for scripting (`agents["nb-0"]`, always the latest
     incarnation). Chips default to the pod's `nvidia.com/gpu` request.
     `visible_chips` degrades reported visibility from agent birth: an int
-    for all pods, or {pod_name: chips}. The reference's `cold_start_s`
-    (a warm slice pool's fast path) waits for the slice pools' port."""
+    for all pods, or {pod_name: chips}.
+
+    `cold_start_s` models the cold slice bring-up a real pod pays (the
+    device runtime's start and the group's formation) as kubelet-visible
+    startup latency; a pod landing on a warm-pool node (its pool-state
+    annotation present: cluster/slicepool.py) skips it. `node_lookup`
+    (name -> Node) resolves the pod's node for that check; needed only when
+    `cold_start_s` > 0."""
     from ..cluster.kubelet import PodDecision
+    from ..cluster.slicepool import POOL_STATE_ANNOTATION
     from ..controllers import constants as C
+
+    delay_memo: Dict[str, float] = {}
+
+    def startup_delay(pod: Any) -> float:
+        if cold_start_s <= 0:
+            return 0.0
+        # sticky per pod incarnation: the claim clears at resume completion,
+        # and re-judging then would owe the cold delay after the fact and
+        # flip a Ready pod back to Pending
+        if pod.metadata.uid in delay_memo:
+            return delay_memo[pod.metadata.uid]
+        delay = cold_start_s
+        if node_lookup is not None and pod.spec.node_name:
+            try:
+                node = node_lookup(pod.spec.node_name)
+            except Exception:
+                node = None
+            if node is not None and node.metadata.annotations.get(POOL_STATE_ANNOTATION):
+                delay = 0.0  # warm: the slice's env staged, its group formed
+        delay_memo[pod.metadata.uid] = delay
+        return delay
 
     def behavior(pod: Any) -> Optional[PodDecision]:
         if not (
@@ -93,7 +127,7 @@ def sim_agent_behavior(agents: Dict[Any, NotebookAgent], duty: float = 0.9,
             agents[key] = agent
             agents[pod.metadata.name] = agent
         agent = agents[key]
-        return PodDecision(serve=lambda p: agent.serve())
+        return PodDecision(ready_after=startup_delay(pod), serve=lambda p: agent.serve())
 
     return behavior
 
@@ -135,9 +169,11 @@ def container_env(pod: Any, container: Any) -> Dict[str, str]:
 
 
 def _primary(pod: Any) -> Any:
+    """The container named after the pod's notebook or endpoint, else the
+    first."""
     from ..controllers import constants as C
 
-    name = pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL, "")
+    name = pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) or pod.metadata.labels.get(C.INFERENCE_NAME_LABEL, "")
     return next((c for c in pod.spec.containers if c.name == name), pod.spec.containers[0])
 
 
@@ -320,20 +356,77 @@ def cuda_monitor(window_s: float, sample_period_s: float) -> Monitor:
     return make
 
 
-# the checkpoint request a pod's agent forwards to its worker, and the ack
-# the worker writes back for it (one file per request id)
-CHECKPOINT_REQUEST = "checkpoint-request.json"
+# a request a pod's agent forwards to its worker (one per route: the
+# checkpoint's, the restore's), and the ack the worker writes back for it
+# (one file per request id)
+_REQUEST = "{kind}-request.json"
+_ACK = "{kind}-ack-{id}.json"
+CHECKPOINT_REQUEST = _REQUEST.format(kind="checkpoint")
+RESTORE_REQUEST = _REQUEST.format(kind="restore")
+# the serving process's control directory (its pod's own), named in its env:
+# it writes SERVING_READY there once it has restored its checkpoint and
+# listens, answers the forwarded restore requests there, and writes
+# SERVING_EXIT when it stops
+CONTROL_DIR_ENV = "SERVING_CONTROL_DIR"
+SERVING_READY = "serving.json"
+SERVING_EXIT = "serving-exit.json"
 
 
-def _checkpoint_ack(directory: str, request_id: str) -> str:
-    return os.path.join(directory, f"checkpoint-ack-{request_id}.json")
-
-
-def _write_json(path: str, obj: Dict[str, Any]) -> None:
+def write_json(path: str, obj: Dict[str, Any]) -> None:
     """Written whole, then renamed: a reader never sees half a file."""
     with open(path + ".tmp", "w") as f:
         json.dump(obj, f)
     os.replace(path + ".tmp", path)
+
+
+def read_json(path: str) -> Optional[Dict[str, Any]]:
+    """The file's object, None while it does not exist."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
+def _forward(directory: str, kind: str, deadline_s: float, done: Callable[[dict], None]) -> Callable[[], dict]:
+    seq = itertools.count()
+
+    def hook() -> dict:
+        request_id = f"{os.getpid()}-{time.time_ns()}-{next(seq)}"
+        ack_path = os.path.join(directory, _ACK.format(kind=kind, id=request_id))
+        write_json(os.path.join(directory, _REQUEST.format(kind=kind)), {"id": request_id, "at": time.time()})
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            ack = read_json(ack_path)
+            if ack is not None:
+                done(ack)
+                return ack
+            time.sleep(0.02)
+        raise TimeoutError(f"the pod's worker did not ack {kind} request {request_id} in {deadline_s} s")
+
+    return hook
+
+
+def _answer(directory: str, kind: str, act: Callable[[], dict], answered: Set[str]) -> Optional[dict]:
+    try:
+        request = read_json(os.path.join(directory, _REQUEST.format(kind=kind)))
+    except ValueError:
+        return None
+    if request is None or request["id"] in answered:
+        return None
+    answered.add(request["id"])
+    try:
+        ack = dict(act())
+    except Exception as e:  # reported to the agent in the ack
+        ack = {"error": repr(e)}
+    ack["id"] = request["id"]
+    write_json(os.path.join(directory, _ACK.format(kind=kind, id=request["id"])), ack)
+    return ack
+
+
+def _saved(ack: dict) -> None:
+    if ack.get("error"):
+        raise RuntimeError(f"the worker's save failed: {ack['error']}")
 
 
 def forward_checkpoint(directory: str, deadline_s: float) -> Callable[[], dict]:
@@ -344,24 +437,7 @@ def forward_checkpoint(directory: str, deadline_s: float) -> Callable[[], dict]:
     worker that does not ack in time, or acks a failed save, makes the hook
     raise, and the agent then reports the save as not done; the hook never
     acks on the worker's behalf."""
-    seq = itertools.count()
-
-    def hook() -> dict:
-        request_id = f"{os.getpid()}-{time.time_ns()}-{next(seq)}"
-        ack_path = _checkpoint_ack(directory, request_id)
-        _write_json(os.path.join(directory, CHECKPOINT_REQUEST), {"id": request_id, "at": time.time()})
-        deadline = time.monotonic() + deadline_s
-        while time.monotonic() < deadline:
-            if os.path.exists(ack_path):
-                with open(ack_path) as f:
-                    ack = json.load(f)
-                if ack.get("error"):
-                    raise RuntimeError(f"the worker's save failed: {ack['error']}")
-                return ack
-            time.sleep(0.02)
-        raise TimeoutError(f"the pod's worker did not ack checkpoint request {request_id} in {deadline_s} s")
-
-    return hook
+    return _forward(directory, "checkpoint", deadline_s, _saved)
 
 
 def answer_checkpoint(directory: str, save: Callable[[], dict], answered: Set[str]) -> Optional[dict]:
@@ -369,22 +445,56 @@ def answer_checkpoint(directory: str, save: Callable[[], dict], answered: Set[st
     `directory` that is not in `answered`, runs `save()` and writes its ack
     (or the error it raised) for that request; returns the ack, None when
     nothing was asked. Call it from the worker's loop."""
-    path = os.path.join(directory, CHECKPOINT_REQUEST)
-    try:
-        with open(path) as f:
-            request = json.load(f)
-    except (OSError, ValueError):
-        return None
-    if request["id"] in answered:
-        return None
-    answered.add(request["id"])
-    try:
-        ack = dict(save())
-    except Exception as e:  # reported to the agent in the ack
-        ack = {"error": repr(e)}
-    ack["id"] = request["id"]
-    _write_json(_checkpoint_ack(directory, request["id"]), ack)
-    return ack
+    return _answer(directory, "checkpoint", save, answered)
+
+
+def forward_restore(directory: str, deadline_s: float) -> Callable[[], dict]:
+    """The restore half of `forward_checkpoint`: a /tpu/restore hook for
+    the agent of a pod whose model lives in its serving process. It returns
+    that process's ack (`answer_restore`), {"restored", "step",
+    "checksum", ...}; an ack with an error, or none within `deadline_s`
+    (keep it under the probe's timeout), makes the hook raise, and the
+    agent reports the restore as not done: never verified on the worker's
+    behalf."""
+
+    def restored(ack: dict) -> None:
+        if ack.get("error"):
+            raise RuntimeError(f"the worker's restore failed: {ack['error']}")
+
+    return _forward(directory, "restore", deadline_s, restored)
+
+
+def answer_restore(directory: str, ack: Callable[[], dict], answered: Set[str]) -> Optional[dict]:
+    """The serving process's half of `forward_restore`: answers a waiting
+    request with `ack()`, what it restored ({"restored", "step",
+    "checksum"} of the state it loaded); None when nothing was asked."""
+    return _answer(directory, "restore", ack, answered)
+
+
+def serving_ready(directory: str) -> Optional[Dict[str, Any]]:
+    """The serving process's report once it has restored and listens
+    (SERVING_READY in its control directory), None until then."""
+    return read_json(os.path.join(directory, SERVING_READY))
+
+
+class _ServingMonitor:
+    """A pod's device view that has not come up until its serving process
+    has restored its checkpoint and listens (`serving_ready`), whatever
+    cards it holds: until then the agent answers its readiness with 503,
+    the host coming up, so no reader takes the pod as ready while the model
+    it will serve is not there yet."""
+
+    def __init__(self, monitor: TPUMonitor, directory: str):
+        self._monitor, self._directory = monitor, directory
+        self._up = False
+
+    def came_up(self) -> bool:
+        if not self._up:
+            self._up = self._monitor.came_up() and serving_ready(self._directory) is not None
+        return self._up
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._monitor, name)
 
 
 def pod_process_behavior(
@@ -398,8 +508,11 @@ def pod_process_behavior(
     grace_s: float = 20.0,
     processes: Optional[Dict[str, PodProcesses]] = None,
     checkpoint_hook: Optional[Callable[[Any], Callable[[], dict]]] = None,
+    restore_hook: Optional[Callable[[Any], Callable[[], dict]]] = None,
+    control_dir: Optional[Callable[[Any], str]] = None,
 ):
-    """Kubelet behavior that runs a notebook pod's container as processes.
+    """Kubelet behavior that runs a notebook pod's or an InferenceEndpoint
+    pod's container as processes.
 
     `command` is the container's argv (or pod -> argv); its env is `env`
     (this process's by default) under the primary container's rendered env.
@@ -408,8 +521,14 @@ def pod_process_behavior(
     (`cuda_monitor` for the card); `idle_since(pod)` is when the pod's work finished, None
     while it runs (what /api/kernels reports). `processes` (by pod uid: a
     StatefulSet's replacement pod keeps its predecessor's name) is filled
-    for the caller to read. `checkpoint_hook(pod)`, when given, is the
-    hook of the pod's agent's /tpu/checkpoint (`forward_checkpoint`)."""
+    for the caller to read. `checkpoint_hook(pod)` and `restore_hook(pod)`,
+    when given, are the hooks of the pod's agent's /tpu/checkpoint and
+    /tpu/restore (`forward_checkpoint`, `forward_restore`).
+
+    `control_dir(pod)`, when given, is the pod's control directory, named
+    to its processes in CONTROL_DIR_ENV. An endpoint pod's agent then has
+    not come up until the serving process has restored its checkpoint and
+    listens there (`serving_ready`): its readiness is 503 meanwhile."""
     from ..cluster.kubelet import PodDecision
     from ..controllers import constants as C
 
@@ -432,14 +551,22 @@ def pod_process_behavior(
         if chips:
             reap_node(pod.spec.node_name, pod.metadata.uid)
         argv = command(pod) if callable(command) else command
-        procs = PodProcesses(argv, {**base_env, **container_env(pod, _primary(pod))}, cwd,
+        pod_env = {**base_env, **container_env(pod, _primary(pod))}
+        if control_dir is not None:
+            pod_env[CONTROL_DIR_ENV] = control_dir(pod)
+        procs = PodProcesses(argv, pod_env, cwd,
                              os.path.join(log_dir, f"{pod.metadata.name}-{pod.metadata.uid[:8]}.log"),
                              pod.spec.node_name)
         with lock:
             live[pod.metadata.uid] = procs
         processes[pod.metadata.uid] = procs
-        agent = NotebookAgent(monitor=monitor(pod, chips, procs), kernels=ProcessKernels(lambda: idle_since(pod)),
+        device_view = monitor(pod, chips, procs)
+        if control_dir is not None and pod.metadata.labels.get(C.INFERENCE_NAME_LABEL):
+            device_view = _ServingMonitor(device_view, control_dir(pod))
+        agent = NotebookAgent(monitor=device_view, kernels=ProcessKernels(lambda: idle_since(pod)),
                               checkpoint_hook=checkpoint_hook(pod) if checkpoint_hook is not None else None)
+        if restore_hook is not None:
+            agent.restore_hook = restore_hook(pod)
         agent.identity = f"{pod.metadata.namespace}/{pod.metadata.name}"
         host, port, close_agent = agent.serve()
 
@@ -452,7 +579,7 @@ def pod_process_behavior(
         return host, port, close
 
     def behavior(pod: Any) -> Optional[PodDecision]:
-        if not pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL):
+        if not (pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) or pod.metadata.labels.get(C.INFERENCE_NAME_LABEL)):
             return None
         return PodDecision(serve=serve, graceful=True)
 

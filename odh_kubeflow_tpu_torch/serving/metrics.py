@@ -1,10 +1,10 @@
-"""Serving metric families the engine and the router feed (counterpart of
-odh_kubeflow_tpu/serving/metrics.py, own copy: the same names, help text,
-labels and buckets, so the port's `render()` equals the reference's).
-They register in the port's `global_registry` (`utils/metrics.py`); the
-engine's six families are also surfaced through
-`ServingEngine.stats()["metrics"]`. The engine's decode-step telemetry is in
-`telemetry.py`.
+"""Serving metric families the engine, the router and the InferenceEndpoint
+reconciler feed (counterpart of odh_kubeflow_tpu/serving/metrics.py, own
+copy: the same names, help text, labels and buckets, so the port's
+`render()` equals the reference's). They register in the port's
+`global_registry` (`utils/metrics.py`); the engine's six families are also
+surfaced through `ServingEngine.stats()["metrics"]`. The engine's
+decode-step telemetry is in `telemetry.py`.
 """
 from __future__ import annotations
 
@@ -47,6 +47,19 @@ inference_requests_total = global_registry.counter(
     "Serving requests by terminal result: ok (completed), rejected "
     "(admission-queue backpressure), error, canceled (engine stopped "
     "mid-request) — the serving-availability SLO's good/total ratio",
+    labels=("result",),
+)
+
+inference_endpoint_promotions_total = global_registry.counter(
+    "inference_endpoint_promotions_total",
+    "Notebook->endpoint promotions by bind path: warm (claimed the source "
+    "notebook's pooled slice) or cold (fresh placement)",
+    labels=("bind",),
+)
+inference_restore_verifications_total = global_registry.counter(
+    "inference_restore_verifications_total",
+    "Endpoint-side checkpoint restore verifications by result (ok / "
+    "mismatch / unverified)",
     labels=("result",),
 )
 

@@ -12,7 +12,8 @@ odh_kubeflow_tpu/serving/server.py): `python -m odh_kubeflow_tpu_torch.serving`.
 The engine shape comes from the same ``SERVING_*`` env as the JAX server;
 the model comes from ``SERVING_CHECKPOINT`` (a directory saved by
 `models.checkpoint.save_train_state`, the promotion lineage) through
-`build_engine_from_env`.
+`load_model_from_env`, which restores the whole saved train state and acks
+its checksum, and `build_engine_from_env`.
 """
 from __future__ import annotations
 
@@ -30,49 +31,81 @@ log = logging.getLogger(__name__)
 REQUEST_TIMEOUT_S = 120.0
 
 
-def build_engine_from_env(environ=None, device: DeviceLike = "cuda"):
-    """Engine + model from the pod env (SERVING_* set by the controller).
-    SERVING_CHECKPOINT names a checkpoint directory whose latest step holds
-    {"params": ...} of the model SERVING_MODEL_CONFIG describes (the
-    TransformerConfig fields as JSON, dtype by name); it is restored onto
-    `device` and served. A checkpoint that does not load raises. Without
-    SERVING_CHECKPOINT a tiny random-weight demo model serves (the smoke
-    shape)."""
+# the prompt of `logit_fingerprint` a serving process reports for the model
+# it serves (and a notebook's worker for the state it saved): the model as
+# served is compared with the model trained through it
+FINGERPRINT_PROMPT = tuple(range(1, 17))
+
+
+def load_model_from_env(environ=None, device: DeviceLike = "cuda"):
+    """(params, cfg, ack) of the model the pod env names. SERVING_CHECKPOINT
+    names a checkpoint directory whose latest step holds a train state of
+    the model SERVING_MODEL_CONFIG describes (the TransformerConfig fields
+    as JSON, dtype by name): {"params"} alone, or with the AdamW state of
+    `make_train_step` ("opt_state"). The whole state is restored onto
+    `device`, as the source saved it; `ack` is {"restored", "step",
+    "checksum", "seconds", "bytes"} of what was loaded, its checksum
+    recomputed from the loaded state (`state_checksum`: the save's own
+    digest when the restore is exact), and only its params are kept. A
+    checkpoint that does not load raises. Without SERVING_CHECKPOINT a tiny
+    random-weight demo model is returned (the smoke shape) and `ack` is
+    None."""
     import os
+    import time
 
     import torch
 
-    from ..models import TransformerConfig, init_params, restore_train_state
-    from .engine import ServingEngine
+    from ..models import (TransformerConfig, adamw, init_params, latest_step, restore_train_state, saved_keys,
+                          state_checksum)
+    from ..models.tree import tree_leaves
 
     env = environ if environ is not None else os.environ
-    max_slots = int(env.get("SERVING_MAX_SLOTS", "8"))
-    max_seq = int(env.get("SERVING_MAX_SEQ", "512"))
-    max_queue = int(env.get("SERVING_MAX_QUEUE", "64"))
-    burst = int(env.get("SERVING_DECODE_BURST", "8"))
     ckpt = env.get("SERVING_CHECKPOINT", "")
-    if ckpt:
-        if not env.get("SERVING_MODEL_CONFIG"):
-            raise RuntimeError(
-                "SERVING_CHECKPOINT set without SERVING_MODEL_CONFIG: the "
-                "restore needs the model shape to allocate against"
-            )
-        cfg = TransformerConfig(**json.loads(env["SERVING_MODEL_CONFIG"]))
-        like = init_params(torch.Generator().manual_seed(0), cfg, device=device)
-        params = restore_train_state(ckpt, {"params": like})["params"]
-    else:
+    if not ckpt:
         # the JAX demo model's shape; attention through the flash kernel so
         # the demo's prefill runs the same kernel as a real model on the card
         cfg = TransformerConfig(
             vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
-            d_ff=128, max_seq=max_seq, dtype=torch.float32, use_flash=True,
-            remat=False,
+            d_ff=128, max_seq=int(env.get("SERVING_MAX_SEQ", "512")), dtype=torch.float32,
+            use_flash=True, remat=False,
         )
-        params = init_params(torch.Generator().manual_seed(0), cfg, device=device)
         log.warning("no SERVING_CHECKPOINT: serving a demo model (random weights)")
+        return init_params(torch.Generator().manual_seed(0), cfg, device=device), cfg, None
+    if not env.get("SERVING_MODEL_CONFIG"):
+        raise RuntimeError(
+            "SERVING_CHECKPOINT set without SERVING_MODEL_CONFIG: the "
+            "restore needs the model shape to allocate against"
+        )
+    cfg = TransformerConfig(**json.loads(env["SERVING_MODEL_CONFIG"]))
+    step = latest_step(ckpt)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt!r}")
+    t0 = time.time()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=device)
+    like = {"params": params}
+    if "opt_state" in saved_keys(ckpt, step):
+        like["opt_state"] = adamw().init(params)
+    state = restore_train_state(ckpt, like, step=step)
+    ack = {"restored": True, "step": int(step), "checksum": state_checksum(state), "seconds": time.time() - t0,
+           "bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state))}
+    return state["params"], cfg, ack
+
+
+def build_engine_from_env(environ=None, device: DeviceLike = "cuda", model=None):
+    """Engine from the pod env (SERVING_* set by the controller), serving
+    `model` ((params, cfg, ack) of `load_model_from_env`), or the model the
+    env names."""
+    import os
+
+    from .engine import ServingEngine
+
+    env = environ if environ is not None else os.environ
+    params, cfg, _ = model if model is not None else load_model_from_env(env, device)
     return ServingEngine(
-        params, cfg, max_slots=max_slots, max_seq=max_seq,
-        max_queue_depth=max_queue, decode_burst=burst, device=device,
+        params, cfg, max_slots=int(env.get("SERVING_MAX_SLOTS", "8")),
+        max_seq=int(env.get("SERVING_MAX_SEQ", "512")),
+        max_queue_depth=int(env.get("SERVING_MAX_QUEUE", "64")),
+        decode_burst=int(env.get("SERVING_DECODE_BURST", "8")), device=device,
     )
 
 

@@ -67,6 +67,12 @@ class _Metric:
                 return self._values.get((), 0.0)
             return {",".join(key): v for key, v in self._values.items()}
 
+    def series(self) -> List[Tuple[Dict[str, str], Any]]:
+        """Every (labels, value) pair of the family (the slice pool's gauge
+        refresh reads which labels it has set)."""
+        with self._lock:
+            return [(dict(zip(self.labels, k)), v) for k, v in self._values.items()]
+
     def clear(self) -> None:
         """Drop every series, returning the family to its never-observed
         state (a cleared ratio gauge reads as no data, not as 0.0)."""

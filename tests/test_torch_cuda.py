@@ -877,3 +877,35 @@ def test_notebook_pods_as_processes_on_card(card, tmp_path):
                                    released=torch_operator_flow.card_released(),
                                    card_state=torch_operator_flow.compute_app_pids)
     torch_operator_flow.check(seen, "cuda", gate_waits=True)
+
+
+@pytest.mark.cuda
+def test_a_notebook_promoted_into_an_endpoint_on_card(card, tmp_path):
+    """tests/test_torch_operator_process.py's promotion episode with the
+    workers and the serving process on the card and the agents over the
+    card's CudaMonitor: the notebook repaired, suspended by the stand-in
+    and promoted with a warm bind; the serving process restores the saved
+    train state on the card, the restore is verified (`ok`), the requests
+    are served (greedy tokens equal generate()'s on the restored params,
+    f32), and the stop frees the card."""
+    import torch_operator_flow
+    import torch_pod_worker
+    from odh_kubeflow_tpu_torch.models import adamw, generate, init_params, restore_train_state
+    from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
+
+    cfg = torch_pod_worker.tiny_cfg()
+    requests = [([3, 1, 4, 1, 5, 9, 2, 6], 8), ([2, 7, 1, 8], 12)]
+    promotion = torch_operator_flow.Promotion(model_config=torch_operator_flow.model_config(cfg), device="cuda",
+                                              requests=requests, slots=2, max_seq=cfg.max_seq, drain_s=0.5)
+    seen = torch_operator_flow.run(tmp_path, torch_operator_flow.pod_worker("cuda"),
+                                   cuda_monitor(window_s=2.0, sample_period_s=0.5), waves=(("nb-p",),),
+                                   repair="nb-p", promotion=promotion, released=torch_operator_flow.card_released(),
+                                   card_state=torch_operator_flow.compute_app_pids)
+    torch_operator_flow.check(seen, "cuda", gate_waits=True)
+    pe = seen["nb-p"]["promotion"]
+    params = init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
+    state = restore_train_state(str(tmp_path / "out" / "nb-p" / "checkpoints"),
+                                {"params": params, "opt_state": adamw().init(params)})
+    for (prompt, max_new), (status, body, _, _) in zip(requests, pe["replies"]):
+        want = generate(state["params"], [prompt], cfg, max_new, max_seq=cfg.max_seq, device="cuda")[0].tolist()
+        assert status == 200 and body["tokens"] == want, (prompt, body, want)

@@ -43,6 +43,9 @@ MESH_CASES = {
     2: [dict(sp=2), dict(fsdp=2), dict(dp=2)],
     4: [dict(sp=4), dict(dp=2, sp=2), dict(fsdp=2, sp=2), dict(dp=2, fsdp=2)],
 }
+# meshes over a sub-group of the world of 4 (plan, the ranks in grid order),
+# against the JAX mesh over the same devices
+SUB_MESH_CASES = [(dict(sp=2), (0, 1)), (dict(dp=2), (2, 3)), (dict(fsdp=2), (3, 1)), (dict(sp=1), (2,))]
 LOGICAL = [("batch", "seq"), ("batch",), ("embed", "heads", "head_dim"), ("vocab", "embed"),
            ("layers", "embed", "mlp"), ("expert", None, "embed"), ("stage", "layers"),
            ("batch", "seq", "kv_heads", "head_dim"), (None, "seq"), ("norm",)]
@@ -164,6 +167,10 @@ def ranks():
     for world, plans in MESH_CASES.items():
         cases = [(f"mesh {i}", "torch_sp_cases:mesh_case", {"plan": plan, "arrays": arrays})
                  for i, plan in enumerate(plans)]
+        if world == 4:
+            cases += [(f"sub mesh {i}", "torch_sp_cases:sub_mesh_case",
+                       {"plan": plan, "members": members, "arrays": arrays})
+                      for i, (plan, members) in enumerate(SUB_MESH_CASES)]
         if world == 2:
             cases.append(("bringup", "torch_sp_cases:bringup_case", {"repaired_port": torch_dist.free_port()}))
         out[world] = torch_dist.run_ranks(world, cases)
@@ -224,3 +231,39 @@ def test_rank_groups_follow_the_reference_axis_order(ranks, world):
             ring = got["groups"]["sp"] if sizes["sp"] > 1 else got["groups"][("dp", "fsdp", "sp")]
             prev = ring[(ring.index(r) - 1) % len(ring)]
             assert got["shift"][0].tolist() == [prev]
+
+
+@pytest.mark.parametrize("i", range(len(SUB_MESH_CASES)))
+def test_a_mesh_over_a_sub_group_matches_the_jax_mesh_over_those_devices(ranks, i):
+    """`MeshPlan.build(ranks=...)` over some ranks of a world of 4 against
+    the JAX mesh built over the same devices: each member's coordinates and
+    batch block are those of its device in the JAX mesh, its groups hold
+    the members that differ only along their axes, its sums and its ring
+    stay among the members; the other ranks get no mesh."""
+    arrays, out = ranks
+    plan, members = SUB_MESH_CASES[i]
+    devices = [jax.devices()[r] for r in members]
+    jmesh = JaxMeshPlan(**plan).build(devices)
+    sizes = MeshPlan(**plan).sizes()
+    grid = np.asarray(members).reshape([sizes[a] for a in AXES])
+    for r, got in enumerate(out[4][f"sub mesh {i}"]):
+        if r not in members:
+            assert got is None, (r, got)
+            continue
+        position = members.index(r)
+        assert jmesh.devices.reshape(-1)[position].id == jax.devices()[r].id
+        assert got["coords"] == dict(zip(AXES, map(int, np.unravel_index(position, grid.shape))))
+        assert got["world"] == len(members)
+        for axes, ranks_ in got["built"].items():
+            live = [a for a in AXES if a in axes and sizes[a] > 1]
+            index = tuple(slice(None) if a in live else got["coords"][a] for a in AXES)
+            assert ranks_ == (grid[index].reshape(-1).tolist() if live else [r]), (plan, axes)
+        for name, x in arrays.items():
+            spec = jax_logical_to_spec(["batch", "seq", None][: x.ndim], jmesh)
+            sharded = jax.device_put(x, NamedSharding(jmesh, spec))
+            want = next(s.data for s in sharded.addressable_shards if s.device == jax.devices()[r])
+            np.testing.assert_array_equal(got["blocks"][name], np.asarray(want), err_msg=f"{plan} {name}")
+        replica = got["built"][("dp", "fsdp", "sp")]
+        np.testing.assert_array_equal(got["sum"], np.full(3, sum(replica), np.float32))
+        ring = got["built"][("sp",)] if sizes["sp"] > 1 else replica
+        assert got["shift"].tolist() == [ring[(ring.index(r) - 1) % len(ring)]]

@@ -51,6 +51,11 @@ class Env:
 
     def __init__(self, side, cfg, dwell_s):
         self.side, self.C = side, side.C
+        # the tracing buffers are the process's: another test file run before
+        # this one in the same process (the JAX package's own
+        # tests/test_slice_repair.py names its notebooks alike) leaves spans
+        # there, so a scenario reads only the spans that started after this
+        self.started = time.time()
         self.cluster = side.cluster.SimCluster().start()
         for which, slices in (("multi-host", 2), ("one-host", 3)):
             accelerator, topology = side.slices[which]
@@ -134,13 +139,14 @@ class Env:
         out = []
         for span_name, keys in SPAN_KEYS.items():
             for s in self.side.tracing.recent_spans(name=span_name):
-                if s["attributes"].get("notebook") == name:
+                if s["attributes"].get("notebook") == name and s["start_time"] >= self.started:
                     out.append((span_name, tuple((k, s["attributes"].get(k)) for k in keys)))
         return sorted(out, key=repr)
 
     def mttrs(self, name):
         return [float(s["attributes"]["mttr_s"]) for s in self.side.tracing.recent_spans(name="slice.repair")
-                if s["attributes"].get("notebook") == name and "mttr_s" in s["attributes"]]
+                if s["attributes"].get("notebook") == name and "mttr_s" in s["attributes"]
+                and s["start_time"] >= self.started]
 
     def incidents(self, name):
         return sorted({i["reason"] for i in self.side.recorder.incidents() if i["subject"] == f"{NS}/{name}"})

@@ -34,18 +34,44 @@ restores the notebook's checkpoint and takes the next step. Each pod's
 directory is <notebook>/<pod uid> under the run's directory (a replacement
 pod keeps its predecessor's name); <notebook>/checkpoints is the notebook's
 volume.
+
+With `promotion` as well, the repaired notebook's replacement stays busy
+after its step, and the flow then promotes it into an InferenceEndpoint:
+tests/torch_standin.py suspends the notebook (its forwarded
+/tpu/checkpoint, the stop, the pod's processes gone, the suspend's
+annotations, its pool released warm), the endpoint is created with
+`spec.notebookRef` naming it and serving its checkpoint directory, the
+InferenceEndpointReconciler claims the released pool (a warm bind), the
+endpoint's pod runs the serving process (`python -m
+odh_kubeflow_tpu_torch.serving`, its control directory the pod's own),
+whose agent is ready once it has restored the checkpoint and listens, the
+restore is verified through the forwarded /tpu/restore, the requests are
+served over HTTP, and the endpoint's stop drains it route first and
+terminates it, its card free and its pool warm again.
 """
 import json
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
+from dataclasses import dataclass, field
 from pathlib import Path
+from types import SimpleNamespace
+from typing import List, Sequence, Tuple
 
 import torch_dist
+import torch_standin
+import odh_kubeflow_tpu_torch.api.core as core_api
+import odh_kubeflow_tpu_torch.api.notebook as notebook_api
+import odh_kubeflow_tpu_torch.apimachinery as apimachinery
+import odh_kubeflow_tpu_torch.cluster.slicepool as slicepool
+import odh_kubeflow_tpu_torch.controllers as controllers
 from odh_kubeflow_tpu_torch.api.apps import StatefulSet
-from odh_kubeflow_tpu_torch.api.core import Container, Event, Node, Pod
+from odh_kubeflow_tpu_torch.api.core import Container, EnvVar, Event, Node, Pod
 from odh_kubeflow_tpu_torch.api.gateway import HTTPRoute
+from odh_kubeflow_tpu_torch.api.inference import InferenceEndpoint, NotebookRef, ServingSpec
 from odh_kubeflow_tpu_torch.api.networking import NetworkPolicy
 from odh_kubeflow_tpu_torch.api.notebook import Notebook, TPUSpec
 from odh_kubeflow_tpu_torch.apimachinery import AdmissionDeniedError, NotFoundError
@@ -55,6 +81,7 @@ from odh_kubeflow_tpu_torch.controllers import (
     Config,
     CullingReconciler,
     EventMirrorController,
+    InferenceEndpointReconciler,
     NotebookReconciler,
     NotebookWebhook,
     ProbeStatusController,
@@ -63,10 +90,19 @@ from odh_kubeflow_tpu_torch.controllers import (
     constants as C,
 )
 from odh_kubeflow_tpu_torch.controllers.extension import route_name
+from odh_kubeflow_tpu_torch.controllers.inference import endpoint_route_name
 from odh_kubeflow_tpu_torch.gpu import GPU_RESOURCE
 from odh_kubeflow_tpu_torch.gpu import GKE_NODEPOOL_LABEL
-from odh_kubeflow_tpu_torch.probe.behavior import forward_checkpoint, pod_process_behavior
+from odh_kubeflow_tpu_torch.probe.behavior import (
+    SERVING_EXIT,
+    forward_checkpoint,
+    forward_restore,
+    pod_process_behavior,
+    read_json,
+    serving_ready,
+)
 from odh_kubeflow_tpu_torch.runtime import Manager
+from odh_kubeflow_tpu_torch.serving import metrics as serving_metrics
 from odh_kubeflow_tpu_torch.utils import tracing
 from odh_kubeflow_tpu_torch.runtime.flightrecorder import recorder
 
@@ -79,15 +115,54 @@ CFG = dict(readiness_probe_period_s=0.2, enable_culling=True,
 # the repair's knob under every cfg: a window the save fits in (the backoff
 # and attempts are Config's defaults)
 REPAIR_CFG = dict(checkpoint_window_s=30.0)
+# the endpoint's knobs under every cfg: Loading's window holds the serving
+# process's start, its restore and its bind; the drain window is short
+PROMOTION_CFG = dict(serving_loading_window_s=120.0)
 DENIED = ("nb-denied", "h100", "3x5")  # a notebook whose slice the planner refuses: 5 cards a host
 OTHER_POOL = "h100-b"  # the repair's fallback pool
+RESTORE_DEADLINE_S = 1.5  # the forwarded /tpu/restore's wait: under the reconciler's 2 s probe timeout
+# the stand-in suspend's view of the port's packages (tests/torch_standin.py)
+PORT = SimpleNamespace(nb=notebook_api, core=core_api, am=apimachinery, C=C, ctrl=controllers, slicepool=slicepool,
+                       pool_label=GKE_NODEPOOL_LABEL)
+
+
+@dataclass
+class Promotion:
+    """The promotion episode's inputs (run(promotion=...)): the endpoint's
+    name, its serving process's model config (SERVING_MODEL_CONFIG's
+    fields) and device, the requests it serves ((prompt, max_new) each, all
+    at once), its engine's slots and max_seq, its drain window, and its
+    container's command."""
+
+    model_config: dict
+    device: str
+    requests: List[Tuple[List[int], int]]
+    slots: int = 8
+    max_seq: int = 512
+    drain_s: float = 1.0
+    name: str = "ep-0"
+    command: Sequence[str] = field(default_factory=lambda: [sys.executable, "-m", "odh_kubeflow_tpu_torch.serving"])
+
+
+def model_config(cfg):
+    """SERVING_MODEL_CONFIG's fields of a TransformerConfig, its dtype by name."""
+    import dataclasses
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    return fields
 
 
 def pod_worker(device):
-    """The container command of tests/torch_pod_worker.py on `device`: the
-    repair worker for the notebook the flow repairs."""
-    return lambda out_dir, repair: [sys.executable, "-m", "torch.distributed.run", WORKER, device, str(out_dir),
-                                    "repair" if repair else "serve"]
+    """The container command of tests/torch_pod_worker.py on `device`, in
+    the worker's mode (`role`): "serve", or "repair" / "promote" for the
+    notebook the flow repairs (and promotes)."""
+    return lambda out_dir, role: [sys.executable, "-m", "torch.distributed.run", WORKER, device, str(out_dir), role]
+
+
+def owner(pod):
+    """The notebook or endpoint a pod runs."""
+    return pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) or pod.metadata.labels[C.INFERENCE_NAME_LABEL]
 
 
 def wait_for(fn, timeout, msg):
@@ -138,11 +213,13 @@ def alive(pids):
 
 
 def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None, grace_s=15.0, timeout=120.0,
-        released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None, repair=None):
+        released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None, repair=None,
+        promotion=None):
     """Drives the flow; returns what it saw.
 
-    `command(out_dir, repaired) -> argv` is the container's command
-    (`repaired`: the pod is the repaired notebook's). Its worker writes
+    `command(out_dir, role) -> argv` is a notebook pod's command (`role`:
+    "serve", or "repair" / "promote" for the repaired notebook's pods;
+    `pod_worker`). Its worker writes
     out_dir/rank-0.json whole with "pid", "env", "world", "device" and
     "times": {"context": its CUDA context (or the CPU tensor), "done": its
     work finished, epoch seconds}; the notebook's kernel is busy until
@@ -152,7 +229,10 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     result: that worker writes "train" with "next" (step k+1's "step",
     "loss" and "checksum" from a copy of its state) and no "done", answers
     the forwarded checkpoint requests, and its replacement writes "resumed"
-    (what it restored, the step it took) and "done".
+    (what it restored, the step it took) and "done". With `promotion` (a
+    `Promotion`), the replacement writes no "done" but the logit
+    fingerprint of its params and answers the forwarded checkpoint
+    requests, and the notebook is promoted (`promotion_episode`).
     `env` is the pods' base env (torch_dist.clean_env() with one OMP
     thread by default). `released(pids)` is what else must hold, after a
     culled pod's processes are stopped, before its card counts as free;
@@ -165,12 +245,34 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         env = dict(torch_dist.clean_env(), OMP_NUM_THREADS="1")
     processes = {}  # pod uid -> its processes
     acks = []  # (when, pod uid, the forwarded checkpoint's ack or the error it raised)
-    config = Config(**{**REPAIR_CFG, **cfg})
+    restores = []  # (when, pod uid, the forwarded restore's ack or the error it raised)
+    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **cfg})
 
     def pod_dir(pod):
-        d = out_root / pod.metadata.labels[C.NOTEBOOK_NAME_LABEL] / pod.metadata.uid
+        d = out_root / owner(pod) / pod.metadata.uid
         d.mkdir(parents=True, exist_ok=True)
         return d
+
+    def pod_command(pod):
+        if C.INFERENCE_NAME_LABEL in pod.metadata.labels:
+            return list(promotion.command)
+        name = pod.metadata.labels[C.NOTEBOOK_NAME_LABEL]
+        role = "serve" if name != repair else "promote" if promotion is not None else "repair"
+        return command(pod_dir(pod), role)
+
+    def restore_hook(pod):
+        forward = forward_restore(str(pod_dir(pod)), deadline_s=RESTORE_DEADLINE_S)
+
+        def hook():
+            try:
+                ack = forward()
+            except Exception as e:  # recorded, then reported to the agent as it would be
+                restores.append((time.time(), pod.metadata.uid, repr(e)))
+                raise
+            restores.append((time.time(), pod.metadata.uid, ack))
+            return ack
+
+        return hook
 
     def idle_since(pod):
         got = result(pod_dir(pod))
@@ -195,9 +297,9 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     timeline = None
     try:
         cluster.add_pod_behavior(pod_process_behavior(
-            lambda pod: command(pod_dir(pod), pod.metadata.labels[C.NOTEBOOK_NAME_LABEL] == repair), str(log_dir),
-            env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since, grace_s=grace_s,
-            processes=processes, checkpoint_hook=checkpoint_hook))
+            pod_command, str(log_dir), env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since,
+            grace_s=grace_s, processes=processes, checkpoint_hook=checkpoint_hook, restore_hook=restore_hook,
+            control_dir=lambda pod: str(pod_dir(pod))))
         cluster.add_gpu_pool("h100", "h100", "1x1")
         NotebookWebhook(mgr.client, config).register(cluster.store)
         NotebookReconciler(mgr, config).setup()
@@ -211,6 +313,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         slice_repair.unreachable_dwell_s = 3600.0
         slice_repair.CHECKPOINT_TIMEOUT_S = config.checkpoint_window_s
         slice_repair.setup()
+        InferenceEndpointReconciler(mgr, config, http_get=cluster.http_get).setup()
         mgr.start()
         timeline = Timeline(cluster.store)
 
@@ -332,6 +435,168 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             ep["wall"] = time.time() - wall0
             return ep
 
+        def promotion_episode(name, got):
+            """Suspends the notebook through the stand-in, promotes it into
+            the endpoint, serves the requests, stops the endpoint; returns
+            what it saw: each edge's time (this process's clock) and
+            resourceVersion where a watch saw it, the acks, the endpoint's
+            states, events, status, route, span and counters' deltas, the
+            serving process's report and its replies."""
+            p = promotion
+            key = f"{NS}/{p.name}"
+            watch = Recorder(cluster.store, (("kubeflow.org/v1beta1", "InferenceEndpoint"), ("v1", "Node"),
+                                             ("v1", "Pod"), ("apps/v1", "StatefulSet"),
+                                             ("gateway.networking.k8s.io/v1", "HTTPRoute")))
+            try:
+                return _promotion(name, got, p, key, watch)
+            finally:
+                watch.stop()
+
+        def promotion_counters():
+            return {**{f"promotions {b}": serving_metrics.inference_endpoint_promotions_total.value(bind=b)
+                       for b in ("warm", "cold")},
+                    **{f"verifications {r}": serving_metrics.inference_restore_verifications_total.value(result=r)
+                       for r in ("ok", "mismatch", "unverified")}}
+
+        def _promotion(name, got, p, key, watch):
+            nb_pod = pod(name)
+            nb_procs = processes[nb_pod.metadata.uid]
+            nb_pids = sorted(set(nb_procs.pids) | {got["repair"]["result"]["pid"]})
+            before, t0 = promotion_counters(), time.time()
+            pe = {"t0": t0, "notebook": name, "endpoint": p.name, "node": nb_pod.spec.node_name,
+                  "pool": pool_of(nb_pod.spec.node_name)}
+            # the stand-in suspend: the forwarded save through the agent, the
+            # stop, the pod's processes gone, the annotations, the pool warm
+            ack = torch_standin.checkpoint(PORT, cluster.http_get, NS, name)
+            pe["ack"] = (time.time(), ack)
+            pe["acks"] = [(t, a) for t, uid, a in acks if uid == nb_pod.metadata.uid]
+            released_pool = torch_standin.suspend(
+                PORT, cluster.client, NS, name, ack, timeout=timeout,
+                gone=lambda: nb_procs.closed and not alive(nb_pids) and released(nb_pids))
+            pe["suspended"] = time.time()
+            pe["released pool"] = released_pool
+            pe["pool at suspend"] = [n.metadata.annotations.get(slicepool.POOL_STATE_ANNOTATION)
+                                     for n in cluster.client.list(Node)
+                                     if n.metadata.labels[GKE_NODEPOOL_LABEL] == released_pool]
+            pe["notebook annotations"] = dict(notebook(name).metadata.annotations)
+            # the promotion
+            ep = InferenceEndpoint()
+            ep.metadata.name, ep.metadata.namespace = p.name, NS
+            ep.spec.notebook_ref = NotebookRef(name=name)
+            ep.spec.serving = ServingSpec(max_batch_slots=p.slots, max_seq=p.max_seq,
+                                          max_new_tokens=max(m for _, m in p.requests), drain_timeout_s=p.drain_s,
+                                          checkpoint_path=str(out_root / name / "checkpoints"))
+            ep.spec.template.spec.containers = [Container(name=p.name, image="serving", env=[
+                EnvVar(name="SERVING_MODEL_CONFIG", value=json.dumps(p.model_config)),
+                EnvVar(name="SERVING_DEVICE", value=p.device), EnvVar(name="SERVING_PORT", value="0")])]
+            pe["created"] = time.time()
+            cluster.client.create(ep)
+
+            def endpoint():
+                return cluster.client.get(InferenceEndpoint, NS, p.name)
+
+            def state():
+                return endpoint().metadata.annotations.get(C.INFERENCE_STATE_ANNOTATION, "")
+
+            def ep_pod():
+                pods = cluster.client.list(Pod, namespace=NS, labels={C.INFERENCE_NAME_LABEL: p.name})
+                return next((x for x in pods if x.spec.node_name), None)
+
+            served_pod = wait(ep_pod, f"{p.name}'s pod bound")
+            ctl = pod_dir(served_pod)
+
+            def serving_up():
+                procs = processes.get(served_pod.metadata.uid)
+                assert procs is None or procs.running(), \
+                    f"{p.name}'s serving process exited {procs.proc.returncode}\n{logs()}"
+                return state() == "serving" and serving_ready(str(ctl))
+
+            pe["ready"] = wait(serving_up, f"{p.name} Serving")
+            # the route and the status mirror follow the state's write
+            serving_ep = wait(lambda: (e := endpoint()).status.url and e, f"{p.name}'s status.url")
+            pe["url"] = serving_ep.status.url
+            pe["route while serving"] = wait(lambda: cluster.client.get(
+                HTTPRoute, config.controller_namespace, endpoint_route_name(serving_ep)).metadata.name,
+                f"{p.name}'s HTTPRoute")
+            pe["served node"] = served_pod.spec.node_name
+            pe["served pool"] = pool_of(served_pod.spec.node_name)
+            pe["restores"] = [(t, a) for t, uid, a in restores if uid == served_pod.metadata.uid]
+            # the requests, all at once, to the pod's server
+            replies, threads = [None] * len(p.requests), []
+
+            def send(i, prompt, max_new):
+                body = json.dumps({"prompt": prompt, "max_new": max_new}).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{pe['ready']['port']}/generate", data=body,
+                                             headers={"Content-Type": "application/json"})
+                sent = time.time()
+                try:
+                    with urllib.request.urlopen(req, timeout=timeout) as r:
+                        replies[i] = (r.status, json.loads(r.read()), sent, time.time())
+                except urllib.error.HTTPError as e:
+                    replies[i] = (e.code, json.loads(e.read() or b"{}"), sent, time.time())
+
+            pe["requests sent"] = time.time()
+            for i, (prompt, max_new) in enumerate(p.requests):
+                threads.append(threading.Thread(target=send, args=(i, prompt, max_new)))
+                threads[-1].start()
+            for t in threads:
+                t.join(timeout)
+            pe["requests done"] = time.time()
+            pe["replies"] = replies
+            # the stop: route first, then the drain window, then Terminated
+            pe["stop"] = time.time()
+            cluster.client.patch(InferenceEndpoint, NS, p.name, {"metadata": {"annotations": {
+                C.STOP_ANNOTATION: apimachinery.rfc3339_precise(pe["stop"])}}})
+            wait(lambda: state() == "terminated", f"{p.name} Terminated")
+            wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.INFERENCE_NAME_LABEL: p.name}),
+                 f"{p.name}'s pod deleted")
+            procs = processes[served_pod.metadata.uid]
+            pe["pids"] = sorted(set(procs.pids) | {pe["ready"]["pid"]})
+            wait(lambda: procs.closed and not alive(pe["pids"]) and released(pe["pids"]),
+                 f"{p.name}'s processes {pe['pids']} gone and its card released")
+            pe["card free"] = time.time()
+            pe["wall"] = pe["card free"] - t0
+            pe["alive"] = alive(pe["pids"])
+            pe["old closed at"] = procs.closed_at
+            pe["exit"] = read_json(str(ctl / SERVING_EXIT))
+            pe["served pool after"] = [n.metadata.annotations.get(slicepool.POOL_STATE_ANNOTATION)
+                                       for n in cluster.client.list(Node)
+                                       if n.metadata.labels[GKE_NODEPOOL_LABEL] == pe["served pool"]]
+            # what the watches saw
+            pe["states"] = watch.values("InferenceEndpoint", lambda o: (o["metadata"].get("annotations") or {})
+                                        .get(C.INFERENCE_STATE_ANNOTATION, ""))
+            pe["claimed"] = watch.first("Node", lambda o, t: (o["metadata"].get("annotations") or {}).get(
+                slicepool.POOL_CLAIMED_BY_ANNOTATION) == key)
+            pe["bound"] = watch.first("Pod", lambda o, t: o["spec"].get("nodeName") and
+                                      (o["metadata"].get("labels") or {}).get(C.INFERENCE_NAME_LABEL) == p.name)
+            pe["promoted"] = watch.first("InferenceEndpoint", lambda o, t: C.INFERENCE_PROMOTED_FROM_ANNOTATION in
+                                         (o["metadata"].get("annotations") or {}))
+            pe["mesh-ready"] = watch.first("InferenceEndpoint", lambda o, t: ((o.get("status") or {}).get("tpu")
+                                                                              or {}).get("meshReady"))
+            pe["serving"] = watch.first("InferenceEndpoint", lambda o, t: (o["metadata"].get("annotations") or {})
+                                        .get(C.INFERENCE_STATE_ANNOTATION) == "serving")
+            pe["route gone"] = watch.first("HTTPRoute", lambda o, t: t == "DELETED"
+                                           and o["metadata"]["name"] == endpoint_route_name(serving_ep))
+            pe["set at 0"] = watch.first("StatefulSet", lambda o, t: o["spec"].get("replicas") == 0
+                                         and (o["metadata"].get("labels") or {}).get(C.INFERENCE_NAME_LABEL) == p.name)
+            pe["terminated"] = watch.first("InferenceEndpoint", lambda o, t: (o["metadata"].get("annotations") or {})
+                                           .get(C.INFERENCE_STATE_ANNOTATION) == "terminated")
+            for reason in ("EndpointPromoted", "EndpointServing", "EndpointDraining", "EndpointTerminated"):
+                wait(lambda: any(e.reason == reason for e in cluster.client.list(Event, namespace=NS)
+                                 if e.involved_object.name == p.name), f"{p.name}'s {reason} event")
+            pe["events"] = {e.reason: e.message for e in cluster.client.list(Event, namespace=NS)
+                            if e.involved_object.kind == "InferenceEndpoint" and e.involved_object.name == p.name}
+            final = endpoint()
+            pe["annotations"] = dict(final.metadata.annotations)
+            pe["status"] = final.status.to_dict()
+            trace_id = (tracing.parse_traceparent(final.metadata.annotations.get(C.TRACEPARENT_ANNOTATION))
+                        or ("",))[0]
+            pe["spans"] = [sp["attributes"] for sp in tracing.recent_spans(trace_id=trace_id,
+                                                                            name="endpoint.promotion")]
+            pe["counters"] = {k: v - before[k] for k, v in promotion_counters().items()}
+            cluster.client.delete(InferenceEndpoint, NS, p.name)
+            return pe
+
         seen = {"turns": [], "gate period": config.readiness_probe_period_s}
         name, accelerator, topology = DENIED
         state = card_state()
@@ -378,6 +643,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 got["uid"] = pod(name).metadata.uid
                 if name == repair:
                     got["repair"] = repair_episode(name, got)
+                    if promotion is not None:
+                        got["promotion"] = promotion_episode(name, got)
                 wait(lambda: notebook(name).metadata.annotations.get(C.STOP_ANNOTATION, C.RECONCILIATION_LOCK_VALUE)
                      != C.RECONCILIATION_LOCK_VALUE, f"{name} culled")
                 wait(lambda: cluster.client.get(StatefulSet, NS, name).spec.replicas == 0, f"{name}'s set at 0")
@@ -518,6 +785,56 @@ class Timeline:
             w.stop()
 
 
+class Recorder:
+    """Store watches that keep every event of some kinds, each with this
+    process's clock at its arrival and the store's resourceVersion."""
+
+    def __init__(self, store, kinds):
+        self._watches = [store.watch(api_version, kind) for api_version, kind in kinds]
+        self._done = threading.Event()
+        self._lock = threading.Lock()
+        self.events = []  # (time, rv, event type, kind, object)
+        self._threads = [threading.Thread(target=self._run, args=(w,), daemon=True) for w in self._watches]
+        for t in self._threads:
+            t.start()
+
+    def _note(self, ev):
+        with self._lock:
+            self.events.append((time.time(), int(ev.object.get("metadata", {}).get("resourceVersion", 0)), ev.type,
+                                ev.object.get("kind"), ev.object))
+
+    def _run(self, watch):
+        for ev in watch.pending:
+            self._note(ev)
+        while not self._done.is_set():
+            ev = watch.get(timeout=0.05)
+            if ev is not None:
+                self._note(ev)
+
+    def first(self, kind, pred):
+        """(time, rv) of the first event of `kind` whose object (and event
+        type) `pred(obj, type)` holds for, None if none did."""
+        with self._lock:
+            return next(((t, rv) for t, rv, typ, k, o in self.events if k == kind and pred(o, typ)), None)
+
+    def values(self, kind, of):
+        """The values `of(obj)` took over the events of `kind`, each change
+        once."""
+        out = []
+        with self._lock:
+            for _, _, typ, k, o in self.events:
+                if k == kind and typ != "DELETED" and (not out or out[-1] != of(o)):
+                    out.append(of(o))
+        return out
+
+    def stop(self):
+        self._done.set()
+        for t in self._threads:
+            t.join()
+        for w in self._watches:
+            w.stop()
+
+
 def root_lag(got):
     """The `notebook.ready` root's end (the gate's first mesh-ready) against
     the watch event that brought status.tpu meshReady, in seconds."""
@@ -569,6 +886,61 @@ def check_repair(got, period, gate_waits):
             r["mesh-ready again"] - r["result"]["times"]["context"]
 
 
+def check_promotion(got, period, gate_waits):
+    """The promotion episode's gates (run(promotion=...)): the stand-in
+    suspend acked the forwarded save of the resumed step and wrote it, and
+    released the notebook's pool warm; the endpoint was promoted with a
+    warm bind (EndpointPromoted, promotions{bind=warm} +1, the
+    endpoint.promotion span with warm_bind on the endpoint's trace), the
+    pool claimed under the endpoint's key before its pod bound there; its
+    states went "" -> loading -> serving -> draining -> terminated; the
+    restore was verified (the forwarded /tpu/restore's checksum is the
+    save's, verifications{ok} +1, no mismatch or unverified, "restore
+    verified" in EndpointServing) and the served params' logit fingerprint
+    is the notebook's; the route existed while Serving and status.url was
+    set; every request answered 200;
+    the stop removed the route before the set went to 0 and terminated the
+    endpoint, its processes gone, its pool warm again; with `gate_waits`,
+    mesh-ready no earlier than the serving process's CUDA context less one
+    gate period."""
+    pe, resumed = got["promotion"], got["repair"]["result"]["resumed"]
+    _, ack = pe["ack"]
+    assert ack["saved"] and ack["step"] == resumed["step"], (ack, resumed)
+    assert [type(a) for _, a in pe["acks"]] == [dict] and pe["acks"][0][1]["checksum"] == ack["checksum"], pe["acks"]
+    ann = pe["notebook annotations"]
+    assert ann[C.TPU_SUSPEND_STATE_ANNOTATION] == "suspended" and ann[C.TPU_SUSPENDED_AT_ANNOTATION], ann
+    assert ann[C.TPU_CHECKPOINT_SAVED_ANNOTATION] == str(ack["step"]), ann
+    assert ann[C.TPU_CHECKPOINT_CHECKSUM_ANNOTATION] == ack["checksum"], ann
+    assert pe["released pool"] == pe["pool"] and pe["pool at suspend"] == ["warm"], pe
+    assert pe["counters"] == {"promotions warm": 1, "promotions cold": 0, "verifications ok": 1,
+                              "verifications mismatch": 0, "verifications unverified": 0}, pe["counters"]
+    assert "claimed its warm slice from the pool (warm bind)" in pe["events"]["EndpointPromoted"], pe["events"]
+    assert pe["spans"] == [{"endpoint": pe["endpoint"], "namespace": NS, "source": f"{NS}/{pe['notebook']}",
+                            "warm_bind": True}], pe["spans"]
+    assert pe["served pool"] == pe["released pool"], pe
+    assert pe["claimed"] is not None and pe["bound"] is not None and pe["claimed"][1] < pe["bound"][1], pe
+    assert pe["states"] == ["", "loading", "serving", "draining", "terminated"], pe["states"]
+    assert pe["annotations"][C.INFERENCE_PROMOTED_FROM_ANNOTATION] == f"{NS}/{pe['notebook']}", pe["annotations"]
+    restore = pe["ready"]["restore"]
+    assert restore["restored"] and restore["step"] == ack["step"] and restore["checksum"] == ack["checksum"], \
+        (restore, ack)
+    assert [(a["restored"], a["step"], a["checksum"]) for _, a in pe["restores"]] == \
+        [(True, ack["step"], ack["checksum"])], pe["restores"]
+    assert "restore verified" in pe["events"]["EndpointServing"], pe["events"]
+    assert pe["ready"]["logit_fingerprint"] == resumed["logit_fingerprint"], (pe["ready"], resumed)
+    assert pe["url"] == f"/serving/{NS}/{pe['endpoint']}" and pe["route while serving"], pe
+    assert all(r is not None and r[0] == 200 for r in pe["replies"]), pe["replies"]
+    assert pe["route gone"] is not None and pe["set at 0"] is not None and \
+        pe["route gone"][1] < pe["set at 0"][1] <= pe["terminated"][1], pe
+    assert "route removed" in pe["events"]["EndpointDraining"], pe["events"]
+    assert "released to the warm pool" in pe["events"]["EndpointTerminated"], pe["events"]
+    assert pe["served pool after"] == ["warm"] and pe["alive"] == [], pe
+    assert pe["serving"][1] <= pe["mesh-ready"][1], pe
+    if gate_waits:
+        assert pe["mesh-ready"][0] >= pe["ready"]["times"]["context"] - period, \
+            pe["mesh-ready"][0] - pe["ready"]["times"]["context"]
+
+
 def check(seen, device, chips_expected=1, gate_waits=False):
     """The assertions every caller makes on run()'s result (and, for a
     repaired notebook, `check_repair`'s). `gate_waits`:
@@ -608,12 +980,17 @@ def check(seen, device, chips_expected=1, gate_waits=False):
         status = got["status"]
         assert status.get("firstReadyTime") and status["chipsVisible"] == status["chipsExpected"] == chips_expected, \
             status
-        assert got["culls"], f"{name}'s stop annotation did not come from the culler"
+        if "promotion" in got:  # suspended by the stand-in, never idle
+            assert got["culls"] == [], got["culls"]
+        else:
+            assert got["culls"], f"{name}'s stop annotation did not come from the culler"
         if gate_waits:
             assert got["agent ready"][:1] == [False] and True in got["agent ready"], (name, got["agent ready"])
         assert got["alive"] == [], got
         if "repair" in got:
             check_repair(got, period, gate_waits)
+        if "promotion" in got:
+            check_promotion(got, period, gate_waits)
     # each took the card in turn: bound, stopped, and only then the next bound
     order = [seen[n][k][1] for n in turns for k in ("bound", "stopped")]
     assert order == sorted(order), dict(zip([f"{n} {k}" for n in turns for k in ("bound", "stopped")], order))

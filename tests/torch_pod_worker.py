@@ -15,7 +15,11 @@ MODE "repair" is the worker of a notebook whose pod the flow preempts
 (`repair_run`, which chip_smoke.py's card worker shares): it trains a tiny
 model and answers the forwarded checkpoint requests until SIGTERM, or, in
 the pod that replaced it, restores the notebook's latest checkpoint and
-takes the next step.
+takes the next step. MODE "promote" is "repair" for a notebook the flow
+then promotes into an InferenceEndpoint: the pod that replaced it stays
+busy after its step, reports the logit fingerprint of its params and
+answers the forwarded checkpoint requests (the suspend's save) until
+SIGTERM.
 """
 import json
 import os
@@ -63,7 +67,30 @@ def _launches(attention):
     return {k: v for k, v in attention.launch_counts.items() if v}
 
 
-def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS):
+def answer_saves(ckpt, out_dir, step, state, stop):
+    """Answers the forwarded checkpoint requests
+    (probe.behavior.answer_checkpoint) until `stop`: save `state` as
+    `step`, ack its step, checksum, seconds, bytes and time."""
+    from odh_kubeflow_tpu_torch.models import make_checkpoint_hook
+    from odh_kubeflow_tpu_torch.probe.behavior import answer_checkpoint
+
+    hook = make_checkpoint_hook(ckpt, lambda: (step, state))
+
+    def save():
+        t0 = time.time()
+        ack = hook()
+        step_dir = os.path.join(ckpt, str(step))
+        ack.update(seconds=time.time() - t0, at=time.time(),
+                   bytes=sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)))
+        return ack
+
+    answered = set()
+    while not stop.is_set():
+        answer_checkpoint(out_dir, save, answered)
+        stop.wait(0.02)
+
+
+def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promote=False):
     """A notebook's train loop across a slice repair, filling `out` and
     writing it (`write_result`).
 
@@ -78,13 +105,16 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS):
     A later incarnation (the notebook's checkpoint directory holds a step):
     restore the latest step onto a state initialised from another seed,
     check its checksum, take step k+1 and write its loss and params checksum
-    with the "done" time. `batch_of(i)` is the batch of the step from i to
-    i + 1."""
+    with the time it "stepped" and the "done" time. With `promote` it has
+    no "done" time (its kernel stays busy): it writes the logit fingerprint
+    of its params (serving.server.FINGERPRINT_PROMPT) and answers the
+    forwarded checkpoint requests with step k+1 until `stop`. `batch_of(i)`
+    is the batch of the step from i to i + 1."""
     from odh_kubeflow_tpu_torch.models import (
-        init_params, latest_step, make_checkpoint_hook, make_train_step, restore_train_state, state_checksum)
+        init_params, latest_step, logit_fingerprint, make_train_step, restore_train_state, state_checksum)
     from odh_kubeflow_tpu_torch.models.tree import tree_map
     from odh_kubeflow_tpu_torch.ops import attention
-    from odh_kubeflow_tpu_torch.probe.behavior import answer_checkpoint
+    from odh_kubeflow_tpu_torch.serving.server import FINGERPRINT_PROMPT
 
     ckpt = checkpoint_dir(out_dir)
     step_fn, opt = make_train_step(cfg)
@@ -101,9 +131,15 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS):
         _sync(dev)
         out["resumed"] = {"restored": restored, "step": int(state["opt_state"]["count"]), "loss": loss.item(),
                           "checksum": state_checksum(state["params"]), "launches": _launches(attention)}
-        out["times"]["done"] = time.time()
+        out["times"]["stepped"] = time.time()
+        out["times"]["done"] = None if promote else out["times"]["stepped"]
+        if promote:
+            out["resumed"]["logit_fingerprint"] = logit_fingerprint(state["params"], cfg, FINGERPRINT_PROMPT)
         write_result(out_dir, out)
-        stop.wait()
+        if promote:
+            answer_saves(ckpt, out_dir, out["resumed"]["step"], state, stop)
+        else:
+            stop.wait()
         return
     params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
     state = {"params": params, "opt_state": opt.init(params)}
@@ -125,20 +161,7 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS):
                     "state checksum": state_checksum(state)}
     out["times"]["done"] = None  # busy: the notebook keeps working until it is preempted
     write_result(out_dir, out)
-    hook = make_checkpoint_hook(ckpt, lambda: (k, state))
-
-    def save():
-        t0 = time.time()
-        ack = hook()
-        step_dir = os.path.join(ckpt, str(k))
-        ack.update(seconds=time.time() - t0, at=time.time(),
-                   bytes=sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)))
-        return ack
-
-    answered = set()
-    while not stop.is_set():
-        answer_checkpoint(out_dir, save, answered)
-        stop.wait(0.02)
+    answer_saves(ckpt, out_dir, k, state, stop)
 
 
 def tiny_cfg():
@@ -155,19 +178,22 @@ def main(device: str, out_dir: str, mode: str = "serve") -> None:
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     torch.set_num_threads(1)
-    again = mode == "repair" and resuming(out_dir)
-    rank, world = (reinitialize_after_repair if again else initialize_from_env)(timeout_s=60, device=device)
+    again = mode in ("repair", "promote") and resuming(out_dir)
+    # the device first, its time taken at once: bring-up with nccl makes the
+    # card current, which creates the CUDA context before the world forms
     dev = rank_device(device)
     x = torch.ones(64, 64, device=dev)
     _sync(dev)
     context = time.time()
+    rank, world = (reinitialize_after_repair if again else initialize_from_env)(timeout_s=60, device=device)
     total = float((x @ x).sum())
     out = {"rank": rank, "world": [rank, world], "device": str(dev), "pid": os.getpid(), "ppid": os.getppid(),
            "sum": total, "env": {n: os.environ.get(n) for n in NAMES}, "times": {"context": context, "done": time.time()}}
-    if mode == "repair":
+    if mode in ("repair", "promote"):
         cfg = tiny_cfg()
         repair_run(dev, out_dir, cfg, lambda i: {"tokens": torch.as_tensor(
-            np.random.default_rng(100 + i).integers(0, cfg.vocab, (2, 16)), device=dev)}, out, stop)
+            np.random.default_rng(100 + i).integers(0, cfg.vocab, (2, 16)), device=dev)}, out, stop,
+            promote=mode == "promote")
         return
     write_result(out_dir, out)
     stop.wait()

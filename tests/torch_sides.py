@@ -1,6 +1,7 @@
 """The JAX package and the port side by side, for parity tests that run one
 scenario through both SimClusters at once (tests/test_torch_slice_repair.py,
-tests/test_torch_faults.py).
+tests/test_torch_faults.py, tests/test_torch_inference.py,
+tests/test_torch_slicepool.py).
 
 Each side is a namespace of its package's modules under the same names, its
 slice shapes paired by hosts: JAX v5p 2x2x2 (2 hosts x 4 chips) against
@@ -16,24 +17,33 @@ import threading
 import time
 from types import SimpleNamespace
 
+import odh_kubeflow_tpu.api.apps as j_apps
 import odh_kubeflow_tpu.api.core as j_core
+import odh_kubeflow_tpu.api.gateway as j_gateway
+import odh_kubeflow_tpu.api.inference as j_inference
 import odh_kubeflow_tpu.api.notebook as j_notebook
 import odh_kubeflow_tpu.apimachinery as j_am
 import odh_kubeflow_tpu.cluster as j_cluster
 import odh_kubeflow_tpu.cluster.faults as j_faults
+import odh_kubeflow_tpu.cluster.slicepool as j_slicepool
 import odh_kubeflow_tpu.controllers as j_ctrl
 import odh_kubeflow_tpu.probe as j_probe
 import odh_kubeflow_tpu.runtime as j_runtime
 import odh_kubeflow_tpu.runtime.breaker as j_breaker
 import odh_kubeflow_tpu.runtime.flightrecorder as j_fr
 import odh_kubeflow_tpu.runtime.metrics as j_rm
+import odh_kubeflow_tpu.serving.metrics as j_sm
 import odh_kubeflow_tpu.tpu as j_tpu
 import odh_kubeflow_tpu.utils.tracing as j_tracing
+import odh_kubeflow_tpu_torch.api.apps as p_apps
 import odh_kubeflow_tpu_torch.api.core as p_core
+import odh_kubeflow_tpu_torch.api.gateway as p_gateway
+import odh_kubeflow_tpu_torch.api.inference as p_inference
 import odh_kubeflow_tpu_torch.api.notebook as p_notebook
 import odh_kubeflow_tpu_torch.apimachinery as p_am
 import odh_kubeflow_tpu_torch.cluster as p_cluster
 import odh_kubeflow_tpu_torch.cluster.faults as p_faults
+import odh_kubeflow_tpu_torch.cluster.slicepool as p_slicepool
 import odh_kubeflow_tpu_torch.controllers as p_ctrl
 import odh_kubeflow_tpu_torch.gpu as p_gpu
 import odh_kubeflow_tpu_torch.probe.behavior as p_probe
@@ -41,20 +51,29 @@ import odh_kubeflow_tpu_torch.runtime as p_runtime
 import odh_kubeflow_tpu_torch.runtime.breaker as p_breaker
 import odh_kubeflow_tpu_torch.runtime.flightrecorder as p_fr
 import odh_kubeflow_tpu_torch.runtime.metrics as p_rm
+import odh_kubeflow_tpu_torch.serving.metrics as p_sm
 import odh_kubeflow_tpu_torch.telemetry as p_telemetry
 import odh_kubeflow_tpu_torch.utils.tracing as p_tracing
 
 JAX = SimpleNamespace(
-    name="jax", core=j_core, nb=j_notebook, am=j_am, cluster=j_cluster, faults=j_faults, ctrl=j_ctrl,
+    name="jax", apps=j_apps, core=j_core, nb=j_notebook, inference=j_inference, gateway=j_gateway, slicepool=j_slicepool,
+    sm=j_sm, am=j_am, cluster=j_cluster, faults=j_faults, ctrl=j_ctrl,
     C=j_ctrl.constants, runtime=j_runtime, rm=j_rm, breaker=j_breaker, recorder=j_fr.recorder, telemetry=j_tpu.telemetry,
     tracing=j_tracing, behavior=j_probe.sim_agent_behavior, pool_label=j_tpu.GKE_NODEPOOL_LABEL,
+    device_resource=j_tpu.TPU_RESOURCE, selector_keys=(j_tpu.GKE_TPU_ACCELERATOR_LABEL, j_tpu.GKE_TPU_TOPOLOGY_LABEL),
+    accelerator_label=j_tpu.GKE_TPU_ACCELERATOR_LABEL,
+    plan_slice=j_tpu.plan_slice,
     slices={"multi-host": ("v5p", "2x2x2"), "one-host": ("v5e", "2x2")},
     add_pool=lambda cluster, *a, **kw: cluster.add_tpu_pool(*a, **kw),
 )
 PORT = SimpleNamespace(
-    name="port", core=p_core, nb=p_notebook, am=p_am, cluster=p_cluster, faults=p_faults, ctrl=p_ctrl,
+    name="port", apps=p_apps, core=p_core, nb=p_notebook, inference=p_inference, gateway=p_gateway, slicepool=p_slicepool,
+    sm=p_sm, am=p_am, cluster=p_cluster, faults=p_faults, ctrl=p_ctrl,
     C=p_ctrl.constants, runtime=p_runtime, rm=p_rm, breaker=p_breaker, recorder=p_fr.recorder, telemetry=p_telemetry,
     tracing=p_tracing, behavior=p_probe.sim_agent_behavior, pool_label=p_gpu.GKE_NODEPOOL_LABEL,
+    device_resource=p_gpu.GPU_RESOURCE, selector_keys=(p_gpu.GKE_GPU_ACCELERATOR_LABEL, p_gpu.GPU_TOPOLOGY_LABEL),
+    accelerator_label=p_gpu.GKE_GPU_ACCELERATOR_LABEL,
+    plan_slice=p_gpu.plan_slice,
     slices={"multi-host": ("h100", "2x4"), "one-host": ("h100", "1x4")},
     add_pool=lambda cluster, *a, **kw: cluster.add_gpu_pool(*a, **kw),
 )
@@ -108,7 +127,7 @@ def wait_for(fn, timeout=30.0, msg="condition", retry=()):
 
 
 class Sequences:
-    """A store watch on Notebooks that keeps, per notebook, the values an
+    """A store watch on Notebooks (or another kind) that keeps, per object, the values an
     annotation took (each change: one writer owns a state annotation) and
     the values a condition took in the order of their first appearance. A
     condition value that comes back (a stale status mirror re-writing an
@@ -116,9 +135,9 @@ class Sequences:
     nothing: what is compared is which values it went through, and in which
     order it first reached each."""
 
-    def __init__(self, store, annotation, condition):
+    def __init__(self, store, annotation, condition, kind="Notebook"):
         self.annotation, self.condition = annotation, condition
-        self._watch = store.watch("kubeflow.org/v1beta1", "Notebook")
+        self._watch = store.watch("kubeflow.org/v1beta1", kind)
         self._lock = threading.Lock()
         self._done = threading.Event()
         self.values = {}  # (notebook, "annotation" | "condition") -> [value, ...]

@@ -115,6 +115,26 @@ def mesh_case(rank, world, plan, arrays):
     }
 
 
+def sub_mesh_case(rank, world, plan, members, arrays):
+    """A mesh over a sub-group of the world (`members`, in grid order): a
+    member's coordinates, group ranks, shard_batch blocks, a sum over its
+    replica group and a ring shift; None from a rank outside it (which
+    still takes part in the groups' creation)."""
+    mesh = MeshPlan(**plan).build("cpu", ranks=members)
+    if mesh is None:
+        return None
+    blocks = shard_batch(mesh, arrays)
+    ring = comm.Ring(mesh, "sp" if mesh.sizes["sp"] > 1 else REPLICA_AXES)
+    return {
+        "coords": mesh.coords,
+        "world": mesh.world,
+        "built": {axes: mesh.group(axes)[1] for axes in GROUP_AXES},
+        "blocks": {name: t.numpy() for name, t in blocks.items()},
+        "sum": comm.all_reduce_sum([torch.full((3,), float(rank))], mesh.group(REPLICA_AXES)[0])[0].numpy(),
+        "shift": comm.shift(ring, [torch.tensor([rank])])[0].numpy(),
+    }
+
+
 def bringup_case(rank, world, repaired_port):
     """The live group from the webhook env, bring-up again (idempotent),
     a sum over it, and reinitialize_after_repair against the repaired
