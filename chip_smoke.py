@@ -116,11 +116,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    routed minus direct requests, bench.py:603-660), a burst step's host
    time with the profiler and guard off and on, and generate() under the
    armed guard (no copy, no hidden sync);
-10. sequence parallelism on this card: one spawn of 4 ranks (sp 4 over
+10. sequence parallelism on this card: 4 spawned ranks (sp 4 over
    the world, then sp 2 over a mesh of its ranks 0 and 1, a sub-group of
    the world whose other ranks wait), processes brought up by
    parallel.initialize_from_env from the env names
-   the webhook injects, on gloo (the ranks share the one card, and NCCL
+   the webhook injects (the pool of ranks phases 10-13 share: each phase
+   sends its job to the same 4 processes, which start up once), on gloo
+   (the ranks share the one card, and NCCL
    refuses two ranks on one device; the ring's payloads are staged through
    pinned host memory, counted): the f32 ring (scalar kernels; b1 s1024
    h8 hk2 d128), contiguous and zigzag, its out and q/k/v gradients within
@@ -149,8 +151,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    share one card.
 11. fsdp and tp on this card: tools/gloo_cuda_probe.py's readings (which
    collectives gloo moves on a CUDA tensor), taken while the phase's ranks
-   start up; 4 ranks, spawned
-   and brought up by parallel.initialize_from_env from the webhook's env
+   start its job; phase 10's 4 ranks, brought up by parallel.initialize_from_env from the webhook's env
    names on gloo, sharing the card, train the flagship (bf16, remat
    "flash"; SHARD_LAYERS 4 of its 8 layers, the depth cut to keep the smoke
    and the card tests near 900 s) at fsdp 2 x tp 2, global batch 8 x 2048, and at tp 2 x sp 2
@@ -177,9 +178,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    onto the tp 2 x sp 2 mesh and onto one process gives the saved params
    (checksum) and the next step's loss within 1e-4 relative.
 12. tensor parallelism in decode, shared kv heads and the ep MoE on this
-   card, one spawn of 4 ranks as in phase 11 (tp 2 on a mesh over its
+   card, phase 10's 4 ranks as in phase 11 (tp 2 on a mesh over its
    ranks 0 and 1; the one-process references computed while the ranks
-   start up): (a) generate(mesh=) of
+   start the job): (a) generate(mesh=) of
    phase 5's flagship at tp 2 and fsdp 2 x tp 2, 8 prompts of 128, max_new
    TP_MAX_NEW 32 (64 before phase 15 took on admission): the flash forward
    at the per-rank prefill shape (b8 s128 h4 hk4 d128, no lse) against its plain version, the first step's logits (each
@@ -208,7 +209,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    share's bound printed; the ep 2 x tp 2 state checkpointed through four
    agents at once (equal acks), resumed bit-equal, and restored onto one
    process (checksum, next loss within 1e-4 relative).
-13. the pipelines on this card, 4 ranks spawned as in phase 11: (a) before
+13. the pipelines on this card, phase 10's 4 ranks as in phase 11, which
+   then stop: (a) before
    each full-width run every flash call at its per-rank shapes (b2 s2048
    h4 at pp 2 x tp 2, b1 s2048 h8 at pp 2 x fsdp 2, b2 s2048 h8 at pp 2 x
    ep 2; at pp 2 x sp 2 one bf16 zigzag ring of b1 s4096 h8, its
@@ -357,9 +359,37 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    again, no process of the pod alive, the card's compute apps back to
    the phase's start. Printed: each edge from the stop to the first token,
    TTFT median and max, tokens/s, and stop -> route gone -> Terminated ->
-   card free. The phase's time and each episode's, against their budgets
-   (120 s for the phase less the episodes, 45 s for the repair episode,
-   PROMOTION_BUDGET_S for the promotion).
+   card free. The job episode, after the waves: the TPUJobReconciler
+   beside the other controllers; OPERATOR_JOB (anakin, spec.tpu h100 1x1,
+   JOB_STEPS steps, a JOB_PERIOD_S cadence) is admitted on a warm claim,
+   its learner pod runs `--device-worker job` (tests/torch_pod_worker.py
+   `job_run` at REPAIR_LAYERS of the flagship, bf16, DEVICE_TRAIN_BATCH),
+   Ready once a process of the pod holds the card under a CUDA context,
+   Running, checkpoints at its cadence through the forwarded
+   /tpu/checkpoint; after its first acked save the flow stamps
+   `preempt-requested: user`: the save, Preempted with its slice parked
+   warm at the job's priority, requeued, admitted again by a warm claim of
+   that slice; the new pod restores the acked step, takes the next step and
+   trains on to JOB_STEPS; Succeeded, replicas 0, the card free. Gates
+   (check_job and _operator_job): the states in that order; preemptions
+   {user} +1, requeues +1, jobs {succeeded} +1; status.preemptions 1;
+   completedSteps at least JOB_STEPS and an acked step; the resume step
+   the preempt's acked step, its checksum restored; the resumed step's
+   loss and params checksum bit-equal to the first pod's step on a copy;
+   the goodput ratio in (0, 1]; each pod Ready and each Running no earlier
+   than its worker's CUDA context less one gate period; REPAIR_LAYERS
+   tensor-core launches each of the forward, dq and dk/dv in every step and
+   no scalar one; no process of either pod alive and the card's compute
+   apps back to the phase's start. A ChipAccountant ticks every
+   ACCOUNTANT_PERIOD_S over the whole phase: it never ticks in error, its
+   ledger conserves (attributed = physical card-seconds within 1%), every
+   GPU node is attributed once, and the job class banks card-seconds.
+   Printed: the job's edges from its create and from the stamp, the saves'
+   seconds and GB, the restore's seconds, the accountant's card-seconds by
+   class and phase. The phase's time and each episode's, against their
+   budgets (120 s for the phase less the episodes, 45 s for the repair
+   episode, PROMOTION_BUDGET_S for the promotion, JOB_BUDGET_S for the
+   job).
 
 Every phase prints its time when it ends, and the end a line of them all.
 
@@ -2070,6 +2100,7 @@ def router_phase(attention, smi, cfg, params):
 # ---------------------------------------------------------------------------
 
 SP_WORLDS = (2, 4)
+RANK_POOL_WORLD = 4  # the ranks phases 10-13 share: max(SP_WORLDS), SHARD_WORLD, EP_WORLD and PP_WORLD
 SP_RUNS = {2: ("contiguous", "zigzag"), 4: ("contiguous",)}  # world -> layouts of the train runs
 # world -> layers of the full-width train runs: the sp 4 run at 2 layers
 # keeps the smoke and the card tests within 1.5x of their time before phase
@@ -2079,7 +2110,7 @@ SP_BATCH = (2, 8192)  # the full-width train runs' global batch
 SP_STEPS = 2  # timed steps after the warm-up (3 until the smoke needed the time)
 SP_RING_SHAPE = (1, 1024, 8, 2, 128)  # the f32 ring check: b, s, h, hk, d (global)
 SP_GRAD_CHECK = (1, 1024)  # the 2-layer f32 model's global batch
-SP_TIMEOUT_S = 600  # a rank's group (and its collectives) and the wait for one spawn's results
+SP_TIMEOUT_S = 600  # a rank's group (and its collectives) and the wait for one job's results
 SP_RING_TOLERANCE = 1e-4  # f32: out and q/k/v gradients, of the largest value
 # the bf16 warm-up loss against the one-process step's, relative: read
 # 1.8e-6 to 8.3e-6 on an H100 (PERF.md, PR 10)
@@ -2093,7 +2124,7 @@ FULL_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=4096, max_seq=8192)
 
 
 def _rank_main(job, rank, world, port, results, go, *args):
-    """A spawned rank of phases 10 and 11: job's results, or its traceback,
+    """One job in a rank of phases 10-13: job's results, or its traceback,
     go to the parent through `results`."""
     import traceback
 
@@ -2101,6 +2132,110 @@ def _rank_main(job, rank, world, port, results, go, *args):
         results.put((rank, "done", job(rank, world, port, results, go, *args)))
     except BaseException:  # reported to the parent, which fails the phase
         results.put((rank, "error", traceback.format_exc()))
+
+
+def _rank_loop(rank, world, tasks, results, go):
+    """A spawned rank of the pool phases 10-13 share: it runs the jobs the
+    parent sends (job, port, args) in turn, each from a clean slate (its
+    process group destroyed by the job, the allocator's cache emptied and
+    its peak reset), until the parent sends None."""
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        job, port, args = task
+        if torch.cuda.is_initialized():
+            torch.cuda.reset_peak_memory_stats()
+        _rank_main(job, rank, world, port, results, go, *args)
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+
+
+class _RankPool:
+    """`world` spawned processes that run jobs in turn (`_spawn_ranks`).
+    Phases 10-13 share one: each phase used to spawn its own ranks, and
+    every spawn paid the processes' start-up (Python, torch's import, the
+    CUDA context and the first kernels' loading) again."""
+
+    def __init__(self, world):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.world = world
+        self.results = ctx.Queue()
+        self.go = ctx.Event()
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=_rank_loop, args=(r, world, self.tasks[r], self.results, self.go),
+                                  daemon=True) for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.jobs = 0
+
+    def close(self):
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+
+
+def _spawn_ranks(world, job, what, *args, ranks, on_agents=None, meanwhile=None):
+    """Runs job(rank, world, port, results, go, *args) on `world` ranks;
+    their results by rank. The ranks are the processes of `ranks`, a
+    _RankPool of that world, left up for the caller's next job.
+    `meanwhile()`, when given, runs here once the job is sent, while the
+    ranks start it. A rank may post (rank, "agent", port) first: once
+    every rank has, on_agents(ports) runs here and then `go` is set for
+    the ranks. A rank that raises, dies or takes longer than SP_TIMEOUT_S
+    fails the phase."""
+    import queue
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    pool = ranks
+    if pool.world != world:
+        fail(f"{what}: a job for {world} ranks sent to a pool of {pool.world}")
+    pool.go.clear()
+    for q in pool.tasks:
+        q.put((job, port, args))
+    pool.jobs += 1
+    got, agents, error = {}, {}, None
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        while len(got) < world and error is None:
+            try:
+                rank, kind, payload = pool.results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r in range(world) if r not in got and pool.procs[r].exitcode is not None]
+                if dead:
+                    error = f"ranks {dead} exited without a result"
+                elif time.monotonic() > deadline:
+                    error = f"ranks {sorted(set(range(world)) - set(got))} gave no result in {SP_TIMEOUT_S} s"
+                continue
+            if kind == "error":
+                error = f"rank {rank} of {world} raised:\n{payload}"
+            elif kind == "agent":
+                agents[rank] = payload
+                if len(agents) == world:
+                    on_agents([agents[r] for r in range(world)])
+                    pool.go.set()
+            else:
+                got[rank] = payload
+    finally:
+        if error is not None:
+            pool.close()
+    if error is not None:
+        fail(f"{what}, {world} ranks: {error}")
+    print(f"  the {world} ranks ran this phase's job as their job {pool.jobs} (one pool for phases 10-13)",
+          flush=True)
+    return [got[r] for r in range(world)]
 
 
 def _leaf_names(tree, prefix=""):
@@ -2165,7 +2300,7 @@ def _ring_visits_vs_plain(mesh, layout, b=SP_BATCH[0], s=SP_BATCH[1], h=FULL_WID
 
 
 def _sp_rank_jobs(rank, world, port, results, go):
-    """Phase 10 in one rank of the one spawn: for each sp size of
+    """Phase 10 in one rank of the pool: for each sp size of
     SP_WORLDS, largest first, its runs over a mesh of the world's first sp
     ranks (a sub-group of the world for sp 2, whose other ranks wait);
     {sp: results} of the meshes this rank was in."""
@@ -2340,65 +2475,7 @@ def _sp_runs(rank, world, mesh):
     return out
 
 
-def _spawn_ranks(world, job, what, *args, on_agents=None, meanwhile=None):
-    """Runs job(rank, world, port, results, go, *args) on `world` spawned
-    processes; their results by rank. `meanwhile()`, when given, runs here
-    once the processes are started, while they start up. A rank may post
-    (rank, "agent", port) first: once every rank has, on_agents(ports) runs
-    here and then `go` is set for the ranks. A rank that raises, dies or
-    takes longer than SP_TIMEOUT_S fails the phase; every process is joined
-    or killed before this returns."""
-    import multiprocessing
-    import queue
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    go = ctx.Event()
-    procs = [ctx.Process(target=_rank_main, args=(job, r, world, port, results, go, *args), daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    got, agents, error = {}, {}, None
-    deadline = time.monotonic() + SP_TIMEOUT_S
-    try:
-        if meanwhile is not None:
-            meanwhile()
-        while len(got) < world and error is None:
-            try:
-                rank, kind, payload = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [r for r in range(world) if r not in got and procs[r].exitcode is not None]
-                if dead:
-                    error = f"ranks {dead} exited without a result"
-                elif time.monotonic() > deadline:
-                    error = f"ranks {sorted(set(range(world)) - set(got))} gave no result in {SP_TIMEOUT_S} s"
-                continue
-            if kind == "error":
-                error = f"rank {rank} of {world} raised:\n{payload}"
-            elif kind == "agent":
-                agents[rank] = payload
-                if len(agents) == world:
-                    on_agents([agents[r] for r in range(world)])
-                    go.set()
-            else:
-                got[rank] = payload
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
-    if error is not None:
-        fail(f"{what}, {world} ranks: {error}")
-    return [got[r] for r in range(world)]
-
-
-def sp_phase(attention, smi):
+def sp_phase(attention, smi, ranks):
     """Phase 10. Returns the launches of its paths by kernel name."""
     from odh_kubeflow_tpu_torch.ops.attention import mha_reference
     from odh_kubeflow_tpu_torch.ops.ring_attention import ring_launches, zigzag_permutation
@@ -2422,9 +2499,9 @@ def sp_phase(attention, smi):
             launched[path][name] = launched[path].get(name, 0) + n
 
     t0 = time.perf_counter()
-    spawned = _spawn_ranks(max(SP_WORLDS), _sp_rank_jobs, "phase 10")
-    print(f"  one spawn of {max(SP_WORLDS)} ranks, the sp {min(SP_WORLDS)} runs on a mesh over ranks "
-          f"0-{min(SP_WORLDS) - 1} of its world: spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
+    spawned = _spawn_ranks(max(SP_WORLDS), _sp_rank_jobs, "phase 10", ranks=ranks)
+    print(f"  {max(SP_WORLDS)} ranks, the sp {min(SP_WORLDS)} runs on a mesh over ranks "
+          f"0-{min(SP_WORLDS) - 1} of its world: job to results {time.perf_counter() - t0:.1f} s", flush=True)
     for world in SP_WORLDS:
         ranks = [r[world] for r in spawned[:world]]
         print(f"  sp {world}: {world} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}",
@@ -2843,7 +2920,7 @@ def _one_process_restore(saved, smi, cfg=None):
     return out
 
 
-def shard_phase(attention, smi):
+def shard_phase(attention, smi, ranks):
     """Phase 11. Returns the launches of its paths by kernel name."""
     import shutil
     import tempfile
@@ -2853,7 +2930,7 @@ def shard_phase(attention, smi):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()  # the ranks' memory comes from the same card
 
-    def gloo_probe():  # here, while the ranks start up
+    def gloo_probe():  # here, while the ranks start the job
         probe = subprocess.run([sys.executable, os.path.join("tools", "gloo_cuda_probe.py")],
                                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
                                timeout=300)
@@ -2873,9 +2950,10 @@ def shard_phase(attention, smi):
     try:
         t0 = time.perf_counter()
         ranks = _spawn_ranks(SHARD_WORLD, _shard_rank_jobs, "phase 11", ckpt_dir,
-                             on_agents=lambda ports: drive.update(_drive_agents(ports)), meanwhile=gloo_probe)
+                             on_agents=lambda ports: drive.update(_drive_agents(ports)), meanwhile=gloo_probe,
+                             ranks=ranks)
         print(f"  {SHARD_WORLD} ranks on {ranks[0]['device']}, transport: {ranks[0]['transport']}; "
-              f"spawn to results {time.perf_counter() - t0:.1f} s", flush=True)
+              f"job to results {time.perf_counter() - t0:.1f} s", flush=True)
         launched = {}
         for name, (plan, shape, layout) in SHARD_RUNS.items():
             runs = [r[name] for r in ranks]
@@ -3126,7 +3204,7 @@ def _ep_bytes(plan, b, s, cfg):
     return out
 
 
-def ep_phase(attention, smi):
+def ep_phase(attention, smi, ranks):
     """Phase 12. Returns the launches of its paths by kernel name."""
     import shutil
     import tempfile
@@ -3149,17 +3227,18 @@ def ep_phase(attention, smi):
     try:
         ref = {}
 
-        def references():  # here, while the ranks start up
+        def references():  # here, while the ranks start the job
             t_ref = time.perf_counter()
             ref.update(_tp_decode_reference())
-            print(f"  (a) one-process references, while the ranks start: {time.perf_counter() - t_ref:.1f} s",
+            print(f"  (a) one-process references, while the ranks start the job: {time.perf_counter() - t_ref:.1f} s",
                   flush=True)
 
         t0 = time.perf_counter()
         got = _spawn_ranks(EP_WORLD, _ep_rank_jobs, "phase 12", ckpt_dir, ("tp2", "fsdp2 x tp2", "shared kv", "ep"),
-                           on_agents=lambda ports: drive.update(_drive_agents(ports)), meanwhile=references)
-        print(f"  one spawn of {EP_WORLD} ranks on {got[0]['device']}, transport: {got[0]['transport']}; the tp2 "
-              f"generate on a mesh over ranks 0-1 of its world; spawn to results {time.perf_counter() - t0:.1f} s",
+                           on_agents=lambda ports: drive.update(_drive_agents(ports)), meanwhile=references,
+                           ranks=ranks)
+        print(f"  {EP_WORLD} ranks on {got[0]['device']}, transport: {got[0]['transport']}; the tp2 "
+              f"generate on a mesh over ranks 0-1 of its world; job to results {time.perf_counter() - t0:.1f} s",
               flush=True)
         # each part's results from the ranks of its mesh (tp2's: ranks 0 and 1)
         ranks = {key: [r[key] for r in got if key in r] for key in got[0]}
@@ -3727,7 +3806,7 @@ def _pp_bytes(plan, schedule, n_chunks, batch, cfg, n_micro, stage):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def pp_phase(attention, smi):
+def pp_phase(attention, smi, ranks):
     """Phase 13. Returns the launches of its paths by kernel name."""
     import shutil
     import tempfile
@@ -3750,8 +3829,8 @@ def pp_phase(attention, smi):
     try:
         t0 = time.perf_counter()
         got = _spawn_ranks(PP_WORLD, _pp_rank_jobs, "phase 13", ckpt_dir,
-                           on_agents=lambda ports: drive.update(_drive_agents(ports)))
-        print(f"  {PP_WORLD} ranks on {got[0]['device']}, transport: {got[0]['transport']}; spawn to results "
+                           on_agents=lambda ports: drive.update(_drive_agents(ports)), ranks=ranks)
+        print(f"  {PP_WORLD} ranks on {got[0]['device']}, transport: {got[0]['transport']}; job to results "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ranks = {key: [r[key] for r in got] for key in got[0]}
         for name, (plan, schedule, v) in PP_F32_RUNS.items():
@@ -4253,7 +4332,11 @@ def _device_worker(mode, train, out_dir, t0):
     and takes the next step. Mode "promote" is "repair" for the notebook
     phase 15 then promotes: the replacement stays busy after its step,
     reports its params' logit fingerprint and answers the forwarded
-    checkpoint requests until SIGTERM. Its result goes to OUT_DIR/rank-R.json (written
+    checkpoint requests until SIGTERM. Mode "job" is phase 15's TPUJob
+    learner (tests/torch_pod_worker.py `job_run` at REPAIR_LAYERS, as
+    "repair" trains): it trains to TPU_JOB_STEPS from TPU_JOB_RESUME_STEP's
+    checkpoint and answers the forwarded checkpoint requests between its
+    steps until SIGTERM. Its result goes to OUT_DIR/rank-R.json (written
     whole, then renamed), its times from T0, the parent's launch (phase 15
     passes 0: times since the epoch)."""
     from odh_kubeflow_tpu_torch.parallel import initialize_from_env, rank_device, reinitialize_after_repair
@@ -4281,19 +4364,25 @@ def _device_worker(mode, train, out_dir, t0):
            "env": {n: os.environ.get(n) for n in DEVICE_TORCHRUN_NAMES + OPERATOR_POD_NAMES}}
     if mode == "mesh":
         out.update(_device_mesh(dev))
-    elif not resumed:
+    elif not resumed and mode != "job":
         out.update(_device_serve(dev, train == "1", t0))
     out["times"] = dict(out.get("times", {}), started=STARTED - t0, context=t_context - t0, world=t_world - t0,
                         done=time.time() - t0)
-    if mode in ("repair", "promote"):
+    if mode in ("repair", "promote", "job"):
         import signal
 
         stop = threading.Event()
         signal.signal(signal.SIGTERM, lambda *a: stop.set())
         cfg = _repair_cfg()
-        torch_pod_worker.repair_run(dev, out_dir, cfg, lambda i: {"tokens": torch.as_tensor(
-            np.random.default_rng(100 + i).integers(0, cfg.vocab, DEVICE_TRAIN_BATCH), device=dev)}, out, stop,
-            promote=mode == "promote")
+
+        def batch_of(i):
+            return {"tokens": torch.as_tensor(np.random.default_rng(100 + i).integers(0, cfg.vocab,
+                                                                                    DEVICE_TRAIN_BATCH), device=dev)}
+
+        if mode == "job":
+            torch_pod_worker.job_run(dev, out_dir, cfg, batch_of, out, stop)
+        else:
+            torch_pod_worker.repair_run(dev, out_dir, cfg, batch_of, out, stop, promote=mode == "promote")
         return
     path = os.path.join(out_dir, f"rank-{world[0]}.json")
     with open(path + ".tmp", "w") as f:
@@ -4417,6 +4506,16 @@ PROMOTION_SLOTS = 8  # its engine's slots (spec.serving.maxBatchSlots)
 PROMOTION_MAX_SEQ = 512
 PROMOTION_DRAIN_S = 1.0  # spec.serving.drainTimeoutS: the route-first drain's window
 PROMOTION_BUDGET_S = 40  # the promotion episode fails past it: 20.5 s on the card in its first run, and a margin
+OPERATOR_JOB = "rl-0"  # the TPUJob of the job episode: an anakin gang on an h100 1x1 slice (this card)
+# its spec.steps and spec.checkpointPeriodS: the first pod is still short of
+# JOB_STEPS when the user's preempt lands, one cadence save after Running
+# (a pod's first step takes seconds of warm-up, the next ~0.11 s: at most
+# ~35 steps by then on a fast host, 2 on the card at a 3 s cadence), and the
+# period leaves a few seconds of steps between two 3 s saves
+JOB_STEPS = 48
+JOB_PERIOD_S = 5.0
+JOB_BUDGET_S = 100  # the job episode fails past it: 75.0 s on the card in its first run (64 steps), and a margin
+ACCOUNTANT_PERIOD_S = 0.5  # the ChipAccountant's tick over the phase
 
 
 def _repair_cfg():
@@ -4472,10 +4571,11 @@ def _operator_phase(attention, smi, out_root):
             cuda_monitor(OPERATOR_WINDOW_S, OPERATOR_SAMPLE_S), waves=OPERATOR_WAVES,
             cfg=dict(readiness_probe_period_s=OPERATOR_PROBE_S, enable_culling=True,
                      cull_idle_time_min=OPERATOR_CULL_IDLE_S / 60.0,
-                     idleness_check_period_min=OPERATOR_CHECK_S / 60.0),
+                     idleness_check_period_min=OPERATOR_CHECK_S / 60.0,
+                     accounting_period_s=ACCOUNTANT_PERIOD_S),
             env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
             while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids, repair=OPERATOR_REPAIR,
-            promotion=promotion)
+            promotion=promotion, job=flow.Job(steps=JOB_STEPS, period_s=JOB_PERIOD_S, name=OPERATOR_JOB))
         flow.check(seen, "cuda:0", gate_waits=True)  # the gate reads the pod's processes, not this one
     except AssertionError as e:
         fail(f"phase 15: {e}")
@@ -4553,20 +4653,26 @@ def _operator_phase(attention, smi, out_root):
               f"; {smi}", flush=True)
     repair_launches = _operator_repair(seen[OPERATOR_REPAIR], smi, zero)
     promotion_launches = _operator_promotion(seen[OPERATOR_REPAIR], promotion, smi, zero)
+    job_launches = _operator_job(seen["job"], smi, zero)
+    _operator_accounting(seen["accounting"], smi)
     took = time.perf_counter() - t_phase
     episode = seen[OPERATOR_REPAIR]["repair"]["wall"]
     promoted = seen[OPERATOR_REPAIR]["promotion"]["wall"]
-    print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s and the promotion episode "
-          f"{promoted:.1f} s (budgets: {OPERATOR_BUDGET_S} s without the episodes, {REPAIR_BUDGET_S} s the repair, "
-          f"{PROMOTION_BUDGET_S} s the promotion); {smi}", flush=True)
-    if took - episode - promoted > OPERATOR_BUDGET_S:
-        fail(f"phase 15 took {took - episode - promoted:.1f} s without its episodes, over its budget of "
+    jobbed = seen["job"]["wall"]
+    print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s, the promotion episode "
+          f"{promoted:.1f} s and the job episode {jobbed:.1f} s (budgets: {OPERATOR_BUDGET_S} s without the "
+          f"episodes, {REPAIR_BUDGET_S} s the repair, {PROMOTION_BUDGET_S} s the promotion, {JOB_BUDGET_S} s the "
+          f"job); {smi}", flush=True)
+    if took - episode - promoted - jobbed > OPERATOR_BUDGET_S:
+        fail(f"phase 15 took {took - episode - promoted - jobbed:.1f} s without its episodes, over its budget of "
              f"{OPERATOR_BUDGET_S} s")
     if episode > REPAIR_BUDGET_S:
         fail(f"phase 15's repair episode took {episode:.1f} s, over its budget of {REPAIR_BUDGET_S} s")
     if promoted > PROMOTION_BUDGET_S:
         fail(f"phase 15's promotion episode took {promoted:.1f} s, over its budget of {PROMOTION_BUDGET_S} s")
-    return {"operator": launched, **repair_launches, **promotion_launches}
+    if jobbed > JOB_BUDGET_S:
+        fail(f"phase 15's job episode took {jobbed:.1f} s, over its budget of {JOB_BUDGET_S} s")
+    return {"operator": launched, **repair_launches, **promotion_launches, **job_launches}
 
 
 def _operator_repair(got, smi, zero):
@@ -4662,6 +4768,75 @@ def _operator_promotion(got, promotion, smi, zero):
           f"-> card free {pe['card free'] - stop:.3f} s (pool {pe['served pool']} {pe['served pool after']}); states "
           f"{pe['states']}; the episode {pe['wall']:.1f} s; {smi}", flush=True)
     return {f"operator promotion: {n} requests served by {OPERATOR_ENDPOINT}": launched}
+
+
+def _operator_job(j, smi, zero):
+    """Phase 15's job episode, past torch_operator_flow.check_job's gates:
+    every train step of both incarnations launched REPAIR_LAYERS each of the
+    tensor-core forward, dq and dk/dv and no scalar kernel; the episode's
+    edges and each pod's steps printed, each line with the card. Returns
+    the launches by path."""
+    want = {n: (REPAIR_LAYERS if n in TENSOR_CORE else 0) for n in zero}
+    first, second = j["first"], j["second"]
+    launched = {}
+    for label, inc in (("first", first), ("second", second)):
+        start, end = int(inc["env"]["TPU_JOB_RESUME_STEP"]), inc["result"]["train"]["steps"]
+        steps = dict(zero)
+        for key, n in inc["result"]["train"]["launches"].items():
+            per_step = {**zero, **json.loads(key)}
+            if per_step != want:
+                fail(f"phase 15 {OPERATOR_JOB}: {n} steps of its {label} pod launched {per_step}, want {want}")
+            for name, c in per_step.items():
+                steps[name] += c * n
+        launched[f"operator job: {label} pod"] = steps
+        print(f"  job {OPERATOR_JOB}: the {label} pod trained steps {start} -> {end}", flush=True)
+    t0, stamp = j["t0"], j["stamp"]
+    states = j["states"]
+    resume = first["acks"][-1][1]
+    resumed = second["result"]["resumed"]
+
+    def edges(since):
+        return " -> ".join(f"{st or 'pending'} {t - since:+.3f} s" for t, _, st in states)
+
+    losses = first["result"]["train"]["losses"] + second["result"]["train"]["losses"]
+    print(f"  job {OPERATOR_JOB}: anakin, spec.tpu h100 1x1, spec.steps {j['steps']}, checkpointPeriodS "
+          f"{j['period']:.1f} s, priority {j['priority']}; the learner trains the flagship's widths at "
+          f"{REPAIR_LAYERS} layers, bf16, {DEVICE_TRAIN_BATCH[0]} x {DEVICE_TRAIN_BATCH[1]}, remat flash "
+          f"(losses {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps); {smi}", flush=True)
+    print(f"  job: states from the create: {edges(t0)}; {smi}", flush=True)
+    print(f"  job: from the create: first pod bound {first['bound'][0] - t0:.3f} s on {first['node']} (pool "
+          f"{first['pool']}), its worker's CUDA context {first['result']['times']['context'] - t0:.3f} s, ready "
+          f"{first['ready'][0] - t0:.3f} s (the context {first['ready'][0] - first['result']['times']['context']:+.3f}"
+          f" s); the preempt stamped {stamp - t0:.3f} s; {smi}", flush=True)
+    print(f"  job: from the stamp: states {edges(stamp)}; the slice parked warm at priority {j['priority']} "
+          f"{j['parked'][0] - stamp:.3f} s; the first pod's processes gone {first['closed at'] - stamp:.3f} s; "
+          f"second pod bound {second['bound'][0] - stamp:.3f} s on {second['node']} (pool {second['pool']}), its "
+          f"context {second['result']['times']['context'] - stamp:.3f} s, ready {second['ready'][0] - stamp:.3f} s "
+          f"(the context {second['ready'][0] - second['result']['times']['context']:+.3f} s), the resumed step "
+          f"{second['result']['times']['stepped'] - stamp:.3f} s; card free {j['card free'] - stamp:.3f} s; "
+          f"{smi}", flush=True)
+    for label, inc in (("first", first), ("second", second)):
+        print(f"  job: the {label} pod's saves (step, save seconds, GB): " + "; ".join(
+            f"{x['step']} {x['seconds']:.3f} s {x['bytes'] / 1e9:.3f} GB" for x in inc["result"]["saves"])
+            + f"; {smi}", flush=True)
+    print(f"  job: the second pod restored step {resumed['restored']['step']} ({resumed['restored']['checksum']} = the "
+          f"preempt's ack {resume['checksum']}) in {resumed['restored']['seconds']:.3f} s and took step "
+          f"{resumed['step']}: loss {resumed['loss']:.6f}, params {resumed['checksum']}, bit-equal to the first pod's "
+          f"step on a copy; completedSteps {j['status']['completedSteps']}; counters {j['counters']}; goodput ratio "
+          f"{j['goodput']:.4f}; events {sorted(j['events'])}; the episode {j['wall']:.1f} s; {smi}", flush=True)
+    return launched
+
+
+def _operator_accounting(acct, smi):
+    """Phase 15's ChipAccountant, past torch_operator_flow.check_accounting's
+    gates: its chip-seconds over the phase by class and phase printed."""
+    cons = acct["conservation"]
+    print(f"  accountant (every {acct['period']} s, {acct['ticks']['ok']} ticks, {acct['ticks']['error']} in error): "
+          f"card-seconds by class and phase {({k: round(v, 3) for k, v in acct['by class and phase'].items()})}; "
+          f"attributed {cons['attributed_chip_seconds']:.3f} against physical {cons['physical_chip_seconds']:.3f} "
+          f"(residual {cons['residual_ratio']:.2e}, tolerance 1e-02); utilization "
+          f"{acct['snapshot']['fleet_utilization']}; nodes {acct['attributed nodes']} (each stands for this card); "
+          f"{smi}", flush=True)
 
 
 def main() -> None:
@@ -4941,18 +5116,22 @@ def main() -> None:
     phase("9 the token router over two engines, traced, profiled and guarded, full width")
     router_launches = router_phase(attention, smi, cfg, params)
 
-    phase("10 sequence parallelism: ring attention and the sp train step, ranks sharing this card")
-    sp_launches = sp_phase(attention, smi)
+    ranks = _RankPool(RANK_POOL_WORLD)  # phases 10-13's ranks, spawned once
+    try:
+        phase("10 sequence parallelism: ring attention and the sp train step, ranks sharing this card")
+        sp_launches = sp_phase(attention, smi, ranks)
 
-    phase("11 the fsdp/tp sharded train step and the sharded checkpoint, ranks sharing this card")
-    sp_launches.update(shard_phase(attention, smi))
+        phase("11 the fsdp/tp sharded train step and the sharded checkpoint, ranks sharing this card")
+        sp_launches.update(shard_phase(attention, smi, ranks))
 
-    phase("12 tensor-parallel generate, tp with shared kv heads and the ep MoE train step, ranks sharing "
-          "this card")
-    sp_launches.update(ep_phase(attention, smi))
+        phase("12 tensor-parallel generate, tp with shared kv heads and the ep MoE train step, ranks sharing "
+              "this card")
+        sp_launches.update(ep_phase(attention, smi, ranks))
 
-    phase("13 the pipelines: GPipe, 1F1B and interleaved 1F1B over a pp axis, ranks sharing this card")
-    sp_launches.update(pp_phase(attention, smi))
+        phase("13 the pipelines: GPipe, 1F1B and interleaved 1F1B over a pp axis, ranks sharing this card")
+        sp_launches.update(pp_phase(attention, smi, ranks))
+    finally:
+        ranks.close()
 
     phase("14 the device layer: ranks started by torchrun from a rendered pod env, on this card")
     sp_launches.update(device_phase(attention, smi))

@@ -55,6 +55,12 @@ class PodDecision:
     serve: Optional[Callable[[Pod], tuple]] = None
     # delete the pod object only once close_fn has returned
     graceful: bool = False
+    # the container's readiness probe: with it, a started pod goes Ready
+    # only once it returns true (polled every READY_POLL_S)
+    ready: Optional[Callable[[], bool]] = None
+
+
+READY_POLL_S = 0.05
 
 
 # behavior(pod) -> PodDecision; matched first-wins
@@ -286,6 +292,22 @@ class Kubelet:
 
         if pod.status.phase == "Running" and pod.is_ready():
             return None
+        if decision.ready is not None and not decision.ready():
+            # started, its readiness probe not passing yet: Running, not Ready
+            if pod.status.phase != "Running":
+                pod.status.phase = "Running"
+                pod.status.container_statuses = [
+                    ContainerStatus(name=c.name, ready=False, image=c.image,
+                                    state=ContainerState(running={"startedAt": now_rfc3339()}))
+                    for c in pod.spec.containers
+                ]
+                pod.status.conditions = [
+                    Condition(type="PodScheduled", status="True"),
+                    Condition(type="Initialized", status="True"),
+                    Condition(type="Ready", status="False", reason="ContainersNotReady"),
+                ]
+                self._update_status(pod)
+            return Result(requeue_after=READY_POLL_S)
         # readiness trace: the container-start window (scheduled -> Ready),
         # joined to the notebook's trace via the template-propagated
         # traceparent annotation. Recorded once per incarnation — this branch

@@ -210,7 +210,10 @@ class Scheduler:
             self._unsched_attempts.pop(req.key, None)
             return None
 
-        nodes = self.client.list(Node)
+        # the nodes as the store has them, not as the cache has applied
+        # them: a pool claimed for this pod's owner before the pod was
+        # created is then reserved for it, not seen as warm (taking nobody)
+        nodes = self.manager.api_reader.list(Node)
         candidates = [n for n in nodes if self._selector_matches(pod, n)]
         tpu_chips = pod_tpu_request(pod)
         assignment = self._assignment_map()

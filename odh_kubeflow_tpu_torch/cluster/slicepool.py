@@ -146,8 +146,12 @@ class SlicePool:
     re-reads the Nodes, so any number of controller instances (and the
     scheduler, read-only) agree without shared memory."""
 
-    def __init__(self, client):
+    def __init__(self, client, reader=None):
         self.client = client
+        # what the verbs read by (`client` unless given): a controller
+        # passes a direct read of the store, so a claim sees the marks of a
+        # release that finished before it, whatever its cache has applied
+        self.reader = client if reader is None else reader
 
     # ---------- reads ----------
 
@@ -175,7 +179,7 @@ class SlicePool:
         unless asked, every node is healthy."""
         by_pool: Dict[str, List[Node]] = {}
         marked: Dict[str, int] = {}
-        for node in self.client.list(Node):
+        for node in self.reader.list(Node):
             pool = node.metadata.labels.get(GKE_NODEPOOL_LABEL, node.metadata.name)
             if POOL_STATE_ANNOTATION in node.metadata.annotations:
                 marked[pool] = marked.get(pool, 0) + 1
@@ -239,7 +243,7 @@ class SlicePool:
         transition (e.g. claim requires warm); the default skips the guard."""
         for _ in range(3):
             try:
-                node = self.client.get(Node, "", node_name)
+                node = self.reader.get(Node, "", node_name)
             except NotFoundError:
                 return False
             if expect_state is not self._ANY_STATE and (
@@ -396,11 +400,11 @@ class SlicePool:
             return 0
         occupied = {
             p.spec.node_name
-            for p in self.client.list(Pod)
+            for p in self.reader.list(Pod)
             if p.spec.node_name and not p.metadata.deletion_timestamp
         }
         by_pool: Dict[str, List[Node]] = {}
-        for node in self.client.list(Node):
+        for node in self.reader.list(Node):
             labels = node.metadata.labels
             if labels.get(GKE_GPU_ACCELERATOR_LABEL) != gke_accelerator:
                 continue
@@ -438,7 +442,7 @@ class SlicePool:
         Returns pools swept."""
         by_pool: Dict[str, List[Node]] = {}
         marks: Dict[str, List[str]] = {}
-        for node in self.client.list(Node):
+        for node in self.reader.list(Node):
             pool = node.metadata.labels.get(GKE_NODEPOOL_LABEL, node.metadata.name)
             by_pool.setdefault(pool, []).append(node)
             if POOL_STATE_ANNOTATION in node.metadata.annotations:

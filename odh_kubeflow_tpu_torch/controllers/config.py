@@ -19,9 +19,9 @@ def _env_bool(name: str, default: bool) -> bool:
 
 @dataclass
 class Config:
-    """The fields that the port's controllers, webhook and extension read.
-    The JAX package's Config also holds the knobs of its suspend, pool, serving, job, SLO,
-    canary, autoscale, accounting and router controllers, and the
+    """The fields that the port's controllers, webhook, extension and chip
+    accountant read. The JAX package's Config also holds the knobs of its
+    suspend, pool, SLO, canary, autoscale and router controllers, and the
     deployment-surface env table; each comes back with the controller that
     reads it."""
 
@@ -57,6 +57,11 @@ class Config:
     # MaxConcurrentReconciles analog: worker threads per controller. The
     # workqueue's per-key single-flight makes >1 safe
     max_concurrent_reconciles: int = 4
+    # oversubscription policy: total admitted card demand (notebooks,
+    # endpoints and admitted jobs) may not exceed this budget; a job whose
+    # admission would pass it queues with a QueuedOverBudget condition
+    # instead of reclaiming anything. 0 = no budget cap.
+    chip_budget: int = 0
     # how long a GPU pod must sit unschedulable before the reclaimer acts —
     # the scheduler's capacity-freed fast path gets first shot
     reclaim_pending_grace_s: float = 1.0
@@ -66,6 +71,21 @@ class Config:
     # per-endpoint via spec.serving.drainTimeoutS)
     serving_loading_window_s: float = 30.0
     serving_drain_timeout_s: float = 5.0
+    # batch/RL jobs (controllers/job.py): the bounded window a cadence or
+    # preempt checkpoint gets before the job moves on, the requeue
+    # backoff a preempted job waits before re-admitting (an instant
+    # re-admission would race the very requester its slice was reclaimed
+    # for), and the bind timeout after which an Admitted job whose gangs
+    # never all came ready parks and requeues instead of wedging (a
+    # claimed slice can die under the gang mid-bind)
+    job_checkpoint_window_s: float = 10.0
+    job_requeue_backoff_s: float = 2.0
+    job_admission_timeout_s: float = 120.0
+    # fleet chip-time accountant (runtime/accounting.py): its tick period
+    # (0 = off), and the idle window past which a bound+ready notebook
+    # counts idle-bound
+    accounting_period_s: float = 1.0
+    accounting_idle_after_s: float = 300.0
 
     # extension controller / webhook (reference odh main.go + webhook consts)
     auth_proxy_image: str = "kube-rbac-proxy:latest"
@@ -130,6 +150,8 @@ class Config:
             c.reclaim_pending_grace_s = max(
                 0.0, float(os.environ["RECLAIM_PENDING_GRACE_S"])
             )
+        if os.environ.get("CHIP_BUDGET"):
+            c.chip_budget = max(0, int(os.environ["CHIP_BUDGET"]))
         if os.environ.get("SERVING_LOADING_WINDOW_S"):
             # clamp: a zero window would declare LoadFailed before the first
             # readiness probe ever ran
@@ -139,5 +161,28 @@ class Config:
         if os.environ.get("SERVING_DRAIN_TIMEOUT_S"):
             c.serving_drain_timeout_s = max(
                 0.0, float(os.environ["SERVING_DRAIN_TIMEOUT_S"])
+            )
+        if os.environ.get("JOB_CHECKPOINT_WINDOW_S"):
+            # clamp: a zero window would abandon every save before the first
+            # checkpoint probe ever ran
+            c.job_checkpoint_window_s = max(
+                0.1, float(os.environ["JOB_CHECKPOINT_WINDOW_S"])
+            )
+        if os.environ.get("JOB_REQUEUE_BACKOFF_S"):
+            c.job_requeue_backoff_s = max(
+                0.0, float(os.environ["JOB_REQUEUE_BACKOFF_S"])
+            )
+        if os.environ.get("JOB_ADMISSION_TIMEOUT_S"):
+            # 0 disables the bind timeout entirely
+            c.job_admission_timeout_s = max(
+                0.0, float(os.environ["JOB_ADMISSION_TIMEOUT_S"])
+            )
+        if os.environ.get("ACCOUNTING_PERIOD_S"):
+            c.accounting_period_s = max(
+                0.0, float(os.environ["ACCOUNTING_PERIOD_S"])
+            )
+        if os.environ.get("ACCOUNTING_IDLE_AFTER_S"):
+            c.accounting_idle_after_s = max(
+                0.0, float(os.environ["ACCOUNTING_IDLE_AFTER_S"])
             )
         return c

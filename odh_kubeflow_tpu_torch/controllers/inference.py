@@ -257,7 +257,7 @@ class InferenceEndpointReconciler:
         self.api_reader = manager.api_reader
         self.config = config or Config()
         self.http_get = http_get or _default_http_get
-        self.pool = SlicePool(manager.client)
+        self.pool = SlicePool(manager.client, reader=manager.api_reader)
 
     def setup(self) -> None:
         def pod_is_endpoint(ev: str, obj: dict, old: Optional[dict]) -> bool:
@@ -283,7 +283,10 @@ class InferenceEndpointReconciler:
     # ---------- spec resolution ----------
 
     def _source_notebook(self, ep: InferenceEndpoint) -> Optional[Notebook]:
-        return source_notebook(self.client, ep)
+        # read from the store, not the cache: a suspend that finished before
+        # the endpoint was created is then seen as finished, and the bind
+        # is not deferred while the workload is placed cold
+        return source_notebook(self.api_reader, ep)
 
     def _resolve_tpu(self, ep: InferenceEndpoint) -> Optional[TPUSpec]:
         return resolve_endpoint_tpu(self.client, ep)

@@ -218,6 +218,9 @@ class ProbeStatusController:
                 "mesh", notebook=req.key, ready=mesh_ready,
                 chips_visible=chips_visible, hosts_ready=ready_pods,
             )
+        # the gate's decision, taken before its write: a watcher that sees
+        # the write never sees it before the root's end
+        decided = time.time()
         newly_ready = self._write(nb, chips_visible, mesh_ready, newly_ready)
         if newly_ready:
             # observe only after the write persisted (double-count guard)
@@ -226,7 +229,7 @@ class ProbeStatusController:
                 self.metrics.slice_ready_seconds.observe(time.time() - created)
             except (ValueError, TypeError):
                 pass
-            self._record_ready_trace(nb, shape, chips_visible, probe_t0, probe_t1)
+            self._record_ready_trace(nb, shape, chips_visible, probe_t0, probe_t1, decided)
             log.info(
                 "slice ready: %s (%d chips over %d hosts)",
                 req.key,
@@ -285,18 +288,19 @@ class ProbeStatusController:
     # ---------- readiness trace (terminal spans + root closure) ----------
 
     def _record_ready_trace(
-        self, nb: Notebook, shape, chips_visible: int, probe_t0: float, probe_t1: float
+        self, nb: Notebook, shape, chips_visible: int, probe_t0: float, probe_t1: float,
+        now: float,
     ) -> None:
-        """First mesh-ready: record `probe.first_healthy` (the sweep that saw
-        every host ready) and the terminal `jax.devices.ready` marker, then
-        close the `notebook.ready` root the webhook opened — synthesizing it
-        from creationTimestamp when the root lives in another process."""
+        """First mesh-ready at `now`: record `probe.first_healthy` (the sweep
+        that saw every host ready) and the terminal `jax.devices.ready`
+        marker, then close the `notebook.ready` root the webhook opened —
+        synthesizing it from creationTimestamp when the root lives in
+        another process."""
         traceparent = nb.metadata.annotations.get(C.TRACEPARENT_ANNOTATION)
         ctx = tracing.parse_traceparent(traceparent)
         if ctx is None:
             return
         trace_id, root_span_id = ctx
-        now = time.time()
         tracing.record_span(
             "probe.first_healthy",
             traceparent=traceparent,

@@ -583,10 +583,15 @@ class NotebookAgent:
                 body = json.dumps(
                     payload["_raw"] if "_raw" in payload else payload
                 ).encode()
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.end_headers()
-                self.wfile.write(body)
+                try:
+                    self.send_response(status)
+                    self.send_header("Content-Type", "application/json")
+                    self.end_headers()
+                    self.wfile.write(body)
+                except (BrokenPipeError, ConnectionResetError):
+                    # the prober gave up (its timeout) before a long hook
+                    # answered; a re-probe gets the answer
+                    pass
 
             def log_message(self, *args: Any) -> None:
                 pass

@@ -169,11 +169,12 @@ def container_env(pod: Any, container: Any) -> Dict[str, str]:
 
 
 def _primary(pod: Any) -> Any:
-    """The container named after the pod's notebook or endpoint, else the
-    first."""
+    """The container named after the pod's notebook, endpoint or job, else
+    the first."""
     from ..controllers import constants as C
 
-    name = pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) or pod.metadata.labels.get(C.INFERENCE_NAME_LABEL, "")
+    labels = pod.metadata.labels
+    name = labels.get(C.NOTEBOOK_NAME_LABEL) or labels.get(C.INFERENCE_NAME_LABEL) or labels.get(C.JOB_NAME_LABEL, "")
     return next((c for c in pod.spec.containers if c.name == name), pod.spec.containers[0])
 
 
@@ -207,9 +208,14 @@ def process_tree(pid: int) -> List[int]:
 # device query, torchrun's launcher, an NVML-only tool) opens it with
 # /dev/nvidiactl and /dev/nvidia-uvm and maps it; only a CUDA context maps
 # /dev/nvidia-uvm as well (tools/gate_nodes.py on an H100: the launcher
-# never does, the worker at its context)
+# never does, the worker at its context). It maps it partway through the
+# context's creation, 0.06-0.13 s before cuDevicePrimaryCtxRetain returns;
+# the driver's event-handler thread starts near the creation's end,
+# 1.3-32 ms before it returns (tools/context_stamp.py on an H100), so a
+# context counts once both are there
 _CARD_NODE = re.compile(r"^/dev/nvidia(\d+)$")
 _CONTEXT_NODE = re.compile(r"^/dev/nvidia-uvm$")
+_CONTEXT_THREAD = "cuda-EvtHandlr"
 
 
 def _mapped(pid: int) -> Set[str]:
@@ -221,15 +227,32 @@ def _mapped(pid: int) -> Set[str]:
         return set()
 
 
+def _thread_names(pid: int) -> Set[str]:
+    """The names of pid's threads."""
+    out: Set[str] = set()
+    try:
+        tids = os.listdir(f"/proc/{pid}/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/{pid}/task/{tid}/comm") as f:
+                out.add(f.read().strip())
+        except OSError:
+            continue
+    return out
+
+
 def cards_in_context(pid: int, node: Pattern[str] = _CARD_NODE,
-                     context: Pattern[str] = _CONTEXT_NODE) -> Set[int]:
+                     context: Pattern[str] = _CONTEXT_NODE, thread: str = _CONTEXT_THREAD) -> Set[int]:
     """The cards on which pid or a descendant of it holds a CUDA context:
     the numbers `node` matches in the paths a process maps, once that
-    process also maps a path `context` matches."""
+    process also maps a path `context` matches and runs a thread named
+    `thread`."""
     out: Set[int] = set()
     for p in process_tree(pid):
         paths = _mapped(p)
-        if any(context.match(path) for path in paths):
+        if any(context.match(path) for path in paths) and thread in _thread_names(p):
             out |= {int(m.group(1)) for m in map(node.match, paths) if m}
     return out
 
@@ -389,16 +412,30 @@ def read_json(path: str) -> Optional[Dict[str, Any]]:
 
 
 def _forward(directory: str, kind: str, deadline_s: float, done: Callable[[dict], None]) -> Callable[[], dict]:
+    """The agent's half: a request written into `directory`, its ack
+    awaited. A call made while an earlier request is still unanswered and
+    younger than `deadline_s` joins it instead of writing another: a
+    controller that re-probes because its GET timed out before a long save
+    acked gets that save's ack, and the worker does not save twice."""
     seq = itertools.count()
+    lock = threading.Lock()
+    pending: Dict[str, Any] = {}  # the unanswered request: its ack path and when it was written
 
     def hook() -> dict:
-        request_id = f"{os.getpid()}-{time.time_ns()}-{next(seq)}"
-        ack_path = os.path.join(directory, _ACK.format(kind=kind, id=request_id))
-        write_json(os.path.join(directory, _REQUEST.format(kind=kind)), {"id": request_id, "at": time.time()})
-        deadline = time.monotonic() + deadline_s
+        with lock:
+            now = time.monotonic()
+            if not pending or now - pending["at"] >= deadline_s:
+                request_id = f"{os.getpid()}-{time.time_ns()}-{next(seq)}"
+                pending.update(id=request_id, at=now,
+                               ack=os.path.join(directory, _ACK.format(kind=kind, id=request_id)))
+                write_json(os.path.join(directory, _REQUEST.format(kind=kind)), {"id": request_id, "at": time.time()})
+            request_id, ack_path, deadline = pending["id"], pending["ack"], pending["at"] + deadline_s
         while time.monotonic() < deadline:
             ack = read_json(ack_path)
             if ack is not None:
+                with lock:
+                    if pending.get("id") == request_id:
+                        pending.clear()
                 done(ack)
                 return ack
             time.sleep(0.02)
@@ -497,6 +534,15 @@ class _ServingMonitor:
         return getattr(self._monitor, name)
 
 
+def agent_ready(agent: Optional[NotebookAgent]) -> bool:
+    """A readiness probe on the agent: its /tpu/readiness answers 200,
+    ready."""
+    if agent is None:
+        return False
+    report = agent.routes("/tpu/readiness")
+    return report.get("_status", 200) == 200 and bool(report["ready"])
+
+
 def pod_process_behavior(
     command: Union[Sequence[str], Callable[[Any], Sequence[str]]],
     log_dir: str,
@@ -511,8 +557,8 @@ def pod_process_behavior(
     restore_hook: Optional[Callable[[Any], Callable[[], dict]]] = None,
     control_dir: Optional[Callable[[Any], str]] = None,
 ):
-    """Kubelet behavior that runs a notebook pod's or an InferenceEndpoint
-    pod's container as processes.
+    """Kubelet behavior that runs a notebook pod's, an InferenceEndpoint
+    pod's or a TPUJob pod's container as processes.
 
     `command` is the container's argv (or pod -> argv); its env is `env`
     (this process's by default) under the primary container's rendered env.
@@ -528,12 +574,18 @@ def pod_process_behavior(
     `control_dir(pod)`, when given, is the pod's control directory, named
     to its processes in CONTROL_DIR_ENV. An endpoint pod's agent then has
     not come up until the serving process has restored its checkpoint and
-    listens there (`serving_ready`): its readiness is 503 meanwhile."""
+    listens there (`serving_ready`): its readiness is 503 meanwhile.
+
+    A pod goes Ready only once its agent's readiness is (`agent_ready`): on
+    the card, once its processes hold a CUDA context on every card, and for
+    an endpoint pod once its serving process listens. A TPUJob counts its
+    gang by that Ready condition."""
     from ..cluster.kubelet import PodDecision
     from ..controllers import constants as C
 
     base_env = dict(os.environ if env is None else env)
     processes = {} if processes is None else processes
+    agents: Dict[str, NotebookAgent] = {}  # pod uid -> its agent, until closed
     live: Dict[str, PodProcesses] = {}  # pod uid -> its processes, until closed
     lock = threading.Lock()
 
@@ -569,18 +621,28 @@ def pod_process_behavior(
             agent.restore_hook = restore_hook(pod)
         agent.identity = f"{pod.metadata.namespace}/{pod.metadata.name}"
         host, port, close_agent = agent.serve()
+        with lock:
+            agents[pod.metadata.uid] = agent
 
         def close() -> None:
             close_agent()
             procs.close(grace_s)  # a pod whose processes outlive it stays live, its card held
             with lock:
                 live.pop(pod.metadata.uid, None)
+                agents.pop(pod.metadata.uid, None)
 
         return host, port, close
 
     def behavior(pod: Any) -> Optional[PodDecision]:
-        if not (pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) or pod.metadata.labels.get(C.INFERENCE_NAME_LABEL)):
+        # notebook, serving-endpoint and batch-job pods all run the same
+        # in-pod agent (the reference's sim_agent_behavior takes the three).
+        # The reference's agent owns its runtime, so its pod is Ready with
+        # it; here the workload is a process beside the agent, so the pod
+        # is Ready once a readiness probe on its agent passes
+        labels = pod.metadata.labels
+        if not (labels.get(C.NOTEBOOK_NAME_LABEL) or labels.get(C.INFERENCE_NAME_LABEL)
+                or labels.get(C.JOB_NAME_LABEL)):
             return None
-        return PodDecision(serve=serve, graceful=True)
+        return PodDecision(serve=serve, graceful=True, ready=lambda: agent_ready(agents.get(pod.metadata.uid)))
 
     return behavior

@@ -19,10 +19,11 @@ in count and deduplicated per (reason, subject) within a window, listed by
 `incidents()` and fetched by `get()`. Under PROFILE=1 a bundle also carries
 the profiler's hot-region timings.
 
-Not ported yet: the reference's bundles also freeze the control-plane
-profiler (`cpprofile`, which comes with the manager's debug surface) and the
-fleet chip-time ledger (`accounting`, which comes with the chip accountant),
-and its manager serves the bundles at `/debug/incidents`.
+A bundle also freezes the fleet chip-time ledger of the active accountant
+(`runtime.accounting.current()`), once it has ticked. Not ported yet: the
+reference's bundles also freeze the control-plane profiler (`cpprofile`,
+which comes with the manager's debug surface), and its manager serves the
+bundles at `/debug/incidents`.
 
 Cost discipline: `record()` is a dict append into a deque under one lock
 (zero-allocation fast path when disabled).
@@ -171,6 +172,20 @@ class FlightRecorder:
                 prof = profiler.snapshot(limit=8)
                 if prof["regions"] or prof["spans"]:
                     bundle["profile"] = prof
+        except Exception:  # pragma: no cover - never costs the bundle
+            pass
+        # freeze the fleet chip-time ledger — an incident carries its own
+        # where-did-the-chips-go evidence (per-phase chip-seconds,
+        # conservation arithmetic, top consumers). Same never-costs-the-
+        # bundle discipline as the profiler block above.
+        try:
+            from . import accounting
+
+            acct = accounting.current()
+            if acct is not None:
+                snap = acct.snapshot(limit=16)
+                if snap["ticks"] > 0:
+                    bundle["accounting"] = snap
         except Exception:  # pragma: no cover - never costs the bundle
             pass
         with self._lock:

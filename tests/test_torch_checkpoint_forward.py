@@ -4,7 +4,9 @@ of its own (`probe.behavior.pod_process_behavior` with `checkpoint_hook`,
 the CPU, with a plain Python child in place of the worker: its ack reaches
 the agent's /tpu/checkpoint JSON; a child that never acks, or whose save
 fails, gives `saved: false` within the deadline; each request is answered
-once."""
+once, and a re-probe made while a slow save is still unanswered joins it
+instead of asking for a second save. A TPUJob's pod is served the same
+way."""
 import json
 import sys
 import time
@@ -36,6 +38,8 @@ def save():
     global step
     if mode == "fail":
         raise OSError("disk full")
+    if mode == "slow":
+        time.sleep(1.5)
     step += 1
     return {"step": step, "checksum": f"sum-{step}", "bytes": 1024}
 
@@ -46,16 +50,16 @@ while True:
 """
 
 
-def _pod():
+def _pod(label=C.NOTEBOOK_NAME_LABEL):
     pod = Pod()
     pod.metadata.name, pod.metadata.namespace, pod.metadata.uid = "nb-0", "user", str(uuid.uuid4())
-    pod.metadata.labels = {C.NOTEBOOK_NAME_LABEL: "nb"}
+    pod.metadata.labels = {label: "nb"}
     pod.spec.node_name = "cpu-0"
     pod.spec.containers = [Container(name="nb", image="img:1")]
     return pod
 
 
-def _serve(tmp_path, mode):
+def _serve(tmp_path, mode, label=C.NOTEBOOK_NAME_LABEL):
     """The pod's agent and its child worker, through the kubelet behavior."""
     processes = {}
     behavior = pod_process_behavior(
@@ -63,7 +67,7 @@ def _serve(tmp_path, mode):
         monitor=lambda pod, chips, procs: SimTPUMonitor(chips=1, expected=1),
         idle_since=lambda pod: None, cwd=str(REPO), grace_s=5.0, processes=processes,
         checkpoint_hook=lambda pod: forward_checkpoint(str(tmp_path), DEADLINE_S))
-    pod = _pod()
+    pod = _pod(label)
     decision = behavior(pod)
     assert decision.graceful
     host, port, close = decision.serve(pod)
@@ -76,8 +80,8 @@ def _serve(tmp_path, mode):
     return host, port, close, processes[pod.metadata.uid]
 
 
-def _checkpoint(host, port):
-    with urllib.request.urlopen(f"http://{host}:{port}/tpu/checkpoint", timeout=30) as r:
+def _checkpoint(host, port, timeout=30):
+    with urllib.request.urlopen(f"http://{host}:{port}/tpu/checkpoint", timeout=timeout) as r:
         return json.loads(r.read())
 
 
@@ -117,3 +121,23 @@ def test_answer_checkpoint_without_a_request_does_nothing(tmp_path):
     calls = []
     assert answer_checkpoint(str(tmp_path), lambda: calls.append(1) or {}, set()) is None
     assert calls == [] and list(tmp_path.iterdir()) == []
+
+
+def test_a_reprobe_during_a_slow_save_joins_it_and_the_worker_saves_once(tmp_path):
+    """The job and repair controllers' checkpoint probe gives up after 2 s,
+    and a save on the card takes longer: the window's re-probe gets the
+    ack of the save already under way, not a second save."""
+    host, port, close, _ = _serve(tmp_path, "slow", label=C.JOB_NAME_LABEL)
+    try:
+        try:
+            _checkpoint(host, port, timeout=0.3)
+            raise AssertionError("the first probe should have timed out before the 1.5 s save acked")
+        except OSError:
+            pass
+        joined = _checkpoint(host, port)
+        later = _checkpoint(host, port)
+    finally:
+        close()
+    assert joined == {"saved": True, "step": 42, "checksum": "sum-42"}
+    assert later == {"saved": True, "step": 43, "checksum": "sum-43"}  # a new request once the first was acked
+    assert len(list(tmp_path.glob("checkpoint-ack-*.json"))) == 2  # two saves for three probes

@@ -20,6 +20,8 @@ CUDA image without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -877,6 +879,39 @@ def test_notebook_pods_as_processes_on_card(card, tmp_path):
                                    released=torch_operator_flow.card_released(),
                                    card_state=torch_operator_flow.compute_app_pids)
     torch_operator_flow.check(seen, "cuda", gate_waits=True)
+
+
+@pytest.mark.cuda
+def test_a_job_preempted_requeued_and_resumed_on_card(card, tmp_path):
+    """tests/test_torch_job_process.py's job episode with the learner on the
+    card and the agents over the card's CudaMonitor: Running no earlier
+    than each worker's CUDA context less one gate period, the cadence save,
+    the user's preempt, the slice parked warm and claimed again, the
+    resumed step bit-equal to the first pod's step on a copy, every step on
+    the scalar kernels (the tiny model is f32 at d 16), Succeeded, the card
+    free, and the accountant's ledger conserved with job chip-seconds."""
+    import torch_operator_flow
+    from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
+
+    steps = 1000  # the tiny model's steps take milliseconds on the card
+    seen = torch_operator_flow.run(tmp_path, torch_operator_flow.pod_worker("cuda"),
+                                   cuda_monitor(window_s=2.0, sample_period_s=0.5), waves=(),
+                                   job=torch_operator_flow.Job(steps=steps, period_s=1.0),
+                                   cfg=dict(torch_operator_flow.CFG, accounting_period_s=0.5),
+                                   released=torch_operator_flow.card_released(),
+                                   card_state=torch_operator_flow.compute_app_pids, timeout=300.0)
+    torch_operator_flow.check(seen, "cuda", gate_waits=True)
+    j = seen["job"]
+    assert j["first"]["result"]["train"]["steps"] < steps == j["second"]["result"]["train"]["steps"]
+    want = {"flash_fwd_scalar": 2, "flash_bwd_dq_scalar": 2, "flash_bwd_dkv_scalar": 2}
+    for inc in (j["first"], j["second"]):
+        assert [json.loads(k) for k in inc["result"]["train"]["launches"]] == [want], inc["result"]["train"]
+    assert seen["accounting"]["by class and phase"].get("job ready", 0) > 0, seen["accounting"]
+    second = j["second"]["result"]
+    resumed_at = int(j["second"]["env"]["TPU_JOB_RESUME_STEP"])
+    print(f"job twin: the first pod reached step {j['first']['result']['train']['steps']}, the second stepped from "
+          f"{resumed_at} to {steps} at {(second['times']['trained'] - second['times']['stepped']) / (steps - resumed_at - 1) * 1e3:.2f} "
+          f"ms a step (saves included); the episode {j['wall']:.1f} s")
 
 
 @pytest.mark.cuda

@@ -2,9 +2,11 @@
 (`probe.behavior.cards_in_context`, `cuda_monitor`), on the CPU: a card
 counts once one process of the pod's tree maps both the card's node and the
 node that only a CUDA context maps (`/dev/nvidia-uvm`; the driver's
-initialisation alone opens and maps the card's node). Regular files named
-like the nodes stand in for them, through the node patterns the functions
-take. Imports no jax.
+initialisation alone opens and maps the card's node) and runs the thread
+that the driver starts at the end of the context's creation
+(`cuda-EvtHandlr`). Regular files named like the nodes stand in for them,
+through the node patterns the functions take, and a thread that names
+itself so for the driver's. Imports no jax.
 """
 import mmap
 import os
@@ -19,20 +21,33 @@ from odh_kubeflow_tpu_torch.probe.agent import NotebookAgent
 from odh_kubeflow_tpu_torch.probe.behavior import PodProcesses, ProcessKernels, cards_in_context, cuda_monitor
 
 # a process that maps the files it is told to, one step at a time: it waits
-# for <dir>/go-<i>, maps the step's files, then writes <dir>/done-<i>
+# for <dir>/go-<i>, maps the step's files (or, for "thread:NAME", starts a
+# thread that names itself NAME through prctl), then writes <dir>/done-<i>
 STEPPER = """
-import mmap, os, sys, time
+import ctypes, mmap, os, sys, threading, time
 d, steps = sys.argv[1], sys.argv[2:]
 held = []
+
+def named(name, ready):
+    ctypes.CDLL(None).prctl(15, name.encode(), 0, 0, 0)  # PR_SET_NAME
+    ready.set()
+    time.sleep(600)
+
 for i, step in enumerate(steps):
     while not os.path.exists(os.path.join(d, f"go-{i}")):
         time.sleep(0.01)
     for name in filter(None, step.split(",")):
+        if name.startswith("thread:"):
+            ready = threading.Event()
+            threading.Thread(target=named, args=(name[len("thread:"):], ready), daemon=True).start()
+            ready.wait()
+            continue
         f = open(os.path.join(d, name), "r+b")
         held.append((f, mmap.mmap(f.fileno(), 1)))
     open(os.path.join(d, f"done-{i}"), "w").close()
 time.sleep(600)
 """
+EVENT_THREAD = "thread:cuda-EvtHandlr"  # the driver's thread, started as the context's creation ends
 
 
 @pytest.fixture
@@ -68,20 +83,23 @@ def _step(tmp_path, process, i):
 
 def test_the_gate_opens_at_the_context_node_not_at_the_card_node(nodes):
     """A process of the pod that maps the card's node (and holds the
-    driver's control node) leaves the gate not ready, read after read; once
-    it also maps the context node, the gate opens with the card visible."""
+    driver's control node) leaves the gate not ready, read after read, and
+    so does the context node mapped while the context is still being made;
+    once the driver's event thread runs too, the gate opens with the card
+    visible."""
     tmp_path, node, context = nodes
-    procs = _pod(tmp_path, ["nvidiactl,nvidia3", "nvidia-uvm"])
+    procs = _pod(tmp_path, ["nvidiactl,nvidia3", "nvidia-uvm", EVENT_THREAD])
     try:
         agent = NotebookAgent(monitor=cuda_monitor(window_s=1.0, sample_period_s=0.5)(
             None, 1, SimpleNamespace(cards=lambda: cards_in_context(procs.proc.pid, node, context))),
             kernels=ProcessKernels(lambda: None))
-        _step(tmp_path, 0, 0)
-        for _ in range(3):
-            got = agent.routes("/tpu/readiness")
-            assert got["ready"] is False and got["chips_visible"] == 0, got
-            time.sleep(0.05)
-        _step(tmp_path, 0, 1)
+        for step in (0, 1):
+            _step(tmp_path, 0, step)
+            for _ in range(3):
+                got = agent.routes("/tpu/readiness")
+                assert got["ready"] is False and got["chips_visible"] == 0, (step, got)
+                time.sleep(0.05)
+        _step(tmp_path, 0, 2)
         got = agent.routes("/tpu/readiness")
         assert got["ready"] is True and got["chips_visible"] == got["chips_expected"] == 1, got
     finally:
@@ -96,7 +114,7 @@ def test_a_card_counts_in_the_process_that_maps_the_context_node(nodes):
     card too, that card counts. The context node mapped by a process outside
     the pod's tree (the operator's own) adds nothing."""
     tmp_path, node, context = nodes
-    procs = _pod(tmp_path, ["nvidia0", ""], ["nvidia-uvm", "nvidia3"])
+    procs = _pod(tmp_path, ["nvidia0", ""], [f"nvidia-uvm,{EVENT_THREAD}", "nvidia3"])
     try:
         with open(tmp_path / "nvidia-uvm", "r+b") as f, mmap.mmap(f.fileno(), 1):  # this process, not the pod
             _step(tmp_path, 0, 0)

@@ -504,9 +504,12 @@ def test_prewarm_keeps_a_warm_slice_ahead_of_demand_and_a_claim_takes_it():
 def test_fleet_of_two_scales_down_route_first_and_retires_to_the_pool():
     def scenario(env):
         env.endpoint("fleet", replicas=2, drain_s=1.0)
-        wait_for(lambda: env.state("fleet") == "serving" and env.get("fleet").status.serving_replicas == 2,
+        # at strength: both gangs Serving, the status mirror at 2 ready
+        # hosts, and the Serving event out, on either side alike
+        wait_for(lambda: env.state("fleet") == "serving" and (st := env.get("fleet").status).serving_replicas == 2
+                 and st.ready_replicas == 2 and st.tpu is not None and st.tpu.hosts_ready == 2,
                  timeout=TIMEOUT, msg="a fleet of 2 Serving")
-        at_strength = env.settled("fleet", phase="Serving")
+        at_strength = env.settled("fleet", ("EndpointServing",), phase="Serving")
         victim_pool = env.pool_of(env.pods(env.C.INFERENCE_REPLICA_LABEL, "1")[0].spec.node_name)
         env.patch("fleet", {env.C.INFERENCE_DESIRED_REPLICAS_ANNOTATION: "1"})
         draining = wait_for(lambda: (st := env.get("fleet").status).draining_replicas and st.to_dict(),

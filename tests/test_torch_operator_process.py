@@ -10,12 +10,11 @@ PET_NPROC_PER_NODE and NB_TPU_CHIPS_EXPECTED as rendered; the gate opens
 and closes the root; the cull terminates the pod's process group, no pid
 left; the second notebook, Pending on the one-card pool, binds after the
 cull; a deleted notebook takes its route and policies with it. A
-repaired notebook is then promoted into an InferenceEndpoint whose pod is
-a real serving process (`python -m odh_kubeflow_tpu_torch.serving` on the
-CPU): a warm bind, the restore verified, the requests served with
-`generate()`'s tokens, a route-first drain; with the restore late past the
-probe's timeout the verdict is still `ok`. The same flow runs on the card
-in tests/test_torch_cuda.py. Also the downward-API
+preempted notebook is repaired onto another pool and resumed bit-equal,
+also while its replacement's cards come up late. The promotion into an
+InferenceEndpoint is tests/test_torch_promotion_process.py (a file of its
+own, so that the test runner's workers share the process episodes). The
+same flow runs on the card in tests/test_torch_cuda.py. Also the downward-API
 resolution, the process stop and the cards a pod's process tree holds
 under a CUDA context on their own (the gate's reading of one process's
 mappings is tests/test_torch_gate.py)."""
@@ -63,65 +62,6 @@ def test_notebook_pod_preempted_checkpointed_and_resumed_on_the_cpu(tmp_path):
         monitor=lambda pod, chips, procs: SimTPUMonitor(chips=chips, expected=chips, duty=0.0))
     torch_operator_flow.check(seen, "cpu")
     assert seen["nb-r"]["repair"]["result"]["resumed"]["step"] == torch_pod_worker.REPAIR_STEPS + 1
-
-
-PROMOTED_REQUESTS = [([3, 1, 4, 1, 5, 9, 2, 6], 8), ([2, 7, 1, 8], 12), ([1, 6, 1, 8, 0, 3], 6),
-                     ([5, 7, 7, 2, 1, 5, 6, 6, 4, 9], 10)]
-
-
-def promoted(tmp_path, command=None):
-    """The repair flow on the CPU with the repaired notebook then promoted
-    into an endpoint that serves PROMOTED_REQUESTS from its checkpoint
-    (torch_operator_flow.Promotion); returns what the flow saw, checked."""
-    cfg = torch_pod_worker.tiny_cfg()
-    promotion = torch_operator_flow.Promotion(
-        model_config=torch_operator_flow.model_config(cfg), device="cpu", requests=PROMOTED_REQUESTS, slots=2,
-        max_seq=cfg.max_seq, drain_s=0.5, **({} if command is None else {"command": command}))
-    seen = torch_operator_flow.run(
-        tmp_path, torch_operator_flow.pod_worker("cpu"), waves=(("nb-p",),), repair="nb-p", promotion=promotion,
-        monitor=lambda pod, chips, procs: SimTPUMonitor(chips=chips, expected=chips, duty=0.0))
-    torch_operator_flow.check(seen, "cpu")
-    return seen
-
-
-def test_a_suspended_notebook_promoted_into_an_endpoint_serves_its_model_on_the_cpu(tmp_path):
-    """The promotion episode with processes on the CPU: the notebook's
-    resumed state is saved through its agent, the stand-in suspends it and
-    releases its pool warm, the endpoint claims that pool, its serving
-    process restores the whole saved train state and acks its checksum,
-    the restore is verified (`ok`), the four requests are served, and their
-    greedy tokens equal `generate()`'s on the restored params; the stop
-    drains the endpoint route first and terminates it."""
-    import torch
-
-    from odh_kubeflow_tpu_torch.models import adamw, generate, init_params, latest_step, restore_train_state
-
-    seen = promoted(tmp_path)
-    pe = seen["nb-p"]["promotion"]
-    cfg = torch_pod_worker.tiny_cfg()
-    ckpt = tmp_path / "out" / "nb-p" / "checkpoints"
-    params = init_params(torch.Generator().manual_seed(7), cfg, device="cpu")
-    state = restore_train_state(str(ckpt), {"params": params, "opt_state": adamw().init(params)})
-    assert latest_step(str(ckpt)) == pe["ready"]["restore"]["step"] == torch_pod_worker.REPAIR_STEPS + 1
-    for (prompt, max_new), (status, body, _, _) in zip(PROMOTED_REQUESTS, pe["replies"]):
-        want = generate(state["params"], [prompt], cfg, max_new, max_seq=cfg.max_seq, device="cpu")[0].tolist()
-        assert status == 200 and body["tokens"] == want, (prompt, body, want)
-    assert pe["exit"]["stats"]["generated_tokens"] == sum(m for _, m in PROMOTED_REQUESTS), pe["exit"]
-
-
-def test_a_restore_slower_than_the_probe_still_ends_verified(tmp_path):
-    """The serving process starts its restore 3 s late, past the
-    reconciler's 2 s restore probe: its agent reports ready only once the
-    process has restored and listens, so Loading probes the restore once it
-    can answer and the endpoint reaches Serving with the verdict `ok`,
-    never `unverified`."""
-    delayed = [sys.executable, "-c", "import runpy, time; time.sleep(3.0); "
-               "runpy.run_module('odh_kubeflow_tpu_torch.serving', run_name='__main__')"]
-    seen = promoted(tmp_path, command=delayed)
-    pe = seen["nb-p"]["promotion"]
-    assert pe["counters"]["verifications ok"] == 1 and pe["counters"]["verifications unverified"] == 0
-    assert pe["ready"]["times"]["restored"] - pe["ready"]["times"]["started"] >= 3.0, pe["ready"]["times"]
-    assert pe["bound"][0] + 3.0 <= pe["mesh-ready"][0], (pe["bound"], pe["mesh-ready"])
 
 
 def test_a_replacement_whose_cards_come_up_late_is_not_evicted(tmp_path):
@@ -217,9 +157,10 @@ def test_close_stops_a_tree_whose_children_left_the_group(tmp_path):
 
 
 def test_cards_held_are_the_device_nodes_the_pod_tree_holds_open(tmp_path):
-    """A child of the pod mapping a card's node and the context node (as a
-    torchrun worker maps /dev/nvidiaN and /dev/nvidia-uvm under its CUDA
-    context) counts that card; the same nodes mapped by a process outside
+    """A child of the pod mapping a card's node and the context node and
+    running the driver's event thread (as a torchrun worker maps
+    /dev/nvidiaN and /dev/nvidia-uvm under its CUDA context) counts that
+    card; the same nodes mapped by a process outside
     the pod's tree do not; a stopped pod holds none."""
     for name in ("nvidia0", "nvidia3", "nvidia-uvm"):
         (tmp_path / name).write_bytes(b"\0")
@@ -230,7 +171,11 @@ def test_cards_held_are_the_device_nodes_the_pod_tree_holds_open(tmp_path):
         return "; ".join(f"f{i} = open({str(tmp_path / n)!r}, 'r+b'); m{i} = mmap.mmap(f{i}.fileno(), 1)"
                          for i, n in enumerate(names))
 
-    child = f"import mmap, time; {mapping('nvidia3', 'nvidia-uvm')}; time.sleep(600)"
+    # and a thread named as the driver's event handler, which starts as a
+    # CUDA context's creation ends
+    named = ("import ctypes, threading; threading.Thread(target=lambda: (ctypes.CDLL(None).prctl("
+             "15, b'cuda-EvtHandlr', 0, 0, 0), time.sleep(600)), daemon=True).start()")
+    child = f"import mmap, time; {mapping('nvidia3', 'nvidia-uvm')}; {named}; time.sleep(600)"
     parent = f"import subprocess, sys, time; subprocess.Popen([sys.executable, '-c', {child!r}]); time.sleep(600)"
     outside = subprocess.Popen([sys.executable, "-c", f"import mmap, time; {mapping('nvidia0', 'nvidia-uvm')}; "
                                 "time.sleep(600)"])

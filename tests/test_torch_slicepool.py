@@ -7,7 +7,9 @@ annotations are compared (the pool-since time only as present or absent;
 an entry's accelerator and topology as its side's own shape). Also
 `endpoint_desired_replicas` over tests/test_autoscaler.py's input cases.
 """
+import copy
 import threading
+from types import SimpleNamespace
 
 import pytest
 
@@ -309,3 +311,65 @@ def test_a_pod_on_a_warm_pool_node_skips_the_cold_start():
         out.append(behavior(pod).ready_after)
         got[side.name] = out
     assert got["port"] == got["jax"] == [0.0, 2.5, 0.0, 2.5], got
+
+
+class StaleNodes:
+    """A client whose Node reads come from a snapshot taken at its making
+    (an informer cache that has not yet applied the later writes); every
+    other call goes to `client`."""
+
+    def __init__(self, client, node_cls):
+        self.client, self.node_cls = client, node_cls
+        self.snapshot = {n.metadata.name: n for n in client.list(node_cls)}
+
+    def list(self, cls, **kw):
+        if cls is self.node_cls:
+            return [copy.deepcopy(n) for n in self.snapshot.values()]
+        return self.client.list(cls, **kw)
+
+    def get(self, cls, namespace, name):
+        if cls is self.node_cls:
+            return copy.deepcopy(self.snapshot[name])
+        return self.client.get(cls, namespace, name)
+
+    def __getattr__(self, name):
+        return getattr(self.client, name)
+
+
+def test_a_claim_reads_the_pool_from_the_store_not_a_stale_cache():
+    """The port's pool verbs judge by `reader` where one is given (the
+    controllers pass the store's direct reader): a claim whose client's
+    Node reads predate the release finds nothing warm, and with the store
+    as its reader it claims the released slice."""
+    p = Pools(PORT)
+    stale = StaleNodes(p.client, PORT.core.Node)
+    assert p.pool.release("one-0", p.nodes("one-0"), priority=0)
+    assert p.sp.SlicePool(stale).claim(p.one.gke_accelerator, p.one.topology, f"{NS}/cached") is None
+    entry = p.sp.SlicePool(stale, reader=p.client).claim(p.one.gke_accelerator, p.one.topology, f"{NS}/fresh")
+    assert p.entry(entry) == ("one-0", "warm", 0, "", ["one-0-w0"])
+    assert p.marks()["one-0-w0"][:3] == ("claimed", "0", f"{NS}/fresh")
+
+
+def test_the_scheduler_binds_a_claimants_pod_on_its_claimed_pool_whatever_its_cache_shows():
+    """A slice released warm and claimed for an endpoint before the
+    endpoint's pod exists: the port's scheduler reads the nodes from the
+    store, so the pod binds on the claimed pool even while the scheduler's
+    cache still shows that pool warm (which takes nobody) and the next
+    pool free."""
+    from odh_kubeflow_tpu_torch.cluster.scheduler import Scheduler
+    from odh_kubeflow_tpu_torch.gpu import GPU_RESOURCE
+    from odh_kubeflow_tpu_torch.runtime.controller import Request
+
+    p, core = Pools(PORT), PORT.core
+    assert p.pool.release("one-0", p.nodes("one-0"), priority=0)
+    stale = StaleNodes(p.client, core.Node)  # the cache: one-0 warm, not yet claimed
+    assert p.entry(p.pool.claim(p.one.gke_accelerator, p.one.topology, f"{NS}/ep"))[0] == "one-0"
+    pod = core.Pod()
+    pod.metadata.name, pod.metadata.namespace = "ep-serve-0", NS
+    pod.metadata.labels = {PORT.C.INFERENCE_NAME_LABEL: "ep"}
+    pod.spec.node_selector = p.one.node_selector()
+    pod.spec.containers = [core.Container(name="ep", image="serve:1", resources=core.ResourceRequirements(
+        requests={GPU_RESOURCE: str(p.one.chips_per_host)}))]
+    p.client.create(pod)
+    Scheduler(SimpleNamespace(client=stale, api_reader=p.client)).reconcile(Request(NS, "ep-serve-0"))
+    assert p.client.get(core.Pod, NS, "ep-serve-0").spec.node_name == "one-0-w0"

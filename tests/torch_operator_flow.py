@@ -48,6 +48,20 @@ whose agent is ready once it has restored the checkpoint and listens, the
 restore is verified through the forwarded /tpu/restore, the requests are
 served over HTTP, and the endpoint's stop drains it route first and
 terminates it, its card free and its pool warm again.
+
+With `job` (a `Job`), once the waves are done a TPUJob runs on the same
+cluster: the TPUJobReconciler secures its gang's slice (a warm claim, or a
+free slice parked and claimed), its learner pod's `torchrun` runs the
+worker in its "job" mode (tests/torch_pod_worker.py `job_run`), Running
+once the gate has the pod ready, the cadence checkpoints go through the
+forwarded /tpu/checkpoint; after the first acked one the flow stamps
+`preempt-requested: user`, the job checkpoints, parks Preempted with its
+slice warm at its priority, requeues, claims the slice warm again, and the
+new pod restores the acked step and trains on to `spec.steps`; the job
+Succeeds, its set goes to 0 and its card is free. With a cfg whose
+`accounting_period_s` is above 0, a ChipAccountant built from the Config
+runs in the manager over the whole flow (`runtime.accounting.set_current`
+too, so incident bundles carry its ledger).
 """
 import json
 import subprocess
@@ -68,10 +82,13 @@ import odh_kubeflow_tpu_torch.api.notebook as notebook_api
 import odh_kubeflow_tpu_torch.apimachinery as apimachinery
 import odh_kubeflow_tpu_torch.cluster.slicepool as slicepool
 import odh_kubeflow_tpu_torch.controllers as controllers
+import odh_kubeflow_tpu_torch.runtime.accounting as accounting
+import odh_kubeflow_tpu_torch.runtime.jobmetrics as jobmetrics
 from odh_kubeflow_tpu_torch.api.apps import StatefulSet
 from odh_kubeflow_tpu_torch.api.core import Container, EnvVar, Event, Node, Pod
 from odh_kubeflow_tpu_torch.api.gateway import HTTPRoute
 from odh_kubeflow_tpu_torch.api.inference import InferenceEndpoint, NotebookRef, ServingSpec
+from odh_kubeflow_tpu_torch.api.job import TPUJob
 from odh_kubeflow_tpu_torch.api.networking import NetworkPolicy
 from odh_kubeflow_tpu_torch.api.notebook import Notebook, TPUSpec
 from odh_kubeflow_tpu_torch.apimachinery import AdmissionDeniedError, NotFoundError
@@ -86,9 +103,11 @@ from odh_kubeflow_tpu_torch.controllers import (
     NotebookWebhook,
     ProbeStatusController,
     SliceRepairController,
+    TPUJobReconciler,
     TPUWorkbenchReconciler,
     constants as C,
 )
+from odh_kubeflow_tpu_torch.controllers.job import job_priority
 from odh_kubeflow_tpu_torch.controllers.extension import route_name
 from odh_kubeflow_tpu_torch.controllers.inference import endpoint_route_name
 from odh_kubeflow_tpu_torch.gpu import GPU_RESOURCE
@@ -118,6 +137,12 @@ REPAIR_CFG = dict(checkpoint_window_s=30.0)
 # the endpoint's knobs under every cfg: Loading's window holds the serving
 # process's start, its restore and its bind; the drain window is short
 PROMOTION_CFG = dict(serving_loading_window_s=120.0)
+# the job's knobs under every cfg: a checkpoint window the card's save fits
+# in (the reconciler's probe gives up after 2 s and re-probes, joining the
+# save under way), and a short requeue backoff
+JOB_CFG = dict(job_checkpoint_window_s=20.0, job_requeue_backoff_s=0.5)
+# the accountant is off unless a cfg sets its period (Config's 0 = off)
+ACCOUNTING_CFG = dict(accounting_period_s=0.0)
 DENIED = ("nb-denied", "h100", "3x5")  # a notebook whose slice the planner refuses: 5 cards a host
 OTHER_POOL = "h100-b"  # the repair's fallback pool
 RESTORE_DEADLINE_S = 1.5  # the forwarded /tpu/restore's wait: under the reconciler's 2 s probe timeout
@@ -144,6 +169,17 @@ class Promotion:
     command: Sequence[str] = field(default_factory=lambda: [sys.executable, "-m", "odh_kubeflow_tpu_torch.serving"])
 
 
+@dataclass
+class Job:
+    """The job episode's inputs (run(job=...)): its step budget
+    (`spec.steps`), its checkpoint cadence (`spec.checkpointPeriodS`) and
+    the TPUJob's name; its learner gang is an h100 1x1 slice (the card)."""
+
+    steps: int
+    period_s: float
+    name: str = "rl-0"
+
+
 def model_config(cfg):
     """SERVING_MODEL_CONFIG's fields of a TransformerConfig, its dtype by name."""
     import dataclasses
@@ -161,8 +197,9 @@ def pod_worker(device):
 
 
 def owner(pod):
-    """The notebook or endpoint a pod runs."""
-    return pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) or pod.metadata.labels[C.INFERENCE_NAME_LABEL]
+    """The notebook, endpoint or job a pod runs."""
+    labels = pod.metadata.labels
+    return labels.get(C.NOTEBOOK_NAME_LABEL) or labels.get(C.INFERENCE_NAME_LABEL) or labels[C.JOB_NAME_LABEL]
 
 
 def wait_for(fn, timeout, msg):
@@ -214,7 +251,7 @@ def alive(pids):
 
 def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None, grace_s=15.0, timeout=120.0,
         released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None, repair=None,
-        promotion=None):
+        promotion=None, job=None):
     """Drives the flow; returns what it saw.
 
     `command(out_dir, role) -> argv` is a notebook pod's command (`role`:
@@ -232,7 +269,12 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     (what it restored, the step it took) and "done". With `promotion` (a
     `Promotion`), the replacement writes no "done" but the logit
     fingerprint of its params and answers the forwarded checkpoint
-    requests, and the notebook is promoted (`promotion_episode`).
+    requests, and the notebook is promoted (`promotion_episode`). With
+    `job` (a `Job`), the job episode runs after the waves (`job_episode`):
+    the learner's worker is `command(out_dir, "job")`. With a cfg whose
+    `accounting_period_s` is above 0, a ChipAccountant built from the
+    Config ticks in the manager and what it banked is returned
+    ("accounting").
     `env` is the pods' base env (torch_dist.clean_env() with one OMP
     thread by default). `released(pids)` is what else must hold, after a
     culled pod's processes are stopped, before its card counts as free;
@@ -246,7 +288,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     processes = {}  # pod uid -> its processes
     acks = []  # (when, pod uid, the forwarded checkpoint's ack or the error it raised)
     restores = []  # (when, pod uid, the forwarded restore's ack or the error it raised)
-    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **cfg})
+    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **JOB_CFG, **ACCOUNTING_CFG, **cfg})
 
     def pod_dir(pod):
         d = out_root / owner(pod) / pod.metadata.uid
@@ -256,6 +298,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     def pod_command(pod):
         if C.INFERENCE_NAME_LABEL in pod.metadata.labels:
             return list(promotion.command)
+        if C.JOB_NAME_LABEL in pod.metadata.labels:
+            return command(pod_dir(pod), "job")
         name = pod.metadata.labels[C.NOTEBOOK_NAME_LABEL]
         role = "serve" if name != repair else "promote" if promotion is not None else "repair"
         return command(pod_dir(pod), role)
@@ -279,7 +323,9 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         return got["times"]["done"] if got else None
 
     def checkpoint_hook(pod):
-        forward = forward_checkpoint(str(pod_dir(pod)), deadline_s=0.8 * config.checkpoint_window_s)
+        window = config.job_checkpoint_window_s if C.JOB_NAME_LABEL in pod.metadata.labels \
+            else config.checkpoint_window_s
+        forward = forward_checkpoint(str(pod_dir(pod)), deadline_s=0.8 * window)
 
         def hook():
             try:
@@ -294,7 +340,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
 
     cluster = SimCluster().start()
     mgr = Manager(cluster.store)
-    timeline = None
+    timeline = acct = None
     try:
         cluster.add_pod_behavior(pod_process_behavior(
             pod_command, str(log_dir), env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since,
@@ -314,6 +360,13 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         slice_repair.CHECKPOINT_TIMEOUT_S = config.checkpoint_window_s
         slice_repair.setup()
         InferenceEndpointReconciler(mgr, config, http_get=cluster.http_get).setup()
+        TPUJobReconciler(mgr, config, http_get=cluster.http_get).setup()
+        if config.accounting_period_s > 0:
+            acct = accounting.ChipAccountant(mgr.client, period_s=config.accounting_period_s,
+                                             idle_after_s=config.accounting_idle_after_s)
+            accounting.set_current(acct)
+            mgr.add_service(acct)
+            accounting_before = {r: accounting.tpu_accounting_ticks_total.value(result=r) for r in ("ok", "error")}
         mgr.start()
         timeline = Timeline(cluster.store)
 
@@ -597,6 +650,135 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             cluster.client.delete(InferenceEndpoint, NS, p.name)
             return pe
 
+
+        def job_counters():
+            return {**{f"jobs {r}": jobmetrics.tpu_jobs_total.value(result=r) for r in ("succeeded", "failed")},
+                    **{f"preemptions {c}": jobmetrics.tpu_job_preemptions_total.value(cause=c)
+                       for c in ("reclaim", "host-loss", "user", "bind-timeout")},
+                    "requeues": jobmetrics.tpu_job_requeues_total.value()}
+
+        def job_episode(j):
+            """Runs the TPUJob through its preemption to Succeeded; returns
+            what it saw: each edge's time (this process's clock) and
+            resourceVersion where a watch saw it, the job's states, events,
+            status and annotations, the counters' deltas, the goodput ratio,
+            the acks and both incarnations' results and pods."""
+            watch = Recorder(cluster.store, (("kubeflow.org/v1beta1", "TPUJob"), ("v1", "Node"), ("v1", "Pod")))
+            try:
+                return _job(j, watch)
+            finally:
+                watch.stop()
+
+        def _job(j, watch):
+            key = f"{NS}/{j.name}"
+            before, t0 = job_counters(), time.time()
+            je = {"t0": t0, "name": j.name, "steps": j.steps, "period": j.period_s}
+            tj = TPUJob()
+            tj.metadata.name, tj.metadata.namespace = j.name, NS
+            tj.spec.tpu = TPUSpec(accelerator="h100", topology="1x1")
+            tj.spec.steps, tj.spec.checkpoint_period_s = j.steps, j.period_s
+            tj.spec.template.spec.containers = [Container(name=j.name, image="trainer")]
+            cluster.client.create(tj)
+            je["priority"] = job_priority(tj)
+
+            def get():
+                return cluster.client.get(TPUJob, NS, j.name)
+
+            def ann(k, default=""):
+                return get().metadata.annotations.get(k, default)
+
+            def learner(exclude=()):
+                pods = cluster.client.list(Pod, namespace=NS, labels={C.JOB_NAME_LABEL: j.name})
+                return next((x for x in pods if x.spec.node_name and not x.metadata.deletion_timestamp
+                             and x.metadata.uid not in exclude), None)
+
+            def worker_up(p):
+                """True, or the pod's torchrun exited before its stop."""
+                procs = processes.get(p.metadata.uid)
+                assert procs is None or procs.running() or procs.closed, \
+                    f"{j.name}'s torchrun exited {procs.proc.returncode}\n{logs()}"
+                return True
+
+            def container_env_of(p):
+                return {e.name: e.value for e in p.spec.containers[0].env if e.name.startswith("TPU_JOB_")}
+
+            def incarnation_gone(p):
+                procs = processes[p.metadata.uid]
+                pids = sorted(set(procs.pids) | {(result(pod_dir(p)) or {}).get("pid", 0)} - {0})
+                wait(lambda: procs.closed and not alive(pids) and released(pids),
+                     f"{j.name}'s pod {p.metadata.uid[:8]}'s processes {pids} gone and its card released")
+                return {"uid": p.metadata.uid, "node": p.spec.node_name, "pool": pool_of(p.spec.node_name),
+                        "pids": pids, "alive": alive(pids), "closed at": procs.closed_at,
+                        "env": container_env_of(p), "result": result(pod_dir(p))}
+
+            first = wait(learner, f"{j.name}'s learner pod bound")
+            wait(lambda: worker_up(first) and ann(C.JOB_STATE_ANNOTATION) == "running"
+                 and int(ann(C.JOB_CHECKPOINT_STEP_ANNOTATION, "0") or 0) > 0,
+                 f"{j.name}'s first cadence checkpoint acked")
+            je["stamp"] = time.time()
+            cluster.client.patch(TPUJob, NS, j.name, {"metadata": {"annotations": {
+                C.JOB_PREEMPT_ANNOTATION: "user"}}})
+            wait(lambda: int(ann(C.JOB_PREEMPTIONS_ANNOTATION, "0") or 0) >= 1, f"{j.name} preempted and requeued")
+            je["first"] = incarnation_gone(first)
+            second = wait(lambda: learner(exclude=(first.metadata.uid,)), f"{j.name}'s second learner pod bound")
+            wait(lambda: worker_up(second) and get().status.phase == "Succeeded", f"{j.name} Succeeded")
+            wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.JOB_NAME_LABEL: j.name}),
+                 f"{j.name}'s pods deleted")
+            je["second"] = incarnation_gone(second)
+            je["card free"] = time.time()
+            je["wall"] = je["card free"] - t0
+            wait(lambda: get().status.ready_replicas == 0, f"{j.name}'s status with no pod ready")
+            for reason in ("JobAdmitted", "JobRunning", "JobPreempted", "JobRequeued", "JobSucceeded"):
+                wait(lambda: any(e.reason == reason for e in cluster.client.list(Event, namespace=NS)
+                                 if e.involved_object.name == j.name), f"{j.name}'s {reason} event")
+            je["events"] = {e.reason: e.message for e in cluster.client.list(Event, namespace=NS)
+                            if e.involved_object.kind == "TPUJob" and e.involved_object.name == j.name}
+            final = get()
+            je["annotations"] = dict(final.metadata.annotations)
+            je["status"] = final.status.to_dict()
+            je["replicas"] = cluster.client.get(StatefulSet, NS, f"{j.name}-{C.JOB_GANG_LEARNER}").spec.replicas
+            je["counters"] = {k: v - before[k] for k, v in job_counters().items()}
+            je["goodput"] = jobmetrics.tpu_job_goodput_ratio.value()
+            # the forwarded saves, once each (a re-probe joins the save under way)
+            for inc in ("first", "second"):
+                uid, seen_ids = je[inc]["uid"], set()
+                je[inc]["acks"] = []
+                for t, u, a in acks:
+                    if u == uid and (not isinstance(a, dict) or a.get("id") not in seen_ids):
+                        je[inc]["acks"].append((t, a))
+                        seen_ids.add(a.get("id") if isinstance(a, dict) else None)
+            # what the watches saw
+            states = []
+            for t, rv, typ, kind, o in watch.events:
+                if kind == "TPUJob" and typ != "DELETED":
+                    st = (o["metadata"].get("annotations") or {}).get(C.JOB_STATE_ANNOTATION, "")
+                    if not states or states[-1][2] != st:
+                        states.append((t, rv, st))
+            je["states"] = states
+            for inc in ("first", "second"):
+                uid = je[inc]["uid"]
+                je[inc]["bound"] = watch.first("Pod", lambda o, t: o["metadata"].get("uid") == uid
+                                               and o["spec"].get("nodeName"))
+                je[inc]["ready"] = watch.first("Pod", lambda o, t: o["metadata"].get("uid") == uid and any(
+                    c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in (o.get("status") or {}).get("conditions") or []))
+            pool_nodes = {n.metadata.name for n in cluster.client.list(Node)
+                          if n.metadata.labels[GKE_NODEPOOL_LABEL] == je["first"]["pool"]}
+            je["parked"] = next(((t, rv) for t, rv, typ, kind, o in watch.events
+                                 if kind == "Node" and t >= je["stamp"] and o["metadata"]["name"] in pool_nodes
+                                 and (o["metadata"].get("annotations") or {}).get(slicepool.POOL_STATE_ANNOTATION)
+                                 == "warm" and (o["metadata"].get("annotations") or {}).get(
+                                     slicepool.POOL_PRIORITY_ANNOTATION) == str(je["priority"])), None)
+            je["claims"] = [(t, rv, o["metadata"]["name"]) for t, rv, typ, kind, o in watch.events
+                            if kind == "Node" and (o["metadata"].get("annotations") or {}).get(
+                                slicepool.POOL_CLAIMED_BY_ANNOTATION) == key]
+            trace_id = (tracing.parse_traceparent(final.metadata.annotations.get(C.TRACEPARENT_ANNOTATION))
+                        or ("",))[0]
+            je["spans"] = {n: [sp["attributes"] for sp in tracing.recent_spans(trace_id=trace_id, name=n)]
+                           for n in ("job.admit", "job.checkpoint", "job.preempt", "job.requeue", "job.run")}
+            cluster.client.delete(TPUJob, NS, j.name)
+            return je
+
         seen = {"turns": [], "gate period": config.readiness_probe_period_s}
         name, accelerator, topology = DENIED
         state = card_state()
@@ -666,9 +848,25 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 got["root"] = tracing.recent_spans(trace_id=trace_id, name="notebook.ready")
                 cluster.client.delete(Notebook, NS, name)
                 wait(lambda: not owned_by(name), f"{name} deleted, its route and policies with it")
+        if job is not None:
+            seen["job"] = job_episode(job)
         seen["denied"]["left at the end"] = owned_by(seen["denied"]["name"])
+        if acct is not None:
+            acct.stop()
+            acct.tick()  # the last interval
+            gpu_nodes = sorted(n.metadata.name for n in cluster.client.list(Node)
+                               if int(n.status.capacity.get(GPU_RESOURCE, "0") or 0) > 0)
+            seen["accounting"] = {
+                "period": acct.period_s, "snapshot": acct.snapshot(), "conservation": acct.conservation(),
+                "by class and phase": {f"{c} {p}": v for c in accounting.CLASSES for p in accounting.PHASES
+                                       if (v := acct.chip_seconds(workload_class=c, phase=p))},
+                "ticks": {r: accounting.tpu_accounting_ticks_total.value(result=r) - accounting_before[r]
+                          for r in ("ok", "error")},
+                "attributed nodes": sorted(a.node for a in acct.classify()), "gpu nodes": gpu_nodes}
         return seen
     finally:
+        if acct is not None:
+            accounting.set_current(None)
         if timeline is not None:
             timeline.stop()
         mgr.stop()
@@ -941,6 +1139,94 @@ def check_promotion(got, period, gate_waits):
             pe["mesh-ready"][0] - pe["ready"]["times"]["context"]
 
 
+def job_states_in_order(states):
+    """Whether the job's states (each change once) went as the episode
+    must: admitted, Running, at least one cadence checkpoint back to
+    Running, the preempt's checkpoint, Preempted, the requeue, admitted
+    again, Running, and checkpoints until one ends Succeeded."""
+    s = [st for _, _, st in states]
+    head = ["", "admitted", "running", "checkpointing", "running"]
+    if s[:5] != head or "preempted" not in s:
+        return False
+    i = s.index("preempted")
+    before, after = s[5:i], s[i + 1:]
+    cadence = ["checkpointing", "running"]
+    return (before[-1:] == ["checkpointing"] and before[:-1] == cadence * ((len(before) - 1) // 2)
+            and after[:3] == ["", "admitted", "running"] and after[-2:] == ["checkpointing", "succeeded"]
+            and after[3:-2] == cadence * ((len(after) - 5) // 2))
+
+
+def check_job(got, period, gate_waits):
+    """The job episode's gates (run(job=...)): the states in order
+    (`job_states_in_order`); one user preemption, one requeue, one success
+    counted, status.preemptions 1, the job at replicas 0 with no pod; the
+    preempted slice parked warm at the job's priority and claimed warm
+    again by the job before its second pod bound, on the same pool; every
+    forwarded save acked once per request; the second pod pinned
+    TPU_JOB_RESUME_STEP to the preempt's acked step (the resume-step
+    annotation), restored it with the save's checksum, and its step k+1 is
+    bit-equal (loss and params checksum) to the first worker's step k+1 on
+    a copy; status.completedSteps at least spec.steps and one of the
+    second worker's acked steps; the goodput ratio in (0, 1]; no process of
+    either pod alive; with `gate_waits`, each pod ready and each Running no
+    earlier than its worker's CUDA context less one gate period."""
+    j = got
+    assert job_states_in_order(j["states"]), [st for _, _, st in j["states"]]
+    assert j["counters"] == {"jobs succeeded": 1, "jobs failed": 0, "preemptions reclaim": 0,
+                             "preemptions host-loss": 0, "preemptions user": 1, "preemptions bind-timeout": 0,
+                             "requeues": 1}, j["counters"]
+    assert j["status"]["phase"] == "Succeeded" and j["status"]["preemptions"] == 1, j["status"]
+    assert j["replicas"] == 0, j["replicas"]
+    first, second = j["first"], j["second"]
+    assert j["parked"] is not None, "the preempted slice was not parked warm at the job's priority"
+    assert second["pool"] == first["pool"], (first["pool"], second["pool"])
+    claims = [c for c in j["claims"] if c[0] >= j["stamp"]]
+    assert claims and second["bound"] is not None and claims[0][1] < second["bound"][1], (claims, second["bound"])
+    assert "warm claim: learner" in j["events"]["JobAdmitted"], j["events"]
+    for inc in (first, second):
+        assert inc["acks"] and all(isinstance(a, dict) and a.get("step") is not None for _, a in inc["acks"]), \
+            inc["acks"]
+        saves = inc["result"]["saves"]
+        assert [(a["step"], a["checksum"]) for _, a in inc["acks"]] == [(x["step"], x["checksum"]) for x in saves], \
+            (inc["acks"], saves)
+        assert inc["alive"] == [], inc
+    resume = first["acks"][-1][1]
+    assert j["annotations"][C.JOB_RESUME_STEP_ANNOTATION] == second["env"]["TPU_JOB_RESUME_STEP"] \
+        == str(resume["step"]), (j["annotations"], second["env"], resume)
+    assert first["env"]["TPU_JOB_RESUME_STEP"] == "0", first["env"]
+    resumed = second["result"]["resumed"]
+    assert (resumed["restored"]["step"], resumed["restored"]["checksum"]) == (resume["step"], resume["checksum"]), \
+        (resumed, resume)
+    (twin,) = [x["next"] for x in first["result"]["saves"] if x["step"] == resume["step"]]
+    assert (resumed["step"], resumed["loss"], resumed["checksum"]) == (twin["step"], twin["loss"], twin["checksum"]), \
+        (resumed, twin)
+    assert resume["step"] < j["steps"], f"the first incarnation reached {resume['step']} of {j['steps']} steps"
+    done = j["status"]["completedSteps"]
+    assert done >= j["steps"] and done in [a["step"] for _, a in second["acks"]], (done, second["acks"])
+    assert 0 < j["goodput"] <= 1, j["goodput"]
+    if gate_waits:
+        running = [t for t, _, st in j["states"] if st == "running"]
+        starts = [t for (t, _, st), (_, _, was) in zip(j["states"][1:], j["states"]) if st == "running"
+                  and was == "admitted"]
+        assert len(starts) == 2 and running, j["states"]
+        for inc, start in zip((first, second), starts):
+            context = inc["result"]["times"]["context"]
+            assert inc["ready"][0] >= context - period and start >= context - period, \
+                (inc["ready"][0] - context, start - context)
+
+
+def check_accounting(acct):
+    """The accountant's gates (run with cfg's accounting_period_s > 0): it ticked,
+    never in error; the ledger's attributed chip-seconds equal the physical
+    cards times the wall within its 1% tolerance; every GPU node is
+    attributed exactly once; with a job, the job class banked
+    chip-seconds."""
+    cons = acct["conservation"]
+    assert acct["ticks"]["ok"] > 0 and acct["ticks"]["error"] == 0, acct["ticks"]
+    assert cons["physical_chip_seconds"] > 0 and cons["residual_ratio"] <= 0.01, cons
+    assert acct["attributed nodes"] == acct["gpu nodes"], acct
+
+
 def check(seen, device, chips_expected=1, gate_waits=False):
     """The assertions every caller makes on run()'s result (and, for a
     repaired notebook, `check_repair`'s). `gate_waits`:
@@ -994,3 +1280,9 @@ def check(seen, device, chips_expected=1, gate_waits=False):
     # each took the card in turn: bound, stopped, and only then the next bound
     order = [seen[n][k][1] for n in turns for k in ("bound", "stopped")]
     assert order == sorted(order), dict(zip([f"{n} {k}" for n in turns for k in ("bound", "stopped")], order))
+    if "job" in seen:
+        check_job(seen["job"], period, gate_waits)
+    if "accounting" in seen:
+        check_accounting(seen["accounting"])
+        if "job" in seen:
+            assert seen["accounting"]["snapshot"]["chip_seconds"]["by_class"].get("job", 0) > 0, seen["accounting"]

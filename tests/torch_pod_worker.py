@@ -19,6 +19,9 @@ takes the next step. MODE "promote" is "repair" for a notebook the flow
 then promotes into an InferenceEndpoint: the pod that replaced it stays
 busy after its step, reports the logit fingerprint of its params and
 answers the forwarded checkpoint requests (the suspend's save) until
+SIGTERM. MODE "job" is a TPUJob's learner (`job_run`): it trains up to
+TPU_JOB_STEPS from TPU_JOB_RESUME_STEP's checkpoint (or from scratch),
+answering the forwarded checkpoint requests between two steps, until
 SIGTERM.
 """
 import json
@@ -67,27 +70,68 @@ def _launches(attention):
     return {k: v for k, v in attention.launch_counts.items() if v}
 
 
-def answer_saves(ckpt, out_dir, step, state, stop):
+def answer_saves(ckpt, out_dir, current, stop, after_save=None, work=lambda: False):
     """Answers the forwarded checkpoint requests
-    (probe.behavior.answer_checkpoint) until `stop`: save `state` as
-    `step`, ack its step, checksum, seconds, bytes and time."""
+    (probe.behavior.answer_checkpoint) until `stop`: save `current()`, a
+    (step, state) pair, and ack its step, checksum, seconds, bytes and
+    time; `after_save(step, state, ack)` runs before the ack goes out.
+    Between two polls `work()` runs; the loop waits 20 ms when it did
+    nothing (returned False)."""
     from odh_kubeflow_tpu_torch.models import make_checkpoint_hook
     from odh_kubeflow_tpu_torch.probe.behavior import answer_checkpoint
 
-    hook = make_checkpoint_hook(ckpt, lambda: (step, state))
+    hook = make_checkpoint_hook(ckpt, current)
 
     def save():
+        step, state = current()
         t0 = time.time()
         ack = hook()
         step_dir = os.path.join(ckpt, str(step))
         ack.update(seconds=time.time() - t0, at=time.time(),
                    bytes=sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)))
+        if after_save is not None:
+            after_save(step, state, ack)
         return ack
 
     answered = set()
     while not stop.is_set():
         answer_checkpoint(out_dir, save, answered)
-        stop.wait(0.02)
+        if not work():
+            stop.wait(0.02)
+
+
+def step_on_copy(dev, step_fn, state, k, batch_of):
+    """Step k+1 on a copy of `state` at step k, the run that is never
+    interrupted: its step, loss and params checksum, and its launches."""
+    from odh_kubeflow_tpu_torch.models import state_checksum
+    from odh_kubeflow_tpu_torch.models.tree import tree_map
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    twin = tree_map(torch.clone, state)
+    attention.reset_launch_counts()
+    _, _, loss = step_fn(twin["params"], twin["opt_state"], batch_of(k))
+    _sync(dev)
+    return {"step": k + 1, "loss": loss.item(), "checksum": state_checksum(twin["params"])}, _launches(attention)
+
+
+def restore_and_step(dev, ckpt, k, cfg, step_fn, opt, batch_of):
+    """Restores step k of `ckpt` onto a state initialised from another seed
+    (seed 1), checks its checksum and takes step k+1. Returns the state
+    and "resumed": what was restored (step, checksum, seconds) and the
+    step's step, loss, params checksum and launches."""
+    from odh_kubeflow_tpu_torch.models import init_params, restore_train_state, state_checksum
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    params = init_params(torch.Generator().manual_seed(1), cfg, device=dev)
+    t0 = time.time()
+    state = restore_train_state(ckpt, {"params": params, "opt_state": opt.init(params)}, step=k)
+    _sync(dev)
+    restored = {"step": k, "checksum": state_checksum(state), "seconds": time.time() - t0}
+    attention.reset_launch_counts()
+    _, _, loss = step_fn(state["params"], state["opt_state"], batch_of(k))
+    _sync(dev)
+    return state, {"restored": restored, "step": int(state["opt_state"]["count"]), "loss": loss.item(),
+                   "checksum": state_checksum(state["params"]), "launches": _launches(attention)}
 
 
 def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promote=False):
@@ -95,24 +139,21 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promo
     writing it (`write_result`).
 
     First incarnation (no checkpoint yet): `steps` train steps, each step's
-    loss and flash launches; then step k+1 on a copy of the state at step k,
-    so the run that is never interrupted is known before any ack: its loss
-    and params checksum. The result is written with no "done" time (the
-    kernel stays busy); then the forwarded checkpoint requests are answered
-    (probe.behavior.answer_checkpoint: save the state at step k, ack its
-    step, checksum, seconds and bytes) until `stop`.
+    loss and flash launches; then step k+1 on a copy of the state at step k
+    (`step_on_copy`), so the run that is never interrupted is known before
+    any ack: its loss and params checksum. The result is written with no
+    "done" time (the kernel stays busy); then the forwarded checkpoint
+    requests are answered (`answer_saves`: save the state at step k, ack
+    its step, checksum, seconds and bytes) until `stop`.
 
     A later incarnation (the notebook's checkpoint directory holds a step):
-    restore the latest step onto a state initialised from another seed,
-    check its checksum, take step k+1 and write its loss and params checksum
-    with the time it "stepped" and the "done" time. With `promote` it has
-    no "done" time (its kernel stays busy): it writes the logit fingerprint
-    of its params (serving.server.FINGERPRINT_PROMPT) and answers the
-    forwarded checkpoint requests with step k+1 until `stop`. `batch_of(i)`
-    is the batch of the step from i to i + 1."""
-    from odh_kubeflow_tpu_torch.models import (
-        init_params, latest_step, logit_fingerprint, make_train_step, restore_train_state, state_checksum)
-    from odh_kubeflow_tpu_torch.models.tree import tree_map
+    `restore_and_step` from the latest step, and write its loss and params
+    checksum with the time it "stepped" and the "done" time. With `promote`
+    it has no "done" time (its kernel stays busy): it writes the logit
+    fingerprint of its params (serving.server.FINGERPRINT_PROMPT) and
+    answers the forwarded checkpoint requests with step k+1 until `stop`.
+    `batch_of(i)` is the batch of the step from i to i + 1."""
+    from odh_kubeflow_tpu_torch.models import init_params, latest_step, logit_fingerprint, make_train_step, state_checksum
     from odh_kubeflow_tpu_torch.ops import attention
     from odh_kubeflow_tpu_torch.serving.server import FINGERPRINT_PROMPT
 
@@ -120,24 +161,14 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promo
     step_fn, opt = make_train_step(cfg)
     saved = latest_step(ckpt)
     if saved is not None:
-        params = init_params(torch.Generator().manual_seed(1), cfg, device=dev)
-        like = {"params": params, "opt_state": opt.init(params)}
-        t0 = time.time()
-        state = restore_train_state(ckpt, like, step=saved)
-        _sync(dev)
-        restored = {"step": saved, "checksum": state_checksum(state), "seconds": time.time() - t0}
-        attention.reset_launch_counts()
-        _, _, loss = step_fn(state["params"], state["opt_state"], batch_of(saved))
-        _sync(dev)
-        out["resumed"] = {"restored": restored, "step": int(state["opt_state"]["count"]), "loss": loss.item(),
-                          "checksum": state_checksum(state["params"]), "launches": _launches(attention)}
+        state, out["resumed"] = restore_and_step(dev, ckpt, saved, cfg, step_fn, opt, batch_of)
         out["times"]["stepped"] = time.time()
         out["times"]["done"] = None if promote else out["times"]["stepped"]
         if promote:
             out["resumed"]["logit_fingerprint"] = logit_fingerprint(state["params"], cfg, FINGERPRINT_PROMPT)
         write_result(out_dir, out)
         if promote:
-            answer_saves(ckpt, out_dir, out["resumed"]["step"], state, stop)
+            answer_saves(ckpt, out_dir, lambda: (out["resumed"]["step"], state), stop)
         else:
             stop.wait()
         return
@@ -150,18 +181,77 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promo
         _sync(dev)
         launches.append(_launches(attention))
     k = int(state["opt_state"]["count"])
-    twin = tree_map(torch.clone, state)
-    attention.reset_launch_counts()
-    _, _, loss = step_fn(twin["params"], twin["opt_state"], batch_of(k))
-    _sync(dev)
-    launches.append(_launches(attention))
-    following = {"step": k + 1, "loss": loss.item(), "checksum": state_checksum(twin["params"])}
-    del twin
+    following, launched = step_on_copy(dev, step_fn, state, k, batch_of)
+    launches.append(launched)
     out["train"] = {"steps": k, "losses": [x.item() for x in losses], "launches": launches, "next": following,
                     "state checksum": state_checksum(state)}
     out["times"]["done"] = None  # busy: the notebook keeps working until it is preempted
     write_result(out_dir, out)
-    answer_saves(ckpt, out_dir, k, state, stop)
+    answer_saves(ckpt, out_dir, lambda: (k, state), stop)
+
+
+def job_run(dev, out_dir, cfg, batch_of, out, stop):
+    """A TPUJob learner's train loop across its incarnations, filling `out`
+    and writing it (`write_result`) after each event.
+
+    The job's checkpoints are its checkpoint directory (`checkpoint_dir`).
+    With TPU_JOB_RESUME_STEP k > 0 (the acked step the job controller
+    pinned for this admission) it resumes from step k (`restore_and_step`)
+    and writes "resumed". Else it starts from seed 0. Then it trains until
+    the step count reaches TPU_JOB_STEPS, each step's launches counted, and
+    stays busy after that. Between two steps it answers a forwarded
+    checkpoint request (`answer_saves`): it saves its current step k and,
+    before it acks, takes step k+1 on a copy of the state (`step_on_copy`)
+    and records that step's loss and params checksum beside the save in
+    "saves" (the run that is never interrupted, known before any ack).
+    `batch_of(i)` is the batch of the step from i to i + 1."""
+    from odh_kubeflow_tpu_torch.models import init_params, make_train_step
+    from odh_kubeflow_tpu_torch.ops import attention
+
+    ckpt = checkpoint_dir(out_dir)
+    target, k = int(os.environ["TPU_JOB_STEPS"]), int(os.environ.get("TPU_JOB_RESUME_STEP") or 0)
+    step_fn, opt = make_train_step(cfg)
+    launches = {}  # a step's launches (as JSON) -> the steps that launched them
+    losses = []
+
+    def count(launched, loss):
+        key = json.dumps(launched, sort_keys=True)
+        launches[key] = launches.get(key, 0) + 1
+        losses.append(loss)
+
+    if k:
+        state, out["resumed"] = restore_and_step(dev, ckpt, k, cfg, step_fn, opt, batch_of)
+        k = out["resumed"]["step"]
+        count(out["resumed"]["launches"], out["resumed"]["loss"])
+        out["times"]["stepped"] = time.time()
+    else:
+        params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        state = {"params": params, "opt_state": opt.init(params)}
+
+    def record():
+        out["train"] = {"steps": k, "losses": losses, "launches": launches}
+        write_result(out_dir, out)
+
+    def after_save(step, state, ack):
+        out["saves"].append(dict(ack, next=step_on_copy(dev, step_fn, state, step, batch_of)[0]))
+        record()
+
+    def work():
+        nonlocal k
+        if k >= target:
+            return False
+        attention.reset_launch_counts()
+        loss = step_fn(state["params"], state["opt_state"], batch_of(k))[2].item()
+        count(_launches(attention), loss)
+        k += 1
+        if k == target:
+            out["times"]["trained"] = time.time()
+            record()
+        return True
+
+    out["saves"], out["times"]["done"] = [], None  # busy until the job is torn down
+    record()
+    answer_saves(ckpt, out_dir, lambda: (k, state), stop, after_save=after_save, work=work)
 
 
 def tiny_cfg():
@@ -180,20 +270,30 @@ def main(device: str, out_dir: str, mode: str = "serve") -> None:
     torch.set_num_threads(1)
     again = mode in ("repair", "promote") and resuming(out_dir)
     # the device first, its time taken at once: bring-up with nccl makes the
-    # card current, which creates the CUDA context before the world forms
+    # card current, which creates the CUDA context before the world forms.
+    # An empty allocation creates the context and launches no kernel (the
+    # first kernel loads its module, which took up to 0.35 s past the
+    # context on the card), as chip_smoke.py's worker stamps it
     dev = rank_device(device)
-    x = torch.ones(64, 64, device=dev)
+    torch.empty(1, device=dev)
     _sync(dev)
     context = time.time()
+    x = torch.ones(64, 64, device=dev)
     rank, world = (reinitialize_after_repair if again else initialize_from_env)(timeout_s=60, device=device)
     total = float((x @ x).sum())
     out = {"rank": rank, "world": [rank, world], "device": str(dev), "pid": os.getpid(), "ppid": os.getppid(),
            "sum": total, "env": {n: os.environ.get(n) for n in NAMES}, "times": {"context": context, "done": time.time()}}
-    if mode in ("repair", "promote"):
+    if mode in ("repair", "promote", "job"):
         cfg = tiny_cfg()
-        repair_run(dev, out_dir, cfg, lambda i: {"tokens": torch.as_tensor(
-            np.random.default_rng(100 + i).integers(0, cfg.vocab, (2, 16)), device=dev)}, out, stop,
-            promote=mode == "promote")
+
+        def batch_of(i):
+            return {"tokens": torch.as_tensor(np.random.default_rng(100 + i).integers(0, cfg.vocab, (2, 16)),
+                                              device=dev)}
+
+        if mode == "job":
+            job_run(dev, out_dir, cfg, batch_of, out, stop)
+        else:
+            repair_run(dev, out_dir, cfg, batch_of, out, stop, promote=mode == "promote")
         return
     write_result(out_dir, out)
     stop.wait()

@@ -1,7 +1,7 @@
 """The JAX package and the port side by side, for parity tests that run one
 scenario through both SimClusters at once (tests/test_torch_slice_repair.py,
 tests/test_torch_faults.py, tests/test_torch_inference.py,
-tests/test_torch_slicepool.py).
+tests/test_torch_slicepool.py, tests/test_torch_job.py).
 
 Each side is a namespace of its package's modules under the same names, its
 slice shapes paired by hosts: JAX v5p 2x2x2 (2 hosts x 4 chips) against
@@ -21,16 +21,19 @@ import odh_kubeflow_tpu.api.apps as j_apps
 import odh_kubeflow_tpu.api.core as j_core
 import odh_kubeflow_tpu.api.gateway as j_gateway
 import odh_kubeflow_tpu.api.inference as j_inference
+import odh_kubeflow_tpu.api.job as j_job
 import odh_kubeflow_tpu.api.notebook as j_notebook
 import odh_kubeflow_tpu.apimachinery as j_am
 import odh_kubeflow_tpu.cluster as j_cluster
 import odh_kubeflow_tpu.cluster.faults as j_faults
+import odh_kubeflow_tpu.cluster.scheduler as j_scheduler
 import odh_kubeflow_tpu.cluster.slicepool as j_slicepool
 import odh_kubeflow_tpu.controllers as j_ctrl
 import odh_kubeflow_tpu.probe as j_probe
 import odh_kubeflow_tpu.runtime as j_runtime
 import odh_kubeflow_tpu.runtime.breaker as j_breaker
 import odh_kubeflow_tpu.runtime.flightrecorder as j_fr
+import odh_kubeflow_tpu.runtime.jobmetrics as j_jm
 import odh_kubeflow_tpu.runtime.metrics as j_rm
 import odh_kubeflow_tpu.serving.metrics as j_sm
 import odh_kubeflow_tpu.tpu as j_tpu
@@ -39,10 +42,12 @@ import odh_kubeflow_tpu_torch.api.apps as p_apps
 import odh_kubeflow_tpu_torch.api.core as p_core
 import odh_kubeflow_tpu_torch.api.gateway as p_gateway
 import odh_kubeflow_tpu_torch.api.inference as p_inference
+import odh_kubeflow_tpu_torch.api.job as p_job
 import odh_kubeflow_tpu_torch.api.notebook as p_notebook
 import odh_kubeflow_tpu_torch.apimachinery as p_am
 import odh_kubeflow_tpu_torch.cluster as p_cluster
 import odh_kubeflow_tpu_torch.cluster.faults as p_faults
+import odh_kubeflow_tpu_torch.cluster.scheduler as p_scheduler
 import odh_kubeflow_tpu_torch.cluster.slicepool as p_slicepool
 import odh_kubeflow_tpu_torch.controllers as p_ctrl
 import odh_kubeflow_tpu_torch.gpu as p_gpu
@@ -50,6 +55,7 @@ import odh_kubeflow_tpu_torch.probe.behavior as p_probe
 import odh_kubeflow_tpu_torch.runtime as p_runtime
 import odh_kubeflow_tpu_torch.runtime.breaker as p_breaker
 import odh_kubeflow_tpu_torch.runtime.flightrecorder as p_fr
+import odh_kubeflow_tpu_torch.runtime.jobmetrics as p_jm
 import odh_kubeflow_tpu_torch.runtime.metrics as p_rm
 import odh_kubeflow_tpu_torch.serving.metrics as p_sm
 import odh_kubeflow_tpu_torch.telemetry as p_telemetry
@@ -57,7 +63,7 @@ import odh_kubeflow_tpu_torch.utils.tracing as p_tracing
 
 JAX = SimpleNamespace(
     name="jax", apps=j_apps, core=j_core, nb=j_notebook, inference=j_inference, gateway=j_gateway, slicepool=j_slicepool,
-    sm=j_sm, am=j_am, cluster=j_cluster, faults=j_faults, ctrl=j_ctrl,
+    job=j_job, jm=j_jm, scheduler=j_scheduler, sm=j_sm, am=j_am, cluster=j_cluster, faults=j_faults, ctrl=j_ctrl,
     C=j_ctrl.constants, runtime=j_runtime, rm=j_rm, breaker=j_breaker, recorder=j_fr.recorder, telemetry=j_tpu.telemetry,
     tracing=j_tracing, behavior=j_probe.sim_agent_behavior, pool_label=j_tpu.GKE_NODEPOOL_LABEL,
     device_resource=j_tpu.TPU_RESOURCE, selector_keys=(j_tpu.GKE_TPU_ACCELERATOR_LABEL, j_tpu.GKE_TPU_TOPOLOGY_LABEL),
@@ -68,7 +74,7 @@ JAX = SimpleNamespace(
 )
 PORT = SimpleNamespace(
     name="port", apps=p_apps, core=p_core, nb=p_notebook, inference=p_inference, gateway=p_gateway, slicepool=p_slicepool,
-    sm=p_sm, am=p_am, cluster=p_cluster, faults=p_faults, ctrl=p_ctrl,
+    job=p_job, jm=p_jm, scheduler=p_scheduler, sm=p_sm, am=p_am, cluster=p_cluster, faults=p_faults, ctrl=p_ctrl,
     C=p_ctrl.constants, runtime=p_runtime, rm=p_rm, breaker=p_breaker, recorder=p_fr.recorder, telemetry=p_telemetry,
     tracing=p_tracing, behavior=p_probe.sim_agent_behavior, pool_label=p_gpu.GKE_NODEPOOL_LABEL,
     device_resource=p_gpu.GPU_RESOURCE, selector_keys=(p_gpu.GKE_GPU_ACCELERATOR_LABEL, p_gpu.GPU_TOPOLOGY_LABEL),
@@ -80,11 +86,15 @@ PORT = SimpleNamespace(
 SIDES = (JAX, PORT)
 
 
+SCENARIO_LIMIT_S = 300.0  # a side still running past it fails the test instead of holding its worker
+
+
 def both(scenario, make_env, stop_env, sides=SIDES):
     """Runs scenario(env) on the JAX side and the port side at once, each in
     its own env (`make_env(side)`, stopped by `stop_env(env)` in a
     `finally`); returns {"jax": result, "port": result}. `sides` are the
-    two namespaces (tests/test_torch_operator.py passes its own)."""
+    two namespaces (tests/test_torch_operator.py passes its own). A side
+    that has not finished within SCENARIO_LIMIT_S fails the test."""
     results, errors = {}, {}
 
     def run(side):
@@ -98,11 +108,14 @@ def both(scenario, make_env, stop_env, sides=SIDES):
             if env is not None:
                 stop_env(env)
 
-    threads = [threading.Thread(target=run, args=(side,)) for side in sides]
+    threads = [threading.Thread(target=run, args=(side,), daemon=True) for side in sides]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    deadline = time.monotonic() + SCENARIO_LIMIT_S
+    for side, t in zip(sides, threads):
+        t.join(max(0.0, deadline - time.monotonic()))
+        if t.is_alive():
+            raise AssertionError(f"the {side.name} side did not finish its scenario in {SCENARIO_LIMIT_S} s")
     for name, e in errors.items():
         raise AssertionError(f"the {name} side failed: {e!r}") from e
     return results

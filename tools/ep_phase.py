@@ -34,7 +34,11 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    print("launches", chip_smoke.ep_phase(attention, smi), flush=True)
+    ranks = chip_smoke._RankPool(chip_smoke.RANK_POOL_WORLD)
+    try:
+        print("launches", chip_smoke.ep_phase(attention, smi, ranks), flush=True)
+    finally:
+        ranks.close()
 
 
 if __name__ == "__main__":
