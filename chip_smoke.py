@@ -332,12 +332,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    period; 2/2/2 tensor-core launches in every step of both incarnations,
    no scalar one. Printed: preempt -> Degraded -> ack (with the save's
    seconds and GB) -> evicted -> rebound -> mesh-ready again -> resumed
-   step, the MTTR and the goodput ratio. The promotion episode, after
-   nb-2's resumed step 3 (its replacement's worker, `--device-worker
-   promote`, stays busy, reports its params' logit fingerprint and answers
-   the forwarded checkpoint requests): tests/torch_standin.py suspends nb-2
-   (its forwarded /tpu/checkpoint saves step 3, the stop, its processes
-   gone, its pool released warm, the suspend's annotations), ep-0 is
+   step, the MTTR and the goodput ratio. The suspend, after nb-2's resumed
+   step 3 (its replacement's worker, `--device-worker promote`, stays busy,
+   reports its params' logit fingerprint and answers the forwarded
+   checkpoint requests, each with the next step taken on a copy): suspend
+   is enabled in the SuspendResumeController (off through the waves, whose
+   culls tear down), nb-2 is stopped with the culler's stamp (the stop and
+   checkpointing in one patch), the controller drives its /tpu/checkpoint
+   (forwarded: the worker saves step 3), writes suspended with the save's
+   step and checksum and releases its pool warm; its processes go. Gates
+   (check_suspend): one forwarded save, acked before Suspended, its step
+   and checksum the annotations', the pool warm at priority 0, one save
+   counted and no reclaim. The promotion episode: ep-0 is
    created with spec.notebookRef nb-2 and its checkpoint directory, and
    the InferenceEndpointReconciler claims the released pool under
    user/ep-0; ep-0's pod runs `python -m odh_kubeflow_tpu_torch.serving`
@@ -360,19 +366,40 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the phase's start. Printed: each edge from the stop to the first token,
    TTFT median and max, tokens/s, and stop -> route gone -> Terminated ->
    card free. The job episode, after the waves: the TPUJobReconciler
-   beside the other controllers; OPERATOR_JOB (anakin, spec.tpu h100 1x1,
-   JOB_STEPS steps, a JOB_PERIOD_S cadence) is admitted on a warm claim,
+   beside the other controllers, right after the promotion (nb-2 still
+   suspended); OPERATOR_JOB (anakin, spec.tpu h100 1x1, JOB_STEPS steps, a
+   JOB_PERIOD_S cadence) is admitted on a warm claim of ep-0's pool,
    its learner pod runs `--device-worker job` (tests/torch_pod_worker.py
    `job_run` at REPAIR_LAYERS of the flagship, bf16, DEVICE_TRAIN_BATCH),
    Ready once a process of the pod holds the card under a CUDA context,
    Running, checkpoints at its cadence through the forwarded
-   /tpu/checkpoint; after its first acked save the flow stamps
-   `preempt-requested: user`: the save, Preempted with its slice parked
-   warm at the job's priority, requeued, admitted again by a warm claim of
-   that slice; the new pod restores the acked step, takes the next step and
-   trains on to JOB_STEPS; Succeeded, replicas 0, the card free. Gates
-   (check_job and _operator_job): the states in that order; preemptions
-   {user} +1, requeues +1, jobs {succeeded} +1; status.preemptions 1;
+   /tpu/checkpoint; after its first acked save the flow unstops nb-2. No
+   h100 1x1 node is free then: the repair's preempted node stays tainted
+   and the job holds the other. nb-2 goes Resuming, its warm claim misses,
+   its pod sits unschedulable, and past reclaim_pending_grace_s the
+   reclaimer stamps the job (`capacity-pressure:user/nb-2`, the lowest
+   priority); the job's save, Preempted with its slice returned to general
+   capacity, requeued (its backoff from its pod's going); nb-2's pod binds
+   there, its worker (`--device-worker promote`, which reports its restore
+   before its CUDA context) restores step 3, answers the forwarded
+   /tpu/restore once its agent opens the gate, the resume completes with
+   the restore verified and the worker takes step 4; the flow stops nb-2
+   again: it suspends (the save of step 4) and releases the slice warm;
+   the job claims it warm, the new pod restores the acked step, takes the
+   next step and trains on to JOB_STEPS; Succeeded, replicas 0, the card
+   free. Config: chip_budget 2 (the notebook and the job, nothing more),
+   a 15 s suspend window, Config's resume attempts. Gates
+   (check_job, check_resume and _operator_job): the job's states in that
+   order; preemptions {reclaim} +1 and {user} 0, requeues +1, jobs
+   {succeeded} +1; status.preemptions 1; nb-2's suspend states "" ->
+   checkpointing -> suspended -> resuming -> "" -> checkpointing ->
+   suspended; notebook_reclaims_total {job-preempt} +1 and no other;
+   verifications {ok} +1 and no other result, RestoreVerified; one
+   notebook_resume_seconds observation and one notebook.resume span; the
+   idle clock re-armed at the resume; the resumed step bit-equal to step 4
+   on a copy in the worker that saved step 3; the resumed pod Ready and
+   mesh-ready no earlier than its worker's CUDA context less one gate
+   period; REPAIR_LAYERS tensor-core launches each in the resumed step;
    completedSteps at least JOB_STEPS and an acked step; the resume step
    the preempt's acked step, its checksum restored; the resumed step's
    loss and params checksum bit-equal to the first pod's step on a copy;
@@ -384,12 +411,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ACCOUNTANT_PERIOD_S over the whole phase: it never ticks in error, its
    ledger conserves (attributed = physical card-seconds within 1%), every
    GPU node is attributed once, and the job class banks card-seconds.
-   Printed: the job's edges from its create and from the stamp, the saves'
-   seconds and GB, the restore's seconds, the accountant's card-seconds by
+   Printed: nb-2's stop -> ack (the save's seconds and GB) -> Suspended;
+   the unstop -> reclaim stamp -> the job's ack -> nb-2 bound -> CUDA
+   context -> restored -> restore verified -> Active (the resume latency);
+   the job's requeue -> warm claim -> resumed -> Succeeded; the saves'
+   seconds and GB, the restores' seconds, the accountant's card-seconds by
    class and phase. The phase's time and each episode's, against their
    budgets (120 s for the phase less the episodes, 45 s for the repair
-   episode, PROMOTION_BUDGET_S for the promotion, JOB_BUDGET_S for the
-   job).
+   episode, PROMOTION_BUDGET_S for the suspend and the promotion,
+   RESUME_JOB_BUDGET_S for the job with nb-2's resume).
 
 Every phase prints its time when it ends, and the end a line of them all.
 
@@ -4345,6 +4375,8 @@ def _device_worker(mode, train, out_dir, t0):
     import torch_pod_worker
 
     resumed = mode in ("repair", "promote") and torch_pod_worker.resuming(out_dir)
+    if resumed:  # before the CUDA context: the pod's agent waits for the restore
+        torch_pod_worker.announce_restore(out_dir)
     t0 = float(t0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4507,14 +4539,21 @@ PROMOTION_MAX_SEQ = 512
 PROMOTION_DRAIN_S = 1.0  # spec.serving.drainTimeoutS: the route-first drain's window
 PROMOTION_BUDGET_S = 40  # the promotion episode fails past it: 20.5 s on the card in its first run, and a margin
 OPERATOR_JOB = "rl-0"  # the TPUJob of the job episode: an anakin gang on an h100 1x1 slice (this card)
-# its spec.steps and spec.checkpointPeriodS: the first pod is still short of
-# JOB_STEPS when the user's preempt lands, one cadence save after Running
-# (a pod's first step takes seconds of warm-up, the next ~0.11 s: at most
-# ~35 steps by then on a fast host, 2 on the card at a 3 s cadence), and the
-# period leaves a few seconds of steps between two 3 s saves
+# its spec.steps and spec.checkpointPeriodS (PR 19's, on which
+# RESUME_JOB_BUDGET_S rests): the first pod is still short of JOB_STEPS when
+# the reclaim's preempt lands, one cadence save after Running and then the
+# reclaim's grace and a save later (a pod's first step takes seconds of
+# warm-up, the next ~0.11 s: the first save came at step 1 and the
+# reclaim's at steps 8-11 on the card, PR 20's runs 1-4; at most ~35 and
+# ~45 on a host whose warm-up took no time), and the period leaves a few
+# seconds of steps between two 3 s saves
 JOB_STEPS = 48
 JOB_PERIOD_S = 5.0
-JOB_BUDGET_S = 100  # the job episode fails past it: 75.0 s on the card in its first run (64 steps), and a margin
+# the job episode with nb-2's resume fails past it: PR 19's job episode took
+# 52.5-89.9 s on the card; the resume adds one torchrun start-up (up to
+# 15.9 s to the CUDA context), one save (up to 3.5 s) and one restore (up to
+# 2.9 s): 112.2 s, and a margin
+RESUME_JOB_BUDGET_S = 120
 ACCOUNTANT_PERIOD_S = 0.5  # the ChipAccountant's tick over the phase
 
 
@@ -4552,7 +4591,9 @@ def _operator_phase(attention, smi, out_root):
           f"TPUWorkbenchReconciler, ProbeStatusController (every {OPERATOR_PROBE_S} s), "
           f"CullingReconciler (idle {OPERATOR_CULL_IDLE_S} s, checks every {OPERATOR_CHECK_S} s) and "
           f"SliceRepairController (checkpoint window {flow.REPAIR_CFG['checkpoint_window_s']} s, Config's default "
-          f"backoff); each pod "
+          f"backoff), SuspendResumeController (suspend off until {OPERATOR_REPAIR}'s suspend; checkpoint window "
+          f"{flow.RESUME_CFG['suspend_checkpoint_window_s']} s, card budget {flow.RESUME_CFG['chip_budget']}, "
+          f"Config's resume attempts), the InferenceEndpoint and TPUJob reconcilers; each pod "
           f"runs `torchrun chip_smoke.py --device-worker operator` ({OPERATOR_REPAIR}'s: `repair`) with the env "
           f"the reconciler rendered, beside a NotebookAgent over CudaMonitor(window {OPERATOR_WINDOW_S} s, samples "
           f"every {OPERATOR_SAMPLE_S} s) that counts the cards on which the pod's processes hold a CUDA context; "
@@ -4575,7 +4616,8 @@ def _operator_phase(attention, smi, out_root):
                      accounting_period_s=ACCOUNTANT_PERIOD_S),
             env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
             while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids, repair=OPERATOR_REPAIR,
-            promotion=promotion, job=flow.Job(steps=JOB_STEPS, period_s=JOB_PERIOD_S, name=OPERATOR_JOB))
+            promotion=promotion, job=flow.Job(steps=JOB_STEPS, period_s=JOB_PERIOD_S, name=OPERATOR_JOB),
+            resume=True)
         flow.check(seen, "cuda:0", gate_waits=True)  # the gate reads the pod's processes, not this one
     except AssertionError as e:
         fail(f"phase 15: {e}")
@@ -4653,6 +4695,7 @@ def _operator_phase(attention, smi, out_root):
               f"; {smi}", flush=True)
     repair_launches = _operator_repair(seen[OPERATOR_REPAIR], smi, zero)
     promotion_launches = _operator_promotion(seen[OPERATOR_REPAIR], promotion, smi, zero)
+    resume_launches = _operator_resume(seen[OPERATOR_REPAIR], seen["job"], smi, zero)
     job_launches = _operator_job(seen["job"], smi, zero)
     _operator_accounting(seen["accounting"], smi)
     took = time.perf_counter() - t_phase
@@ -4661,8 +4704,8 @@ def _operator_phase(attention, smi, out_root):
     jobbed = seen["job"]["wall"]
     print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s, the promotion episode "
           f"{promoted:.1f} s and the job episode {jobbed:.1f} s (budgets: {OPERATOR_BUDGET_S} s without the "
-          f"episodes, {REPAIR_BUDGET_S} s the repair, {PROMOTION_BUDGET_S} s the promotion, {JOB_BUDGET_S} s the "
-          f"job); {smi}", flush=True)
+          f"episodes, {REPAIR_BUDGET_S} s the repair, {PROMOTION_BUDGET_S} s the suspend and the promotion, "
+          f"{RESUME_JOB_BUDGET_S} s the job with {OPERATOR_REPAIR}'s resume); {smi}", flush=True)
     if took - episode - promoted - jobbed > OPERATOR_BUDGET_S:
         fail(f"phase 15 took {took - episode - promoted - jobbed:.1f} s without its episodes, over its budget of "
              f"{OPERATOR_BUDGET_S} s")
@@ -4670,9 +4713,10 @@ def _operator_phase(attention, smi, out_root):
         fail(f"phase 15's repair episode took {episode:.1f} s, over its budget of {REPAIR_BUDGET_S} s")
     if promoted > PROMOTION_BUDGET_S:
         fail(f"phase 15's promotion episode took {promoted:.1f} s, over its budget of {PROMOTION_BUDGET_S} s")
-    if jobbed > JOB_BUDGET_S:
-        fail(f"phase 15's job episode took {jobbed:.1f} s, over its budget of {JOB_BUDGET_S} s")
-    return {"operator": launched, **repair_launches, **promotion_launches, **job_launches}
+    if jobbed > RESUME_JOB_BUDGET_S:
+        fail(f"phase 15's job episode with {OPERATOR_REPAIR}'s resume took {jobbed:.1f} s, over its budget of "
+             f"{RESUME_JOB_BUDGET_S} s")
+    return {"operator": launched, **repair_launches, **promotion_launches, **resume_launches, **job_launches}
 
 
 def _operator_repair(got, smi, zero):
@@ -4744,9 +4788,12 @@ def _operator_promotion(got, promotion, smi, zero):
     first_token = min(sent + body["ttft_s"] for _, body, sent, _ in replies)
     tokens = sum(len(body["tokens"]) for _, body, _, _ in replies)
     wall = max(done for _, _, _, done in replies) - pe["requests sent"]
-    print(f"  promotion: {OPERATOR_REPAIR} suspended by the stand-in: stop -> the forwarded save's ack "
-          f"{pe['ack'][0] - t0:.3f} s (step {ack['step']}, checksum {ack['checksum']}) -> its processes gone, "
-          f"pool {pe['released pool']} released warm, suspended {pe['suspended'] - t0:.3f} s; {smi}", flush=True)
+    se = got["suspend"]
+    print(f"  suspend: {OPERATOR_REPAIR} stopped with the culler's stamp -> the forwarded save's ack "
+          f"{pe['ack'][0] - t0:.3f} s (the worker's save {ack['seconds']:.3f} s, {ack['bytes'] / 1e9:.3f} GB, step "
+          f"{ack['step']}, checksum {ack['checksum']}) -> Suspended {pe['suspended'] - t0:.3f} s (pool "
+          f"{pe['released pool']} released warm: {se['pool marks']}) -> its processes gone {se['closed at'] - t0:.3f} s; "
+          f"counters {se['counters']}; {smi}", flush=True)
     print(f"  promotion: create {OPERATOR_ENDPOINT} {pe['created'] - t0:.3f} s -> promoted {pe['promoted'][0] - t0:.3f} s "
           f"-> pool claimed under {flow.NS}/{OPERATOR_ENDPOINT} {pe['claimed'][0] - t0:.3f} s -> bound on "
           f"{pe['served node']} (pool {pe['served pool']}) {pe['bound'][0] - t0:.3f} s -> the serving process's CUDA "
@@ -4768,6 +4815,43 @@ def _operator_promotion(got, promotion, smi, zero):
           f"-> card free {pe['card free'] - stop:.3f} s (pool {pe['served pool']} {pe['served pool after']}); states "
           f"{pe['states']}; the episode {pe['wall']:.1f} s; {smi}", flush=True)
     return {f"operator promotion: {n} requests served by {OPERATOR_ENDPOINT}": launched}
+
+
+def _operator_resume(got, j, smi, zero):
+    """Phase 15's resume of nb-2, past torch_operator_flow.check_resume's
+    gates: the resumed step launched REPAIR_LAYERS each of the tensor-core
+    forward, dq and dk/dv and no scalar kernel; the edges from the unstop to
+    Active and the second suspend printed, each line with the card. Returns
+    the launches by path."""
+    re_ = got["resume"]
+    resumed = re_["result"]["resumed"]
+    want = {n: (REPAIR_LAYERS if n in TENSOR_CORE else 0) for n in zero}
+    if {**zero, **resumed["launches"]} != want:
+        fail(f"phase 15 {OPERATOR_REPAIR}: its resumed step launched {resumed['launches']}, want {want}")
+    t0, times = re_["unstop"], re_["result"]["times"]
+    replicas = "not seen" if re_["ready replicas"] is None else f"{re_['ready replicas'][0] - t0:.3f} s"
+    (span,) = re_["spans"]
+    job_ack_at, job_ack = j["first"]["acks"][-1]
+    (restore_at, restore_ack), = [(t, a) for t, a in re_["restores"] if isinstance(a, dict)]
+    print(f"  resume: unstop {OPERATOR_REPAIR} -> Resuming {re_['resuming'][0] - t0:.3f} s (warm claim missed: "
+          f"counters {re_['counters']}) -> the reclaim's stamp on {OPERATOR_JOB} {re_['reclaim stamp'][0] - t0:.3f} s "
+          f"-> the job's save acked {job_ack_at - t0:.3f} s (step {job_ack['step']}, {job_ack['seconds']:.3f} s, "
+          f"{job_ack['bytes'] / 1e9:.3f} GB) -> {OPERATOR_REPAIR} bound on {re_['node']} (pool {re_['pool']}) "
+          f"{re_['bound'][0] - t0:.3f} s -> its worker's CUDA context {times['context'] - t0:.3f} s -> restored "
+          f"{times['restored'] - t0:.3f} s ({resumed['restored']['seconds']:.3f} s, step {resumed['restored']['step']}) "
+          f"-> Ready {re_['ready'][0] - t0:.3f} s -> the notebook's readyReplicas {replicas} "
+          f"-> mesh-ready {re_['mesh-ready'][0] - t0:.3f} s (the context "
+          f"{re_['mesh-ready'][0] - times['context']:+.3f} s) -> restore verified {restore_at - t0:.3f} s "
+          f"({restore_ack['checksum']}) -> Active {re_['resumed'][0] - t0:.3f} s: resume latency {span['latency_s']:.3f} s "
+          f"(attempts seen {re_['attempts']}); {smi}", flush=True)
+    _, second = re_["acks"][0]
+    print(f"  resume: {OPERATOR_REPAIR} took step {resumed['step']}: loss {resumed['loss']:.6f}, params "
+          f"{resumed['checksum']}, bit-equal to the step on a copy in the worker that saved; launches "
+          f"{resumed['launches']}; stopped again {re_['stop'] - t0:.3f} s -> the save of step {second['step']} "
+          f"({second['seconds']:.3f} s, {second['bytes'] / 1e9:.3f} GB) -> Suspended "
+          f"{re_['suspend']['suspended'] - t0:.3f} s -> its processes gone {re_['suspend']['closed at'] - t0:.3f} s; "
+          f"events {sorted(re_['events'])}; {smi}", flush=True)
+    return {"operator resume: resumed step": {**zero, **resumed["launches"]}}
 
 
 def _operator_job(j, smi, zero):
@@ -4807,9 +4891,12 @@ def _operator_job(j, smi, zero):
     print(f"  job: from the create: first pod bound {first['bound'][0] - t0:.3f} s on {first['node']} (pool "
           f"{first['pool']}), its worker's CUDA context {first['result']['times']['context'] - t0:.3f} s, ready "
           f"{first['ready'][0] - t0:.3f} s (the context {first['ready'][0] - first['result']['times']['context']:+.3f}"
-          f" s); the preempt stamped {stamp - t0:.3f} s; {smi}", flush=True)
-    print(f"  job: from the stamp: states {edges(stamp)}; the slice parked warm at priority {j['priority']} "
-          f"{j['parked'][0] - stamp:.3f} s; the first pod's processes gone {first['closed at'] - stamp:.3f} s; "
+          f" s); {'the notebook unstopped' if j['cause'] == 'reclaim' else 'the preempt stamped'} {stamp - t0:.3f} s; "
+          f"{smi}", flush=True)
+    parked = (f"the slice parked warm at priority {j['priority']} {j['parked'][0] - stamp:.3f} s"
+              if j["parked"] else "the slice returned to general capacity")
+    print(f"  job: from the {'unstop' if j['cause'] == 'reclaim' else 'stamp'} (cause {j['cause']}): states "
+          f"{edges(stamp)}; {parked}; the first pod's processes gone {first['closed at'] - stamp:.3f} s; "
           f"second pod bound {second['bound'][0] - stamp:.3f} s on {second['node']} (pool {second['pool']}), its "
           f"context {second['result']['times']['context'] - stamp:.3f} s, ready {second['ready'][0] - stamp:.3f} s "
           f"(the context {second['ready'][0] - second['result']['times']['context']:+.3f} s), the resumed step "

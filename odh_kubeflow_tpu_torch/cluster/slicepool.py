@@ -527,3 +527,25 @@ class PoolPrewarmer:
         if thread is not None:
             thread.join(timeout=5.0)
         self._thread = None
+
+
+def add_prewarmer(manager, config) -> Optional[PoolPrewarmer]:
+    """The manager's POOL_PREWARM wiring (the reference's `build_manager`,
+    odh_kubeflow_tpu/main.py): with `config.pool_prewarm` above 0, a
+    PoolPrewarmer of the slice `gpu.plan_slice` plans from
+    `config.pool_prewarm_accelerator` and `pool_prewarm_topology`, ticking
+    every half readiness-probe period (at least 0.5 s), added to the manager
+    as a service (started and stopped with it); returns it, or None when
+    prewarming is off."""
+    if config.pool_prewarm <= 0:
+        return None
+    from ..gpu import plan_slice
+
+    shape = plan_slice(config.pool_prewarm_accelerator, config.pool_prewarm_topology)
+    prewarmer = PoolPrewarmer(
+        manager.client, shape.gke_accelerator, shape.topology,
+        target=config.pool_prewarm,
+        period_s=max(0.5, config.readiness_probe_period_s / 2),
+    )
+    manager.add_service(prewarmer)
+    return prewarmer

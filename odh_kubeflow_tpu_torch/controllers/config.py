@@ -19,9 +19,9 @@ def _env_bool(name: str, default: bool) -> bool:
 
 @dataclass
 class Config:
-    """The fields that the port's controllers, webhook, extension and chip
-    accountant read. The JAX package's Config also holds the knobs of its
-    suspend, pool, SLO, canary, autoscale and router controllers, and the
+    """The fields that the port's controllers, webhook, extension, chip
+    accountant and pool prewarmer read. The JAX package's Config also holds
+    the knobs of its SLO, canary, autoscale and router controllers, and the
     deployment-surface env table; each comes back with the controller that
     reads it."""
 
@@ -57,6 +57,25 @@ class Config:
     # MaxConcurrentReconciles analog: worker threads per controller. The
     # workqueue's per-key single-flight makes >1 safe
     max_concurrent_reconciles: int = 4
+    # suspend/resume + warm slice pools (controllers/suspend.py,
+    # cluster/slicepool.py): culling a GPU notebook checkpoints kernel state
+    # and releases the slice into a warm pool instead of tearing it down;
+    # resume binds from the pool (hit) or falls back to cold placement
+    # (miss). Opt-in like culling itself.
+    suspend_enabled: bool = False
+    # checkpoint-before-suspend window (the cull path's analog of the repair
+    # path's checkpoint_window_s)
+    suspend_checkpoint_window_s: float = 15.0
+    # per-ordinal checkpoint-hook retries inside the window: bounded, jittered
+    # (the cluster/client.py 429 pattern) so one transient probe-agent blip
+    # never aborts the whole suspend
+    suspend_checkpoint_retries: int = 3
+    suspend_checkpoint_backoff_s: float = 0.2
+    # resume: one attempt = one warm-claim-or-cold-placement try; a resume
+    # that hasn't reached mesh-ready within resume_timeout_s re-claims (a
+    # poisoned warm slice must not wedge the notebook), ResumeFailed after max
+    resume_timeout_s: float = 60.0
+    resume_max_attempts: int = 6
     # oversubscription policy: total admitted card demand (notebooks,
     # endpoints and admitted jobs) may not exceed this budget; a job whose
     # admission would pass it queues with a QueuedOverBudget condition
@@ -65,6 +84,14 @@ class Config:
     # how long a GPU pod must sit unschedulable before the reclaimer acts —
     # the scheduler's capacity-freed fast path gets first shot
     reclaim_pending_grace_s: float = 1.0
+    # slice-pool pre-warming (cluster/slicepool.py PoolPrewarmer): keep this
+    # many warm slices of the configured shape AHEAD of demand instead of
+    # only recycling suspended ones. 0 = off. The shape is one
+    # `gpu.plan_slice` plans: h100 1x4, one host of 4 cards (the reference's
+    # v5e 2x2 is one host of 4 chips)
+    pool_prewarm: int = 0
+    pool_prewarm_accelerator: str = "h100"
+    pool_prewarm_topology: str = "1x4"
     # inference serving (controllers/inference.py): how long Loading gets to
     # reach mesh-ready + verified restore before LoadFailed, and the default
     # drain window a stopped endpoint's in-flight requests get (overridable
@@ -140,6 +167,25 @@ class Config:
             c.repair_backoff_s = float(os.environ["REPAIR_BACKOFF_S"])
         if os.environ.get("REPAIR_BACKOFF_MAX_S"):
             c.repair_backoff_max_s = float(os.environ["REPAIR_BACKOFF_MAX_S"])
+        c.suspend_enabled = _env_bool("ENABLE_SUSPEND", c.suspend_enabled)
+        if os.environ.get("SUSPEND_CHECKPOINT_WINDOW_S"):
+            c.suspend_checkpoint_window_s = float(
+                os.environ["SUSPEND_CHECKPOINT_WINDOW_S"]
+            )
+        if os.environ.get("RESUME_TIMEOUT_S"):
+            # clamp: a zero/negative timeout would burn every resume attempt
+            # in one reconcile pass and land straight in ResumeFailed
+            c.resume_timeout_s = max(0.1, float(os.environ["RESUME_TIMEOUT_S"]))
+        if os.environ.get("RESUME_MAX_ATTEMPTS"):
+            c.resume_max_attempts = max(1, int(os.environ["RESUME_MAX_ATTEMPTS"]))
+        if os.environ.get("POOL_PREWARM"):
+            c.pool_prewarm = max(0, int(os.environ["POOL_PREWARM"]))
+        c.pool_prewarm_accelerator = os.environ.get(
+            "POOL_PREWARM_ACCELERATOR", c.pool_prewarm_accelerator
+        )
+        c.pool_prewarm_topology = os.environ.get(
+            "POOL_PREWARM_TOPOLOGY", c.pool_prewarm_topology
+        )
         if os.environ.get("MAX_CONCURRENT_RECONCILES"):
             # clamp: 0/negative would spawn no workers and silently disable
             # every controller

@@ -314,6 +314,13 @@ class CullingReconciler:
         if idle_s > self.config.cull_idle_time_min * 60.0:
             # cull: stop annotation scales the slice away (reference :475-492)
             updates[C.STOP_ANNOTATION] = now_rfc3339()
+            if self.config.suspend_enabled and nb.spec.tpu is not None \
+                    and nb.spec.tpu.accelerator:
+                # suspend, don't tear down: the checkpointing stamp rides the
+                # SAME patch as the stop annotation, so the core reconciler
+                # can never scale the slice away before the suspend
+                # controller's checkpoint window ran (controllers/suspend.py)
+                updates[C.TPU_SUSPEND_STATE_ANNOTATION] = "checkpointing"
             self._patch_annotations(nb, updates)
             self.metrics.notebook_culling_total.inc()
             self.metrics.last_culling_timestamp.set(time.time())

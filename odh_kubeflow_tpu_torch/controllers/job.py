@@ -168,6 +168,9 @@ class TPUJobReconciler:
         # in-memory only (the durable machine lives in annotations):
         # per-episode checkpoint acks (ordinal -> acked step); re-derivable
         self._ckpt_acked: Dict[str, Dict[int, Optional[int]]] = {}
+        # requeued job -> when its preempted gang's last pod was first seen
+        # gone (the requeue backoff runs from there)
+        self._gang_gone_at: Dict[str, float] = {}
 
     def setup(self) -> None:
         def pod_is_job(ev: str, obj: dict, old: Optional[dict]) -> bool:
@@ -198,11 +201,13 @@ class TPUJobReconciler:
         except NotFoundError:
             self._release_claims(req.key, back_to_warm=True)
             self._ckpt_acked.pop(req.key, None)
+            self._gang_gone_at.pop(req.key, None)
             tracing.discard_root_for(f"job:{req.key}")
             return None
         if job.metadata.deletion_timestamp:
             self._release_claims(req.key, back_to_warm=True)
             self._ckpt_acked.pop(req.key, None)
+            self._gang_gone_at.pop(req.key, None)
             tracing.discard_root_for(f"job:{req.key}")
             return None
 
@@ -324,11 +329,23 @@ class TPUJobReconciler:
         self._mirror_status(job, gangs, phase="Pending")
 
         # requeue backoff: a just-preempted job re-admitting instantly would
-        # race the very requester its slice was reclaimed for
+        # race the very requester its slice was reclaimed for. It runs from
+        # the preempted gang's last pod gone, not from the requeue (the
+        # reference's): a pod of processes stops gracefully for seconds, and
+        # until its object goes the requester's pod cannot bind there, while
+        # a free-slice search that skips terminating pods would see the
+        # slice free and take it back first
         backoff = self.config.job_requeue_backoff_s
         if backoff > 0 and self._int_ann(job, C.JOB_PREEMPTIONS_ANNOTATION):
-            queued = self._time_ann(
-                job, C.JOB_EPISODE_QUEUED_AT_ANNOTATION, now
+            if self.api_reader.list(Pod, namespace=job.metadata.namespace,
+                                    labels={C.JOB_NAME_LABEL: job.metadata.name}):
+                self._gang_gone_at.pop(req.key, None)
+                return Result(requeue_after=max(
+                    0.02, self.config.readiness_probe_period_s / 2
+                ))
+            queued = max(
+                self._time_ann(job, C.JOB_EPISODE_QUEUED_AT_ANNOTATION, now),
+                self._gang_gone_at.setdefault(req.key, now),
             )
             if now - queued < backoff:
                 return Result(requeue_after=max(
@@ -368,6 +385,7 @@ class TPUJobReconciler:
             ))
 
         self._set_queued_condition(job, "False", "Admitted", "")
+        self._gang_gone_at.pop(req.key, None)
         # pin the episode's resume step BEFORE the template is generated —
         # the template env reads it, and it must not move again until the
         # next admission (a live value would roll the gang mid-run)
@@ -503,14 +521,18 @@ class TPUJobReconciler:
     ) -> Dict[str, List[str]]:
         """Whole healthy, unreserved, unoccupied pools of one shape (pool
         name -> node names) — a gang-placeable slice the scheduler can
-        bind."""
+        bind. Read from the store, not the cache (the reference's): a pod
+        cache that has not yet seen a notebook's pod bound showed its slice
+        free, the job parked and claimed it under that pod, and the
+        notebook's suspend then released the slice warm over the claim,
+        leaving the job Admitted on a slice its gang could never bind."""
         occupied = {
             p.spec.node_name
-            for p in self.client.list(Pod)
+            for p in self.api_reader.list(Pod)
             if p.spec.node_name and not p.metadata.deletion_timestamp
         }
         pools: Dict[str, List[Node]] = {}
-        for node in self.client.list(Node):
+        for node in self.api_reader.list(Node):
             labels = node.metadata.labels
             if labels.get(GKE_GPU_ACCELERATOR_LABEL) != gke_accelerator:
                 continue
@@ -797,9 +819,12 @@ class TPUJobReconciler:
                      "%.2fs wall)", req.key, saved, run_s, wall)
             return None
 
-        # cadence checkpoint: keep running, cadence clock re-arms
+        # cadence checkpoint: keep running, cadence clock re-arms from the
+        # ack, not from `now` (read before the probes, which wait for the
+        # save: the learner is idle meanwhile, and re-arming at `now` opened
+        # the next window one save early)
         updates[C.JOB_STATE_ANNOTATION] = STATE_RUNNING
-        updates[C.JOB_RUN_STARTED_AT_ANNOTATION] = rfc3339_precise(now)
+        updates[C.JOB_RUN_STARTED_AT_ANNOTATION] = rfc3339_precise(time.time())
         self._patch_annotations(job, updates)
         recorder.record(
             "transition", machine="job", job=req.key, state=STATE_RUNNING,

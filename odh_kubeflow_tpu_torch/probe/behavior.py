@@ -23,7 +23,11 @@ starts it.
   worker), since the agent runs in another process than the train state,
   and an InferenceEndpoint pod's /tpu/restore to its serving process
   (`forward_restore`, `answer_restore`), whose agent is not ready until
-  that process has restored and listens (`serving_ready`).
+  that process has restored and listens (`serving_ready`). A resumed (or
+  repaired) notebook pod's /tpu/restore goes to its worker the same way,
+  and its agent is not ready while the worker reports a restore in flight
+  (`restore_report`): the suspend controller verifies the restore once, at
+  mesh-ready.
 
 A GPU node is bound to one GPU pod at a time (the scheduler's rule), so
 before a GPU pod's processes start, those of any earlier pod on the same
@@ -393,6 +397,11 @@ RESTORE_REQUEST = _REQUEST.format(kind="restore")
 CONTROL_DIR_ENV = "SERVING_CONTROL_DIR"
 SERVING_READY = "serving.json"
 SERVING_EXIT = "serving-exit.json"
+# a notebook pod's worker that restores a checkpoint before it works (a
+# resumed or repaired notebook's) reports it in its pod's directory:
+# {"restoring": true} before it touches its card, then {"restoring": false,
+# "restored": true, "step", "checksum", ...} once the state is back
+RESTORE_REPORT = "restore.json"
 
 
 def write_json(path: str, obj: Dict[str, Any]) -> None:
@@ -514,20 +523,31 @@ def serving_ready(directory: str) -> Optional[Dict[str, Any]]:
     return read_json(os.path.join(directory, SERVING_READY))
 
 
-class _ServingMonitor:
-    """A pod's device view that has not come up until its serving process
-    has restored its checkpoint and listens (`serving_ready`), whatever
-    cards it holds: until then the agent answers its readiness with 503,
-    the host coming up, so no reader takes the pod as ready while the model
-    it will serve is not there yet."""
+def restore_report(directory: str) -> Optional[Dict[str, Any]]:
+    """The worker's RESTORE_REPORT in `directory`, None while it has not
+    written one (a worker that restores nothing never does)."""
+    return read_json(os.path.join(directory, RESTORE_REPORT))
 
-    def __init__(self, monitor: TPUMonitor, directory: str):
-        self._monitor, self._directory = monitor, directory
+
+class _LatchedMonitor:
+    """A pod's device view that has not come up until `ready()` also holds,
+    whatever cards it holds: until then the agent answers its readiness
+    with 503, the host coming up. An endpoint pod's waits for its serving
+    process to have restored its checkpoint and to listen
+    (`serving_ready`), so no reader takes the pod as ready while the model
+    it will serve is not there yet; a notebook pod's waits while its worker
+    reports a restore in flight (`restore_report`), which the worker writes
+    before it creates the CUDA context the card's view comes up on, so the
+    suspend controller's one restore check at mesh-ready finds the worker
+    able to answer it."""
+
+    def __init__(self, monitor: TPUMonitor, ready: Callable[[], bool]):
+        self._monitor, self._ready = monitor, ready
         self._up = False
 
     def came_up(self) -> bool:
         if not self._up:
-            self._up = self._monitor.came_up() and serving_ready(self._directory) is not None
+            self._up = self._monitor.came_up() and self._ready()
         return self._up
 
     def __getattr__(self, name: str) -> Any:
@@ -574,7 +594,9 @@ def pod_process_behavior(
     `control_dir(pod)`, when given, is the pod's control directory, named
     to its processes in CONTROL_DIR_ENV. An endpoint pod's agent then has
     not come up until the serving process has restored its checkpoint and
-    listens there (`serving_ready`): its readiness is 503 meanwhile.
+    listens there (`serving_ready`): its readiness is 503 meanwhile. A
+    notebook pod's agent has not come up while its worker reports a restore
+    in flight there (`restore_report`).
 
     A pod goes Ready only once its agent's readiness is (`agent_ready`): on
     the card, once its processes hold a CUDA context on every card, and for
@@ -614,7 +636,12 @@ def pod_process_behavior(
         processes[pod.metadata.uid] = procs
         device_view = monitor(pod, chips, procs)
         if control_dir is not None and pod.metadata.labels.get(C.INFERENCE_NAME_LABEL):
-            device_view = _ServingMonitor(device_view, control_dir(pod))
+            directory = control_dir(pod)
+            device_view = _LatchedMonitor(device_view, lambda: serving_ready(directory) is not None)
+        elif control_dir is not None and pod.metadata.labels.get(C.NOTEBOOK_NAME_LABEL):
+            directory = control_dir(pod)
+            device_view = _LatchedMonitor(
+                device_view, lambda: not (restore_report(directory) or {}).get("restoring", False))
         agent = NotebookAgent(monitor=device_view, kernels=ProcessKernels(lambda: idle_since(pod)),
                               checkpoint_hook=checkpoint_hook(pod) if checkpoint_hook is not None else None)
         if restore_hook is not None:

@@ -12,13 +12,19 @@ store write it re-judges the cross-object invariants and raises
   store serializes writes, so observed transitions are real transitions —
   a lost-update race that lands an undeclared edge is caught
   deterministically.
+- **pool-claim CAS**: a Node's `pool-claimed-by` never jumps from one
+  claimant directly to a different one — every legal path goes through
+  warm/cleared first (the lead-node CAS contract). Pool-state values must
+  be legal pool-machine states.
 - **chip budget**: cards on GPU nodes hosting bound pods never exceed the
   monitor's `chip_budget` (`CHIP_BUDGET` env by default); unset/0 skips
   the check.
 
-The reference's pool-claim and checkpoint-before-suspend invariants judge
-the slice-pool and suspend machines' controllers, which the port does not
-have yet; a caller adds its own checks with `Monitor(extra=)`.
+`check_checkpoint_before_suspend` (a notebook passes checkpointing ->
+suspended only with checkpoint evidence while ready hosts were live) is not
+a write-tier invariant: a real chaos run can lapse the window with every
+agent unreachable. A caller arms it with `Monitor(extra=...)`, as the
+reference's systematic explorer does.
 
 Zero-cost when off: the store holds `invariants=None` and pays one
 attribute check per write.
@@ -122,6 +128,50 @@ def check_machine_transitions(ctx: WriteContext) -> Optional[str]:
     return None
 
 
+def check_pool_claim_cas(ctx: WriteContext) -> Optional[str]:
+    """A node's pool claim can never be STOLEN: claimed-by changes from one
+    non-empty owner directly to a different one only when a claimant
+    ignored the lead-node CAS. Pool-state values and observed transitions
+    are judged against the POOL_MACHINE spec (analysis/machines.py)."""
+    if ctx.kind != "Node":
+        return None
+    from ..analysis.machines import POOL_MACHINE
+    from ..cluster.slicepool import (
+        POOL_CLAIMED_BY_ANNOTATION,
+        POOL_STATE_ANNOTATION,
+        POOL_STATE_WARM,
+    )
+
+    old_ann, new_ann = _annotations(ctx.old), _annotations(ctx.new)
+    old_state = POOL_MACHINE.classify_value(old_ann.get(POOL_STATE_ANNOTATION))
+    new_state = POOL_MACHINE.classify_value(new_ann.get(POOL_STATE_ANNOTATION))
+    if new_state is None:
+        return (
+            f"node {ctx.name()}: undeclared pool-state "
+            f"{new_ann.get(POOL_STATE_ANNOTATION)!r}"
+        )
+    if old_state is not None and not POOL_MACHINE.allows(old_state, new_state):
+        return (
+            f"slice-pool machine: node {ctx.name()} transitioned "
+            f"{old_state or 'rest'!r} -> {new_state or 'rest'!r}, which is "
+            "not a declared transition (analysis/machines.py)"
+        )
+    if new_state == POOL_STATE_WARM and new_ann.get(POOL_CLAIMED_BY_ANNOTATION):
+        return (
+            f"node {ctx.name()}: warm but still claimed by "
+            f"{new_ann[POOL_CLAIMED_BY_ANNOTATION]!r}"
+        )
+    old_claim = old_ann.get(POOL_CLAIMED_BY_ANNOTATION, "")
+    new_claim = new_ann.get(POOL_CLAIMED_BY_ANNOTATION, "")
+    if old_claim and new_claim and old_claim != new_claim:
+        return (
+            f"node {ctx.name()}: pool claim stolen — claimed-by changed "
+            f"{old_claim!r} -> {new_claim!r} without passing through "
+            "warm/cleared (a claimant ignored the lead-node CAS)"
+        )
+    return None
+
+
 def check_chip_budget(ctx: WriteContext) -> Optional[str]:
     """Cards on GPU nodes hosting bound pods never exceed the configured
     budget. Judged only on Pod writes (the binds) — calm-path Notebook
@@ -159,8 +209,49 @@ def check_chip_budget(ctx: WriteContext) -> Optional[str]:
     return None
 
 
+def check_checkpoint_before_suspend(ctx: WriteContext) -> Optional[str]:
+    """Explorer-tier extra (registered via Monitor(extra=...)): a notebook
+    may only pass checkpointing -> suspended with checkpoint evidence when
+    ready hosts existed to save — the 'suspend that skipped
+    checkpoint-saved' mutant is exactly this violation. NOT soak-safe: a
+    real chaos run can legitimately lapse the window with every agent
+    unreachable."""
+    if ctx.kind != "Notebook" or ctx.new is None or ctx.old is None:
+        return None
+    from ..controllers import constants as C
+
+    old_ann, new_ann = _annotations(ctx.old), _annotations(ctx.new)
+    if not (
+        old_ann.get(C.TPU_SUSPEND_STATE_ANNOTATION) == "checkpointing"
+        and new_ann.get(C.TPU_SUSPEND_STATE_ANNOTATION) == "suspended"
+    ):
+        return None
+    if new_ann.get(C.TPU_CHECKPOINT_SAVED_ANNOTATION):
+        return None
+    name = (ctx.new.get("metadata", {}) or {}).get("name", "")
+    ns = (ctx.new.get("metadata", {}) or {}).get("namespace", "")
+    for p in ctx.objects("v1", "Pod"):
+        meta = p.get("metadata", {}) or {}
+        if meta.get("namespace") != ns or meta.get("deletionTimestamp"):
+            continue
+        if (meta.get("labels") or {}).get(C.NOTEBOOK_NAME_LABEL) != name:
+            continue
+        ready = any(
+            c.get("type") == "Ready" and c.get("status") == "True"
+            for c in ((p.get("status") or {}).get("conditions") or [])
+        )
+        if ready:
+            return (
+                f"{ctx.name()} suspended while ready hosts were live but "
+                "recorded no checkpoint-saved step — the checkpoint window "
+                "was skipped"
+            )
+    return None
+
+
 WRITE_INVARIANTS: Dict[str, CtxCheck] = {
     "machine-transition": check_machine_transitions,
+    "pool-claim-cas": check_pool_claim_cas,
     "chip-budget": check_chip_budget,
 }
 

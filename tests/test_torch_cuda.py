@@ -916,10 +916,10 @@ def test_a_job_preempted_requeued_and_resumed_on_card(card, tmp_path):
 
 @pytest.mark.cuda
 def test_a_notebook_promoted_into_an_endpoint_on_card(card, tmp_path):
-    """tests/test_torch_operator_process.py's promotion episode with the
+    """tests/test_torch_promotion_process.py's promotion episode with the
     workers and the serving process on the card and the agents over the
-    card's CudaMonitor: the notebook repaired, suspended by the stand-in
-    and promoted with a warm bind; the serving process restores the saved
+    card's CudaMonitor: the notebook repaired, suspended by the
+    SuspendResumeController and promoted with a warm bind; the serving process restores the saved
     train state on the card, the restore is verified (`ok`), the requests
     are served (greedy tokens equal generate()'s on the restored params,
     f32), and the stop frees the card."""
@@ -944,3 +944,37 @@ def test_a_notebook_promoted_into_an_endpoint_on_card(card, tmp_path):
     for (prompt, max_new), (status, body, _, _) in zip(requests, pe["replies"]):
         want = generate(state["params"], [prompt], cfg, max_new, max_seq=cfg.max_seq, device="cuda")[0].tolist()
         assert status == 200 and body["tokens"] == want, (prompt, body, want)
+
+
+@pytest.mark.cuda
+def test_a_notebook_suspended_and_resumed_by_reclaiming_a_job_on_card(card, tmp_path):
+    """tests/test_torch_suspend_process.py's episode with the workers on the
+    card and the agents over the card's CudaMonitor: the repaired notebook
+    suspended by the SuspendResumeController, the job admitted on a warm
+    claim, preempted by the reclaimer (cause `reclaim`) for the notebook's
+    resume; the resumed worker restores the suspended step before its
+    agent opens the gate, the restore is verified (`ok`) and its next step
+    is bit-equal to the one taken on a copy; the notebook suspends again,
+    the job claims its slice warm, resumes bit-equal and Succeeds; every
+    step on the scalar kernels (the tiny model is f32 at d 16); the card
+    free at the end."""
+    import torch_operator_flow
+    from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
+
+    steps = 1000  # the tiny model's steps take milliseconds on the card
+    seen = torch_operator_flow.run(tmp_path, torch_operator_flow.pod_worker("cuda"),
+                                   cuda_monitor(window_s=2.0, sample_period_s=0.5), waves=(("nb-s",),),
+                                   repair="nb-s", resume=True, job=torch_operator_flow.Job(steps=steps, period_s=1.0),
+                                   cfg=dict(torch_operator_flow.CFG, accounting_period_s=0.5),
+                                   released=torch_operator_flow.card_released(),
+                                   card_state=torch_operator_flow.compute_app_pids, timeout=300.0)
+    torch_operator_flow.check(seen, "cuda", gate_waits=True)
+    re_, j = seen["nb-s"]["resume"], seen["job"]
+    assert j["cause"] == "reclaim" and j["counters"]["preemptions reclaim"] == 1
+    assert re_["counters"]["verifications ok"] == 1 and re_["counters"]["reclaims job-preempt"] == 1
+    want = {"flash_fwd_scalar": 2, "flash_bwd_dq_scalar": 2, "flash_bwd_dkv_scalar": 2}
+    assert re_["result"]["resumed"]["launches"] == want, re_["result"]["resumed"]
+    print(f"suspend twin: unstop -> bound {re_['bound'][0] - re_['unstop']:.3f} s -> context "
+          f"{re_['result']['times']['context'] - re_['unstop']:.3f} s -> mesh-ready "
+          f"{re_['mesh-ready'][0] - re_['unstop']:.3f} s -> Active {re_['resumed'][0] - re_['unstop']:.3f} s "
+          f"(attempts seen {re_['attempts']}); the job episode {j['wall']:.1f} s")

@@ -5,10 +5,9 @@ tests/test_serving.py, and the serving fleet's scale-down and
 scale-to-zero, run with one script through both SimClusters at once
 (tests/torch_sides.py: JAX v5e 2x2 ~ port h100 1x4, one host of 4 chips).
 
-The reference test suspends its source notebook through
-SuspendResumeController, which the port has not got yet; both sides here
-run tests/torch_standin.py instead, which writes what a successful suspend
-writes. For each scenario both sides give the same endpoint-state values
+As in the reference test, the source notebook is suspended through
+SuspendResumeController (the stop and checkpointing in one patch, its slice
+released warm). For each scenario both sides give the same endpoint-state values
 and DegradedServing values in the same order, the same events (reason and
 message), the same StatefulSets, Services and HTTPRoute outside the device
 fields (the `nvidia.com/gpu` / `google.com/tpu` resource, toleration,
@@ -21,7 +20,6 @@ fresh, not from the cache.
 """
 import time
 
-import torch_standin
 import torch_threads
 from torch_sides import Sequences, both, wait_for
 
@@ -32,8 +30,9 @@ NS = "serving"
 # before Pending reclaims an idle warm slice for it: under a loaded test
 # machine a plain placement can take longer than 0.3 s on one side only.
 # The scale-to-zero scenario, which is about that reclaim, keeps 0.3 s.
-FAST = dict(readiness_probe_period_s=0.15, reclaim_pending_grace_s=5.0, serving_loading_window_s=8.0,
-            serving_drain_timeout_s=0.3)
+FAST = dict(suspend_enabled=True, readiness_probe_period_s=0.15, suspend_checkpoint_window_s=1.5,
+            resume_timeout_s=20.0, resume_max_attempts=4, reclaim_pending_grace_s=5.0,
+            serving_loading_window_s=8.0, serving_drain_timeout_s=0.3)
 RECLAIMING = dict(FAST, reclaim_pending_grace_s=0.3)
 TIMEOUT = 40.0
 # metadata that names an identity or a time, not what was rendered
@@ -68,8 +67,8 @@ def fresh_fleet_reads(side):
 
 class Env:
     """One side's cluster with the reference test's controllers: the
-    notebook reconciler, the readiness gate and the endpoint reconciler
-    (and, with `repair`, the slice-repair controller), `slices` pools of
+    notebook reconciler, the readiness gate, the suspend controller and the
+    endpoint reconciler (and, with `repair`, the slice-repair controller), `slices` pools of
     the one-host slice, sim agents, and /tpu/restore answers registered by
     pod-name substring at the transport (the reference test's
     `restore_acks`)."""
@@ -98,6 +97,7 @@ class Env:
         self.config = side.ctrl.Config(**cfg)
         side.ctrl.NotebookReconciler(self.mgr, self.config).setup()
         side.ctrl.ProbeStatusController(self.mgr, self.config, http_get=self.cluster.http_get).setup()
+        side.ctrl.SuspendResumeController(self.mgr, self.config, http_get=http_get).setup()
         fresh_fleet_reads(side)(self.mgr, self.config, http_get=http_get).setup()
         if repair:
             side.ctrl.SliceRepairController(self.mgr, self.config, http_get=self.cluster.http_get).setup()
@@ -304,14 +304,22 @@ def assert_same(got):
 
 def promote(env, source, endpoint, saved, restored):
     """The reference's promotion episode up to the endpoint's create: the
-    source notebook comes up, acks a checkpoint of `saved` through its
-    agent, is suspended by the stand-in, and `restored` is what the
-    endpoint's /tpu/restore will answer. Returns the source's pool."""
+    source notebook comes up, is stopped with the checkpointing stamp, acks
+    a checkpoint of `saved` through its agent and is suspended, its slice
+    released warm, and `restored` is what the endpoint's /tpu/restore will
+    answer. Returns the source's pool."""
     env.notebook(source)
     wait_for(lambda: env.mesh_ready(source), timeout=TIMEOUT, msg=f"{source}'s bring-up")
     env.agents[f"{source}-0"].checkpoint_hook = lambda: dict(saved)
-    ack = torch_standin.checkpoint(env.side, env.cluster.http_get, NS, source)
-    pool = torch_standin.suspend(env.side, env.client, NS, source, ack)
+    C, Pod, Node = env.C, env.side.core.Pod, env.side.core.Node
+    (node,) = {p.spec.node_name for p in env.client.list(Pod, namespace=NS, labels={C.NOTEBOOK_NAME_LABEL: source})}
+    pool = env.client.get(Node, "", node).metadata.labels[env.side.pool_label]
+    env.client.patch(env.side.nb.Notebook, NS, source, {"metadata": {"annotations": {
+        C.STOP_ANNOTATION: "2026-01-01T00:00:00Z", C.TPU_SUSPEND_STATE_ANNOTATION: "checkpointing"}}})
+    wait_for(lambda: env.client.get(env.side.nb.Notebook, NS, source).metadata.annotations.get(
+        C.TPU_SUSPEND_STATE_ANNOTATION) == "suspended" and not [
+        p for p in env.client.list(Pod, namespace=NS, labels={C.NOTEBOOK_NAME_LABEL: source})
+        if not p.metadata.deletion_timestamp], timeout=TIMEOUT, msg=f"{source} suspended, its slice released warm")
     env.restore_acks[f"{endpoint}-serve"] = dict(restored, restored=True)
     env.endpoint(endpoint, source=source)
     return pool

@@ -2,17 +2,13 @@
 metric families against the JAX package's, on the CPU: every non-slow case
 of tests/test_job.py run with one script through both SimClusters at once
 (tests/torch_sides.py: JAX v5e 2x2 ~ port h100 1x4, one host of 4 chips),
-but the three that need the oversubscription reclaimer
-(`test_reclaim_preempts_job_and_it_survives`,
-`test_checkpointing_job_never_victimized`, `test_job_mixed_bad_day_soak`),
-which the port has not got yet.
+the reclaimer's three among them.
 
 As in the reference test, the workload's step counter lives at the
 transport: every learner-gang /tpu/checkpoint ack advances it by
-STEP_PER_CKPT and is remembered. The reference test suspends its
-notebooks through SuspendResumeController; both sides here run
-tests/torch_standin.py instead, which writes what a successful suspend
-writes. For each scenario both sides give the same job-state values and
+STEP_PER_CKPT and is remembered, and the notebooks are suspended through
+SuspendResumeController (the culler's stamp: the stop and checkpointing in
+one patch). For each scenario both sides give the same job-state values and
 QueuedOverBudget values in the same order, the same events (reason and
 message, with seconds masked), the same StatefulSets and headless Services
 outside the device fields (the `nvidia.com/gpu` / `google.com/tpu`
@@ -24,12 +20,14 @@ many cadence checkpoints land (a host lost mid-run, a runtime cap), the
 states are compared in their order of first appearance and the steps are
 masked. Identities (uids, resourceVersions, timestamps, trace ids) are not
 compared.
+
+Port-only: the cadence re-arms from the save's ack, not from the start of
+the reconcile that waited for it (ROADMAP Queue 3 entry 15).
 """
 import json
 import re
 import time
 
-import torch_standin
 import torch_threads
 from torch_sides import JAX, PORT, Sequences, both, wait_for
 
@@ -37,8 +35,9 @@ torch_threads.cap()
 
 NS = "batch"
 STEP_PER_CKPT = 30
-# the reference test's Config, without the suspend controller's knobs
-FAST = dict(enable_culling=False, readiness_probe_period_s=0.15, reclaim_pending_grace_s=0.3,
+# the reference test's Config
+FAST = dict(enable_culling=False, suspend_enabled=True, readiness_probe_period_s=0.15,
+            suspend_checkpoint_window_s=1.0, resume_timeout_s=20.0, reclaim_pending_grace_s=0.3,
             job_checkpoint_window_s=2.0, job_requeue_backoff_s=0.1)
 TIMEOUT = 40.0
 # metadata that names an identity or a time, not what was rendered
@@ -48,8 +47,8 @@ TIMED = ("queue_wait_s", "productive_s")
 
 
 class Env:
-    """One side's cluster with the reference test's controllers but the
-    suspend controller: the notebook reconciler, the readiness gate and the
+    """One side's cluster with the reference test's controllers: the
+    notebook reconciler, the readiness gate, the suspend controller and the
     job reconciler, `slices` pools of the one-host slice and sim agents;
     `acked` is the transport's record of each job's acked steps."""
 
@@ -69,7 +68,8 @@ class Env:
             return
         side.ctrl.NotebookReconciler(self.mgr, self.config).setup()
         side.ctrl.ProbeStatusController(self.mgr, self.config, http_get=self.http_get).setup()
-        side.ctrl.TPUJobReconciler(self.mgr, self.config, http_get=self.http_get).setup()
+        side.ctrl.SuspendResumeController(self.mgr, self.config, http_get=self.http_get).setup()
+        job_reconciler(side)(self.mgr, self.config, http_get=self.http_get).setup()
         self.agents = {}
         self.cluster.add_pod_behavior(side.behavior(self.agents, duty=0.9))
         self.sequences = Sequences(self.cluster.store, self.C.JOB_STATE_ANNOTATION, self.C.JOB_QUEUED_CONDITION,
@@ -78,14 +78,15 @@ class Env:
 
     def http_get(self, url, timeout=10.0):
         """The reference test's transport: a learner gang's checkpoint acks
-        the job's next step, a notebook's acks step 1 at once."""
+        the job's next step, a notebook's (a churn notebook's suspend) acks
+        step 1 at once."""
         if "/tpu/checkpoint" in url and "-learner-" in url:
             name = url.split("//", 1)[1].split("-learner-", 1)[0]
             self.steps[name] = self.steps.get(name, 0) + STEP_PER_CKPT
             self.acked.setdefault(name, []).append(self.steps[name])
             return 200, json.dumps({"saved": True, "step": self.steps[name]}).encode()
         if "/tpu/checkpoint" in url:
-            return 200, json.dumps({"saved": True, "step": 1, "checksum": "nb"}).encode()
+            return 200, json.dumps({"saved": True, "step": 1}).encode()
         return self.cluster.http_get(url, timeout=timeout)
 
     def stop(self):
@@ -122,11 +123,30 @@ class Env:
         nb.spec.tpu = self.tpu()
         return self.client.create(nb)
 
+    def patch(self, kind, name, annotations, attempts=40):
+        """Scenario-driver writes land even while a seeded bad day throws
+        409/429 at everything (the reference's patch_persistent)."""
+        am = self.side.am
+        for i in range(attempts):
+            try:
+                return self.client.patch(kind, NS, name, {"metadata": {"annotations": annotations}})
+            except (am.ConflictError, am.TooManyRequestsError):
+                if i == attempts - 1:
+                    raise
+                time.sleep(0.02)
+
     def stop_nb(self, name):
-        """The reference's stop_nb through the stand-in suspend: the save's
-        ack, the stop, the pods gone, the pool released warm, suspended."""
-        ack = torch_standin.checkpoint(self.side, self.http_get, NS, name)
-        torch_standin.suspend(self.side, self.client, NS, name, ack)
+        """The culler's atomic stamp: the stop and checkpointing in one patch."""
+        self.patch(self.side.nb.Notebook, name, {self.C.STOP_ANNOTATION: "2026-01-01T00:00:00Z",
+                                                 self.C.TPU_SUSPEND_STATE_ANNOTATION: "checkpointing"})
+
+    def nb(self, name):
+        return self.client.get(self.side.nb.Notebook, NS, name)
+
+    def nb_events(self, name):
+        return sorted({(e.reason, re.sub(r"\d+\.\d+s", "<s>", e.message))
+                       for e in self.client.list(self.side.core.Event, namespace=NS)
+                       if e.involved_object.kind == "Notebook" and e.involved_object.name == name})
 
     def get(self, name):
         return self.client.get(self.side.job.TPUJob, NS, name)
@@ -168,6 +188,8 @@ class Env:
         out.update({f"preemptions {c}": jm.tpu_job_preemptions_total.value(cause=c)
                     for c in ("reclaim", "host-loss", "user", "bind-timeout")})
         out["requeues"] = jm.tpu_job_requeues_total.value()
+        out.update({f"reclaims {r}": self.side.slicepool.notebook_reclaims_total.value(reason=r)
+                    for r in ("suspend", "job-preempt", "endpoint-drain", "pool-idle")})
         return out
 
     def _plain(self, obj):
@@ -274,6 +296,60 @@ class Env:
                 "incidents": self.incidents(name), "healthy": self.mgr.healthz()}
 
 
+def job_reconciler(side):
+    """The side's TPUJobReconciler, reading the pool and finding free
+    slices from the store as the port's does. The JAX one reads its cache,
+    which under load can still miss a notebook's bound pod (it parked and
+    claimed that slice, and lost the claim to the notebook's suspend:
+    test_a_jobs_free_slice_search_reads_the_store_not_a_stale_cache), or
+    miss the warm mark of a slice it had just parked (the claim found
+    nothing, the slice stayed warm, and a pending notebook had to reclaim
+    it idle: ROADMAP Queue 3 entry 14), and runs its requeue backoff from
+    the requeue, so a requeued job can take back the slice it was reclaimed
+    from before the requester's pod binds (entry 19), which the JAX
+    scheduler's cached nodes then let the requester's pod take as well. Both
+    sides are compared with the port's repairs in place, so that the races
+    do not decide the comparison."""
+    if side.name == "port":
+        return side.ctrl.TPUJobReconciler
+    accelerator_label, topology_label = side.selector_keys
+    marked = side.slicepool.POOL_STATE_ANNOTATION
+    C = side.C
+
+    class FreshFreePools(side.ctrl.TPUJobReconciler):
+        def __init__(self, manager, *args, **kwargs):
+            super().__init__(manager, *args, **kwargs)
+            self.pool = side.slicepool.SlicePool(manager.api_reader)
+            self._gang_gone_at = {}
+
+        def _run_pending(self, job, gangs, now, req):
+            backoff = self.config.job_requeue_backoff_s
+            if backoff > 0 and int(job.metadata.annotations.get(C.JOB_PREEMPTIONS_ANNOTATION, "0") or 0):
+                self._mirror_status(job, gangs, phase="Pending")
+                if self.api_reader.list(side.core.Pod, namespace=job.metadata.namespace,
+                                        labels={C.JOB_NAME_LABEL: job.metadata.name}):
+                    self._gang_gone_at.pop(req.key, None)
+                    return side.runtime.Result(requeue_after=0.05)
+                gone = self._gang_gone_at.setdefault(req.key, now)
+                if now - gone < backoff:
+                    return side.runtime.Result(requeue_after=max(0.02, backoff - (now - gone)))
+            return super()._run_pending(job, gangs, now, req)
+
+        def _free_pools(self, gke_accelerator, topology):
+            occupied = {p.spec.node_name for p in self.api_reader.list(side.core.Pod)
+                        if p.spec.node_name and not p.metadata.deletion_timestamp}
+            pools = {}
+            for node in self.api_reader.list(side.core.Node):
+                labels = node.metadata.labels
+                if labels.get(accelerator_label) == gke_accelerator and labels.get(topology_label) == topology:
+                    pools.setdefault(labels.get(side.pool_label, node.metadata.name), []).append(node)
+            return {pool: [n.metadata.name for n in nodes] for pool, nodes in sorted(pools.items())
+                    if all(n.metadata.name not in occupied and not n.metadata.annotations.get(marked)
+                           and self.pool.node_healthy(n) for n in nodes)}
+
+    return FreshFreePools
+
+
 def run_both(scenario, **kw):
     return both(scenario, lambda side: Env(side, **kw), lambda env: env.stop())
 
@@ -322,7 +398,7 @@ def test_sebulba_admission_is_atomic():
         env.notebook("nb2")
         wait_for(lambda: env.ready_pods() >= 2, timeout=TIMEOUT, msg="notebooks up")
         env.stop_nb("nb1")
-        wait_for(lambda: any(s == "warm" for s, _, _ in env.pool_entries()), msg="warm slice")
+        wait_for(lambda: any(s == "warm" for s, _, _ in env.pool_entries()), timeout=TIMEOUT, msg="warm slice")
         env.client.create(env.job("sebulba", steps=60, layout=env.side.job.LAYOUT_SEBULBA, actors=True))
         # the actor gang has nowhere to go: admission must keep unwinding
         wait_for(lambda: env.caught_up("sebulba") and env.sequences.of("sebulba")["condition"],
@@ -394,7 +470,7 @@ def test_over_budget_job_queues_with_condition():
 
 def test_free_slice_admission_reserves_through_the_pool():
     def scenario(env):
-        ctrl = env.side.ctrl.TPUJobReconciler(env.mgr, env.config)
+        ctrl = job_reconciler(env.side)(env.mgr, env.config)
         job_gangs = env.side.ctrl.job.job_gangs
         a, b = env.job("race-a"), env.job("race-b")
         ok_a, claims_a = ctrl._secure_gangs(a, job_gangs(a), f"{NS}/race-a")
@@ -477,6 +553,172 @@ def test_preempted_slice_parks_warm_at_job_priority():
     assert port["pods"] == 0
 
 
+def test_reclaim_preempts_job_and_it_survives():
+    """The three-class contention story on one slice: a default-priority
+    batch job loses its slice to an arriving interactive notebook through
+    checkpoint-before-preempt, requeues, warm-claims the slice back when the
+    notebook suspends, resumes from a step its workload acked, and
+    completes."""
+    def scenario(env):
+        env.client.create(env.job("rl-p", steps=300))
+        wait_for(lambda: env.state("rl-p") == "running", timeout=TIMEOUT, msg="running")
+        # 4 + 4 cards inside budget 8, no free capacity: the reclaimer takes the batch slice
+        env.notebook("user")
+        wait_for(lambda: env.ann("rl-p", env.C.JOB_PREEMPTIONS_ANNOTATION) >= 1, timeout=TIMEOUT,
+                 msg="job preempted and requeued")
+        wait_for(lambda: (nb := env.nb("user")).status.tpu is not None and nb.status.tpu.mesh_ready,
+                 timeout=TIMEOUT, msg="notebook on the reclaimed slice")
+        env.stop_nb("user")
+        wait_for(lambda: env.state("rl-p") == "succeeded", timeout=60, msg="job survived the preemption")
+        out = env.settled("rl-p", ("JobPreempted", "JobRequeued", "JobSucceeded"), phase="Succeeded",
+                          mask_steps=True)
+        for reason in ("SliceReclaimed", "NotebookSuspended"):
+            wait_for(lambda: any(r == reason for r, _ in env.nb_events("user")), msg=f"user's {reason} event")
+        job = env.get("rl-p")
+        resume = int(job.metadata.annotations.get(env.C.JOB_RESUME_STEP_ANNOTATION, "0") or 0)
+        out.update(resume_acked=resume in env.acked["rl-p"], nb_events=env.nb_events("user"),
+                   nb_state=env.nb("user").metadata.annotations.get(env.C.TPU_SUSPEND_STATE_ANNOTATION))
+        return out
+
+    got = run_both(scenario, slices=1, cfg=dict(FAST, chip_budget=8))
+    assert_same(got)
+    port = got["port"]
+    assert port["resume_acked"], "resumed from a step the workload never acked"
+    assert port["status"]["preemptions"] >= 1 and port["status"].get("failures", 0) == 0, \
+        "a reclaim-driven preemption must not charge backoffLimit"
+    assert port["counters"]["preemptions reclaim"] == 1 and port["counters"]["reclaims job-preempt"] == 1
+    assert port["counters"]["preemptions user"] == 0 and port["nb_state"] == "suspended"
+    assert ("SliceReclaimed", f"preempting batch job {NS}/rl-p (priority -10) to free capacity for {NS}/user "
+            "(priority 0); the job checkpoints before its slice moves and requeues to resume from the saved step") \
+        in port["nb_events"]
+
+
+def test_checkpointing_job_never_victimized():
+    """The reclaimer never stamps a preempt onto a job mid-Checkpointing:
+    its save is what makes the preemption survivable."""
+    def scenario(env):
+        suspend = env.side.ctrl.SuspendResumeController(env.mgr, env.config)
+
+        def park(name, *states):
+            # walk the machine legally: Pending -> Admitted -> Running (-> Checkpointing)
+            env.client.create(env.job(name))
+            for state in states:
+                env.client.patch(env.side.job.TPUJob, NS, name,
+                                 {"metadata": {"annotations": {env.C.JOB_STATE_ANNOTATION: state}}})
+
+        def victim():
+            nb = env.side.nb.Notebook()
+            nb.metadata.name, nb.metadata.namespace = "user", NS
+            nb.spec.tpu = env.tpu()
+            got = suspend._pick_job_victim(nb, env.side.plan_slice(env.accelerator, env.topology))
+            return None if got is None else got.metadata.name
+
+        park("mid-window", "admitted", "running", "checkpointing")
+        alone = victim()
+        park("fair-game", "admitted", "running")
+        return {"mid-window alone": alone, "with a running one": victim()}
+
+    got = both(scenario, lambda side: Env(side, slices=1, start=False), lambda env: env.stop())
+    assert_same(got)
+    assert got["port"] == {"mid-window alone": None, "with a running one": "fair-game"}
+
+
+# ---------------------------------------------------------------------------
+# port-only: a requeued job's backoff runs from its gang's last pod gone
+# ---------------------------------------------------------------------------
+
+
+def slow_stops(behavior, stop_s):
+    """`behavior` with a job pod's stop taking `stop_s` before its object
+    goes (the kubelet's graceful deletion of a pod of processes)."""
+    from odh_kubeflow_tpu_torch.cluster.kubelet import PodDecision
+
+    def wrapped(pod):
+        decision = behavior(pod)
+        if decision is None or PORT.C.JOB_NAME_LABEL not in pod.metadata.labels:
+            return decision
+
+        def serve(p):
+            host, port, close = decision.serve(p)
+
+            def slow():
+                time.sleep(stop_s)
+                close()
+
+            return host, port, slow
+
+        return PodDecision(ready_after=decision.ready_after, serve=serve, graceful=True)
+
+    return wrapped
+
+
+def test_a_job_reclaimed_for_a_notebook_does_not_take_its_slice_back_while_its_pod_stops():
+    """The reclaim story with the job's pod taking 2 s to stop, as a pod of
+    processes does: the requeued job holds its backoff until that pod is
+    gone, so the notebook's pending pod binds on the freed slice first and
+    the reclaimer preempts the job once. With the backoff run from the
+    requeue (the reference's), the job parked the slice it was still
+    leaving and claimed it back, the notebook stayed pending, and the
+    reclaimer preempted the job again."""
+    env = Env(PORT, slices=1, cfg=dict(FAST, chip_budget=8), start=False)
+    try:
+        side = env.side
+        side.ctrl.NotebookReconciler(env.mgr, env.config).setup()
+        side.ctrl.ProbeStatusController(env.mgr, env.config, http_get=env.http_get).setup()
+        side.ctrl.SuspendResumeController(env.mgr, env.config, http_get=env.http_get).setup()
+        job_reconciler(side)(env.mgr, env.config, http_get=env.http_get).setup()
+        env.cluster.add_pod_behavior(slow_stops(side.behavior({}, duty=0.9), 2.0))
+        env.mgr.start()
+        env.client.create(env.job("rl-s", steps=3000))
+        wait_for(lambda: env.state("rl-s") == "running", timeout=TIMEOUT, msg="running")
+        env.notebook("user")
+        wait_for(lambda: (nb := env.nb("user")).status.tpu is not None and nb.status.tpu.mesh_ready,
+                 timeout=TIMEOUT, msg="the notebook on the reclaimed slice")
+        time.sleep(1.0)
+        after = env.counters()
+    finally:
+        env.stop()
+    assert after["reclaims job-preempt"] - env.before["reclaims job-preempt"] == 1, (env.before, after)
+    assert after["preemptions reclaim"] - env.before["preemptions reclaim"] == 1, (env.before, after)
+
+
+# ---------------------------------------------------------------------------
+# port-only: the cadence re-arms from the ack (ROADMAP Queue 3 entry 15)
+# ---------------------------------------------------------------------------
+
+
+HELD_S, PERIOD_S = 1.0, 1.5
+
+
+def test_the_cadence_rearms_one_period_after_a_held_ack():
+    """A learner whose save takes HELD_S (the transport holds each
+    checkpoint ack, as a card's 2-3.5 s save does): the next cadence window
+    opens one period after the ack, not one period after the start of the
+    reconcile that waited for it. With the re-arm at that reconcile's `now`
+    (the reference's), the next save was asked for PERIOD_S - HELD_S after
+    the ack."""
+    asked, acked = [], []
+
+    class Held(Env):
+        def http_get(self, url, timeout=10.0):
+            if "/tpu/checkpoint" in url and "-learner-" in url:
+                asked.append(time.time())
+                time.sleep(HELD_S)
+                out = super().http_get(url, timeout)
+                acked.append(time.time())
+                return out
+            return super().http_get(url, timeout)
+
+    env = Held(PORT)
+    try:
+        env.client.create(env.job("rl-held", steps=150, period=PERIOD_S))
+        wait_for(lambda: len(asked) >= 3, timeout=TIMEOUT, msg="three cadence saves asked")
+    finally:
+        env.stop()
+    gaps = [nxt - ack for ack, nxt in zip(acked, asked[1:])]
+    assert all(g >= PERIOD_S - 0.05 for g in gaps[:2]), gaps
+
+
 # ---------------------------------------------------------------------------
 # failure semantics
 # ---------------------------------------------------------------------------
@@ -551,3 +793,92 @@ def test_the_gangs_pod_carries_the_gpu_resource_toleration_and_slice_shape():
     assert {k: env_vars[k] for k in ("TPU_JOB_GANG", "TPU_JOB_STEPS", "TPU_JOB_RESUME_STEP")} == {
         "TPU_JOB_GANG": "learner", "TPU_JOB_STEPS": "64", "TPU_JOB_RESUME_STEP": "30"}
     assert env_vars["PET_NPROC_PER_NODE"] == "4"
+
+
+# ---------------------------------------------------------------------------
+# the seeded mixed bad day: nothing silently stuck
+# ---------------------------------------------------------------------------
+
+
+def test_job_mixed_bad_day_soak():
+    """Jobs, notebook churn, a control-plane bad day (the same seeded
+    schedule on each side) and a host preemption mid-Running in one 3-slice
+    cluster: every job ends Succeeded, none stuck in Admitted or Preempted,
+    and every survived preemption resumed from an acked step (or from
+    scratch, before any save was banked). The injected faults land on each
+    side's own timing, so what is compared is that end state."""
+    def scenario(env):
+        C, jobs = env.C, ["soak-0", "soak-1"]
+        for name in jobs:
+            env.client.create(env.job(name, steps=240))
+        env.notebook("churn")
+        wait_for(lambda: all(env.state(n) == "running" for n in jobs), timeout=TIMEOUT, msg="jobs running")
+        env.side.faults.seeded_bad_day(env.cluster.faults, seed=1007)
+        wait_for(lambda: env.acked.get(jobs[0]), timeout=TIMEOUT, msg="first checkpoint banked before the preemption")
+        victim = env.pods(jobs[0])[0].spec.node_name
+        env.cluster.preempt_node(victim, grace_s=0.1)
+        wait_for(lambda: env.ann(jobs[0], C.JOB_PREEMPTIONS_ANNOTATION) >= 1, timeout=TIMEOUT,
+                 msg="soak victim preempted", retry=(env.side.am.TooManyRequestsError,))
+        env.cluster.restore_node(victim)
+        suspends = 0
+        for _ in range(2):
+            wait_for(lambda: (nb := env.nb("churn")).status.tpu is not None and nb.status.tpu.mesh_ready
+                     and not nb.metadata.annotations.get(C.TPU_SUSPEND_STATE_ANNOTATION), timeout=TIMEOUT,
+                     msg="churn notebook ready", retry=(env.side.am.TooManyRequestsError,))
+            env.stop_nb("churn")
+            wait_for(lambda: env.nb("churn").metadata.annotations.get(C.TPU_SUSPEND_STATE_ANNOTATION) == "suspended",
+                     timeout=TIMEOUT, msg="churn notebook suspended", retry=(env.side.am.TooManyRequestsError,))
+            suspends += 1
+            env.patch(env.side.nb.Notebook, "churn", {C.STOP_ANNOTATION: None})
+        wait_for(lambda: all(env.state(n) == "succeeded" for n in jobs), timeout=90,
+                 msg="all jobs succeeded through the bad day", retry=(env.side.am.TooManyRequestsError,))
+        resumed = {}
+        for name in jobs:
+            ann = env.get(name).metadata.annotations
+            if int(ann.get(C.JOB_PREEMPTIONS_ANNOTATION, "0") or 0):
+                step = int(ann.get(C.JOB_RESUME_STEP_ANNOTATION, "0") or 0)
+                resumed[name] = step == 0 or step in env.acked.get(name, [])
+        env.cluster.faults.clear()
+        return {"states": {n: env.state(n) for n in jobs}, "resumed from an acked step": resumed,
+                "churn suspends": suspends, "healthy": env.mgr.healthz()}
+
+    got = run_both(scenario, slices=3)
+    assert got["jax"]["states"] == got["port"]["states"] == {"soak-0": "succeeded", "soak-1": "succeeded"}
+    port = got["port"]
+    assert port["resumed from an acked step"].get("soak-0") is True and all(port["resumed from an acked step"].values())
+    assert port["churn suspends"] == 2 and port["healthy"]
+
+
+def test_a_jobs_free_slice_search_reads_the_store_not_a_stale_cache():
+    """The port's free-slice search (`TPUJobReconciler._free_pools`) reads
+    pods and nodes from the store: with a cache that has not yet seen a
+    notebook's pod bound on the one slice, the slice is not free (the
+    reference, reading its cache, parked and claimed it under the pod)."""
+    import copy
+    from types import SimpleNamespace
+
+    env = Env(PORT, slices=2, start=False)
+    try:
+        core, shape = PORT.core, PORT.plan_slice(env.accelerator, env.topology)
+        stale = {p.metadata.name: copy.deepcopy(p) for p in env.client.list(core.Pod)}
+
+        class StalePods:
+            """A client whose Pod reads predate the pod's bind."""
+
+            def list(self, cls, **kw):
+                return list(stale.values()) if cls is core.Pod else env.client.list(cls, **kw)
+
+            def __getattr__(self, name):
+                return getattr(env.client, name)
+
+        pod = core.Pod()
+        pod.metadata.name, pod.metadata.namespace = "user-0", NS
+        pod.metadata.labels[PORT.C.NOTEBOOK_NAME_LABEL] = "user"
+        pod.spec.node_name = sorted(n.metadata.name for n in env.client.list(core.Node))[0]
+        pod.spec.containers = [core.Container(name="user", image="jax:1")]
+        env.client.create(pod)
+        rec = PORT.ctrl.TPUJobReconciler(SimpleNamespace(client=StalePods(), api_reader=env.client), env.config)
+        free = rec._free_pools(shape.gke_accelerator, shape.topology)
+    finally:
+        env.stop()
+    assert sorted(free) == ["pool-1"], free

@@ -3,8 +3,8 @@ InferenceEndpoint whose pod is a real serving process, on the CPU
 (tests/torch_operator_flow.py's promotion episode, `python -m
 odh_kubeflow_tpu_torch.serving` on the CPU): the notebook's train loop runs
 under `torchrun`, is preempted and repaired onto another pool, suspended
-by the stand-in with its pool released warm, and promoted with a warm
-bind; the serving process restores the saved train state, the restore is
+by the SuspendResumeController with its pool released warm, and promoted
+with a warm bind; the serving process restores the saved train state, the restore is
 verified, the requests are served with `generate()`'s tokens, and the stop
 drains the endpoint route first; with the restore late past the probe's
 timeout the verdict is still `ok`. These episodes were in
@@ -42,8 +42,8 @@ def promoted(tmp_path, command=None):
 
 def test_a_suspended_notebook_promoted_into_an_endpoint_serves_its_model_on_the_cpu(tmp_path):
     """The promotion episode with processes on the CPU: the notebook's
-    resumed state is saved through its agent, the stand-in suspends it and
-    releases its pool warm, the endpoint claims that pool, its serving
+    resumed state is saved through its agent, the suspend controller
+    suspends it and releases its pool warm, the endpoint claims that pool, its serving
     process restores the whole saved train state and acks its checksum,
     the restore is verified (`ok`), the four requests are served, and their
     greedy tokens equal `generate()`'s on the restored params; the stop

@@ -373,3 +373,60 @@ def test_the_scheduler_binds_a_claimants_pod_on_its_claimed_pool_whatever_its_ca
     p.client.create(pod)
     Scheduler(SimpleNamespace(client=stale, api_reader=p.client)).reconcile(Request(NS, "ep-serve-0"))
     assert p.client.get(core.Pod, NS, "ep-serve-0").spec.node_name == "one-0-w0"
+
+
+SUSPEND_FIELDS = ("suspend_enabled", "suspend_checkpoint_window_s", "suspend_checkpoint_retries",
+                  "suspend_checkpoint_backoff_s", "resume_timeout_s", "resume_max_attempts", "pool_prewarm")
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"ENABLE_SUSPEND": "true", "SUSPEND_CHECKPOINT_WINDOW_S": "7.5", "RESUME_TIMEOUT_S": "12",
+     "RESUME_MAX_ATTEMPTS": "3", "POOL_PREWARM": "2"},
+    {"ENABLE_SUSPEND": "0", "RESUME_TIMEOUT_S": "0", "RESUME_MAX_ATTEMPTS": "0", "POOL_PREWARM": "-1"},
+])
+def test_the_suspend_and_prewarm_knobs_read_the_reference_env(monkeypatch, env):
+    """The suspend, resume and prewarm fields of Config: the reference's
+    defaults, env names and clamps; the prewarm shape defaults to one that
+    `gpu.plan_slice` plans (h100 1x4, as the reference's v5e 2x2 is one host
+    of 4 chips) and reads POOL_PREWARM_ACCELERATOR / _TOPOLOGY."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    got = {side.name: side.ctrl.Config.from_env() for side in SIDES}
+    assert {k: getattr(got["jax"], k) for k in SUSPEND_FIELDS} == {k: getattr(got["port"], k) for k in SUSPEND_FIELDS}
+    port = got["port"]
+    assert PORT.plan_slice(port.pool_prewarm_accelerator, port.pool_prewarm_topology).topology == "1x4"
+    monkeypatch.setenv("POOL_PREWARM_ACCELERATOR", "h100")
+    monkeypatch.setenv("POOL_PREWARM_TOPOLOGY", "2x8")
+    moved = PORT.ctrl.Config.from_env()
+    assert (moved.pool_prewarm_accelerator, moved.pool_prewarm_topology) == ("h100", "2x8")
+
+
+def test_the_managers_prewarmer_is_built_from_config():
+    """`slicepool.add_prewarmer(manager, config)`: the reference's
+    `build_manager` wiring. With pool_prewarm 0 it adds nothing; with 1 a
+    PoolPrewarmer of Config's shape rides the manager's lifecycle and parks
+    one free slice of that shape warm, none of another."""
+    cluster = PORT.cluster.SimCluster().start()
+    try:
+        cluster.add_gpu_pool("four", "h100", "1x4", slices=2)
+        cluster.add_gpu_pool("eight", "h100", "1x8", slices=1)
+        mgr = PORT.runtime.Manager(cluster.store)
+        assert PORT.slicepool.add_prewarmer(mgr, PORT.ctrl.Config()) is None
+        warmer = PORT.slicepool.add_prewarmer(mgr, PORT.ctrl.Config(pool_prewarm=1, readiness_probe_period_s=0.2))
+        assert (warmer.gke_accelerator, warmer.topology, warmer.target, warmer.period_s) == \
+            ("nvidia-h100-80gb", "1x4", 1, 0.5)
+        mgr.start()
+        try:
+            import time
+
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline and not PORT.slicepool.SlicePool(cluster.client).entries():
+                time.sleep(0.05)
+            entries = [(e.state, e.topology) for e in PORT.slicepool.SlicePool(cluster.client).entries()]
+        finally:
+            mgr.stop()
+        assert entries == [("warm", "1x4")], entries
+        assert warmer._thread is None, "the manager's stop did not stop the prewarmer"
+    finally:
+        cluster.stop()

@@ -78,10 +78,26 @@ def _rank_main(rank, world, port, cases, results, device):
         results.put((rank, None, traceback.format_exc()))
 
 
+SPAWN_ATTEMPTS = 3  # spawns of one run whose rendezvous port another process took first
+
+
 def run_ranks(world: int, cases, timeout_s: float = RUN_TIMEOUT_S, device: str = "cpu") -> dict:
     """{case name: [result of rank 0, rank 1, ...]}; raises RankFailure
     with the failing rank's traceback. `device` "cuda" puts every rank on
-    the card (gloo all the same)."""
+    the card (gloo all the same). The rendezvous port is free when picked,
+    but another test's process can bind it before rank 0 listens (a
+    torchrun pod's store picks its own): rank 0 then fails its group's
+    init with EADDRINUSE before any case ran, and the ranks are spawned
+    again on a new port, SPAWN_ATTEMPTS times at most."""
+    for attempt in range(SPAWN_ATTEMPTS):
+        try:
+            return _spawn(world, cases, timeout_s, device)
+        except RankFailure as e:
+            if "EADDRINUSE" not in str(e) or attempt == SPAWN_ATTEMPTS - 1:
+                raise
+
+
+def _spawn(world: int, cases, timeout_s: float, device: str) -> dict:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()

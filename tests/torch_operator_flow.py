@@ -35,11 +35,18 @@ directory is <notebook>/<pod uid> under the run's directory (a replacement
 pod keeps its predecessor's name); <notebook>/checkpoints is the notebook's
 volume.
 
-With `promotion` as well, the repaired notebook's replacement stays busy
-after its step, and the flow then promotes it into an InferenceEndpoint:
-tests/torch_standin.py suspends the notebook (its forwarded
-/tpu/checkpoint, the stop, the pod's processes gone, the suspend's
-annotations, its pool released warm), the endpoint is created with
+With `resume` (or `promotion`) as well, the repaired notebook's replacement
+stays busy after its step, and the flow then suspends it through the
+SuspendResumeController: suspend is enabled in that controller (off until
+then, so the waves' culls tear down), the notebook is stopped with the
+culler's stamp (the stop and checkpointing in one patch), the controller
+drives the pod's
+/tpu/checkpoint (forwarded to the worker, which saves the resumed step),
+writes suspended with the save's step and checksum, and releases the pod's
+pool warm at the notebook's priority; its pods and their processes go.
+
+With `promotion`, the suspended notebook is then promoted into an
+InferenceEndpoint: the endpoint is created with
 `spec.notebookRef` naming it and serving its checkpoint directory, the
 InferenceEndpointReconciler claims the released pool (a warm bind), the
 endpoint's pod runs the serving process (`python -m
@@ -58,11 +65,27 @@ forwarded /tpu/checkpoint; after the first acked one the flow stamps
 `preempt-requested: user`, the job checkpoints, parks Preempted with its
 slice warm at its priority, requeues, claims the slice warm again, and the
 new pod restores the acked step and trains on to `spec.steps`; the job
-Succeeds, its set goes to 0 and its card is free. With a cfg whose
+Succeeds, its set goes to 0 and its card is free.
+
+With `resume` and `job`, the job runs right after the suspended notebook's
+episodes (before the notebook is deleted), and instead of the user's stamp
+the notebook's resume preempts it. The repair's preempted node stays
+tainted, so once the job holds the other pool's node no h100 1x1 node is
+free. The flow unstops the notebook: the resume's warm claim misses, its
+pod sits unschedulable, and past `reclaim_pending_grace_s` the reclaimer
+stamps the job, the lowest priority (`capacity-pressure:`, cause
+`reclaim`); the job checkpoints and returns its slice to general capacity;
+the notebook's pod binds there, its worker restores the suspended step,
+reports it and answers the forwarded /tpu/restore, the gate opens, the
+resume completes with the restore verified, and the worker takes the next
+step. The flow then stops the notebook again: it suspends (the forwarded
+save of that step) and releases its slice warm, which the requeued job
+claims, restoring its acked step and running to Succeeded. With a cfg whose
 `accounting_period_s` is above 0, a ChipAccountant built from the Config
 runs in the manager over the whole flow (`runtime.accounting.set_current`
 too, so incident bundles carry its ledger).
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -72,14 +95,10 @@ import urllib.error
 import urllib.request
 from dataclasses import dataclass, field
 from pathlib import Path
-from types import SimpleNamespace
 from typing import List, Sequence, Tuple
 
 import torch_dist
-import torch_standin
-import odh_kubeflow_tpu_torch.api.core as core_api
-import odh_kubeflow_tpu_torch.api.notebook as notebook_api
-import odh_kubeflow_tpu_torch.apimachinery as apimachinery
+import torch_pod_worker
 import odh_kubeflow_tpu_torch.cluster.slicepool as slicepool
 import odh_kubeflow_tpu_torch.controllers as controllers
 import odh_kubeflow_tpu_torch.runtime.accounting as accounting
@@ -91,6 +110,7 @@ from odh_kubeflow_tpu_torch.api.inference import InferenceEndpoint, NotebookRef,
 from odh_kubeflow_tpu_torch.api.job import TPUJob
 from odh_kubeflow_tpu_torch.api.networking import NetworkPolicy
 from odh_kubeflow_tpu_torch.api.notebook import Notebook, TPUSpec
+import odh_kubeflow_tpu_torch.apimachinery as apimachinery
 from odh_kubeflow_tpu_torch.apimachinery import AdmissionDeniedError, NotFoundError
 from odh_kubeflow_tpu_torch.cluster import SimCluster
 from odh_kubeflow_tpu_torch import telemetry
@@ -103,6 +123,7 @@ from odh_kubeflow_tpu_torch.controllers import (
     NotebookWebhook,
     ProbeStatusController,
     SliceRepairController,
+    SuspendResumeController,
     TPUJobReconciler,
     TPUWorkbenchReconciler,
     constants as C,
@@ -120,6 +141,7 @@ from odh_kubeflow_tpu_torch.probe.behavior import (
     read_json,
     serving_ready,
 )
+from odh_kubeflow_tpu_torch.probe.agent import SimTPUMonitor
 from odh_kubeflow_tpu_torch.runtime import Manager
 from odh_kubeflow_tpu_torch.serving import metrics as serving_metrics
 from odh_kubeflow_tpu_torch.utils import tracing
@@ -146,9 +168,11 @@ ACCOUNTING_CFG = dict(accounting_period_s=0.0)
 DENIED = ("nb-denied", "h100", "3x5")  # a notebook whose slice the planner refuses: 5 cards a host
 OTHER_POOL = "h100-b"  # the repair's fallback pool
 RESTORE_DEADLINE_S = 1.5  # the forwarded /tpu/restore's wait: under the reconciler's 2 s probe timeout
-# the stand-in suspend's view of the port's packages (tests/torch_standin.py)
-PORT = SimpleNamespace(nb=notebook_api, core=core_api, am=apimachinery, C=C, ctrl=controllers, slicepool=slicepool,
-                       pool_label=GKE_NODEPOOL_LABEL)
+# the suspend's knobs under every cfg (suspend itself is enabled in its
+# controller only for the suspend episode): a checkpoint window the card's
+# save fits in with Config's retries, and a card budget that admits the
+# resumed notebook and the job together and nothing more
+RESUME_CFG = dict(suspend_checkpoint_window_s=15.0, chip_budget=2)
 
 
 @dataclass
@@ -194,6 +218,33 @@ def pod_worker(device):
     the worker's mode (`role`): "serve", or "repair" / "promote" for the
     notebook the flow repairs (and promotes)."""
     return lambda out_dir, role: [sys.executable, "-m", "torch.distributed.run", WORKER, device, str(out_dir), role]
+
+
+def stamp_monitor(tmp_path):
+    """A CPU monitor factory for run(tmp_path, ...): a notebook's or job's pod
+    has its devices (a SimTPUMonitor, duty 0) once its worker has written its
+    context stamp (tests/torch_pod_worker.py CONTEXT_STAMP), as the card's
+    CudaMonitor comes up at the worker's CUDA context; an endpoint's pod
+    has them at once."""
+
+    class Stamped(SimTPUMonitor):
+        def __init__(self, chips, stamp):
+            super().__init__(chips=chips, expected=chips, duty=0.0)
+            self._stamp, self._up = stamp, False
+
+        def came_up(self):
+            self._up = self._up or self._stamp.exists()
+            return self._up
+
+        def chips_visible(self):
+            return super().chips_visible() if self.came_up() else 0
+
+    def make(pod, chips, procs):
+        if C.INFERENCE_NAME_LABEL in pod.metadata.labels:
+            return SimTPUMonitor(chips=chips, expected=chips, duty=0.0)
+        return Stamped(chips, Path(tmp_path) / "out" / owner(pod) / pod.metadata.uid / torch_pod_worker.CONTEXT_STAMP)
+
+    return make
 
 
 def owner(pod):
@@ -251,7 +302,7 @@ def alive(pids):
 
 def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None, grace_s=15.0, timeout=120.0,
         released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None, repair=None,
-        promotion=None, job=None):
+        promotion=None, job=None, resume=False):
     """Drives the flow; returns what it saw.
 
     `command(out_dir, role) -> argv` is a notebook pod's command (`role`:
@@ -269,9 +320,13 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     (what it restored, the step it took) and "done". With `promotion` (a
     `Promotion`), the replacement writes no "done" but the logit
     fingerprint of its params and answers the forwarded checkpoint
-    requests, and the notebook is promoted (`promotion_episode`). With
-    `job` (a `Job`), the job episode runs after the waves (`job_episode`):
-    the learner's worker is `command(out_dir, "job")`. With a cfg whose
+    requests, and the notebook is suspended (`suspend_episode`) and promoted
+    (`promotion_episode`). With `resume` (and a `repair`), the notebook is
+    suspended as well (with or without `promotion`), and the job episode
+    runs right after, preempted by the notebook's resume
+    (`resume_episode`) instead of a user. With `job` (a `Job`), the job
+    episode runs after the waves (`job_episode`): the learner's worker is
+    `command(out_dir, "job")`. With a cfg whose
     `accounting_period_s` is above 0, a ChipAccountant built from the
     Config ticks in the manager and what it banked is returned
     ("accounting").
@@ -288,7 +343,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     processes = {}  # pod uid -> its processes
     acks = []  # (when, pod uid, the forwarded checkpoint's ack or the error it raised)
     restores = []  # (when, pod uid, the forwarded restore's ack or the error it raised)
-    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **JOB_CFG, **ACCOUNTING_CFG, **cfg})
+    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **JOB_CFG, **ACCOUNTING_CFG, **RESUME_CFG, **cfg})
+    suspends = resume or promotion is not None
 
     def pod_dir(pod):
         d = out_root / owner(pod) / pod.metadata.uid
@@ -301,7 +357,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         if C.JOB_NAME_LABEL in pod.metadata.labels:
             return command(pod_dir(pod), "job")
         name = pod.metadata.labels[C.NOTEBOOK_NAME_LABEL]
-        role = "serve" if name != repair else "promote" if promotion is not None else "repair"
+        role = "serve" if name != repair else "promote" if suspends else "repair"
         return command(pod_dir(pod), role)
 
     def restore_hook(pod):
@@ -359,6 +415,11 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         slice_repair.unreachable_dwell_s = 3600.0
         slice_repair.CHECKPOINT_TIMEOUT_S = config.checkpoint_window_s
         slice_repair.setup()
+        # suspend is off in its controller until the suspend episode: the
+        # waves' culls tear their slices down
+        suspender = SuspendResumeController(mgr, dataclasses.replace(config, suspend_enabled=False),
+                                            http_get=cluster.http_get)
+        suspender.setup()
         InferenceEndpointReconciler(mgr, config, http_get=cluster.http_get).setup()
         TPUJobReconciler(mgr, config, http_get=cluster.http_get).setup()
         if config.accounting_period_s > 0:
@@ -488,13 +549,80 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             ep["wall"] = time.time() - wall0
             return ep
 
+        def suspend_counters():
+            return {"checkpoint saves": telemetry.slice_checkpoint_saves_total.value(),
+                    "hits": slicepool.slice_pool_hits_total.value(),
+                    "misses": slicepool.slice_pool_misses_total.value(),
+                    "resumes": slicepool.notebook_resume_seconds._totals.get((), 0),
+                    **{f"reclaims {r}": slicepool.notebook_reclaims_total.value(reason=r)
+                       for r in ("suspend", "job-preempt", "endpoint-drain", "pool-idle", "poisoned")},
+                    **{f"verifications {r}": slicepool.notebook_restore_verifications_total.value(result=r)
+                       for r in ("ok", "mismatch", "unverified")}}
+
+        def stop_notebook(name):
+            """The culler's stamp: the stop and `suspend-state: checkpointing`
+            in one patch, so the reconciler holds the pods through the
+            checkpoint window (a stop alone lets the scale-down race the
+            controller's own stamp, and a pod of processes loses it: the
+            window then finds no ready host to save)."""
+            cluster.client.patch(Notebook, NS, name, {"metadata": {"annotations": {
+                C.STOP_ANNOTATION: apimachinery.rfc3339_precise(time.time()),
+                C.TPU_SUSPEND_STATE_ANNOTATION: "checkpointing"}}})
+
+        def once_each(uid):
+            """The forwarded saves of a pod, once per request (a re-probe
+            joins the save under way, and its hook returns the same ack)."""
+            out, seen_ids = [], set()
+            for t, u, a in acks:
+                if u == uid and (not isinstance(a, dict) or a.get("id") not in seen_ids):
+                    out.append((t, a))
+                    seen_ids.add(a.get("id") if isinstance(a, dict) else None)
+            return out
+
+        def suspended_and_gone(name, uid, pids):
+            """Waits until the notebook is suspended, its pods gone and the
+            processes of its pod `uid` with them, the card released; returns
+            what the suspend wrote: the time, the annotations and the pool
+            the pod ran on with its nodes' marks."""
+            procs = processes[uid]
+            wait(lambda: notebook(name).metadata.annotations.get(C.TPU_SUSPEND_STATE_ANNOTATION) == "suspended",
+                 f"{name} suspended")
+            suspended = time.time()
+            wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.NOTEBOOK_NAME_LABEL: name}),
+                 f"{name}'s pod deleted after its suspend")
+            wait(lambda: procs.closed and not alive(pids) and released(pids),
+                 f"{name}'s processes {pids} gone and its card released")
+            return {"suspended": suspended, "gone": time.time(), "closed at": procs.closed_at,
+                    "annotations": dict(notebook(name).metadata.annotations)}
+
+        def suspend_episode(name, got):
+            """Enables suspend in its controller and stops the notebook with
+            the culler's stamp; returns what the suspend did: the stop, the
+            forwarded save's ack, the suspended time, the annotations, the
+            pool released and its marks, the counters' deltas."""
+            nb_pod = pod(name)
+            pids = sorted(set(processes[nb_pod.metadata.uid].pids) | {got["repair"]["result"]["pid"]})
+            pool = pool_of(nb_pod.spec.node_name)
+            suspender.config.suspend_enabled = True
+            se = {"uid": nb_pod.metadata.uid, "pool": pool, "before": suspend_counters()}
+            se["stop"] = time.time()
+            stop_notebook(name)
+            se.update(suspended_and_gone(name, nb_pod.metadata.uid, pids))
+            se["acks"] = once_each(nb_pod.metadata.uid)
+            se["result"] = result(pod_dir(nb_pod))  # its saves, each with the next step on a copy
+            se["pool marks"] = [(n.metadata.annotations.get(slicepool.POOL_STATE_ANNOTATION),
+                                 n.metadata.annotations.get(slicepool.POOL_PRIORITY_ANNOTATION))
+                                for n in cluster.client.list(Node) if n.metadata.labels[GKE_NODEPOOL_LABEL] == pool]
+            se["counters"] = {k: v - se["before"][k] for k, v in suspend_counters().items()}
+            return se
+
         def promotion_episode(name, got):
-            """Suspends the notebook through the stand-in, promotes it into
-            the endpoint, serves the requests, stops the endpoint; returns
-            what it saw: each edge's time (this process's clock) and
-            resourceVersion where a watch saw it, the acks, the endpoint's
-            states, events, status, route, span and counters' deltas, the
-            serving process's report and its replies."""
+            """Promotes the suspended notebook into the endpoint, serves the
+            requests, stops the endpoint; returns what it saw: each edge's
+            time (this process's clock) and resourceVersion where a watch
+            saw it, the suspend's ack, the endpoint's states, events,
+            status, route, span and counters' deltas, the serving process's
+            report and its replies."""
             p = promotion
             key = f"{NS}/{p.name}"
             watch = Recorder(cluster.store, (("kubeflow.org/v1beta1", "InferenceEndpoint"), ("v1", "Node"),
@@ -512,26 +640,14 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                        for r in ("ok", "mismatch", "unverified")}}
 
         def _promotion(name, got, p, key, watch):
-            nb_pod = pod(name)
-            nb_procs = processes[nb_pod.metadata.uid]
-            nb_pids = sorted(set(nb_procs.pids) | {got["repair"]["result"]["pid"]})
-            before, t0 = promotion_counters(), time.time()
-            pe = {"t0": t0, "notebook": name, "endpoint": p.name, "node": nb_pod.spec.node_name,
-                  "pool": pool_of(nb_pod.spec.node_name)}
-            # the stand-in suspend: the forwarded save through the agent, the
-            # stop, the pod's processes gone, the annotations, the pool warm
-            ack = torch_standin.checkpoint(PORT, cluster.http_get, NS, name)
-            pe["ack"] = (time.time(), ack)
-            pe["acks"] = [(t, a) for t, uid, a in acks if uid == nb_pod.metadata.uid]
-            released_pool = torch_standin.suspend(
-                PORT, cluster.client, NS, name, ack, timeout=timeout,
-                gone=lambda: nb_procs.closed and not alive(nb_pids) and released(nb_pids))
-            pe["suspended"] = time.time()
-            pe["released pool"] = released_pool
-            pe["pool at suspend"] = [n.metadata.annotations.get(slicepool.POOL_STATE_ANNOTATION)
-                                     for n in cluster.client.list(Node)
-                                     if n.metadata.labels[GKE_NODEPOOL_LABEL] == released_pool]
-            pe["notebook annotations"] = dict(notebook(name).metadata.annotations)
+            se = got["suspend"]
+            before = promotion_counters()
+            # the episode runs from the suspend's stop: the save, the pod's
+            # processes gone, the pool warm, then the endpoint
+            pe = {"t0": se["stop"], "notebook": name, "endpoint": p.name, "pool": se["pool"], "acks": se["acks"],
+                  "ack": se["acks"][0] if se["acks"] else None, "suspended": se["suspended"],
+                  "released pool": se["pool"], "pool at suspend": [m for m, _ in se["pool marks"]],
+                  "notebook annotations": se["annotations"]}
             # the promotion
             ep = InferenceEndpoint()
             ep.metadata.name, ep.metadata.namespace = p.name, NS
@@ -608,7 +724,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             wait(lambda: procs.closed and not alive(pe["pids"]) and released(pe["pids"]),
                  f"{p.name}'s processes {pe['pids']} gone and its card released")
             pe["card free"] = time.time()
-            pe["wall"] = pe["card free"] - t0
+            pe["wall"] = pe["card free"] - pe["t0"]
             pe["alive"] = alive(pe["pids"])
             pe["old closed at"] = procs.closed_at
             pe["exit"] = read_json(str(ctl / SERVING_EXIT))
@@ -657,22 +773,95 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                        for c in ("reclaim", "host-loss", "user", "bind-timeout")},
                     "requeues": jobmetrics.tpu_job_requeues_total.value()}
 
-        def job_episode(j):
+        def resume_episode(name, got, unstopped, before, watch):
+            """The notebook's resume, from its unstop to its second suspend
+            (the job's first pod gone by then: the reclaim took its slice);
+            returns what it saw: the new pod and its worker's result, each
+            edge's time, the restore's forwarded acks, the annotations at
+            the resume, the suspend states and attempts the watch saw, the
+            events, span and counters' deltas, and the second suspend."""
+            old = {got["uid"], got["repair"]["uid"]}
+            re_ = {"unstop": unstopped}
+            new = wait(lambda: next((p for p in cluster.client.list(Pod, namespace=NS, labels={
+                C.NOTEBOOK_NAME_LABEL: name}) if p.metadata.uid not in old and p.spec.node_name), None),
+                f"{name}'s resumed pod bound")
+            re_.update(uid=new.metadata.uid, node=new.spec.node_name, pool=pool_of(new.spec.node_name))
+
+            def resumed():
+                procs = processes.get(new.metadata.uid)
+                done = result(pod_dir(new))
+                assert done or procs is None or procs.running(), \
+                    f"{name}'s resumed torchrun exited {procs.proc.returncode}\n{logs()}"
+                return done
+
+            re_["result"] = wait(resumed, f"{name}'s resumed worker")
+            wait(lambda: not (nb := notebook(name)).metadata.annotations.get(C.TPU_SUSPEND_STATE_ANNOTATION)
+                 and nb.status.tpu.mesh_ready, f"{name} resumed")
+            re_["annotations at the resume"] = dict(notebook(name).metadata.annotations)
+            for reason in ("NotebookResumed", "RestoreVerified"):
+                wait(lambda: any(e.reason == reason for e in cluster.client.list(Event, namespace=NS)
+                                 if e.involved_object.name == name), f"{name}'s {reason} event")
+            re_["restores"] = [(t, a) for t, uid, a in restores if uid == new.metadata.uid]
+            # the second suspend: the stop, the save of the step it took
+            pids = sorted(set(processes[new.metadata.uid].pids) | {re_["result"]["pid"]})
+            re_["stop"] = time.time()
+            stop_notebook(name)
+            re_["suspend"] = suspended_and_gone(name, new.metadata.uid, pids)
+            re_["acks"] = once_each(new.metadata.uid)
+            re_["counters"] = {k: v - before[k] for k, v in suspend_counters().items()}
+            re_["events"] = {e.reason: e.message for e in cluster.client.list(Event, namespace=NS)
+                             if e.involved_object.kind == "Notebook" and e.involved_object.name == name}
+            trace_id = (tracing.parse_traceparent(got["admitted"].get(C.TRACEPARENT_ANNOTATION)) or ("",))[0]
+            re_["spans"] = [sp["attributes"] for sp in tracing.recent_spans(trace_id=trace_id, name="notebook.resume")]
+            # what the watches saw
+            nb_events = [(t, rv, o) for t, rv, typ, kind, o in watch.events
+                         if kind == "Notebook" and typ != "DELETED" and o["metadata"]["name"] == name]
+
+            def ann_of(o, k):
+                return (o["metadata"].get("annotations") or {}).get(k)
+
+            re_["attempts"] = sorted({int(a) for _, _, o in nb_events
+                                      if (a := ann_of(o, C.TPU_RESUME_ATTEMPTS_ANNOTATION))})
+            re_["resuming"] = next(((t, rv) for t, rv, o in nb_events
+                                    if ann_of(o, C.TPU_SUSPEND_STATE_ANNOTATION) == "resuming"), None)
+            re_["resumed"] = next(((t, rv) for t, rv, o in nb_events if t >= unstopped
+                                   and not ann_of(o, C.TPU_SUSPEND_STATE_ANNOTATION)
+                                   and C.STOP_ANNOTATION not in (o["metadata"].get("annotations") or {})), None)
+            re_["bound"] = watch.first("Pod", lambda o, t: o["metadata"].get("uid") == new.metadata.uid
+                                       and o["spec"].get("nodeName"))
+            re_["mesh-ready"] = next(((t, rv) for t, rv, o in nb_events if rv > re_["bound"][1]
+                                      and ((o.get("status") or {}).get("tpu") or {}).get("meshReady")), None)
+            re_["ready replicas"] = next(((t, rv) for t, rv, o in nb_events if rv > re_["bound"][1]
+                                          and (o.get("status") or {}).get("readyReplicas")), None)
+            re_["ready"] = watch.first("Pod", lambda o, t: o["metadata"].get("uid") == new.metadata.uid and any(
+                c.get("type") == "Ready" and c.get("status") == "True"
+                for c in (o.get("status") or {}).get("conditions") or []))
+            re_["reclaim stamp"] = watch.first("TPUJob", lambda o, t: (ann_of(o, C.JOB_PREEMPT_ANNOTATION) or "")
+                                               .startswith("capacity-pressure:"))
+            re_["states"] = timeline.suspend_states(name)
+            return re_
+
+        def job_episode(j, resume=None, got=None):
             """Runs the TPUJob through its preemption to Succeeded; returns
             what it saw: each edge's time (this process's clock) and
             resourceVersion where a watch saw it, the job's states, events,
             status and annotations, the counters' deltas, the goodput ratio,
-            the acks and both incarnations' results and pods."""
-            watch = Recorder(cluster.store, (("kubeflow.org/v1beta1", "TPUJob"), ("v1", "Node"), ("v1", "Pod")))
+            the acks and both incarnations' results and pods. With `resume`
+            (the suspended notebook, `got` what the flow saw of it), the
+            notebook's resume preempts the job (`resume_episode`, its
+            result in got["resume"])."""
+            kinds = (("kubeflow.org/v1beta1", "TPUJob"), ("v1", "Node"), ("v1", "Pod"))
+            watch = Recorder(cluster.store, kinds + ((("kubeflow.org/v1beta1", "Notebook"),) if resume else ()))
             try:
-                return _job(j, watch)
+                return _job(j, watch, resume, got)
             finally:
                 watch.stop()
 
-        def _job(j, watch):
+        def _job(j, watch, resume, got):
             key = f"{NS}/{j.name}"
             before, t0 = job_counters(), time.time()
-            je = {"t0": t0, "name": j.name, "steps": j.steps, "period": j.period_s}
+            je = {"t0": t0, "name": j.name, "steps": j.steps, "period": j.period_s,
+                  "cause": "reclaim" if resume else "user"}
             tj = TPUJob()
             tj.metadata.name, tj.metadata.namespace = j.name, NS
             tj.spec.tpu = TPUSpec(accelerator="h100", topology="1x1")
@@ -716,10 +905,17 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                  and int(ann(C.JOB_CHECKPOINT_STEP_ANNOTATION, "0") or 0) > 0,
                  f"{j.name}'s first cadence checkpoint acked")
             je["stamp"] = time.time()
-            cluster.client.patch(TPUJob, NS, j.name, {"metadata": {"annotations": {
-                C.JOB_PREEMPT_ANNOTATION: "user"}}})
+            if resume:
+                # the notebook's return: its resume takes the job's slice
+                nb_before = suspend_counters()
+                cluster.client.patch(Notebook, NS, resume, {"metadata": {"annotations": {C.STOP_ANNOTATION: None}}})
+            else:
+                cluster.client.patch(TPUJob, NS, j.name, {"metadata": {"annotations": {
+                    C.JOB_PREEMPT_ANNOTATION: "user"}}})
             wait(lambda: int(ann(C.JOB_PREEMPTIONS_ANNOTATION, "0") or 0) >= 1, f"{j.name} preempted and requeued")
             je["first"] = incarnation_gone(first)
+            if resume:
+                got["resume"] = resume_episode(resume, got, je["stamp"], nb_before, watch)
             second = wait(lambda: learner(exclude=(first.metadata.uid,)), f"{j.name}'s second learner pod bound")
             wait(lambda: worker_up(second) and get().status.phase == "Succeeded", f"{j.name} Succeeded")
             wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.JOB_NAME_LABEL: j.name}),
@@ -741,12 +937,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             je["goodput"] = jobmetrics.tpu_job_goodput_ratio.value()
             # the forwarded saves, once each (a re-probe joins the save under way)
             for inc in ("first", "second"):
-                uid, seen_ids = je[inc]["uid"], set()
-                je[inc]["acks"] = []
-                for t, u, a in acks:
-                    if u == uid and (not isinstance(a, dict) or a.get("id") not in seen_ids):
-                        je[inc]["acks"].append((t, a))
-                        seen_ids.add(a.get("id") if isinstance(a, dict) else None)
+                je[inc]["acks"] = once_each(je[inc]["uid"])
             # what the watches saw
             states = []
             for t, rv, typ, kind, o in watch.events:
@@ -764,8 +955,11 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                     for c in (o.get("status") or {}).get("conditions") or []))
             pool_nodes = {n.metadata.name for n in cluster.client.list(Node)
                           if n.metadata.labels[GKE_NODEPOOL_LABEL] == je["first"]["pool"]}
+            # the park of the preemption: before the second pod bound (the
+            # job's success parks its slice warm at its priority too)
             je["parked"] = next(((t, rv) for t, rv, typ, kind, o in watch.events
-                                 if kind == "Node" and t >= je["stamp"] and o["metadata"]["name"] in pool_nodes
+                                 if kind == "Node" and t >= je["stamp"] and rv < je["second"]["bound"][1]
+                                 and o["metadata"]["name"] in pool_nodes
                                  and (o["metadata"].get("annotations") or {}).get(slicepool.POOL_STATE_ANNOTATION)
                                  == "warm" and (o["metadata"].get("annotations") or {}).get(
                                      slicepool.POOL_PRIORITY_ANNOTATION) == str(je["priority"])), None)
@@ -817,6 +1011,11 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                     return done
 
                 got["result"] = wait(served, f"{name}'s worker")
+                # the readiness root, read while the span ring still holds it
+                # (a later episode's spans turn the ring over)
+                trace_id = (tracing.parse_traceparent(got["admitted"].get(C.TRACEPARENT_ANNOTATION)) or ("",))[0]
+                got["root"] = wait(lambda: tracing.recent_spans(trace_id=trace_id, name="notebook.ready"),
+                                   f"{name}'s notebook.ready root")
                 got["while running"] = owned_by(name)
                 # the agent's readiness edges, as its device view saw them
                 got["agent ready"] = [r["ready"] for r in timeline.records("probe-agent")
@@ -825,14 +1024,18 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 got["uid"] = pod(name).metadata.uid
                 if name == repair:
                     got["repair"] = repair_episode(name, got)
+                    if suspends:
+                        got["suspend"] = suspend_episode(name, got)
                     if promotion is not None:
                         got["promotion"] = promotion_episode(name, got)
+                    if resume and job is not None:
+                        seen["job"] = job_episode(job, resume=name, got=got)
                 wait(lambda: notebook(name).metadata.annotations.get(C.STOP_ANNOTATION, C.RECONCILIATION_LOCK_VALUE)
                      != C.RECONCILIATION_LOCK_VALUE, f"{name} culled")
                 wait(lambda: cluster.client.get(StatefulSet, NS, name).spec.replicas == 0, f"{name}'s set at 0")
                 wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.NOTEBOOK_NAME_LABEL: name}),
                      f"{name}'s pod deleted")
-                incarnations = [got] + ([got["repair"]] if "repair" in got else [])
+                incarnations = [got] + [got[k] for k in ("repair", "resume") if k in got]
                 procs = [processes[i["uid"]] for i in incarnations]
                 got["pids"] = sorted({p for ps in procs for p in ps.pids} | {i["result"]["pid"] for i in incarnations})
                 wait(lambda: all(ps.closed for ps in procs) and not alive(got["pids"]) and released(got["pids"]),
@@ -844,11 +1047,9 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 for what in ("unlocked", "bound", "mesh-ready", "stopped"):
                     got[what] = wait(lambda: timeline.get(f"{name} {what}"), f"the watches to see {name} {what}")
                 got["status"] = timeline.ready_status[name]
-                trace_id = (tracing.parse_traceparent(got["admitted"].get(C.TRACEPARENT_ANNOTATION)) or ("",))[0]
-                got["root"] = tracing.recent_spans(trace_id=trace_id, name="notebook.ready")
                 cluster.client.delete(Notebook, NS, name)
                 wait(lambda: not owned_by(name), f"{name} deleted, its route and policies with it")
-        if job is not None:
+        if job is not None and "job" not in seen:
             seen["job"] = job_episode(job)
         seen["denied"]["left at the end"] = owned_by(seen["denied"]["name"])
         if acct is not None:
@@ -893,6 +1094,7 @@ class Timeline:
         # notebook -> [(time, rv, repair state, Degraded (status, reason) or
         # None, meshReady)], one entry each time one of the three changed
         self.log = {}
+        self.suspend_log = {}  # notebook -> [(time, rv, suspend state)], one entry each time it changed
         self._kept = {}  # (t, kind, subject) -> a flight-recorder record of a kept kind
         self._threads = [threading.Thread(target=self._run, args=(w,), daemon=True) for w in self._watches]
         self._threads.append(threading.Thread(target=self._copy_records, daemon=True))
@@ -918,10 +1120,14 @@ class Timeline:
                          if c.get("type") == C.TPU_DEGRADED_CONDITION), None)
             entry = ((meta.get("annotations") or {}).get(C.TPU_REPAIR_STATE_ANNOTATION, ""), cond,
                      bool(tpu.get("meshReady")))
+            state = (meta.get("annotations") or {}).get(C.TPU_SUSPEND_STATE_ANNOTATION, "")
             with self._lock:
                 log = self.log.setdefault(meta.get("name"), [])
                 if not log or log[-1][2:] != entry:
                     log.append((now, rv) + entry)
+                states = self.suspend_log.setdefault(meta.get("name"), [])
+                if not states or states[-1][2] != state:
+                    states.append((now, rv, state))
         if obj.get("kind") == "Notebook":
             if (meta.get("annotations") or {}).get(C.STOP_ANNOTATION) != C.RECONCILIATION_LOCK_VALUE:
                 keys.append(f"{meta.get('name')} unlocked")
@@ -974,6 +1180,11 @@ class Timeline:
     def notebook_log(self, name):
         with self._lock:
             return list(self.log.get(name, []))
+
+    def suspend_states(self, name):
+        """The notebook's suspend states, (time, rv, state) each change."""
+        with self._lock:
+            return list(self.suspend_log.get(name, []))
 
     def stop(self):
         self._done.set()
@@ -1084,10 +1295,80 @@ def check_repair(got, period, gate_waits):
             r["mesh-ready again"] - r["result"]["times"]["context"]
 
 
+def check_suspend(got):
+    """The suspend episode's gates (run(resume=True) or run(promotion=...)):
+    one forwarded save, of the repaired notebook's resumed step with its
+    state's checksum, acked through the agent (the controller's re-probes
+    joining it) before the suspend; the notebook suspended with that step
+    and checksum, the stop kept; its pool released warm at the notebook's
+    priority (0); one checkpoint save counted, no reclaim."""
+    se, resumed = got["suspend"], got["repair"]["result"]["resumed"]
+    assert [type(a) for _, a in se["acks"]] == [dict], se["acks"]
+    ack_at, ack = se["acks"][0]
+    assert ack["step"] == resumed["step"], (ack, resumed)
+    assert se["stop"] < ack_at <= se["suspended"], se
+    ann = se["annotations"]
+    assert ann[C.TPU_SUSPEND_STATE_ANNOTATION] == "suspended" and ann[C.TPU_SUSPENDED_AT_ANNOTATION], ann
+    assert ann[C.TPU_CHECKPOINT_SAVED_ANNOTATION] == str(ack["step"]), ann
+    assert ann[C.TPU_CHECKPOINT_CHECKSUM_ANNOTATION] == ack["checksum"], ann
+    assert C.STOP_ANNOTATION in ann and C.TPU_RECLAIM_ANNOTATION not in ann, ann
+    assert se["pool marks"] in ([("warm", "0")], [("claimed", "0")]), se["pool marks"]
+    assert se["counters"]["checkpoint saves"] == 1, se["counters"]
+    assert all(v == 0 for k, v in se["counters"].items() if k.startswith("reclaims")), se["counters"]
+
+
+def check_resume(got, period, gate_waits):
+    """The resume episode's gates (run(resume=True, job=...)): the suspend
+    states in order (from the first suspend's stop: checkpointing,
+    suspended, resuming, active, checkpointing, suspended); one reclaim,
+    a job preemption (`capacity-pressure:` on the job before the
+    notebook's pod bound); the resumed pod on the job's pool; the worker
+    restored the suspend's step and checksum and its next step is bit-equal
+    to that step taken on a copy by the worker that saved; the forwarded
+    /tpu/restore acked that step and checksum once, verified `ok`
+    (RestoreVerified; verifications{ok} +1, no other result); one
+    notebook_resume_seconds observation and one notebook.resume span; the
+    idle clock re-armed from the resume; the second suspend saved the
+    resumed worker's step and released the slice warm; with `gate_waits`,
+    the pod Ready and the notebook mesh-ready no earlier than the worker's
+    CUDA context less one gate period."""
+    re_, se = got["resume"], got["suspend"]
+    assert [st for _, _, st in re_["states"]] == ["", "checkpointing", "suspended", "resuming", "", "checkpointing",
+                                                  "suspended"], re_["states"]
+    c = re_["counters"]
+    assert c["reclaims job-preempt"] == 1 and sum(v for k, v in c.items() if k.startswith("reclaims")) == 1, c
+    assert c["verifications ok"] == 1 and c["verifications mismatch"] == c["verifications unverified"] == 0, c
+    assert c["resumes"] == 1 and c["checkpoint saves"] == 1, c
+    assert re_["reclaim stamp"] is not None and re_["bound"] is not None and \
+        re_["reclaim stamp"][1] < re_["bound"][1], (re_["reclaim stamp"], re_["bound"])
+    _, ack = se["acks"][0]
+    restored = re_["result"]["resumed"]
+    assert (restored["restored"]["step"], restored["restored"]["checksum"]) == (ack["step"], ack["checksum"]), \
+        (restored, ack)
+    (twin,) = [x["next"] for x in se["result"]["saves"] if x["step"] == ack["step"]]
+    assert (restored["step"], restored["loss"], restored["checksum"]) == (twin["step"], twin["loss"], twin["checksum"]), \
+        (restored, twin)
+    assert [(a["restored"], a["step"], a["checksum"]) for _, a in re_["restores"] if isinstance(a, dict)] == \
+        [(True, ack["step"], ack["checksum"])], re_["restores"]
+    assert "RestoreVerified" in re_["events"] and "NotebookResumed" in re_["events"], re_["events"]
+    assert len(re_["spans"]) == 1, re_["spans"]
+    last = apimachinery.parse_time(re_["annotations at the resume"][C.LAST_ACTIVITY_ANNOTATION]).timestamp()
+    assert last >= re_["unstop"] - 1.0, (last, re_["unstop"])
+    assert [type(a) for _, a in re_["acks"]] == [dict], re_["acks"]
+    _, second = re_["acks"][0]
+    assert second["step"] == restored["step"], (second, restored)
+    ann = re_["suspend"]["annotations"]
+    assert ann[C.TPU_CHECKPOINT_SAVED_ANNOTATION] == str(second["step"]), ann
+    if gate_waits:
+        context = re_["result"]["times"]["context"]
+        assert re_["ready"][0] >= context - period and re_["mesh-ready"][0] >= context - period, \
+            (re_["ready"][0] - context, re_["mesh-ready"][0] - context)
+
+
 def check_promotion(got, period, gate_waits):
-    """The promotion episode's gates (run(promotion=...)): the stand-in
-    suspend acked the forwarded save of the resumed step and wrote it, and
-    released the notebook's pool warm; the endpoint was promoted with a
+    """The promotion episode's gates (run(promotion=...)): the suspend
+    acked the forwarded save of the resumed step and wrote it, and released
+    the notebook's pool warm (`check_suspend`); the endpoint was promoted with a
     warm bind (EndpointPromoted, promotions{bind=warm} +1, the
     endpoint.promotion span with warm_bind on the endpoint's trace), the
     pool claimed under the endpoint's key before its pod bound there; its
@@ -1103,13 +1384,7 @@ def check_promotion(got, period, gate_waits):
     gate period."""
     pe, resumed = got["promotion"], got["repair"]["result"]["resumed"]
     _, ack = pe["ack"]
-    assert ack["saved"] and ack["step"] == resumed["step"], (ack, resumed)
-    assert [type(a) for _, a in pe["acks"]] == [dict] and pe["acks"][0][1]["checksum"] == ack["checksum"], pe["acks"]
-    ann = pe["notebook annotations"]
-    assert ann[C.TPU_SUSPEND_STATE_ANNOTATION] == "suspended" and ann[C.TPU_SUSPENDED_AT_ANNOTATION], ann
-    assert ann[C.TPU_CHECKPOINT_SAVED_ANNOTATION] == str(ack["step"]), ann
-    assert ann[C.TPU_CHECKPOINT_CHECKSUM_ANNOTATION] == ack["checksum"], ann
-    assert pe["released pool"] == pe["pool"] and pe["pool at suspend"] == ["warm"], pe
+    assert ack["step"] == resumed["step"], (ack, resumed)
     assert pe["counters"] == {"promotions warm": 1, "promotions cold": 0, "verifications ok": 1,
                               "verifications mismatch": 0, "verifications unverified": 0}, pe["counters"]
     assert "claimed its warm slice from the pool (warm bind)" in pe["events"]["EndpointPromoted"], pe["events"]
@@ -1158,10 +1433,12 @@ def job_states_in_order(states):
 
 def check_job(got, period, gate_waits):
     """The job episode's gates (run(job=...)): the states in order
-    (`job_states_in_order`); one user preemption, one requeue, one success
-    counted, status.preemptions 1, the job at replicas 0 with no pod; the
-    preempted slice parked warm at the job's priority and claimed warm
-    again by the job before its second pod bound, on the same pool; every
+    (`job_states_in_order`); one preemption (by the user's stamp, or by the
+    reclaimer with `resume`), one requeue, one success counted,
+    status.preemptions 1, the job at replicas 0 with no pod; the preempted
+    slice parked warm at the job's priority (a user's preemption; a
+    reclaim's goes to general capacity) and claimed warm again by the job
+    before its second pod bound, on the same pool; every
     forwarded save acked once per request; the second pod pinned
     TPU_JOB_RESUME_STEP to the preempt's acked step (the resume-step
     annotation), restored it with the save's checksum, and its step k+1 is
@@ -1172,13 +1449,17 @@ def check_job(got, period, gate_waits):
     earlier than its worker's CUDA context less one gate period."""
     j = got
     assert job_states_in_order(j["states"]), [st for _, _, st in j["states"]]
-    assert j["counters"] == {"jobs succeeded": 1, "jobs failed": 0, "preemptions reclaim": 0,
-                             "preemptions host-loss": 0, "preemptions user": 1, "preemptions bind-timeout": 0,
+    assert j["counters"] == {"jobs succeeded": 1, "jobs failed": 0, "preemptions host-loss": 0,
+                             "preemptions reclaim": int(j["cause"] == "reclaim"),
+                             "preemptions user": int(j["cause"] == "user"), "preemptions bind-timeout": 0,
                              "requeues": 1}, j["counters"]
     assert j["status"]["phase"] == "Succeeded" and j["status"]["preemptions"] == 1, j["status"]
     assert j["replicas"] == 0, j["replicas"]
     first, second = j["first"], j["second"]
-    assert j["parked"] is not None, "the preempted slice was not parked warm at the job's priority"
+    if j["cause"] == "user":
+        assert j["parked"] is not None, "the preempted slice was not parked warm at the job's priority"
+    else:  # reclaim-forced: general capacity, for the requester
+        assert j["parked"] is None, "a reclaim-forced preemption parked its slice warm"
     assert second["pool"] == first["pool"], (first["pool"], second["pool"])
     claims = [c for c in j["claims"] if c[0] >= j["stamp"]]
     assert claims and second["bound"] is not None and claims[0][1] < second["bound"][1], (claims, second["bound"])
@@ -1266,7 +1547,7 @@ def check(seen, device, chips_expected=1, gate_waits=False):
         status = got["status"]
         assert status.get("firstReadyTime") and status["chipsVisible"] == status["chipsExpected"] == chips_expected, \
             status
-        if "promotion" in got:  # suspended by the stand-in, never idle
+        if "suspend" in got:  # stopped by the flow, never idle
             assert got["culls"] == [], got["culls"]
         else:
             assert got["culls"], f"{name}'s stop annotation did not come from the culler"
@@ -1275,8 +1556,12 @@ def check(seen, device, chips_expected=1, gate_waits=False):
         assert got["alive"] == [], got
         if "repair" in got:
             check_repair(got, period, gate_waits)
+        if "suspend" in got:
+            check_suspend(got)
         if "promotion" in got:
             check_promotion(got, period, gate_waits)
+        if "resume" in got:
+            check_resume(got, period, gate_waits)
     # each took the card in turn: bound, stopped, and only then the next bound
     order = [seen[n][k][1] for n in turns for k in ("bound", "stopped")]
     assert order == sorted(order), dict(zip([f"{n} {k}" for n in turns for k in ("bound", "stopped")], order))

@@ -16,10 +16,14 @@ MODE "repair" is the worker of a notebook whose pod the flow preempts
 model and answers the forwarded checkpoint requests until SIGTERM, or, in
 the pod that replaced it, restores the notebook's latest checkpoint and
 takes the next step. MODE "promote" is "repair" for a notebook the flow
-then promotes into an InferenceEndpoint: the pod that replaced it stays
-busy after its step, reports the logit fingerprint of its params and
-answers the forwarded checkpoint requests (the suspend's save) until
-SIGTERM. MODE "job" is a TPUJob's learner (`job_run`): it trains up to
+then suspends (and promotes into an InferenceEndpoint, and resumes): a pod
+that restored stays busy after its step, reports the logit fingerprint of
+its params and answers the forwarded checkpoint requests (the suspend's
+save), each with the next step taken on a copy, until SIGTERM. A pod that
+restores reports it (`probe.behavior.RESTORE_REPORT`: restoring before its
+device, then what it restored) and answers the forwarded /tpu/restore
+requests with what it restored; NB_RESTORE_DELAY_S in its env holds the
+restore back that many seconds past its device. MODE "job" is a TPUJob's learner (`job_run`): it trains up to
 TPU_JOB_STEPS from TPU_JOB_RESUME_STEP's checkpoint (or from scratch),
 answering the forwarded checkpoint requests between two steps, until
 SIGTERM.
@@ -37,6 +41,19 @@ import torch
 NAMES = ("PET_STANDALONE", "PET_NPROC_PER_NODE", "PET_NNODES", "NB_TPU_CHIPS_EXPECTED", "NB_TPU_HOSTS",
          "TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY", "RANK", "LOCAL_RANK", "WORLD_SIZE")
 REPAIR_STEPS = 2  # the steps the first incarnation takes before it is preempted
+
+
+CONTEXT_STAMP = "context.json"  # the time the worker's device first held a tensor (its CUDA context on a card)
+
+
+def write_json_stamp(out_dir, context):
+    """CONTEXT_STAMP, written whole: on the CPU, where no CUDA context marks
+    the worker's start, a monitor can come up on it
+    (torch_operator_flow.stamp_monitor)."""
+    path = os.path.join(out_dir, CONTEXT_STAMP)
+    with open(path + ".tmp", "w") as f:
+        json.dump({"context": context}, f)
+    os.replace(path + ".tmp", path)
 
 
 def write_result(out_dir, out):
@@ -59,6 +76,33 @@ def resuming(out_dir):
     from odh_kubeflow_tpu_torch.models import latest_step
 
     return latest_step(checkpoint_dir(out_dir)) is not None
+
+
+def announce_restore(out_dir):
+    """The restore report's first half, written before the worker touches
+    its device: its pod's agent does not come up until the second."""
+    from odh_kubeflow_tpu_torch.probe.behavior import RESTORE_REPORT, write_json
+
+    write_json(os.path.join(out_dir, RESTORE_REPORT), {"restoring": True, "at": time.time()})
+
+
+def report_restored(out_dir, restored, stop):
+    """The restore report's second half (`restored`: step, checksum,
+    seconds), then the forwarded /tpu/restore requests answered with it from
+    a thread until `stop`, whatever the worker does meanwhile."""
+    from odh_kubeflow_tpu_torch.probe.behavior import RESTORE_REPORT, answer_restore, write_json
+
+    ack = {"restored": True, "step": restored["step"], "checksum": restored["checksum"]}
+    write_json(os.path.join(out_dir, RESTORE_REPORT), {"restoring": False, **ack, "seconds": restored["seconds"],
+                                                       "at": time.time()})
+
+    def answer():
+        answered = set()
+        while not stop.is_set():
+            answer_restore(out_dir, lambda: ack, answered)
+            stop.wait(0.02)
+
+    threading.Thread(target=answer, daemon=True, name="restore-answers").start()
 
 
 def _sync(dev):
@@ -114,11 +158,12 @@ def step_on_copy(dev, step_fn, state, k, batch_of):
     return {"step": k + 1, "loss": loss.item(), "checksum": state_checksum(twin["params"])}, _launches(attention)
 
 
-def restore_and_step(dev, ckpt, k, cfg, step_fn, opt, batch_of):
+def restore_and_step(dev, ckpt, k, cfg, step_fn, opt, batch_of, on_restored=None):
     """Restores step k of `ckpt` onto a state initialised from another seed
     (seed 1), checks its checksum and takes step k+1. Returns the state
     and "resumed": what was restored (step, checksum, seconds) and the
-    step's step, loss, params checksum and launches."""
+    step's step, loss, params checksum and launches. `on_restored(what)`
+    runs between the restore and the step."""
     from odh_kubeflow_tpu_torch.models import init_params, restore_train_state, state_checksum
     from odh_kubeflow_tpu_torch.ops import attention
 
@@ -127,6 +172,8 @@ def restore_and_step(dev, ckpt, k, cfg, step_fn, opt, batch_of):
     state = restore_train_state(ckpt, {"params": params, "opt_state": opt.init(params)}, step=k)
     _sync(dev)
     restored = {"step": k, "checksum": state_checksum(state), "seconds": time.time() - t0}
+    if on_restored is not None:
+        on_restored(restored)
     attention.reset_launch_counts()
     _, _, loss = step_fn(state["params"], state["opt_state"], batch_of(k))
     _sync(dev)
@@ -147,11 +194,13 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promo
     its step, checksum, seconds and bytes) until `stop`.
 
     A later incarnation (the notebook's checkpoint directory holds a step):
-    `restore_and_step` from the latest step, and write its loss and params
+    `restore_and_step` from the latest step, reporting the restore
+    (`report_restored`) before the step, and write its loss and params
     checksum with the time it "stepped" and the "done" time. With `promote`
     it has no "done" time (its kernel stays busy): it writes the logit
     fingerprint of its params (serving.server.FINGERPRINT_PROMPT) and
-    answers the forwarded checkpoint requests with step k+1 until `stop`.
+    answers the forwarded checkpoint requests with step k+1 until `stop`,
+    taking step k+2 on a copy before each ack ("saves", as `job_run`).
     `batch_of(i)` is the batch of the step from i to i + 1."""
     from odh_kubeflow_tpu_torch.models import init_params, latest_step, logit_fingerprint, make_train_step, state_checksum
     from odh_kubeflow_tpu_torch.ops import attention
@@ -161,14 +210,27 @@ def repair_run(dev, out_dir, cfg, batch_of, out, stop, steps=REPAIR_STEPS, promo
     step_fn, opt = make_train_step(cfg)
     saved = latest_step(ckpt)
     if saved is not None:
-        state, out["resumed"] = restore_and_step(dev, ckpt, saved, cfg, step_fn, opt, batch_of)
+        delay = float(os.environ.get("NB_RESTORE_DELAY_S") or 0)
+        if delay:
+            stop.wait(delay)
+
+        def restored(what):
+            out["times"]["restored"] = time.time()
+            report_restored(out_dir, what, stop)
+
+        state, out["resumed"] = restore_and_step(dev, ckpt, saved, cfg, step_fn, opt, batch_of, restored)
         out["times"]["stepped"] = time.time()
         out["times"]["done"] = None if promote else out["times"]["stepped"]
         if promote:
             out["resumed"]["logit_fingerprint"] = logit_fingerprint(state["params"], cfg, FINGERPRINT_PROMPT)
+            out["saves"] = []
         write_result(out_dir, out)
         if promote:
-            answer_saves(ckpt, out_dir, lambda: (out["resumed"]["step"], state), stop)
+            def after_save(step, state, ack):
+                out["saves"].append(dict(ack, next=step_on_copy(dev, step_fn, state, step, batch_of)[0]))
+                write_result(out_dir, out)
+
+            answer_saves(ckpt, out_dir, lambda: (out["resumed"]["step"], state), stop, after_save=after_save)
         else:
             stop.wait()
         return
@@ -269,6 +331,8 @@ def main(device: str, out_dir: str, mode: str = "serve") -> None:
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     torch.set_num_threads(1)
     again = mode in ("repair", "promote") and resuming(out_dir)
+    if again:
+        announce_restore(out_dir)
     # the device first, its time taken at once: bring-up with nccl makes the
     # card current, which creates the CUDA context before the world forms.
     # An empty allocation creates the context and launches no kernel (the
@@ -278,6 +342,7 @@ def main(device: str, out_dir: str, mode: str = "serve") -> None:
     torch.empty(1, device=dev)
     _sync(dev)
     context = time.time()
+    write_json_stamp(out_dir, context)
     x = torch.ones(64, 64, device=dev)
     rank, world = (reinitialize_after_repair if again else initialize_from_env)(timeout_s=60, device=device)
     total = float((x @ x).sum())

@@ -9,7 +9,10 @@ the cards on which the pod's processes hold a CUDA context, each culled,
 its card freed and the notebook deleted in turn; nb-2's node preempted
 after its worker has trained, the pod checkpointed through the forwarded
 /tpu/checkpoint, evicted, re-placed in a second pool and resumed bit-equal
-by the SliceRepairController). It fails as the smoke does.
+by the SliceRepairController; then nb-2 suspended by the
+SuspendResumeController and promoted into an InferenceEndpoint, and a
+TPUJob preempted by the reclaimer for nb-2's resume, which is verified
+and bit-equal, the job resumed to Succeeded). It fails as the smoke does.
 
     python3 tools/operator_phase.py     # from the repository root
 """
