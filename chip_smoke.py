@@ -131,9 +131,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    a 2-layer f32 model's sp loss and summed gradients within 1e-4 against
    one process through mha_reference, both layouts; then make_train_step
    over the mesh on the flagship model (bf16, remat_policy "flash"),
-   global batch 2 x 8192, at sp 2 contiguous and zigzag (4 layers) and sp
-   4 contiguous (2 layers): depths cut (SP_LAYERS) to keep the smoke and
-   the card tests near 900 s. Before each run, every flash call of one bf16 ring at the
+   global batch 2 x 8192, at sp 2 contiguous and zigzag and sp 4
+   contiguous, each at 2 layers: depths cut (SP_LAYERS; sp 2 ran 4 until
+   phase 15's park and wake needed the time) to keep the smoke near 900 s. Before each run, every flash call of one bf16 ring at the
    run's per-rank shapes (b2 s4096 or s2048 h8 d128; zigzag's half-pairs;
    the backward with the ring's merged lse and delta) is held against its
    plain version within phase 3/3b's tolerances. Against the one-process
@@ -153,8 +153,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    collectives gloo moves on a CUDA tensor), taken while the phase's ranks
    start its job; phase 10's 4 ranks, brought up by parallel.initialize_from_env from the webhook's env
    names on gloo, sharing the card, train the flagship (bf16, remat
-   "flash"; SHARD_LAYERS 4 of its 8 layers, the depth cut to keep the smoke
-   and the card tests near 900 s) at fsdp 2 x tp 2, global batch 8 x 2048, and at tp 2 x sp 2
+   "flash"; SHARD_LAYERS 2 of its 8 layers, the depth cut to keep the smoke
+   near 900 s; 4 until phase 15's park and wake needed the time) at fsdp 2 x tp 2, global batch 8 x 2048, and at tp 2 x sp 2
    zigzag, global batch 2 x 8192, params, gradients and AdamW state sharded
    as param_specs says. Before each run every flash call at the run's
    per-rank shapes (b4 s2048 h4 hk4 d128; the zigzag ring's b2 s4096 h4
@@ -195,8 +195,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kv head; wqkv replicated over tp), f32, 2 layers of the flagship's
    widths: the loss and gathered gradients within 1e-4 of each leaf's
    largest against one process, greedy tokens equal; (c) bench.py:389-400's
-   MoE train step (remat "") at EP_LAYERS 4 of its 8 layers (the depth cut
-   to keep the smoke and the card tests near 900 s) at ep 2 x tp 2 and ep 2 x fsdp 2, global batch
+   MoE train step (remat "") at EP_LAYERS 2 of its 8 layers (the depth cut
+   to keep the smoke near 900 s; 4 until phase 15's park and wake needed
+   the time) at ep 2 x tp 2 and ep 2 x fsdp 2, global batch
    8 x 2048, a warm-up and EP_STEPS 2 timed steps (3 before phase 15 took
    on admission), with phase 11's gates: each flash call at the per-rank shapes
    (b8 s2048 h4, b4 s2048 h8) against its plain version; against one
@@ -275,7 +276,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    hand with NotebookReconciler, EventMirrorController,
    TPUWorkbenchReconciler, ProbeStatusController (0.2 s),
    CullingReconciler (2 s idle, checks every 0.5 s) and
-   SliceRepairController (a 30 s checkpoint window); the kubelet runs each
+   SliceRepairController (a 30 s checkpoint window), and as the JAX
+   package's build_manager and _wire_observability wire them: a
+   StatusCoalescer at Config's window (0.05 s), one NotebookMetrics shared
+   by the reconciler, the gate and the culler, and the judgement layer
+   (tests/torch_operator_flow.py Judgement): an SLOEngine over
+   default_slos() at window scale 0.002 (5m -> 0.6 s, 1h -> 7.2 s, 6h ->
+   43.2 s), an AlertManager over default_rules that mirrors onto the
+   notebooks (SLOBurnRate events, the DegradedSLO condition) and
+   snapshots the flight recorder, the slice-repair-in-progress inhibitor
+   of the readiness category, a CanaryProber (a CPU notebook in
+   slo-canary on one CPU node added to the SimCluster, a plain container
+   with no process and no card) and a ReplicaAutoscaler ticking every
+   AUTOSCALE_PERIOD_S; the kubelet runs each
    pod through
    probe.behavior.pod_process_behavior: `torchrun chip_smoke.py
    --device-worker operator` with the env the reconciler rendered into
@@ -292,7 +305,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    nvidia.com/gpu mirrored onto the notebook; nb-0 comes mesh-ready,
    serves, goes idle and is culled; nb-1 binds on the freed card, serves
    and is culled; nb-2 follows alone; each culled notebook is deleted
-   once its card is free. Gates: every CR admitted with the
+   once its card is free. The canary probes once before the first wave and
+   once at the end. Gates: every CR admitted with the
    reconciliation lock and the traceparent of its notebook.ready root,
    the lock lifted by the extension before the pod was bound, the
    notebook's HTTPRoute and NetworkPolicies present while it serves and
@@ -365,7 +379,43 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    again, no process of the pod alive, the card's compute apps back to
    the phase's start. Printed: each edge from the stop to the first token,
    TTFT median and max, tokens/s, and stop -> route gone -> Terminated ->
-   card free. The job episode, after the waves: the TPUJobReconciler
+   card free. The park and the wake, between the 8 replies and the stop:
+   ep-0 is created with autoscaling {minReplicas 1, maxReplicas 1,
+   scaleToZero, scaleToZeroIdleS AUTOSCALE_IDLE_S}; the autoscaler's
+   signals are the port's PodStatsSignals: the serving SLOs' fast burn
+   with the queue and slots read from the pod's /stats (the engine serves
+   in the pod's process, which the operator's registry cannot see; a
+   replica it cannot read counts busy). Idle past the window after the last reply, the autoscaler writes
+   desired 0; ep-0 parks Suspended (its route and url kept, its slice
+   released warm, its processes gone); a TokenRouter over ep-0 with no
+   live replica sheds the 8 requests and fires its cold wake once, which
+   writes desired 1; the woken gang takes the parked slice back (the
+   reconciler's idle-warm reclaim past the pending grace), its serving
+   process restores nb-2's step-3 state, Loading verifies it, and once
+   Serving the process joins the router as its replica and the 8 shed
+   requests are served through it. Gates (check_autoscale and
+   _operator_autoscale): no park before the last reply, one after it, no
+   up or down; parked Suspended with status.replicas, servingReplicas and
+   readyReplicas 0, the url and route kept, the pool warm, no process of
+   the pod alive and the card's compute apps back to the phase's start;
+   one cold wake, every request shed once; the woken pod on the parked
+   pool; verifications {ok} +1 and no other result, no new promotion;
+   the logit fingerprint nb-2's; all 8 woken requests 200; REPAIR_LAYERS
+   tensor-core forward launches per prefill and no other kernel in the
+   woken process; the episode within AUTOSCALE_BUDGET_S. Printed: the
+   last reply -> desired 0 -> Suspended -> card free; the wake -> desired
+   1 -> bound -> CUDA context -> restored -> listening -> restore ack ->
+   Serving -> joined -> first token; the woken TTFT. The judgement layer's
+   gates (check_judgement): slo_evaluations_total advanced; both canary
+   probes ok, their CRs and pods gone, the compute apps unchanged by them;
+   the availability page (notebook-availability-fast-burn) fired between
+   nb-2's preemption and its mesh-ready again, each firing with its
+   SLOBurnRate event, DegradedSLO True and an incident bundle, every
+   firing resolved by the end, each resolve's notebooks back to
+   DegradedSLO False (Recovered) unless another firing alert still covered
+   them. Printed: every alert's transitions, every SLO's compliance over
+   the phase, the coalescer's writes and merged patches, the autoscaler's
+   decisions. The job episode, after the waves: the TPUJobReconciler
    beside the other controllers, right after the promotion (nb-2 still
    suspended); OPERATOR_JOB (anakin, spec.tpu h100 1x1, JOB_STEPS steps, a
    JOB_PERIOD_S cadence) is admitted on a warm claim of ep-0's pool,
@@ -418,7 +468,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    seconds and GB, the restores' seconds, the accountant's card-seconds by
    class and phase. The phase's time and each episode's, against their
    budgets (120 s for the phase less the episodes, 45 s for the repair
-   episode, PROMOTION_BUDGET_S for the suspend and the promotion,
+   episode, PROMOTION_BUDGET_S for the suspend and the promotion less the
+   park and the wake, AUTOSCALE_BUDGET_S for the park and the wake,
    RESUME_JOB_BUDGET_S for the job with nb-2's resume).
 
 Every phase prints its time when it ends, and the end a line of them all.
@@ -2132,10 +2183,10 @@ def router_phase(attention, smi, cfg, params):
 SP_WORLDS = (2, 4)
 RANK_POOL_WORLD = 4  # the ranks phases 10-13 share: max(SP_WORLDS), SHARD_WORLD, EP_WORLD and PP_WORLD
 SP_RUNS = {2: ("contiguous", "zigzag"), 4: ("contiguous",)}  # world -> layouts of the train runs
-# world -> layers of the full-width train runs: the sp 4 run at 2 layers
-# keeps the smoke and the card tests within 1.5x of their time before phase
-# 11 (every check stays; the widths are the flagship's)
-SP_LAYERS = {2: 4, 4: 2}
+# world -> layers of the full-width train runs, cut to keep the smoke near
+# 900 s (every check stays; the widths are the flagship's): sp 2 ran 4
+# layers until phase 15's park and wake needed the time
+SP_LAYERS = {2: 2, 4: 2}
 SP_BATCH = (2, 8192)  # the full-width train runs' global batch
 SP_STEPS = 2  # timed steps after the warm-up (3 until the smoke needed the time)
 SP_RING_SHAPE = (1, 1024, 8, 2, 128)  # the f32 ring check: b, s, h, hk, d (global)
@@ -2650,9 +2701,9 @@ SHARD_RUNS = {
 }
 SHARD_CHECKPOINT_RUN = "fsdp2 x tp2"  # the run whose state goes through the agents' routes
 SHARD_STEPS = 2  # timed steps after the warm-up (3 until the smoke needed the time)
-# the runs' depth (of the flagship's 8 layers), cut to keep the smoke and the
-# card tests near 900 s
-SHARD_LAYERS = 4
+# the runs' depth (of the flagship's 8 layers), cut to keep the smoke near
+# 900 s (4 until phase 15's park and wake needed the time)
+SHARD_LAYERS = 2
 
 
 def _flash_calls_vs_plain(b, s, h, d):
@@ -3150,7 +3201,7 @@ SHARED_MAX_NEW = 16
 MOE_WIDTH = dict(vocab=32768, d_model=1024, n_heads=8, d_ff=2048, max_seq=2048)
 EP_RUNS = {"ep2 x tp2": {"ep": 2, "tp": 2}, "ep2 x fsdp2": {"ep": 2, "fsdp": 2}}
 EP_BATCH = (8, 2048)
-EP_LAYERS = 4
+EP_LAYERS = 2  # of the MoE's 8 layers (4 until phase 15's park and wake needed the time)
 EP_STEPS = 2  # timed steps after the warm-up (3 until phase 15 needed the time)
 EP_F32_LAYERS = 2  # the f32 step held per leaf against one process
 EP_CHECKPOINT_RUN = "ep2 x tp2"  # the run whose state goes through the agents' routes
@@ -3716,7 +3767,7 @@ PP_WORLD = 4
 PP_STEPS = 1  # timed steps after the warm-up (2 until the smoke needed the time)
 PP_BATCH = (8, 2048)  # the dense and MoE runs' global batch
 PP_MICRO = 4
-PP_LAYERS = 4  # (c)'s and the memory steps' depth of the flagship's 8 layers (as phases 10-12's)
+PP_LAYERS = 4  # (c)'s and the memory steps' depth of the flagship's 8 layers (interleaved pp 2 x v 2 needs 4)
 # (c) name -> (plan, config, schedule, n_chunks, global batch, n_micro): the
 # flagship (phase 6) and phase 8's MoE, PP_LAYERS layers, bf16; the sp run takes
 # phase 10's 2 x 8192 zigzag, whose 2 sequences make 2 microbatches
@@ -4538,6 +4589,12 @@ PROMOTION_SLOTS = 8  # its engine's slots (spec.serving.maxBatchSlots)
 PROMOTION_MAX_SEQ = 512
 PROMOTION_DRAIN_S = 1.0  # spec.serving.drainTimeoutS: the route-first drain's window
 PROMOTION_BUDGET_S = 40  # the promotion episode fails past it: 20.5 s on the card in its first run, and a margin
+AUTOSCALE_PERIOD_S = 0.25  # the ReplicaAutoscaler's tick
+AUTOSCALE_IDLE_S = 1.0  # ep-0's scaleToZeroIdleS
+# the park and the wake fail past it: the idle window, the park, one serving
+# start-up (bind -> listening 9.7-14.5 s in the promotion's earlier card
+# runs), the reclaim's grace, the requests, and a margin
+AUTOSCALE_BUDGET_S = 45
 OPERATOR_JOB = "rl-0"  # the TPUJob of the job episode: an anakin gang on an h100 1x1 slice (this card)
 # its spec.steps and spec.checkpointPeriodS (PR 19's, on which
 # RESUME_JOB_BUDGET_S rests): the first pod is still short of JOB_STEPS when
@@ -4603,7 +4660,8 @@ def _operator_phase(attention, smi, out_root):
     promotion = flow.Promotion(
         model_config=flow.model_config(_repair_cfg()), device="cuda",
         requests=[(rng.integers(0, SERVE_WIDTH["vocab"], DEVICE_PROMPTS[1]).tolist(), n) for n in MAX_NEWS],
-        slots=PROMOTION_SLOTS, max_seq=PROMOTION_MAX_SEQ, drain_s=PROMOTION_DRAIN_S, name=OPERATOR_ENDPOINT)
+        slots=PROMOTION_SLOTS, max_seq=PROMOTION_MAX_SEQ, drain_s=PROMOTION_DRAIN_S, name=OPERATOR_ENDPOINT,
+        idle_s=AUTOSCALE_IDLE_S)
     try:
         seen = flow.run(
             out_root, lambda out_dir, role: [
@@ -4613,7 +4671,7 @@ def _operator_phase(attention, smi, out_root):
             cfg=dict(readiness_probe_period_s=OPERATOR_PROBE_S, enable_culling=True,
                      cull_idle_time_min=OPERATOR_CULL_IDLE_S / 60.0,
                      idleness_check_period_min=OPERATOR_CHECK_S / 60.0,
-                     accounting_period_s=ACCOUNTANT_PERIOD_S),
+                     accounting_period_s=ACCOUNTANT_PERIOD_S, autoscale_period_s=AUTOSCALE_PERIOD_S),
             env=env, grace_s=OPERATOR_GRACE_S, timeout=OPERATOR_STEP_TIMEOUT_S, released=flow.card_released(),
             while_serving=flow.compute_app_pids, card_state=flow.compute_app_pids, repair=OPERATOR_REPAIR,
             promotion=promotion, job=flow.Job(steps=JOB_STEPS, period_s=JOB_PERIOD_S, name=OPERATOR_JOB),
@@ -4694,21 +4752,27 @@ def _operator_phase(attention, smi, out_root):
         print(f"  {label}: p50 {statistics.median(values):.3f} s ({', '.join(f'{n} {v:.3f}' for n, v in named)})"
               f"; {smi}", flush=True)
     repair_launches = _operator_repair(seen[OPERATOR_REPAIR], smi, zero)
-    promotion_launches = _operator_promotion(seen[OPERATOR_REPAIR], promotion, smi, zero)
+    promotion_launches, visit = _operator_promotion(seen[OPERATOR_REPAIR], promotion, smi, zero)
+    autoscale_launches = _operator_autoscale(seen[OPERATOR_REPAIR], promotion, smi, zero, visit)
     resume_launches = _operator_resume(seen[OPERATOR_REPAIR], seen["job"], smi, zero)
     job_launches = _operator_job(seen["job"], smi, zero)
     _operator_accounting(seen["accounting"], smi)
+    _operator_judgement(seen, smi)
     took = time.perf_counter() - t_phase
     episode = seen[OPERATOR_REPAIR]["repair"]["wall"]
-    promoted = seen[OPERATOR_REPAIR]["promotion"]["wall"]
+    autoscaled = seen[OPERATOR_REPAIR]["promotion"]["autoscale"]["wall"]
+    promoted = seen[OPERATOR_REPAIR]["promotion"]["wall"] - autoscaled
     jobbed = seen["job"]["wall"]
     print(f"  phase 15 took {took:.1f} s, of which the repair episode {episode:.1f} s, the promotion episode "
-          f"{promoted:.1f} s and the job episode {jobbed:.1f} s (budgets: {OPERATOR_BUDGET_S} s without the "
-          f"episodes, {REPAIR_BUDGET_S} s the repair, {PROMOTION_BUDGET_S} s the suspend and the promotion, "
-          f"{RESUME_JOB_BUDGET_S} s the job with {OPERATOR_REPAIR}'s resume); {smi}", flush=True)
-    if took - episode - promoted - jobbed > OPERATOR_BUDGET_S:
-        fail(f"phase 15 took {took - episode - promoted - jobbed:.1f} s without its episodes, over its budget of "
-             f"{OPERATOR_BUDGET_S} s")
+          f"{promoted:.1f} s, the park and the wake {autoscaled:.1f} s and the job episode {jobbed:.1f} s (budgets: "
+          f"{OPERATOR_BUDGET_S} s without the episodes, {REPAIR_BUDGET_S} s the repair, {PROMOTION_BUDGET_S} s the "
+          f"suspend and the promotion, {AUTOSCALE_BUDGET_S} s the park and the wake, {RESUME_JOB_BUDGET_S} s the "
+          f"job with {OPERATOR_REPAIR}'s resume); {smi}", flush=True)
+    if took - episode - promoted - autoscaled - jobbed > OPERATOR_BUDGET_S:
+        fail(f"phase 15 took {took - episode - promoted - autoscaled - jobbed:.1f} s without its episodes, over its "
+             f"budget of {OPERATOR_BUDGET_S} s")
+    if autoscaled > AUTOSCALE_BUDGET_S:
+        fail(f"phase 15's park and wake took {autoscaled:.1f} s, over its budget of {AUTOSCALE_BUDGET_S} s")
     if episode > REPAIR_BUDGET_S:
         fail(f"phase 15's repair episode took {episode:.1f} s, over its budget of {REPAIR_BUDGET_S} s")
     if promoted > PROMOTION_BUDGET_S:
@@ -4716,7 +4780,8 @@ def _operator_phase(attention, smi, out_root):
     if jobbed > RESUME_JOB_BUDGET_S:
         fail(f"phase 15's job episode with {OPERATOR_REPAIR}'s resume took {jobbed:.1f} s, over its budget of "
              f"{RESUME_JOB_BUDGET_S} s")
-    return {"operator": launched, **repair_launches, **promotion_launches, **resume_launches, **job_launches}
+    return {"operator": launched, **repair_launches, **promotion_launches, **autoscale_launches, **resume_launches,
+            **job_launches}
 
 
 def _operator_repair(got, smi, zero):
@@ -4812,9 +4877,84 @@ def _operator_promotion(got, promotion, smi, zero):
     stop = pe["stop"]
     print(f"  promotion: stop -> route gone {pe['route gone'][0] - stop:.3f} s (rv {pe['route gone'][1]}) -> the set "
           f"at 0 {pe['set at 0'][0] - stop:.3f} s (rv {pe['set at 0'][1]}) -> Terminated {pe['terminated'][0] - stop:.3f} s "
-          f"-> card free {pe['card free'] - stop:.3f} s (pool {pe['served pool']} {pe['served pool after']}); states "
+          f"-> card free {pe['card free'] - stop:.3f} s (pool {pe['served pool']} {pe['served pool after']}); counters "
+          f"from the last replies to the card free {pe['counters after replies']}; states "
           f"{pe['states']}; the episode {pe['wall']:.1f} s; {smi}", flush=True)
-    return {f"operator promotion: {n} requests served by {OPERATOR_ENDPOINT}": launched}
+    return {f"operator promotion: {n} requests served by {OPERATOR_ENDPOINT}": launched}, visit
+
+
+def _operator_autoscale(got, promotion, smi, zero, visit):
+    """Phase 15's park and wake, past torch_operator_flow.check_autoscale's
+    gates: the woken serving process's flash launches are REPAIR_LAYERS
+    tensor-core forwards per prefill and no other kernel (the forward at the
+    prefill's shape held against its plain version once, `visit`, for both
+    processes); the edges printed, each line with the card. Returns the
+    launches by path."""
+    pe = got["promotion"]
+    ae = pe["autoscale"]
+    n = len(promotion.requests)
+    launched = {**zero, **ae["exit"]["launches"]}
+    want = {k: (REPAIR_LAYERS * n if k == "flash_fwd" else 0) for k in zero}
+    if launched != want:
+        fail(f"phase 15 {OPERATOR_ENDPOINT}: the woken serving process launched {launched} for {n} requests, "
+             f"want {want}")
+    t0, wake, ready = ae["t0"], ae["wake"], ae["ready"]
+    times, restore = ready["times"], ready["restore"]
+    (rt, rack), = ae["restores"]
+    replies = ae["replies"]
+    ttfts = [body["ttft_s"] for _, body, _, _, _, _, _ in replies]
+    first_token = min(resent + body["ttft_s"] for _, body, resent, _, _, _, _ in replies)
+    tokens = sum(len(body["tokens"]) for _, body, _, _, _, _, _ in replies)
+    wall = max(done for _, _, _, done, _, _, _ in replies) - ae["joined"]
+    st = ae["parked status"]
+    print(f"  park: the last reply -> the autoscaler's desired 0 {ae['desired 0'][0] - t0:.3f} s (idle "
+          f"{AUTOSCALE_IDLE_S} s, ticks every {AUTOSCALE_PERIOD_S} s) -> Suspended {ae['suspended'][0] - t0:.3f} s "
+          f"-> card free {ae['card free'] - t0:.3f} s (park -> card free "
+          f"{ae['card free'] - ae['desired 0'][0]:.3f} s); parked status phase {st['phase']}, replicas "
+          f"{st.get('replicas', 0)}, servingReplicas {st.get('servingReplicas', 0)}, readyReplicas "
+          f"{st.get('readyReplicas', 0)}, url {st['url']}, route {ae['route while parked']}, pool {pe['served pool']} "
+          f"{ae['pool at park']}; {smi}", flush=True)
+    print(f"  wake: 8 requests to the router -> cold wake {ae['wakes'][0] - wake:.3f} s (fired {len(ae['wakes'])} "
+          f"time, {ae['counters']['no replica']:.0f} requests shed) -> desired 1 {ae['desired 1'][0] - wake:.3f} s -> "
+          f"bound on {ae['node']} (pool {ae['pool']}; idle-warm reclaims {ae['counters']['reclaims pool-idle']:.0f}) "
+          f"{ae['bound'][0] - wake:.3f} s -> the serving process's CUDA context {times['context'] - wake:.3f} s -> "
+          f"restored {times['restored'] - wake:.3f} s ({restore['seconds']:.3f} s, {restore['bytes'] / 1e9:.3f} GB, "
+          f"step {restore['step']}, checksum {restore['checksum']}) -> listening {times['listening'] - wake:.3f} s "
+          f"-> restore ack {rt - wake:.3f} s (verified: {rack['checksum']}) -> Serving {ae['serving'][0] - wake:.3f} s "
+          f"-> joined the router {ae['joined'] - wake:.3f} s -> first token {first_token - wake:.3f} s; {smi}",
+          flush=True)
+    print(f"  wake: logit fingerprint served {ready['logit_fingerprint']} = the notebook's; {n} requests through "
+          f"the router: all 200, woken TTFT median {statistics.median(ttfts) * 1e3:.2f} ms, max "
+          f"{max(ttfts) * 1e3:.2f} ms, {tokens / wall:.1f} tokens/s ({tokens} tokens in {wall:.3f} s); forward "
+          f"launches {launched['flash_fwd']} ({REPAIR_LAYERS} a prefill), no scalar one; the flash forward at the "
+          f"prefill's shape {visit:.3f} of its tolerance; counters {ae['counters']}; states {ae['states']}; the park "
+          f"and the wake {ae['wall']:.1f} s; {smi}", flush=True)
+    return {f"operator park and wake: {n} requests served by the woken {OPERATOR_ENDPOINT}": launched}
+
+
+def _operator_judgement(seen, smi):
+    """Phase 15's judgement layer, past torch_operator_flow.check_judgement's
+    gates: every alert's transitions, every SLO's compliance over the
+    phase, the canaries, the coalescer and the autoscaler printed, each
+    line with the card."""
+    j = seen["judgement"]
+    t0 = j["t0"]
+    r = seen[OPERATOR_REPAIR]["repair"]
+    print(f"  judgement: {j['evaluations']:.0f} SLO evaluations (windows {j['windows']}); canaries " + "; ".join(
+        f"{c['name']} {c['result']} in {c['latency']:.3f} s, gone {c['gone']:.3f} s, compute apps {c['card'][0]} -> "
+        f"{c['card'][1]}" for c in j["canaries"]) + f"; {smi}", flush=True)
+    print(f"  judgement: alerts (seconds from the manager's start; {OPERATOR_REPAIR} preempted "
+          f"{r['preempted'] - t0:.3f}, mesh-ready again {r['mesh-ready again'] - t0:.3f}): " + "; ".join(
+              f"{t - t0:.3f} {ev} {a['rule']} ({a['burn_long']:.1f}x/{a.get('burn_short', 0.0):.1f}x, "
+              f"{a.get('mirrored', [])}{', still covered by ' + str(m['covering']) if m.get('still covered') else ''})"
+              for t, ev, a, m in j["transitions"]) + f"; inhibited {j['inhibited']}; DegradedSLO "
+          + str({k: [(round(t - t0, 3), c) for t, _, c in v] for k, v in j["slo_log"].items() if v}) + f"; {smi}",
+          flush=True)
+    print("  judgement: compliance over the phase (good / total events): " + "; ".join(
+        f"{name} " + (f"{c['compliance']:.6f} ({c['good']:.3f} / {c['total']:.3f})" if c["compliance"] is not None
+                      else "no events") for name, c in j["compliance"].items())
+        + f"; the coalescer {j['coalescer']['writes']} writes, {j['coalescer']['coalesced']} patches merged; "
+        f"autoscaler decisions {j['decisions']}; {smi}", flush=True)
 
 
 def _operator_resume(got, j, smi, zero):

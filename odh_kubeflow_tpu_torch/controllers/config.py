@@ -20,9 +20,11 @@ def _env_bool(name: str, default: bool) -> bool:
 @dataclass
 class Config:
     """The fields that the port's controllers, webhook, extension, chip
-    accountant and pool prewarmer read. The JAX package's Config also holds
-    the knobs of its SLO, canary, autoscale and router controllers, and the
-    deployment-surface env table; each comes back with the controller that
+    accountant, pool prewarmer, status coalescer and judgement layer (the
+    SLO engine, the canary prober, the replica autoscaler) read. The JAX
+    package's Config also holds the router's knobs, the switches that only
+    its main.py reads (the SLO layer on or off, the canary's period) and
+    the deployment-surface env table; each comes back with the code that
     reads it."""
 
     # core reconciler (reference notebook_controller.go:238,514,576-599)
@@ -113,6 +115,29 @@ class Config:
     # counts idle-bound
     accounting_period_s: float = 1.0
     accounting_idle_after_s: float = 300.0
+    # SLO engine + alerting (runtime/slo.py, runtime/alerts.py): window_scale
+    # shrinks the canonical 5m/30m/1h/6h burn windows (soaks/tests run the
+    # real rule shapes in seconds); eval period 0 derives from the scale
+    slo_window_scale: float = 1.0
+    slo_eval_period_s: float = 0.0
+    # black-box canary prober (runtime/prober.py): an accelerator/topology
+    # makes the canary exercise the device-visibility gate instead of a
+    # plain CPU notebook
+    canary_timeout_s: float = 120.0
+    canary_namespace: str = "slo-canary"
+    canary_accelerator: str = ""
+    canary_topology: str = ""
+    # SLO-burn replica autoscaler (runtime/autoscaler.py): period 0 disables;
+    # stabilization/idle are the DEFAULTS an endpoint's autoscaling spec can
+    # override per endpoint
+    autoscale_period_s: float = 0.0
+    autoscale_stabilization_s: float = 30.0
+    autoscale_idle_s: float = 120.0
+    # status-write coalescing window (runtime/coalesce.py): adjacent status
+    # mirror patches for one object within this window batch into a single
+    # PATCH (leading-edge write-through, so steady state is unchanged).
+    # 0 disables coalescing entirely
+    status_coalesce_window_s: float = 0.05
 
     # extension controller / webhook (reference odh main.go + webhook consts)
     auth_proxy_image: str = "kube-rbac-proxy:latest"
@@ -223,6 +248,32 @@ class Config:
             c.job_admission_timeout_s = max(
                 0.0, float(os.environ["JOB_ADMISSION_TIMEOUT_S"])
             )
+        if os.environ.get("SLO_WINDOW_SCALE"):
+            # clamp: non-positive would collapse every burn window to zero
+            c.slo_window_scale = max(1e-6, float(os.environ["SLO_WINDOW_SCALE"]))
+        if os.environ.get("SLO_EVAL_PERIOD_S"):
+            c.slo_eval_period_s = max(0.0, float(os.environ["SLO_EVAL_PERIOD_S"]))
+        if os.environ.get("STATUS_COALESCE_WINDOW_S"):
+            c.status_coalesce_window_s = max(
+                0.0, float(os.environ["STATUS_COALESCE_WINDOW_S"])
+            )
+        if os.environ.get("CANARY_TIMEOUT_S"):
+            c.canary_timeout_s = max(1.0, float(os.environ["CANARY_TIMEOUT_S"]))
+        c.canary_namespace = os.environ.get("CANARY_NAMESPACE", c.canary_namespace)
+        c.canary_accelerator = os.environ.get(
+            "CANARY_ACCELERATOR", c.canary_accelerator
+        )
+        c.canary_topology = os.environ.get("CANARY_TOPOLOGY", c.canary_topology)
+        if os.environ.get("AUTOSCALE_PERIOD_S"):
+            c.autoscale_period_s = max(
+                0.0, float(os.environ["AUTOSCALE_PERIOD_S"])
+            )
+        if os.environ.get("AUTOSCALE_STABILIZATION_S"):
+            c.autoscale_stabilization_s = max(
+                0.0, float(os.environ["AUTOSCALE_STABILIZATION_S"])
+            )
+        if os.environ.get("AUTOSCALE_IDLE_S"):
+            c.autoscale_idle_s = max(0.0, float(os.environ["AUTOSCALE_IDLE_S"]))
         if os.environ.get("ACCOUNTING_PERIOD_S"):
             c.accounting_period_s = max(
                 0.0, float(os.environ["ACCOUNTING_PERIOD_S"])

@@ -1438,7 +1438,14 @@ class InferenceEndpointReconciler:
         if status.to_dict() == before:
             return
         spatch = status.to_dict()
-        spatch["readyReplicas"] = status.ready_replicas  # zero must be written
+        # to_dict() leaves out zero and empty fields, and a merge patch
+        # keeps what it leaves out: the fleet view the router and the
+        # autoscaler read must be written as it is, 0 and [] included (a
+        # parked endpoint's replicas, a retired gang's drainingReplicas)
+        spatch["readyReplicas"] = status.ready_replicas
+        spatch["replicas"] = status.replicas
+        spatch["servingReplicas"] = status.serving_replicas
+        spatch["drainingReplicas"] = list(status.draining_replicas)
         try:
             # coalesced when available (runtime/coalesce.py): one PATCH per
             # endpoint per sync wave instead of one per watch event

@@ -1,7 +1,8 @@
 """The control plane's metric families (the port's copy of the families of
 odh_kubeflow_tpu/runtime/metrics.py that its store, client, webhook
-dispatcher, workqueue, controllers and informers emit), registered in the port's one registry,
-`utils.metrics.global_registry`, which this module re-exports."""
+dispatcher, workqueue, controllers, informers and replica autoscaler emit),
+registered in the port's one registry, `utils.metrics.global_registry`,
+which this module re-exports."""
 from __future__ import annotations
 
 from ..utils.metrics import Counter, Gauge, Histogram, Registry, global_registry
@@ -90,4 +91,18 @@ informer_cache_sync_age_seconds = global_registry.gauge(
     "Seconds since the informer cache last (re)synced, by kind (set at scrape "
     "by the manager's collector)",
     labels=("kind",),
+)
+
+# SLO-burn replica autoscaler (runtime/autoscaler.py)
+autoscaler_decisions_total = global_registry.counter(
+    "autoscaler_decisions_total",
+    "Autoscaler decisions per tick per endpoint: up (burn/queue pressure), "
+    "down (stabilized below half target), park (scale-to-zero idle), hold",
+    labels=("action",),
+)
+endpoint_desired_replicas_gauge = global_registry.gauge(
+    "inference_endpoint_desired_replicas",
+    "Fleet size the autoscaler currently wants per endpoint (the "
+    "desired-replicas annotation the endpoint controller converges toward)",
+    labels=("endpoint",),
 )

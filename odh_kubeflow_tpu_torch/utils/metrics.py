@@ -79,6 +79,14 @@ class _Metric:
         with self._lock:
             self._values.clear()
 
+    def sum_matching(self, labels: Dict[str, str]) -> float:
+        """Sum of the series whose labels include every given (name, value)
+        pair ({} sums the whole family): the SLO engine's good and total
+        events, e.g. canary_probes_total{result="ok"} over the family."""
+        positions = [(i, labels[name]) for i, name in enumerate(self.labels) if name in labels]
+        with self._lock:
+            return sum(v for k, v in self._values.items() if all(k[i] == want for i, want in positions))
+
     def render_lines(self) -> List[str]:
         with self._lock:
             lines = [f"{self.name} 0"] if not self._values and not self.labels else []
@@ -159,6 +167,17 @@ class Histogram(_Metric):
 
     def time(self, **labels: str) -> _HistogramTimer:
         return _HistogramTimer(self, labels)
+
+    def cumulative_le(self, le: float) -> Tuple[float, float]:
+        """(observations <= le, all observations) over every label set: the
+        latency SLO's good and total events. `le` should sit on a bucket
+        boundary; between two, the next bucket up answers."""
+        idx = next((i for i, b in enumerate(self.buckets) if le <= b), None)
+        with self._lock:
+            good = sum(counts[idx] if idx is not None else self._totals.get(k, 0)
+                       for k, counts in self._counts.items())
+            total = sum(self._totals.get(k, 0) for k in self._counts)
+        return float(good), float(total)
 
     def _snapshot_key(self, key: Tuple[str, ...]) -> dict:
         counts = self._counts.get(key, [0] * len(self.buckets))

@@ -978,3 +978,9 @@ def test_a_notebook_suspended_and_resumed_by_reclaiming_a_job_on_card(card, tmp_
           f"{re_['result']['times']['context'] - re_['unstop']:.3f} s -> mesh-ready "
           f"{re_['mesh-ready'][0] - re_['unstop']:.3f} s -> Active {re_['resumed'][0] - re_['unstop']:.3f} s "
           f"(attempts seen {re_['attempts']}); the job episode {j['wall']:.1f} s")
+    first, running = j["first"], next(t for t, _, st in j["states"] if st == "running")
+    times = first["result"]["times"]
+    print(f"suspend twin: {j['name']}'s first pod from its worker's CUDA context: "
+          f"world formed {times['formed'] - times['context']:+.3f} s, answering saves "
+          f"{times['answering'] - times['context']:+.3f} s, first step {times['first step'] - times['context']:+.3f} s; "
+          f"Running {running - times['context']:+.3f} s, first ack {first['acks'][0][0] - times['context']:+.3f} s")

@@ -14,9 +14,11 @@ fields (the `nvidia.com/gpu` / `google.com/tpu` resource, toleration,
 node selector and torchrun/JAX env), the same status outside the
 accelerator's name and topology, the same counter deltas, spans and
 incident reasons. Identities (uids, resourceVersions, timestamps, trace
-ids) are not compared. The JAX reconciler runs with one method replaced by
-the port's repair (`fresh_fleet_reads`): it reads its fleet's StatefulSets
-fresh, not from the cache.
+ids) are not compared. The JAX reconciler runs with two of the port's
+repairs applied from this side (`fresh_fleet_reads`): it reads its fleet's
+StatefulSets fresh, not from the cache, and its status mirror writes the
+fleet view's zero and empty fields (`replicas`, `servingReplicas`,
+`drainingReplicas`), which its merge patch of `to_dict()` left out.
 """
 import time
 
@@ -39,18 +41,47 @@ TIMEOUT = 40.0
 IDENTITY = ("uid", "resourceVersion", "creationTimestamp", "generation", "managedFields", "deletionTimestamp")
 
 
+FLEET_VIEW = {"replicas": 0, "servingReplicas": 0, "drainingReplicas": []}
+
+
+class _FleetViewWritten:
+    """A client whose patch_status of an InferenceEndpoint writes the fleet
+    view's fields that the patch leaves out as 0 and []: the status
+    mirror's patch is `status.to_dict()`, which leaves a field out exactly
+    when it is 0 or empty, so this writes what the port's mirror writes."""
+
+    def __init__(self, client, endpoint_cls):
+        self._client, self._endpoint_cls = client, endpoint_cls
+
+    def __getattr__(self, name):
+        return getattr(self._client, name)
+
+    def patch_status(self, cls, namespace, name, patch):
+        if cls is self._endpoint_cls:
+            patch = {**FLEET_VIEW, **patch}
+        return self._client.patch_status(cls, namespace, name, patch)
+
+
 def fresh_fleet_reads(side):
-    """The side's InferenceEndpointReconciler, reading its fleet's
-    StatefulSets fresh as the port's does: the JAX one reads them from the
-    cache, which right after a retire can still show the retired gang up
-    and drain it again (test_a_retired_gang_is_not_drained_again_from_a_stale_cache).
-    Both sides are compared with the port's repair in place, so that the
-    race does not decide the comparison."""
+    """The side's InferenceEndpointReconciler with the port's two repairs:
+    it reads its fleet's StatefulSets fresh as the port's does (the JAX one
+    reads them from the cache, which right after a retire can still show
+    the retired gang up and drain it again:
+    test_a_retired_gang_is_not_drained_again_from_a_stale_cache), and its
+    status mirror writes `replicas`, `servingReplicas` and
+    `drainingReplicas` at 0 and [] (the JAX one leaves them as they were:
+    test_the_fleet_view_goes_back_to_zero_after_a_retire_and_a_park). Both
+    sides are compared with the port's repairs in place, so that neither
+    the race nor the stale fields decide the comparison."""
     if side.name == "port":
         return side.ctrl.InferenceEndpointReconciler
     C, StatefulSet = side.C, side.apps.StatefulSet
 
     class FreshFleet(side.ctrl.InferenceEndpointReconciler):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.client = _FleetViewWritten(self.client, side.inference.InferenceEndpoint)
+
         def _replica_statefulsets(self, ep):
             out = {}
             for sts in self.api_reader.list(StatefulSet, namespace=ep.metadata.namespace,
@@ -578,6 +609,42 @@ def test_scale_to_zero_parks_with_the_route_up_and_cold_wakes():
     # one slice: the woken gang waits past the grace, then takes the idle warm slice
     assert port["sequences"]["annotation"] == ["", "loading", "serving", "suspended", "", "loading", "serving"]
     assert port["counters"]["reclaims pool-idle"] == 1 and port["pools"] == [("", "", "")]
+
+
+def test_the_fleet_view_goes_back_to_zero_after_a_retire_and_a_park():
+    """The status mirror writes the fleet view as it is, 0 and [] included:
+    after the retire of replica 1, drainingReplicas is [] again; after the
+    park, replicas and servingReplicas are 0 (the router and the
+    autoscaler read these). A merge patch of `status.to_dict()` alone
+    leaves them at [1], 1 and 1: to_dict() leaves out zero and empty
+    fields, and the store keeps what a merge patch leaves out."""
+    def scenario(env):
+        env.endpoint("fleet", replicas=2, drain_s=0.5,
+                     autoscaling=dict(min_replicas=1, max_replicas=2, scale_to_zero=True))
+        wait_for(lambda: env.state("fleet") == "serving" and env.get("fleet").status.serving_replicas == 2,
+                 timeout=TIMEOUT, msg="a fleet of 2 Serving")
+        env.patch("fleet", {env.C.INFERENCE_DESIRED_REPLICAS_ANNOTATION: "1"})
+        wait_for(lambda: env.get("fleet").status.draining_replicas == [1], timeout=TIMEOUT,
+                 msg="status.drainingReplicas [1]")
+        wait_for(lambda: env.has_event("fleet", "ReplicaRetired"), timeout=TIMEOUT, msg="the replica retired")
+        retired = wait_for(lambda: (st := env.get("fleet").status).draining_replicas == [] and st.replicas == 1
+                           and st.serving_replicas == 1 and st, timeout=TIMEOUT,
+                           msg="drainingReplicas [] after the retire")
+        env.patch("fleet", {env.C.INFERENCE_DESIRED_REPLICAS_ANNOTATION: "0"})
+        wait_for(lambda: env.state("fleet") == "suspended", timeout=TIMEOUT, msg="parked Suspended")
+        parked = wait_for(lambda: (st := env.get("fleet").status).replicas == 0 and st.serving_replicas == 0
+                          and st.ready_replicas == 0 and st, timeout=TIMEOUT,
+                          msg="replicas and servingReplicas 0 after the park")
+        out = env.settled("fleet", ("EndpointSuspended",), phase="Suspended")
+        out.update(retired=(retired.replicas, retired.serving_replicas, retired.draining_replicas),
+                   parked=(parked.replicas, parked.serving_replicas, parked.draining_replicas, parked.phase))
+        return out
+
+    got = run_both(scenario)
+    assert_same(got)
+    port = got["port"]
+    assert port["retired"] == (1, 1, []) and port["parked"] == (0, 0, [], "Suspended"), port
+    assert port["sequences"]["annotation"] == ["", "loading", "serving", "suspended"], port["sequences"]
 
 
 def test_a_retired_gang_is_not_drained_again_from_a_stale_cache():

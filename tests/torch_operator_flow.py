@@ -84,8 +84,21 @@ claims, restoring its acked step and running to Succeeded. With a cfg whose
 `accounting_period_s` is above 0, a ChipAccountant built from the Config
 runs in the manager over the whole flow (`runtime.accounting.set_current`
 too, so incident bundles carry its ledger).
+
+Over every flow the manager also runs the judgement layer (`Judgement`):
+the SLO engine and the burn-rate alerts at the reference's bad-day window
+scale, mirroring onto the notebooks, and a canary notebook probed on a CPU
+node before the first wave and at the end. With a `Promotion` whose
+`idle_s` is set and a cfg's `autoscale_period_s`, the endpoint is
+parked to zero by the ReplicaAutoscaler once its requests are served, and
+a TokenRouter over it with no live replica sheds the next requests and
+fires its cold wake; the woken gang takes the parked slice back, its
+serving process restores and is verified again, joins the router, and the
+shed requests are served through it; then the stop (`park_and_wake`).
 """
+import collections
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -106,7 +119,7 @@ import odh_kubeflow_tpu_torch.runtime.jobmetrics as jobmetrics
 from odh_kubeflow_tpu_torch.api.apps import StatefulSet
 from odh_kubeflow_tpu_torch.api.core import Container, EnvVar, Event, Node, Pod
 from odh_kubeflow_tpu_torch.api.gateway import HTTPRoute
-from odh_kubeflow_tpu_torch.api.inference import InferenceEndpoint, NotebookRef, ServingSpec
+from odh_kubeflow_tpu_torch.api.inference import AutoscalingSpec, InferenceEndpoint, NotebookRef, ServingSpec
 from odh_kubeflow_tpu_torch.api.job import TPUJob
 from odh_kubeflow_tpu_torch.api.networking import NetworkPolicy
 from odh_kubeflow_tpu_torch.api.notebook import Notebook, TPUSpec
@@ -142,8 +155,18 @@ from odh_kubeflow_tpu_torch.probe.behavior import (
     serving_ready,
 )
 from odh_kubeflow_tpu_torch.probe.agent import SimTPUMonitor
+from odh_kubeflow_tpu_torch.cluster.kubelet import PodDecision
+from odh_kubeflow_tpu_torch.controllers.metrics import NotebookMetrics
 from odh_kubeflow_tpu_torch.runtime import Manager
+from odh_kubeflow_tpu_torch.runtime import metrics as runtime_metrics
+from odh_kubeflow_tpu_torch.runtime.alerts import AlertManager, default_rules, slo_alerts_inhibited_total
+from odh_kubeflow_tpu_torch.runtime.autoscaler import PodStatsSignals, ReplicaAutoscaler, read_replica_stats
+from odh_kubeflow_tpu_torch.runtime.coalesce import StatusCoalescer
+from odh_kubeflow_tpu_torch.runtime.prober import CanaryProber, canary_probes_total
+from odh_kubeflow_tpu_torch.runtime.slo import SLOEngine, default_slos, slo_evaluations_total
 from odh_kubeflow_tpu_torch.serving import metrics as serving_metrics
+from odh_kubeflow_tpu_torch.serving.engine import QueueFull, RequestHandle
+from odh_kubeflow_tpu_torch.serving.router import TokenRouter
 from odh_kubeflow_tpu_torch.utils import tracing
 from odh_kubeflow_tpu_torch.runtime.flightrecorder import recorder
 
@@ -173,6 +196,11 @@ RESTORE_DEADLINE_S = 1.5  # the forwarded /tpu/restore's wait: under the reconci
 # save fits in with Config's retries, and a card budget that admits the
 # resumed notebook and the job together and nothing more
 RESUME_CFG = dict(suspend_checkpoint_window_s=15.0, chip_budget=2)
+# the judgement layer's knob under every cfg: the reference's bad-day scale
+# of the burn windows (5m -> 0.6 s, 1h -> 7.2 s, 6h -> 43.2 s); the
+# replica autoscaler is off unless a cfg sets its period (Config's 0 = off)
+JUDGEMENT_CFG = dict(slo_window_scale=0.002)
+AVAILABILITY_PAGE = "notebook-availability-fast-burn"
 
 
 @dataclass
@@ -181,7 +209,11 @@ class Promotion:
     name, its serving process's model config (SERVING_MODEL_CONFIG's
     fields) and device, the requests it serves ((prompt, max_new) each, all
     at once), its engine's slots and max_seq, its drain window, and its
-    container's command."""
+    container's command. With `idle_s`, the endpoint is created with
+    `autoscaling {minReplicas 1, maxReplicas 1, scaleToZero true,
+    scaleToZeroIdleS idle_s}` and, after its requests, parked to zero by
+    the ReplicaAutoscaler (a cfg's `autoscale_period_s` above 0) and woken
+    by a TokenRouter's cold wake (`park_and_wake`)."""
 
     model_config: dict
     device: str
@@ -191,6 +223,46 @@ class Promotion:
     drain_s: float = 1.0
     name: str = "ep-0"
     command: Sequence[str] = field(default_factory=lambda: [sys.executable, "-m", "odh_kubeflow_tpu_torch.serving"])
+    idle_s: float = 0.0
+
+
+class HttpReplica:
+    """An engine-like backend of the TokenRouter (submit/stats/cancel) over
+    a serving process's HTTP front: `submit` posts /generate from a thread
+    and returns a RequestHandle that completes with the reply (its tokens,
+    the engine's `ttft_s` and result; a 429 or 503 reply is not "ok", which
+    the router retries), `stats` reads /stats."""
+
+    def __init__(self, port, timeout):
+        self.url, self.timeout = f"http://127.0.0.1:{port}", timeout
+        self._ids = itertools.count()
+
+    def stats(self):
+        return read_replica_stats(self.url, self.timeout)
+
+    def submit(self, prompt, max_new, traceparent=None):
+        handle = RequestHandle(id=next(self._ids), prompt=list(prompt), max_new=max_new, submitted=time.time(),
+                               traceparent=traceparent)
+
+        def post():
+            body = json.dumps({"prompt": list(prompt), "max_new": max_new}).encode()
+            headers = {"Content-Type": "application/json", **({"traceparent": traceparent} if traceparent else {})}
+            try:
+                with urllib.request.urlopen(urllib.request.Request(f"{self.url}/generate", data=body, headers=headers),
+                                            timeout=self.timeout) as r:
+                    reply = json.loads(r.read())
+                handle.tokens, handle.ttft_s, handle.result = reply["tokens"], reply["ttft_s"], reply["result"]
+            except urllib.error.HTTPError as e:
+                handle.result = json.loads(e.read() or b"{}").get("result") or f"http {e.code}"
+            except Exception as e:
+                handle.result = f"error {e!r}"
+            handle.done.set()
+
+        threading.Thread(target=post, daemon=True).start()
+        return handle
+
+    def cancel(self, handle):
+        pass
 
 
 @dataclass
@@ -330,6 +402,19 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     `accounting_period_s` is above 0, a ChipAccountant built from the
     Config ticks in the manager and what it banked is returned
     ("accounting").
+
+    The manager runs as the reference's `build_manager` wires it: a
+    StatusCoalescer at Config's window, one NotebookMetrics shared by the
+    notebook reconciler, the gate and the culler, and the judgement layer
+    in the order of its `_wire_observability`: an SLOEngine over
+    `default_slos()` at Config's window scale, an AlertManager over
+    `default_rules` that mirrors onto the notebooks and snapshots the
+    flight recorder, the slice-repair-in-progress inhibitor of the
+    readiness category, a CanaryProber (a CPU notebook in Config's canary
+    namespace, on a CPU node of its own, probed once before the first wave
+    and once at the end) and, with a cfg's `autoscale_period_s` above 0, a
+    ReplicaAutoscaler whose signals are the port's PodStatsSignals over the
+    endpoint's replicas (`endpoint_signals`). What it judged is returned ("judgement").
     `env` is the pods' base env (torch_dist.clean_env() with one OMP
     thread by default). `released(pids)` is what else must hold, after a
     culled pod's processes are stopped, before its card counts as free;
@@ -343,7 +428,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     processes = {}  # pod uid -> its processes
     acks = []  # (when, pod uid, the forwarded checkpoint's ack or the error it raised)
     restores = []  # (when, pod uid, the forwarded restore's ack or the error it raised)
-    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **JOB_CFG, **ACCOUNTING_CFG, **RESUME_CFG, **cfg})
+    config = Config(**{**REPAIR_CFG, **PROMOTION_CFG, **JOB_CFG, **ACCOUNTING_CFG, **RESUME_CFG, **JUDGEMENT_CFG,
+                       **cfg})
     suspends = resume or promotion is not None
 
     def pod_dir(pod):
@@ -402,13 +488,23 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             pod_command, str(log_dir), env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since,
             grace_s=grace_s, processes=processes, checkpoint_hook=checkpoint_hook, restore_hook=restore_hook,
             control_dir=lambda pod: str(pod_dir(pod))))
+        # the canary is a plain CPU container on a CPU node: no process, no card
+        cluster.add_pod_behavior(lambda pod: PodDecision() if pod.metadata.namespace == config.canary_namespace
+                                 else None)
         cluster.add_gpu_pool("h100", "h100", "1x1")
+        cluster.add_cpu_pool("cpu", nodes=1)
+        # the reference's build_manager: the status coalescer at Config's
+        # window, and one NotebookMetrics (its availability gauge is the
+        # notebook-availability SLO's) shared by the notebook controllers
+        mgr.status_coalescer = StatusCoalescer(mgr.client, window_s=config.status_coalesce_window_s)
+        mgr.add_service(mgr.status_coalescer)
+        metrics = NotebookMetrics(mgr.metrics, mgr.client)
         NotebookWebhook(mgr.client, config).register(cluster.store)
-        NotebookReconciler(mgr, config).setup()
+        NotebookReconciler(mgr, config, metrics=metrics).setup()
         EventMirrorController(mgr).setup()
         TPUWorkbenchReconciler(mgr, config).setup()
-        ProbeStatusController(mgr, config, http_get=cluster.http_get).setup()
-        CullingReconciler(mgr, config, http_get=cluster.http_get).setup()
+        ProbeStatusController(mgr, config, http_get=cluster.http_get, metrics=metrics).setup()
+        CullingReconciler(mgr, config, http_get=cluster.http_get, metrics=metrics).setup()
         slice_repair = SliceRepairController(mgr, config, http_get=cluster.http_get)
         # the node signal alone: no second episode from the old agent going
         # away, and the save may take the whole window
@@ -422,6 +518,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         suspender.setup()
         InferenceEndpointReconciler(mgr, config, http_get=cluster.http_get).setup()
         TPUJobReconciler(mgr, config, http_get=cluster.http_get).setup()
+        judged = Judgement(mgr, config, lambda pod: serving_ready(str(pod_dir(pod))))
         if config.accounting_period_s > 0:
             acct = accounting.ChipAccountant(mgr.client, period_s=config.accounting_period_s,
                                              idle_after_s=config.accounting_idle_after_s)
@@ -430,12 +527,13 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             accounting_before = {r: accounting.tpu_accounting_ticks_total.value(result=r) for r in ("ok", "error")}
         mgr.start()
         timeline = Timeline(cluster.store)
+        judged.started()
 
         def logs():
             return "\n".join(f"--- {p.name}\n{p.read_text()[-3000:]}" for p in sorted(log_dir.glob("*.log")))
 
         def wait(fn, msg):
-            return wait_for(fn, timeout, lambda: f"{msg}\n{logs()}")
+            return wait_for(fn, timeout, lambda: f"{msg() if callable(msg) else msg}\n{logs()}")
 
         def notebook(name):
             return cluster.client.get(Notebook, NS, name)
@@ -446,6 +544,20 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         def procs_of(name):
             """The processes of the notebook's current pod."""
             return processes.get(pod(name).metadata.uid)
+
+        def root_state(name):
+            """What a missing readiness root is read against: the notebook's
+            traceparent and device gate now, the roots in the span ring."""
+            nb = notebook(name)
+            tpu = nb.status.tpu
+            ring = tracing.recent_spans()
+            roots = [(sp["attributes"].get("notebook"), sp["trace_id"]) for sp in ring if sp["name"] == "notebook.ready"]
+            names = collections.Counter(sp["name"] for sp in ring).most_common(8)
+            span = (ring[-1]["end_time"] - ring[0]["start_time"]) if ring else 0.0
+            return (f"traceparent {nb.metadata.annotations.get(C.TRACEPARENT_ANNOTATION)!r}, meshReady "
+                    f"{tpu and tpu.mesh_ready}, firstReadyTime {tpu and tpu.first_ready_time!r}, chipsVisible "
+                    f"{tpu and tpu.chips_visible}; {len(ring)} spans in the ring over {span:.1f} s, most {names}, "
+                    f"notebook.ready roots {roots}")
 
         def mirrored_failure(name):
             return next((e.message for e in cluster.client.list(Event, namespace=NS)
@@ -654,11 +766,15 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             ep.spec.notebook_ref = NotebookRef(name=name)
             ep.spec.serving = ServingSpec(max_batch_slots=p.slots, max_seq=p.max_seq,
                                           max_new_tokens=max(m for _, m in p.requests), drain_timeout_s=p.drain_s,
-                                          checkpoint_path=str(out_root / name / "checkpoints"))
+                                          checkpoint_path=str(out_root / name / "checkpoints"),
+                                          autoscaling=AutoscalingSpec(min_replicas=1, max_replicas=1,
+                                                                      scale_to_zero=True, scale_to_zero_idle_s=p.idle_s)
+                                          if p.idle_s else None)
             ep.spec.template.spec.containers = [Container(name=p.name, image="serving", env=[
                 EnvVar(name="SERVING_MODEL_CONFIG", value=json.dumps(p.model_config)),
                 EnvVar(name="SERVING_DEVICE", value=p.device), EnvVar(name="SERVING_PORT", value="0")])]
             pe["created"] = time.time()
+            pe["decisions at create"] = judged.decisions()
             cluster.client.create(ep)
 
             def endpoint():
@@ -712,6 +828,13 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 t.join(timeout)
             pe["requests done"] = time.time()
             pe["replies"] = replies
+            pe["counters at replies"] = promotion_counters()
+            pe["counters"] = {k: v - before[k] for k, v in pe["counters at replies"].items()}
+            pe["decisions at replies"] = judged.decisions()
+            live, live_ready = served_pod, pe["ready"]
+            if p.idle_s:
+                pe["autoscale"] = park_and_wake(p, key, watch, served_pod, pe)
+                live, live_ready = pe["autoscale"]["pod"], pe["autoscale"]["ready"]
             # the stop: route first, then the drain window, then Terminated
             pe["stop"] = time.time()
             cluster.client.patch(InferenceEndpoint, NS, p.name, {"metadata": {"annotations": {
@@ -719,15 +842,21 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             wait(lambda: state() == "terminated", f"{p.name} Terminated")
             wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.INFERENCE_NAME_LABEL: p.name}),
                  f"{p.name}'s pod deleted")
-            procs = processes[served_pod.metadata.uid]
-            pe["pids"] = sorted(set(procs.pids) | {pe["ready"]["pid"]})
+            procs = processes[live.metadata.uid]
+            pe["pids"] = sorted(set(procs.pids) | {live_ready["pid"]})
             wait(lambda: procs.closed and not alive(pe["pids"]) and released(pe["pids"]),
                  f"{p.name}'s processes {pe['pids']} gone and its card released")
             pe["card free"] = time.time()
             pe["wall"] = pe["card free"] - pe["t0"]
+            # from the last replies (the woken ones with a park) to the card free
+            last = pe["autoscale"]["counters at replies"] if p.idle_s else pe["counters at replies"]
+            pe["counters after replies"] = {k: v - last[k] for k, v in promotion_counters().items()}
             pe["alive"] = alive(pe["pids"])
             pe["old closed at"] = procs.closed_at
-            pe["exit"] = read_json(str(ctl / SERVING_EXIT))
+            if p.idle_s:  # the first process wrote its exit at the park
+                pe["autoscale"]["exit"] = read_json(str(pod_dir(live) / SERVING_EXIT))
+            else:
+                pe["exit"] = read_json(str(ctl / SERVING_EXIT))
             pe["served pool after"] = [n.metadata.annotations.get(slicepool.POOL_STATE_ANNOTATION)
                                        for n in cluster.client.list(Node)
                                        if n.metadata.labels[GKE_NODEPOOL_LABEL] == pe["served pool"]]
@@ -745,9 +874,10 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             pe["serving"] = watch.first("InferenceEndpoint", lambda o, t: (o["metadata"].get("annotations") or {})
                                         .get(C.INFERENCE_STATE_ANNOTATION) == "serving")
             pe["route gone"] = watch.first("HTTPRoute", lambda o, t: t == "DELETED"
-                                           and o["metadata"]["name"] == endpoint_route_name(serving_ep))
+                                           and o["metadata"]["name"] == endpoint_route_name(serving_ep), pe["stop"])
             pe["set at 0"] = watch.first("StatefulSet", lambda o, t: o["spec"].get("replicas") == 0
-                                         and (o["metadata"].get("labels") or {}).get(C.INFERENCE_NAME_LABEL) == p.name)
+                                         and (o["metadata"].get("labels") or {}).get(C.INFERENCE_NAME_LABEL) == p.name,
+                                         pe["stop"])
             pe["terminated"] = watch.first("InferenceEndpoint", lambda o, t: (o["metadata"].get("annotations") or {})
                                            .get(C.INFERENCE_STATE_ANNOTATION) == "terminated")
             for reason in ("EndpointPromoted", "EndpointServing", "EndpointDraining", "EndpointTerminated"):
@@ -762,9 +892,141 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                         or ("",))[0]
             pe["spans"] = [sp["attributes"] for sp in tracing.recent_spans(trace_id=trace_id,
                                                                             name="endpoint.promotion")]
-            pe["counters"] = {k: v - before[k] for k, v in promotion_counters().items()}
+            pe["decisions at the end"] = judged.decisions()
             cluster.client.delete(InferenceEndpoint, NS, p.name)
             return pe
+
+        def park_and_wake(p, key, watch, served_pod, pe):
+            """From the last of the promotion's replies: the autoscaler parks
+            the idle endpoint (desired 0: Suspended, its pods and processes
+            gone, its slice released warm, its route and url kept); a
+            TokenRouter over the endpoint, with no live replica, sheds the
+            requests and fires its cold wake, which writes desired 1; the
+            woken gang takes back the parked slice, its serving process
+            restores the checkpoint, Loading verifies it, and once Serving its
+            replica joins the router and the shed requests are sent again
+            through it. Returns what it saw: each edge's time (this process's
+            clock) and resourceVersion where a watch saw it, the parked
+            status, route and pool marks, the first process's exit, the
+            woken process's report, restores and replies, the counters'
+            deltas and the wake's events."""
+            ae = {"t0": pe["requests done"]}
+            first = processes[served_pod.metadata.uid]
+            pids = sorted(set(first.pids) | {pe["ready"]["pid"]})
+
+            def endpoint():
+                return cluster.client.get(InferenceEndpoint, NS, p.name)
+
+            def ann(o, k):
+                return (o["metadata"].get("annotations") or {}).get(k)
+
+            # the park: the autoscaler's desired 0, then the controller's
+            wait(lambda: endpoint().metadata.annotations.get(C.INFERENCE_STATE_ANNOTATION) == "suspended",
+                 f"{p.name} parked Suspended by the autoscaler")
+            wait(lambda: not cluster.client.list(Pod, namespace=NS, labels={C.INFERENCE_NAME_LABEL: p.name}),
+                 f"{p.name}'s pod deleted at the park")
+            wait(lambda: first.closed and not alive(pids) and released(pids),
+                 f"{p.name}'s processes {pids} gone at the park and its card released")
+            ae["card free"] = time.time()
+            ae["parked status"] = wait(lambda: (st := endpoint().status).phase == "Suspended" and st.replicas == 0
+                                       and st.to_dict(), f"{p.name}'s parked status")
+            ae["route while parked"] = cluster.client.get(HTTPRoute, config.controller_namespace,
+                                                          endpoint_route_name(endpoint())).metadata.name
+            ae["pool at park"] = [(n.metadata.annotations.get(slicepool.POOL_STATE_ANNOTATION),
+                                   n.metadata.annotations.get(slicepool.POOL_PRIORITY_ANNOTATION))
+                                  for n in cluster.client.list(Node)
+                                  if n.metadata.labels[GKE_NODEPOOL_LABEL] == pe["served pool"]]
+            ae["alive at park"] = alive(pids)
+            pe["exit"] = read_json(str(pod_dir(served_pod) / SERVING_EXIT))
+            ae["decisions at park"] = judged.decisions()
+            ae["desired 0"] = watch.first("InferenceEndpoint", lambda o, t: ann(
+                o, C.INFERENCE_DESIRED_REPLICAS_ANNOTATION) == "0", ae["t0"])
+            ae["suspended"] = watch.first("InferenceEndpoint", lambda o, t: ann(
+                o, C.INFERENCE_STATE_ANNOTATION) == "suspended", ae["t0"])
+            # the wake: a router with no live replica
+            before = {**promotion_counters(), "reclaims pool-idle": slicepool.notebook_reclaims_total.value(
+                reason="pool-idle"), "no replica": serving_metrics.inference_router_picks_total.value(
+                result="no_replica")}
+            ae["counters to park"] = {k: before[k] - v for k, v in pe["counters at replies"].items()}
+            wakes = []
+
+            def cold_wake():
+                wakes.append(time.time())
+                cluster.client.patch(InferenceEndpoint, NS, p.name, {"metadata": {"annotations": {
+                    C.INFERENCE_DESIRED_REPLICAS_ANNOTATION: "1"}}})
+
+            router = TokenRouter(endpoint=key, cold_wake=cold_wake)
+            joined = threading.Event()
+            replies, threads = [None] * len(p.requests), []
+
+            def send(i, prompt, max_new):
+                sent, shed = time.time(), None
+                try:
+                    try:
+                        routed = router.generate(prompt, max_new, wait_timeout_s=timeout)
+                    except QueueFull as e:  # no live replica: shed, the wake fired
+                        shed = (time.time(), str(e))
+                        joined.wait(timeout)
+                        resent = time.time()
+                        routed = router.generate(prompt, max_new, wait_timeout_s=timeout)
+                    else:
+                        resent = sent
+                    h = routed.handle
+                    replies[i] = (200 if h.result == "ok" else 503, {"tokens": h.tokens, "ttft_s": h.ttft_s,
+                                                                     "result": h.result}, resent, time.time(),
+                                  sent, shed, routed.replica)
+                except Exception as e:  # recorded; the gates read it
+                    replies[i] = (None, {"error": repr(e)}, sent, time.time(), sent, shed, None)
+
+            ae["wake"] = time.time()
+            for i, (prompt, max_new) in enumerate(p.requests):
+                threads.append(threading.Thread(target=send, args=(i, prompt, max_new)))
+                threads[-1].start()
+
+            def woken_pod():
+                pods = cluster.client.list(Pod, namespace=NS, labels={C.INFERENCE_NAME_LABEL: p.name})
+                return next((x for x in pods if x.spec.node_name and x.metadata.uid != served_pod.metadata.uid
+                             and not x.metadata.deletion_timestamp), None)
+
+            new = wait(woken_pod, f"{p.name}'s woken pod bound")
+
+            def woken_up():
+                procs = processes.get(new.metadata.uid)
+                assert procs is None or procs.running(), \
+                    f"{p.name}'s woken serving process exited {procs.proc.returncode}\n{logs()}"
+                return (endpoint().metadata.annotations.get(C.INFERENCE_STATE_ANNOTATION) == "serving"
+                        and serving_ready(str(pod_dir(new))))
+
+            ae["ready"] = wait(woken_up, f"{p.name} woken to Serving")
+            router.add_replica(0, HttpReplica(ae["ready"]["port"], timeout))
+            ae["joined"] = time.time()
+            joined.set()
+            for t in threads:
+                t.join(timeout)
+            ae["requests done"] = time.time()
+            ae["wall"] = ae["requests done"] - ae["t0"]
+            ae.update(pod=new, uid=new.metadata.uid, node=new.spec.node_name, pool=pool_of(new.spec.node_name),
+                      replies=replies, wakes=wakes, router=router.replicas())
+            ae["restores"] = [(t, a) for t, uid, a in restores if uid == new.metadata.uid]
+            ae["counters at replies"] = promotion_counters()
+            ae["counters"] = {k: v - before[k] for k, v in {
+                **ae["counters at replies"], "reclaims pool-idle": slicepool.notebook_reclaims_total.value(
+                    reason="pool-idle"), "no replica": serving_metrics.inference_router_picks_total.value(
+                    result="no_replica")}.items()}
+            for reason in ("EndpointSuspended", "EndpointWaking"):
+                wait(lambda: any(e.reason == reason for e in cluster.client.list(Event, namespace=NS)
+                                 if e.involved_object.name == p.name), f"{p.name}'s {reason} event")
+            ae["events"] = {e.reason: e.message for e in cluster.client.list(Event, namespace=NS)
+                            if e.involved_object.kind == "InferenceEndpoint" and e.involved_object.name == p.name}
+            ae["desired 1"] = watch.first("InferenceEndpoint", lambda o, t: ann(
+                o, C.INFERENCE_DESIRED_REPLICAS_ANNOTATION) == "1", ae["wake"])
+            ae["bound"] = watch.first("Pod", lambda o, t: o["metadata"].get("uid") == new.metadata.uid
+                                      and o["spec"].get("nodeName"))
+            ae["serving"] = watch.first("InferenceEndpoint", lambda o, t: ann(
+                o, C.INFERENCE_STATE_ANNOTATION) == "serving", ae["wake"])
+            ae["states"] = [v for v in watch.values("InferenceEndpoint", lambda o: ann(
+                o, C.INFERENCE_STATE_ANNOTATION) or "")]
+            return ae
 
 
         def job_counters():
@@ -982,6 +1244,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         except AdmissionDeniedError as e:
             seen["denied"] = {"name": name, "error": str(e), "left": owned_by(name),
                               "card": (state, card_state())}
+        judged.probe(card_state)
         for wave in waves:
             if repair in wave:
                 cluster.add_gpu_pool(OTHER_POOL, "h100", "1x1")
@@ -1011,11 +1274,11 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                     return done
 
                 got["result"] = wait(served, f"{name}'s worker")
-                # the readiness root, read while the span ring still holds it
-                # (a later episode's spans turn the ring over)
+                # the readiness root, as the timeline kept it when it closed
                 trace_id = (tracing.parse_traceparent(got["admitted"].get(C.TRACEPARENT_ANNOTATION)) or ("",))[0]
-                got["root"] = wait(lambda: tracing.recent_spans(trace_id=trace_id, name="notebook.ready"),
-                                   f"{name}'s notebook.ready root")
+                got["root"] = wait(lambda: timeline.root(trace_id),
+                                   lambda: f"{name}'s notebook.ready root (admitted with trace {trace_id!r}; now "
+                                   f"{root_state(name)})")
                 got["while running"] = owned_by(name)
                 # the agent's readiness edges, as its device view saw them
                 got["agent ready"] = [r["ready"] for r in timeline.records("probe-agent")
@@ -1051,6 +1314,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 wait(lambda: not owned_by(name), f"{name} deleted, its route and policies with it")
         if job is not None and "job" not in seen:
             seen["job"] = job_episode(job)
+        judged.probe(card_state)
         seen["denied"]["left at the end"] = owned_by(seen["denied"]["name"])
         if acct is not None:
             acct.stop()
@@ -1064,6 +1328,12 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 "ticks": {r: accounting.tpu_accounting_ticks_total.value(result=r) - accounting_before[r]
                           for r in ("ok", "error")},
                 "attributed nodes": sorted(a.node for a in acct.classify()), "gpu nodes": gpu_nodes}
+        # the phase ends once the availability page is quiet: a firing
+        # resolves one long window (1h, scaled) after the outage ends
+        deadline = time.monotonic() + judged.engine.windows["1h"] + 10.0
+        while AVAILABILITY_PAGE in judged.alerts.firing and time.monotonic() < deadline:
+            time.sleep(0.05)
+        seen["judgement"] = dict(judged.result(), slo_log=timeline.slo_conditions())
         return seen
     finally:
         if acct is not None:
@@ -1074,6 +1344,159 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         cluster.stop()
 
 
+class Judgement:
+    """The judgement layer over the flow's manager, wired as the reference's
+    `main._wire_observability` wires it, and what it judged.
+
+    `serving_of(pod)` is the serving process's report of an endpoint pod
+    (its port), None until it listens. The autoscaler's signals are the
+    port's PodStatsSignals over each replica's /stats at that port: the
+    engine serves in the pod's own process, where the operator's registry
+    cannot see it. Each tick's signals are kept beside the reference's
+    default ones (`samples`)."""
+
+    def __init__(self, mgr, config, serving_of):
+        self.mgr, self.config, self.serving_of = mgr, config, serving_of
+        slos = default_slos()
+        self.engine = SLOEngine(registry=mgr.metrics, slos=slos, window_scale=config.slo_window_scale,
+                                eval_period_s=config.slo_eval_period_s or None)
+        self.alerts = AlertManager(rules=default_rules(slos), manager=mgr, recorder=recorder)
+        # the inhibition contract: an active repair explains degraded
+        # readiness; the availability page stays live
+        self.alerts.register_inhibitor("readiness", lambda: telemetry.slice_repairs_in_progress.value() > 0,
+                                       name="slice-repair-in-progress")
+        self.engine.add_listener(self.alerts.evaluate)
+        self.alerts.add_listener(self._on_alert)
+        mgr.slo_engine, mgr.alert_manager, mgr.flight_recorder = self.engine, self.alerts, recorder
+        mgr.add_service(self.engine)
+        # probed by hand at the flow's two points (`probe`), its loop not started
+        self.prober = CanaryProber(mgr, timeout_s=config.canary_timeout_s, namespace=config.canary_namespace,
+                                   accelerator=config.canary_accelerator, topology=config.canary_topology)
+        mgr.prober = self.prober
+        self.autoscaler = None
+        if config.autoscale_period_s > 0:
+            self.pod_signals = PodStatsSignals(mgr, lambda pod: (ready := serving_of(pod))
+                                               and f"http://127.0.0.1:{ready['port']}")
+            self.autoscaler = ReplicaAutoscaler(mgr, period_s=config.autoscale_period_s,
+                                                stabilization_s=config.autoscale_stabilization_s,
+                                                idle_s=config.autoscale_idle_s, signals_fn=self.endpoint_signals)
+            mgr.autoscaler = self.autoscaler
+            mgr.add_service(self.autoscaler)
+        self._lock = threading.Lock()
+        self.transitions = []  # (time, "fired" | "resolved", alert, what the flow read of its mirror)
+        self.samples = []  # (time, endpoint state, the flow's signals, the reference's default signals)
+        self.canaries = []
+        self.at_start = None
+
+    def started(self):
+        """What the layer had counted when the manager started."""
+        self.at_start = {"evaluations": slo_evaluations_total.value(), "events": self._events(),
+                         "canary": {r: canary_probes_total.value(result=r) for r in ("ok", "timeout", "error")},
+                         "decisions": self.decisions(), "inhibited": self._inhibited(), "t": time.time()}
+
+    def decisions(self):
+        return {a: runtime_metrics.autoscaler_decisions_total.value(action=a) for a in ("up", "down", "park", "hold")}
+
+    def _events(self):
+        return {name: dict(st["events"]) for name, st in self.engine.evaluate().items()}
+
+    # -- the alerts --
+
+    def _on_alert(self, event, alert):
+        """Reads the mirror of each transition as the alert manager left it:
+        on a firing, each mirrored notebook's SLOBurnRate event and
+        DegradedSLO condition and the incident bundle; on a resolve, which
+        mirrored notebooks another firing alert still covers (those keep
+        DegradedSLO True until the last covering alert resolves)."""
+        seen = {}
+        client = self.mgr.api_reader
+        if event == "fired":
+            for key in alert.get("mirrored", []):
+                ns, _, name = key.partition("/")
+                try:
+                    nb = client.get(Notebook, ns, name)
+                    cond = next(((c.status, c.reason) for c in nb.status.conditions
+                                 if c.type == C.SLO_DEGRADED_CONDITION), None)
+                except NotFoundError:
+                    cond = None
+                # the alert manager's deduplicated event of this rule on it
+                events = [e.reason for e in client.list(Event, namespace=ns)
+                          if e.metadata.name == f"{name}.slo-{alert['rule'].lower()}"
+                          and e.involved_object.name == name]
+                seen[key] = {"condition": cond, "events": events}
+            seen["incidents"] = [i["id"] for i in recorder.incidents() if i["reason"] == f"alert:{alert['rule']}"]
+        else:
+            covering = {k for a in list(self.alerts.firing.values()) for k in a.get("mirrored", [])}
+            seen["still covered"] = sorted(set(alert.get("mirrored", [])) & covering)
+            seen["covering"] = sorted(a["rule"] for a in list(self.alerts.firing.values())
+                                      if set(a.get("mirrored", [])) & set(alert.get("mirrored", [])))
+        with self._lock:
+            self.transitions.append((time.time(), event, dict(alert), seen))
+
+    # -- the canary --
+
+    def probe(self, card_state):
+        """One canary round trip; returns its result and latency, the card's
+        compute apps before and after, and whether its CR and pods are gone."""
+        before, t0 = card_state(), time.time()
+        result, latency = self.prober.probe_once()
+        name = f"canary-{self.prober._seq}"
+        ns = self.prober.namespace
+
+        def gone():
+            try:
+                self.mgr.api_reader.get(Notebook, ns, name)
+                return False
+            except NotFoundError:
+                return not [p for p in self.mgr.api_reader.list(Pod, namespace=ns)
+                            if p.metadata.labels.get(C.NOTEBOOK_NAME_LABEL) == name]
+
+        wait_for(gone, 60, f"the canary {name} and its pods gone")
+        out = {"name": name, "result": result, "latency": latency, "card": (before, card_state()),
+               "gone": time.time() - t0}
+        self.canaries.append(out)
+        return out
+
+    # -- the autoscaler's signals --
+
+    def endpoint_signals(self, ep):
+        """The port's PodStatsSignals, kept beside the reference's default
+        signals at each tick."""
+        ours = self.pod_signals(ep)
+        with self._lock:
+            self.samples.append((time.time(), ep.metadata.annotations.get(C.INFERENCE_STATE_ANNOTATION, ""), ours,
+                                 self.autoscaler._default_signals(ep)))
+        return ours
+
+    def result(self):
+        """What the layer judged over the flow: the evaluations, each SLO's
+        good and total events since the start and its compliance over them,
+        the alert transitions with their mirrors, the canaries, the
+        coalescer's writes and merged patches, and the autoscaler's
+        decisions and samples."""
+        events = self._events()
+        compliance = {}
+        for name, now in events.items():
+            was = self.at_start["events"].get(name, {"good": 0.0, "total": 0.0})
+            good, total = now["good"] - was["good"], now["total"] - was["total"]
+            compliance[name] = {"good": good, "total": total, "compliance": good / total if total > 0 else None}
+        coalescer = self.mgr.status_coalescer
+        with self._lock:
+            transitions, samples = list(self.transitions), list(self.samples)
+        return {"evaluations": slo_evaluations_total.value() - self.at_start["evaluations"],
+                "compliance": compliance, "transitions": transitions, "canaries": list(self.canaries),
+                "canary counters": {r: canary_probes_total.value(result=r) - self.at_start["canary"][r]
+                                    for r in ("ok", "timeout", "error")},
+                "coalescer": {"writes": coalescer.writes, "coalesced": coalescer.coalesced},
+                "decisions": {a: v - self.at_start["decisions"][a] for a, v in self.decisions().items()},
+                "samples": samples, "windows": dict(self.engine.windows), "t0": self.at_start["t"],
+                "inhibited": {r: n for r, v in self._inhibited().items()
+                              if (n := v - self.at_start["inhibited"].get(r, 0.0))}}
+
+    def _inhibited(self):
+        return {r.name: slo_alerts_inhibited_total.value(rule=r.name) for r in self.alerts.rules}
+
+
 class Timeline:
     """Store watches on Pods and Notebooks: when (this process's clock at
     the event's arrival) and at which resourceVersion (one counter for the
@@ -1081,8 +1504,10 @@ class Timeline:
     first went without its reconciliation lock, was first mesh-ready (and
     its status.tpu then) and first stopped. It also copies the flight
     recorder's agent readiness edges and machine transitions as they come
-    (`records`): the ring is bounded, and the control plane's own records
-    and spans turn it over in seconds."""
+    (`records`), and each `notebook.ready` root as it closes (`root`): the
+    rings are bounded, and the control plane's own records and spans turn
+    them over in seconds (the culler writes a notebook ~20 times a second,
+    and each write is a webhook span and a reconcile's four)."""
 
     def __init__(self, store):
         self._watches = [store.watch("v1", "Pod"), store.watch("kubeflow.org/v1beta1", "Notebook")]
@@ -1095,7 +1520,10 @@ class Timeline:
         # None, meshReady)], one entry each time one of the three changed
         self.log = {}
         self.suspend_log = {}  # notebook -> [(time, rv, suspend state)], one entry each time it changed
+        self.slo_log = {}  # notebook -> [(time, rv, DegradedSLO (status, reason))], one entry each time it changed
         self._kept = {}  # (t, kind, subject) -> a flight-recorder record of a kept kind
+        self._roots = {}  # trace id -> its notebook.ready root, as exported
+        tracing.add_span_listener(self._keep_root)
         self._threads = [threading.Thread(target=self._run, args=(w,), daemon=True) for w in self._watches]
         self._threads.append(threading.Thread(target=self._copy_records, daemon=True))
         for t in self._threads:
@@ -1121,7 +1549,12 @@ class Timeline:
             entry = ((meta.get("annotations") or {}).get(C.TPU_REPAIR_STATE_ANNOTATION, ""), cond,
                      bool(tpu.get("meshReady")))
             state = (meta.get("annotations") or {}).get(C.TPU_SUSPEND_STATE_ANNOTATION, "")
+            slo = next(((c.get("status"), c.get("reason")) for c in (obj.get("status") or {}).get("conditions") or []
+                        if c.get("type") == C.SLO_DEGRADED_CONDITION), None)
             with self._lock:
+                conds = self.slo_log.setdefault(meta.get("name"), [])
+                if slo is not None and (not conds or conds[-1][2] != slo):
+                    conds.append((now, rv, slo))
                 log = self.log.setdefault(meta.get("name"), [])
                 if not log or log[-1][2:] != entry:
                     log.append((now, rv) + entry)
@@ -1181,12 +1614,29 @@ class Timeline:
         with self._lock:
             return list(self.log.get(name, []))
 
+    def _keep_root(self, span):
+        if span.name == "notebook.ready":
+            with self._lock:
+                self._roots.setdefault(span.trace_id, span.to_dict())
+
+    def root(self, trace_id):
+        """[the trace's notebook.ready root] once it has closed, else []."""
+        with self._lock:
+            return [self._roots[trace_id]] if trace_id in self._roots else []
+
+    def slo_conditions(self):
+        """Each notebook's DegradedSLO values, (time, rv, (status, reason))
+        each change."""
+        with self._lock:
+            return {name: list(log) for name, log in self.slo_log.items()}
+
     def suspend_states(self, name):
         """The notebook's suspend states, (time, rv, state) each change."""
         with self._lock:
             return list(self.suspend_log.get(name, []))
 
     def stop(self):
+        tracing.remove_span_listener(self._keep_root)
         self._done.set()
         for t in self._threads:
             t.join()
@@ -1220,11 +1670,13 @@ class Recorder:
             if ev is not None:
                 self._note(ev)
 
-    def first(self, kind, pred):
-        """(time, rv) of the first event of `kind` whose object (and event
-        type) `pred(obj, type)` holds for, None if none did."""
+    def first(self, kind, pred, since=0.0):
+        """(time, rv) of the first event of `kind` from `since` on whose
+        object (and event type) `pred(obj, type)` holds for, None if none
+        did."""
         with self._lock:
-            return next(((t, rv) for t, rv, typ, k, o in self.events if k == kind and pred(o, typ)), None)
+            return next(((t, rv) for t, rv, typ, k, o in self.events if k == kind and t >= since and pred(o, typ)),
+                        None)
 
     def values(self, kind, of):
         """The values `of(obj)` took over the events of `kind`, each change
@@ -1379,7 +1831,9 @@ def check_promotion(got, period, gate_waits):
     is the notebook's; the route existed while Serving and status.url was
     set; every request answered 200;
     the stop removed the route before the set went to 0 and terminated the
-    endpoint, its processes gone, its pool warm again; with `gate_waits`,
+    endpoint, its processes gone, its pool warm again, with no promotion or
+    verification from the last replies (the woken ones, with a park) to
+    the card free; with `gate_waits`,
     mesh-ready no earlier than the serving process's CUDA context less one
     gate period."""
     pe, resumed = got["promotion"], got["repair"]["result"]["resumed"]
@@ -1387,12 +1841,14 @@ def check_promotion(got, period, gate_waits):
     assert ack["step"] == resumed["step"], (ack, resumed)
     assert pe["counters"] == {"promotions warm": 1, "promotions cold": 0, "verifications ok": 1,
                               "verifications mismatch": 0, "verifications unverified": 0}, pe["counters"]
+    assert all(v == 0 for v in pe["counters after replies"].values()), pe["counters after replies"]
     assert "claimed its warm slice from the pool (warm bind)" in pe["events"]["EndpointPromoted"], pe["events"]
     assert pe["spans"] == [{"endpoint": pe["endpoint"], "namespace": NS, "source": f"{NS}/{pe['notebook']}",
                             "warm_bind": True}], pe["spans"]
     assert pe["served pool"] == pe["released pool"], pe
     assert pe["claimed"] is not None and pe["bound"] is not None and pe["claimed"][1] < pe["bound"][1], pe
-    assert pe["states"] == ["", "loading", "serving", "draining", "terminated"], pe["states"]
+    woken = ["suspended", "", "loading", "serving"] if "autoscale" in pe else []
+    assert pe["states"] == ["", "loading", "serving"] + woken + ["draining", "terminated"], pe["states"]
     assert pe["annotations"][C.INFERENCE_PROMOTED_FROM_ANNOTATION] == f"{NS}/{pe['notebook']}", pe["annotations"]
     restore = pe["ready"]["restore"]
     assert restore["restored"] and restore["step"] == ack["step"] and restore["checksum"] == ack["checksum"], \
@@ -1412,6 +1868,85 @@ def check_promotion(got, period, gate_waits):
     if gate_waits:
         assert pe["mesh-ready"][0] >= pe["ready"]["times"]["context"] - period, \
             pe["mesh-ready"][0] - pe["ready"]["times"]["context"]
+
+
+def check_autoscale(got, period):
+    """The park and the wake's gates (run(promotion=Promotion(idle_s=...))
+    with a cfg's autoscale_period_s): no park before the promotion's last
+    reply and one after it, no other scaling; parked Suspended with
+    status.replicas and servingReplicas 0, readyReplicas 0, its url and
+    route kept, its pool warm, no process of its pod alive; every request
+    to the router shed once (no live replica) and the cold wake fired once;
+    the woken gang on the pool the park released; no promotion or
+    verification from the promotion's replies to the park; the woken
+    process restored the suspend's step and checksum, verified once more
+    `ok` (verifications{ok} +1, no other result, no new promotion); its logit
+    fingerprint the notebook's; every woken request answered 200 through
+    the router's one replica; states Suspended -> "" -> Loading ->
+    Serving."""
+    pe, resumed = got["promotion"], got["repair"]["result"]["resumed"]
+    ae, (_, ack) = pe["autoscale"], pe["ack"]
+    create, replies, park, end = (pe["decisions at create"], pe["decisions at replies"], ae["decisions at park"],
+                                  pe["decisions at the end"])
+    assert replies["park"] == create["park"] and park["park"] == replies["park"] + 1 == end["park"], \
+        (create, replies, park, end)
+    assert end["up"] == create["up"] and end["down"] == create["down"], (create, end)
+    assert ae["desired 0"] is not None and ae["suspended"] is not None and ae["desired 0"][1] < ae["suspended"][1], ae
+    st = ae["parked status"]
+    assert (st["phase"], st.get("replicas", 0), st.get("servingReplicas", 0), st.get("readyReplicas", 0),
+            st.get("drainingReplicas", [])) == ("Suspended", 0, 0, 0, []), st
+    assert st["url"] == f"/serving/{NS}/{pe['endpoint']}" and ae["route while parked"], ae
+    assert [m for m, _ in ae["pool at park"]] == ["warm"] and ae["alive at park"] == [], ae
+    assert len(ae["wakes"]) == 1 and ae["counters"]["no replica"] == len(ae["replies"]), (ae["wakes"], ae["counters"])
+    assert all(r is not None and r[0] == 200 and r[5] is not None and r[6] == 0 for r in ae["replies"]), \
+        ae["replies"]
+    assert ae["pool"] == pe["served pool"] and ae["router"] == [0], ae
+    assert all(v == 0 for v in ae["counters to park"].values()), ae["counters to park"]
+    c = ae["counters"]
+    assert (c["verifications ok"], c["verifications mismatch"], c["verifications unverified"],
+            c["promotions warm"], c["promotions cold"]) == (1, 0, 0, 0, 0), c
+    restore = ae["ready"]["restore"]
+    assert (restore["restored"], restore["step"], restore["checksum"]) == (True, ack["step"], ack["checksum"]), \
+        (restore, ack)
+    assert [(a["restored"], a["step"], a["checksum"]) for _, a in ae["restores"]] == \
+        [(True, ack["step"], ack["checksum"])], ae["restores"]
+    assert ae["ready"]["logit_fingerprint"] == resumed["logit_fingerprint"], (ae["ready"], resumed)
+    assert ae["states"][-4:] == ["suspended", "", "loading", "serving"], ae["states"]
+    assert ae["desired 1"] is not None and ae["bound"] is not None and ae["desired 1"][1] < ae["bound"][1], ae
+    assert "EndpointSuspended" in ae["events"] and "EndpointWaking" in ae["events"], ae["events"]
+
+
+def check_judgement(seen):
+    """The judgement layer's gates: the engine evaluated through the flow;
+    both canary probes `ok`, their CRs and pods gone, the card's compute
+    apps unchanged by them; each firing of the availability page
+    (AVAILABILITY_PAGE) mirrored onto its notebooks (an SLOBurnRate event,
+    DegradedSLO True) with an incident bundle, and resolved by the end;
+    each resolve's notebooks back to DegradedSLO False (Recovered) unless
+    another firing alert still covered them; with a repaired notebook, the
+    page fired between its preemption and its mesh-ready again."""
+    j = seen["judgement"]
+    assert j["evaluations"] > 0, j["evaluations"]
+    assert [c["result"] for c in j["canaries"]] == ["ok", "ok"] and j["canary counters"]["ok"] == 2, j["canaries"]
+    for c in j["canaries"]:
+        assert c["card"][0] == c["card"][1], c
+    page = [(t, ev, a, s) for t, ev, a, s in j["transitions"] if a["rule"] == AVAILABILITY_PAGE]
+    fired = [(t, a, s) for t, ev, a, s in page if ev == "fired"]
+    resolved = [(t, a, s) for t, ev, a, s in page if ev == "resolved"]
+    assert len(resolved) == len(fired) and all(f[0] <= r[0] for f, r in zip(fired, resolved)), page
+    for t, alert, mirror in fired:
+        assert alert["notebooks"] and alert.get("mirrored") and mirror["incidents"], (alert, mirror)
+        for key in alert["mirrored"]:
+            assert mirror[key]["events"] == ["SLOBurnRate"] and mirror[key]["condition"] == \
+                ("True", "BurnRateExceeded"), (key, mirror)
+    for t, alert, mirror in resolved:
+        for key in set(alert.get("mirrored", [])) - set(mirror["still covered"]):
+            log = j["slo_log"].get(key.partition("/")[2], [])
+            assert any(at >= alert["since"] and cond == ("False", "Recovered") for at, _, cond in log), (key, log)
+    repaired = [seen[n]["repair"] for n in seen.get("turns", ()) if "repair" in seen[n]]
+    for r in repaired:
+        assert any(r["preempted"] <= t <= r["mesh-ready again"] for t, _, _ in fired), \
+            ([t for t, _, _ in fired], r["preempted"], r["mesh-ready again"])
 
 
 def job_states_in_order(states):
@@ -1466,7 +2001,7 @@ def check_job(got, period, gate_waits):
     assert "warm claim: learner" in j["events"]["JobAdmitted"], j["events"]
     for inc in (first, second):
         assert inc["acks"] and all(isinstance(a, dict) and a.get("step") is not None for _, a in inc["acks"]), \
-            inc["acks"]
+            (inc["acks"], inc["result"]["times"])
         saves = inc["result"]["saves"]
         assert [(a["step"], a["checksum"]) for _, a in inc["acks"]] == [(x["step"], x["checksum"]) for x in saves], \
             (inc["acks"], saves)
@@ -1565,6 +2100,10 @@ def check(seen, device, chips_expected=1, gate_waits=False):
     # each took the card in turn: bound, stopped, and only then the next bound
     order = [seen[n][k][1] for n in turns for k in ("bound", "stopped")]
     assert order == sorted(order), dict(zip([f"{n} {k}" for n in turns for k in ("bound", "stopped")], order))
+    for name in turns:
+        if "autoscale" in seen[name].get("promotion", {}):
+            check_autoscale(seen[name], period)
+    check_judgement(seen)
     if "job" in seen:
         check_job(seen["job"], period, gate_waits)
     if "accounting" in seen:

@@ -306,12 +306,14 @@ def job_run(dev, out_dir, cfg, batch_of, out, stop):
         loss = step_fn(state["params"], state["opt_state"], batch_of(k))[2].item()
         count(_launches(attention), loss)
         k += 1
+        out["times"].setdefault("first step", time.time())
         if k == target:
             out["times"]["trained"] = time.time()
             record()
         return True
 
     out["saves"], out["times"]["done"] = [], None  # busy until the job is torn down
+    out["times"]["answering"] = time.time()
     record()
     answer_saves(ckpt, out_dir, lambda: (k, state), stop, after_save=after_save, work=work)
 
@@ -347,7 +349,8 @@ def main(device: str, out_dir: str, mode: str = "serve") -> None:
     rank, world = (reinitialize_after_repair if again else initialize_from_env)(timeout_s=60, device=device)
     total = float((x @ x).sum())
     out = {"rank": rank, "world": [rank, world], "device": str(dev), "pid": os.getpid(), "ppid": os.getppid(),
-           "sum": total, "env": {n: os.environ.get(n) for n in NAMES}, "times": {"context": context, "done": time.time()}}
+           "sum": total, "env": {n: os.environ.get(n) for n in NAMES},
+           "times": {"context": context, "formed": time.time(), "done": time.time()}}
     if mode in ("repair", "promote", "job"):
         cfg = tiny_cfg()
 

@@ -10,9 +10,12 @@ its card freed and the notebook deleted in turn; nb-2's node preempted
 after its worker has trained, the pod checkpointed through the forwarded
 /tpu/checkpoint, evicted, re-placed in a second pool and resumed bit-equal
 by the SliceRepairController; then nb-2 suspended by the
-SuspendResumeController and promoted into an InferenceEndpoint, and a
-TPUJob preempted by the reclaimer for nb-2's resume, which is verified
-and bit-equal, the job resumed to Succeeded). It fails as the smoke does.
+SuspendResumeController and promoted into an InferenceEndpoint, which
+the ReplicaAutoscaler parks to zero once idle and a TokenRouter's cold
+wake brings back, and a TPUJob preempted by the reclaimer for nb-2's
+resume, which is verified and bit-equal, the job resumed to Succeeded;
+the SLO engine, the burn-rate alerts and the canary prober judge it all).
+It fails as the smoke does.
 
     python3 tools/operator_phase.py     # from the repository root
 """
