@@ -271,24 +271,41 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    launches per rank, no scalar one.
 15. the operator (alone: tools/operator_phase.py), from a Notebook CR to
    a GPU pod serving the flagship on this card and back to a freed card:
-   the port's SimCluster with one h100 1x1 node (nvidia.com/gpu 1), its
-   store's admission chain running NotebookWebhook, a Manager wired by
-   hand with NotebookReconciler, EventMirrorController,
-   TPUWorkbenchReconciler, ProbeStatusController (0.2 s),
-   CullingReconciler (2 s idle, checks every 0.5 s) and
-   SliceRepairController (a 30 s checkpoint window), and as the JAX
-   package's build_manager and _wire_observability wire them: a
-   StatusCoalescer at Config's window (0.05 s), one NotebookMetrics shared
-   by the reconciler, the gate and the culler, and the judgement layer
-   (tests/torch_operator_flow.py Judgement): an SLOEngine over
+   the port's SimCluster with one h100 1x1 node (nvidia.com/gpu 1) and
+   the deployed admission shape in front of its store
+   (cluster.remote_fixture.build_remote_stack: a TLS ApiServer whose
+   admission calls the HTTPS webhook, served as main.serve_webhook serves
+   it, through a MutatingWebhookConfiguration; nb-denied is written over
+   it through a RemoteStore, the user's other writes go to the store,
+   whose admission chain runs the same webhook: with them all over the
+   wire the smoke took 853.2 s at 12.0 s launch -> worker started, past
+   its 850 s), and the Manager the port's own composition root builds
+   (odh_kubeflow_tpu_torch.main.build_manager) with its debug mux bound
+   before its start
+   (serve_endpoints(metrics_port=0, health_port=0)) and the control-plane
+   profiler armed (CPPROFILE=1): NotebookReconciler,
+   EventMirrorController, TPUWorkbenchReconciler, ProbeStatusController
+   (0.2 s), CullingReconciler (2 s idle, checks every 0.5 s),
+   SliceRepairController (a 30 s checkpoint window; the flow sets its
+   unreachable dwell and checkpoint probe timeout on the reconciler
+   build_manager set up), SuspendResumeController, the InferenceEndpoint
+   and TPUJob reconcilers (the job reconciler idles until the job
+   episode), a StatusCoalescer at Config's window (0.05 s), one
+   NotebookMetrics shared by the reconciler, the gate and the culler, and
+   the judgement layer of main._wire_observability (observed by
+   tests/torch_operator_flow.py Judgement): an SLOEngine over
    default_slos() at window scale 0.002 (5m -> 0.6 s, 1h -> 7.2 s, 6h ->
    43.2 s), an AlertManager over default_rules that mirrors onto the
    notebooks (SLOBurnRate events, the DegradedSLO condition) and
    snapshots the flight recorder, the slice-repair-in-progress inhibitor
    of the readiness category, a CanaryProber (a CPU notebook in
    slo-canary on one CPU node added to the SimCluster, a plain container
-   with no process and no card) and a ReplicaAutoscaler ticking every
-   AUTOSCALE_PERIOD_S; the kubelet runs each
+   with no process and no card; its loop's period longer than the phase,
+   so it probes once a second after the start, which the flow waits out),
+   a ReplicaAutoscaler ticking every AUTOSCALE_PERIOD_S over
+   PodStatsSignals (each replica's /stats at its pod's IP, a loopback
+   address of its own, and its serving container's port) and a
+   ChipAccountant; the kubelet runs each
    pod through
    probe.behavior.pod_process_behavior: `torchrun chip_smoke.py
    --device-worker operator` with the env the reconciler rendered into
@@ -298,9 +315,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    holds a CUDA context (it maps the card's node and /dev/nvidia-uvm);
    each worker serves as phase 14 (a) does, writes its result and holds
    its CUDA context until SIGTERM. First nb-denied (h100 3x5, a slice
-   gpu.plan_slice refuses) is denied at admission: no object of it is
-   stored, no pod starts, the card's compute apps stay as they were, and
-   no torchrun starts. nb-0 and nb-1 are created at once: one binds (the scheduler takes them in no fixed
+   gpu.plan_slice refuses) is denied at admission over HTTPS, the
+   webhook's message in the Status body: no object of it is stored, no
+   pod starts, the card's compute apps stay as they were, and no torchrun
+   starts. nb-0 and nb-1 are created at once: one binds (the scheduler takes them in no fixed
    order; say nb-0), nb-1 stays Pending with a FailedScheduling naming
    nvidia.com/gpu mirrored onto the notebook; nb-0 comes mesh-ready,
    serves, goes idle and is culled; nb-1 binds on the freed card, serves
@@ -415,7 +433,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    DegradedSLO False (Recovered) unless another firing alert still covered
    them. Printed: every alert's transitions, every SLO's compliance over
    the phase, the coalescer's writes and merged patches, the autoscaler's
-   decisions. The job episode, after the waves: the TPUJobReconciler
+   decisions. The debug mux's gates (check_debug_mux, read at the phase's
+   end): /healthz and /readyz 200; /metrics with the notebook families,
+   slo_evaluations_total, the autoscaler's decisions (the park) and the
+   tpu_chip_seconds_* families; /debug/slo with every default SLO and the
+   availability page not firing; /debug/incidents with nb-2's
+   slice-degraded bundle and its cpprofile and accounting blocks;
+   /debug/accounting equal to the accountant's snapshot; each notebook's
+   readiness root over /debug/traces as it closed; /debug/reconciles
+   naming every controller that reconciled; every bad argument a 400.
+   Printed: nb-denied's refusal time over HTTPS, each read's status,
+   bytes and time. The job episode, after the waves: the TPUJobReconciler
    beside the other controllers, right after the promotion (nb-2 still
    suspended); OPERATOR_JOB (anakin, spec.tpu h100 1x1, JOB_STEPS steps, a
    JOB_PERIOD_S cadence) is admitted on a warm claim of ep-0's pool,
@@ -4643,8 +4671,10 @@ def _operator_phase(attention, smi, out_root):
     env = {k: v for k, v in torch_dist.clean_env().items() if k != "PYTHONDONTWRITEBYTECODE"}
     env["PYTHONPYCACHEPREFIX"] = str(out_root / "pycache")  # the pods' launches share one bytecode directory
     apps_before = flow.compute_app_pids()
-    print(f"  the port's SimCluster: one h100 1x1 node (one card, nvidia.com/gpu 1), NotebookWebhook in its "
-          f"store's admission chain; a Manager with NotebookReconciler, EventMirrorController, "
+    print(f"  the port's SimCluster: one h100 1x1 node (one card, nvidia.com/gpu 1), nb-denied written over a TLS "
+          f"ApiServer whose admission calls the HTTPS webhook (build_remote_stack); the Manager of "
+          f"odh_kubeflow_tpu_torch.main.build_manager (its webhook in the store's chain), its debug mux on free ports, "
+          f"CPPROFILE=1: NotebookReconciler, EventMirrorController, "
           f"TPUWorkbenchReconciler, ProbeStatusController (every {OPERATOR_PROBE_S} s), "
           f"CullingReconciler (idle {OPERATOR_CULL_IDLE_S} s, checks every {OPERATOR_CHECK_S} s) and "
           f"SliceRepairController (checkpoint window {flow.REPAIR_CFG['checkpoint_window_s']} s, Config's default "
@@ -4758,6 +4788,7 @@ def _operator_phase(attention, smi, out_root):
     job_launches = _operator_job(seen["job"], smi, zero)
     _operator_accounting(seen["accounting"], smi)
     _operator_judgement(seen, smi)
+    _operator_debug(seen, smi)
     took = time.perf_counter() - t_phase
     episode = seen[OPERATOR_REPAIR]["repair"]["wall"]
     autoscaled = seen[OPERATOR_REPAIR]["promotion"]["autoscale"]["wall"]
@@ -4955,6 +4986,23 @@ def _operator_judgement(seen, smi):
                       else "no events") for name, c in j["compliance"].items())
         + f"; the coalescer {j['coalescer']['writes']} writes, {j['coalescer']['coalesced']} patches merged; "
         f"autoscaler decisions {j['decisions']}; {smi}", flush=True)
+
+
+def _operator_debug(seen, smi):
+    """Phase 15's debug mux and wire, past torch_operator_flow.check_debug_mux's
+    gates: nb-denied's refusal over HTTPS, and each read of the mux (its
+    status, bytes and seconds), each line with the card."""
+    d, denied = seen["debug"], seen["denied"]
+    print(f"  wire: {denied['name']} refused over HTTPS (ApiServer -> MutatingWebhookConfiguration -> the webhook) "
+          f"in {denied['wall']:.3f} s; {smi}", flush=True)
+    reads = {k: v for k, v in d.items() if k.startswith("/")}
+    print("  debug mux at the phase's end: " + "; ".join(
+        f"{path} {status} {size} B {took * 1e3:.1f} ms" for path, (status, _, size, took) in reads.items())
+        + f"; bad arguments {sorted(set(d['bad args'].values()))} over {len(d['bad args'])} reads; {smi}", flush=True)
+    print("  debug mux: each notebook's readiness root over /debug/traces as it closed: " + "; ".join(
+        f"{n} {status} {size} B {took * 1e3:.1f} ms" for n, (status, _, size, took) in d["roots"].items())
+        + f"; the ring at the end holds {len(d['/debug/traces?name=notebook.ready'][1]['spans'])} notebook.ready "
+        f"roots; controllers that reconciled {d['reconciled']}; {smi}", flush=True)
 
 
 def _operator_resume(got, j, smi, zero):

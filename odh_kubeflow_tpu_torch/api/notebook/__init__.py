@@ -9,3 +9,4 @@ from .v1beta1 import (
     TPUSpec,
     TPUStatus,
 )
+from .conversion import SERVED_VERSIONS, convert_from_hub, convert_to_hub

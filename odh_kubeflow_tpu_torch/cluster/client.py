@@ -21,6 +21,24 @@ from .store import Store
 
 T = TypeVar("T", bound=KubeObject)
 
+
+# CPPROFILE takeover hook (runtime/cpprofile.py), resolved lazily and
+# cached: cluster modules must not import the runtime package at load time
+# (runtime.manager imports cluster.client while runtime/__init__ is mid-init).
+# A successful write reports the writing client so a taking-over
+# manager's first-owned-write phase can close; off, one list check.
+_cpprofile_mod = None
+
+
+def _cpprofile():
+    global _cpprofile_mod
+    if _cpprofile_mod is None:
+        from ..runtime import cpprofile
+
+        _cpprofile_mod = cpprofile
+    return _cpprofile_mod
+
+
 class Client:
     # 429 handling: honor the server's Retry-After for a bounded number of
     # attempts, then surface the error (the controller's workqueue backoff
@@ -97,7 +115,10 @@ class Client:
             # fenced write has a lease-lapse window of one request's
             # bounded retries; lease loss also stops the controllers,
             # which bounds what can enter that window.
-            return fn()
+            out = fn()
+            if write:
+                _cpprofile().note_write(self)
+            return out
         for attempt in range(self.MAX_THROTTLE_RETRIES + 1):
             if write and attempt:
                 # the Retry-After sleeps can span a lease lapse: a fenced
@@ -105,7 +126,10 @@ class Client:
                 # down — re-check per attempt, not just at entry
                 self._check_fence()
             try:
-                return fn()
+                out = fn()
+                if write:
+                    _cpprofile().note_write(self)
+                return out
             except TooManyRequestsError as e:
                 if attempt == self.MAX_THROTTLE_RETRIES:
                     raise

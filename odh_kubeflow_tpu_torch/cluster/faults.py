@@ -24,9 +24,7 @@ Fault sites (the `site` strings components consult):
 - ``store.read``          GET/LIST against the store (ctx: kind)
 - ``store.write``         create/update/patch/delete (ctx: kind, obj)
 - ``store.watch_resume``  a watch resuming from a resourceVersion (ctx: kind)
-- ``apiserver.request``   every HTTP request before dispatch (ctx: method,
-  path): the reference's sim ApiServer consults it; the port has no
-  ApiServer yet, so its rules (`apiserver_overload`) wait for one
+- ``apiserver.request``   every HTTP request before dispatch (ctx: method, path)
 - ``webhook.call``        the dispatcher's AdmissionReview POST (ctx: name, url)
 - ``kubelet.pod``         each kubelet reconcile (ctx: namespace, name, obj) —
   action rules here ("crash") are *decided*, not raised

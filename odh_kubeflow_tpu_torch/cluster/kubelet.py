@@ -58,6 +58,10 @@ class PodDecision:
     # the container's readiness probe: with it, a started pod goes Ready
     # only once it returns true (polled every READY_POLL_S)
     ready: Optional[Callable[[], bool]] = None
+    # the pod's IP, when the behavior gives the pod an address its
+    # processes listen on (a loopback address of its own); else the
+    # kubelet makes one up
+    pod_ip: str = ""
 
 
 READY_POLL_S = 0.05
@@ -296,6 +300,7 @@ class Kubelet:
             # started, its readiness probe not passing yet: Running, not Ready
             if pod.status.phase != "Running":
                 pod.status.phase = "Running"
+                pod.status.pod_ip = pod.status.pod_ip or decision.pod_ip
                 pod.status.container_statuses = [
                     ContainerStatus(name=c.name, ready=False, image=c.image,
                                     state=ContainerState(running={"startedAt": now_rfc3339()}))
@@ -332,7 +337,8 @@ class Kubelet:
             s.name: s.restart_count for s in pod.status.container_statuses
         }
         pod.status.phase = "Running"
-        pod.status.pod_ip = pod.status.pod_ip or f"10.1.{next(_ip_seq) % 250}.{next(_ip_seq) % 250}"
+        pod.status.pod_ip = (pod.status.pod_ip or decision.pod_ip
+                             or f"10.1.{next(_ip_seq) % 250}.{next(_ip_seq) % 250}")
         pod.status.container_statuses = [
             ContainerStatus(
                 name=c.name,

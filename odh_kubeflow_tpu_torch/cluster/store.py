@@ -46,6 +46,21 @@ ADDED = "ADDED"
 MODIFIED = "MODIFIED"
 DELETED = "DELETED"
 BOOKMARK = "BOOKMARK"  # progress marker: current RV, no object payload
+
+
+# CPPROFILE scan-accounting hook (runtime/cpprofile.py), resolved lazily and
+# cached: cluster modules must not import the runtime package at load time
+# (runtime.manager imports cluster.client while runtime/__init__ is mid-init).
+_cpprofile_mod = None
+
+
+def _cpprofile():
+    global _cpprofile_mod
+    if _cpprofile_mod is None:
+        from ..runtime import cpprofile
+
+        _cpprofile_mod = cpprofile
+    return _cpprofile_mod
 DROPPED = "DROPPED"  # stream severed (fault injection / server restart):
 # consumers must treat the watch as dead and re-establish from their last RV
 
@@ -394,6 +409,7 @@ class Store:
             self.faults.check("store.read", kind=kind, verb="list")
         with self._lock:
             bucket = self._bucket(api_version, kind)
+            scanned = len(bucket)
             out = []
             for obj in bucket.values():
                 meta = obj.get("metadata", {})
@@ -403,6 +419,11 @@ class Store:
                     continue
                 out.append(obj)
             out.sort(key=lambda o: (o["metadata"].get("namespace", ""), o["metadata"]["name"]))
+        # CPPROFILE=1 scan accounting: the DIRECT list path — the system
+        # manager's scheduler/kubelet sweeps and every other uncached read
+        # walk the whole kind bucket. Outside the store lock; one
+        # cached-module + env check when disarmed.
+        _cpprofile().note_scan(kind, scanned, len(out))
         return out
 
     def peek_raw(

@@ -3,7 +3,9 @@
 The reference stacks CLI flags + env vars + kustomize params (SURVEY §5
 config/flag system); this build centralizes them in one dataclass whose
 from_env() reads the same env names the reference uses, so deployment
-manifests translate directly."""
+manifests translate directly. The control-plane profiler is armed by
+CPPROFILE=1 (runtime/cpprofile.py reads it at each hook), as in the
+reference."""
 from __future__ import annotations
 
 import os
@@ -118,11 +120,13 @@ class Config:
     # SLO engine + alerting (runtime/slo.py, runtime/alerts.py): window_scale
     # shrinks the canonical 5m/30m/1h/6h burn windows (soaks/tests run the
     # real rule shapes in seconds); eval period 0 derives from the scale
+    slo_enabled: bool = True
     slo_window_scale: float = 1.0
     slo_eval_period_s: float = 0.0
-    # black-box canary prober (runtime/prober.py): an accelerator/topology
-    # makes the canary exercise the device-visibility gate instead of a
-    # plain CPU notebook
+    # black-box canary prober (runtime/prober.py): period 0 disables; an
+    # accelerator/topology makes the canary exercise the device-visibility
+    # gate instead of a plain CPU notebook
+    canary_period_s: float = 0.0
     canary_timeout_s: float = 120.0
     canary_namespace: str = "slo-canary"
     canary_accelerator: str = ""
@@ -248,6 +252,7 @@ class Config:
             c.job_admission_timeout_s = max(
                 0.0, float(os.environ["JOB_ADMISSION_TIMEOUT_S"])
             )
+        c.slo_enabled = _env_bool("SLO_ENABLED", c.slo_enabled)
         if os.environ.get("SLO_WINDOW_SCALE"):
             # clamp: non-positive would collapse every burn window to zero
             c.slo_window_scale = max(1e-6, float(os.environ["SLO_WINDOW_SCALE"]))
@@ -257,6 +262,8 @@ class Config:
             c.status_coalesce_window_s = max(
                 0.0, float(os.environ["STATUS_COALESCE_WINDOW_S"])
             )
+        if os.environ.get("CANARY_PERIOD_S"):
+            c.canary_period_s = max(0.0, float(os.environ["CANARY_PERIOD_S"]))
         if os.environ.get("CANARY_TIMEOUT_S"):
             c.canary_timeout_s = max(1.0, float(os.environ["CANARY_TIMEOUT_S"]))
         c.canary_namespace = os.environ.get("CANARY_NAMESPACE", c.canary_namespace)

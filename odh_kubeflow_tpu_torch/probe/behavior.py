@@ -563,6 +563,28 @@ def agent_ready(agent: Optional[NotebookAgent]) -> bool:
     return report.get("_status", 200) == 200 and bool(report["ready"])
 
 
+def pod_address(pod: Any, attempts: int = 64) -> str:
+    """A loopback address for a pod whose processes run on this host: one
+    drawn at random from 127.64.0.0/10 (every 127/8 address reaches the
+    host), on which every port the pod's containers declare is free, so
+    pods of one host, and of other runs on it, never share one."""
+    import random
+    import socket
+
+    ports = [p.container_port for c in pod.spec.containers for p in c.ports if p.container_port]
+    draw = random.SystemRandom()
+    for _ in range(attempts):
+        ip = f"127.{draw.randint(64, 127)}.{draw.randint(0, 255)}.{draw.randint(1, 254)}"
+        try:
+            for port in ports:
+                with socket.socket() as sock:
+                    sock.bind((ip, port))
+        except OSError:
+            continue
+        return ip
+    raise RuntimeError(f"no loopback address with the ports {ports} free")
+
+
 def pod_process_behavior(
     command: Union[Sequence[str], Callable[[Any], Sequence[str]]],
     log_dir: str,
@@ -601,13 +623,20 @@ def pod_process_behavior(
     A pod goes Ready only once its agent's readiness is (`agent_ready`): on
     the card, once its processes hold a CUDA context on every card, and for
     an endpoint pod once its serving process listens. A TPUJob counts its
-    gang by that Ready condition."""
+    gang by that Ready condition.
+
+    Each pod gets an address of its own, as a cluster gives each pod an IP:
+    a loopback address (`pod_address`), which the kubelet writes as the
+    pod's IP and its processes read in POD_IP (the downward API's name), so
+    a process listens there on the port its container declares and a
+    reader finds it from the pod object alone."""
     from ..cluster.kubelet import PodDecision
     from ..controllers import constants as C
 
     base_env = dict(os.environ if env is None else env)
     processes = {} if processes is None else processes
     agents: Dict[str, NotebookAgent] = {}  # pod uid -> its agent, until closed
+    addresses: Dict[str, str] = {}  # pod uid -> its IP
     live: Dict[str, PodProcesses] = {}  # pod uid -> its processes, until closed
     lock = threading.Lock()
 
@@ -625,7 +654,7 @@ def pod_process_behavior(
         if chips:
             reap_node(pod.spec.node_name, pod.metadata.uid)
         argv = command(pod) if callable(command) else command
-        pod_env = {**base_env, **container_env(pod, _primary(pod))}
+        pod_env = {**base_env, **container_env(pod, _primary(pod)), "POD_IP": address_of(pod)}
         if control_dir is not None:
             pod_env[CONTROL_DIR_ENV] = control_dir(pod)
         procs = PodProcesses(argv, pod_env, cwd,
@@ -660,6 +689,12 @@ def pod_process_behavior(
 
         return host, port, close
 
+    def address_of(pod: Any) -> str:
+        with lock:
+            if pod.metadata.uid not in addresses:
+                addresses[pod.metadata.uid] = pod_address(pod)
+            return addresses[pod.metadata.uid]
+
     def behavior(pod: Any) -> Optional[PodDecision]:
         # notebook, serving-endpoint and batch-job pods all run the same
         # in-pod agent (the reference's sim_agent_behavior takes the three).
@@ -670,6 +705,7 @@ def pod_process_behavior(
         if not (labels.get(C.NOTEBOOK_NAME_LABEL) or labels.get(C.INFERENCE_NAME_LABEL)
                 or labels.get(C.JOB_NAME_LABEL)):
             return None
-        return PodDecision(serve=serve, graceful=True, ready=lambda: agent_ready(agents.get(pod.metadata.uid)))
+        return PodDecision(serve=serve, graceful=True, ready=lambda: agent_ready(agents.get(pod.metadata.uid)),
+                           pod_ip=address_of(pod))
 
     return behavior

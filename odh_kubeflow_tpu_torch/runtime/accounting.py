@@ -469,7 +469,13 @@ class ChipAccountant:
         if now is None:
             now = self.clock()
         try:
-            attrs = self.classify(now)
+            # CPPROFILE=1 scan accounting: the tick thread has neither a
+            # reconcile context nor a flow identity — name the sweep so its
+            # list walks attribute to the accountant, not "unattributed"
+            from . import cpprofile
+
+            with cpprofile.sweep("chip-accountant"):
+                attrs = self.classify(now)
         except Exception:
             tpu_accounting_ticks_total.inc(result="error")
             log.exception("accounting tick failed (classification)")
@@ -576,7 +582,7 @@ class ChipAccountant:
         obj: Optional[str] = None,
         limit: Optional[int] = None,
     ) -> Dict[str, Any]:
-        """The flight-recorder payload: the full ledger,
+        """The /debug/accounting + flight-recorder payload: the full ledger,
         the conservation arithmetic, and the per-object detail (largest
         consumers first, optionally filtered/capped)."""
         with self._lock:

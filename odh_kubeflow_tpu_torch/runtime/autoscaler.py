@@ -300,6 +300,23 @@ def serving_burn(manager: Any) -> float:
     return burn
 
 
+SERVING_PORT_NAME = "http-serving"  # the endpoint pod's serving container port
+
+
+def serving_address(pod: Any) -> Optional[str]:
+    """A serving replica's base URL from its pod object, as a cluster
+    routes to it: the pod's IP and the port its serving container declares
+    (`http-serving`, which the endpoint reconciler renders). None while the
+    pod has no IP or declares no such port."""
+    if not pod.status.pod_ip:
+        return None
+    for container in pod.spec.containers:
+        for port in container.ports:
+            if port.name == SERVING_PORT_NAME and port.container_port:
+                return f"http://{pod.status.pod_ip}:{port.container_port}"
+    return None
+
+
 def read_replica_stats(url: str, timeout_s: float = 2.0) -> Dict[str, Any]:
     """One serving replica's engine counters: GET {url}/stats."""
     with urllib.request.urlopen(f"{url}/stats", timeout=timeout_s) as r:

@@ -9,6 +9,7 @@ from typing import Callable, List, Optional, Tuple, Type
 
 from ..apimachinery import KubeObject, controller_owner
 from ..cluster.store import DELETED
+from . import cpprofile
 from .controller import Controller, Reconciler, Request
 
 # predicate(event_type, obj_dict, old_obj_dict) -> bool
@@ -68,19 +69,40 @@ class Builder:
         def owned_by_shard(ns: str, name: str) -> bool:
             return shard is None or shard.owns(ns, name)
 
+        # CPPROFILE=1 cause chain (runtime/cpprofile.py): an event that
+        # actually enqueues — after predicates and the shard filter — stamps
+        # its (source kind, verb, object, resourceVersion) onto the pending
+        # request, so the reconcile it wakes can report why it fired. The
+        # stamp site knows the watched kind statically (it is bound per
+        # informer registration, not read off the object).
+        def enqueue_caused(
+            ns: str, name: str, src_kind: str, ev_type: str, obj: dict
+        ) -> None:
+            cpprofile.stamp_cause(
+                self.name, f"{ns}/{name}" if ns else name,
+                kind=src_kind, verb=ev_type, obj=obj,
+            )
+            ctrl.enqueue(ns, name)
+
         def on_primary(ev_type: str, obj: dict, old: Optional[dict]) -> None:
             if self._for_predicate and not self._for_predicate(ev_type, obj, old):
                 return
             m = _meta(obj)
             ns, name = m.get("namespace", ""), m.get("name", "")
             if owned_by_shard(ns, name):
-                ctrl.enqueue(ns, name)
+                enqueue_caused(ns, name, primary_gvk.kind, ev_type, obj)
 
         self.manager.informers.informer_for(self._for).add_handler(on_primary)
 
         for cls in self._owns:
+            owned_kind = self.manager.scheme.gvk_for(cls).kind
 
-            def on_owned(ev_type: str, obj: dict, old: Optional[dict]) -> None:
+            def on_owned(
+                ev_type: str,
+                obj: dict,
+                old: Optional[dict],
+                owned_kind: str = owned_kind,
+            ) -> None:
                 for ref in _meta(obj).get("ownerReferences", []):
                     if (
                         ref.get("controller")
@@ -91,11 +113,12 @@ class Builder:
                         ns = _meta(obj).get("namespace", "")
                         name = ref.get("name", "")
                         if owned_by_shard(ns, name):
-                            ctrl.enqueue(ns, name)
+                            enqueue_caused(ns, name, owned_kind, ev_type, obj)
 
             self.manager.informers.informer_for(cls).add_handler(on_owned)
 
         for cls, mapper, predicate in self._watches:
+            watched_kind = self.manager.scheme.gvk_for(cls).kind
 
             def on_watched(
                 ev_type: str,
@@ -103,12 +126,13 @@ class Builder:
                 old: Optional[dict],
                 mapper: Mapper = mapper,
                 predicate: Optional[Predicate] = predicate,
+                watched_kind: str = watched_kind,
             ) -> None:
                 if predicate and not predicate(ev_type, obj, old):
                     return
                 for ns, name in mapper(obj):
                     if owned_by_shard(ns, name):
-                        ctrl.enqueue(ns, name)
+                        enqueue_caused(ns, name, watched_kind, ev_type, obj)
 
             self.manager.informers.informer_for(cls).add_handler(on_watched)
 

@@ -11,6 +11,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 from ..utils.logging import log_context
+from . import cpprofile
 from .flightrecorder import recorder
 from .metrics import (
     reconcile_duration_seconds,
@@ -89,6 +90,11 @@ class Controller:
             req = self.queue.get()
             if req is None:
                 return
+            # CPPROFILE=1 (runtime/cpprofile.py): consume the cause stamped
+            # at informer fan-out + the measured queue wait, and open the
+            # per-reconcile scan-accounting context on this worker thread.
+            # None disarmed (one env check).
+            cp = cpprofile.reconcile_begin(self.name, req.key, ctrl_id=id(self))
             t0 = time.perf_counter()
             outcome = "error"
             try:
@@ -133,6 +139,10 @@ class Controller:
                 # flight-recorder sample: one line per reconcile (controller,
                 # key, wall-clock, outcome, queue depth) — the incident
                 # bundle's answer to "what was the control plane doing".
+                # CPPROFILE=1 adds the cause-chain fields (cause_kind,
+                # cause_verb, queue_wait_ms) so a bundle answers "what storm
+                # caused this" without a separate capture.
+                extra = cpprofile.reconcile_end(cp, outcome=outcome) if cp else {}
                 recorder.record(
                     "reconcile",
                     controller=self.name,
@@ -140,6 +150,7 @@ class Controller:
                     ms=round((time.perf_counter() - t0) * 1e3, 3),
                     outcome=outcome,
                     depth=len(self.queue),
+                    **extra,
                 )
                 self.queue.done(req)
 

@@ -20,10 +20,9 @@ in count and deduplicated per (reason, subject) within a window, listed by
 the profiler's hot-region timings.
 
 A bundle also freezes the fleet chip-time ledger of the active accountant
-(`runtime.accounting.current()`), once it has ticked. Not ported yet: the
-reference's bundles also freeze the control-plane profiler (`cpprofile`,
-which comes with the manager's debug surface), and its manager serves the
-bundles at `/debug/incidents`.
+(`runtime.accounting.current()`), once it has ticked, and under CPPROFILE=1
+the control-plane profiler's snapshot (`cpprofile`). The manager's debug
+mux serves the bundles at `/debug/incidents`.
 
 Cost discipline: `record()` is a dict append into a deque under one lock
 (zero-allocation fast path when disabled).
@@ -174,6 +173,19 @@ class FlightRecorder:
                     bundle["profile"] = prof
         except Exception:  # pragma: no cover - never costs the bundle
             pass
+        # CPPROFILE=1: freeze the control-plane profiler — an incident
+        # carries its own why-did-the-reconciles-fire evidence (cause mix,
+        # scan accounting, takeover decomposition). Same never-costs-the-
+        # bundle discipline as the profiler block above.
+        try:
+            from . import cpprofile
+
+            if cpprofile.enabled():
+                cp = cpprofile.snapshot(limit=5)
+                if cp["controllers"] or cp["takeovers"]:
+                    bundle["cpprofile"] = cp
+        except Exception:  # pragma: no cover - never costs the bundle
+            pass
         # freeze the fleet chip-time ledger — an incident carries its own
         # where-did-the-chips-go evidence (per-phase chip-seconds,
         # conservation arithmetic, top consumers). Same never-costs-the-
@@ -232,7 +244,7 @@ class FlightRecorder:
         return state
 
     def incidents(self) -> List[Dict[str, Any]]:
-        """Newest-last summaries, one per bundle."""
+        """Newest-last summaries (the /debug/incidents listing)."""
         with self._lock:
             return [
                 {

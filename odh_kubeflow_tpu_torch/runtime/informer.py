@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..apimachinery import GoneError, Scheme, default_scheme
 from ..cluster.store import ADDED, DELETED, DROPPED, MODIFIED, Store, WatchEvent
 from ..utils import racecheck
+from . import cpprofile
 from .metrics import (
     informer_last_sync_timestamp_seconds,
     informer_synced,
@@ -279,6 +280,7 @@ class Informer:
         from ..apimachinery import match_labels
 
         with self._lock:
+            scanned = len(self._cache)
             out = []
             for o in self._cache.values():
                 meta = o.get("metadata", {})
@@ -287,6 +289,11 @@ class Informer:
                 if labels is not None and not match_labels(labels, meta.get("labels")):
                     continue
                 out.append(o if self._racecheck else copy.deepcopy(o))
+        # CPPROFILE=1 scan accounting: every cached list walks the
+        # WHOLE flat cache to yield its matches — report scanned-vs-used,
+        # attributed to the reconcile/sweep on this thread. Outside the cache
+        # lock (one env check inside when disarmed).
+        cpprofile.note_scan(self.kind, scanned, len(out))
         return out
 
 

@@ -1,8 +1,7 @@
 """Manager: owns the client, informers, controllers, webhook registrations,
 leader election, and health/metrics — ctrl.NewManager + mgr.Start() analog
 (reference notebook-controller/main.go:87-148, odh main.go:117-245). The
-port's copy of odh_kubeflow_tpu/runtime/manager.py, without the debug mux
-(`serve_endpoints`), which is not ported yet.
+port's copy of odh_kubeflow_tpu/runtime/manager.py.
 
 Sharding: a Manager may own a `ShardSpec` — a deterministic
 hash partition of the object keyspace. Its builders then drop events for
@@ -32,6 +31,7 @@ from ..apimachinery import (
 )
 from ..cluster.client import Client
 from ..cluster.store import Store
+from . import cpprofile
 from .controller import Controller
 from .informer import InformerRegistry
 from .metrics import Registry, global_registry
@@ -314,6 +314,18 @@ class Manager:
         into CrashLoopBackOff. A timeout is for tests."""
         if self._started:
             return
+        # CPPROFILE=1 takeover decomposition (runtime/cpprofile.py): phase
+        # marks bracket the sequential legs of bring-up — lease-acquire,
+        # relist (informer sync), cache-warm (controller/service start) —
+        # and the tracker stays live past start() to catch first-sweep
+        # (first reconcile completion) and first-owned-write (first write
+        # through THIS manager's fenced clients). None disarmed.
+        tracker = cpprofile.takeover_begin(
+            self.elector.identity if self.elector is not None
+            else f"manager-{id(self) & 0xFFFFFF:x}",
+            {id(self.client), id(self.api_reader)},
+        )
+        self._cp_takeover = tracker
         if self.elector is not None:
             self.elector.on_stopped_leading = self.stop
             self.elector.start()
@@ -324,11 +336,21 @@ class Manager:
                 ):
                     if time.monotonic() >= deadline:
                         raise TimeoutError("failed to acquire leadership")
+                    if tracker is not None:
+                        # still waiting: lease-acquire must measure the
+                        # acquisition, not the standby's healthy wait
+                        tracker.touch_waiting()
             else:
                 while not self.elector.is_leader.wait(timeout=1.0):
                     if self.elector._stop.is_set():
                         return
+                    if tracker is not None:
+                        tracker.touch_waiting()
+        if tracker is not None:
+            tracker.mark("leader")
         self.informers.start_all()
+        if tracker is not None:
+            tracker.mark("synced")
         for ctrl in self.controllers:
             ctrl.start()
         for fn in self._runnables:
@@ -336,8 +358,17 @@ class Manager:
         for service in self._services:
             service.start()
         self._started = True
+        if tracker is not None:
+            tracker.mark(
+                "started",
+                controller_ids={id(c) for c in self.controllers},
+            )
 
     def stop(self) -> None:
+        tracker = getattr(self, "_cp_takeover", None)
+        if tracker is not None:
+            tracker.abandon()  # no-op if the decomposition already completed
+            self._cp_takeover = None
         for service in self._services:
             try:
                 service.stop()
@@ -375,6 +406,17 @@ class Manager:
             if not inf.synced.is_set():
                 return False
         return True
+
+    def serve_endpoints(self, metrics_port: int = 8080, health_port: int = 8081,
+                        host: str = "0.0.0.0"):
+        """Bind /metrics (Prometheus exposition) and /healthz + /readyz —
+        reference notebook-controller/main.go:125-133."""
+        from .serving import ServingEndpoints
+
+        server = ServingEndpoints(
+            self, metrics_port=metrics_port, health_port=health_port, host=host
+        ).start()
+        return server
 
     def wait_idle(self, timeout: float = 30.0) -> bool:
         """Test/bench helper: wait for every controller queue to drain."""

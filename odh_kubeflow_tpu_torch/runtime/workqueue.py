@@ -14,6 +14,7 @@ import threading
 import time
 from typing import Dict, Generic, Hashable, List, Optional, Set, Tuple, TypeVar
 
+from . import cpprofile
 from .metrics import (
     workqueue_adds_total,
     workqueue_depth,
@@ -134,6 +135,10 @@ class WorkQueue(Generic[K]):
             if added is not None:
                 wait = time.monotonic() - added
                 workqueue_queue_duration_seconds.observe(wait, name=self.name)
+                # CPPROFILE=1 cause chain: the measured queue wait rides to
+                # the reconcile that begins next on this key (one env check
+                # inside when disarmed)
+                cpprofile.note_dequeue(self.name, key, wait)
             workqueue_depth.set(len(self._queue), name=self.name)
             return key
 

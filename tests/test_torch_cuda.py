@@ -947,6 +947,31 @@ def test_a_notebook_promoted_into_an_endpoint_on_card(card, tmp_path):
 
 
 @pytest.mark.cuda
+def test_the_debug_mux_and_a_denial_over_https_with_a_notebook_repaired_on_card(card, tmp_path):
+    """Phase 15's new gates on their own (every run of the flow has them):
+    the port's `build_manager` with its debug mux bound before its start and
+    CPPROFILE=1; nb-denied written over a TLS ApiServer whose admission
+    calls the HTTPS webhook and refused there with the webhook's message, nothing of it stored and
+    the card's compute apps unchanged; a notebook on the card admitted with
+    the lock and its traceparent, repaired (its slice-degraded bundle with
+    its cpprofile and accounting blocks), culled and deleted; the mux's
+    reads gated by `check_debug_mux`, each read's size and time printed."""
+    import torch_operator_flow
+    from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
+
+    seen = torch_operator_flow.run(tmp_path, torch_operator_flow.pod_worker("cuda"),
+                                   cuda_monitor(window_s=2.0, sample_period_s=0.5), waves=(("nb-d",),),
+                                   repair="nb-d", cfg=dict(torch_operator_flow.CFG, accounting_period_s=0.5),
+                                   released=torch_operator_flow.card_released(),
+                                   card_state=torch_operator_flow.compute_app_pids, timeout=300.0)
+    torch_operator_flow.check(seen, "cuda", gate_waits=True)
+    denied = seen["denied"]
+    reads = {k: v for k, v in seen["debug"].items() if k.startswith("/")}
+    print(f"mux twin: {denied['name']} refused over HTTPS in {denied['wall']:.3f} s; " + "; ".join(
+        f"{path} {status} {size} B {took * 1e3:.1f} ms" for path, (status, _, size, took) in reads.items()))
+
+
+@pytest.mark.cuda
 def test_a_notebook_suspended_and_resumed_by_reclaiming_a_job_on_card(card, tmp_path):
     """tests/test_torch_suspend_process.py's episode with the workers on the
     card and the agents over the card's CudaMonitor: the repaired notebook

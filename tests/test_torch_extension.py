@@ -4,10 +4,7 @@ the JAX operator, on the CPU: one sequence driven through both stacks at
 once, the objects compared on `to_dict()` JSON after each step.
 
 - JAX stack: a SimCluster with `odh_kubeflow_tpu.main.build_manager`.
-- Port stack: a port SimCluster and Manager wired as `main.py:79-83` wires
-  them (the port has no `build_manager` yet): `NotebookWebhook` registered
-  in the store, `NotebookReconciler`, `EventMirrorController`,
-  `TPUWorkbenchReconciler` and the readiness gate.
+- Port stack: a port SimCluster with `odh_kubeflow_tpu_torch.main.build_manager`.
 
 The sequence: a notebook; one with `inject-auth`; one with the pipeline
 secret and RBAC; one with a runtime-image source ConfigMap; the sources
@@ -49,7 +46,7 @@ import odh_kubeflow_tpu_torch.cluster as p_cluster
 import odh_kubeflow_tpu_torch.controllers as p_ctrl
 import odh_kubeflow_tpu_torch.controllers.extension as p_ext
 import odh_kubeflow_tpu_torch.probe.behavior as p_probe
-import odh_kubeflow_tpu_torch.runtime as p_runtime
+from odh_kubeflow_tpu_torch.main import build_manager as p_build_manager
 
 torch_threads.cap()
 
@@ -74,15 +71,8 @@ class Stack:
             self.cluster.add_cpu_pool("cpu", nodes=2)
             self.cluster.add_pod_behavior(pkg.behavior({}))
             config = pkg.ctrl.Config(**CONFIG)
-            if pkg is JAX:
-                self.mgr = build_manager(self.cluster.store, config, http_get=self.cluster.http_get)
-            else:
-                self.mgr = p_runtime.Manager(self.cluster.store)
-                p_ctrl.NotebookWebhook(self.mgr.client, config).register(self.cluster.store)
-                p_ctrl.NotebookReconciler(self.mgr, config).setup()
-                p_ctrl.EventMirrorController(self.mgr).setup()
-                p_ctrl.TPUWorkbenchReconciler(self.mgr, config).setup()
-                p_ctrl.ProbeStatusController(self.mgr, config, http_get=self.cluster.http_get).setup()
+            build = build_manager if pkg is JAX else p_build_manager
+            self.mgr = build(self.cluster.store, config, http_get=self.cluster.http_get)
             self.mgr.start()
         except BaseException:
             self.stop()

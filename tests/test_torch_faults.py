@@ -442,3 +442,43 @@ def test_seeded_bad_day_converges():
     got = run_both(scenario)
     assert got["jax"] == got["port"], got
     assert all(v for k, v in got["port"].items() if k != "plan"), got["port"]
+
+
+@pytest.mark.parametrize("seed", [0, 5, 303])
+def test_the_overload_rules_fire_at_the_apiserver_request_site(seed):
+    """`apiserver_overload`'s two HTTP rules fire at `ApiServer`'s
+    `apiserver.request` site on both packages: its POST 429 bursts answer
+    creates sent raw over the wire (no client retry) until their budget is
+    spent, and its delay rule slows the first requests, by the same counts
+    on both sides."""
+    import json
+    import urllib.request
+
+    def run(side):
+        store = side.cluster.Store()
+        server = side.cluster.ApiServer(store).start()
+        try:
+            store.faults = side.faults.FaultInjector()
+            rules = side.faults.apiserver_overload(store.faults, seed=seed)
+            codes = []
+            for i in range(20):
+                body = json.dumps({"apiVersion": "v1", "kind": "ConfigMap",
+                                   "metadata": {"name": f"cm-{i}", "namespace": NS}}).encode()
+                req = urllib.request.Request(f"{server.base_url}/api/v1/namespaces/{NS}/configmaps", data=body,
+                                             method="POST", headers={"Content-Type": "application/json"})
+                try:
+                    with urllib.request.urlopen(req, timeout=10) as r:
+                        codes.append(r.status)
+                except urllib.error.HTTPError as e:
+                    codes.append((e.code, json.loads(e.read())["reason"]))
+            stored = sorted(o["metadata"]["name"] for o in store.peek_raw("v1", "ConfigMap"))
+            return codes, [(r.site, r.action, r.fired) for r in rules if r.site == "apiserver.request"], stored
+        finally:
+            server.stop()
+
+    jax, port = run(JAX), run(PORT)
+    assert port == jax
+    codes, fired, stored = port
+    bursts = sum(1 for c in codes if c == (429, "TooManyRequests"))
+    assert bursts and codes[:bursts] == [(429, "TooManyRequests")] * bursts and set(codes[bursts:]) == {201}
+    assert all(n > 0 for _, _, n in fired) and len(stored) == 20 - bursts

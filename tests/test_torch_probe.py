@@ -468,16 +468,34 @@ def test_the_jax_operator_culls_a_port_notebook_only_once_its_card_is_idle(monke
     firing every 100 ms with a 1 s idle threshold; a worker advancing the
     scripted card's allocator keeps the notebook alive. Once it stops, the
     same notebook is culled."""
-    from odh_kubeflow_tpu.api.core import Container
-    from odh_kubeflow_tpu.api.notebook import Notebook, TPUSpec
-    from odh_kubeflow_tpu.cluster import SimCluster
-    from odh_kubeflow_tpu.cluster.kubelet import PodDecision
-    from odh_kubeflow_tpu.controllers import Config, constants as C
-    from odh_kubeflow_tpu.main import build_manager
+    _culled_only_once_idle(monkeypatch, "odh_kubeflow_tpu", ("v5e", "2x2"))
+
+
+def test_the_ports_operator_culls_a_port_notebook_only_once_its_card_is_idle(monkeypatch):
+    """The same through the port's own `build_manager` on an h100 1x4
+    slice: the port's culler keeps the notebook while the card is busy and
+    culls it once it is idle."""
+    _culled_only_once_idle(monkeypatch, "odh_kubeflow_tpu_torch", ("h100", "1x4"))
+
+
+def _culled_only_once_idle(monkeypatch, package, slice_):
+    import importlib
+
+    Container = importlib.import_module(f"{package}.api.core").Container
+    notebook_api = importlib.import_module(f"{package}.api.notebook")
+    Notebook, TPUSpec = notebook_api.Notebook, notebook_api.TPUSpec
+    SimCluster = importlib.import_module(f"{package}.cluster").SimCluster
+    PodDecision = importlib.import_module(f"{package}.cluster.kubelet").PodDecision
+    controllers = importlib.import_module(f"{package}.controllers")
+    Config, C = controllers.Config, controllers.constants
+    build_manager = importlib.import_module(f"{package}.main").build_manager
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)  # the faked device list
     cluster = SimCluster().start()
-    cluster.add_tpu_pool("v5e", "v5e", "2x2", slices=2)
+    if package == "odh_kubeflow_tpu":
+        cluster.add_tpu_pool("v5e", *slice_, slices=2)
+    else:
+        cluster.add_gpu_pool("h100", *slice_, slices=2)
     card = ScriptedCard()
     agents = {}
 
@@ -518,7 +536,7 @@ def test_the_jax_operator_culls_a_port_notebook_only_once_its_card_is_idle(monke
         nb.metadata.name = "busy-nb"
         nb.metadata.namespace = "u"
         nb.spec.template.spec.containers = [Container(name="busy-nb", image="torch:1")]
-        nb.spec.tpu = TPUSpec(accelerator="v5e", topology="2x2")
+        nb.spec.tpu = TPUSpec(accelerator=slice_[0], topology=slice_[1])
         cluster.client.create(nb)
 
         def annotations():

@@ -11,10 +11,11 @@ both engines and alert managers tick for tick, and the layer's Config
 fields read from the same env.
 
 The SLOs' descriptions are not compared: the port's name the GPU where
-the reference's name the TPU and `jax.devices()`. Left for later items:
-the definition lint (`analysis/metric_rules.py`), `/debug/slo`,
-`/debug/incidents` and `/debug/traces` (the manager's debug mux; the bad
-day reads the recorders' incidents directly), and the wall-clock overhead
+the reference's name the TPU and `jax.devices()`. The bad day reads its
+incidents, a bundle, the judgement layer and the degraded notebook's spans
+over each side's manager debug mux (/debug/incidents, /debug/slo,
+/debug/traces), as the reference's does. Left for a later item: the
+definition lint (`analysis/metric_rules.py`); and the wall-clock overhead
 case (`tests/test_accounting.py`'s overhead case is left out for the same
 reason: it fails under load)."""
 import random
@@ -379,9 +380,20 @@ class BadDay:
         self.mgr.slo_engine, self.mgr.alert_manager, self.mgr.flight_recorder = self.engine, self.alerts, side.recorder
         self.mgr.add_service(self.engine)
         self.mgr.start()
+        self.endpoints = self.mgr.serve_endpoints(metrics_port=0, health_port=0, host="127.0.0.1")
+
+    def debug(self, path):
+        """A JSON read of this side's debug mux."""
+        import json
+        import urllib.request
+
+        host, port = self.endpoints.metrics_address
+        with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=5) as r:
+            return json.loads(r.read())
 
     def stop(self):
         try:
+            self.endpoints.stop()
             self.mgr.stop()
         finally:
             self.cluster.stop()
@@ -467,10 +479,14 @@ def test_bad_day_fires_alert_mirrors_condition_and_bundles_incidents():
         expected = {("slice-degraded", f"{NS}/{n}") for n in env.events("SliceDegraded")}
         expected |= {("repair-failed", f"{NS}/{n}") for n in env.events("RepairFailed")}
         expected |= {(f"alert:{h['rule']}", h["slo"]) for h in env.alerts.history if h["event"] == "fired"}
-        incidents = side.recorder.incidents()
+        incidents = env.debug("/debug/incidents")["incidents"]
         observed = {(i["reason"], i["subject"]) for i in incidents}
-        bundle = side.recorder.get(next(i["id"] for i in incidents if i["reason"] == "slice-degraded"))
+        some = next(i for i in incidents if i["reason"] == "slice-degraded")
+        bundle = env.debug(f"/debug/incidents?id={some['id']}")
         nb_state = next(iter(bundle["state"].values()))
+        served = env.debug("/debug/slo")
+        _, _, degraded = some["subject"].partition("/")
+        traced = env.debug(f"/debug/traces?notebook={NS}/{degraded}")["spans"]
         return {"plan": {"preempted pods": sorted(p for p, n in pod_nodes.items() if n in plan["preempted"]),
                          "chip_loss": plan["chip_loss"], "ici": plan["ici"]},
                 "fired within the window": fired_within, "rule": fired["rule"], "named notebooks": bool(fired["notebooks"]),
@@ -478,6 +494,10 @@ def test_bad_day_fires_alert_mirrors_condition_and_bundles_incidents():
                 "incidents as expected": observed == expected,
                 "bundled": sorted({reason for reason, _ in observed} - {"repair-failed"}),
                 "bundle": (bool(bundle["records"]), "notebook" in nb_state and "pods" in nb_state),
+                "served": {"slos": sorted(served["engine"]["slos"]), "firing": served["alerts"]["firing"],
+                           "rules": [r["name"] for r in served["alerts"]["rules"]],
+                           "incidents match the recorder": incidents == side.recorder.incidents()},
+                "traced": bool(traced) and all(sp["attributes"].get("notebook") == degraded for sp in traced),
                 "healthy": env.mgr.healthz()}
 
     got = both_at_once(scenario, BadDay, lambda env: env.stop())
@@ -488,6 +508,8 @@ def test_bad_day_fires_alert_mirrors_condition_and_bundles_incidents():
         ("fired", "availability-fast-burn"), ("resolved", "availability-fast-burn")]
     assert port["incidents as expected"] and port["bundle"] == (True, True) and port["healthy"]
     assert port["bundled"] == ["alert:availability-fast-burn", "slice-degraded"], port["bundled"]
+    assert port["served"] == {"slos": ["notebook-availability"], "firing": [], "rules": ["availability-fast-burn"],
+                              "incidents match the recorder": True} and port["traced"], port
 
 
 JUDGEMENT_FIELDS = ("slo_window_scale", "slo_eval_period_s", "canary_timeout_s", "canary_namespace",

@@ -3,16 +3,16 @@
 with `utils.certs.generate_cert_dir`'s certificates, and
 `cluster.webhook_dispatch.WebhookDispatcher` on a Store holding a
 MutatingWebhookConfiguration, called directly (`dispatcher(operation, obj,
-old)`: the port has no ApiServer yet) and posting through
-`cluster.remote.HostPool`. Every case crosses real sockets with real TLS,
+old)`) and posting through `cluster.remote.HostPool`, and behind `ApiServer`
+with a `RemoteStore` writing over the wire. Every case crosses real sockets with real TLS,
 and runs the same inputs through both packages.
 
 Compared: the admitted object (the lock, the update-blocking), denials
 (class and message), the AdmissionReview response on the wire,
 failurePolicy Fail against Ignore when the webhook is down (and the
 failures counter by policy), and a serving certificate from another CA
-refused. The cases of tests/test_webhook_server.py that go through
-`ApiServer`/`RemoteStore` wait for those to be ported.
+refused; the cases of tests/test_webhook_server.py that go through
+`ApiServer`/`RemoteStore`, run on both packages by tests/torch_ported.py.
 """
 import base64
 import copy
@@ -23,6 +23,7 @@ from types import SimpleNamespace
 
 import pytest
 
+import torch_ported
 import odh_kubeflow_tpu.api.admission as j_admission
 import odh_kubeflow_tpu.apimachinery as j_am
 import odh_kubeflow_tpu.cluster as j_cluster
@@ -221,3 +222,20 @@ def test_admission_review_wire_format(tls):
     assert port_body["kind"] == "AdmissionReview" and r["uid"] == "uid-123" and r["allowed"] is True
     assert r["patchType"] == "JSONPatch"
     assert {"op": "add", "path": "/metadata/labels", "value": {"x": "y"}} in json.loads(base64.b64decode(r["patch"]))
+
+
+WIRE_JAX = torch_ported.load("test_webhook_server", "jax")
+WIRE_PORT = torch_ported.load("test_webhook_server", "port")
+
+
+@pytest.mark.parametrize("case", ["test_create_through_https_webhook_injects_lock",
+                                  "test_denial_over_https_rejects_write", "test_update_blocking_via_wire"])
+def test_the_wire_cases_against_the_reference(case, tmp_path):
+    """tests/test_webhook_server.py's three cases through `ApiServer` and
+    `RemoteStore` (a Notebook written over the wire, admitted by the HTTPS
+    webhook through the MutatingWebhookConfiguration dispatcher: the lock
+    injected, a refused slice denied and never stored, a running notebook's
+    webhook-only drift blocked), on both packages, held to the same
+    requests and answers."""
+    torch_ported.both(WIRE_JAX, WIRE_PORT, case, tmp_path)
+

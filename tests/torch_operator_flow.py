@@ -3,12 +3,14 @@
 tests/test_torch_operator_process.py (the CPU), tests/test_torch_cuda.py and
 chip_smoke.py's phase 15 (the card). Imports no jax.
 
-One card: a SimCluster with one h100 1x1 node, its store's admission chain
-running the port's NotebookWebhook (as the JAX `build_manager` registers it
-for an in-process store) and the Manager running the workbench extension
-beside the reconciler, the gate and the culler. First a Notebook whose slice
-`gpu.plan_slice` cannot plan is denied at admission: nothing is stored and
-no pod starts. The notebooks of a wave are created at once; admission
+One card: a SimCluster with one h100 1x1 node, a TLS ApiServer in front of
+its store whose admission calls the port's NotebookWebhook over HTTPS (the
+deployed shape), and the Manager the port's `main.build_manager` builds,
+running the workbench extension beside the reconciler, the gate and the
+culler, its debug mux served, its webhook in the store's admission chain.
+First a Notebook whose slice `gpu.plan_slice` cannot plan is written over
+the wire and denied at admission over HTTPS: nothing is stored and no pod
+starts. The notebooks of a wave are created at once; admission
 stamps each with the reconciliation lock and the traceparent of its
 `notebook.ready` root; the extension makes its HTTPRoute and
 NetworkPolicies and lifts the lock; one binds (the scheduler takes them in
@@ -100,6 +102,8 @@ import collections
 import dataclasses
 import itertools
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -113,7 +117,6 @@ from typing import List, Sequence, Tuple
 import torch_dist
 import torch_pod_worker
 import odh_kubeflow_tpu_torch.cluster.slicepool as slicepool
-import odh_kubeflow_tpu_torch.controllers as controllers
 import odh_kubeflow_tpu_torch.runtime.accounting as accounting
 import odh_kubeflow_tpu_torch.runtime.jobmetrics as jobmetrics
 from odh_kubeflow_tpu_torch.api.apps import StatefulSet
@@ -125,20 +128,13 @@ from odh_kubeflow_tpu_torch.api.networking import NetworkPolicy
 from odh_kubeflow_tpu_torch.api.notebook import Notebook, TPUSpec
 import odh_kubeflow_tpu_torch.apimachinery as apimachinery
 from odh_kubeflow_tpu_torch.apimachinery import AdmissionDeniedError, NotFoundError
-from odh_kubeflow_tpu_torch.cluster import SimCluster
+from odh_kubeflow_tpu_torch.cluster import Client, SimCluster
+from odh_kubeflow_tpu_torch.cluster.remote_fixture import build_remote_stack
 from odh_kubeflow_tpu_torch import telemetry
 from odh_kubeflow_tpu_torch.controllers import (
     Config,
-    CullingReconciler,
-    EventMirrorController,
-    InferenceEndpointReconciler,
-    NotebookReconciler,
-    NotebookWebhook,
-    ProbeStatusController,
     SliceRepairController,
     SuspendResumeController,
-    TPUJobReconciler,
-    TPUWorkbenchReconciler,
     constants as C,
 )
 from odh_kubeflow_tpu_torch.controllers.job import job_priority
@@ -156,14 +152,13 @@ from odh_kubeflow_tpu_torch.probe.behavior import (
 )
 from odh_kubeflow_tpu_torch.probe.agent import SimTPUMonitor
 from odh_kubeflow_tpu_torch.cluster.kubelet import PodDecision
-from odh_kubeflow_tpu_torch.controllers.metrics import NotebookMetrics
-from odh_kubeflow_tpu_torch.runtime import Manager
 from odh_kubeflow_tpu_torch.runtime import metrics as runtime_metrics
-from odh_kubeflow_tpu_torch.runtime.alerts import AlertManager, default_rules, slo_alerts_inhibited_total
-from odh_kubeflow_tpu_torch.runtime.autoscaler import PodStatsSignals, ReplicaAutoscaler, read_replica_stats
-from odh_kubeflow_tpu_torch.runtime.coalesce import StatusCoalescer
-from odh_kubeflow_tpu_torch.runtime.prober import CanaryProber, canary_probes_total
-from odh_kubeflow_tpu_torch.runtime.slo import SLOEngine, default_slos, slo_evaluations_total
+from odh_kubeflow_tpu_torch.runtime.alerts import slo_alerts_inhibited_total
+from odh_kubeflow_tpu_torch.main import build_manager
+from odh_kubeflow_tpu_torch.runtime import cpprofile
+from odh_kubeflow_tpu_torch.runtime.autoscaler import read_replica_stats, serving_address
+from odh_kubeflow_tpu_torch.runtime.prober import canary_probes_total
+from odh_kubeflow_tpu_torch.runtime.slo import default_slos, slo_evaluations_total
 from odh_kubeflow_tpu_torch.serving import metrics as serving_metrics
 from odh_kubeflow_tpu_torch.serving.engine import QueueFull, RequestHandle
 from odh_kubeflow_tpu_torch.serving.router import TokenRouter
@@ -199,7 +194,8 @@ RESUME_CFG = dict(suspend_checkpoint_window_s=15.0, chip_budget=2)
 # the judgement layer's knob under every cfg: the reference's bad-day scale
 # of the burn windows (5m -> 0.6 s, 1h -> 7.2 s, 6h -> 43.2 s); the
 # replica autoscaler is off unless a cfg sets its period (Config's 0 = off)
-JUDGEMENT_CFG = dict(slo_window_scale=0.002)
+# the prober's loop period: longer than any flow (the flow probes by hand)
+JUDGEMENT_CFG = dict(slo_window_scale=0.002, canary_period_s=86400.0)
 AVAILABILITY_PAGE = "notebook-availability-fast-burn"
 
 
@@ -233,8 +229,8 @@ class HttpReplica:
     the engine's `ttft_s` and result; a 429 or 503 reply is not "ok", which
     the router retries), `stats` reads /stats."""
 
-    def __init__(self, port, timeout):
-        self.url, self.timeout = f"http://127.0.0.1:{port}", timeout
+    def __init__(self, url, timeout):
+        self.url, self.timeout = url, timeout
         self._ids = itertools.count()
 
     def stats(self):
@@ -372,6 +368,53 @@ def alive(pids):
             and Path(f"/proc/{p}/stat").read_text().rsplit(")", 1)[-1].split()[0] != "Z"]
 
 
+def reconciler_of(mgr, cls):
+    """The manager's reconciler of class `cls`, as `build_manager` set it
+    up (a controller's reconciler is its bound `reconcile`)."""
+    return next(c.reconciler.__self__ for c in mgr.controllers
+                if isinstance(getattr(c.reconciler, "__self__", None), cls))
+
+
+def debug_get(endpoints, path, port="metrics"):
+    """One read of the manager's debug mux: (status, body, its bytes, its
+    seconds); the body is JSON where the route answers JSON."""
+    host, number = endpoints.metrics_address if port == "metrics" else endpoints.health_address
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://{host}:{number}{path}", timeout=30) as r:
+            status, raw, kind = r.status, r.read(), r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        status, raw, kind = e.code, e.read(), e.headers.get("Content-Type", "")
+    took = time.perf_counter() - t0
+    body = json.loads(raw) if kind.startswith("application/json") else raw.decode()
+    return status, body, len(raw), took
+
+
+# bad arguments the mux must answer with 400, one per route that takes them
+DEBUG_BAD_ARGS = ("/debug/traces?limit=x", "/debug/traces?limit=-1", "/debug/profile?limit=x",
+                  "/debug/profile?region=no-such-region", "/debug/reconciles?limit=-1",
+                  "/debug/reconciles?controller=no-such-controller", "/debug/accounting?class=no-such-class",
+                  "/debug/accounting?limit=x")
+
+
+def read_debug_mux(endpoints):
+    """The flow's reads of the manager's debug mux at its end: the health
+    port's /healthz and /readyz, /metrics, /debug, /debug/slo,
+    /debug/incidents (and each bundle), /debug/accounting,
+    /debug/reconciles, /debug/flowcontrol, /debug/profile and
+    /debug/traces?name=notebook.ready, then each of DEBUG_BAD_ARGS; each
+    read as `debug_get` returns it."""
+    out = {path: debug_get(endpoints, path, port="health") for path in ("/healthz", "/readyz")}
+    for path in ("/metrics", "/debug", "/debug/slo", "/debug/incidents", "/debug/accounting", "/debug/reconciles",
+                 "/debug/flowcontrol", "/debug/profile", "/debug/traces?name=notebook.ready"):
+        out[path] = debug_get(endpoints, path)
+    for incident in out["/debug/incidents"][1]["incidents"]:
+        path = f"/debug/incidents?id={incident['id']}"
+        out[path] = debug_get(endpoints, path)
+    out["bad args"] = {path: debug_get(endpoints, path)[0] for path in DEBUG_BAD_ARGS}
+    return out
+
+
 def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None, grace_s=15.0, timeout=120.0,
         released=lambda pids: True, while_serving=lambda: None, card_state=lambda: None, repair=None,
         promotion=None, job=None, resume=False):
@@ -403,18 +446,28 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     Config ticks in the manager and what it banked is returned
     ("accounting").
 
-    The manager runs as the reference's `build_manager` wires it: a
+    The manager is the one the port's `main.build_manager` builds (its
+    webhook registered in the store's admission chain), with a
     StatusCoalescer at Config's window, one NotebookMetrics shared by the
     notebook reconciler, the gate and the culler, and the judgement layer
-    in the order of its `_wire_observability`: an SLOEngine over
-    `default_slos()` at Config's window scale, an AlertManager over
-    `default_rules` that mirrors onto the notebooks and snapshots the
-    flight recorder, the slice-repair-in-progress inhibitor of the
-    readiness category, a CanaryProber (a CPU notebook in Config's canary
-    namespace, on a CPU node of its own, probed once before the first wave
-    and once at the end) and, with a cfg's `autoscale_period_s` above 0, a
-    ReplicaAutoscaler whose signals are the port's PodStatsSignals over the
-    endpoint's replicas (`endpoint_signals`). What it judged is returned ("judgement").
+    of its `_wire_observability`: an SLOEngine over `default_slos()` at
+    Config's window scale, an AlertManager over `default_rules` that
+    mirrors onto the notebooks and snapshots the flight recorder, the
+    slice-repair-in-progress inhibitor of the readiness category, a
+    CanaryProber (a CPU notebook in Config's canary namespace, on a CPU
+    node of its own; its loop probes once after the start, and the flow
+    probes it by hand before the first wave and at the end) and, with a
+    cfg's `autoscale_period_s` above 0, a ReplicaAutoscaler whose signals
+    are the port's PodStatsSignals at each replica's pod address. What it
+    judged is returned ("judgement"). The reconcilers it set up are tuned
+    through it (`reconciler_of`). Its debug mux is bound before its start
+    with CPPROFILE=1 over the flow; each notebook's readiness root is read
+    over /debug/traces as it closes and the mux is read at the end
+    ("debug", `read_debug_mux`). nb-denied is written through a RemoteStore
+    over TLS to an ApiServer in front of the store, whose admission calls
+    the HTTPS webhook through the MutatingWebhookConfiguration
+    (`build_remote_stack`, the deployed shape); the user's other writes go
+    to the store, whose admission chain runs the same webhook.
     `env` is the pods' base env (torch_dist.clean_env() with one OMP
     thread by default). `released(pids)` is what else must hold, after a
     culled pod's processes are stopped, before its card counts as free;
@@ -481,9 +534,12 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         return hook
 
     cluster = SimCluster().start()
-    mgr = Manager(cluster.store)
-    timeline = acct = None
+    mgr = timeline = acct = endpoints = None
+    teardown = []  # the wire stack's, undone in reverse
+    cpprofile_env = os.environ.get("CPPROFILE")
     try:
+        os.environ["CPPROFILE"] = "1"  # the control-plane profiler armed for the flow
+        cpprofile.reset()
         cluster.add_pod_behavior(pod_process_behavior(
             pod_command, str(log_dir), env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since,
             grace_s=grace_s, processes=processes, checkpoint_hook=checkpoint_hook, restore_hook=restore_hook,
@@ -493,38 +549,31 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                                  else None)
         cluster.add_gpu_pool("h100", "h100", "1x1")
         cluster.add_cpu_pool("cpu", nodes=1)
-        # the reference's build_manager: the status coalescer at Config's
-        # window, and one NotebookMetrics (its availability gauge is the
-        # notebook-availability SLO's) shared by the notebook controllers
-        mgr.status_coalescer = StatusCoalescer(mgr.client, window_s=config.status_coalesce_window_s)
-        mgr.add_service(mgr.status_coalescer)
-        metrics = NotebookMetrics(mgr.metrics, mgr.client)
-        NotebookWebhook(mgr.client, config).register(cluster.store)
-        NotebookReconciler(mgr, config, metrics=metrics).setup()
-        EventMirrorController(mgr).setup()
-        TPUWorkbenchReconciler(mgr, config).setup()
-        ProbeStatusController(mgr, config, http_get=cluster.http_get, metrics=metrics).setup()
-        CullingReconciler(mgr, config, http_get=cluster.http_get, metrics=metrics).setup()
-        slice_repair = SliceRepairController(mgr, config, http_get=cluster.http_get)
-        # the node signal alone: no second episode from the old agent going
-        # away, and the save may take the whole window
+        # the deployed admission shape in front of the store: a TLS
+        # ApiServer whose admission calls the HTTPS webhook through the
+        # MutatingWebhookConfiguration. nb-denied is written over it; the
+        # user's other writes go to the store, whose admission chain runs
+        # the same webhook (the smoke's time budget, PERF.md)
+        _, remote, _ = build_remote_stack(cluster.store, config, teardown)
+        wire = Client(remote)
+        # the operator's own composition root, its webhook in the store's
+        # admission chain
+        mgr = build_manager(cluster.store, config, http_get=cluster.http_get)
+        # tuned through what it wired: the node signal alone (no second
+        # episode from the old agent going away, and the save may take the
+        # whole window); suspend off until the suspend episode (the waves'
+        # culls tear their slices down)
+        slice_repair = reconciler_of(mgr, SliceRepairController)
         slice_repair.unreachable_dwell_s = 3600.0
         slice_repair.CHECKPOINT_TIMEOUT_S = config.checkpoint_window_s
-        slice_repair.setup()
-        # suspend is off in its controller until the suspend episode: the
-        # waves' culls tear their slices down
-        suspender = SuspendResumeController(mgr, dataclasses.replace(config, suspend_enabled=False),
-                                            http_get=cluster.http_get)
-        suspender.setup()
-        InferenceEndpointReconciler(mgr, config, http_get=cluster.http_get).setup()
-        TPUJobReconciler(mgr, config, http_get=cluster.http_get).setup()
-        judged = Judgement(mgr, config, lambda pod: serving_ready(str(pod_dir(pod))))
-        if config.accounting_period_s > 0:
-            acct = accounting.ChipAccountant(mgr.client, period_s=config.accounting_period_s,
-                                             idle_after_s=config.accounting_idle_after_s)
-            accounting.set_current(acct)
-            mgr.add_service(acct)
+        suspender = reconciler_of(mgr, SuspendResumeController)
+        suspender.config = dataclasses.replace(config, suspend_enabled=False)
+        judged = Judgement(mgr)
+        acct = getattr(mgr, "accountant", None)
+        if acct is not None:
             accounting_before = {r: accounting.tpu_accounting_ticks_total.value(result=r) for r in ("ok", "error")}
+        # the debug mux, bound before the start as main() binds it
+        endpoints = mgr.serve_endpoints(metrics_port=0, health_port=0, host="127.0.0.1")
         mgr.start()
         timeline = Timeline(cluster.store)
         judged.started()
@@ -772,7 +821,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                                           if p.idle_s else None)
             ep.spec.template.spec.containers = [Container(name=p.name, image="serving", env=[
                 EnvVar(name="SERVING_MODEL_CONFIG", value=json.dumps(p.model_config)),
-                EnvVar(name="SERVING_DEVICE", value=p.device), EnvVar(name="SERVING_PORT", value="0")])]
+                EnvVar(name="SERVING_DEVICE", value=p.device)])]
             pe["created"] = time.time()
             pe["decisions at create"] = judged.decisions()
             cluster.client.create(ep)
@@ -797,6 +846,9 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 return state() == "serving" and serving_ready(str(ctl))
 
             pe["ready"] = wait(serving_up, f"{p.name} Serving")
+            # where a cluster routes to the replica: the pod's IP and its serving port
+            pe["address"] = wait(lambda: serving_address(cluster.client.get(Pod, NS, served_pod.metadata.name)),
+                                 f"{p.name}'s pod address")
             # the route and the status mirror follow the state's write
             serving_ep = wait(lambda: (e := endpoint()).status.url and e, f"{p.name}'s status.url")
             pe["url"] = serving_ep.status.url
@@ -811,7 +863,7 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
 
             def send(i, prompt, max_new):
                 body = json.dumps({"prompt": prompt, "max_new": max_new}).encode()
-                req = urllib.request.Request(f"http://127.0.0.1:{pe['ready']['port']}/generate", data=body,
+                req = urllib.request.Request(f"{pe['address']}/generate", data=body,
                                              headers={"Content-Type": "application/json"})
                 sent = time.time()
                 try:
@@ -998,7 +1050,9 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                         and serving_ready(str(pod_dir(new))))
 
             ae["ready"] = wait(woken_up, f"{p.name} woken to Serving")
-            router.add_replica(0, HttpReplica(ae["ready"]["port"], timeout))
+            ae["address"] = wait(lambda: serving_address(cluster.client.get(Pod, NS, new.metadata.name)),
+                                 f"{p.name}'s woken pod address")
+            router.add_replica(0, HttpReplica(ae["address"], timeout))
             ae["joined"] = time.time()
             joined.set()
             for t in threads:
@@ -1236,14 +1290,16 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
             return je
 
         seen = {"turns": [], "gate period": config.readiness_probe_period_s}
+        debug_roots = {}  # notebook -> its root read over the debug mux
         name, accelerator, topology = DENIED
         state = card_state()
         try:
-            cluster.client.create(new_notebook(name, accelerator, topology))
+            denied_at = time.time()
+            wire.create(new_notebook(name, accelerator, topology))
             raise AssertionError(f"{name}'s slice {accelerator} {topology} was admitted")
         except AdmissionDeniedError as e:
             seen["denied"] = {"name": name, "error": str(e), "left": owned_by(name),
-                              "card": (state, card_state())}
+                              "card": (state, card_state()), "wall": time.time() - denied_at}
         judged.probe(card_state)
         for wave in waves:
             if repair in wave:
@@ -1279,6 +1335,8 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
                 got["root"] = wait(lambda: timeline.root(trace_id),
                                    lambda: f"{name}'s notebook.ready root (admitted with trace {trace_id!r}; now "
                                    f"{root_state(name)})")
+                # the root over the debug mux, while the span ring holds it
+                debug_roots[name] = debug_get(endpoints, f"/debug/traces?name=notebook.ready&trace_id={trace_id}")
                 got["while running"] = owned_by(name)
                 # the agent's readiness edges, as its device view saw them
                 got["agent ready"] = [r["ready"] for r in timeline.records("probe-agent")
@@ -1334,62 +1392,60 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         while AVAILABILITY_PAGE in judged.alerts.firing and time.monotonic() < deadline:
             time.sleep(0.05)
         seen["judgement"] = dict(judged.result(), slo_log=timeline.slo_conditions())
+        seen["debug"] = dict(read_debug_mux(endpoints), roots=debug_roots,
+                             snapshot=acct.snapshot() if acct is not None else None,
+                             reconciled=sorted(c.name for c in mgr.controllers if c.reconcile_count))
         return seen
     finally:
         if acct is not None:
             accounting.set_current(None)
         if timeline is not None:
             timeline.stop()
-        mgr.stop()
+        if endpoints is not None:
+            endpoints.stop()
+        if mgr is not None:
+            mgr.stop()
+        for undo in reversed(teardown):
+            undo()
         cluster.stop()
+        if cpprofile_env is None:
+            os.environ.pop("CPPROFILE", None)
+        else:
+            os.environ["CPPROFILE"] = cpprofile_env
 
 
 class Judgement:
-    """The judgement layer over the flow's manager, wired as the reference's
-    `main._wire_observability` wires it, and what it judged.
+    """What the judgement layer that `build_manager` wired
+    (`main._wire_observability`) judged over the flow. The layer is the
+    manager's own: the SLO engine, the alert manager, the canary prober and
+    the replica autoscaler (`mgr.slo_engine`, `mgr.alert_manager`,
+    `mgr.prober`, `mgr.autoscaler`). The flow only observes it: it listens
+    to the alert manager's transitions, keeps each autoscaler tick's signals
+    (the wired `PodStatsSignals`, each replica's /stats at the pod's
+    address) beside the reference's default ones (`samples`), and probes
+    the canary by hand at two points (`probe`). The prober's own loop runs
+    at Config's canary period, longer than any flow: it makes one probe a
+    second after the start, which `started` waits out, so no hand probe
+    overlaps one of its own."""
 
-    `serving_of(pod)` is the serving process's report of an endpoint pod
-    (its port), None until it listens. The autoscaler's signals are the
-    port's PodStatsSignals over each replica's /stats at that port: the
-    engine serves in the pod's own process, where the operator's registry
-    cannot see it. Each tick's signals are kept beside the reference's
-    default ones (`samples`)."""
-
-    def __init__(self, mgr, config, serving_of):
-        self.mgr, self.config, self.serving_of = mgr, config, serving_of
-        slos = default_slos()
-        self.engine = SLOEngine(registry=mgr.metrics, slos=slos, window_scale=config.slo_window_scale,
-                                eval_period_s=config.slo_eval_period_s or None)
-        self.alerts = AlertManager(rules=default_rules(slos), manager=mgr, recorder=recorder)
-        # the inhibition contract: an active repair explains degraded
-        # readiness; the availability page stays live
-        self.alerts.register_inhibitor("readiness", lambda: telemetry.slice_repairs_in_progress.value() > 0,
-                                       name="slice-repair-in-progress")
-        self.engine.add_listener(self.alerts.evaluate)
+    def __init__(self, mgr):
+        self.mgr = mgr
+        self.engine, self.alerts, self.prober = mgr.slo_engine, mgr.alert_manager, mgr.prober
         self.alerts.add_listener(self._on_alert)
-        mgr.slo_engine, mgr.alert_manager, mgr.flight_recorder = self.engine, self.alerts, recorder
-        mgr.add_service(self.engine)
-        # probed by hand at the flow's two points (`probe`), its loop not started
-        self.prober = CanaryProber(mgr, timeout_s=config.canary_timeout_s, namespace=config.canary_namespace,
-                                   accelerator=config.canary_accelerator, topology=config.canary_topology)
-        mgr.prober = self.prober
-        self.autoscaler = None
-        if config.autoscale_period_s > 0:
-            self.pod_signals = PodStatsSignals(mgr, lambda pod: (ready := serving_of(pod))
-                                               and f"http://127.0.0.1:{ready['port']}")
-            self.autoscaler = ReplicaAutoscaler(mgr, period_s=config.autoscale_period_s,
-                                                stabilization_s=config.autoscale_stabilization_s,
-                                                idle_s=config.autoscale_idle_s, signals_fn=self.endpoint_signals)
-            mgr.autoscaler = self.autoscaler
-            mgr.add_service(self.autoscaler)
+        self.autoscaler = getattr(mgr, "autoscaler", None)
+        if self.autoscaler is not None:
+            self.pod_signals = self.autoscaler.signals_fn
+            self.autoscaler.signals_fn = self.endpoint_signals
         self._lock = threading.Lock()
         self.transitions = []  # (time, "fired" | "resolved", alert, what the flow read of its mirror)
-        self.samples = []  # (time, endpoint state, the flow's signals, the reference's default signals)
+        self.samples = []  # (time, endpoint state, the wired signals, the reference's default signals)
         self.canaries = []
         self.at_start = None
 
     def started(self):
-        """What the layer had counted when the manager started."""
+        """Waits out the prober loop's first probe; what the layer had
+        counted then."""
+        wait_for(lambda: self.prober.probes_run >= 1, 60, "the canary prober's first probe")
         self.at_start = {"evaluations": slo_evaluations_total.value(), "events": self._events(),
                          "canary": {r: canary_probes_total.value(result=r) for r in ("ok", "timeout", "error")},
                          "decisions": self.decisions(), "inhibited": self._inhibited(), "t": time.time()}
@@ -1460,8 +1516,8 @@ class Judgement:
     # -- the autoscaler's signals --
 
     def endpoint_signals(self, ep):
-        """The port's PodStatsSignals, kept beside the reference's default
-        signals at each tick."""
+        """The wired signals (the port's PodStatsSignals), kept beside the
+        reference's default signals at each tick."""
         ours = self.pod_signals(ep)
         with self._lock:
             self.samples.append((time.time(), ep.metadata.annotations.get(C.INFERENCE_STATE_ANNOTATION, ""), ours,
@@ -2043,6 +2099,61 @@ def check_accounting(acct):
     assert acct["attributed nodes"] == acct["gpu nodes"], acct
 
 
+def check_debug_mux(seen):
+    """The debug mux's gates (CPPROFILE=1 over the flow): /healthz and /readyz 200; /metrics with the notebook families,
+    slo_evaluations_total, the autoscaler's decisions (a park among them
+    where the endpoint was parked) and, with the accountant, the
+    tpu_chip_seconds_* families; /debug/slo with every default SLO judged
+    and the availability page not firing; /debug/incidents with the
+    repaired notebook's slice-degraded bundle carrying its cpprofile block
+    (and its accounting block, with the accountant); /debug/accounting
+    equal to the accountant's own snapshot, conserved within 1%; each
+    notebook's readiness root over /debug/traces as it closed;
+    /debug/reconciles naming every controller that reconciled; every bad
+    argument a 400 (/debug/accounting's a 404 without an accountant)."""
+    d = seen["debug"]
+    assert d["/healthz"][0] == d["/readyz"][0] == 200, (d["/healthz"], d["/readyz"])
+    status, metrics, _, _ = d["/metrics"]
+    families = {line.split()[2] for line in metrics.splitlines() if line.startswith("# TYPE ")}
+    want = {"notebook_create_total", "notebook_culling_total", "notebook_running_total", "notebook_available_ratio",
+            "slo_evaluations_total", "autoscaler_decisions_total"}
+    assert status == 200 and want <= families, sorted(want - families)
+    if any("autoscale" in seen[n].get("promotion", {}) for n in seen["turns"]):
+        assert re.search(r'^autoscaler_decisions_total\{action="park"\} [1-9]', metrics, re.M), \
+            [line for line in metrics.splitlines() if line.startswith("autoscaler_decisions_total")]
+    status, slo, _, _ = d["/debug/slo"]
+    assert status == 200 and set(slo["engine"]["slos"]) == {s.name for s in default_slos()}, slo["engine"]
+    assert AVAILABILITY_PAGE not in [a["rule"] for a in slo["alerts"]["firing"]], slo["alerts"]["firing"]
+    status, listing, _, _ = d["/debug/incidents"]
+    assert status == 200
+    repaired = [n for n in seen["turns"] if "repair" in seen[n]]
+    for name in repaired:
+        ids = [i["id"] for i in listing["incidents"] if (i["reason"], i["subject"]) == ("slice-degraded", f"{NS}/{name}")]
+        assert ids, listing
+        status, bundle, _, _ = d[f"/debug/incidents?id={ids[0]}"]
+        assert status == 200 and (bundle.get("cpprofile") or {}).get("controllers"), sorted(bundle)
+        if "accounting" in seen:
+            assert bundle["accounting"]["ticks"] > 0, bundle.get("accounting")
+    if "accounting" in seen:
+        status, served, _, _ = d["/debug/accounting"]
+        assert status == 200 and served["ticks"] == d["snapshot"]["ticks"] > 0, (served["ticks"], d["snapshot"])
+        assert served["chip_seconds"] == d["snapshot"]["chip_seconds"], (served, d["snapshot"])
+        assert abs(served["chip_seconds"]["residual_ratio"]) <= 0.01, served["chip_seconds"]
+    for name in seen["turns"]:
+        status, traces, _, _ = d["roots"][name]
+        roots = traces["spans"]
+        assert status == 200 and len(roots) == 1 and roots[0]["name"] == "notebook.ready", (name, traces)
+        assert roots[0]["trace_id"] == seen[name]["root"][0]["trace_id"], (name, roots)
+    status, reconciles, _, _ = d["/debug/reconciles"]
+    assert status == 200 and reconciles["enabled"] and set(d["reconciled"]) <= set(reconciles["controllers"]), \
+        (d["reconciled"], sorted(reconciles["controllers"]))
+    # with no accountant (the manager's, or the process's current one)
+    # /debug/accounting answers 404 whatever its arguments
+    no_accountant = d["/debug/accounting"][0] == 404
+    want = {path: 404 if path.startswith("/debug/accounting") and no_accountant else 400 for path in d["bad args"]}
+    assert d["bad args"] == want, d["bad args"]
+
+
 def check(seen, device, chips_expected=1, gate_waits=False):
     """The assertions every caller makes on run()'s result (and, for a
     repaired notebook, `check_repair`'s). `gate_waits`:
@@ -2051,7 +2162,8 @@ def check(seen, device, chips_expected=1, gate_waits=False):
     mesh-ready before its worker's CUDA context, less one gate period."""
     period = seen["gate period"]
     denied = seen["denied"]
-    assert denied["error"].startswith("spec.tpu invalid: "), denied
+    # over the wire: the webhook's message in the Status body
+    assert "denied the request: spec.tpu invalid: " in denied["error"], denied
     assert denied["left"] == denied["left at the end"] == [], denied
     assert denied["card"][0] == denied["card"][1], denied
     turns = seen["turns"]
@@ -2106,6 +2218,7 @@ def check(seen, device, chips_expected=1, gate_waits=False):
     check_judgement(seen)
     if "job" in seen:
         check_job(seen["job"], period, gate_waits)
+    check_debug_mux(seen)
     if "accounting" in seen:
         check_accounting(seen["accounting"])
         if "job" in seen:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 15 alone on one NVIDIA Hopper card: the kernels
-built from this checkout, then `chip_smoke.operator_phase` (the port's
-operator on a SimCluster with one h100 1x1 node, behind the admission
-webhook and beside the workbench extension: an unplannable Notebook denied
-at admission, then three Notebook CRs, each pod a `torchrun` serving the
+built from this checkout, then `chip_smoke.operator_phase` (the operator
+the port's `main.build_manager` builds, on a SimCluster with one h100 1x1
+node, its debug mux read at the end with CPPROFILE=1, a TLS API server
+whose admission calls the HTTPS webhook in front of its store: an
+unplannable Notebook written over it and denied over HTTPS, then three Notebook CRs, each pod a `torchrun` serving the
 flagship beside a NotebookAgent over the card's CudaMonitor, which counts
 the cards on which the pod's processes hold a CUDA context, each culled,
 its card freed and the notebook deleted in turn; nb-2's node preempted
