@@ -498,7 +498,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    budgets (120 s for the phase less the episodes, 45 s for the repair
    episode, PROMOTION_BUDGET_S for the suspend and the promotion less the
    park and the wake, AUTOSCALE_BUDGET_S for the park and the wake,
-   RESUME_JOB_BUDGET_S for the job with nb-2's resume).
+   RESUME_JOB_BUDGET_S for the job with nb-2's resume). The deploy
+   surface: before the flow, the port's four overlays
+   (odh_kubeflow_tpu_torch.deploy: base, standalone, gke, dev) are built
+   and rendered by its own YAML emitter and must equal the committed tree
+   in the package (deploy/tree/) byte for byte (printed: each overlay's
+   objects and bytes, and the time taken); over the whole flow the port's
+   DEPLOYGUARD is armed, so every call of the manager's flows is held
+   against the ClusterRole its generated manifests grant (a drift raised
+   inside a reconcile may be swallowed by the controller's error path:
+   the gate is the guard's drift count, 0). At the end the recorded
+   surface is dumped as the guard's artifact and the rbac-coverage
+   checker runs over the port's package with it: no call the ClusterRole
+   does not grant (gated); its stale-rule findings (a granted rule that
+   neither the package's code nor the surface uses) are printed, not
+   gated. Printed: the surface's distinct (flow, verb, kind, subresource)
+   tuples, how many are on the manager's flows, each flow's, and the
+   granted (group, resource) pairs that no manager call of the run
+   touched (one flow does not run every controller's every verb).
 
 Every phase prints its time when it ends, and the end a line of them all.
 
@@ -4668,6 +4685,7 @@ def _operator_phase(attention, smi, out_root):
     from odh_kubeflow_tpu_torch.probe.behavior import cuda_monitor
 
     t_phase = time.perf_counter()
+    _operator_overlays(smi)
     env = {k: v for k, v in torch_dist.clean_env().items() if k != "PYTHONDONTWRITEBYTECODE"}
     env["PYTHONPYCACHEPREFIX"] = str(out_root / "pycache")  # the pods' launches share one bytecode directory
     apps_before = flow.compute_app_pids()
@@ -4789,6 +4807,7 @@ def _operator_phase(attention, smi, out_root):
     _operator_accounting(seen["accounting"], smi)
     _operator_judgement(seen, smi)
     _operator_debug(seen, smi)
+    _operator_deployguard(seen, out_root, smi)
     took = time.perf_counter() - t_phase
     episode = seen[OPERATOR_REPAIR]["repair"]["wall"]
     autoscaled = seen[OPERATOR_REPAIR]["promotion"]["autoscale"]["wall"]
@@ -4986,6 +5005,83 @@ def _operator_judgement(seen, smi):
                       else "no events") for name, c in j["compliance"].items())
         + f"; the coalescer {j['coalescer']['writes']} writes, {j['coalescer']['coalesced']} patches merged; "
         f"autoscaler decisions {j['decisions']}; {smi}", flush=True)
+
+
+def _operator_overlays(smi):
+    """Phase 15's deploy tree: the port's four overlays built with the
+    tree's params.env and rendered here (no PyYAML on this machine: the
+    port's own emitter) must equal the tree committed in its package, byte
+    for byte."""
+    from odh_kubeflow_tpu_torch import deploy
+    from odh_kubeflow_tpu_torch.deploy.__main__ import TREE
+
+    t0 = time.perf_counter()
+    with open(os.path.join(TREE, "params.env")) as f:
+        params = deploy.load_params(f.read())  # as `generate` builds the tree
+    built = {}
+    for name in sorted(deploy.OVERLAYS):
+        manifests = deploy.build(name, params)
+        text = deploy.render_yaml(manifests)
+        rel = "base" if name == "base" else os.path.join("overlays", name)
+        with open(os.path.join(TREE, rel, "manifests.yaml")) as f:
+            if f.read() != text:
+                fail(f"phase 15: the {name} overlay built here differs from the committed "
+                     f"odh_kubeflow_tpu_torch/deploy/tree/{rel}/manifests.yaml")
+        built[name] = (len(manifests), len(text.encode()))
+    took = time.perf_counter() - t0
+    print("  deploy tree: the port's overlays built and rendered, each equal to the committed tree byte for byte: "
+          + "; ".join(f"{n} {k} objects, {b} B" for n, (k, b) in built.items())
+          + f"; {took * 1e3:.1f} ms in all; {smi}", flush=True)
+
+
+def _operator_deployguard(seen, out_root, smi):
+    """Phase 15 under DEPLOYGUARD, past torch_operator_flow.check_deployguard's
+    gates (no drift; the rbac-coverage checker over the port's package,
+    given the dumped surface, finds no ungranted call): the surface
+    printed, and the checker's stale-rule findings, ungated."""
+    import torch_operator_flow as flow
+    from odh_kubeflow_tpu_torch.analysis import deploysurface
+
+    t0 = time.perf_counter()
+    artifact = out_root / "deploy-surface.json"
+    try:
+        stale = flow.check_deployguard(seen, artifact)
+    except AssertionError as e:
+        fail(f"phase 15: DEPLOYGUARD: {e}")
+    took = time.perf_counter() - t0
+    surface = seen["deployguard"]["surface"]
+    manager = [t for t in surface if t[0] in deploysurface.MANAGER_FLOWS]
+    by_flow = {}
+    for f, method, kind, sub in manager:
+        by_flow.setdefault(f, []).append(f"{method} {kind}")
+    from odh_kubeflow_tpu_torch.cluster.flowcontrol import LEADER_ELECTION_FLOW
+
+    # the elector's Lease calls run under the manager's ServiceAccount too
+    untouched = _untouched_rbac(manager + [t for t in surface if t[0] == LEADER_ELECTION_FLOW])
+    print(f"  DEPLOYGUARD over the flow: drifts {seen['deployguard']['drifts']}; {len(surface)} distinct (flow, verb, "
+          f"kind, subresource) tuples, {len(manager)} on the manager's flows ({len(by_flow)} flows), the rest the "
+          f"sim actors' and the flow's own clients (record-only); artifact {artifact.stat().st_size} B; rbac-coverage "
+          f"with it over the port's package: 0 ungranted calls, {len(stale)} rules that neither the code nor the "
+          f"surface uses {[f.message.split(' but ')[0] for f in stale]} (printed, not gated); {took:.1f} s; {smi}",
+          flush=True)
+    print(f"  DEPLOYGUARD: {len(untouched)} of the ClusterRole's {len(deploysurface.declared_rbac())} granted "
+          f"(group, resource) pairs no manager call of this run touched (its informers' list/watch are not calls): "
+          + ", ".join(f"{g or 'core'}/{r}" for g, r in untouched), flush=True)
+    print("  DEPLOYGUARD manager surface: " + "; ".join(
+        f"{f}: {', '.join(sorted(calls))}" for f, calls in sorted(by_flow.items())), flush=True)
+
+
+def _untouched_rbac(manager):
+    """The ClusterRole's granted (apiGroup, resource) pairs that none of
+    the (flow, method, kind, subresource) calls in `manager` needs."""
+    from odh_kubeflow_tpu_torch.analysis import deploysurface
+
+    touched = set()
+    for _, method, kind, _ in manager:
+        need = deploysurface.required_rbac(method, kind)
+        if need is not None:
+            touched.add(need[:2])
+    return sorted(set(deploysurface.declared_rbac()) - touched)
 
 
 def _operator_debug(seen, smi):

@@ -17,6 +17,7 @@ from ..apimachinery import (
     TooManyRequestsError,
     default_scheme,
 )
+from ..utils import deployguard
 from .store import Store
 
 T = TypeVar("T", bound=KubeObject)
@@ -87,6 +88,13 @@ class Client:
         method: str = "",
     ) -> T:
         """Run a store op, honoring 429 Retry-After with bounded retries."""
+        # DEPLOYGUARD (utils/deployguard.py): when armed, every call reports
+        # its (flow, method, kind) BEFORE dispatch — a request exceeding the
+        # declared RBAC for a manager flow raises RBACDriftError right here,
+        # at the offending call. Off: one attribute check, nothing else.
+        guard = deployguard.ACTIVE
+        if guard is not None and method:
+            guard.observe(self._flow(), method, kind)
         # API priority & fairness, sim mode: a Store carrying a FlowController
         # (cluster/flowcontrol.py) admits every typed-client op at the
         # caller's priority level before it reaches the store — the

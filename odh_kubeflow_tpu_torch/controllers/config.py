@@ -5,7 +5,8 @@ config/flag system); this build centralizes them in one dataclass whose
 from_env() reads the same env names the reference uses, so deployment
 manifests translate directly. The control-plane profiler is armed by
 CPPROFILE=1 (runtime/cpprofile.py reads it at each hook), as in the
-reference."""
+reference. ENV_CONTRACT, at the end, declares every environment knob the
+port reads."""
 from __future__ import annotations
 
 import os
@@ -19,15 +20,30 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.strip().lower() in ("1", "true", "yes", "on")
 
 
+@dataclass(frozen=True)
+class EnvKnob:
+    """One declared environment knob — the env half of the deployment-surface
+    contract (analysis/deploysurface.py). The env-contract checker
+    (analysis/checkers/deploylint.py) proves every os.environ read
+    package-wide resolves to an entry here, that every entry has a live
+    reader, and that manifest=True knobs ride the generated Deployment env
+    stanza / culler ConfigMap (deploy/manifests.py)."""
+
+    name: str
+    default: str
+    consumer: str  # module that reads it
+    doc: str
+    # True: the generated manifests must carry this knob (and vice versa)
+    manifest: bool = False
+
+
 @dataclass
 class Config:
     """The fields that the port's controllers, webhook, extension, chip
-    accountant, pool prewarmer, status coalescer and judgement layer (the
-    SLO engine, the canary prober, the replica autoscaler) read. The JAX
-    package's Config also holds the router's knobs, the switches that only
-    its main.py reads (the SLO layer on or off, the canary's period) and
-    the deployment-surface env table; each comes back with the code that
-    reads it."""
+    accountant, pool prewarmer, status coalescer, judgement layer and
+    main.py read. The reference's Config also holds the token router's
+    knobs, which come back with a main.py that builds a router. The pool
+    prewarmer's default shape is the port's own (h100 1x4)."""
 
     # core reconciler (reference notebook_controller.go:238,514,576-599)
     cluster_domain: str = "cluster.local"
@@ -290,3 +306,212 @@ class Config:
                 0.0, float(os.environ["ACCOUNTING_IDLE_AFTER_S"])
             )
         return c
+
+
+# ---------------------------------------------------------------------------
+# ENV_CONTRACT: every environment knob the port reads, declared once.
+# The env-contract checker fails on undeclared reads and dead entries;
+# keep consumer/doc accurate — they are the operator-facing registry.
+# ---------------------------------------------------------------------------
+
+ENV_CONTRACT: tuple = (
+    # -- manager config (this module, Config.from_env) --
+    EnvKnob("CLUSTER_DOMAIN", "cluster.local", "controllers/config.py",
+            "cluster DNS suffix for service URLs"),
+    EnvKnob("ADD_FSGROUP", "true", "controllers/config.py",
+            "inject pod fsGroup for notebook volumes"),
+    EnvKnob("ENABLE_CULLING", "false", "controllers/config.py",
+            "enable the idle-culling controller", manifest=True),
+    EnvKnob("CULL_IDLE_TIME", "1440", "controllers/config.py",
+            "idle minutes before a notebook is culled", manifest=True),
+    EnvKnob("IDLENESS_CHECK_PERIOD", "1", "controllers/config.py",
+            "minutes between idleness probes", manifest=True),
+    EnvKnob("TPU_IDLE_THRESHOLD", "0.05", "controllers/config.py",
+            "device duty cycle below which a slice counts idle", manifest=True),
+    EnvKnob("DEV", "false", "controllers/config.py",
+            "dev mode: relax webhook/cert requirements"),
+    EnvKnob("NOTEBOOK_GATEWAY_NAME", "data-science-gateway",
+            "controllers/config.py", "Gateway routes attach to"),
+    EnvKnob("NOTEBOOK_GATEWAY_NAMESPACE", "openshift-ingress",
+            "controllers/config.py", "namespace of the Gateway"),
+    EnvKnob("K8S_NAMESPACE", "tpu-notebooks-system", "controllers/config.py",
+            "the manager's own namespace", manifest=True),
+    EnvKnob("AUTH_PROXY_IMAGE", "kube-rbac-proxy:latest",
+            "controllers/config.py",
+            "kube-rbac-proxy sidecar image for oauth workbenches",
+            manifest=True),
+    EnvKnob("SET_PIPELINE_RBAC", "false", "controllers/config.py",
+            "grant pipeline RBAC per workbench namespace"),
+    EnvKnob("SET_PIPELINE_SECRET", "false", "controllers/config.py",
+            "mirror the elyra pipeline secret per workbench"),
+    EnvKnob("INJECT_CLUSTER_PROXY_ENV", "false", "controllers/config.py",
+            "inject cluster-wide proxy env into notebooks"),
+    EnvKnob("PROBE_BREAKER_THRESHOLD", "3", "controllers/config.py",
+            "consecutive probe failures before the circuit opens"),
+    EnvKnob("PROBE_BREAKER_COOLDOWN_S", "30", "controllers/config.py",
+            "probe circuit-breaker cooldown seconds"),
+    EnvKnob("READINESS_PROBE_PERIOD_S", "10", "controllers/config.py",
+            "device-visibility readiness poll period"),
+    EnvKnob("CHECKPOINT_WINDOW_S", "30", "controllers/config.py",
+            "checkpoint-before-evict window for degraded slices"),
+    EnvKnob("REPAIR_MAX_ATTEMPTS", "6", "controllers/config.py",
+            "re-placement attempts before RepairFailed"),
+    EnvKnob("REPAIR_BACKOFF_S", "1", "controllers/config.py",
+            "base repair retry backoff"),
+    EnvKnob("REPAIR_BACKOFF_MAX_S", "30", "controllers/config.py",
+            "repair retry backoff cap"),
+    EnvKnob("ENABLE_SUSPEND", "false", "controllers/config.py",
+            "cull GPU notebooks into the warm slice pool"),
+    EnvKnob("SUSPEND_CHECKPOINT_WINDOW_S", "15", "controllers/config.py",
+            "checkpoint-before-suspend window"),
+    EnvKnob("RESUME_TIMEOUT_S", "60", "controllers/config.py",
+            "per-attempt resume-to-mesh-ready timeout"),
+    EnvKnob("RESUME_MAX_ATTEMPTS", "6", "controllers/config.py",
+            "resume attempts before ResumeFailed"),
+    EnvKnob("CHIP_BUDGET", "0", "controllers/config.py",
+            "oversubscription budget in cards (also read by utils/invcheck)"),
+    EnvKnob("RECLAIM_PENDING_GRACE_S", "1", "controllers/config.py",
+            "unschedulable grace before reclaim acts"),
+    EnvKnob("POOL_PREWARM", "0", "controllers/config.py",
+            "warm slices to keep ahead of demand"),
+    EnvKnob("POOL_PREWARM_ACCELERATOR", "h100", "controllers/config.py",
+            "accelerator type of pre-warmed slices"),
+    EnvKnob("POOL_PREWARM_TOPOLOGY", "1x4", "controllers/config.py",
+            "topology of pre-warmed slices"),
+    EnvKnob("SERVING_LOADING_WINDOW_S", "30", "controllers/config.py",
+            "InferenceEndpoint Loading window before LoadFailed"),
+    EnvKnob("SERVING_DRAIN_TIMEOUT_S", "5", "controllers/config.py",
+            "default endpoint drain window (also serving/__main__)"),
+    EnvKnob("JOB_CHECKPOINT_WINDOW_S", "10", "controllers/config.py",
+            "TPUJob (the batch kind) checkpoint window"),
+    EnvKnob("JOB_REQUEUE_BACKOFF_S", "2", "controllers/config.py",
+            "preempted-job requeue backoff"),
+    EnvKnob("JOB_ADMISSION_TIMEOUT_S", "120", "controllers/config.py",
+            "gang-bind timeout before a job parks and requeues"),
+    EnvKnob("SLO_ENABLED", "true", "controllers/config.py",
+            "run the SLO engine"),
+    EnvKnob("SLO_WINDOW_SCALE", "1", "controllers/config.py",
+            "shrink factor for burn-rate windows in soaks"),
+    EnvKnob("SLO_EVAL_PERIOD_S", "0", "controllers/config.py",
+            "SLO evaluation period (0 = derive from scale)"),
+    EnvKnob("STATUS_COALESCE_WINDOW_S", "0.05", "controllers/config.py",
+            "status-write coalescing window (0 disables)"),
+    EnvKnob("CANARY_PERIOD_S", "0", "controllers/config.py",
+            "canary probe period (0 disables; also gates main.py wiring)"),
+    EnvKnob("CANARY_TIMEOUT_S", "120", "controllers/config.py",
+            "canary round-trip timeout"),
+    EnvKnob("CANARY_NAMESPACE", "slo-canary", "controllers/config.py",
+            "namespace canary notebooks land in"),
+    EnvKnob("CANARY_ACCELERATOR", "", "controllers/config.py",
+            "canary accelerator ('' = CPU canary)"),
+    EnvKnob("CANARY_TOPOLOGY", "", "controllers/config.py",
+            "canary slice topology"),
+    EnvKnob("AUTOSCALE_PERIOD_S", "0", "controllers/config.py",
+            "replica-autoscaler sweep period (0 disables; also gates "
+            "main.py wiring)"),
+    EnvKnob("AUTOSCALE_STABILIZATION_S", "30", "controllers/config.py",
+            "default scale-down stabilization window (flap damping)"),
+    EnvKnob("AUTOSCALE_IDLE_S", "120", "controllers/config.py",
+            "default idle window before scale-to-zero parks an endpoint"),
+    EnvKnob("ACCOUNTING_PERIOD_S", "1", "controllers/config.py",
+            "chip-time accountant tick period (0 disables; also gates "
+            "main.py wiring)"),
+    EnvKnob("ACCOUNTING_IDLE_AFTER_S", "300", "controllers/config.py",
+            "activity staleness before bound chips count idle-bound"),
+    EnvKnob("MAX_CONCURRENT_RECONCILES", "4", "controllers/config.py",
+            "worker threads per controller"),
+    # -- manager process wiring (main.py) --
+    EnvKnob("LOG_FORMAT", "text", "main.py", "text or json log output"),
+    EnvKnob("KUBERNETES_SERVICE_HOST", "", "main.py",
+            "in-cluster apiserver host (also cluster/remote.py)"),
+    EnvKnob("KUBERNETES_SERVICE_PORT", "443", "cluster/remote.py",
+            "in-cluster apiserver port"),
+    EnvKnob("KUBECONFIG", "", "main.py",
+            "out-of-cluster kubeconfig path (also cluster/remote.py)"),
+    EnvKnob("KUBE_API_QPS", "20", "main.py",
+            "client-side rate limit for the remote transport"),
+    EnvKnob("KUBE_API_BURST", "30", "main.py",
+            "client-side burst for the remote transport"),
+    EnvKnob("WEBHOOK_CERT_DIR", "/tmp/k8s-webhook-server/serving-certs",
+            "main.py", "webhook TLS cert directory"),
+    EnvKnob("WEBHOOK_PORT", "9443", "main.py", "webhook listen port"),
+    EnvKnob("METRICS_PORT", "8080", "main.py", "metrics listen port"),
+    EnvKnob("HEALTH_PORT", "8081", "main.py", "health listen port"),
+    # -- probe agent (runs in the notebook pod, not the manager) --
+    EnvKnob("NB_PROBE_PORT", "8889", "probe/__main__.py",
+            "probe agent listen port"),
+    EnvKnob("NB_TPU_CHIPS_EXPECTED", "0", "probe/agent.py",
+            "cards the agent expects to see locally"),
+    EnvKnob("NB_TPU_HOSTS", "1", "probe/agent.py",
+            "hosts in the slice gang"),
+    EnvKnob("JAX_PROCESS_ID", "0", "probe/agent.py",
+            "the webhook's process index (also parallel/distributed.py)"),
+    EnvKnob("TPU_RUNTIME_METRICS_PORTS", "", "probe/agent.py",
+            "device runtime metrics ports to scrape (the reference's name)"),
+    EnvKnob("HOSTNAME", "", "probe/agent.py",
+            "pod hostname for ordinal derivation"),
+    # -- the slice a pod belongs to (gpu/topology.py slice_from_env; the
+    # webhook renders them into the pod) --
+    EnvKnob("TPU_ACCELERATOR_TYPE", "", "gpu/topology.py",
+            "the slice's accelerator (the reference's name)"),
+    EnvKnob("TPU_TOPOLOGY", "", "gpu/topology.py",
+            "the slice's topology (the reference's name)"),
+    # -- serving engine (decode pod) --
+    EnvKnob("SERVING_PORT", "8000", "serving/__main__.py",
+            "inference server listen port"),
+    EnvKnob("SERVING_MAX_SLOTS", "8", "serving/server.py",
+            "continuous-batching slot count"),
+    EnvKnob("SERVING_MAX_SEQ", "2048", "serving/server.py",
+            "max sequence length"),
+    EnvKnob("SERVING_MAX_QUEUE", "64", "serving/server.py",
+            "admission queue bound"),
+    EnvKnob("SERVING_DECODE_BURST", "8", "serving/server.py",
+            "decode steps per scheduler turn"),
+    EnvKnob("SERVING_CHECKPOINT", "", "serving/server.py",
+            "checkpoint path to restore"),
+    EnvKnob("SERVING_MODEL_CONFIG", "", "serving/server.py",
+            "model config JSON (TransformerConfig fields)"),
+    EnvKnob("SERVING_DEVICE", "cuda", "serving/__main__.py",
+            "torch device the server runs on"),
+    EnvKnob("POD_IP", "", "serving/__main__.py",
+            "address the server binds (0.0.0.0 when unset)"),
+    EnvKnob("SERVING_CONTROL_DIR", "", "serving/__main__.py",
+            "directory of forwarded restore requests (probe.behavior)"),
+    # -- multi-host runtime (parallel/distributed.py): torchrun's worker
+    # env first, else the names the webhook injects --
+    EnvKnob("WORLD_SIZE", "", "parallel/distributed.py",
+            "torchrun's world size (set: env:// rendezvous)"),
+    EnvKnob("RANK", "0", "parallel/distributed.py",
+            "torchrun's global rank"),
+    EnvKnob("LOCAL_RANK", "", "parallel/distributed.py",
+            "torchrun's local rank: picks the process's card"),
+    EnvKnob("PET_NODE_RANK", "0", "probe/agent.py",
+            "torchrun's node rank (static rendezvous): the agent's host "
+            "index when JAX_PROCESS_ID is unset"),
+    EnvKnob("JAX_NUM_PROCESSES", "1", "parallel/distributed.py",
+            "the webhook's process count, without torchrun"),
+    EnvKnob("TPU_WORKER_ID", "0", "parallel/distributed.py",
+            "worker ordinal fallback for process id"),
+    EnvKnob("JAX_COORDINATOR_ADDRESS", "", "parallel/distributed.py",
+            "coordinator address for multi-host init"),
+    EnvKnob("TPU_WORKER_HOSTNAMES", "", "parallel/distributed.py",
+            "comma-separated gang hostnames"),
+    # -- debug / guard rails (utils/, cluster/remote_fixture.py) --
+    EnvKnob("ODH_WIRE_DEBUG_DIR", "", "cluster/remote_fixture.py",
+            "dump wire-protocol transcripts here"),
+    EnvKnob("RACECHECK", "0", "utils/racecheck.py",
+            "arm the lock-discipline runtime guard"),
+    EnvKnob("INVCHECK", "0", "utils/invcheck.py",
+            "arm the invariant-monitor runtime guard"),
+    EnvKnob("TORCHGUARD", "0", "utils/torchguard.py",
+            "arm the data-plane discipline runtime guard"),
+    EnvKnob("DEPLOYGUARD", "0", "utils/deployguard.py",
+            "arm the deployment-surface runtime guard"),
+    EnvKnob("DEPLOYGUARD_SURFACE_OUT", "", "utils/deployguard.py",
+            "dump the recorded (flow, verb, kind) surface to this path"),
+    EnvKnob("PROFILE", "0", "utils/profiler.py",
+            "arm the continuous data-plane profiler"),
+    EnvKnob("CPPROFILE", "0", "runtime/cpprofile.py",
+            "arm the control-plane profiler (reconcile causes, cache-scan "
+            "accounting, takeover decomposition)"),
+)

@@ -13,8 +13,9 @@ served through the router, with `generate()`'s tokens. The judgement layer
 whole flow. The same episode runs on the card in chip_smoke.py's phase 15,
 and so does the rest of this run, as every run of the flow: the manager is
 the port's `main.build_manager`, its debug mux is read at the end with the
-control-plane profiler armed (`check_debug_mux`), and the refused notebook
-is written over the wire (a TLS ApiServer whose admission calls the HTTPS
+control-plane profiler armed (`check_debug_mux`), DEPLOYGUARD holds every
+call of the manager's flows to the port's generated RBAC
+(`check_deployguard`), and the refused notebook is written over the wire (a TLS ApiServer whose admission calls the HTTPS
 webhook) and denied there.
 
 The autoscaler `build_manager` wires reads each replica's /stats (the
@@ -161,3 +162,16 @@ def test_the_refused_notebook_is_denied_over_https_and_every_admitted_one_stampe
     admitted = seen["nb-a"]["admitted"]
     assert admitted[torch_operator_flow.C.STOP_ANNOTATION] == torch_operator_flow.C.RECONCILIATION_LOCK_VALUE
     assert torch_operator_flow.tracing.parse_traceparent(admitted[torch_operator_flow.C.TRACEPARENT_ANNOTATION])
+
+
+def test_the_flows_manager_runs_inside_its_generated_rbac(parked_and_woken):
+    """DEPLOYGUARD was armed over the whole flow: the manager's flows
+    (the controllers, the canary, the autoscaler, the router's wake) made
+    no call the port's generated ClusterRole does not grant, and the
+    rbac-coverage checker given the recorded surface finds none either
+    (`check_deployguard`, the gate phase 15 holds on the card)."""
+    tmp_path, seen = parked_and_woken
+    torch_operator_flow.check_deployguard(seen, tmp_path / "deploy-surface.json")
+    flows = {f for f, _, _, _ in seen["deployguard"]["surface"]}
+    assert {"notebook", "culling", "probe-status", "slice-repair", "suspend-resume", "inference-endpoint",
+            "endpoint-autoscaler", "token-router", "canary"} <= flows, flows

@@ -93,14 +93,18 @@ def _script(fr_module, side):
 
 
 def test_same_script_same_bundles(monkeypatch):
-    # the JAX recorder adds an `accounting` block when a chip accountant is
-    # installed process-wide (runtime/accounting.set_current); another JAX
-    # test run before this one in the same process may have left one. The
-    # port has no accountant yet (ROADMAP Queue 1 item 20), so the script
-    # runs with none installed on either side
+    # each recorder adds an `accounting` block when its package's chip
+    # accountant is installed process-wide (runtime/accounting.set_current,
+    # which build_manager calls), and the port's a `cpprofile` block when
+    # CPPROFILE is armed and its profiler holds data; a test run before this
+    # one in the same process may have left either behind. The script runs
+    # with no accountant installed on either side and CPPROFILE unset
     import odh_kubeflow_tpu.runtime.accounting as j_accounting
+    import odh_kubeflow_tpu_torch.runtime.accounting as p_accounting
 
     monkeypatch.setattr(j_accounting, "_current", None)
+    monkeypatch.setattr(p_accounting, "_current", None)
+    monkeypatch.delenv("CPPROFILE", raising=False)
     jax, port = _script(j_fr, JAX), _script(p_fr, PORT)
     assert jax == port
     assert port["ids"][:2] == ["inc-0001", "inc-0001"] and port["ids"][2] == "inc-0002"

@@ -489,8 +489,14 @@ def _culled_only_once_idle(monkeypatch, package, slice_):
     controllers = importlib.import_module(f"{package}.controllers")
     Config, C = controllers.Config, controllers.constants
     build_manager = importlib.import_module(f"{package}.main").build_manager
+    accounting = importlib.import_module(f"{package}.runtime.accounting")
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)  # the faked device list
+    # build_manager installs its chip accountant process-wide
+    # (accounting.set_current); put back whatever was there at teardown, or
+    # the next test in this process freezes this one's ledger into its
+    # flight-recorder bundles
+    monkeypatch.setattr(accounting, "_current", accounting.current())
     cluster = SimCluster().start()
     if package == "odh_kubeflow_tpu":
         cluster.add_tpu_pool("v5e", *slice_, slices=2)

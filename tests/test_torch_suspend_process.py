@@ -18,8 +18,10 @@ Each pod's devices come up at its worker's context stamp
 restoring worker holds its restore RESTORE_DELAY_S past it: the notebook's
 agent stays not ready until the worker reports the state back, so the
 controller's one restore check at mesh-ready is answered (`ok`, never
-`unverified`). A ChipAccountant ticks over the flow and conserves. The
-same episode runs on the card in tests/test_torch_cuda.py and
+`unverified`). A ChipAccountant ticks over the flow and conserves, and
+the manager's every call stays inside the RBAC of the port's generated
+manifests (DEPLOYGUARD, `check_deployguard`). The same episode runs on
+the card in tests/test_torch_cuda.py and
 chip_smoke.py's phase 15."""
 import torch_dist
 import torch_operator_flow
@@ -52,3 +54,6 @@ def test_a_notebook_suspended_and_resumed_by_reclaiming_a_job_on_the_cpu(tmp_pat
     assert j["first"]["result"]["train"]["steps"] < STEPS <= j["status"]["completedSteps"]
     by = seen["accounting"]["by class and phase"]
     assert by.get("job ready", 0) > 0, by
+    # DEPLOYGUARD over the flow: the job, reclaim and resume flows inside the generated RBAC
+    torch_operator_flow.check_deployguard(seen, tmp_path / "deploy-surface.json")
+    assert {"tpu-job", "suspend-resume"} <= {f for f, _, _, _ in seen["deployguard"]["surface"]}

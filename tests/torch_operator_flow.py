@@ -142,6 +142,7 @@ from odh_kubeflow_tpu_torch.controllers.extension import route_name
 from odh_kubeflow_tpu_torch.controllers.inference import endpoint_route_name
 from odh_kubeflow_tpu_torch.gpu import GPU_RESOURCE
 from odh_kubeflow_tpu_torch.gpu import GKE_NODEPOOL_LABEL
+from odh_kubeflow_tpu_torch.utils import deployguard
 from odh_kubeflow_tpu_torch.probe.behavior import (
     SERVING_EXIT,
     forward_checkpoint,
@@ -463,7 +464,12 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     through it (`reconciler_of`). Its debug mux is bound before its start
     with CPPROFILE=1 over the flow; each notebook's readiness root is read
     over /debug/traces as it closes and the mux is read at the end
-    ("debug", `read_debug_mux`). nb-denied is written through a RemoteStore
+    ("debug", `read_debug_mux`). DEPLOYGUARD is armed over the flow (the
+    guard that was installed before comes back at the end): every client
+    call of the manager's flows is held against the RBAC of the port's
+    generated manifests, and the guard's drifts and recorded surface are
+    returned ("deployguard", `check_deployguard`). nb-denied is written
+    through a RemoteStore
     over TLS to an ApiServer in front of the store, whose admission calls
     the HTTPS webhook through the MutatingWebhookConfiguration
     (`build_remote_stack`, the deployed shape); the user's other writes go
@@ -537,9 +543,12 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
     mgr = timeline = acct = endpoints = None
     teardown = []  # the wire stack's, undone in reverse
     cpprofile_env = os.environ.get("CPPROFILE")
+    guard_before = deployguard.ACTIVE
     try:
         os.environ["CPPROFILE"] = "1"  # the control-plane profiler armed for the flow
         cpprofile.reset()
+        deployguard.disarm()
+        guard = deployguard.arm()  # a drift raised in a reconcile may be swallowed: its count is the gate
         cluster.add_pod_behavior(pod_process_behavior(
             pod_command, str(log_dir), env=env, cwd=str(REPO), monitor=monitor, idle_since=idle_since,
             grace_s=grace_s, processes=processes, checkpoint_hook=checkpoint_hook, restore_hook=restore_hook,
@@ -1395,8 +1404,10 @@ def run(tmp_path, command, monitor, waves=(("nb-0", "nb-1"),), cfg=CFG, env=None
         seen["debug"] = dict(read_debug_mux(endpoints), roots=debug_roots,
                              snapshot=acct.snapshot() if acct is not None else None,
                              reconciled=sorted(c.name for c in mgr.controllers if c.reconcile_count))
+        seen["deployguard"] = {"drifts": guard.drifts, "surface": sorted(guard.surface), "guard": guard}
         return seen
     finally:
+        deployguard.ACTIVE = guard_before
         if acct is not None:
             accounting.set_current(None)
         if timeline is not None:
@@ -2152,6 +2163,27 @@ def check_debug_mux(seen):
     no_accountant = d["/debug/accounting"][0] == 404
     want = {path: 404 if path.startswith("/debug/accounting") and no_accountant else 400 for path in d["bad args"]}
     assert d["bad args"] == want, d["bad args"]
+
+
+def check_deployguard(seen, artifact):
+    """The manager ran inside the RBAC of the port's generated manifests: no
+    drift over the flow, and the rbac-coverage checker over the port's
+    package, given the flow's surface dumped to `artifact`, finds no call
+    the ClusterRole does not grant. Returns the checker's stale-rule
+    findings (one flow does not run every controller's every verb)."""
+    from odh_kubeflow_tpu_torch.analysis import deploysurface, run_analysis
+    from odh_kubeflow_tpu_torch.analysis.checkers import RbacCoverageChecker
+
+    got = seen["deployguard"]
+    assert got["drifts"] == 0, got["drifts"]
+    assert {f for f, _, _, _ in got["surface"]} & deploysurface.MANAGER_FLOWS, got["surface"]
+    got["guard"].dump(str(artifact))
+    checker = RbacCoverageChecker()
+    checker.surface = deploysurface.surface_tuples_from_artifact(json.loads(Path(artifact).read_text()))
+    findings = run_analysis([str(REPO / "odh_kubeflow_tpu_torch")], checkers=[checker])
+    ungranted = [f for f in findings if "stale RBAC" not in f.message]
+    assert not ungranted, "\n".join(map(str, ungranted))
+    return findings
 
 
 def check(seen, device, chips_expected=1, gate_waits=False):
