@@ -516,6 +516,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    tuples, how many are on the manager's flows, each flow's, and the
    granted (group, resource) pairs that no manager call of the run
    touched (one flow does not run every controller's every verb).
+16. The lint lane on this machine (odh_kubeflow_tpu_torch.analysis), in
+   PHASE16_BUDGET_S: (a) the full pass `python -m
+   odh_kubeflow_tpu_torch.analysis` and its pragma gate against the
+   package's allowlist, each in a subprocess that refuses every import of
+   jax, PyYAML and the JAX package (LINT_REFUSED) and must exit 0
+   (printed: the modules scanned, the checkers, the seconds, whether jax
+   and PyYAML are installed here at all); (b) the live registry that phases 5-15
+   filled in this process, held to the port's rules: check_registry and
+   check_slo_definitions (the default SLOs and alert rules) both return
+   [] (printed: the families); (c) the static and runtime halves of the
+   serving hot regions side by side: host-transfer over serving/engine.py
+   and models/decode.py finds nothing unsuppressed, its pragma'd lines
+   are the burst's drain and the admission's first token, and phase 9's
+   guarded engines copied 0 times inside a burst's region (budget 0) and
+   once inside an admission's (budget 1), the drain once per burst
+   outside it; (d) the interleaving explorer's job space
+   (explore.explore_jobs) comes back exhausted, untruncated and clean
+   (printed: schedules, scheduler states, seconds).
 
 Every phase prints its time when it ends, and the end a line of them all.
 
@@ -566,6 +584,9 @@ MAX_NEWS = [16, 64, 24, 48, 32, 56, 40, 16]  # phases 5, 8 and 9: max_new of the
 HEDGE_AFTER_S = 0.0005  # phase 9: shorter than any prefill, so the hedge always fires
 ADDED_LATENCY_REQUESTS = 24  # phase 9: sequential requests each, routed and direct
 BURST_TIMING_ROUNDS = 8  # phase 9: timed bursts per profiler/guard setting
+PHASE16_BUDGET_S = 60.0  # phase 16, the lint lane
+LINT_REFUSED = ("jax", "jaxlib", "yaml", "odh_kubeflow_tpu")  # phase 16: imports its lint subprocesses refuse
+PHASE9_GUARD = {}  # phase 9's guarded engines' copies per region entry, which phase 16 prints beside the lint's
 
 
 def fail(msg: str) -> None:
@@ -2133,6 +2154,10 @@ def router_phase(attention, smi, cfg, params):
     if (any(s["host_transfers_last_burst"] != 1 for s in stats) or retried or errors
             or any(s["decode_burst_recompiles"] or s["prefill_recompiles"] for s in stats)):
         fail("the guard: an engine copied more than once per burst, recompiled or failed a request")
+    PHASE9_GUARD.update(
+        burst_region=[eng._burst_guard._entry_transfers for eng in engines],
+        prefill_region=[eng._prefill_guard._entry_transfers for eng in engines],
+        drain=[st["host_transfers_last_burst"] for st in stats], admitted=admitted, errors=errors)
 
     # the same routed batch with the guard off: what its lock (held across
     # each burst's "error" window and each copy) costs two replicas
@@ -5210,6 +5235,114 @@ def _operator_accounting(acct, smi):
           f"{smi}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the lint lane (odh_kubeflow_tpu_torch.analysis) on this machine
+# ---------------------------------------------------------------------------
+
+
+def lint_phase(smi):
+    """Phase 16 (module docstring): the lint's full pass and pragma gate in
+    subprocesses, the live registry against the metric and SLO rules, the
+    hot regions' static findings beside phase 9's guard, and the job space
+    of the interleaving explorer."""
+    import importlib.util
+    import logging
+    from pathlib import Path
+
+    import odh_kubeflow_tpu_torch
+    from odh_kubeflow_tpu_torch.analysis import explore, framework, metric_rules, run_analysis
+    from odh_kubeflow_tpu_torch.analysis.checkers import make_checkers
+    from odh_kubeflow_tpu_torch.analysis.checkers.torchlint import HostTransferChecker
+    from odh_kubeflow_tpu_torch.runtime.alerts import default_rules
+    from odh_kubeflow_tpu_torch.runtime.metrics import global_registry
+    from odh_kubeflow_tpu_torch.runtime.slo import default_slos
+    from odh_kubeflow_tpu_torch.utils import hotregions
+
+    t_phase = time.perf_counter()
+    pkg = Path(odh_kubeflow_tpu_torch.__file__).resolve().parent
+    root = pkg.parent
+    installed = {name: importlib.util.find_spec(name) is not None for name in ("jax", "yaml")}
+
+    # (a) the full pass and the pragma gate, as a user runs them
+    modules = sum(1 for _ in framework._iter_py_files(pkg))
+    checkers = [c.name for c in make_checkers()]
+    allowlist = pkg / "analysis" / "pragma_allowlist.txt"
+    # `python -m odh_kubeflow_tpu_torch.analysis ARGS` with the imports refused
+    refusing = (f"import runpy, sys\nfor name in {LINT_REFUSED!r}:\n    sys.modules[name] = None\n"
+                "sys.argv = ['odh_kubeflow_tpu_torch.analysis'] + sys.argv[1:]\n"
+                "runpy.run_module('odh_kubeflow_tpu_torch.analysis', run_name='__main__', alter_sys=True)\n")
+    for label, args in (("full pass", []), ("pragma gate", ["--pragma-gate", str(allowlist)])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", refusing, *args], cwd=root,
+                              capture_output=True, text=True, timeout=PHASE16_BUDGET_S)
+        took = time.perf_counter() - t0
+        said = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"  lint {label}: exit {proc.returncode} in {took:.1f} s: {said}", flush=True)
+        if proc.returncode != 0:
+            fail(f"phase 16: the lint's {label} exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    print(f"  the lint scanned {modules} modules of {pkg.name} with {len(checkers)} checkers "
+          f"({', '.join(checkers)}), its imports of {', '.join(LINT_REFUSED)} refused; installed here: "
+          f"jax {installed['jax']}, PyYAML {installed['yaml']}", flush=True)
+
+    # (b) the registry phases 5-15 filled in this process
+    families = len(global_registry._metrics)
+    broken = metric_rules.check_registry(global_registry)
+    slos = default_slos()
+    rules = default_rules(slos)
+    broken += metric_rules.check_slo_definitions(slos, rules, global_registry)
+    print(f"  the live registry: {families} families, {len(slos)} SLOs, {len(rules)} alert rules; "
+          f"violations {broken}", flush=True)
+    if broken:
+        fail(f"phase 16: the live registry breaks the port's metric rules: {broken}")
+
+    # (c) the serving hot regions, static beside runtime
+    regions = ("serving.decode_burst", "serving.prefill", "models.generate")
+    paths = sorted({str(root / hotregions.get(name).module) for name in regions})
+    shown = run_analysis(paths, checkers=[HostTransferChecker()], include_suppressed=True)
+    left = run_analysis(paths, checkers=[HostTransferChecker()])
+    engine = (pkg / "serving" / "engine.py").read_text().splitlines()
+    skipped = {name: [f.line for f in shown if f"hot region {name!r}" in f.message] for name in regions}
+    want = {"serving.decode_burst": [i for i, line in enumerate(engine, 1) if "host = torchguard.to_host(" in line],
+            "serving.prefill": [i for i, line in enumerate(engine, 1) if "first = int(torchguard.to_host(" in line],
+            "models.generate": []}
+    guard = PHASE9_GUARD
+    for name in regions:
+        spec = hotregions.get(name)
+        runtime = {"serving.decode_burst": f"{guard['burst_region']} copies inside a burst's region per engine, "
+                                           f"{guard['drain']} drains after it",
+                   "serving.prefill": f"{guard['prefill_region']} copies inside an admission's region per engine "
+                                      f"({guard['admitted']} admitted)",
+                   "models.generate": "0 copies (phase 9's armed generate())"}[name]
+        print(f"  {name}: host-transfer {sum(f'hot region {name!r}' in f.message for f in left)} unsuppressed, "
+              f"pragma'd lines {skipped[name]}; torchguard {runtime}; transfer budget {spec.transfer_budget}",
+              flush=True)
+    if left or skipped != want:
+        fail(f"phase 16: host-transfer over the serving regions: unsuppressed {[str(f) for f in left]}, "
+             f"pragma'd lines {skipped}, want {want}")
+    if (guard["errors"] or any(n != 0 for n in guard["burst_region"]) or any(n != 1 for n in guard["drain"])
+            or any(n != 1 for n in guard["prefill_region"])):
+        fail(f"phase 16: phase 9's guard counts {guard}: want 0 copies in a burst's region, 1 drain after it "
+             "and 1 copy in an admission's region")
+
+    # (d) the job space of the interleaving explorer
+    t0 = time.perf_counter()
+    logging.disable(logging.CRITICAL)
+    try:
+        jobs = explore.explore_jobs()
+    finally:
+        logging.disable(logging.NOTSET)
+    print(f"  explorer[jobs]: {jobs.schedules} quiesced schedules, {jobs.visited} scheduler states "
+          f"({jobs.pruned} pruned), truncated={jobs.truncated}, exhausted={jobs.exhausted}, "
+          f"violations {len(jobs.violations)}, {time.perf_counter() - t0:.1f} s", flush=True)
+    if not jobs.ok:
+        fail(f"phase 16: the job space is not clean and exhausted: {[(v.invariant, v.detail) for v in jobs.violations]}")
+
+    took = time.perf_counter() - t_phase
+    print(f"  phase 16 took {took:.1f} s (budget {PHASE16_BUDGET_S:.0f} s) on {smi}", flush=True)
+    if took > PHASE16_BUDGET_S:
+        fail(f"phase 16 took {took:.1f} s, over its budget of {PHASE16_BUDGET_S:.0f} s")
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--device-worker"]:  # phase 14's script in a rank torchrun starts
         _device_worker(*sys.argv[2:6])
@@ -5509,6 +5642,9 @@ def main() -> None:
 
     phase("15 the operator: Notebook CR -> a GPU pod serving the flagship -> culled, on this card")
     sp_launches.update(operator_phase(attention, smi))
+
+    phase("16 the lint lane: the port's analysis on this machine, beside phase 9's guard and the live registry")
+    lint_phase(smi)
 
     def moe_launches(name):
         return {path: launched[name] for path, launched in moe_paths.items() if launched[name]}

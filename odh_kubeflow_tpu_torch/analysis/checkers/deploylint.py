@@ -470,7 +470,14 @@ class CrdSchemaDriftChecker(Checker):
     def finish(self) -> Iterable[Finding]:
         if self._crdgen_path is None:
             return []
-        import yaml
+        try:
+            import yaml
+
+            load_all = yaml.safe_load_all
+        except ImportError:
+            # no PyYAML, which the port does not need: the committed tree is
+            # in the form `render_yaml` writes, which the port reads back
+            from ...deploy.overlay import load_yaml as load_all
 
         from ...deploy.__main__ import TREE
         from ...deploy.crdgen import (
@@ -498,7 +505,7 @@ class CrdSchemaDriftChecker(Checker):
             ]
         committed = {
             doc["metadata"]["name"]: doc
-            for doc in yaml.safe_load_all(manifests.read_text())
+            for doc in load_all(manifests.read_text())
             if isinstance(doc, dict)
             and doc.get("kind") == "CustomResourceDefinition"
         }

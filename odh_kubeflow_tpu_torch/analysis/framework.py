@@ -24,7 +24,7 @@ import re
 import tokenize
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Set
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Set, Tuple
 
 _PRAGMA_RE = re.compile(r"#\s*lint:\s*disable(?P<scope>-file)?\s*=\s*(?P<checks>[A-Za-z0-9_,\- ]+)")
 
@@ -112,7 +112,8 @@ def _iter_py_files(root: Path) -> Iterable[Path]:
 
 def _iter_modules(paths: Sequence[str]) -> Iterator[ModuleInfo]:
     """Parse every .py under `paths` (files or directories), cwd-relative
-    where possible."""
+    where possible — the one iteration both the analysis pass and the
+    pragma budget share, so they can never scan different trees."""
     for p in paths:
         root = Path(p)
         files = [root] if root.is_file() else list(_iter_py_files(root))
@@ -155,6 +156,66 @@ def run_analysis(
             if include_suppressed or module is None or not module.suppressed(finding):
                 findings.append(finding)
     return sorted(findings, key=lambda f: (f.path, f.line, f.check))
+
+
+def collect_pragmas(paths: Sequence[str]) -> Dict[Tuple[str, str], int]:
+    """(path, check) -> pragma count over every module under `paths` — the
+    pragma BUDGET the `--pragma-gate` holds against the committed allowlist
+    (analysis/pragma_allowlist.txt). Counts are per-line-occurrence (a file
+    pragma counts once): adding an unreviewed `# lint: disable` anywhere
+    fails the gate even when the file already had one for the same check."""
+    out: Dict[Tuple[str, str], int] = {}
+    for info in _iter_modules(paths):
+        for checks in info.line_pragmas.values():
+            for check in checks:
+                out[(info.path, check)] = out.get((info.path, check), 0) + 1
+        for check in info.file_pragmas:
+            out[(info.path, check)] = out.get((info.path, check), 0) + 1
+    return out
+
+
+def render_pragma_allowlist(budget: Dict[Tuple[str, str], int]) -> str:
+    lines = [
+        "# Reviewed `# lint: disable` pragma budget of the port (--pragma-gate).",
+        "# Regenerate after a REVIEWED change with:",
+        "#   python -m odh_kubeflow_tpu_torch.analysis --pragma-update "
+        "odh_kubeflow_tpu_torch/analysis/pragma_allowlist.txt",
+        "# format: path<TAB>check<TAB>count",
+    ]
+    for (path, check), count in sorted(budget.items()):
+        lines.append(f"{path}\t{check}\t{count}")
+    return "\n".join(lines) + "\n"
+
+
+def parse_pragma_allowlist(text: str) -> Dict[Tuple[str, str], int]:
+    out: Dict[Tuple[str, str], int] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split("\t")
+        if len(parts) != 3:
+            raise ValueError(f"malformed allowlist line: {line!r}")
+        out[(parts[0], parts[1])] = int(parts[2])
+    return out
+
+
+def pragma_budget_violations(
+    budget: Dict[Tuple[str, str], int],
+    allowlist: Dict[Tuple[str, str], int],
+) -> List[str]:
+    """New/expanded pragmas fail; shrinkage only nags (an overly-generous
+    allowlist is stale, not dangerous)."""
+    problems = []
+    for (path, check), count in sorted(budget.items()):
+        allowed = allowlist.get((path, check), 0)
+        if count > allowed:
+            problems.append(
+                f"{path}: {count} `# lint: disable={check}` pragma(s), "
+                f"allowlist permits {allowed} — a new suppression needs "
+                "review (then --pragma-update)"
+            )
+    return problems
 
 
 def run_on_source(

@@ -219,6 +219,18 @@ TPU_SLICE_POOL_LABEL = "notebooks.tpu.kubeflow.org/slice-pool"
 TPU_MIRRORED_EVENT_ANNOTATION = "notebooks.tpu.kubeflow.org/mirrored"
 TPU_PROBE_PORT = 8889  # in-pod probe agent (readiness + utilization + activity)
 
+# -- GPU slices (gpu/podspec.py, gpu/topology.py) --
+# on a notebook's StatefulSet: the env names gpu.apply_slice rendered into
+# the primary container (comma-separated), so a later apply replaces them
+# and keeps the user's
+GPU_ENV_ANNOTATION = "notebooks.opendatahub.io/gpu-slice-env"
+# the slice shape ("HOSTSxCARDS") of a GPU node's pool. GKE labels a TPU
+# pool's nodes with its topology and the reference's pods select on it; a
+# GPU pool has no such label, so the pool carries this one (set on its
+# nodes when the pool is made) and a slice's pods select on it: a one-host
+# pod never lands on a node of a multi-host pool of the same card
+GPU_TOPOLOGY_LABEL = "notebooks.opendatahub.io/gpu-topology"
+
 # -- finalizers (extension controller) --
 ROUTE_FINALIZER = "notebooks.tpu.kubeflow.org/route-cleanup"
 REFERENCE_GRANT_FINALIZER = "notebooks.tpu.kubeflow.org/referencegrant-cleanup"

@@ -7,7 +7,7 @@ package (`tree/`, with its params.env). CLI: ``python -m
 odh_kubeflow_tpu_torch.deploy``.
 """
 from .crdgen import notebook_crd, schema_for_model
-from .overlay import OVERLAYS, build, load_params, merge_patch, render_yaml
+from .overlay import OVERLAYS, build, load_params, load_yaml, merge_patch, render_yaml
 
 __all__ = [
     "notebook_crd",
@@ -15,6 +15,7 @@ __all__ = [
     "OVERLAYS",
     "build",
     "load_params",
+    "load_yaml",
     "merge_patch",
     "render_yaml",
 ]

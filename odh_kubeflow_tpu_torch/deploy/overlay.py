@@ -11,6 +11,8 @@ JSON-merge-style patches keyed by (kind, name).
 `render_yaml` needs no YAML library: the manifests hold only dicts, lists,
 strings, ints, floats, bools and None, and a small block-style emitter
 writes those (a string that YAML would read as another type is quoted).
+`load_yaml` reads that form back, so the lint's crd-schema-drift check can
+read the committed tree where PyYAML is not installed.
 """
 from __future__ import annotations
 
@@ -266,3 +268,101 @@ def _inline(v: Any) -> str:
     if isinstance(v, list):
         return "[]"
     return _scalar(v)
+
+
+def load_yaml(text: str) -> List[Any]:
+    """The documents of a stream in the form `render_yaml` writes (block
+    style, two-space indents, a list's items at its key's indent, scalars
+    plain or JSON-quoted), as YAML reads them. Raises ValueError on a line
+    outside that form."""
+    docs: List[Any] = []
+    lines: List[str] = []
+    for line in text.splitlines() + ["---"]:
+        if line.rstrip() == "---":
+            if lines:
+                value, end = _load_block(lines, 0, 0)
+                if end != len(lines):
+                    raise ValueError(f"load_yaml: unexpected line {lines[end]!r}")
+                docs.append(value)
+            lines = []
+        elif line.strip() and not line.lstrip().startswith("#"):
+            lines.append(line.rstrip())
+    return docs
+
+
+def _indent_of(line: str) -> int:
+    return len(line) - len(line.lstrip(" "))
+
+
+def _is_item(line: str, indent: int) -> bool:
+    return _indent_of(line) == indent and (line[indent:] == "-" or line[indent:].startswith("- "))
+
+
+def _split_key(text: str) -> Optional[tuple]:
+    """(key, rest) of a `key: value` or `key:` text, None for a scalar."""
+    if text.startswith('"'):
+        key, end = json.JSONDecoder().raw_decode(text)
+        rest = text[end:]
+        if rest == ":" or rest.startswith(": "):
+            return key, rest[1:].strip()
+        return None
+    if text.endswith(":") and ": " not in text:
+        return text[:-1], ""
+    if ": " in text:
+        key, rest = text.split(": ", 1)
+        return key, rest.strip()
+    return None
+
+
+def _load_scalar(text: str) -> Any:
+    if text.startswith('"'):
+        return json.loads(text)
+    if text == "{}":
+        return {}
+    if text == "[]":
+        return []
+    named = {"null": None, "~": None, "true": True, "false": False,
+             ".nan": math.nan, ".inf": math.inf, "-.inf": -math.inf}
+    if text in named:
+        return named[text]
+    for kind in (int, float):
+        try:
+            return kind(text)
+        except ValueError:
+            pass
+    return text
+
+
+def _load_block(lines: List[str], i: int, indent: int) -> tuple:
+    """(value, next line) of the dict or list whose lines start at
+    `lines[i]`, at `indent` spaces."""
+    if _is_item(lines[i], indent):
+        out_list: List[Any] = []
+        while i < len(lines) and _is_item(lines[i], indent):
+            rest = lines[i][indent + 1:].strip()
+            if not rest:
+                value, i = _load_block(lines, i + 1, indent + 2)
+            elif _split_key(rest) is not None:
+                # `- key: value` opens a dict whose keys sit at indent + 2
+                lines[i] = " " * (indent + 2) + rest
+                value, i = _load_block(lines, i, indent + 2)
+            else:
+                value, i = _load_scalar(rest), i + 1
+            out_list.append(value)
+        return out_list, i
+    out: Dict[str, Any] = {}
+    while i < len(lines) and _indent_of(lines[i]) == indent and not _is_item(lines[i], indent):
+        split = _split_key(lines[i][indent:])
+        if split is None:
+            raise ValueError(f"load_yaml: expected a key at line {lines[i]!r}")
+        key, rest = split
+        i += 1
+        if rest:
+            out[key] = _load_scalar(rest)
+        elif i < len(lines) and _is_item(lines[i], indent):
+            out[key], i = _load_block(lines, i, indent)
+        elif i < len(lines) and _indent_of(lines[i]) > indent:
+            out[key], i = _load_block(lines, i, _indent_of(lines[i]))
+        else:
+            out[key] = None
+    return out, i

@@ -14,14 +14,12 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional
 
 from ..apimachinery import InvalidError
+# on the StatefulSet: the env names apply_slice rendered into the primary
+# container; its home is the operator's constants, re-exported here
+from ..controllers.constants import GPU_ENV_ANNOTATION, NOTEBOOK_NAME_LABEL
 from .env import gpu_env, ordinal_env
 from .topology import GPU_RESOURCE, SliceShape, plan_slice
 
-NOTEBOOK_NAME_LABEL = "notebook-name"  # the reference's controllers/constants.py
-# on the StatefulSet: the env names apply_slice rendered into the primary
-# container (comma-separated), so a later apply replaces them and keeps the
-# user's
-GPU_ENV_ANNOTATION = "notebooks.opendatahub.io/gpu-slice-env"
 # spec.tpu.runtime values a GPU slice accepts ("" is the default)
 RUNTIMES = ("", "pytorch")
 

@@ -36,16 +36,13 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple
 
 from ..apimachinery import InvalidError
+# the slice shape ("HOSTSxCARDS") label of a GPU node's pool; its home is
+# the operator's constants, re-exported here for the planner's callers
+from ..controllers.constants import GPU_TOPOLOGY_LABEL  # noqa: F401
 
 GPU_RESOURCE = "nvidia.com/gpu"  # the NVIDIA device plugin's resource
 GKE_GPU_ACCELERATOR_LABEL = "cloud.google.com/gke-accelerator"
 GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
-# the slice shape ("HOSTSxCARDS") of a GPU node's pool. GKE labels a TPU
-# pool's nodes with its topology and the reference's pods select on it; a
-# GPU pool has no such label, so the pool carries this one (set on its
-# nodes when the pool is made) and a slice's pods select on it: a one-host
-# pod never lands on a node of a multi-host pool of the same card
-GPU_TOPOLOGY_LABEL = "notebooks.opendatahub.io/gpu-topology"
 
 
 @dataclass(frozen=True)

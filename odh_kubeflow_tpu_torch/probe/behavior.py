@@ -299,7 +299,11 @@ class PodProcesses:
         tree (snapshotted before the signals, so workers in sessions of
         their own are among them) after `grace_s`; raises if any outlives
         SIGKILL, and is then not closed: the next call tries again.
-        Idempotent once it has returned."""
+        Idempotent once it has returned.
+
+        The waits sleep under `_lock` on purpose: only `close` takes it, to
+        make a retried stop exclusive, so the sleeps stall no one but a
+        second `close`, which must wait for the first anyway."""
         with self._lock:
             if self.closed:
                 return
@@ -313,7 +317,7 @@ class PodProcesses:
                     pass
             deadline = time.monotonic() + grace_s
             while any(_alive(p) for p in self.pids if p != self.proc.pid) and time.monotonic() < deadline:
-                time.sleep(0.05)
+                time.sleep(0.05)  # lint: disable=lock-discipline
             for p in self.pids:
                 if _alive(p):
                     try:
@@ -324,7 +328,7 @@ class PodProcesses:
                 self.proc.wait(timeout=grace_s)
             deadline = time.monotonic() + grace_s
             while any(_alive(p) for p in self.pids) and time.monotonic() < deadline:
-                time.sleep(0.05)
+                time.sleep(0.05)  # lint: disable=lock-discipline
             left = [p for p in self.pids if _alive(p)]
             if not left:
                 self.closed = True

@@ -324,7 +324,7 @@ class ServingEngine:
         # the burst's one host sync: every per-slot output in one copy,
         # outside the guarded region by design (its transfer budget is 0)
         with profiler.phase("batched_drain"):
-            host = torchguard.to_host(packed)
+            host = torchguard.to_host(packed)  # lint: disable=host-transfer
         self._host_syncs_last_burst = torchguard.thread_transfer_count() - transfers_before
         self._lengths = host[:n].copy()
         self._tokens = host[n:2 * n].copy()
@@ -366,9 +366,10 @@ class ServingEngine:
                 prompt = self._upload(np.asarray([handle.prompt], np.int64))
                 logits, ks, vs = _prefill(self.params, prompt, self.cfg)
                 _insert_slot(self._caches, ks, vs, free)
-                # the region's one budgeted copy: TTFT needs the first token
-                # now, not at the next burst
-                first = int(torchguard.to_host(logits.argmax(dim=-1))[0])
+                # the ONE budgeted copy per admission (hotregions.py:
+                # serving.prefill transfer_budget=1): TTFT needs the first
+                # token now, not at the next burst
+                first = int(torchguard.to_host(logits.argmax(dim=-1))[0])  # lint: disable=host-transfer
             now = self.clock()
             handle.ttft_s = now - handle.submitted
             M.inference_ttft_seconds.observe(handle.ttft_s)

@@ -13,9 +13,8 @@ wall-clock ratio of two loops in one process, which load on the test
 machine breaks whatever the code does. `test_scheduler_sweep_scan_accounting`
 waits 60 s for its two pods to bind, not 10 s, on both sides: that wait, not the
 accounting it checks, is what load broke in the JAX suite. The bucket case
-holds the port's families against the reference's declared ranges
-(`odh_kubeflow_tpu.analysis.metric_rules`; the port's analysis package
-does not carry them)."""
+holds each package's families against its own declared ranges: the port's
+against `odh_kubeflow_tpu_torch.analysis.metric_rules`."""
 import pytest
 
 import torch_ported
@@ -24,12 +23,10 @@ import torch_threads
 torch_threads.cap()
 
 LEFT_OUT = ("test_armed_overhead_under_ten_percent_per_reconcile",)
-RENAMES = (
-    ("from odh_kubeflow_tpu_torch.analysis.metric_rules import", "from odh_kubeflow_tpu.analysis.metric_rules import"),)
 EDITS = (("and len(c.client.list(Pod, namespace=\"user\")) == 2,\n            timeout=10,",
           "and len(c.client.list(Pod, namespace=\"user\")) == 2,\n            timeout=60,"),)
 JAX = torch_ported.load("test_cpprofile", "jax", edits=EDITS)
-PORT = torch_ported.load("test_cpprofile", "port", renames=RENAMES, edits=EDITS)
+PORT = torch_ported.load("test_cpprofile", "port", edits=EDITS)
 
 
 @pytest.mark.parametrize("case", torch_ported.cases(JAX, skip=LEFT_OUT))

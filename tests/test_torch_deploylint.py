@@ -13,26 +13,17 @@ a missing one (on the port's side the tree inside its package,
 undeclared reads, pragmas, dead knobs and manifest drift, flow-schema-
 coverage's default classification, unentered schemas and webhook paths both
 ways, and the whole family clean on the real package — the port's own on
-its side. The rest of tests/test_analysis.py checks the checkers the port
-does not carry yet (its imports of them are cut on both sides here).
+its side. tests/test_torch_analysis.py runs the rest of tests/test_analysis.py
+but for its jaxlint cases, whose jax fixtures the port's torchlint does not
+read (their import is cut on both sides here).
 """
 import pytest
 
 import torch_ported
 
 CUT = (
-    "from odh_kubeflow_tpu.analysis.checkers.cache_mutation import CacheMutationChecker\n",
-    "from odh_kubeflow_tpu.analysis.checkers.conventions import (\n    AnnotationConventionChecker,\n"
-    "    MetricConventionChecker,\n)\n",
-    "from odh_kubeflow_tpu.analysis.checkers.exceptions import SwallowedExceptionChecker\n",
-    "from odh_kubeflow_tpu.analysis.checkers.lock_discipline import (\n    LockDisciplineChecker,\n"
-    "    LockOrderChecker,\n)\n",
     "from odh_kubeflow_tpu.analysis.checkers.jaxlint import (\n    DonationDisciplineChecker,\n"
     "    HostTransferChecker,\n    PsumAxisChecker,\n    RetraceHazardChecker,\n)\n",
-    "from odh_kubeflow_tpu.analysis.checkers.machine_conformance import (\n    MachineConformanceChecker,\n)\n",
-    "from odh_kubeflow_tpu.analysis.framework import (\n    collect_pragmas,\n    parse_pragma_allowlist,\n"
-    "    pragma_budget_violations,\n    render_pragma_allowlist,\n)\n",
-    "from odh_kubeflow_tpu.analysis.metric_rules import check_metric, check_registry\n",
 )
 EDITS = tuple((line, "") for line in CUT)
 RENAMES = (('pathlib.Path(odh_kubeflow_tpu_torch.__file__).parent.parent\n        / "deploy" / "base"',

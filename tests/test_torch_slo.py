@@ -14,20 +14,26 @@ The SLOs' descriptions are not compared: the port's name the GPU where
 the reference's name the TPU and `jax.devices()`. The bad day reads its
 incidents, a bundle, the judgement layer and the degraded notebook's spans
 over each side's manager debug mux (/debug/incidents, /debug/slo,
-/debug/traces), as the reference's does. Left for a later item: the
-definition lint (`analysis/metric_rules.py`); and the wall-clock overhead
-case (`tests/test_accounting.py`'s overhead case is left out for the same
-reason: it fails under load)."""
+/debug/traces), as the reference's does. The definition lint
+(`analysis/metric_rules.py` `check_slo_definitions`) holds each package's
+shipped definitions against its live registry, and flags the same seeded
+bad definitions with the same texts on both. Left out: the wall-clock
+overhead case (`tests/test_accounting.py`'s overhead case is left out for
+the same reason: it fails under load)."""
 import random
 import time
 from types import SimpleNamespace
 
 import pytest
 
+import odh_kubeflow_tpu.analysis.metric_rules as j_rules
+import odh_kubeflow_tpu.controllers.metrics as j_cmetrics
 import odh_kubeflow_tpu.runtime.alerts as j_alerts
 import odh_kubeflow_tpu.runtime.metrics as j_rm
 import odh_kubeflow_tpu.runtime.prober as j_prober
 import odh_kubeflow_tpu.runtime.slo as j_slo
+import odh_kubeflow_tpu_torch.analysis.metric_rules as p_rules
+import odh_kubeflow_tpu_torch.controllers.metrics as p_cmetrics
 import odh_kubeflow_tpu_torch.runtime.alerts as p_alerts
 import odh_kubeflow_tpu_torch.runtime.metrics as p_rm
 import odh_kubeflow_tpu_torch.runtime.prober as p_prober
@@ -37,8 +43,10 @@ from torch_sides import JAX as JAX_SIDE, PORT as PORT_SIDE, both as both_at_once
 
 torch_threads.cap()
 
-JAX = SimpleNamespace(name="jax", slo=j_slo, alerts=j_alerts, prober=j_prober, rm=j_rm, side=JAX_SIDE)
-PORT = SimpleNamespace(name="port", slo=p_slo, alerts=p_alerts, prober=p_prober, rm=p_rm, side=PORT_SIDE)
+JAX = SimpleNamespace(name="jax", slo=j_slo, alerts=j_alerts, prober=j_prober, rm=j_rm, side=JAX_SIDE,
+                      rules=j_rules, cmetrics=j_cmetrics)
+PORT = SimpleNamespace(name="port", slo=p_slo, alerts=p_alerts, prober=p_prober, rm=p_rm, side=PORT_SIDE,
+                       rules=p_rules, cmetrics=p_cmetrics)
 
 
 def both(case):
@@ -284,6 +292,54 @@ def test_every_shipped_slo_reads_a_family_the_port_registers():
         assert isinstance(family, want), (slo.name, name, family)
         if isinstance(family, Histogram):
             assert slo.indicator.threshold_s in family.buckets, (slo.name, family.buckets)
+
+
+# ---------------------------------------------------------------------------
+# the definition lint (analysis/metric_rules.py check_slo_definitions)
+# ---------------------------------------------------------------------------
+
+
+def test_slo_lint_default_definitions_clean_on_both():
+    """Each package's shipped SLOs and rules against its own live
+    registry, once the canary and the notebook controllers' families are
+    registered: no violation."""
+    def case(side):
+        side.cmetrics.NotebookMetrics(side.rm.global_registry)
+        slos = side.slo.default_slos()
+        return side.rules.check_slo_definitions(slos, side.alerts.default_rules(slos), side.rm.global_registry)
+
+    assert both(case) == []
+
+
+def test_slo_lint_flags_bad_definitions_on_both():
+    """The reference's seeded bad definitions (an unregistered family, a
+    threshold off the buckets, an objective outside (0, 1), a rule of no
+    SLO, an unknown window, a threshold above the burn cap), each flagged
+    with the same text by both packages."""
+    def case(side):
+        reg = side.rm.Registry()
+        reg.histogram("real_seconds", "h", buckets=(1, 5))
+        slo = side.slo
+        bad_slos = [
+            slo.SLO("ghost", 0.9, slo.LatencyIndicator("no_such_metric_seconds", 1.0)),
+            slo.SLO("offgrid", 0.9, slo.LatencyIndicator("real_seconds", 2.5)),
+            slo.SLO("outside", 1.5, slo.GaugeIndicator("nope_ratio")),
+        ]
+        rule = side.alerts.AlertRule
+        bad_rules = [
+            rule("dangling", "no-such-slo", "1h", "5m", 14.4),
+            rule("badwin", "ghost", "2h", "5m", 14.4),
+            rule("deadrule", "ghost", "1h", "5m", 14.4),
+        ]
+        return side.rules.check_slo_definitions(bad_slos, bad_rules, reg)
+
+    text = "\n".join(both(case))
+    assert "unregistered metric 'no_such_metric_seconds'" in text
+    assert "not a bucket boundary" in text
+    assert "objective 1.5 outside" in text
+    assert "undefined SLO 'no-such-slo'" in text
+    assert "unknown window '2h'" in text
+    assert "deadrule" in text and "can never fire" in text
 
 
 # ---------------------------------------------------------------------------
